@@ -1,0 +1,48 @@
+"""Convert the reference package's parameter trees and caches, given as
+numpy arrays, into the port's tensors.
+
+The reference keeps parameters as nested dicts whose leaves are arrays or
+NamedTuples of arrays (packed weights: fields ``qw``/``scales``) and caches
+as NamedTuples with fields ``k``/``v``/``length``.  These walkers recognise
+them by duck typing — this module imports neither JAX nor the reference
+package.  The caller does the array-to-numpy step (for example
+``jax.tree.map(np.asarray, tree)``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.qstore import PackedQWeight
+from repro_torch.models.transformer import LMCache
+
+
+def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
+    """One array -> tensor (copying), bfloat16 arrays included."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).astype(np.int16))
+        return t.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def params_from_numpy(tree, device="cpu"):
+    """Nested dicts / lists of arrays, with packed weights as objects with
+    ``qw`` and ``scales`` -> the same tree of tensors, packed weights as
+    :class:`~repro_torch.kernels.qstore.PackedQWeight`."""
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    if hasattr(tree, "qw") and hasattr(tree, "scales"):
+        return PackedQWeight(tensor_from_numpy(tree.qw, device),
+                             tensor_from_numpy(tree.scales, device))
+    if isinstance(tree, (list, tuple)) and not hasattr(tree, "_fields"):
+        return type(tree)(params_from_numpy(v, device) for v in tree)
+    return tensor_from_numpy(tree, device)
+
+
+def cache_from_numpy(cache, device="cpu") -> LMCache:
+    """A cache with fields ``k``/``v``/``length`` (arrays) -> :class:`LMCache`."""
+    return LMCache(tensor_from_numpy(cache.k, device),
+                   tensor_from_numpy(cache.v, device),
+                   tensor_from_numpy(cache.length, device).to(torch.int32))

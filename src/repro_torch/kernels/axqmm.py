@@ -1,0 +1,189 @@
+"""axqmm — block-quantized, effective-bits, runtime-degradable GEMM.
+
+Wrappers around the CUDA kernels in ``csrc/axqmm.cu`` (port of
+``repro.kernels.axqmm``).  The weight arrives prepacked
+(:class:`~repro_torch.kernels.qstore.PackedQWeight`: ``(N, K)`` int8
+K-major + ``(N, K // bk)`` f32 scales), so the per-call work outside the
+kernel is the activation quantization; the kernel degrades both int8
+operands to the runtime ``ebits`` (read from a device int32), takes exact
+int32 block dots and accumulates them scaled in f32, with the bias/residual
+epilogue (:func:`axqmm_packed`) or the gate (:func:`axqmm_gated_packed`)
+fused before its single write.
+
+Each wrapper launches its kernel for a CUDA tensor (or raises) and uses
+the plain PyTorch version only for a CPU tensor.  The plain versions
+(``*_plain``) are the ``qmm_*_packed_ref`` oracles of
+``core/quantization.py`` with the same epilogue.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.quantization import (qmm_gated_packed_ref,
+                                           qmm_packed_ref, quantize_block)
+from repro_torch.kernels import _build
+from repro_torch.kernels.qstore import PackedQWeight, prepack_weight, resolve_block
+
+Tensor = torch.Tensor
+
+
+def _gelu(x: Tensor) -> Tensor:
+    return F.gelu(x, approximate="tanh")   # jax.nn.gelu's default form
+
+
+#: gated-MLP activations (the reference's jax.nn forms)
+ACTS = {"silu": F.silu, "gelu": _gelu, "relu": F.relu}
+_ACT_CODES = {"silu": 0, "gelu": 1, "relu": 2}
+
+#: k-chunk of the kernel: the packed block must be a multiple of it
+KERNEL_KC = 64
+
+
+def quantize_for_axqmm(x: Tensor, bk: int):
+    """Per-(row, k-block) int8 quantization of the activation x (M, K) —
+    the one quantizer shared by kernel, oracle and prepack."""
+    qt = quantize_block(x.to(torch.float32), bk)
+    return qt.values, qt.scales
+
+
+def _count_plain(name: str, x: Tensor) -> None:
+    if x.is_cuda:
+        _build.plain_cuda_calls[name] += 1
+
+
+def axqmm_packed_plain(x: Tensor, pw: PackedQWeight, ebits=8, *,
+                       bias: Tensor | None = None,
+                       residual: Tensor | None = None) -> Tensor:
+    """Plain version of :func:`axqmm_packed`: the oracle plus the same
+    ordered f32 epilogue adds."""
+    _count_plain("axqmm", x)
+    y = qmm_packed_ref(x.to(torch.float32), pw.qw, pw.scales, ebits)
+    if bias is not None:
+        y = y + bias.to(torch.float32)[None, :]
+    if residual is not None:
+        y = y + residual.to(torch.float32)
+    return y
+
+
+def axqmm_gated_plain(x: Tensor, pw_up: PackedQWeight, pw_gate: PackedQWeight,
+                      ebits=8, *, act: str = "silu") -> Tensor:
+    """Plain version of :func:`axqmm_gated_packed`."""
+    _count_plain("axqmm_gated", x)
+    return qmm_gated_packed_ref(x.to(torch.float32), pw_up.qw, pw_up.scales,
+                                pw_gate.qw, pw_gate.scales, ACTS[act], ebits)
+
+
+def _check_packed(pw: PackedQWeight, name: str, K: int, device) -> None:
+    N, bk = pw.n, pw.block
+    if pw.k != K:
+        raise ValueError(f"{name}: packed K={pw.k} but x has K={K}")
+    if bk % KERNEL_KC:
+        raise ValueError(f"{name}: the kernel needs a quantization block that "
+                         f"is a multiple of {KERNEL_KC}, got {bk}")
+    _build.expect(pw.qw, f"{name}.qw", torch.int8, device, (N, K), align=16)
+    _build.expect(pw.scales, f"{name}.scales", torch.float32, device,
+                  (N, K // bk))
+
+
+def axqmm_packed(x: Tensor, pw: PackedQWeight, ebits=8, *,
+                 bias: Tensor | None = None,
+                 residual: Tensor | None = None) -> Tensor:
+    """float x (M, K) @ prepacked weight -> (M, N) f32, with optional
+    ``bias`` (N,) and ``residual`` (M, N) added in the kernel's f32
+    epilogue.  CUDA tensors launch the kernel; CPU tensors take the plain
+    version."""
+    if x.device.type == "cpu":
+        return axqmm_packed_plain(x, pw, ebits, bias=bias, residual=residual)
+    qx, sx = quantize_for_axqmm(x, pw.block)
+    return axqmm_quantized(qx, sx, pw, ebits, bias=bias, residual=residual)
+
+
+def axqmm_quantized(qx: Tensor, sx: Tensor, pw: PackedQWeight, ebits=8, *,
+                    bias: Tensor | None = None,
+                    residual: Tensor | None = None) -> Tensor:
+    """The kernel launch alone, on an already-quantized activation
+    (qx (M, K) int8, sx (M, K // bk) f32) — CUDA tensors only."""
+    _build.require_sm90(qx)
+    M, K = qx.shape
+    N, bk = pw.n, pw.block
+    dev = qx.device
+    _check_packed(pw, "weight", K, dev)
+    _build.expect(qx, "qx", torch.int8, dev, (M, K), align=16)
+    _build.expect(sx, "sx", torch.float32, dev, (M, K // bk))
+    b = None
+    if bias is not None:
+        b = bias.to(torch.float32).contiguous()
+        _build.expect(b, "bias", torch.float32, dev, (N,))
+    r = None
+    if residual is not None:
+        r = residual.to(torch.float32).contiguous()
+        _build.expect(r, "residual", torch.float32, dev, (M, N))
+    e = _build.degree_ptr(ebits, dev)
+    out = torch.empty((M, N), dtype=torch.float32, device=dev)
+    rc = _build.entry("axqmm_launch")(
+        qx.data_ptr(), sx.data_ptr(), pw.qw.data_ptr(), pw.scales.data_ptr(),
+        None if b is None else b.data_ptr(), None if r is None else r.data_ptr(),
+        e.data_ptr(), out.data_ptr(), M, N, K, bk, _build.stream_of(qx))
+    _build.check(rc, "axqmm")
+    _build.launches["axqmm"] += 1
+    return out
+
+
+def axqmm_gated_packed(x: Tensor, pw_up: PackedQWeight, pw_gate: PackedQWeight,
+                       ebits=8, *, act: str = "silu") -> Tensor:
+    """``act(x @ w_gate) * (x @ w_up)`` -> (M, N) f32 in one kernel: the
+    shared x tile is degraded once per k-chunk and the up/gate sums never
+    leave the block.  CPU tensors take the plain version."""
+    if act not in _ACT_CODES:
+        raise ValueError(f"act must be one of {sorted(_ACT_CODES)}, got {act!r}")
+    if pw_up.n != pw_gate.n or pw_up.block != pw_gate.block:
+        raise ValueError("up/gate packs must agree in N and block")
+    if x.device.type == "cpu":
+        return axqmm_gated_plain(x, pw_up, pw_gate, ebits, act=act)
+    qx, sx = quantize_for_axqmm(x, pw_up.block)
+    return axqmm_gated_quantized(qx, sx, pw_up, pw_gate, ebits, act=act)
+
+
+def axqmm_gated_quantized(qx: Tensor, sx: Tensor, pw_up: PackedQWeight,
+                          pw_gate: PackedQWeight, ebits=8, *,
+                          act: str = "silu") -> Tensor:
+    """The gated kernel launch alone, on an already-quantized activation —
+    CUDA tensors only."""
+    _build.require_sm90(qx)
+    M, K = qx.shape
+    N, bk = pw_up.n, pw_up.block
+    dev = qx.device
+    _check_packed(pw_up, "up", K, dev)
+    _check_packed(pw_gate, "gate", K, dev)
+    _build.expect(qx, "qx", torch.int8, dev, (M, K), align=16)
+    _build.expect(sx, "sx", torch.float32, dev, (M, K // bk))
+    e = _build.degree_ptr(ebits, dev)
+    out = torch.empty((M, N), dtype=torch.float32, device=dev)
+    rc = _build.entry("axqmm_gated_launch")(
+        qx.data_ptr(), sx.data_ptr(), pw_up.qw.data_ptr(), pw_up.scales.data_ptr(),
+        pw_gate.qw.data_ptr(), pw_gate.scales.data_ptr(), e.data_ptr(),
+        out.data_ptr(), M, N, K, bk, _ACT_CODES[act], _build.stream_of(qx))
+    _build.check(rc, "axqmm_gated")
+    _build.launches["axqmm_gated"] += 1
+    return out
+
+
+def axqmm(x: Tensor, w: Tensor, *, block: int = 256, ebits=8,
+          bias: Tensor | None = None, residual: Tensor | None = None,
+          plain: bool = False) -> Tensor:
+    """float x (M, K) @ float w (K, N): packs the weight on the fly (the
+    prepack quantizer) and defers to the packed entry."""
+    pw = prepack_weight(w, resolve_block(x.shape[-1], block))
+    f = axqmm_packed_plain if plain else axqmm_packed
+    return f(x, pw, ebits, bias=bias, residual=residual)
+
+
+def axqmm_gated(x: Tensor, w_up: Tensor, w_gate: Tensor, *, block: int = 256,
+                ebits=8, act: str = "silu", plain: bool = False) -> Tensor:
+    """On-the-fly-packed variant of :func:`axqmm_gated_packed`."""
+    bk = resolve_block(x.shape[-1], block)
+    f = axqmm_gated_plain if plain else axqmm_gated_packed
+    return f(x, prepack_weight(w_up, bk), prepack_weight(w_gate, bk), ebits,
+             act=act)

@@ -1,0 +1,213 @@
+"""Flash-style attention forward with computation-skipping schedules.
+
+Wrappers around the CUDA kernel in ``csrc/flash_attention.cu`` (port of
+``repro.kernels.flash_attention``).  Two schedules (DESIGN.md §8):
+
+  dense  every (q block, kv block) pair — non-causal layers and the
+         bit-identity oracle of the skip schedule;
+  tri    causal: only the n(n+1)/2 lower-triangular block pairs are visited.
+
+Both give bit-identical rows: a fully masked entry contributes an exact
+zero, and rows that have seen only masked entries are guarded (``p`` forced
+to 0 while the running max is the sentinel).  The ``band`` schedule of
+sliding-window layers is not ported yet: a ``window`` shorter than the
+sequence raises.
+
+:func:`flash_attention` keeps the reference's (BH, S, D) layout;
+:func:`flash_attention_grouped` takes the model's (B, S, H, D) queries and
+grouped (B, S, KVr, D) keys/values and indexes kv head ``h // G`` in the
+kernel, so the serving path never repeats K/V to all heads.  The block
+size follows the reference (:func:`planned_grid_steps`), so the kernel's
+in-kernel step counter is comparable with it.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+
+Tensor = torch.Tensor
+
+NEG_INF = -1e30
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (16, 32, 64)
+
+
+def _block_for(S: int, bq: int, bk: int) -> int:
+    """One block size for q and kv: the requested tile, shrunk to the next
+    power of two >= S for short sequences."""
+    b = min(bq, bk)
+    if S < b:
+        b = 1 << max(S - 1, 1).bit_length()
+    return b
+
+
+def _grid_plan(S: int, *, causal: bool, window: Optional[int],
+               bq: int, bk: int, skip_grid: bool):
+    """(kind, blk, n, band, window): the schedule :func:`flash_attention`
+    runs (same rules as the reference)."""
+    blk = _block_for(S, bq, bk)
+    n = -(-S // blk)
+    if window is not None and window >= S:
+        window = None  # window covers the whole sequence: plain causal
+    if causal and window is not None and skip_grid:
+        band = min(n, -(-(window - 1) // blk) + 1)
+        return "band", blk, n, band, window
+    if causal and skip_grid:
+        return "tri", blk, n, 0, window
+    return "dense", blk, n, 0, window
+
+
+def planned_grid_steps(BH: int, S: int, *, causal: bool = True,
+                       window: Optional[int] = None, bq: int = 128,
+                       bk: int = 128, skip_grid: bool = True) -> int:
+    """Block-step count of the schedule :func:`flash_attention` runs for
+    these arguments (dense count: ``skip_grid=False``)."""
+    kind, _, n, band, _ = _grid_plan(S, causal=causal, window=window,
+                                     bq=bq, bk=bk, skip_grid=skip_grid)
+    if kind == "tri":
+        return BH * n * (n + 1) // 2
+    if kind == "band":
+        return BH * n * band
+    return BH * n * n
+
+
+def _plan(S, causal, window, bq, bk, skip_grid):
+    if window is not None and not causal:
+        raise NotImplementedError("sliding-window attention requires causal=True")
+    kind, blk, n, _, window = _grid_plan(S, causal=causal, window=window,
+                                         bq=bq, bk=bk, skip_grid=skip_grid)
+    if window is not None:
+        raise NotImplementedError(
+            "the band (sliding-window) schedule is not ported yet")
+    return kind, blk, n
+
+
+def flash_attention_plain(q: Tensor, k: Tensor, v: Tensor, *,
+                          causal: bool = True, window: Optional[int] = None,
+                          bq: int = 128, bk: int = 128,
+                          skip_grid: bool = True) -> tuple[Tensor, int]:
+    """Plain version: the same block schedule and online softmax, blockwise
+    in PyTorch.  q, k, v (BH, S, D) -> ((BH, S, D) in q.dtype, steps)."""
+    if q.is_cuda:
+        _build.plain_cuda_calls["flash_attention"] += 1
+    BH, S, D = q.shape
+    kind, blk, n = _plan(S, causal, window, bq, bk, skip_grid)
+    qf = q.to(torch.float32) * (1.0 / math.sqrt(D))
+    kf, vf = k.to(torch.float32), v.to(torch.float32)
+    out = torch.empty((BH, S, D), dtype=torch.float32, device=q.device)
+    steps = 0
+    for i in range(n):
+        r0, r1 = i * blk, min((i + 1) * blk, S)
+        qi = qf[:, r0:r1]
+        rows = torch.arange(r0, r1, device=q.device)[:, None]
+        m = torch.full((BH, r1 - r0, 1), NEG_INF, device=q.device)
+        l = torch.zeros((BH, r1 - r0, 1), device=q.device)
+        acc = torch.zeros((BH, r1 - r0, D), device=q.device)
+        for j in range(i + 1 if kind == "tri" else n):
+            steps += BH
+            c0, c1 = j * blk, min((j + 1) * blk, S)
+            s = qi @ kf[:, c0:c1].transpose(1, 2)
+            if causal:
+                cols = torch.arange(c0, c1, device=q.device)[None, :]
+                s = torch.where(cols <= rows, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            p = torch.where(s > 0.5 * NEG_INF, torch.exp(s - m_new), 0.0)
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1, keepdim=True)
+            m = m_new
+            acc = acc * corr + p @ vf[:, c0:c1]
+        out[:, r0:r1] = acc / torch.clamp(l, min=1e-30)
+    return out.to(q.dtype), steps
+
+
+def _launch(q4: Tensor, k4: Tensor, v4: Tensor, out4: Tensor, *, G: int,
+            blk: int, causal: bool, tri: bool, count_steps: bool):
+    """Launch on (B, S, H, D)-strided views (D contiguous)."""
+    _build.require_sm90(q4)
+    B, S, H, D = q4.shape
+    dev = q4.device
+    if q4.dtype not in _DTYPES:
+        raise ValueError(f"flash_attention takes f32 or bf16, got {q4.dtype}")
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel head_dim must be one of "
+                         f"{_HEAD_DIMS}, got {D}")
+    for t, name in ((q4, "q"), (k4, "k"), (v4, "v"), (out4, "out")):
+        if t.device != dev or t.dtype != q4.dtype:
+            raise ValueError(f"{name}: expected {q4.dtype} on {dev}, got "
+                             f"{t.dtype} on {t.device}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}: head_dim must be contiguous")
+    if k4.shape != (B, S, H // G, D) or v4.stride() != k4.stride():
+        raise ValueError(f"k/v must be (B, S, H/G, D) views with equal strides, "
+                         f"got {tuple(k4.shape)}")
+    steps = torch.zeros((), dtype=torch.int32, device=dev) if count_steps else None
+    rc = _build.entry("flash_attention_launch")(
+        q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), out4.data_ptr(),
+        None if steps is None else steps.data_ptr(),
+        B, S, H, G, D, blk, int(causal), int(tri),
+        q4.stride(0), q4.stride(1), q4.stride(2),
+        k4.stride(0), k4.stride(1), k4.stride(2),
+        out4.stride(0), out4.stride(1), out4.stride(2),
+        _DTYPES[q4.dtype], 1.0 / math.sqrt(D), _build.stream_of(q4))
+    _build.check(rc, "flash_attention")
+    _build.launches["flash_attention"] += 1
+    return steps
+
+
+def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
+                    window: Optional[int] = None, bq: int = 128, bk: int = 128,
+                    skip_grid: bool = True, return_steps: bool = False):
+    """q, k, v: (BH, S, D) -> (BH, S, D) in q.dtype.  ``return_steps`` ->
+    (out, block-steps executed): an int32 device scalar counted in the
+    kernel on the card, a Python int from the plain version on the CPU."""
+    if q.device.type == "cpu":
+        out, steps = flash_attention_plain(q, k, v, causal=causal, window=window,
+                                           bq=bq, bk=bk, skip_grid=skip_grid)
+        return (out, steps) if return_steps else out
+    BH, S, D = q.shape
+    kind, blk, _ = _plan(S, causal, window, bq, bk, skip_grid)
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    steps = _launch(q[:, :, None], k[:, :, None], v[:, :, None], out[:, :, None],
+                    G=1, blk=blk, causal=causal, tri=kind == "tri",
+                    count_steps=return_steps)
+    return (out, steps) if return_steps else out
+
+
+def _flat(x: Tensor) -> Tensor:
+    B, S, H, D = x.shape
+    return x.transpose(1, 2).reshape(B * H, S, D)
+
+
+def flash_attention_grouped_plain(q: Tensor, k: Tensor, v: Tensor, *,
+                                  causal: bool = True) -> Tensor:
+    """Plain version of :func:`flash_attention_grouped` (repeats K/V to all
+    heads and runs the (BH, S, D) plain version)."""
+    B, S, H, D = q.shape
+    G = H // k.shape[2]
+    kf = k.repeat_interleave(G, dim=2)
+    vf = v.repeat_interleave(G, dim=2)
+    o, _ = flash_attention_plain(_flat(q), _flat(kf), _flat(vf), causal=causal)
+    return o.reshape(B, H, S, D).transpose(1, 2)
+
+
+def flash_attention_grouped(q: Tensor, k: Tensor, v: Tensor, *,
+                            causal: bool = True) -> Tensor:
+    """Model-layout entry: q (B, S, H, D), k/v (B, S, KVr, D) -> (B, S, H, D).
+    The kernel indexes kv head ``h // (H // KVr)``; no K/V repeat."""
+    B, S, H, D = q.shape
+    KVr = k.shape[2]
+    if H % KVr:
+        raise ValueError(f"{H} query heads do not group over {KVr} kv heads")
+    if q.device.type == "cpu":
+        return flash_attention_grouped_plain(q, k, v, causal=causal)
+    kind, blk, _ = _plan(S, causal, None, 128, 128, True)
+    out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    _launch(q, k, v, out, G=H // KVr, blk=blk, causal=causal,
+            tri=kind == "tri", count_steps=False)
+    return out

@@ -1,0 +1,150 @@
+"""GQA attention: full and blockwise online-softmax prefill paths, the KV
+cache and single-token decode, in PyTorch.
+
+These are the plain paths (the counterparts of the reference's jnp paths).
+Model call sites route through ``kernels/dispatch.py``, which launches the
+CUDA kernels for CUDA tensors.
+
+Layout conventions:
+  q        (B, S, H, D)
+  k, v     (B, S, KVr, D)
+  cache    (B, T_max, KVr, D) per layer
+
+GQA is computed grouped — q reshaped to (B, S, KVr, G, D) — so repeated KV
+is never materialized.  Unlike the functional reference, the decode paths
+write the new token into the cache in place (the cache is never copied).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+
+Tensor = torch.Tensor
+
+NEG_INF = -1e30
+
+
+def repeat_kv(k: Tensor, target_heads: int) -> Tensor:
+    """(B, S, KV, D) -> (B, S, target, D) by head repetition."""
+    kv = k.shape[2]
+    if kv == target_heads:
+        return k
+    if target_heads % kv:
+        raise ValueError(f"{target_heads} heads do not repeat {kv} kv heads")
+    return torch.repeat_interleave(k, target_heads // kv, dim=2)
+
+
+def _group_q(q: Tensor, kv_heads: int) -> Tensor:
+    """(B, S, H, D) -> (B, S, KVr, G, D)."""
+    B, S, H, D = q.shape
+    if H % kv_heads:
+        raise ValueError(f"{H} query heads do not group over {kv_heads}")
+    return q.reshape(B, S, kv_heads, H // kv_heads, D)
+
+
+def _mask(S: int, causal: bool, window: Optional[int], device) -> Tensor:
+    ii = torch.arange(S, device=device)[:, None]
+    jj = torch.arange(S, device=device)[None, :]
+    mask = torch.ones((S, S), dtype=torch.bool, device=device)
+    if causal:
+        mask &= jj <= ii
+    if window is not None:
+        mask &= jj > ii - window
+    return mask
+
+
+def attn_full(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
+              window: Optional[int] = None) -> Tensor:
+    B, S, H, D = q.shape
+    kvh = k.shape[2]
+    qg = _group_q(q, kvh)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg.to(torch.float32),
+                          k.to(torch.float32)) / math.sqrt(D)
+    scores = torch.where(_mask(S, causal, window, q.device), scores, NEG_INF)
+    p = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", p.to(torch.float32),
+                       v.to(torch.float32)).to(v.dtype)
+    return out.reshape(B, S, H, D)
+
+
+def attn_blockwise(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
+                   window: Optional[int] = None, q_block: int = 512,
+                   kv_block: int = 512) -> Tensor:
+    """Memory-bounded attention: online softmax over kv blocks per q block
+    (short sequences take :func:`attn_full`)."""
+    B, S, H, D = q.shape
+    if S <= max(q_block, 256):
+        return attn_full(q, k, v, causal=causal, window=window)
+    q_block = min(q_block, S)
+    while S % q_block:
+        q_block //= 2
+    kv_block = min(kv_block, S)
+    while S % kv_block:
+        kv_block //= 2
+    kvh = k.shape[2]
+    qg = _group_q(q, kvh).to(torch.float32) / math.sqrt(D)   # (B,S,KV,G,D)
+    kf, vf = k.to(torch.float32), v.to(torch.float32)
+    full = _mask(S, causal, window, q.device)
+    out = torch.empty((B, S, kvh, qg.shape[3], D), dtype=torch.float32,
+                      device=q.device)
+    for q0 in range(0, S, q_block):
+        qb = qg[:, q0:q0 + q_block]
+        acc = torch.zeros_like(qb)
+        mx = torch.full((*qb.shape[:-1], 1), NEG_INF, device=q.device)
+        den = torch.zeros_like(mx)
+        for k0 in range(0, S, kv_block):
+            m = full[q0:q0 + q_block, k0:k0 + kv_block]
+            if not bool(m.any()):
+                continue
+            s = torch.einsum("bqkgd,btkd->bqkgt", qb, kf[:, k0:k0 + kv_block])
+            s = torch.where(m[None, :, None, None, :], s, NEG_INF)
+            new_mx = torch.maximum(mx, s.amax(dim=-1, keepdim=True))
+            corr = torch.exp(mx - new_mx)
+            p = torch.exp(s - new_mx)
+            den = den * corr + p.sum(dim=-1, keepdim=True)
+            acc = acc * corr + torch.einsum("bqkgt,btkd->bqkgd", p,
+                                            vf[:, k0:k0 + kv_block])
+            mx = new_mx
+        out[:, q0:q0 + q_block] = acc / torch.clamp(den, min=1e-30)
+    return out.reshape(B, S, H, D).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Decode (one new token against the cache)
+# ---------------------------------------------------------------------------
+
+
+class KVCache(NamedTuple):
+    k: Tensor          # (B, T, KVr, D)
+    v: Tensor          # (B, T, KVr, D)
+    length: Tensor     # (B,) int32 — tokens currently in cache
+
+
+def decode_attn(q1: Tensor, knew: Tensor, vnew: Tensor, cache: KVCache, *,
+                window: Optional[int] = None) -> tuple[Tensor, KVCache]:
+    """q1: (B, 1, H, D); knew/vnew: (B, 1, KVr, D).  Writes the new token
+    into the cache in place (a ring buffer of size T for windowed layers,
+    position ``length`` otherwise) and attends over the valid prefix.
+    Returns (out (B, 1, H, D), cache with ``length + 1``)."""
+    B, _, H, D = q1.shape
+    T = cache.k.shape[1]
+    kvh = cache.k.shape[2]
+    pos = cache.length
+    ring = window is not None and window <= T
+    slot = torch.remainder(pos, T) if ring else torch.clamp(pos, max=T - 1)
+    bidx = torch.arange(B, device=q1.device)
+    cache.k[bidx, slot] = knew[:, 0].to(cache.k.dtype)
+    cache.v[bidx, slot] = vnew[:, 0].to(cache.v.dtype)
+    qg = _group_q(q1, kvh)[:, 0]
+    s = torch.einsum("bkgd,btkd->bkgt", qg.to(torch.float32),
+                     cache.k.to(torch.float32)) / math.sqrt(D)
+    n_valid = torch.clamp(pos + 1, max=T)
+    valid = torch.arange(T, device=q1.device)[None, :] < n_valid[:, None]
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgt,btkd->bkgd", p, cache.v.to(torch.float32))
+    out = out.reshape(B, 1, H, D).to(q1.dtype)
+    return out, KVCache(cache.k, cache.v, pos + 1)

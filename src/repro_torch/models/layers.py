@@ -1,0 +1,162 @@
+"""Approximation-aware building blocks (param-dict style, PyTorch).
+
+Parameters are nested dicts of tensors; ``init_*`` builds them from an
+explicit ``torch.Generator``, ``*_apply`` consumes them.  Every matmul goes
+through :func:`repro_torch.kernels.ops.approx_matmul` with the ApproxSpec
+resolved from the model's ApproxPolicy by parameter path (DESIGN.md §2.3).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.approx import ApproxMode, ApproxPolicy
+from repro_torch.kernels.axqmm import ACTS
+from repro_torch.kernels.ops import approx_gated_matmul, approx_matmul
+
+Tensor = torch.Tensor
+
+
+def truncated_normal(gen: torch.Generator, shape, stddev: float,
+                     device) -> Tensor:
+    """``stddev`` x a standard normal truncated at ±2 (the reference's
+    ``jax.random.truncated_normal(key, -2, 2)``), drawn from ``gen``."""
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(t, mean=0.0, std=1.0, a=-2.0, b=2.0,
+                                generator=gen)
+    return t.mul_(stddev)
+
+
+# ---------------------------------------------------------------------------
+# Dense
+# ---------------------------------------------------------------------------
+
+
+def init_dense(gen, d_in: int, d_out: int, *, bias: bool = False,
+               scale: float | None = None, stack: tuple = (), device="cpu"):
+    """``stack`` prepends leading dims (stacked layers, one draw each)."""
+    stddev = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    p = {"w": truncated_normal(gen, (*stack, d_in, d_out), stddev, device)}
+    if bias:
+        p["b"] = torch.zeros((*stack, d_out), dtype=torch.float32, device=device)
+    return p
+
+
+def dense_apply(p, x: Tensor, policy: ApproxPolicy, path: str, degree=None,
+                residual: Optional[Tensor] = None) -> Tensor:
+    """``x @ w (+ b) (+ residual)``.  On the AXQ route bias and residual ride
+    the kernel's fused f32 epilogue; elsewhere they are post-cast adds."""
+    spec = policy.spec_for(path)
+    if spec.mode == ApproxMode.AXQ:
+        return approx_matmul(x, p["w"], spec, degree=degree, out_dtype=x.dtype,
+                             path=path, bias=p.get("b"), residual=residual)
+    y = approx_matmul(x, p["w"], spec, degree=degree, out_dtype=x.dtype, path=path)
+    if "b" in p:
+        y = y + p["b"].to(y.dtype)
+    if residual is not None:
+        y = residual + y
+    return y
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def init_rmsnorm(d: int, stack: tuple = (), device="cpu"):
+    return {"scale": torch.ones((*stack, d), dtype=torch.float32, device=device)}
+
+
+def rmsnorm_apply(p, x: Tensor, eps: float = 1e-6) -> Tensor:
+    dt = x.dtype
+    x32 = x.to(torch.float32)
+    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * p["scale"]).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Embedding
+# ---------------------------------------------------------------------------
+
+
+def init_embedding(gen, vocab: int, d: int, device="cpu"):
+    # 1/sqrt(d) keeps tied-unembedding logits at unit variance
+    return {"emb": truncated_normal(gen, (vocab, d), 1.0 / math.sqrt(d), device)}
+
+
+def embed_apply(p, tokens: Tensor, dtype=torch.bfloat16) -> Tensor:
+    return F.embedding(tokens, p["emb"]).to(dtype)
+
+
+def unembed_apply(p, x: Tensor, policy: ApproxPolicy, path: str,
+                  degree=None) -> Tensor:
+    """logits = x @ emb.T (tied); a prepacked tied unembedding rides the
+    embed dict as ``unembed_q``."""
+    spec = policy.spec_for(path)
+    w = p.get("unembed_q")
+    if w is None:
+        w = p["emb"].t()
+    return approx_matmul(x, w, spec, degree=degree, out_dtype=torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embedding
+# ---------------------------------------------------------------------------
+
+
+def rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
+    """x: (B, S, H, D); positions: (B, S) int."""
+    d = x.shape[-1]
+    half = d // 2
+    freqs = torch.exp(-math.log(theta)
+                      * torch.arange(half, dtype=torch.float32, device=x.device) / half)
+    ang = positions[..., None].to(torch.float32) * freqs        # (B, S, half)
+    sin = torch.sin(ang)[:, :, None, :]
+    cos = torch.cos(ang)[:, :, None, :]
+    x1f = x[..., :half].to(torch.float32)
+    x2f = x[..., half:].to(torch.float32)
+    out = torch.cat([x1f * cos - x2f * sin, x2f * cos + x1f * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Activations / MLP
+# ---------------------------------------------------------------------------
+
+
+def act_fn(name: str):
+    return ACTS[name]
+
+
+def init_gated_mlp(gen, d: int, d_ff: int, stack: tuple = (), device="cpu"):
+    return {
+        "up": init_dense(gen, d, d_ff, stack=stack, device=device),
+        "gate": init_dense(gen, d, d_ff, stack=stack, device=device),
+        "down": init_dense(gen, d_ff, d, scale=1.0 / math.sqrt(d_ff),
+                           stack=stack, device=device),
+    }
+
+
+def gated_mlp_apply(p, x: Tensor, policy: ApproxPolicy, path: str,
+                    act: str = "silu", degree=None,
+                    residual: Optional[Tensor] = None) -> Tensor:
+    """up/gate/act(gate)*up/down.  When up and gate share one AXQ spec the
+    first half runs as ONE fused kernel; the down projection fuses
+    ``residual`` into its epilogue."""
+    spec_up = policy.spec_for(path + "/up")
+    spec_gate = policy.spec_for(path + "/gate")
+    if (spec_up.mode == ApproxMode.AXQ and spec_gate == spec_up
+            and "b" not in p["up"] and "b" not in p["gate"]):
+        h = approx_gated_matmul(x, p["up"]["w"], p["gate"]["w"], spec_up,
+                                act=act, degree=degree, out_dtype=x.dtype)
+    else:
+        up = dense_apply(p["up"], x, policy, path + "/up", degree)
+        gate = dense_apply(p["gate"], x, policy, path + "/gate", degree)
+        h = act_fn(act)(gate) * up
+    return dense_apply(p["down"], h, policy, path + "/down", degree,
+                       residual=residual)

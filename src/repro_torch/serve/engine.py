@@ -1,0 +1,222 @@
+"""Workload-generic continuous-batching serve core: slot lifecycle + QoS.
+
+Requests enter a FIFO queue; free slots are (re)filled on admission by the
+workload's fused ingest call, which rewinds the slot's state region and
+writes the payload prefix into it; every engine tick runs ONE fused step
+for all slots.  Free slots are masked out of the step — their state never
+advances — so a freed slot can be handed to the next request with no stale
+state: admission into a reused slot equals a solo run on a fresh engine.
+
+The engine is generic over a :class:`~repro_torch.serve.servable.ServableModel`
+(``serve/lm.py`` adapts the language models).  The approximation degree is
+a device int32 operand — a global scalar or a per-site vector — and an
+optional :class:`~repro_torch.core.dynamic.QoSController` moves it with
+serving load (heavy load -> cheaper arithmetic, idle -> exact).  One device
+operand per ladder rung is built at construction, so a rung move swaps a
+reference: no rebuild, no host-to-device copy, no sync.
+
+This port covers the exact-length admission path; the reference's fault
+injection, guards, serving policy, quality tap, tracer, bucketed/packed/
+chunked admission and async emitter are not ported yet.
+"""
+
+from __future__ import annotations
+
+import itertools
+import time
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.dynamic import (QoSController, degree_operand,
+                                      degree_record, entry_degree)
+from repro_torch.serve.metrics import EngineStats
+from repro_torch.serve.servable import ServableModel
+
+
+def site_names(cfg) -> list:
+    """Canonical degree site names: ``layer_i`` in stacking order, then
+    ``head`` (a copy of ``repro.tune.plan.site_names``)."""
+    if hasattr(cfg, "site_names"):
+        return list(cfg.site_names())
+    return [f"layer_{i}" for i in range(cfg.n_layers)] + ["head"]
+
+
+@dataclass
+class Request:
+    """One unit of serving work.  ``payload`` is what the workload ingests
+    (LM prompt ids), ``out`` what its steps emit."""
+
+    rid: int
+    payload: object
+    budget: int = 32
+    payload_units: int = 0
+    out: list = field(default_factory=list)
+    done: bool = False
+    admitted_units: int = 0
+    t_enqueue: float = 0.0
+    t_admitted: float = 0.0
+    t_first_emit: float = 0.0
+    t_done: float = 0.0
+    #: degree tuple that served the first emission
+    degree_at_first_emit: Optional[tuple] = None
+
+    @property
+    def queue_time(self) -> float:
+        return self.t_admitted - self.t_enqueue
+
+    @property
+    def ttft(self) -> float:
+        return self.t_first_emit - self.t_enqueue
+
+    @property
+    def tpot(self) -> float:
+        return (self.t_done - self.t_first_emit) / max(len(self.out) - 1, 1)
+
+    @property
+    def e2e(self) -> float:
+        return self.t_done - self.t_enqueue
+
+
+class ServeCore:
+    """Continuous-batching engine over a fixed batch of ``slots``.
+
+    ``qos`` drives the runtime degree from load; ``degree`` pins a static
+    initial degree (scalar or per-site vector) without a controller;
+    ``prepack`` applies the workload's quantize-once weight residency at
+    construction.  Host times (TTFT, e2e) are taken after each tick's
+    emissions reach the host, which waits for the device."""
+
+    def __init__(self, workload: ServableModel, params, *, slots: int = 8,
+                 max_len: int = 512, seed: int = 0,
+                 qos: Optional[QoSController] = None, degree=None,
+                 prepack: bool = True):
+        self.workload = workload
+        self.device = workload.device
+        self.params = workload.prepack(params) if prepack else params
+        self.slots = slots
+        self.max_len = max_len
+        self.qos = qos
+        self.state = workload.init_state(batch=slots, max_len=max_len)
+        self.slot_req: list[Optional[Request]] = [None] * slots
+        self.slot_budget = np.zeros(slots, np.int32)
+        self.queue: deque[Request] = deque()
+        self.done: list[Request] = []
+        self.stats = EngineStats(unit=workload.unit,
+                                 admit_name=workload.admit_span,
+                                 step_name=workload.step_span)
+        self._feed = workload.init_feed(slots)
+        self._rid = itertools.count()
+        self._ticks = 0
+        self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        # device degree operands: one per rung, built once
+        self._rungs = None
+        self._degree = None
+        self._degree_host = None
+        if qos is not None and qos.ladder:
+            self._rungs = [degree_operand(e, self.device) for e in qos.ladder]
+            self._degree = self._rungs[qos.degree]
+            self._degree_host = entry_degree(qos.ladder[qos.degree])
+        elif degree is not None:
+            self._degree = torch.as_tensor(degree, dtype=torch.int32,
+                                           device=self.device)
+            self._degree_host = degree_record(degree)
+        self._site_names = site_names(workload.cfg)
+        self._degree_rec: Optional[tuple] = None
+        if self._degree is not None:
+            self._degree_rec = self.stats.record_degree(
+                -1, self._degree_host, self._site_names)
+
+    # ------------------------------------------------------------------
+
+    def submit(self, payload, budget: Optional[int] = None) -> Request:
+        """Enqueue one request (FIFO); returns the live Request."""
+        wl = self.workload
+        payload = wl.validate(payload)
+        if budget is None:
+            budget = wl.default_budget(payload)
+        req = (wl.request_cls or Request)(
+            rid=next(self._rid), payload=payload, budget=int(budget),
+            payload_units=wl.payload_units(payload), t_enqueue=time.time())
+        self.queue.append(req)
+        return req
+
+    def _admit(self, slot: int, req: Request):
+        req.t_admitted = time.time()
+        wl = self.workload
+        self.state, ingested = wl.admit(self.params, self.state, self._feed,
+                                        slot, req, self._degree)
+        req.admitted_units = int(ingested)
+        if req.admitted_units > 0:
+            self.stats.c_admit_units.inc(req.admitted_units)
+            self.stats.c_admit_calls.inc()
+        self.slot_req[slot] = req
+        self.slot_budget[slot] = req.budget
+        self.stats.c_admitted.inc()
+
+    def _update_degree(self, n_active: int):
+        """Feed the QoS controller a load-headroom signal: overload moves
+        the degree down the ladder (cheaper arithmetic), idle capacity back
+        to exact — by swapping prebuilt device operands."""
+        occupancy = (n_active + len(self.queue)) / self.slots
+        headroom = max(0.0, 1.0 - occupancy)
+        entry = self.qos.update(self._ticks, headroom)
+        self._degree = self._rungs[self.qos.degree]
+        self._degree_host = entry_degree(entry)
+        self._degree_rec = self.stats.record_degree(
+            self._ticks, self._degree_host, self._site_names)
+
+    # ------------------------------------------------------------------
+
+    def tick(self) -> int:
+        """One engine iteration: admit queued requests into free slots,
+        update the QoS degree, run ONE fused step over all slots, and
+        harvest emissions.  Returns the number of active slots."""
+        wl = self.workload
+        for s in range(self.slots):
+            if self.slot_req[s] is None and self.queue:
+                self._admit(s, self.queue.popleft())
+        active = [s for s in range(self.slots) if self.slot_req[s] is not None]
+        if not active:
+            return 0
+        if self.qos is not None:
+            self._update_degree(len(active))
+        mask = np.zeros(self.slots, bool)
+        mask[active] = True
+        feed = torch.from_numpy(self._feed).to(self.device)
+        nxt, self.state = wl.step(self.params, self.state, feed,
+                                  torch.from_numpy(mask).to(self.device),
+                                  self._gen, self._degree)
+        nxt = nxt.cpu().numpy()          # the tick's one device->host read
+        self._ticks += 1
+        self.stats.c_steps.inc()
+        self.stats.c_step_units.inc(len(active))
+        now = time.time()
+        for s in active:
+            req = self.slot_req[s]
+            emitted, finished, info = wl.harvest(req, self._feed, s, nxt[s])
+            if emitted:
+                if req.t_first_emit == 0.0:
+                    req.t_first_emit = now
+                    req.degree_at_first_emit = self._degree_rec
+                self.slot_budget[s] -= 1
+            if finished or self.slot_budget[s] <= 0:
+                req.done = True
+                req.t_done = now
+                self.done.append(req)
+                self.slot_req[s] = None
+                self.stats.record_completion(req)
+        return len(active)
+
+    def run_until_drained(self, max_ticks: int = 10_000) -> list[Request]:
+        """Tick until the queue and every slot are empty (or ``max_ticks``);
+        returns all finished requests in completion order."""
+        ticks = 0
+        while (self.queue or any(r is not None for r in self.slot_req)) \
+                and ticks < max_ticks:
+            self.tick()
+            ticks += 1
+        return self.done

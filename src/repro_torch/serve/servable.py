@@ -1,0 +1,76 @@
+"""ServableModel: the workload protocol the serve engine is generic over.
+
+The engine (``serve/engine.py::ServeCore``) owns the scheduling — FIFO
+queue, fixed slot batch, free-slot masking, the QoS degree ladder, metrics
+— and knows nothing about what flows through the slots.  Everything
+workload-specific (what a unit of work is, how a payload is ingested into a
+slot, what one fused step computes, when a request finishes) lives behind
+this protocol; ``serve/lm.py`` implements it for language models.
+
+State contract: ``init_state`` returns a NamedTuple on the cache layout of
+``models/cache_ops.py`` (``length`` (batch,) at axis 0, other fields batch
+at axis 1), so the generic slot reset / mask helpers apply.
+
+Degree contract: ``admit``/``step`` receive the engine's device degree
+operand (None | scalar | per-site vector) and pass it down as a tensor —
+never ``int()`` it: a host read would sync the device every tick.
+"""
+
+from __future__ import annotations
+
+
+class ServableModel:
+    """Base/protocol for engine workloads."""
+
+    #: what one emitted unit is called (metric family names, summaries)
+    unit: str = "items"
+    #: name of the admission/ingest edge (metric family names)
+    admit_span: str = "admit"
+    #: step vocabulary stem of the step counter families
+    step_span: str = "step"
+    #: Request subclass the engine constructs on submit
+    request_cls = None
+    #: the arch config (degree site names); exposes ``name``, ``n_layers``
+    cfg = None
+    #: the device the workload's state lives on
+    device = None
+
+    def prepack(self, params):
+        """Quantize-once residency hook; identity by default."""
+        return params
+
+    def init_state(self, *, batch: int, max_len: int):
+        raise NotImplementedError
+
+    def init_feed(self, slots: int):
+        """Host-side (slots, ...) array handed to each fused step."""
+        raise NotImplementedError
+
+    def reset_slot(self, state, slot):
+        raise NotImplementedError
+
+    def validate(self, payload):
+        """Canonicalize a submitted payload, or raise ValueError at submit."""
+        raise NotImplementedError
+
+    def payload_units(self, payload) -> int:
+        raise NotImplementedError
+
+    def default_budget(self, payload) -> int:
+        raise NotImplementedError
+
+    def admit(self, params, state, feed, slot: int, req, degree):
+        """Ingest ``req.payload`` into ``slot``; returns (state, ingested)."""
+        raise NotImplementedError
+
+    def step(self, params, state, feed, active, generator, degree):
+        """ONE fused step over all slots: (emission (slots,), new_state);
+        free slots are masked so their state never advances."""
+        raise NotImplementedError
+
+    def harvest(self, req, feed, slot: int, emission):
+        """Bank one slot's emission; returns (emitted, finished, info)."""
+        raise NotImplementedError
+
+    def done_args(self, req, info: dict) -> dict:
+        return {self.unit: len(req.out), **info}
