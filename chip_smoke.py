@@ -9,18 +9,27 @@ Phases (any failure exits non-zero):
   1. the card (nvidia-smi name and power limit) and the kernel build
      (nvcc for sm_90a from kernels/csrc, with the -Xptxas -v lines);
   2. each hand-written kernel against its plain PyTorch version on the same
-     seeded inputs at the main path's full-width tinyllama-1.1b shapes,
+     seeded inputs at the serving paths' full-width tinyllama-1.1b shapes,
      with the stated tolerance, timed with CUDA events beside its bound
-     and, where one PyTorch call computes the same product, that call;
-  3. the main path: tinyllama-1.1b (random weights from a seeded CUDA
-     generator) under axq8 with the QoS ladder 8 -> 5, prepacked, served by
-     the continuous-batching engine; every request must finish, the QoS
-     degree must move, and every kernel of the path must have launched
-     while no plain version ran on the card;
+     and, where one PyTorch call computes the same function, that call;
+  3. the serving paths, each with the launch counts set to 0 just before
+     it and read just after: tinyllama-1.1b (random weights from a seeded
+     CUDA generator) under axq8 with the QoS ladder 8 -> 5, prepacked,
+     served by the continuous-batching engine —
+       3   exact-length admission, bf16 KV cache;
+       3b  the int8 KV cache with bucketed, packed admission (warmup runs
+           every bucket shape first; no new call shape after it);
+       3c  the bf16 cache with bucketed, packed and chunked admission,
+           long prompts among short ones;
+     every request must finish and every kernel of the path must have
+     launched exactly as the layer count predicts, while no plain version
+     ran on the card;
   4. the same model cut to 2 layers (one prefill and 4 greedy decode
-     steps): every kernel call checked against its plain version on the
-     model's own inputs, and the logits of a kernel run against a plain run
-     within the model's measured noise floor;
+     steps), on the bf16 and on the int8 cache: every kernel call checked
+     against its plain version on the model's own inputs, the logits of a
+     kernel run against a plain run within the model's measured noise
+     floor, and prompts padded to one bucket against their exact-length
+     prefill;
   5. one {"kernels": [...]} line and, last, the result line.
 
 With ``--record PATH`` every number also goes to a JSON file.
@@ -54,6 +63,8 @@ SOURCES = {
     "axqmm_gated": ("src/repro_torch/kernels/csrc/axqmm.cu", "src/repro/kernels/axqmm.py:117"),
     "flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu",
                      "src/repro/kernels/flash_decode.py:78"),
+    "flash_decode_quant": ("src/repro_torch/kernels/csrc/flash_decode.cu",
+                           "src/repro/kernels/flash_decode.py:109"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:117"),
 }
@@ -236,6 +247,45 @@ def check_decode(ctx, B, KVr, G, D, T, nvalid, active):
     return row
 
 
+def check_decode_quant(ctx, B, KVr, G, D, T, nvalid, active, ebits):
+    torch, dev, timer = ctx["torch"], ctx["dev"], ctx["timer"]
+    from repro_torch.kernels import flash_decode as FD
+    from repro_torch.models.attention import _q8
+
+    gen = torch.Generator(device=dev).manual_seed(5000 + T + ebits)
+    qg = torch.randn(B, KVr, G, D, generator=gen, device=dev)
+    k, ks = _q8(torch.randn(B, T, KVr, D, generator=gen, device=dev))
+    v, vs = _q8(torch.randn(B, T, KVr, D, generator=gen, device=dev))
+    nv = torch.tensor(nvalid, dtype=torch.int32, device=dev)
+    act = torch.tensor(active, dtype=torch.int32, device=dev)
+    # the degree as the serving path passes it: one element of a device vector
+    e = torch.tensor([8, ebits], dtype=torch.int32, device=dev)[1]
+    y = FD.flash_decode_quant(qg, k, ks, v, vs, nv, act, e)
+    yp = FD.flash_decode_quant_plain(qg, k, ks, v, vs, nv, act, e)
+    ctx["sync"]()
+    err = float((y - yp).abs().max())
+    ok = bool(torch.allclose(y, yp, rtol=0, atol=1e-5))
+    free_zero = bool((y[[i for i, a in enumerate(active) if not a]] == 0).all())
+    require(free_zero, "flash_decode_quant: a free slot's output is not exactly zero")
+    cache_bytes = 2 * (k.numel() + ks.numel() * 4)
+    caches = copies(lambda: (k.clone(), ks.clone(), v.clone(), vs.clone()), cache_bytes,
+                    ctx["on_card"])
+    row = {"B": B, "KVr": KVr, "G": G, "D": D, "T": T, "ebits": ebits, "nvalid": nvalid,
+           "active": active, "max_abs_err": err, "tol": "atol 1e-5", "ok": ok}
+    if ctx["on_card"]:
+        row["ms"] = timer(lambda i: FD.flash_decode_quant(
+            qg, *caches[i % len(caches)], nv, act, e))
+        row["plain_ms"] = timer(lambda i: FD.flash_decode_quant_plain(
+            qg, *caches[i % len(caches)], nv, act, e), iters=10)
+        row["library_ms"] = None
+        row["library_call"] = ("none: no single PyTorch call computes the degrade, "
+                               "the dequantization and the attention")
+    live = sum(n for n, a in zip(nvalid, active) if a)
+    nbytes = (live * KVr * (D + 4) * 2 + 2 * B * KVr * G * D * 4 + 2 * B * 4 + 4)
+    row["bound_ms"], row["bound_by"] = bound(nbytes, 4.0 * live * KVr * G * D, INT8_OPS)
+    return row
+
+
 def check_prefill(ctx, BH, S, D, H, KVr):
     torch, dev, timer = ctx["torch"], ctx["dev"], ctx["timer"]
     import torch.nn.functional as F
@@ -295,7 +345,8 @@ def phase_kernels(ctx, cfg):
     qd, kvd = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
     deg = torch.tensor(6, dtype=torch.int32, device=ctx["dev"])
     slots, prompt = ctx["slots"], ctx["prefill_m"]
-    rows = {"axqmm": [], "axqmm_gated": [], "flash_decode": [], "flash_attention": []}
+    rows = {"axqmm": [], "axqmm_gated": [], "flash_decode": [], "flash_decode_quant": [],
+            "flash_attention": []}
     for M in (slots, prompt):
         for N, K, res in ((qd, d, False), (kvd, d, False), (d, qd, True),
                           (d, dff, True)):
@@ -308,11 +359,22 @@ def phase_kernels(ctx, cfg):
     active = [1, 1, 1, 1, 1, 0, 1, 1]
     rows["flash_decode"].append(check_decode(ctx, slots, cfg.n_kv_heads, G, D, T,
                                              nvalid[:slots], active[:slots]))
+    for e in (8, 5):
+        rows["flash_decode_quant"].append(check_decode_quant(
+            ctx, slots, cfg.n_kv_heads, G, D, T, nvalid[:slots], active[:slots], e))
+    Tr = T - 3 * T // 128                      # ragged: 1000 at T = 1024
+    rows["flash_decode_quant"].append(check_decode_quant(
+        ctx, slots, cfg.n_kv_heads, G, D, Tr, [min(n, Tr) for n in nvalid[:slots]],
+        active[:slots], 6))
     rows["flash_attention"].append(check_prefill(ctx, cfg.n_heads, prompt, D,
                                                  cfg.n_heads, cfg.n_kv_heads))
+    # bucketed prefill shapes: four packed rows at half the cache, one at all of it
+    for BH, S in ((4 * cfg.n_heads, T // 2), (cfg.n_heads, T)):
+        rows["flash_attention"].append(check_prefill(ctx, BH, S, D, cfg.n_heads,
+                                                     cfg.n_kv_heads))
     for name, rs in rows.items():
         for r in rs:
-            shape = {k: r[k] for k in r if k in ("M", "N", "K", "B", "T", "BH", "S")}
+            shape = {k: r[k] for k in r if k in ("M", "N", "K", "B", "T", "BH", "S", "ebits")}
             say(f"{name} {shape}: max_err={r['max_abs_err']:.3g} ({r['tol']}) "
                 f"kernel_ms={r.get('ms')} plain_ms={r.get('plain_ms')} "
                 f"library_ms={r.get('library_ms')} bound_ms={r['bound_ms']:.4g} "
@@ -339,102 +401,241 @@ def packed_bytes(params) -> int:
     return 0
 
 
-def phase_serve(ctx, cfg):
+def serving_model(ctx, cfg):
+    """The serving paths' model: axq8 with a dynamic degree, random weights
+    from a seeded generator on the device, prepacked."""
     torch, dev = ctx["torch"], ctx["dev"]
-    import numpy as np
-
     from repro_torch.core.approx import policy_from_flag
-    from repro_torch.core.dynamic import QoSController
-    from repro_torch.kernels import _build
     from repro_torch.models import build_model
-    from repro_torch.serve.lm import ServeEngine
-    from repro_torch.serve.metrics import summarize
 
     model = build_model(cfg, policy_from_flag("axq8", dynamic=True), device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
-    params = model.init(generator=gen)
-    params = model.prepack(params)          # rebind: the f32 copies go
+    params = model.prepack(model.init(generator=gen))   # rebind: the f32 copies go
     if ctx["on_card"]:
         torch.cuda.empty_cache()
-    wbytes = packed_bytes(params)
-    tick_bound_ms = wbytes / HBM_BPS * 1e3
+    return model, params
 
-    def engine():
-        qos = QoSController(ladder=[{"ebits": e} for e in (8, 7, 6, 5)],
-                            low_water=0.25, high_water=0.75, cooldown_steps=8)
-        return ServeEngine(model, params, slots=ctx["slots"], max_len=ctx["max_len"],
-                           qos=qos, prepack=False, seed=0), qos
 
-    rng = np.random.default_rng(0)
-    lo, hi = ctx["prompt_range"]
-    warm, _ = engine()                      # library loads and allocator warm-up
-    warm.submit(rng.integers(0, cfg.vocab, lo), 2)
-    warm.run_until_drained()
-    del warm
+def make_engine(ctx, model, params, *, max_len, quant=False, admission=None):
+    """A QoS-driven engine (ladder ebits 8 -> 5) over the shared weights;
+    ``quant`` picks the int8 KV cache (as REPRO_KV_INT8=1 does)."""
+    import os
 
-    eng, qos = engine()
-    n_req, new_tokens = ctx["requests"], ctx["new_tokens"]
-    prompts = [rng.integers(0, cfg.vocab, int(rng.integers(lo, hi + 1)))
-               for _ in range(n_req)]
+    from repro_torch.core.dynamic import QoSController
+    from repro_torch.serve.lm import ServeEngine
+
+    qos = QoSController(ladder=[{"ebits": e} for e in (8, 7, 6, 5)],
+                        low_water=0.25, high_water=0.75, cooldown_steps=8)
+    prev = os.environ.get("REPRO_KV_INT8")
+    os.environ["REPRO_KV_INT8"] = "1" if quant else "0"
+    try:
+        eng = ServeEngine(model, params, slots=ctx["slots"], max_len=max_len, qos=qos,
+                          prepack=False, seed=0, admission=admission)
+    finally:
+        if prev is None:
+            del os.environ["REPRO_KV_INT8"]
+        else:
+            os.environ["REPRO_KV_INT8"] = prev
+    return eng
+
+
+def drive(ctx, eng, prompts, new_tokens):
+    """Serve ``prompts`` to completion with every launch count set to 0 just
+    before and read just after.  Returns the requests and what was seen."""
+    torch = ctx["torch"]
+    from repro_torch.kernels import _build
+
     ctx["sync"]()
     _build.reset_counts()
     if ctx["on_card"]:
         torch.cuda.reset_peak_memory_stats()
+    st = eng.stats
     t0 = time.time()
     reqs = [eng.submit(p, new_tokens) for p in prompts]
-    decode_ticks = []
-    max_ticks = 4 * n_req * new_tokens
+    decode_ticks, interleaved, ticks = [], 0, 0
+    max_ticks = 8 * len(prompts) * new_tokens
     while eng.queue or any(r is not None for r in eng.slot_req):
-        require(eng.stats.decode_steps < max_ticks,
-                f"the engine did not drain within {max_ticks} ticks")
-        admitted = eng.stats.admitted
+        require(ticks < max_ticks, f"the engine did not drain within {max_ticks} ticks")
+        before = (st.admitted, int(st.c_chunk_calls.value), st.decode_steps)
         t = time.time()
-        eng.tick()                           # ends in a device->host read
-        if eng.stats.admitted == admitted:
-            decode_ticks.append(time.time() - t)
+        eng.tick()                           # a decode tick ends in a device->host read
+        dt = time.time() - t
+        ticks += 1
+        admitted, chunks, steps = (st.admitted != before[0],
+                                   int(st.c_chunk_calls.value) != before[1],
+                                   st.decode_steps != before[2])
+        if steps and not admitted and not chunks:
+            decode_ticks.append(dt)
+        interleaved += steps and chunks
     ctx["sync"]()
     wall = time.time() - t0
-    launches = dict(_build.launches)
-    plain = dict(_build.plain_cuda_calls)
-    s = summarize(eng.done, eng.stats, wall_s=wall)
-
-    require(len(eng.done) == n_req, f"{len(eng.done)} of {n_req} requests finished")
+    require(all(r.done for r in reqs), f"{sum(not r.done for r in reqs)} requests unfinished")
     require(all(len(r.out_tokens) == new_tokens for r in reqs),
             "a request finished without all its tokens")
-    rungs = sorted({e for _, e in eng.stats.degree_history})
-    require(len(rungs) > 1, f"the QoS degree never moved: {rungs}")
-    steps, prefills = eng.stats.decode_steps, eng.stats.prefill_calls
-    L = cfg.n_layers
-    expect = {"axqmm": (5 * L + 1) * (steps + prefills), "axqmm_gated": L * (steps + prefills),
-              "flash_decode": L * steps, "flash_attention": L * prefills}
-    say(f"main path launches {launches} (expected {expect}); plain versions on "
-        f"the card {plain}")
-    for name in launches if ctx["on_card"] else ():
-        require(launches[name] > 0, f"kernel {name} never launched on the main path")
+    seen = {"wall_s": wall, "ticks": ticks, "decode_ticks": decode_ticks,
+            "interleaved_ticks": interleaved, "launches": dict(_build.launches),
+            "plain": dict(_build.plain_cuda_calls),
+            "max_memory_allocated": (torch.cuda.max_memory_allocated()
+                                     if ctx["on_card"] else None)}
+    return reqs, seen
+
+
+def check_launches(ctx, label, seen, expect):
+    """Every kernel launched exactly as predicted (and those of the path at
+    least once), no plain version on the card."""
+    launches, plain = seen["launches"], seen["plain"]
+    say(f"{label} launches {launches} (expected {expect}); plain versions on the "
+        f"card {plain}")
+    if not ctx["on_card"]:
+        return
+    for name in launches:
         require(launches[name] == expect[name],
-                f"kernel {name}: {launches[name]} launches, expected {expect[name]}")
-        require(plain[name] == 0, f"the plain version of {name} ran on the card")
-    gen_tok = s["generated_tokens"]
+                f"{label}: kernel {name}: {launches[name]} launches, expected {expect[name]}")
+        require(plain[name] == 0, f"{label}: the plain version of {name} ran on the card")
+    for name, n in expect.items():
+        require(n == 0 or launches[name] > 0, f"{label}: kernel {name} never launched")
+
+
+def cache_bytes(cache) -> int:
+    return sum(t.numel() * t.element_size() for t in cache)
+
+
+def serve_summary(ctx, label, eng, reqs, seen, tick_bound_ms):
+    from repro_torch.serve.metrics import summarize
+
+    s = summarize(reqs, eng.stats, wall_s=seen["wall_s"])
+    rungs = sorted({e for _, e in eng.stats.degree_history})
+    dts = seen["decode_ticks"]
     out = {
-        "arch": cfg.name, "requests": n_req, "new_tokens": new_tokens,
-        "prompt_range": [lo, hi], "slots": ctx["slots"], "max_len": ctx["max_len"],
-        "wall_s": wall, "generated_tokens": gen_tok, "gen_tok_per_s": gen_tok / wall,
-        "decode_steps": steps, "prefill_calls": prefills,
-        "decode_tick_ms_mean": 1e3 * sum(decode_ticks) / max(len(decode_ticks), 1),
-        "decode_ticks_timed": len(decode_ticks),
-        "decode_tick_bound_ms": tick_bound_ms, "packed_weight_bytes": wbytes,
+        "requests": len(reqs), "wall_s": seen["wall_s"],
+        "generated_tokens": s["generated_tokens"],
+        "gen_tok_per_s": s["generated_tokens"] / seen["wall_s"],
+        "ticks": seen["ticks"], "decode_steps": eng.stats.decode_steps,
+        "prefill_calls": eng.stats.prefill_calls,
+        "decode_tick_ms_mean": 1e3 * sum(dts) / max(len(dts), 1),
+        "decode_ticks_timed": len(dts), "decode_tick_bound_ms": tick_bound_ms,
         "ttft_p50_ms": s["ttft_p50_ms"], "ttft_p95_ms": s["ttft_p95_ms"],
         "tpot_p50_ms": s["tpot_p50_ms"], "degree_rungs_visited": rungs,
         "degree_at_first_token": s.get("degree_at_first_token"),
-        "launches": launches,
-        "max_memory_allocated": (torch.cuda.max_memory_allocated()
-                                 if ctx["on_card"] else None),
+        "launches": seen["launches"], "max_memory_allocated": seen["max_memory_allocated"],
+        "cache": type(eng.cache).__name__, "cache_bytes": cache_bytes(eng.cache),
     }
-    say(f"main path: {n_req} requests, {gen_tok} tokens in {wall:.3f} s "
-        f"({out['gen_tok_per_s']:.1f} tok/s); decode tick {out['decode_tick_ms_mean']:.3f} ms "
-        f"vs bound {tick_bound_ms:.4f} ms ({wbytes / 1e9:.3f} GB of packed weights); "
-        f"TTFT p50 {s['ttft_p50_ms']} ms p95 {s['ttft_p95_ms']} ms; "
-        f"max_memory_allocated {out['max_memory_allocated']}; rungs {rungs}")
+    say(f"{label}: {len(reqs)} requests, {out['generated_tokens']} tokens in "
+        f"{seen['wall_s']:.3f} s ({out['gen_tok_per_s']:.1f} tok/s); decode tick "
+        f"{out['decode_tick_ms_mean']:.3f} ms over {len(dts)} ticks vs bound "
+        f"{tick_bound_ms:.4f} ms; TTFT p50 {s['ttft_p50_ms']} ms p95 {s['ttft_p95_ms']} ms; "
+        f"max_memory_allocated {out['max_memory_allocated']}; {out['cache']} "
+        f"{out['cache_bytes']} bytes; rungs {rungs}")
+    return out
+
+
+def phase_serve(ctx, cfg, model, params):
+    """Phase 3: exact-length admission on the bf16 cache."""
+    import numpy as np
+
+    wbytes = packed_bytes(params)
+    rng = np.random.default_rng(0)
+    lo, hi = ctx["prompt_range"]
+    warm = make_engine(ctx, model, params, max_len=ctx["max_len"])   # library loads, allocator
+    warm.submit(rng.integers(0, cfg.vocab, lo), 2)
+    warm.run_until_drained()
+    del warm
+    eng = make_engine(ctx, model, params, max_len=ctx["max_len"])
+    prompts = [rng.integers(0, cfg.vocab, int(rng.integers(lo, hi + 1)))
+               for _ in range(ctx["requests"])]
+    reqs, seen = drive(ctx, eng, prompts, ctx["new_tokens"])
+    rungs = sorted({e for _, e in eng.stats.degree_history})
+    require(len(rungs) > 1, f"phase 3: the QoS degree never moved: {rungs}")
+    steps, prefills, L = eng.stats.decode_steps, eng.stats.prefill_calls, cfg.n_layers
+    check_launches(ctx, "phase 3", seen, {
+        "axqmm": (5 * L + 1) * (steps + prefills), "axqmm_gated": L * (steps + prefills),
+        "flash_decode": L * steps, "flash_decode_quant": 0, "flash_attention": L * prefills})
+    out = serve_summary(ctx, "phase 3 (exact admission, bf16 cache)", eng, reqs, seen,
+                        wbytes / HBM_BPS * 1e3)
+    out.update(arch=cfg.name, new_tokens=ctx["new_tokens"], prompt_range=[lo, hi],
+               slots=ctx["slots"], max_len=ctx["max_len"], packed_weight_bytes=wbytes)
+    return out, prompts
+
+
+def phase_serve_int8(ctx, cfg, model, params, prompts):
+    """Phase 3b: the int8 KV cache with bucketed, packed admission (this
+    slice's main path), on phase 3's traffic."""
+    from repro_torch.models.transformer import init_lm_cache
+    from repro_torch.serve.admission import AdmissionConfig
+
+    t = time.time()
+    eng = make_engine(ctx, model, params, max_len=ctx["max_len"], quant=True,
+                      admission=AdmissionConfig(pack=4))
+    ctx["sync"]()
+    warmup_s = time.time() - t
+    wl = eng.workload
+    shapes = dict(wl.trace_counts)
+    require(shapes["prefill_batch"] == len(wl.admission.buckets) and shapes["step"] == 1,
+            f"phase 3b: warmup ran {shapes}, expected {len(wl.admission.buckets)} bucket "
+            "shapes and one step shape")
+    reqs, seen = drive(ctx, eng, prompts, ctx["new_tokens"])
+    require(wl.trace_counts == shapes,
+            f"phase 3b: a request met a new call shape: {wl.trace_counts} vs {shapes}")
+    rungs = sorted({e for _, e in eng.stats.degree_history})
+    require(len(rungs) > 1, f"phase 3b: the QoS degree never moved: {rungs}")
+    steps, calls, L = eng.stats.decode_steps, eng.stats.prefill_calls, cfg.n_layers
+    check_launches(ctx, "phase 3b", seen, {
+        "axqmm": (5 * L + 1) * steps + 5 * L * calls, "axqmm_gated": L * (steps + calls),
+        "flash_decode": 0, "flash_decode_quant": L * steps, "flash_attention": L * calls})
+    out = serve_summary(ctx, "phase 3b (int8 cache, buckets, pack 4)", eng, reqs, seen,
+                        packed_bytes(params) / HBM_BPS * 1e3)
+    bf16 = init_lm_cache(cfg, 1, ctx["slots"], ctx["max_len"], device="meta")
+    out.update(bf16_cache_bytes=cache_bytes(bf16), warmup_s=warmup_s,
+               buckets=list(wl.admission.buckets), pack=wl.admission.pack,
+               call_shapes=shapes, packed_rows=int(eng.stats.c_packed_rows.value),
+               bucket_flushes={k[0]: int(c.value) for k, c in
+                               eng.stats.c_admit_bucket.children.items()})
+    say(f"phase 3b: warmup {warmup_s:.2f} s over {shapes}; int8 cache "
+        f"{out['cache_bytes']} bytes vs {out['bf16_cache_bytes']} for bf16; "
+        f"{calls} bucketed calls {out['bucket_flushes']}, {out['packed_rows']} packed rows")
+    return out
+
+
+def phase_serve_chunked(ctx, cfg, model, params):
+    """Phase 3c: the bf16 cache with bucketed, packed and chunked admission:
+    long prompts among short ones."""
+    import numpy as np
+
+    from repro_torch.serve.admission import AdmissionConfig
+
+    rng = np.random.default_rng(3)
+    (llo, lhi), (slo, shi) = ctx["long_range"], ctx["short_range"]
+    n_long, n_short = ctx["n_long"], ctx["n_short"]
+    long_at = set(rng.choice(n_long + n_short, n_long, replace=False).tolist())
+    prompts = [rng.integers(0, cfg.vocab, int(rng.integers(llo, lhi + 1)) if i in long_at
+                            else int(rng.integers(slo, shi + 1)))
+               for i in range(n_long + n_short)]
+    eng = make_engine(ctx, model, params, max_len=ctx["max_len_chunked"],
+                      admission=AdmissionConfig(pack=4, chunk_tokens=ctx["chunk_tokens"]))
+    reqs, seen = drive(ctx, eng, prompts, ctx["new_tokens"])
+    st, L = eng.stats, cfg.n_layers
+    steps, chunks = st.decode_steps, int(st.c_chunk_calls.value)
+    flushes = sum(int(c.value) for c in st.c_admit_bucket.children.values())
+    require(chunks >= n_long, f"phase 3c: {chunks} chunk calls for {n_long} long prompts")
+    require(seen["interleaved_ticks"] > 0, "phase 3c: no chunk call shared a tick with decode")
+    check_launches(ctx, "phase 3c", seen, {
+        "axqmm": (5 * L + 1) * steps + 5 * L * (flushes + chunks),
+        "axqmm_gated": L * (steps + flushes + chunks), "flash_decode": L * steps,
+        "flash_decode_quant": 0, "flash_attention": L * flushes})
+    out = serve_summary(ctx, "phase 3c (bf16 cache, buckets, pack 4, chunks)", eng, reqs,
+                        seen, packed_bytes(params) / HBM_BPS * 1e3)
+    short = [r.ttft * 1e3 for i, r in enumerate(reqs) if i not in long_at]
+    long_ = [r.ttft * 1e3 for i, r in enumerate(reqs) if i in long_at]
+    pct = lambda xs, q: float(np.percentile(xs, q)) if xs else None
+    out.update(chunk_tokens=ctx["chunk_tokens"], chunk_calls=chunks, bucket_flushes=flushes,
+               interleaved_ticks=seen["interleaved_ticks"], long_prompts=n_long,
+               short_prompts=n_short, prompt_lens=[int(p.size) for p in prompts],
+               short_ttft_p50_ms=pct(short, 50), short_ttft_p95_ms=pct(short, 95),
+               long_ttft_p50_ms=pct(long_, 50), max_len=ctx["max_len_chunked"])
+    say(f"phase 3c: {chunks} chunk calls, {flushes} bucketed calls, "
+        f"{seen['interleaved_ticks']} ticks with both a chunk call and a decode step; "
+        f"short-request TTFT p50 {out['short_ttft_p50_ms']} ms p95 "
+        f"{out['short_ttft_p95_ms']} ms; long-request TTFT p50 {out['long_ttft_p50_ms']} ms")
     return out
 
 
@@ -443,8 +644,9 @@ def phase_serve(ctx, cfg):
 # ---------------------------------------------------------------------------
 
 
-#: phase 4 runs: (dtype, runtime degree)
-MODEL_RUNS = (("float32", [8, 6, 7]), ("bfloat16", 8))
+#: phase 4 runs: (dtype, runtime degree, int8 KV cache)
+MODEL_RUNS = (("float32", [8, 6, 7], False), ("bfloat16", 8, False),
+              ("float32", [8, 6, 7], True), ("bfloat16", 8, True))
 
 #: relative perturbation of the plain run's projection outputs that measures
 #: the model's own noise floor (phase 4)
@@ -455,10 +657,12 @@ def _call_tols(dtype):
     """(rtol, atol) of each kernel against its plain version on the model's
     own inputs: the GEMMs at the qmm oracle tolerance (observed
     bit-identical); attention to f32 summation order, or one bf16 ulp at
-    |o| < 4 for bf16 outputs."""
+    |o| < 4 for bf16 outputs; the int8-cache decode at 1e-5 abs, the
+    reference's kernel-vs-jnp tolerance."""
     attn = (1e-4, 1e-4) if dtype == "float32" else (0.0, 1 / 64)
     return {"axqmm": (1e-5, 1e-4), "axqmm_gated": (1e-5, 1e-4),
-            "flash_decode": (1e-4, 1e-4), "flash_attention": attn}
+            "flash_decode": (1e-4, 1e-4), "flash_decode_quant": (0.0, 1e-5),
+            "flash_attention": attn}
 
 
 @contextlib.contextmanager
@@ -504,6 +708,8 @@ def _checked_kernels(ctx, dtype, report):
                                           A.axqmm_gated_plain)),
         (FD, "flash_decode", checked("flash_decode", FD.flash_decode,
                                      FD.flash_decode_plain)),
+        (FD, "flash_decode_quant", checked("flash_decode_quant", FD.flash_decode_quant,
+                                           FD.flash_decode_quant_plain)),
         (dispatch, "flash_attention_grouped",
          checked("flash_attention", dispatch.flash_attention_grouped,
                  FA.flash_attention_grouped_plain)),
@@ -527,16 +733,24 @@ def _perturbed_projections(ctx, eps):
     return _patched([(A, "axqmm_packed_plain", call)])
 
 
-def _model_logits(ctx, model, params, prompt, deg, backend, feed):
+@contextlib.contextmanager
+def _backend(name):
+    from repro_torch.kernels import dispatch
+
+    dispatch.set_backend(name)
+    try:
+        yield
+    finally:
+        dispatch.set_backend(None)
+
+
+def _model_logits(ctx, model, params, prompt, deg, backend, feed, quant):
     """One prefill and 4 decode steps of slot 1 (slot 0 free); returns the
     5 logit rows and the greedy tokens fed."""
     torch, dev = ctx["torch"], ctx["dev"]
-    from repro_torch.kernels import dispatch
-
-    dispatch.set_backend(backend)
-    try:
+    with _backend(backend):
         B, slot = 2, 1
-        cache = model.init_cache(1, B, prompt.shape[0] + 8)
+        cache = model.init_cache(1, B, prompt.shape[0] + 8, quant=quant)
         lg, cache = model.prefill(params, cache, prompt, slot, degree=deg)
         logits = [lg[0]]
         toks = torch.zeros((B, 1), dtype=torch.int64, device=dev)
@@ -549,12 +763,43 @@ def _model_logits(ctx, model, params, prompt, deg, backend, feed):
                                           active=active)
             logits.append(lg[slot, 0])
         return torch.stack(logits).float(), fed
-    finally:
-        dispatch.set_backend(None)
+
+
+def _padded_vs_exact(ctx, model, params, deg, backend, quant, vocab):
+    """Prompts of ``ctx["padded_lens"]`` prefilled one by one at their exact
+    lengths, and packed into one bucketed call padded to the next power of
+    two: the largest difference of each cache field, and of the logits of
+    one decode step from each cache."""
+    torch, dev = ctx["torch"], ctx["dev"]
+    import numpy as np
+
+    lens = ctx["padded_lens"]
+    Pb = 1 << (max(lens) - 1).bit_length()
+    rng = np.random.default_rng(2)
+    rows = [torch.as_tensor(rng.integers(0, vocab, n), device=dev) for n in lens]
+    toks = torch.zeros((len(lens), Pb), dtype=torch.int64, device=dev)
+    for i, r in enumerate(rows):
+        toks[i, :r.numel()] = r
+    nxt = torch.as_tensor(rng.integers(0, vocab, (len(lens), 1)), device=dev)
+    with _backend(backend):
+        exact = model.init_cache(1, len(lens), Pb, quant=quant)
+        for i, r in enumerate(rows):
+            model.prefill(params, exact, r, i, degree=deg)
+        padded = model.prefill_batch(params, model.init_cache(1, len(lens), Pb, quant=quant),
+                                     toks, list(range(len(lens))), list(lens), degree=deg)
+        fields = {f: float((getattr(exact, f).float() - getattr(padded, f).float())
+                           .abs().max()) for f in exact._fields}
+        le, _ = model.decode_step(params, exact, nxt, degree=deg)
+        lp, _ = model.decode_step(params, padded, nxt, degree=deg)
+    ctx["sync"]()
+    return {"lens": list(lens), "bucket": Pb, "cache_max_abs_diff": fields,
+            "bit_identical": all(v == 0 for v in fields.values()),
+            "logits_max_abs_diff": float((le - lp).abs().max())}
 
 
 def phase_model(ctx, cfg):
-    """Phase 4: kernel vs plain on the model cut to 2 layers.
+    """Phase 4: kernel vs plain on the model cut to 2 layers, on the bf16
+    and on the int8 cache.
 
     (a) Every kernel call of a kernel run is checked against its plain
     version on the same (the model's own) inputs, at the stated tolerance.
@@ -564,7 +809,11 @@ def phase_model(ctx, cfg):
     code.  So (b) is held to the model's own noise floor, measured in this
     run as the change of the plain logits when the plain projections' f32
     outputs are perturbed by NOISE_EPS relative: the kernel run may differ
-    from the plain run by at most 4x that floor."""
+    from the plain run by at most 4x that floor.
+    (c) Bucketed prefill against exact-length prefill through the kernels:
+    the attention tile width follows the padded length, so the online
+    softmax may sum in another order; the difference is reported, and the
+    next decode step's logits are held to the same 4x floor."""
     torch, dev = ctx["torch"], ctx["dev"]
     import numpy as np
 
@@ -574,7 +823,8 @@ def phase_model(ctx, cfg):
     rng = np.random.default_rng(1)
     prompt = torch.as_tensor(rng.integers(0, cfg.vocab, ctx["prefill_m"]), device=dev)
     out = []
-    for dtype, degree in MODEL_RUNS:
+    for dtype, degree, quant in MODEL_RUNS:
+        label = f"2-layer {dtype} at degree {degree}, {'int8' if quant else 'bf16'} cache"
         cut = dataclasses.replace(cfg, n_layers=2, dtype=dtype)
         model = build_model(cut, policy_from_flag("axq8", dynamic=True), device=dev)
         params = model.prepack(model.init(seed=1))
@@ -584,32 +834,40 @@ def phase_model(ctx, cfg):
         kernels = "cuda" if ctx["on_card"] else "auto"
         calls: dict = {}
         with _checked_kernels(ctx, dtype, calls):
-            lk, fed = _model_logits(ctx, model, params, prompt, deg, kernels, None)
+            lk, fed = _model_logits(ctx, model, params, prompt, deg, kernels, None, quant)
         # both plain runs decode the kernel run's greedy tokens
-        lp, _ = _model_logits(ctx, model, params, prompt, deg, "torch", fed)
+        lp, _ = _model_logits(ctx, model, params, prompt, deg, "torch", fed, quant)
         with _perturbed_projections(ctx, NOISE_EPS):
-            ln, _ = _model_logits(ctx, model, params, prompt, deg, "torch", fed)
+            ln, _ = _model_logits(ctx, model, params, prompt, deg, "torch", fed, quant)
         ctx["sync"]()
         diff = float((lk - lp).abs().max())
         floor = float((ln - lp).abs().max())
         tol = 4 * max(floor, 1e-3)
-        say(f"2-layer {dtype} at degree {degree}: kernel calls vs plain on the "
-            f"model's inputs {{name: [calls, max_err, outside tolerance]}} {calls}")
-        say(f"2-layer {dtype} at degree {degree}: logits kernels vs plain max |diff| "
-            f"{diff:.4g}; the plain model's own change under a {NOISE_EPS:g} "
-            f"relative perturbation of its projections {floor:.4g}; tolerance "
-            f"{tol:.4g}")
-        for name in ("axqmm", "axqmm_gated", "flash_decode", "flash_attention"):
+        pve = _padded_vs_exact(ctx, model, params, deg, kernels, quant, cfg.vocab)
+        say(f"{label}: kernel calls vs plain on the model's inputs "
+            f"{{name: [calls, max_err, outside tolerance]}} {calls}")
+        say(f"{label}: logits kernels vs plain max |diff| {diff:.4g}; the plain model's "
+            f"own change under a {NOISE_EPS:g} relative perturbation of its projections "
+            f"{floor:.4g}; tolerance {tol:.4g}")
+        say(f"{label}: padded (bucket {pve['bucket']}) vs exact prefill of lengths "
+            f"{pve['lens']}: bit-identical {pve['bit_identical']}, cache max |diff| "
+            f"{pve['cache_max_abs_diff']}, next-step logits max |diff| "
+            f"{pve['logits_max_abs_diff']:.4g}")
+        decode = "flash_decode_quant" if quant else "flash_decode"
+        for name in ("axqmm", "axqmm_gated", decode, "flash_attention"):
             n, err, bad = calls.get(name, (0, 0.0, 0))
-            require(n > 0 or not ctx["on_card"], f"2-layer {dtype}: {name} never ran")
-            require(bad == 0, f"2-layer {dtype}: {bad} of {n} {name} calls outside "
+            require(n > 0 or not ctx["on_card"], f"{label}: {name} never ran")
+            require(bad == 0, f"{label}: {bad} of {n} {name} calls outside "
                               f"tolerance of the plain version (max err {err})")
-        require(diff <= tol, f"2-layer {dtype} kernel-vs-plain logits differ by {diff} "
+        require(diff <= tol, f"{label}: kernel-vs-plain logits differ by {diff} "
                              f"(noise floor {floor})")
-        out.append({"dtype": dtype, "degree": degree, "kernel_calls": calls,
-                    "max_abs_logit_diff": diff, "noise_floor": floor,
-                    "noise_eps": NOISE_EPS, "tolerance": tol,
-                    "max_abs_logit": float(lp.abs().max())})
+        require(pve["logits_max_abs_diff"] <= tol,
+                f"{label}: padded-vs-exact prefill moves the next logits by "
+                f"{pve['logits_max_abs_diff']} (noise floor {floor})")
+        out.append({"dtype": dtype, "degree": degree, "int8_cache": quant,
+                    "kernel_calls": calls, "max_abs_logit_diff": diff,
+                    "noise_floor": floor, "noise_eps": NOISE_EPS, "tolerance": tol,
+                    "max_abs_logit": float(lp.abs().max()), "padded_vs_exact": pve})
     return out
 
 
@@ -665,7 +923,10 @@ def main(argv=None) -> int:
         ctx = {"torch": torch, "dev": torch.device("cuda", 0), "on_card": True,
                "sync": torch.cuda.synchronize, "dtype": torch.bfloat16,
                "slots": 8, "prefill_m": 255, "max_len": 1024, "requests": 16,
-               "new_tokens": 32, "prompt_range": (64, 512)}
+               "new_tokens": 32, "prompt_range": (64, 512),
+               "chunk_tokens": 256, "max_len_chunked": 1056, "n_long": 4,
+               "long_range": (700, 1000), "n_short": 12, "short_range": (64, 200),
+               "padded_lens": (20, 60, 255, 500)}
         cfg = get_config("tinyllama-1.1b")
     else:
         torch.set_num_threads(4)
@@ -673,7 +934,10 @@ def main(argv=None) -> int:
         ctx = {"torch": torch, "dev": torch.device("cpu"), "on_card": False,
                "sync": lambda: None, "dtype": torch.float32,
                "slots": 4, "prefill_m": 37, "max_len": 64, "requests": 6,
-               "new_tokens": 4, "prompt_range": (8, 40)}
+               "new_tokens": 4, "prompt_range": (8, 40),
+               "chunk_tokens": 16, "max_len_chunked": 64, "n_long": 2,
+               "long_range": (40, 56), "n_short": 4, "short_range": (8, 20),
+               "padded_lens": (3, 9, 20, 37)}
         cfg = get_config("tinyllama-1.1b-smoke")
     ctx["timer"] = Timer(torch, on_card)
 
@@ -683,23 +947,33 @@ def main(argv=None) -> int:
         write_record(args.record, record)
         say("kernel checks done (--kernels-only): no result line")
         return 0
-    record["main_path"] = phase_serve(ctx, cfg)
+    model, params = serving_model(ctx, cfg)
+    record["main_path"], prompts = phase_serve(ctx, cfg, model, params)
+    record["int8_cache_path"] = phase_serve_int8(ctx, cfg, model, params, prompts)
+    record["chunked_path"] = phase_serve_chunked(ctx, cfg, model, params)
+    del model, params
+    if on_card:
+        torch.cuda.empty_cache()
     record["model_2layer"] = phase_model(ctx, cfg)
 
+    paths = {"3": record["main_path"], "3b": record["int8_cache_path"],
+             "3c": record["chunked_path"]}
     summary = []
     for name, rows in record["kernels"].items():
         src, replaces = SOURCES[name]
         # the summary row: the unembedding GEMM (the largest decode GEMM)
         # for axqmm, the decode-shaped row for the others
         lead = rows[-1] if name == "axqmm" else rows[0]
+        by_path = {k: v["launches"][name] for k, v in paths.items()}
         summary.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": record["main_path"]["launches"][name],
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": lead.get("ms"), "plain_ms": lead.get("plain_ms"),
             "bound_ms": lead["bound_ms"], "bound_by": lead["bound_by"],
             "library_ms": lead.get("library_ms"),
-            "shape": {k: lead[k] for k in lead if k in ("M", "N", "K", "B", "T", "BH", "S")},
+            "shape": {k: lead[k] for k in lead
+                      if k in ("M", "N", "K", "B", "T", "BH", "S", "ebits")},
         })
     record["summary"] = summary
     write_record(args.record, record)

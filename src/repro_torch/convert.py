@@ -3,7 +3,8 @@ numpy arrays, into the port's tensors.
 
 The reference keeps parameters as nested dicts whose leaves are arrays or
 NamedTuples of arrays (packed weights: fields ``qw``/``scales``) and caches
-as NamedTuples with fields ``k``/``v``/``length``.  These walkers recognise
+as NamedTuples with fields ``k``/``v``/``length`` (the int8 cache also
+``ks``/``vs``).  These walkers recognise
 them by duck typing — this module imports neither JAX nor the reference
 package.  The caller does the array-to-numpy step (for example
 ``jax.tree.map(np.asarray, tree)``).
@@ -15,7 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.qstore import PackedQWeight
-from repro_torch.models.transformer import LMCache
+from repro_torch.models.transformer import LMCache, LMCacheQ
 
 
 def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
@@ -41,8 +42,11 @@ def params_from_numpy(tree, device="cpu"):
     return tensor_from_numpy(tree, device)
 
 
-def cache_from_numpy(cache, device="cpu") -> LMCache:
-    """A cache with fields ``k``/``v``/``length`` (arrays) -> :class:`LMCache`."""
-    return LMCache(tensor_from_numpy(cache.k, device),
-                   tensor_from_numpy(cache.v, device),
-                   tensor_from_numpy(cache.length, device).to(torch.int32))
+def cache_from_numpy(cache, device="cpu"):
+    """A cache with fields ``k``/``v``/``length`` (arrays) -> :class:`LMCache`;
+    one that also has ``ks``/``vs`` (the int8 cache) -> :class:`LMCacheQ`."""
+    t = lambda a: tensor_from_numpy(a, device)
+    length = t(cache.length).to(torch.int32)
+    if hasattr(cache, "ks") and hasattr(cache, "vs"):
+        return LMCacheQ(t(cache.k), t(cache.v), t(cache.ks), t(cache.vs), length)
+    return LMCache(t(cache.k), t(cache.v), length)

@@ -37,8 +37,10 @@ SOURCES = {
     "flash_decode": "flash_decode.cu",
     "flash_attention": "flash_attention.cu",
 }
-#: the four kernels of the serving path (two live in axqmm.cu)
-KERNELS = ("axqmm", "axqmm_gated", "flash_decode", "flash_attention")
+#: the kernels of the serving path (two live in axqmm.cu, two in
+#: flash_decode.cu)
+KERNELS = ("axqmm", "axqmm_gated", "flash_decode", "flash_decode_quant",
+           "flash_attention")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -53,6 +55,7 @@ SIGNATURES = {
     "axqmm_launch": ("axqmm", [_P] * 8 + [_I] * 4 + [_P]),
     "axqmm_gated_launch": ("axqmm", [_P] * 8 + [_I] * 5 + [_P]),
     "flash_decode_launch": ("flash_decode", [_P] * 6 + [_I] * 6 + [_F, _P]),
+    "flash_decode_quant_launch": ("flash_decode", [_P] * 9 + [_I] * 5 + [_F, _P]),
     "flash_attention_launch": ("flash_attention",
                                [_P] * 5 + [_I] * 8 + [_LL] * 9 + [_I, _F, _P]),
 }

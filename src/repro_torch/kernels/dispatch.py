@@ -15,12 +15,12 @@ is no silent fallback, and a card other than sm_90 raises in the kernel
 wrapper.
 
 Routers: :func:`prefill_attention` (full-sequence GQA attention, model
-layout), :func:`decode_attention` (one-token decode against a KVCache),
-:func:`axq_matmul` / :func:`axq_gated` (AXQ projections; prepacked weights
-take the quantize-once inference path, float weights a differentiable
-``torch.autograd.Function`` with a kernel forward and a ``qmm_ref`` — or
-straight-through — backward).  ``last_route`` records the backend each call
-site took.
+layout), :func:`decode_attention` (one-token decode against a KVCache or a
+QuantKVCache), :func:`axq_matmul` / :func:`axq_gated` (AXQ projections;
+prepacked weights take the quantize-once inference path, float weights a
+differentiable ``torch.autograd.Function`` with a kernel forward and a
+``qmm_ref`` — or straight-through — backward).  ``last_route`` records
+the backend each call site took.
 
 Runtime degree contract: every router takes the DyFXU degree as a device
 int32 (a global scalar or one element of a per-site vector,
@@ -122,17 +122,19 @@ def decode_attention(q1: Tensor, knew: Tensor, vnew: Tensor, cache, *,
                      window: Optional[int] = None, degree=None, active=None):
     """Single-token decode against the KV cache (updated in place):
     q1 (B, 1, H, D), knew/vnew (B, 1, KVr, D) -> (out (B, 1, H, D), cache).
-    ``degree`` is accepted for the int8 cache, which is not ported yet."""
-    from repro_torch.models.attention import KVCache
+    A :class:`~repro_torch.models.attention.KVCache` takes ``flash_decode``,
+    a ``QuantKVCache`` ``flash_decode_quant``, whose dequantization reads
+    ``degree`` (the layer's site degree, a device int32) by address."""
+    from repro_torch.models.attention import KVCache, QuantKVCache
 
-    if not isinstance(cache, KVCache):
-        raise NotImplementedError(
-            f"decode against {type(cache).__name__} is not ported (bf16/f32 "
-            "KVCache only)")
+    if not isinstance(cache, (KVCache, QuantKVCache)):
+        raise TypeError(f"decode against {type(cache).__name__}: expected a "
+                        "KVCache or QuantKVCache")
     backend = resolved_backend(q1.device)
     _record_route("decode", backend)
     return decode_attn_flash(q1, knew, vnew, cache, window=window,
-                             active=active, plain=backend == "torch")
+                             active=active, degree=degree,
+                             plain=backend == "torch")
 
 
 # ---------------------------------------------------------------------------

@@ -93,22 +93,30 @@ def flash_attention_plain(q: Tensor, k: Tensor, v: Tensor, *,
                           bq: int = 128, bk: int = 128,
                           skip_grid: bool = True) -> tuple[Tensor, int]:
     """Plain version: the same block schedule and online softmax, blockwise
-    in PyTorch.  q, k, v (BH, S, D) -> ((BH, S, D) in q.dtype, steps)."""
+    in PyTorch.  q, k, v (BH, S, D) -> ((BH, S, D) in q.dtype, steps).
+
+    The scores, the softmax and the sums run in float64 on the f32 operands
+    (the scaled q rounded to f32 as in the kernel), and each output row is
+    rounded to f32 once: a row's result then depends neither on the tile
+    width nor on the order the BLAS sums in, so a prompt padded to a longer
+    bucket gives the same bits as at its exact length (masked entries
+    contribute exact zeros)."""
     if q.is_cuda:
         _build.plain_cuda_calls["flash_attention"] += 1
     BH, S, D = q.shape
     kind, blk, n = _plan(S, causal, window, bq, bk, skip_grid)
-    qf = q.to(torch.float32) * (1.0 / math.sqrt(D))
-    kf, vf = k.to(torch.float32), v.to(torch.float32)
+    f64 = torch.float64
+    qf = (q.to(torch.float32) * (1.0 / math.sqrt(D))).to(f64)
+    kf, vf = k.to(f64), v.to(f64)
     out = torch.empty((BH, S, D), dtype=torch.float32, device=q.device)
     steps = 0
     for i in range(n):
         r0, r1 = i * blk, min((i + 1) * blk, S)
         qi = qf[:, r0:r1]
         rows = torch.arange(r0, r1, device=q.device)[:, None]
-        m = torch.full((BH, r1 - r0, 1), NEG_INF, device=q.device)
-        l = torch.zeros((BH, r1 - r0, 1), device=q.device)
-        acc = torch.zeros((BH, r1 - r0, D), device=q.device)
+        m = torch.full((BH, r1 - r0, 1), NEG_INF, dtype=f64, device=q.device)
+        l = torch.zeros((BH, r1 - r0, 1), dtype=f64, device=q.device)
+        acc = torch.zeros((BH, r1 - r0, D), dtype=f64, device=q.device)
         for j in range(i + 1 if kind == "tri" else n):
             steps += BH
             c0, c1 = j * blk, min((j + 1) * blk, S)
@@ -122,7 +130,7 @@ def flash_attention_plain(q: Tensor, k: Tensor, v: Tensor, *,
             l = l * corr + p.sum(dim=-1, keepdim=True)
             m = m_new
             acc = acc * corr + p @ vf[:, c0:c1]
-        out[:, r0:r1] = acc / torch.clamp(l, min=1e-30)
+        out[:, r0:r1] = (acc / torch.clamp(l, min=1e-30)).to(torch.float32)
     return out.to(q.dtype), steps
 
 

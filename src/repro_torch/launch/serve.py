@@ -1,11 +1,16 @@
 """Serving entrypoint: the continuous-batching LM engine on the card.
 
   python -m repro_torch.launch.serve --arch tinyllama-1.1b --approx axq8 --qos --metrics
+  # int8 KV cache, bucketed prefill packed four prompts to a call:
+  REPRO_KV_INT8=1 python -m repro_torch.launch.serve --arch tinyllama-1.1b \
+      --approx axq8 --qos --prefill-buckets auto --pack 4 --metrics
   # the plain PyTorch versions on the host, at smoke size:
   python -m repro_torch.launch.serve --arch tinyllama-1.1b-smoke --device cpu
 
 Weights are random-init from ``--seed``.  ``--qos`` walks the AXQ degree
 ladder ebits 8 -> 5 with load, at a fixed set of kernels.
+``REPRO_KV_INT8=1`` serves from the int8 KV cache (there is no flag for it,
+as in the reference launcher).
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from repro_torch.core.approx import policy_from_flag
 from repro_torch.core.dynamic import QoSController
 from repro_torch.kernels import dispatch as kdispatch
 from repro_torch.models import build_model
+from repro_torch.serve.admission import AdmissionConfig
 from repro_torch.serve.lm import ServeEngine
 from repro_torch.serve.metrics import summarize
 
@@ -43,6 +49,18 @@ def build_parser() -> argparse.ArgumentParser:
                          "auto = the CUDA kernels for tensors on the card)")
     ap.add_argument("--no-prepack", action="store_true",
                     help="keep float weights (per-call weight quantization)")
+    ap.add_argument("--prefill-buckets", default=None, metavar="LIST",
+                    help="bucketed prefill: comma list of ascending prompt-"
+                         "prefix lengths (e.g. 16,32,64,128), or 'auto' for "
+                         "the power-of-two ladder up to max_len; every bucket "
+                         "shape runs once at startup")
+    ap.add_argument("--pack", type=int, default=1, metavar="N",
+                    help="pack up to N short prompts into one bucketed "
+                         "prefill call (each row writes its own slot)")
+    ap.add_argument("--chunk-tokens", type=int, default=0, metavar="C",
+                    help="chunked prefill: split prompts longer than C into "
+                         "C-token chunks admitted across ticks, interleaved "
+                         "with decode (0 = off; bf16/f32 cache only)")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="0 = greedy; > 0 enables categorical sampling")
     ap.add_argument("--top-k", type=int, default=0,
@@ -56,6 +74,20 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     return ap
+
+
+def admission_from_args(args):
+    """AdmissionConfig from the CLI flags, or None when no admission flag
+    is set (the engine then admits each prompt at its exact length).
+    ``--prefill-buckets auto`` derives the power-of-two ladder from the
+    engine's max_len."""
+    if not (args.prefill_buckets or args.pack > 1 or args.chunk_tokens):
+        return None
+    buckets: tuple = ()
+    if args.prefill_buckets and args.prefill_buckets != "auto":
+        buckets = tuple(int(b) for b in args.prefill_buckets.split(","))
+    return AdmissionConfig(buckets=buckets, pack=max(args.pack, 1),
+                           chunk_tokens=args.chunk_tokens)
 
 
 def main(argv=None) -> dict:
@@ -78,7 +110,8 @@ def main(argv=None) -> dict:
     eng = ServeEngine(model, params, slots=args.slots, max_len=args.max_len,
                       eos_id=args.eos_id, greedy=args.temperature <= 0,
                       temperature=max(args.temperature, 1e-6),
-                      top_k=args.top_k, seed=args.seed, qos=qos, prepack=False)
+                      top_k=args.top_k, seed=args.seed, qos=qos, prepack=False,
+                      admission=admission_from_args(args))
     rng = np.random.default_rng(args.seed)
     t0 = time.time()
     for _ in range(args.requests):
@@ -90,13 +123,22 @@ def main(argv=None) -> dict:
     print(f"[launch.serve] {s['requests']} reqs, {s['generated_tokens']} "
           f"generated tokens, {dt:.2f}s ({s.get('gen_tok_per_s', 0.0):.1f} gen "
           f"tok/s) [device={model.device} "
-          f"kernels={kdispatch.resolved_backend(model.device)}]")
+          f"kernels={kdispatch.resolved_backend(model.device)} "
+          f"cache={type(eng.cache).__name__}]")
     if args.metrics:
         for k, v in s.items():
             print(f"[launch.serve]   {k:24s} {v}")
         if qos is not None:
             print(f"[launch.serve]   degree ladder visits: "
                   f"{[e for _, e in list(eng.stats.degree_history)[-8:]]} (last 8)")
+        a = eng.workload.admission
+        if a is not None:
+            st = eng.stats
+            print(f"[launch.serve]   admission: buckets {list(a.buckets)} pack "
+                  f"{a.pack} chunk {a.chunk_tokens}; packed rows "
+                  f"{int(st.c_packed_rows.value)}, chunk calls "
+                  f"{int(st.c_chunk_calls.value)}; call shapes "
+                  f"{eng.workload.trace_counts}")
     return s
 
 

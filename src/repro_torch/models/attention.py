@@ -13,6 +13,10 @@ Layout conventions:
 GQA is computed grouped — q reshaped to (B, S, KVr, G, D) — so repeated KV
 is never materialized.  Unlike the functional reference, the decode paths
 write the new token into the cache in place (the cache is never copied).
+
+Two cache types: :class:`KVCache` (bf16/f32) and :class:`QuantKVCache`
+(int8 codes with per-(token, head) f32 scales, ``REPRO_KV_INT8=1``: half
+the bytes of a bf16 cache to hold and to read on every decode step).
 """
 
 from __future__ import annotations
@@ -123,28 +127,96 @@ class KVCache(NamedTuple):
     length: Tensor     # (B,) int32 — tokens currently in cache
 
 
-def decode_attn(q1: Tensor, knew: Tensor, vnew: Tensor, cache: KVCache, *,
-                window: Optional[int] = None) -> tuple[Tensor, KVCache]:
-    """q1: (B, 1, H, D); knew/vnew: (B, 1, KVr, D).  Writes the new token
-    into the cache in place (a ring buffer of size T for windowed layers,
-    position ``length`` otherwise) and attends over the valid prefix.
-    Returns (out (B, 1, H, D), cache with ``length + 1``)."""
-    B, _, H, D = q1.shape
+class QuantKVCache(NamedTuple):
+    """int8 KV cache with per-(token, head) scales."""
+
+    k: Tensor          # (B, T, KVr, D) int8
+    v: Tensor
+    ks: Tensor         # (B, T, KVr) f32
+    vs: Tensor
+    length: Tensor     # (B,) int32
+
+
+def _q8(x: Tensor):
+    """Per-(token, head) symmetric int8 quantization over the last axis:
+    scale ``max(amax, 1e-30) / 127``, round half to even, clip to ±127.
+    Returns (int8 codes, f32 scales without the last axis); bit-identical
+    to the reference's ``_q8``."""
+    xf = x.to(torch.float32)
+    scale = torch.clamp(xf.abs().amax(dim=-1), min=1e-30) / 127.0
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def init_quant_kv_cache(batch: int, max_len: int, kv_heads: int, head_dim: int,
+                        device="cpu") -> QuantKVCache:
+    shape = (batch, max_len, kv_heads, head_dim)
+    return QuantKVCache(
+        torch.zeros(shape, dtype=torch.int8, device=device),
+        torch.zeros(shape, dtype=torch.int8, device=device),
+        torch.zeros(shape[:3], dtype=torch.float32, device=device),
+        torch.zeros(shape[:3], dtype=torch.float32, device=device),
+        torch.zeros((batch,), dtype=torch.int32, device=device))
+
+
+def write_token(cache, knew: Tensor, vnew: Tensor,
+                window: Optional[int] = None) -> None:
+    """Write each slot's new token K/V (B, 1, KVr, D) into its cache row, in
+    place: row ``length % T`` for a ring (``window <= T``), ``min(length,
+    T - 1)`` otherwise.  The int8 cache stores the token's codes and scales
+    (:func:`_q8`)."""
     T = cache.k.shape[1]
-    kvh = cache.k.shape[2]
     pos = cache.length
     ring = window is not None and window <= T
     slot = torch.remainder(pos, T) if ring else torch.clamp(pos, max=T - 1)
-    bidx = torch.arange(B, device=q1.device)
-    cache.k[bidx, slot] = knew[:, 0].to(cache.k.dtype)
-    cache.v[bidx, slot] = vnew[:, 0].to(cache.v.dtype)
+    bidx = torch.arange(pos.shape[0], device=pos.device)
+    if isinstance(cache, QuantKVCache):
+        kq, ks = _q8(knew[:, 0])
+        vq, vs = _q8(vnew[:, 0])
+        cache.k[bidx, slot] = kq
+        cache.v[bidx, slot] = vq
+        cache.ks[bidx, slot] = ks
+        cache.vs[bidx, slot] = vs
+    else:
+        cache.k[bidx, slot] = knew[:, 0].to(cache.k.dtype)
+        cache.v[bidx, slot] = vnew[:, 0].to(cache.v.dtype)
+
+
+def _attend_cache(q1: Tensor, kf: Tensor, vf: Tensor, length: Tensor) -> Tensor:
+    """Softmax attention of q1 (B, 1, H, D) over the valid prefix of f32
+    keys/values (B, T, KVr, D) -> (B, 1, H, D) in q1.dtype."""
+    B, _, H, D = q1.shape
+    T, kvh = kf.shape[1], kf.shape[2]
     qg = _group_q(q1, kvh)[:, 0]
-    s = torch.einsum("bkgd,btkd->bkgt", qg.to(torch.float32),
-                     cache.k.to(torch.float32)) / math.sqrt(D)
-    n_valid = torch.clamp(pos + 1, max=T)
+    s = torch.einsum("bkgd,btkd->bkgt", qg.to(torch.float32), kf) / math.sqrt(D)
+    n_valid = torch.clamp(length + 1, max=T)
     valid = torch.arange(T, device=q1.device)[None, :] < n_valid[:, None]
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgt,btkd->bkgd", p, cache.v.to(torch.float32))
-    out = out.reshape(B, 1, H, D).to(q1.dtype)
-    return out, KVCache(cache.k, cache.v, pos + 1)
+    out = torch.einsum("bkgt,btkd->bkgd", p, vf)
+    return out.reshape(B, 1, H, D).to(q1.dtype)
+
+
+def decode_attn(q1: Tensor, knew: Tensor, vnew: Tensor, cache: KVCache, *,
+                window: Optional[int] = None) -> tuple[Tensor, KVCache]:
+    """q1: (B, 1, H, D); knew/vnew: (B, 1, KVr, D).  Writes the new token
+    into the cache in place (:func:`write_token`) and attends over the valid
+    prefix.  Returns (out (B, 1, H, D), cache with ``length + 1``)."""
+    write_token(cache, knew, vnew, window)
+    out = _attend_cache(q1, cache.k.to(torch.float32), cache.v.to(torch.float32),
+                        cache.length)
+    return out, KVCache(cache.k, cache.v, cache.length + 1)
+
+
+def decode_attn_quant(q1: Tensor, knew: Tensor, vnew: Tensor,
+                      cache: QuantKVCache, *, window: Optional[int] = None
+                      ) -> tuple[Tensor, QuantKVCache]:
+    """Decode against the int8 cache: quantize the new K/V into it in place,
+    dequantize exactly at attention time (no runtime degree, free slots not
+    zeroed — the reference's jnp path; the kernel route is
+    ``kernels/flash_decode.py``).  Returns (out, cache with ``length + 1``)."""
+    write_token(cache, knew, vnew, window)
+    kf = cache.k.to(torch.float32) * cache.ks[..., None]
+    vf = cache.v.to(torch.float32) * cache.vs[..., None]
+    out = _attend_cache(q1, kf, vf, cache.length)
+    return out, cache._replace(length=cache.length + 1)

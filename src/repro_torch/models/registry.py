@@ -2,8 +2,10 @@
 
     model = build_model(cfg, policy)               # device="cuda" by default
     params = model.init(seed=0)
-    cache = model.init_cache(tp, batch, max_len)
+    cache = model.init_cache(tp, batch, max_len)   # int8 with REPRO_KV_INT8=1
     logits, cache = model.prefill(params, cache, tokens, slot)
+    cache = model.prefill_batch(params, cache, tokens, slots, lengths)
+    cache = model.prefill_chunk(params, cache, tokens, slot, offset, clen)
     logits, cache = model.decode_step(params, cache, tokens)
 
 Every compute entry point takes a runtime ``degree``: None, a global
@@ -12,6 +14,7 @@ scalar, or an ``(n_layers + 1,)`` per-site vector (models/degrees.py).
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -25,9 +28,15 @@ from repro_torch.models import transformer
 
 @dataclass
 class Model:
+    """One arch under one policy on one device: the card unless the caller
+    asks for ``device="cpu"`` (with no card, the default raises)."""
+
     cfg: ArchConfig
     policy: ApproxPolicy = field(default_factory=ApproxPolicy)
-    device: torch.device = field(default_factory=lambda: torch.device("cpu"))
+    device: torch.device | str = "cuda"
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
 
     def init(self, seed: int = 0, tp: int = 1,
              generator: Optional[torch.Generator] = None):
@@ -43,9 +52,13 @@ class Model:
                                       tp, degree)
 
     def init_cache(self, tp: int, batch: int, max_len: int,
-                   dtype=torch.bfloat16):
+                   dtype=torch.bfloat16, quant: Optional[bool] = None):
+        """The decode cache: int8 (:class:`~repro_torch.models.transformer.LMCacheQ`)
+        when ``quant``, or when ``quant`` is None and ``REPRO_KV_INT8=1``."""
+        if quant is None:
+            quant = os.environ.get("REPRO_KV_INT8", "0") == "1"
         return transformer.init_lm_cache(self.cfg, tp, batch, max_len, dtype,
-                                         self.device)
+                                         self.device, quant=quant)
 
     def decode_step(self, params, cache, tokens, tp: int = 1, degree=None,
                     active=None):
@@ -57,6 +70,35 @@ class Model:
         Returns (last-position logits (1, V) f32, cache)."""
         return transformer.lm_prefill(params, self.cfg, self.policy,
                                       cache, tokens, slot, tp, degree)
+
+    def prefill_batch(self, params, cache, tokens, slots, lengths,
+                      tp: int = 1, degree=None):
+        """Bucketed/packed prefill: ``tokens`` (N, Pb) rows padded to one
+        bucket length, written into ``slots`` (N,) with true ``lengths``
+        (N,) — host integers; a row with ``slot >= B`` is a dummy and writes
+        nothing.  Per row equal to :meth:`prefill` at the exact length.
+        Returns the cache."""
+        return transformer.lm_prefill_batch(params, self.cfg, self.policy, cache,
+                                            tokens, slots, lengths, tp, degree)
+
+    def supports_chunked_prefill(self) -> bool:
+        """Chunked prefill serves dense full-attention transformers (no MoE,
+        no sliding window, no frontend)."""
+        c = self.cfg
+        return (c.family not in ("hybrid", "ssm") and not c.moe
+                and c.swa_window is None and c.causal and c.frontend is None)
+
+    def prefill_chunk(self, params, cache, tokens, slot: int, offset: int,
+                      clen: int, tp: int = 1, degree=None):
+        """Incremental prefill of one chunk (``tokens`` (C,), ``clen`` real)
+        at position ``offset`` of ``slot``'s prompt; bf16/f32 caches of the
+        archs :meth:`supports_chunked_prefill` admits.  Returns the cache."""
+        if not self.supports_chunked_prefill():
+            raise ValueError(f"chunked prefill unsupported for {self.cfg.name}")
+        if isinstance(cache, transformer.LMCacheQ):
+            raise ValueError("chunked prefill serves the bf16/f32 cache only")
+        return transformer.lm_prefill_chunk(params, self.cfg, self.policy, cache,
+                                            tokens, slot, offset, clen, tp, degree)
 
     def reset_slot(self, cache, slot):
         from repro_torch.models.cache_ops import cache_reset_slot
@@ -76,4 +118,4 @@ def build_model(cfg: ArchConfig, policy: Optional[ApproxPolicy] = None,
     """A :class:`Model` on ``device`` (the card by default; raises without
     one unless ``device="cpu"``)."""
     transformer.check_supported(cfg)
-    return Model(cfg, policy or ApproxPolicy(), resolve_device(device))
+    return Model(cfg, policy or ApproxPolicy(), device)

@@ -8,6 +8,13 @@ matmuls dispatch through the approximation layer, attention through
 The KV cache is updated in place by prefill and decode (the functional
 reference returns fresh caches): the cache is the largest serving tensor,
 and each entry point returns the same cache object with its new length.
+Two cache types: :class:`LMCache` (bf16/f32) and :class:`LMCacheQ` (int8
+codes with per-(token, head) f32 scales).
+
+Prefill entry points: :func:`lm_prefill` (one prompt at its exact length),
+:func:`lm_prefill_batch` (bucketed/packed rows padded to one length) and
+:func:`lm_prefill_chunk` (one chunk of a long prompt, interleaved with
+decode; bf16/f32 cache only).
 """
 
 from __future__ import annotations
@@ -164,17 +171,57 @@ class LMCache(NamedTuple):
     length: Tensor  # (B,) int32
 
 
+class LMCacheQ(NamedTuple):
+    """int8 cache stack."""
+
+    k: Tensor       # (L, B, T, KVr, D) int8
+    v: Tensor
+    ks: Tensor      # (L, B, T, KVr) f32
+    vs: Tensor
+    length: Tensor  # (B,) int32
+
+
 def init_lm_cache(cfg: ArchConfig, tp: int, batch: int, max_len: int,
-                  dtype=torch.bfloat16, device="cpu") -> LMCache:
+                  dtype=torch.bfloat16, device="cpu", quant: bool = False):
     pd = cfg.padded(tp)
     T = min(max_len, cfg.swa_window) if cfg.swa_window else max_len
     shape = (cfg.n_layers, batch, T, pd.n_kv_rep, cfg.head_dim)
+    length = torch.zeros((batch,), dtype=torch.int32, device=device)
+    if quant:
+        return LMCacheQ(torch.zeros(shape, dtype=torch.int8, device=device),
+                        torch.zeros(shape, dtype=torch.int8, device=device),
+                        torch.zeros(shape[:4], dtype=torch.float32, device=device),
+                        torch.zeros(shape[:4], dtype=torch.float32, device=device),
+                        length)
     return LMCache(torch.zeros(shape, dtype=dtype, device=device),
-                   torch.zeros(shape, dtype=dtype, device=device),
-                   torch.zeros((batch,), dtype=torch.int32, device=device))
+                   torch.zeros(shape, dtype=dtype, device=device), length)
 
 
-def lm_prefill(params, cfg: ArchConfig, policy: ApproxPolicy, cache: LMCache,
+def _layer_cache(cache, i: int):
+    """Layer ``i``'s per-layer view of the stacked cache (no copies)."""
+    if isinstance(cache, LMCacheQ):
+        return attn.QuantKVCache(cache.k[i], cache.v[i], cache.ks[i], cache.vs[i],
+                                 cache.length)
+    return attn.KVCache(cache.k[i], cache.v[i], cache.length)
+
+
+def _write_kv(cache, i: int, slot, dst, k: Tensor, v: Tensor) -> None:
+    """Write K/V rows ``k``/``v`` (..., KVr, D) into layer ``i`` at
+    ``[slot, dst]`` (index tensors or ints), in place; the int8 cache stores
+    their codes and scales."""
+    if isinstance(cache, LMCacheQ):
+        kq, ksc = attn._q8(k)
+        vq, vsc = attn._q8(v)
+        cache.k[i, slot, dst] = kq
+        cache.v[i, slot, dst] = vq
+        cache.ks[i, slot, dst] = ksc
+        cache.vs[i, slot, dst] = vsc
+    else:
+        cache.k[i, slot, dst] = k.to(cache.k.dtype)
+        cache.v[i, slot, dst] = v.to(cache.v.dtype)
+
+
+def lm_prefill(params, cfg: ArchConfig, policy: ApproxPolicy, cache,
                tokens: Tensor, slot, tp: int = 1, degree=None):
     """Fused prefill: run the whole prompt through one forward pass and
     write its KV into ``slot``'s cache region (positions ``0..P-1``,
@@ -197,20 +244,138 @@ def lm_prefill(params, cfg: ArchConfig, policy: ApproxPolicy, cache: LMCache,
         x, (k, v) = block_apply(layer_params(params["layers"], i), x, cfg, tp,
                                 policy, "layer", positions,
                                 None if ldeg is None else ldeg[i], return_kv=True)
-        cache.k[i, slot, dst] = k[0, src].to(cache.k.dtype)
-        cache.v[i, slot, dst] = v[0, src].to(cache.v.dtype)
+        _write_kv(cache, i, slot, dst, k[0, src], v[0, src])
     cache.length[slot] = P
     logits = _head(params, cfg, policy, x[:, -1:], hdeg)
     return logits.to(torch.float32)[:, 0], cache
 
 
-def lm_decode_step(params, cfg: ArchConfig, policy: ApproxPolicy, cache: LMCache,
-                   tokens: Tensor, tp: int = 1, degree=None,
-                   active=None) -> tuple[Tensor, LMCache]:
+def _batch_write_plan(slots, lengths, B: int, T: int, Pb: int, device):
+    """Host-side index plan of a bucketed prefill's cache writes: rows with
+    ``slot < B`` keep the last ``min(length, T)`` of their ``length`` real
+    tokens at ring position ``j % T``.  Dummy rows (``slot >= B``) and pad
+    positions are never indexed (the reference drops them as out-of-bounds
+    scatters; here they are masked out).  Returns (live slots (list), their
+    lengths (list), row, src, slot and dst index tensors on ``device``)."""
+    slots = [int(s) for s in torch.as_tensor(slots).reshape(-1).tolist()]
+    lengths = [int(n) for n in torch.as_tensor(lengths).reshape(-1).tolist()]
+    live, live_len, rows, src, dsl, dst = [], [], [], [], [], []
+    for r, (s, n) in enumerate(zip(slots, lengths)):
+        if not 0 <= s < B:
+            continue
+        if n > Pb:
+            raise ValueError(f"row {r}: length {n} exceeds the bucket ({Pb})")
+        live.append(s)
+        live_len.append(n)
+        for j in range(max(n - T, 0), n):
+            rows.append(r)
+            src.append(j)
+            dsl.append(s)
+            dst.append(j % T)
+    as_t = lambda xs: torch.tensor(xs, dtype=torch.int64).to(device)
+    return live, live_len, as_t(rows), as_t(src), as_t(dsl), as_t(dst)
+
+
+def lm_prefill_batch(params, cfg: ArchConfig, policy: ApproxPolicy, cache,
+                     tokens: Tensor, slots, lengths, tp: int = 1, degree=None):
+    """Bucketed/packed prefill: ``tokens`` (N, Pb) — N prompt rows padded to
+    one bucket length Pb — written into ``slots`` (N,) with true lengths
+    ``lengths`` (N,), in place; each live row's slot region is reset first.
+    ``slots``/``lengths`` are host integers (a list, numpy or a CPU tensor):
+    the write plan is made on the host.
+
+    Per-row results equal :func:`lm_prefill` at the exact length: every op
+    below attention is position-local, and causal attention over a padded
+    suffix leaves the prefix rows untouched.  Rows may be dummies: a row
+    with ``slot >= B`` writes nothing, a row with ``length == 0`` only
+    resets its slot.  Returns the cache (no logits — admission feeds the
+    last prompt token through decode)."""
+    ldeg, _ = split_degree(degree, cfg.n_layers, tokens.device)
+    N, Pb = tokens.shape
+    B, T = cache.k.shape[1], cache.k.shape[2]
+    ring = cfg.swa_window is not None and cfg.swa_window <= T
+    if Pb > T and not ring:
+        raise ValueError(f"bucket ({Pb}) exceeds cache capacity ({T})")
+    live, live_len, rows, src, dsl, dst = _batch_write_plan(
+        slots, lengths, B, T, Pb, tokens.device)
+    for s in live:
+        cache_reset_slot(cache, s)
+    x = L.embed_apply(params["embed"], tokens, _dtype(cfg))          # (N, Pb, d)
+    positions = torch.arange(Pb, dtype=torch.int32,
+                             device=tokens.device)[None].expand(N, Pb)
+    for i in range(cfg.n_layers):
+        x, (k, v) = block_apply(layer_params(params["layers"], i), x, cfg, tp,
+                                policy, "layer", positions,
+                                None if ldeg is None else ldeg[i], return_kv=True)
+        if rows.numel():
+            _write_kv(cache, i, dsl, dst, k[rows, src], v[rows, src])
+    if live:
+        cache.length[torch.tensor(live, device=tokens.device)] = torch.tensor(
+            live_len, dtype=torch.int32, device=tokens.device)
+    return cache
+
+
+def lm_prefill_chunk(params, cfg: ArchConfig, policy: ApproxPolicy,
+                     cache: LMCache, tokens: Tensor, slot: int, offset: int,
+                     clen: int, tp: int = 1, degree=None) -> LMCache:
+    """Incremental prefill of one chunk: ``tokens`` (C,) continues ``slot``'s
+    prompt at position ``offset``, with ``clen <= C`` real tokens (host
+    ints).  The chunk's K/V is written at ``offset + j`` for ``j < clen``
+    (positions past the cache are dropped) and each chunk position attends
+    over the slot's cache rows up to its own position — so long prompts can
+    be admitted across ticks, interleaved with decode.  Dense full-attention
+    bf16/f32 caches only; the adapter gates eligibility.  A ``slot`` outside
+    the cache (a warm-up dummy) attends over a scratch region and writes
+    nothing.  The attention is plain PyTorch, as the reference's is jnp:
+    deterministic, but not bit-exact against one-shot prefill (cache
+    precision, T-length reductions).  Sets ``length[slot] = offset + clen``;
+    returns the cache."""
+    ldeg, _ = split_degree(degree, cfg.n_layers, tokens.device)
+    pd = cfg.padded(tp)
+    C = tokens.shape[0]
+    B, T, kvh = cache.k.shape[1], cache.k.shape[2], cache.k.shape[3]
+    dev = tokens.device
+    live = 0 <= slot < B
+    take = max(min(clen, T - offset), 0)
+    x = L.embed_apply(params["embed"], tokens[None], _dtype(cfg))     # (1, C, d)
+    j = torch.arange(C, dtype=torch.int32, device=dev)
+    positions = (offset + j)[None]                                    # (1, C)
+    qmask = torch.arange(T, device=dev)[None, :] <= (offset + j)[:, None]   # (C, T)
+    for i in range(cfg.n_layers):
+        lp = layer_params(params["layers"], i)
+        dg = None if ldeg is None else ldeg[i]
+        hn = L.rmsnorm_apply(lp["ln1"], x, cfg.norm_eps)
+        q, k, v = _qkv(lp, hn, cfg, pd, policy, "layer", positions, dg)
+        if live:
+            keys, vals = cache.k[i, slot], cache.v[i, slot]           # (T, KVr, D)
+        else:
+            keys = torch.zeros_like(cache.k[i, 0])
+            vals = torch.zeros_like(cache.v[i, 0])
+        keys[offset:offset + take] = k[0, :take].to(keys.dtype)
+        vals[offset:offset + take] = v[0, :take].to(vals.dtype)
+        qg = attn._group_q(q, kvh)                                    # (1, C, KV, G, D)
+        s = torch.einsum("bqkgd,tkd->bkgqt", qg.to(torch.float32),
+                         keys.to(torch.float32)) / math.sqrt(cfg.head_dim)
+        s = torch.where(qmask[None, None, None], s, attn.NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bkgqt,tkd->bqkgd", p, vals.to(torch.float32))
+        o = o.reshape(1, C, pd.n_heads * cfg.head_dim).to(x.dtype)
+        x = L.dense_apply(lp["wo"], o, policy, "layer/wo", dg, residual=x)
+        hn = L.rmsnorm_apply(lp["ln2"], x, cfg.norm_eps)
+        x = L.gated_mlp_apply(lp["mlp"], hn, policy, "layer/mlp", cfg.act,
+                              dg, residual=x)
+    if live:
+        cache.length[slot] = offset + clen
+    return cache
+
+
+def lm_decode_step(params, cfg: ArchConfig, policy: ApproxPolicy, cache,
+                   tokens: Tensor, tp: int = 1, degree=None, active=None):
     """tokens: (B, 1).  One decode step over every slot; the new token's K/V
-    is written into the cache in place.  Returns (logits (B, 1, V) f32, the
-    cache with ``length + 1``).  ``active`` (B,) bool: free-slot mask for
-    the attention kernel."""
+    (its int8 codes and scales for an :class:`LMCacheQ`) is written into the
+    cache in place.  Returns (logits (B, 1, V) f32, the cache with
+    ``length + 1``).  ``active`` (B,) bool: free-slot mask for the attention
+    kernel."""
     ldeg, hdeg = split_degree(degree, cfg.n_layers, tokens.device)
     pd = cfg.padded(tp)
     B = tokens.shape[0]
@@ -221,13 +386,13 @@ def lm_decode_step(params, cfg: ArchConfig, policy: ApproxPolicy, cache: LMCache
         dg = None if ldeg is None else ldeg[i]
         hn = L.rmsnorm_apply(lp["ln1"], x, cfg.norm_eps)
         q, k, v = _qkv(lp, hn, cfg, pd, policy, "layer", positions, dg)
-        lc = attn.KVCache(cache.k[i], cache.v[i], cache.length)
-        o, _ = kdispatch.decode_attention(q, k, v, lc, window=cfg.swa_window,
-                                          degree=dg, active=active)
+        o, _ = kdispatch.decode_attention(q, k, v, _layer_cache(cache, i),
+                                          window=cfg.swa_window, degree=dg,
+                                          active=active)
         o = o.reshape(B, 1, pd.n_heads * cfg.head_dim)
         x = L.dense_apply(lp["wo"], o, policy, "layer/wo", dg, residual=x)
         hn = L.rmsnorm_apply(lp["ln2"], x, cfg.norm_eps)
         x = L.gated_mlp_apply(lp["mlp"], hn, policy, "layer/mlp", cfg.act,
                               dg, residual=x)
     logits = _head(params, cfg, policy, x, hdeg)
-    return logits, LMCache(cache.k, cache.v, cache.length + 1)
+    return logits, cache._replace(length=cache.length + 1)

@@ -15,9 +15,14 @@ serving load (heavy load -> cheaper arithmetic, idle -> exact).  One device
 operand per ladder rung is built at construction, so a rung move swaps a
 reference: no rebuild, no host-to-device copy, no sync.
 
-This port covers the exact-length admission path; the reference's fault
-injection, guards, serving policy, quality tap, tracer, bucketed/packed/
-chunked admission and async emitter are not ported yet.
+With an admission config on the workload (``serve/admission.py``) the
+engine runs the admission pipeline: short prompts pack into bucketed
+prefill calls, long prompts admit chunk by chunk across ticks, interleaved
+with decode (a slot joins the fused step once its prompt is in), every
+admission and step call shape runs once at construction (warmup), and a
+background emitter detokenizes harvested tokens off the tick.  The
+reference's fault injection, guards, serving policy, quality tap and
+tracer are not ported yet.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import torch
 
 from repro_torch.core.dynamic import (QoSController, degree_operand,
                                       degree_record, entry_degree)
+from repro_torch.serve.emitq import AsyncEmitter
 from repro_torch.serve.metrics import EngineStats
 from repro_torch.serve.servable import ServableModel
 
@@ -57,6 +63,8 @@ class Request:
     out: list = field(default_factory=list)
     done: bool = False
     admitted_units: int = 0
+    #: workload read head into the payload (chunked admission progress)
+    cursor: int = 0
     t_enqueue: float = 0.0
     t_admitted: float = 0.0
     t_first_emit: float = 0.0
@@ -93,7 +101,7 @@ class ServeCore:
     def __init__(self, workload: ServableModel, params, *, slots: int = 8,
                  max_len: int = 512, seed: int = 0,
                  qos: Optional[QoSController] = None, degree=None,
-                 prepack: bool = True):
+                 prepack: bool = True, emitter=None):
         self.workload = workload
         self.device = workload.device
         self.params = workload.prepack(params) if prepack else params
@@ -129,6 +137,29 @@ class ServeCore:
         if self._degree is not None:
             self._degree_rec = self.stats.record_degree(
                 -1, self._degree_host, self._site_names)
+        # admission pipeline: None = exact-length admission, one fused
+        # prefill per request
+        self._admission = getattr(workload, "admission", None)
+        self.emitter = None
+        if self._admission is not None and emitter is not False:
+            self.emitter = emitter if emitter is not None else AsyncEmitter()
+        if self._admission is not None and self._admission.warmup:
+            self._warmup()
+
+    def _warmup(self) -> None:
+        """Run every admission call shape and the fused step once before
+        the first request.  The admission calls use dummy rows that write
+        nothing; the step runs on a scratch copy of the state, with a
+        throwaway generator and every slot free, so the live state and the
+        engine's sampling stream stay as they were."""
+        wl = self.workload
+        wl.warmup_admission(self.params, self.state, self._feed, self._degree)
+        scratch = type(self.state)(*(t.clone() for t in self.state))
+        wl.step(self.params, scratch, torch.from_numpy(self._feed).to(self.device),
+                torch.zeros(self.slots, dtype=torch.bool, device=self.device),
+                torch.Generator(device=self.device).manual_seed(0), self._degree)
+        del scratch
+        self.stats.c_warmups.inc()
 
     # ------------------------------------------------------------------
 
@@ -157,6 +188,76 @@ class ServeCore:
         self.slot_budget[slot] = req.budget
         self.stats.c_admitted.inc()
 
+    # ---- admission pipeline (serve/admission.py) ------------------------
+
+    def _chunk_call(self, slot: int, req: Request) -> None:
+        """One chunked-prefill call advancing ``req``'s admission."""
+        self.state, n = self.workload.admit_chunk(self.params, self.state,
+                                                  self._feed, slot, req,
+                                                  self._degree)
+        req.admitted_units += int(n)
+        if n > 0:
+            self.stats.c_admit_units.inc(int(n))
+        self.stats.c_admit_calls.inc()
+        self.stats.c_chunk_calls.inc()
+
+    def _flush_batch(self, pairs: list) -> None:
+        """Admit up to ``pack`` requests in one bucketed prefill call."""
+        if not pairs:
+            return
+        wl = self.workload
+        self.state, ingested = wl.admit_batch(self.params, self.state,
+                                              self._feed, pairs, self._degree)
+        total = 0
+        for (_, req), n in zip(pairs, ingested):
+            req.admitted_units = int(n)
+            total += int(n)
+        if total > 0:
+            self.stats.c_admit_units.inc(total)
+        self.stats.c_admit_calls.inc()
+        if len(pairs) > 1:
+            self.stats.c_packed_rows.inc(len(pairs))
+        bucket = getattr(wl, "last_admit_bucket", None)
+        if bucket is not None:
+            self.stats.c_admit_bucket.labels(bucket=str(bucket)).inc()
+
+    def _admit_pipeline(self) -> None:
+        """Bucketed/packed/chunked admission: first advance mid-admission
+        chunked slots (a bounded number of calls per tick, so long-prompt
+        ingestion interleaves with decode instead of stalling short-request
+        TTFT), then fill free slots — chunked requests take their slot
+        alone, short ones pack into one bucketed prefill call."""
+        wl = self.workload
+        a = self._admission
+        for s in range(self.slots):
+            req = self.slot_req[s]
+            if req is None or wl.admit_complete(req):
+                continue
+            for _ in range(a.chunk_calls_per_tick):
+                self._chunk_call(s, req)
+                if wl.admit_complete(req):
+                    break
+        batch: list = []
+        now = time.time()
+        for s in range(self.slots):
+            if self.slot_req[s] is not None:
+                continue
+            if not self.queue:
+                break
+            req = self.queue.popleft()
+            req.t_admitted = now
+            self.slot_req[s] = req
+            self.slot_budget[s] = req.budget
+            self.stats.c_admitted.inc()
+            if wl.wants_chunked(req):
+                self._chunk_call(s, req)
+            else:
+                batch.append((s, req))
+                if len(batch) >= a.pack:
+                    self._flush_batch(batch)
+                    batch = []
+        self._flush_batch(batch)
+
     def _update_degree(self, n_active: int):
         """Feed the QoS controller a load-headroom signal: overload moves
         the degree down the ladder (cheaper arithmetic), idle capacity back
@@ -176,12 +277,22 @@ class ServeCore:
         update the QoS degree, run ONE fused step over all slots, and
         harvest emissions.  Returns the number of active slots."""
         wl = self.workload
-        for s in range(self.slots):
-            if self.slot_req[s] is None and self.queue:
-                self._admit(s, self.queue.popleft())
-        active = [s for s in range(self.slots) if self.slot_req[s] is not None]
-        if not active:
+        if self._admission is None:
+            for s in range(self.slots):
+                if self.slot_req[s] is None and self.queue:
+                    self._admit(s, self.queue.popleft())
+        else:
+            self._admit_pipeline()
+        busy = [s for s in range(self.slots) if self.slot_req[s] is not None]
+        if not busy:
             return 0
+        # a slot mid-way through chunked admission holds a request but has
+        # no decodable state yet: it stays out of the fused step's mask
+        active = [s for s in busy if wl.admit_complete(self.slot_req[s])]
+        if not active:
+            # admission-only tick: chunk calls progressed, nothing decodes
+            self._ticks += 1
+            return len(busy)
         if self.qos is not None:
             self._update_degree(len(active))
         mask = np.zeros(self.slots, bool)
@@ -202,6 +313,10 @@ class ServeCore:
                 if req.t_first_emit == 0.0:
                     req.t_first_emit = now
                     req.degree_at_first_emit = self._degree_rec
+                if self.emitter is not None:
+                    # detokenize/deliver off-thread: the tick does not wait
+                    # on host-side emit work
+                    self.emitter.push(req, req.out[-1])
                 self.slot_budget[s] -= 1
             if finished or self.slot_budget[s] <= 0:
                 req.done = True
@@ -219,4 +334,6 @@ class ServeCore:
                 and ticks < max_ticks:
             self.tick()
             ticks += 1
+        if self.emitter is not None:
+            self.emitter.flush()
         return self.done

@@ -84,6 +84,20 @@ class EngineStats:
         self.g_degree = r.gauge(
             "repro_degree_ebits", "live approximation degree by plan site",
             labels=("site",))
+        # admission pipeline families; zero-valued unless the engine runs
+        # with an AdmissionConfig
+        self.c_warmups = r.counter(
+            "repro_admission_warmups_total",
+            "warmup passes over the admission + step call shapes")
+        self.c_admit_bucket = r.counter(
+            "repro_prefill_bucket_total",
+            "bucketed prefill flushes by padded length", labels=("bucket",))
+        self.c_packed_rows = r.counter(
+            "repro_packed_rows_total",
+            "prompt rows admitted via multi-row packed prefill calls")
+        self.c_chunk_calls = r.counter(
+            "repro_prefill_chunk_calls_total",
+            "chunked prefill device calls (long-prompt admission)")
         # recent (tick, degrees_tuple) trace — ALWAYS a tuple (a global
         # scalar records as a 1-tuple); bounded so long engines don't leak
         self.degree_history: deque = deque(maxlen=512)

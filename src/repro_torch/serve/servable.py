@@ -63,6 +63,41 @@ class ServableModel:
         """Ingest ``req.payload`` into ``slot``; returns (state, ingested)."""
         raise NotImplementedError
 
+    # ---- bucketed / packed / chunked admission (serve/admission.py) ----
+
+    def admit_batch(self, params, state, feed, pairs, degree):
+        """Admit several requests in one device call: ``pairs`` is a list of
+        ``(slot, req)``.  Returns ``(state, ingested_list)``.  Default:
+        sequential :meth:`admit` calls (no packing win, same semantics)."""
+        ingested = []
+        for slot, req in pairs:
+            state, n = self.admit(params, state, feed, slot, req, degree)
+            ingested.append(n)
+        return state, ingested
+
+    def admit_chunk(self, params, state, feed, slot: int, req, degree):
+        """Advance one chunk of ``req``'s admission into ``slot`` (progress
+        carried in ``req.cursor``).  Returns ``(state, ingested)``."""
+        raise NotImplementedError(f"{type(self).__name__} cannot chunk")
+
+    def admit_complete(self, req) -> bool:
+        """Whether ``req``'s payload is fully ingested — a slot only joins
+        the fused step's batch once this holds."""
+        return True
+
+    def wants_chunked(self, req) -> bool:
+        """Whether this request should admit via :meth:`admit_chunk`."""
+        return False
+
+    def admit_calls(self, req) -> int:
+        """Device calls needed to admit ``req``."""
+        return 1
+
+    def warmup_admission(self, params, state, feed, degree) -> None:
+        """Run every admission call shape (bucket ladder, chunk size) once
+        with dummy rows, so no request meets a new shape after startup.
+        Must leave ``state``/``feed`` as they were.  Default: nothing."""
+
     def step(self, params, state, feed, active, generator, degree):
         """ONE fused step over all slots: (emission (slots,), new_state);
         free slots are masked so their state never advances."""

@@ -59,11 +59,12 @@ def _build_models(dtype: str, approx: str, seed: int):
 
 def degrees(kind):
     """The same runtime degree for both packages: None, a scalar, or a
-    per-site vector (2 layers + head)."""
+    per-site vector (2 layers + head): "vector" is (8, 6, 5), a tuple gives
+    its own entries."""
     if kind is None:
         return None, None
-    if kind == "vector":
-        vals = [8, 6, 5]
+    if kind == "vector" or isinstance(kind, tuple):
+        vals = [8, 6, 5] if kind == "vector" else list(kind)
         return jnp.asarray(vals, jnp.int32), torch.tensor(vals, dtype=torch.int32)
     return jnp.int32(kind), torch.tensor(kind, dtype=torch.int32)
 
@@ -81,34 +82,87 @@ def port_cache(jcache):
 _JITS: dict = {}
 
 
-def run_prefill_decode(dtype, approx, degree_kind, backend):
-    """Prefill a 9-token prompt into slot 1 of a 3-slot cache, then one
-    decode step with slot 0 free, in both packages."""
+def run_prefill_decode(dtype, approx, degree_kind, backend, quant=False):
+    """Prefill a 9-token prompt into slot 1 of a 3-slot cache (bf16, or the
+    int8 cache with ``quant``), then one decode step with slot 0 free, in
+    both packages."""
     jm, jp, tm, tp = models(dtype, approx)
     jdeg, tdeg = degrees(degree_kind)
     rng = np.random.default_rng(5)
     prompt = rng.integers(0, 512, 9).astype(np.int32)
     toks = rng.integers(0, 512, (3, 1)).astype(np.int32)
     active = np.array([False, True, True])
+    fields = ("k", "v", "ks", "vs") if quant else ("k", "v")
     with jax_backend(backend):
         # jitted per (model, route): the scalar degrees share one compile
         key = (id(jm), backend)
         if key not in _JITS:
             _JITS[key] = (jax.jit(jm.prefill), jax.jit(jm.decode_step))
         prefill_j, decode_j = _JITS[key]
-        jc = jm.init_cache(tp=1, batch=3, max_len=32)
+        jc = jm.init_cache(tp=1, batch=3, max_len=32, quant=quant)
         tc = port_cache(jc)
         lj, jc = prefill_j(jp, jc, jnp.asarray(prompt), jnp.int32(1), degree=jdeg)
         lt, tc = tm.prefill(tp, tc, torch.from_numpy(prompt), 1, degree=tdeg)
-        prefill = dict(logits=(to_np(lj), to_np(lt)), k=(to_np(jc.k), to_np(tc.k)),
-                       v=(to_np(jc.v), to_np(tc.v)))
+        prefill = dict(logits=(to_np(lj), to_np(lt)))
+        prefill.update({f: (to_np(getattr(jc, f)), to_np(getattr(tc, f)))
+                        for f in fields})
         lj2, jc2 = decode_j(jp, jc, jnp.asarray(toks), degree=jdeg,
                             active=jnp.asarray(active))
         lt2, tc2 = tm.decode_step(tp, tc, torch.from_numpy(toks).long(),
                                   degree=tdeg, active=torch.from_numpy(active))
     live = np.flatnonzero(active)
-    decode = dict(logits=(to_np(lj2)[live], to_np(lt2)[live]),
-                  k=(to_np(jc2.k)[:, live], to_np(tc2.k)[:, live]),
-                  v=(to_np(jc2.v)[:, live], to_np(tc2.v)[:, live]))
+    decode = dict(logits=(to_np(lj2)[live], to_np(lt2)[live]))
+    decode.update({f: (to_np(getattr(jc2, f))[:, live], to_np(getattr(tc2, f))[:, live])
+                   for f in fields})
     assert to_np(tc2.length).tolist() == to_np(jc2.length).tolist()
     return prefill, decode
+
+
+class MarginRecorder:
+    """Wraps a port model: keeps the top-2 logit margin of the last decode
+    step per slot, so a harvested token can be paired with its margin."""
+
+    def __init__(self, model):
+        self._model = model
+        self.last = None
+
+    def __getattr__(self, name):
+        return getattr(self._model, name)
+
+    def decode_step(self, *a, **kw):
+        logits, cache = self._model.decode_step(*a, **kw)
+        top2 = torch.topk(logits[:, 0, :self._model.cfg.vocab].float(), 2).values
+        self.last = (top2[:, 0] - top2[:, 1]).tolist()
+        return logits, cache
+
+
+def record_margins(engine) -> dict:
+    """Wrap a port engine's model and harvest so that every harvested token
+    is paired with its step's top-2 margin: {(rid, token index): margin}."""
+    rec = MarginRecorder(engine.workload.model)
+    engine.workload.model = rec
+    margins: dict = {}
+    harvest = engine.workload.harvest
+
+    def harvest_and_note(req, feed, slot, emission):
+        margins[(req.rid, len(req.out))] = rec.last[slot]
+        return harvest(req, feed, slot, emission)
+
+    engine.workload.harvest = harvest_and_note
+    return margins
+
+
+def compare_streams(jreqs, treqs, margins, new_tokens, tol):
+    """Token streams of the two engines' requests: equal, except that a
+    token where the port's top-2 margin is below ``tol`` is a near-tie (the
+    two packages round differently), which ends the comparison of that
+    request.  Returns the near-ties as (rid, token index)."""
+    near_ties = []
+    for jr, tr in zip(jreqs, treqs):
+        assert len(tr.out_tokens) == len(jr.out_tokens) == new_tokens
+        for t, (a, b) in enumerate(zip(jr.out_tokens, tr.out_tokens)):
+            if a != b:
+                assert margins[(tr.rid, t)] < tol, (tr.rid, t, a, b)
+                near_ties.append((tr.rid, t))
+                break
+    return near_ties

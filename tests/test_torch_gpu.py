@@ -7,7 +7,8 @@ reference in tests/test_torch_kernels.py.
 Tolerances: the GEMMs rtol 1e-5 / atol 1e-4 (the qmm oracle tolerance; the
 kernels were observed bit-identical), the f32 attention kernels the same
 on f32 inputs, the decode kernel 1e-4 on a bf16 cache (f32 sums in another
-order)."""
+order), the int8-cache decode kernel 1e-5 abs (the reference's kernel-vs-
+jnp tolerance)."""
 import math
 
 import pytest
@@ -78,6 +79,28 @@ def test_gpu_flash_kernels_match_plain(hopper):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("ebits,T", [(8, 300), (5, 300), (6, 135)])
+def test_gpu_flash_decode_quant_matches_plain(hopper, ebits, T):
+    g = torch.Generator(device=hopper).manual_seed(ebits * 1000 + T)
+    B, KVr, G, D = 4, 4, 8, 64
+    qg = torch.randn(B, KVr, G, D, generator=g, device=hopper)
+    k = torch.randint(-127, 128, (B, T, KVr, D), generator=g, device=hopper).to(torch.int8)
+    v = torch.randint(-127, 128, (B, T, KVr, D), generator=g, device=hopper).to(torch.int8)
+    ks = torch.rand(B, T, KVr, generator=g, device=hopper) * 0.02 + 1e-3
+    vs = torch.rand(B, T, KVr, generator=g, device=hopper) * 0.02 + 1e-3
+    nv = torch.tensor([1, T // 2 + 1, T, 33], dtype=torch.int32, device=hopper)
+    act = torch.tensor([1, 1, 0, 1], dtype=torch.int32, device=hopper)
+    e = torch.tensor([8, ebits], dtype=torch.int32, device=hopper)[1]   # a vector element
+    before = _build.launches["flash_decode_quant"]
+    o = tfd.flash_decode_quant(qg, k, ks, v, vs, nv, act, e)
+    torch.cuda.synchronize()
+    assert _build.launches["flash_decode_quant"] == before + 1
+    torch.testing.assert_close(o, tfd.flash_decode_quant_plain(qg, k, ks, v, vs, nv, act, e),
+                               rtol=0, atol=1e-5)
+    assert (o[2] == 0).all()
+
+
+@pytest.mark.gpu
 def test_gpu_wrappers_refuse_bad_operands(hopper):
     x = torch.randn(4, 512, device=hopper)
     pw = tprepack(torch.randn(512, 64, device=hopper), 256)
@@ -85,3 +108,11 @@ def test_gpu_wrappers_refuse_bad_operands(hopper):
         taxq.axqmm_packed(x, pw, torch.tensor(8, device=hopper))     # int64 degree
     with pytest.raises(ValueError):
         taxq.axqmm_packed(x, tprepack(torch.randn(512, 64, device=hopper), 32))
+    q = torch.zeros(2, 2, 4, 64, device=hopper)
+    k8 = torch.zeros(2, 16, 2, 64, dtype=torch.int8, device=hopper)
+    s8 = torch.ones(2, 16, 2, device=hopper)
+    n = torch.ones(2, dtype=torch.int32, device=hopper)
+    with pytest.raises(ValueError):                                   # bf16 codes
+        tfd.flash_decode_quant(q, k8.bfloat16(), s8, k8, s8, n, n)
+    with pytest.raises(ValueError):                                   # int64 lengths
+        tfd.flash_decode_quant(q, k8, s8, k8, s8, n.long(), n)

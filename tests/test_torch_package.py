@@ -89,6 +89,20 @@ def test_entry_points_need_a_card_unless_cpu(monkeypatch):
     assert s["requests"] == 3 and s["generated_tokens"] == 6
 
 
+def test_model_without_a_card_raises_unless_cpu(monkeypatch):
+    """A ``Model`` built directly runs on the card by default: with no card
+    it raises instead of quietly running on the host; device="cpu" runs."""
+    from repro_torch.models.registry import Model
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tget_config("tinyllama-1.1b-smoke")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Model(cfg)
+    m = Model(cfg, device="cpu")
+    assert m.device == torch.device("cpu")
+    assert m.init_cache(1, 1, 8).k.device.type == "cpu"
+
+
 def test_cuda_backend_refuses_cpu_tensors():
     """REPRO_TORCH_KERNELS=cuda never runs a plain version silently."""
     from repro_torch.kernels import dispatch

@@ -30,24 +30,6 @@ PROMPT_LENS = (5, 9, 5, 9, 5)
 NEW_TOKENS = 6
 
 
-class _MarginRecorder:
-    """Wraps the port model: keeps the top-2 margin of the last decode step
-    per slot, so a harvested token can be paired with its margin."""
-
-    def __init__(self, model):
-        self._model = model
-        self.last = None
-
-    def __getattr__(self, name):
-        return getattr(self._model, name)
-
-    def decode_step(self, *a, **kw):
-        logits, cache = self._model.decode_step(*a, **kw)
-        top2 = torch.topk(logits[:, 0, :self._model.cfg.vocab].float(), 2).values
-        self.last = (top2[:, 0] - top2[:, 1]).tolist()
-        return logits, cache
-
-
 def _ladder():
     return dict(ladder=[{"ebits": 8}, {"ebits": 6}], low_water=0.25,
                 high_water=0.75, cooldown_steps=2)
@@ -64,28 +46,12 @@ def test_engine_token_streams_match_reference():
         jeng.run_until_drained()
 
     teng = TServeEngine(tm, tp, slots=2, max_len=32, qos=TQoS(**_ladder()))
-    rec = _MarginRecorder(tm)
-    teng.workload.model = rec
-    margins: dict = {}
-    harvest = teng.workload.harvest
-
-    def harvest_and_note(req, feed, slot, emission):
-        margins[(req.rid, len(req.out))] = rec.last[slot]
-        return harvest(req, feed, slot, emission)
-
-    teng.workload.harvest = harvest_and_note
+    margins = P.record_margins(teng)
     treqs = [teng.submit(p, NEW_TOKENS) for p in prompts]
     teng.run_until_drained()
 
     assert [r.done for r in treqs] == [True] * len(prompts)
-    near_ties = []
-    for jr, tr in zip(jreqs, treqs):
-        assert len(tr.out_tokens) == len(jr.out_tokens) == NEW_TOKENS
-        for t, (a, b) in enumerate(zip(jr.out_tokens, tr.out_tokens)):
-            if a != b:
-                assert margins[(tr.rid, t)] < LOGIT_TOL, (tr.rid, t, a, b)
-                near_ties.append((tr.rid, t))
-                break
+    near_ties = P.compare_streams(jreqs, treqs, margins, NEW_TOKENS, LOGIT_TOL)
     # the QoS controller walked the same rungs in both engines
     jdeg = [d for _, d in jeng.stats.degree_history]
     tdeg = [d for _, d in teng.stats.degree_history]
