@@ -9,9 +9,11 @@ Phases (any failure exits non-zero):
   1. the card (nvidia-smi name and power limit) and the kernel build
      (nvcc for sm_90a from kernels/csrc, with the -Xptxas -v lines);
   2. each hand-written kernel against its plain PyTorch version on the same
-     seeded inputs at the serving paths' full-width tinyllama-1.1b shapes,
-     with the stated tolerance, timed with CUDA events beside its bound
-     and, where one PyTorch call computes the same function, that call;
+     seeded inputs at the serving paths' full-width shapes (tinyllama-1.1b
+     for the LM kernels; the stream tick's planes and the Ch. 7 bench
+     layouts for the PR product), with the stated tolerance, timed with
+     CUDA events beside its bound and, where one PyTorch call computes the
+     same function, that call;
   3. the serving paths, each with the launch counts set to 0 just before
      it and read just after: tinyllama-1.1b (random weights from a seeded
      CUDA generator) under axq8 with the QoS ladder 8 -> 5, prepacked,
@@ -21,9 +23,14 @@ Phases (any failure exits non-zero):
            every bucket shape first; no new call shape after it);
        3c  the bf16 cache with bucketed, packed and chunked admission,
            long prompts among short ones;
+     and the streaming DSP workload at its StreamConfig() widths —
+       3d  a backlog of clips (FIR -> 3x3 blur -> gain on the PR
+           multiplier) on 64 slots with the per-site QoS ladder 8 -> 5,
+           every frame bit-identical to a second run of the same traffic
+           through the plain versions on the card;
      every request must finish and every kernel of the path must have
-     launched exactly as the layer count predicts, while no plain version
-     ran on the card;
+     launched exactly as the layer (or stage) count predicts, while no
+     plain version ran on the card;
   4. the same model cut to 2 layers (one prefill and 4 greedy decode
      steps), on the bf16 and on the int8 cache: every kernel call checked
      against its plain version on the model's own inputs, the logits of a
@@ -67,7 +74,12 @@ SOURCES = {
                            "src/repro/kernels/flash_decode.py:109"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:117"),
+    "pr_multiply": ("src/repro_torch/kernels/csrc/axmult_elem.cu",
+                    "src/repro/kernels/axmult_elem.py:28"),
 }
+
+#: the row keys that name a phase-2 shape
+SHAPE_KEYS = ("M", "N", "K", "B", "T", "BH", "S", "ebits", "shape")
 
 
 def say(msg: str) -> None:
@@ -118,6 +130,36 @@ class Timer:
         end.record()
         end.synchronize()
         return start.elapsed_time(end) / iters
+
+    def graph(self, fn, n: int, reps: int = 5):
+        """Device time of one ``fn(i)`` call: ``n`` calls captured in one
+        CUDA graph and replayed, so the host's per-call work (the wrapper's
+        checks, the ctypes call) is not in the time — for kernels shorter
+        than their launch."""
+        if not self.on_card:
+            fn(0)
+            return None
+        torch = self.torch
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for i in range(3):
+                fn(i)
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for i in range(n):
+                fn(i)
+        g.replay()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            g.replay()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / (reps * n)
 
 
 def copies(make, nbytes: int, on_card: bool) -> list:
@@ -338,6 +380,52 @@ def check_prefill(ctx, BH, S, D, H, KVr):
     return row
 
 
+#: the PR product's knobs in phase 2: the (p, r) of these degrees (read from
+#: a device vector element, as the stream engine passes them) and raw (p, r)
+#: pairs as benchmarks/bench_dsp.py sweeps them
+PR_DEGREES = (8, 7, 6, 5, 4, 0)
+PR_RAW = ((1, 4), (2, 8), (3, 8))
+
+
+def check_pr_multiply(ctx, shape, what):
+    torch, dev, timer = ctx["torch"], ctx["dev"], ctx["timer"]
+    import numpy as np
+
+    from repro_torch.kernels import axmult_elem as PR
+    from repro_torch.kernels import dsp
+
+    numel = math.prod(shape)
+    rng = np.random.default_rng(6000 + len(shape) + numel % 997)
+    a, b = (torch.from_numpy(rng.integers(-2**15, 2**15, shape, dtype=np.int32)).to(dev)
+            for _ in range(2))
+    degrees = torch.tensor(PR_DEGREES, dtype=torch.int32, device=dev)
+    knobs = [dsp.degree_to_pr(degrees[i]) for i in range(len(PR_DEGREES))] + list(PR_RAW)
+    err = 0
+    for pr in knobs:
+        y = PR.pr_multiply(a, b, pr)
+        yp = PR.pr_multiply_plain(a, b, pr)
+        ctx["sync"]()
+        err = max(err, int((y.to(torch.int64) - yp.to(torch.int64)).abs().max()))
+    row = {"shape": list(shape), "what": what, "numel": numel,
+           "knobs": [f"degree {e}" for e in PR_DEGREES] + [f"(p, r) = {k}" for k in PR_RAW],
+           "max_abs_err": err, "tol": "exact (0)", "ok": err == 0}
+    # timed at degree 5's (1, 6): ``ms`` the kernel alone (CUDA-graph replay
+    # of launches on rotating inputs), ``wrapper_ms`` the eager wrapper call
+    pr5 = knobs[PR_DEGREES.index(5)]
+    ops = copies(lambda: (a.clone(), b.clone()), 8 * numel, ctx["on_card"])
+    if ctx["on_card"]:
+        row["ms"] = timer.graph(lambda i: PR.pr_multiply(*ops[i % len(ops)], pr5),
+                                max(len(ops), 20))
+        row["wrapper_ms"] = timer(lambda i: PR.pr_multiply(*ops[i % len(ops)], pr5))
+        row["plain_ms"] = timer(lambda i: PR.pr_multiply_plain(*ops[i % len(ops)], pr5),
+                                iters=10)
+        row["library_ms"] = None
+        row["library_call"] = "none: no PyTorch call computes a PR product"
+    # two int32 reads and one int32 write per element
+    row["bound_ms"], row["bound_by"] = bound(12 * numel, 0, INT8_OPS)
+    return row
+
+
 def phase_kernels(ctx, cfg):
     """Phase 2: every kernel against its plain version."""
     torch = ctx["torch"]
@@ -346,7 +434,7 @@ def phase_kernels(ctx, cfg):
     deg = torch.tensor(6, dtype=torch.int32, device=ctx["dev"])
     slots, prompt = ctx["slots"], ctx["prefill_m"]
     rows = {"axqmm": [], "axqmm_gated": [], "flash_decode": [], "flash_decode_quant": [],
-            "flash_attention": []}
+            "flash_attention": [], "pr_multiply": []}
     for M in (slots, prompt):
         for N, K, res in ((qd, d, False), (kvd, d, False), (d, qd, True),
                           (d, dff, True)):
@@ -372,9 +460,11 @@ def phase_kernels(ctx, cfg):
     for BH, S in ((4 * cfg.n_heads, T // 2), (cfg.n_heads, T)):
         rows["flash_attention"].append(check_prefill(ctx, BH, S, D, cfg.n_heads,
                                                      cfg.n_kv_heads))
+    for shape, what in ctx["pr_shapes"]:
+        rows["pr_multiply"].append(check_pr_multiply(ctx, shape, what))
     for name, rs in rows.items():
         for r in rs:
-            shape = {k: r[k] for k in r if k in ("M", "N", "K", "B", "T", "BH", "S", "ebits")}
+            shape = {k: r[k] for k in r if k in SHAPE_KEYS}
             say(f"{name} {shape}: max_err={r['max_abs_err']:.3g} ({r['tol']}) "
                 f"kernel_ms={r.get('ms')} plain_ms={r.get('plain_ms')} "
                 f"library_ms={r.get('library_ms')} bound_ms={r['bound_ms']:.4g} "
@@ -549,7 +639,8 @@ def phase_serve(ctx, cfg, model, params):
     steps, prefills, L = eng.stats.decode_steps, eng.stats.prefill_calls, cfg.n_layers
     check_launches(ctx, "phase 3", seen, {
         "axqmm": (5 * L + 1) * (steps + prefills), "axqmm_gated": L * (steps + prefills),
-        "flash_decode": L * steps, "flash_decode_quant": 0, "flash_attention": L * prefills})
+        "flash_decode": L * steps, "flash_decode_quant": 0, "flash_attention": L * prefills,
+        "pr_multiply": 0})
     out = serve_summary(ctx, "phase 3 (exact admission, bf16 cache)", eng, reqs, seen,
                         wbytes / HBM_BPS * 1e3)
     out.update(arch=cfg.name, new_tokens=ctx["new_tokens"], prompt_range=[lo, hi],
@@ -581,7 +672,8 @@ def phase_serve_int8(ctx, cfg, model, params, prompts):
     steps, calls, L = eng.stats.decode_steps, eng.stats.prefill_calls, cfg.n_layers
     check_launches(ctx, "phase 3b", seen, {
         "axqmm": (5 * L + 1) * steps + 5 * L * calls, "axqmm_gated": L * (steps + calls),
-        "flash_decode": 0, "flash_decode_quant": L * steps, "flash_attention": L * calls})
+        "flash_decode": 0, "flash_decode_quant": L * steps, "flash_attention": L * calls,
+        "pr_multiply": 0})
     out = serve_summary(ctx, "phase 3b (int8 cache, buckets, pack 4)", eng, reqs, seen,
                         packed_bytes(params) / HBM_BPS * 1e3)
     bf16 = init_lm_cache(cfg, 1, ctx["slots"], ctx["max_len"], device="meta")
@@ -621,7 +713,7 @@ def phase_serve_chunked(ctx, cfg, model, params):
     check_launches(ctx, "phase 3c", seen, {
         "axqmm": (5 * L + 1) * steps + 5 * L * (flushes + chunks),
         "axqmm_gated": L * (steps + flushes + chunks), "flash_decode": L * steps,
-        "flash_decode_quant": 0, "flash_attention": L * flushes})
+        "flash_decode_quant": 0, "flash_attention": L * flushes, "pr_multiply": 0})
     out = serve_summary(ctx, "phase 3c (bf16 cache, buckets, pack 4, chunks)", eng, reqs,
                         seen, packed_bytes(params) / HBM_BPS * 1e3)
     short = [r.ttft * 1e3 for i, r in enumerate(reqs) if i not in long_at]
@@ -636,6 +728,196 @@ def phase_serve_chunked(ctx, cfg, model, params):
         f"{seen['interleaved_ticks']} ticks with both a chunk call and a decode step; "
         f"short-request TTFT p50 {out['short_ttft_p50_ms']} ms p95 "
         f"{out['short_ttft_p95_ms']} ms; long-request TTFT p50 {out['long_ttft_p50_ms']} ms")
+    return out
+
+
+def _stream_engine(ctx, cfg):
+    """A stream engine on the card with the per-site QoS ladder [e] * 3,
+    e = 8 -> 5 (as ``launch.serve --workload stream --qos`` builds it)."""
+    from repro_torch.core.dynamic import QoSController
+    from repro_torch.serve.stream import StreamAdapter, StreamServeEngine
+
+    qos = QoSController(ladder=[{"degrees": [e] * (cfg.n_layers + 1)} for e in (8, 7, 6, 5)],
+                        low_water=0.25, high_water=0.75, cooldown_steps=8)
+    return StreamServeEngine(StreamAdapter(cfg, device=ctx["dev"]), slots=ctx["stream_slots"],
+                             qos=qos)
+
+
+def _serve_clips(ctx, cfg, clips, backend):
+    """Serve ``clips`` (all submitted at t = 0) on a fresh engine through
+    ``backend``, with every launch count set to 0 just before and read just
+    after.  Returns the engine, the requests and what was seen."""
+    torch = ctx["torch"]
+    from repro_torch.kernels import _build
+
+    with _backend(backend):
+        warm = _stream_engine(ctx, cfg)               # allocator, first launches
+        warm.submit(clips[0][:2])
+        warm.run_until_drained()
+        del warm
+        eng = _stream_engine(ctx, cfg)
+        ctx["sync"]()
+        _build.reset_counts()
+        base = 0
+        if ctx["on_card"]:
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        st = eng.stats
+        t0 = time.time()
+        reqs = [eng.submit(c) for c in clips]
+        step_ticks, ticks = [], 0
+        max_ticks = 4 * sum(len(c) for c in clips)
+        while eng.queue or any(r is not None for r in eng.slot_req):
+            require(ticks < max_ticks, f"the stream engine did not drain within {max_ticks} ticks")
+            before = (st.admitted, st.decode_steps)
+            t = time.time()
+            eng.tick()                           # a step tick ends in a device->host read
+            dt = time.time() - t
+            ticks += 1
+            if st.decode_steps != before[1] and st.admitted == before[0]:
+                step_ticks.append(dt)
+        ctx["sync"]()
+        wall = time.time() - t0
+    seen = {"wall_s": wall, "ticks": ticks, "step_ticks": step_ticks,
+            "launches": dict(_build.launches), "plain": dict(_build.plain_cuda_calls),
+            "max_memory_allocated": (torch.cuda.max_memory_allocated()
+                                     if ctx["on_card"] else None),
+            "memory_allocated_before": base if ctx["on_card"] else None}
+    return eng, reqs, seen
+
+
+def _profile_ticks(ctx, cfg, clips, n):
+    """Device time inside ``n`` steady stream ticks (every slot busy), from
+    a ``torch.profiler`` trace: the kernels' summed device time per tick
+    against the tick's host wall time, and the largest kernels by name."""
+    torch = ctx["torch"]
+    from torch.profiler import ProfilerActivity, profile
+
+    eng = _stream_engine(ctx, cfg)
+    for c in clips[:ctx["stream_slots"]]:
+        eng.submit(c)
+    for _ in range(2):                        # admission tick + one more
+        eng.tick()
+    ctx["sync"]()
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if ctx["on_card"] else [])
+    with profile(activities=acts) as prof:
+        t = time.time()
+        for _ in range(n):
+            eng.tick()
+        ctx["sync"]()
+        wall = time.time() - t
+    # the device-side events only: an operator's own entry repeats its
+    # kernels' device time
+    rows = [(e.key, e.count, e.self_device_time_total) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    dev_us = sum(r[2] for r in rows)
+    top = sorted(rows, key=lambda r: -r[2])[:6]
+    return {"ticks": n, "tick_wall_ms": 1e3 * wall / n, "device_us_per_tick": dev_us / n,
+            "device_busy_share": dev_us * 1e-6 / wall if wall > 0 else None,
+            "top_kernels": [{"name": k, "calls": c, "device_us": t} for k, c, t in top]}
+
+
+def phase_stream(ctx):
+    """Phase 3d: the streaming DSP workload at the repo's StreamConfig()
+    widths (256-sample frames, 8 FIR taps, 16x16 tiles, Q12): a backlog of
+    clips on ``stream_slots`` slots with the QoS ladder 8 -> 5 over the three
+    sites.  One ``pr_multiply`` launch per stage, three per tick; the frames
+    and the degree history must equal a second run of the same traffic
+    through the plain versions on the card.  Then the whole-clip forward's
+    PSNR against the exact pipeline at uniform degrees 8..4."""
+    torch, dev = ctx["torch"], ctx["dev"]
+    import numpy as np
+
+    from repro_torch.core.error_analysis import psnr_db
+    from repro_torch.kernels import _build
+    from repro_torch.serve.metrics import summarize
+    from repro_torch.serve.stream import StreamAdapter, StreamConfig, make_clip
+
+    cfg = StreamConfig()
+    slots, n_clips, n_frames = ctx["stream_slots"], ctx["stream_clips"], ctx["stream_frames"]
+    clips = [make_clip(n_frames, cfg.frame, q=cfg.q, seed=i) for i in range(n_clips)]
+    kernels = "cuda" if ctx["on_card"] else "auto"
+    eng, reqs, seen = _serve_clips(ctx, cfg, clips, kernels)
+    require(all(r.done and len(r.out) == n_frames for r in reqs),
+            f"phase 3d: a clip did not return all {n_frames} frames")
+    steps = eng.stats.decode_steps
+    expect = dict.fromkeys(_build.KERNELS, 0)
+    expect["pr_multiply"] = 3 * steps
+    check_launches(ctx, "phase 3d", seen, expect)
+    hist = [(t, tuple(d)) for t, d in eng.stats.degree_history]
+    rungs = sorted({d for _, d in hist})
+    require(len(rungs) > 1, f"phase 3d: the QoS degree never moved: {rungs}")
+    peng, preqs, pseen = _serve_clips(ctx, cfg, clips, "torch")
+    require([(t, tuple(d)) for t, d in peng.stats.degree_history] == hist,
+            "phase 3d: the plain run's degree history differs from the kernel run's")
+    same = all(len(r.out) == len(q.out) and all(np.array_equal(x, y) for x, y in
+                                                 zip(r.out, q.out))
+               for r, q in zip(reqs, preqs))
+    require(same, "phase 3d: the kernel run's frames differ from the plain run's")
+
+    s = summarize(reqs, eng.stats, wall_s=seen["wall_s"])
+    frames = sum(len(r.out) for r in reqs)
+    dts = seen["step_ticks"]
+    tick_bound = 18 * slots * cfg.frame * 12 / HBM_BPS * 1e3
+    out = {"config": dataclasses.asdict(cfg), "slots": slots, "clips": n_clips,
+           "frames_per_clip": n_frames, "frames": frames, "wall_s": seen["wall_s"],
+           "frames_per_s": frames / seen["wall_s"], "ticks": seen["ticks"],
+           "step_ticks": steps, "tick_ms_mean": 1e3 * sum(dts) / max(len(dts), 1),
+           "ticks_timed": len(dts), "tick_bound_ms": tick_bound,
+           "ttff_p50_ms": s["ttft_p50_ms"], "ttff_p95_ms": s["ttft_p95_ms"],
+           "e2e_p50_ms": s["e2e_p50_ms"], "e2e_p95_ms": s["e2e_p95_ms"],
+           "degree_rungs_visited": [list(r) for r in rungs],
+           "degree_at_first_frame": s.get("degree_at_first_token"),
+           "launches": seen["launches"], "max_memory_allocated": seen["max_memory_allocated"],
+           "memory_allocated_before": seen["memory_allocated_before"],
+           "plain_run": {"wall_s": pseen["wall_s"], "frames_per_s": frames / pseen["wall_s"],
+                         "tick_ms_mean": 1e3 * sum(pseen["step_ticks"])
+                         / max(len(pseen["step_ticks"]), 1)},
+           "frames_bit_identical_to_plain": same}
+    say(f"phase 3d (stream, {slots} slots, {n_clips} clips x {n_frames} frames): "
+        f"{frames} frames in {seen['wall_s']:.3f} s ({out['frames_per_s']:.1f} frames/s; "
+        f"plain versions {out['plain_run']['frames_per_s']:.1f}); tick "
+        f"{out['tick_ms_mean']:.4f} ms over {len(dts)} ticks vs bound {tick_bound:.4g} ms; "
+        f"TTFF p50 {s['ttft_p50_ms']} ms p95 {s['ttft_p95_ms']} ms; e2e p50 "
+        f"{s['e2e_p50_ms']} ms p95 {s['e2e_p95_ms']} ms; rungs {rungs}; "
+        f"max_memory_allocated {out['max_memory_allocated']} (before the run "
+        f"{out['memory_allocated_before']}); frames bit-identical to "
+        f"the plain run: {same}")
+
+    # whole-clip forward against the exact pipeline (outside the counted run)
+    ad = StreamAdapter(cfg, device=dev)
+    params = ad.init_params()
+    batch = {"frames": np.stack([make_clip(ctx["psnr_frames"], cfg.frame, q=cfg.q, seed=i)
+                                 for i in range(ctx["psnr_clips"])])}
+    with _backend(kernels):
+        exact, _ = ad.forward(params, batch, None)
+    psnr = {}
+    for e in (8, 7, 6, 5, 4):
+        deg = torch.tensor([e] * (cfg.n_layers + 1), dtype=torch.int32, device=dev)
+        with _backend(kernels):
+            yk, _ = ad.forward(params, batch, deg)
+        with _backend("torch"):
+            yp, _ = ad.forward(params, batch, deg)
+        require(bool(torch.equal(yk, yp)),
+                f"phase 3d: forward at degree {e}: kernel and plain differ")
+        require(bool(torch.isfinite(yk).all()) and tuple(yk.shape) == tuple(exact.shape),
+                f"phase 3d: forward at degree {e}: non-finite or misshapen output")
+        psnr[e] = psnr_db(exact.cpu().numpy(), yk.cpu().numpy())
+    require(bool(torch.equal(exact, ad.forward(params, batch, torch.full(
+        (3,), 8, dtype=torch.int32, device=dev))[0])), "phase 3d: degree 8 is not exact")
+    out["forward_psnr_db"] = psnr
+    with _backend(kernels):
+        out["profile"] = prof = _profile_ticks(ctx, cfg, clips,
+                                               min(16, n_frames - 2))
+    say(f"phase 3d: profiled {prof['ticks']} steady ticks: {prof['tick_wall_ms']:.4f} ms "
+        f"wall per tick, {prof['device_us_per_tick']:.2f} us of device kernel time per "
+        f"tick (busy share {prof['device_busy_share']}); largest: "
+        + "; ".join(f"{r['name'][:60]} x{r['calls']} {r['device_us']:.1f} us"
+                    for r in prof["top_kernels"]))
+    say(f"phase 3d: forward PSNR vs the exact pipeline ({ctx['psnr_clips']} clips x "
+        f"{ctx['psnr_frames']} frames), kernel == plain bit for bit: "
+        + ", ".join(f"degree {e}: {v:.3f} dB" for e, v in psnr.items()))
     return out
 
 
@@ -926,7 +1208,16 @@ def main(argv=None) -> int:
                "new_tokens": 32, "prompt_range": (64, 512),
                "chunk_tokens": 256, "max_len_chunked": 1056, "n_long": 4,
                "long_range": (700, 1000), "n_short": 12, "short_range": (64, 200),
-               "padded_lens": (20, 60, 255, 500)}
+               "padded_lens": (20, 60, 255, 500),
+               "stream_slots": 64, "stream_clips": 256, "stream_frames": 32,
+               "psnr_clips": 4, "psnr_frames": 8,
+               "pr_shapes": (((8, 64, 256), "stream tick: FIR planes, 64 slots"),
+                             ((9, 64, 256), "stream tick: 3x3 blur planes"),
+                             ((1, 64, 256), "stream tick: 1x1 gain plane"),
+                             ((32, 4064), "Ch. 7: 32-tap FIR over 4096 samples"),
+                             ((25, 1, 128, 128), "Ch. 7: 5x5 blur on 128x128"),
+                             ((1_000_003,), "ragged"),
+                             ((1 << 24,), "flat 2^24"))}
         cfg = get_config("tinyllama-1.1b")
     else:
         torch.set_num_threads(4)
@@ -937,7 +1228,14 @@ def main(argv=None) -> int:
                "new_tokens": 4, "prompt_range": (8, 40),
                "chunk_tokens": 16, "max_len_chunked": 64, "n_long": 2,
                "long_range": (40, 56), "n_short": 4, "short_range": (8, 20),
-               "padded_lens": (3, 9, 20, 37)}
+               "padded_lens": (3, 9, 20, 37),
+               "stream_slots": 4, "stream_clips": 6, "stream_frames": 4,
+               "psnr_clips": 2, "psnr_frames": 3,
+               "pr_shapes": (((8, 4, 256), "stream tick: FIR planes, 4 slots"),
+                             ((9, 4, 256), "stream tick: 3x3 blur planes"),
+                             ((1, 4, 256), "stream tick: 1x1 gain plane"),
+                             ((32, 4064), "Ch. 7: 32-tap FIR over 4096 samples"),
+                             ((1003,), "ragged"))}
         cfg = get_config("tinyllama-1.1b-smoke")
     ctx["timer"] = Timer(torch, on_card)
 
@@ -954,10 +1252,11 @@ def main(argv=None) -> int:
     del model, params
     if on_card:
         torch.cuda.empty_cache()
+    record["stream_path"] = phase_stream(ctx)
     record["model_2layer"] = phase_model(ctx, cfg)
 
     paths = {"3": record["main_path"], "3b": record["int8_cache_path"],
-             "3c": record["chunked_path"]}
+             "3c": record["chunked_path"], "3d": record["stream_path"]}
     summary = []
     for name, rows in record["kernels"].items():
         src, replaces = SOURCES[name]
@@ -972,8 +1271,7 @@ def main(argv=None) -> int:
             "ms": lead.get("ms"), "plain_ms": lead.get("plain_ms"),
             "bound_ms": lead["bound_ms"], "bound_by": lead["bound_by"],
             "library_ms": lead.get("library_ms"),
-            "shape": {k: lead[k] for k in lead
-                      if k in ("M", "N", "K", "B", "T", "BH", "S", "ebits")},
+            "shape": {k: lead[k] for k in lead if k in SHAPE_KEYS},
         })
     record["summary"] = summary
     write_record(args.record, record)

@@ -36,11 +36,13 @@ SOURCES = {
     "axqmm": "axqmm.cu",
     "flash_decode": "flash_decode.cu",
     "flash_attention": "flash_attention.cu",
+    "axmult_elem": "axmult_elem.cu",
 }
-#: the kernels of the serving path (two live in axqmm.cu, two in
-#: flash_decode.cu)
+#: the kernels of the serving paths (two live in axqmm.cu, two in
+#: flash_decode.cu; pr_multiply, in axmult_elem.cu, serves the stream
+#: workload)
 KERNELS = ("axqmm", "axqmm_gated", "flash_decode", "flash_decode_quant",
-           "flash_attention")
+           "flash_attention", "pr_multiply")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -58,6 +60,7 @@ SIGNATURES = {
     "flash_decode_quant_launch": ("flash_decode", [_P] * 9 + [_I] * 5 + [_F, _P]),
     "flash_attention_launch": ("flash_attention",
                                [_P] * 5 + [_I] * 8 + [_LL] * 9 + [_I, _F, _P]),
+    "pr_multiply_launch": ("axmult_elem", [_P] * 4 + [_LL, _I, _P]),
 }
 
 launches = dict.fromkeys(KERNELS, 0)
@@ -196,7 +199,8 @@ def expect(t: torch.Tensor, name: str, dtype, device, shape=None,
 
 
 @functools.lru_cache(maxsize=64)
-def _const_i32(value: int, device: str) -> torch.Tensor:
+def _const_i32(value, device: str) -> torch.Tensor:
+    """A cached int32 device constant: a scalar, or a vector for a tuple."""
     return torch.tensor(value, dtype=torch.int32, device=device)
 
 
@@ -213,3 +217,19 @@ def degree_ptr(ebits, device: torch.device) -> torch.Tensor:
                              f"{ebits.dtype} on {ebits.device}")
         return ebits
     return _const_i32(int(ebits), str(device))
+
+
+def pr_operand(pr, device: torch.device) -> torch.Tensor:
+    """The device ``int32[2]`` the PR kernel reads (p, r) from.  A tensor
+    pair (``dsp.degree_to_pr`` of a device degree) is used in place — its
+    address is passed, nothing is copied or synced; a pair of Python ints
+    (raw sweep knobs) maps to a cached constant on the device."""
+    if isinstance(pr, torch.Tensor):
+        if tuple(pr.shape) != (2,) or pr.dtype != torch.int32 or pr.device != device:
+            raise ValueError(f"(p, r) operand must be int32[2] on {device}, got "
+                             f"{pr.dtype}{tuple(pr.shape)} on {pr.device}")
+        if not pr.is_contiguous():
+            raise ValueError("(p, r) operand must be contiguous")
+        return pr
+    p, r = pr
+    return _const_i32((int(p), int(r)), str(device))

@@ -19,8 +19,10 @@ layout), :func:`decode_attention` (one-token decode against a KVCache or a
 QuantKVCache), :func:`axq_matmul` / :func:`axq_gated` (AXQ projections;
 prepacked weights take the quantize-once inference path, float weights a
 differentiable ``torch.autograd.Function`` with a kernel forward and a
-``qmm_ref`` — or straight-through — backward).  ``last_route`` records
-the backend each call site took.
+``qmm_ref`` — or straight-through — backward), :func:`fir` /
+:func:`conv2d` / :func:`fir_approx` (the Ch. 7 DSP cores on the PR
+multiplier kernel).  ``last_route`` records the backend each call site
+took.
 
 Runtime degree contract: every router takes the DyFXU degree as a device
 int32 (a global scalar or one element of a per-site vector,
@@ -240,3 +242,120 @@ def axq_gated(x2: Tensor, w_up, w_gate, *, act: str = "silu",
     blk = resolve_block(x2.shape[-1], block)
     return _AxqGated.apply(x2, w_up.to(torch.float32), w_gate.to(torch.float32),
                            ebits, blk, act, backend == "torch", ste)
+
+
+# ---------------------------------------------------------------------------
+# DSP routing (approximate FIR / conv2d — the Ch. 7 accelerators)
+# ---------------------------------------------------------------------------
+
+
+def _pr_knobs(degree, p, r, device) -> Tensor:
+    """Resolve the PR knobs to the (p, r) operand the kernel reads: either
+    a ladder ``degree`` (effective bits, mapped on the device by
+    ``dsp.degree_to_pr``) or explicit raw integer (p, r) — not both."""
+    from repro_torch.kernels import dsp as _dsp
+
+    if degree is not None:
+        if p is not None or r is not None:
+            raise ValueError("pass either degree= or explicit p=/r=, not both")
+        return _dsp.degree_to_pr(degree, device=device)
+    return (0 if p is None else int(p), 0 if r is None else int(r))
+
+
+def fir(x, taps, *, tail=None, degree=None, p=None, r=None, n: int = 16,
+        shift: int = 0):
+    """Approximate-FIR router (DyFXU PR datapath): the ``pr_multiply``
+    kernel or its plain version, selected like every other site
+    (``REPRO_TORCH_KERNELS`` / :func:`set_backend`, by the tensors'
+    device), recorded under ``last_route["fir"]``.
+
+    Two call modes (int32 operands; the float/differentiable entry is
+    :func:`fir_approx`):
+
+    * offline / valid-mode (``tail=None``): ``x`` is a whole (L,) signal;
+      host-side int64 accumulation (arbitrary Q14 operands), returns a
+      numpy (L - T,) array.  Benchmarks and examples.
+    * streaming (``tail`` given): ``x`` (B, L) frame batch, ``tail``
+      (B, T-1) carried history; int32 accumulation (taps l1 norm <=
+      ``2**shift``), returns ``(y, new_tail)``.  The serve engine.
+
+    ``degree`` is the ladder knob (None = exact, a device int32 = runtime
+    rung); raw (p, r) may be passed instead for sweep-style benches."""
+    from repro_torch.kernels import dsp as _dsp
+
+    x = torch.as_tensor(x)
+    backend = resolved_backend(x.device)
+    _record_route("fir", backend)
+    pr = _pr_knobs(degree, p, r, x.device)
+    if tail is None:
+        return _dsp.fir_valid(x, taps, pr, n=n, plain=backend == "torch")
+    return _dsp.fir_frames(x, tail, taps, pr, n=n, shift=shift,
+                           plain=backend == "torch")
+
+
+def conv2d(img, kern, *, degree=None, p=None, r=None, n: int = 16,
+           shift: int = 0, pad: str = "zero"):
+    """Approximate-conv2d router (same-size 2D correlation on the PR
+    datapath): img (B, H, W) int32, kern (kh, kw) int32 with l1 norm <=
+    ``2**shift``; recorded under ``last_route["conv2d"]``.  Same
+    degree/knob contract as :func:`fir`."""
+    from repro_torch.kernels import dsp as _dsp
+
+    img = torch.as_tensor(img)
+    backend = resolved_backend(img.device)
+    _record_route("conv2d", backend)
+    pr = _pr_knobs(degree, p, r, img.device)
+    return _dsp.conv2d_pr(img, kern, pr, n=n, shift=shift, pad=pad,
+                          plain=backend == "torch")
+
+
+class _FirApprox(torch.autograd.Function):
+    """Differentiable float FIR core: quantize -> PR streaming FIR (kernel
+    or plain) -> dequantize forward; the exact-correlation straight-through
+    backward (the PR bit surgery is piecewise-constant).  The integer
+    knobs get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, t, pr, q, n, plain):
+        from repro_torch.kernels import dsp as _dsp
+
+        scale = float(1 << q)
+        lim = float((1 << (n - 1)) - 1)
+        xq = torch.clamp(torch.round(x * scale), -lim, lim).to(torch.int32)
+        tq = torch.clamp(torch.round(t * scale), -lim, lim).to(torch.int32)
+        tail = torch.zeros((x.shape[0], t.shape[0] - 1), dtype=torch.int32,
+                           device=x.device)
+        y, _ = _dsp.fir_frames(xq, tail, tq, pr, n=n, shift=0, plain=plain)
+        ctx.save_for_backward(x, t)
+        return y.to(torch.float32) / (scale * scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, t = ctx.saved_tensors
+        with torch.enable_grad():
+            xx = x.detach().requires_grad_()
+            tt = t.detach().requires_grad_()
+            dx, dt = torch.autograd.grad(_fir_exact(xx, tt), (xx, tt), g)
+        return dx, dt, None, None, None, None
+
+
+def _fir_exact(x: Tensor, t: Tensor) -> Tensor:
+    """Exact zero-history causal correlation ``y[b, l] = sum_i t[i] *
+    x[b, l + i - (T - 1)]`` in float."""
+    T = t.shape[0]
+    ext = torch.cat([x.new_zeros((x.shape[0], T - 1)), x], dim=1)
+    win = torch.stack([ext[:, i:i + x.shape[1]] for i in range(T)])
+    return torch.einsum("i,ibl->bl", t, win)
+
+
+def fir_approx(x: Tensor, taps: Tensor, *, degree=None, q: int = 12,
+               n: int = 16) -> Tensor:
+    """Differentiable float FIR entry: x (B, L) f32 in ~[-1, 1], taps (T,)
+    f32 with |l1| <~ 1 (so Q-``q`` products fit int32 lanes).  Zero-history
+    causal filtering; forward runs the int PR datapath, backward is the
+    exact correlation (STE)."""
+    backend = resolved_backend(x.device)
+    _record_route("fir", backend)
+    pr = _pr_knobs(degree, None, None, x.device)
+    return _FirApprox.apply(x.to(torch.float32), taps.to(torch.float32), pr, q,
+                            n, backend == "torch")

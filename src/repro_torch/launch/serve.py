@@ -1,4 +1,4 @@
-"""Serving entrypoint: the continuous-batching LM engine on the card.
+"""Serving entrypoint: the continuous-batching engine on the card.
 
   python -m repro_torch.launch.serve --arch tinyllama-1.1b --approx axq8 --qos --metrics
   # int8 KV cache, bucketed prefill packed four prompts to a call:
@@ -6,9 +6,14 @@
       --approx axq8 --qos --prefill-buckets auto --pack 4 --metrics
   # the plain PyTorch versions on the host, at smoke size:
   python -m repro_torch.launch.serve --arch tinyllama-1.1b-smoke --device cpu
+  # the streaming DSP workload (FIR -> blur -> gain on the PR multiplier):
+  python -m repro_torch.launch.serve --workload stream --qos --metrics
 
 Weights are random-init from ``--seed``.  ``--qos`` walks the AXQ degree
-ladder ebits 8 -> 5 with load, at a fixed set of kernels.
+ladder ebits 8 -> 5 with load, at a fixed set of kernels (the stream
+workload: the per-site ladder [e] * 3 for e = 8 -> 5; its weights are the
+deterministic ``serve.stream.default_params`` and its clips ``make_clip``
+from seeds 0 .. requests - 1).
 ``REPRO_KV_INT8=1`` serves from the int8 KV cache (there is no flag for it,
 as in the reference launcher).
 """
@@ -32,6 +37,11 @@ from repro_torch.serve.metrics import summarize
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--workload", default="lm", choices=("lm", "stream"),
+                    help="lm: token decode; stream: frame clips through the "
+                         "approximate FIR/conv pipeline")
+    ap.add_argument("--frames", type=int, default=8,
+                    help="frames per clip (stream workload)")
     ap.add_argument("--arch", default="tinyllama-1.1b-smoke")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--slots", type=int, default=4)
@@ -90,9 +100,43 @@ def admission_from_args(args):
                            chunk_tokens=args.chunk_tokens)
 
 
+def serve_stream(args) -> dict:
+    """--workload stream: frame clips through the DSP/vision pipeline."""
+    from repro_torch.serve.stream import (StreamAdapter, StreamServeEngine,
+                                          make_clip)
+
+    adapter = StreamAdapter(device=args.device)
+    cfg = adapter.cfg
+    qos = QoSController(
+        ladder=[{"degrees": [e] * (cfg.n_layers + 1)} for e in (8, 7, 6, 5)],
+        low_water=0.25, high_water=0.75, cooldown_steps=8,
+    ) if args.qos else None
+    eng = StreamServeEngine(adapter, slots=args.slots, seed=args.seed, qos=qos)
+    t0 = time.time()
+    for i in range(args.requests):
+        eng.submit(make_clip(args.frames, cfg.frame, q=cfg.q, seed=i))
+    done = eng.run_until_drained()
+    dt = time.time() - t0
+    frames = sum(len(r.out) for r in done)
+    print(f"[launch.serve] stream: {len(done)} clips, {frames} frames, "
+          f"{dt:.2f}s ({frames / max(dt, 1e-9):.1f} frames/s) "
+          f"[device={adapter.device} "
+          f"kernels={kdispatch.resolved_backend(adapter.device)}]")
+    s = summarize(done, eng.stats, wall_s=dt)
+    if args.metrics:
+        for k, v in s.items():
+            print(f"[launch.serve]   {k:24s} {v}")
+        if qos is not None:
+            print(f"[launch.serve]   degree ladder visits: "
+                  f"{[e for _, e in list(eng.stats.degree_history)[-8:]]} (last 8)")
+    return s
+
+
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
     kdispatch.set_backend(args.kernels)
+    if args.workload == "stream":
+        return serve_stream(args)
     cfg = get_config(args.arch)
     try:
         policy = policy_from_flag(args.approx, dynamic=args.qos)

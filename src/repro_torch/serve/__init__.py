@@ -1,1 +1,2 @@
-"""Continuous-batching serving of the port (LM workload)."""
+"""Continuous-batching serving of the port (the LM workload and the
+streaming DSP workload)."""

@@ -8,14 +8,18 @@ Tolerances: the GEMMs rtol 1e-5 / atol 1e-4 (the qmm oracle tolerance; the
 kernels were observed bit-identical), the f32 attention kernels the same
 on f32 inputs, the decode kernel 1e-4 on a bf16 cache (f32 sums in another
 order), the int8-cache decode kernel 1e-5 abs (the reference's kernel-vs-
-jnp tolerance)."""
+jnp tolerance), the PR product exactly (integer bit math)."""
 import math
+
+import numpy as np
 
 import pytest
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import axmult_elem as tpr
 from repro_torch.kernels import axqmm as taxq
+from repro_torch.kernels import dsp as tdsp
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import flash_decode as tfd
 from repro_torch.kernels.qstore import prepack_weight as tprepack
@@ -116,3 +120,33 @@ def test_gpu_wrappers_refuse_bad_operands(hopper):
         tfd.flash_decode_quant(q, k8.bfloat16(), s8, k8, s8, n, n)
     with pytest.raises(ValueError):                                   # int64 lengths
         tfd.flash_decode_quant(q, k8, s8, k8, s8, n.long(), n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("numel", [3, 1001, 4 * 4096, 3 * 4096 + 7, 1 << 20])
+def test_gpu_pr_multiply_matches_plain(hopper, numel):
+    """Bit-exact against the plain version at ragged and aligned sizes, at
+    the (p, r) of every degree (read from a device vector element, as the
+    stream engine passes it) and at raw knobs; an operand offset by one
+    lane takes the scalar path.  The wrapper refuses int64, non-contiguous
+    and CPU operands."""
+    rng = np.random.default_rng(numel)
+    a = torch.from_numpy(rng.integers(-2**15, 2**15, numel + 1).astype(np.int32)).to(hopper)
+    b = torch.from_numpy(rng.integers(-2**15, 2**15, numel + 1).astype(np.int32)).to(hopper)
+    degrees = torch.tensor(list(range(9)), dtype=torch.int32, device=hopper)
+    knobs = [tdsp.degree_to_pr(degrees[e]) for e in range(9)] + [(1, 4), (2, 8), (3, 8)]
+    for pr in knobs:
+        for x, y in ((a[:numel], b[:numel]), (a[1:], b[1:])):     # aligned, offset
+            before = _build.launches["pr_multiply"]
+            out = tpr.pr_multiply(x, y, pr)
+            torch.cuda.synchronize()
+            assert _build.launches["pr_multiply"] == before + 1
+            assert torch.equal(out, tpr.pr_multiply_plain(x, y, pr))
+    with pytest.raises(ValueError):
+        tpr.pr_multiply(a.long(), b.long(), (1, 2))
+    with pytest.raises(ValueError):
+        tpr.pr_multiply(a[::2], b[::2], (1, 2))
+    with pytest.raises(ValueError):
+        tpr.pr_multiply(a, b.cpu(), (1, 2))
+    with pytest.raises(ValueError):
+        tpr.pr_multiply(a, b, torch.tensor([1, 2], dtype=torch.int32))     # CPU knobs
