@@ -79,7 +79,7 @@ SOURCES = {
 }
 
 #: the row keys that name a phase-2 shape
-SHAPE_KEYS = ("M", "N", "K", "B", "T", "BH", "S", "ebits", "shape")
+SHAPE_KEYS = ("M", "N", "K", "B", "T", "BH", "S", "D", "window", "ebits", "shape")
 
 
 def say(msg: str) -> None:
@@ -380,6 +380,68 @@ def check_prefill(ctx, BH, S, D, H, KVr):
     return row
 
 
+def check_band(ctx, B, H, KVr, D, S, W):
+    """The ``band`` schedule at the sliding-window arch's shapes: grouped
+    (B, S, H, D) queries over (B, S, KVr, D) keys/values, window ``W``.  The
+    in-kernel step count must equal ``planned_grid_steps``, ``band`` must
+    equal ``dense`` under the same window bit for bit, and the grouped
+    entry the flat one on repeated K/V."""
+    torch, dev, timer = ctx["torch"], ctx["dev"], ctx["timer"]
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as FA
+
+    dt = ctx["dtype"]
+    G, BH = H // KVr, B * H
+    gen = torch.Generator(device=dev).manual_seed(4500 + S)
+    q = torch.randn(B, S, H, D, generator=gen, device=dev).to(dt)
+    k = torch.randn(B, S, KVr, D, generator=gen, device=dev).to(dt)
+    v = torch.randn(B, S, KVr, D, generator=gen, device=dev).to(dt)
+    flat = lambda t: t.transpose(1, 2).reshape(B * t.shape[2], S, D)
+    qf, kf, vf = flat(q), flat(k.repeat_interleave(G, 2)), flat(v.repeat_interleave(G, 2))
+    y, steps = FA.flash_attention(qf, kf, vf, causal=True, window=W, return_steps=True)
+    yd, steps_d = FA.flash_attention(qf, kf, vf, causal=True, window=W, skip_grid=False,
+                                     return_steps=True)
+    yg = FA.flash_attention_grouped(q, k, v, causal=True, window=W)
+    yp, steps_p = FA.flash_attention_plain(qf, kf, vf, causal=True, window=W)
+    ctx["sync"]()
+    steps, steps_d = int(steps), int(steps_d)
+    planned = FA.planned_grid_steps(BH, S, window=W)
+    planned_d = FA.planned_grid_steps(BH, S, window=W, skip_grid=False)
+    require(steps == planned == steps_p,
+            f"band steps {steps} (plain {steps_p}) != planned {planned}")
+    require(steps_d == planned_d, f"dense steps {steps_d} != planned {planned_d}")
+    require(bool(torch.equal(y, yd)), "band and dense (same window) are not bit-identical")
+    require(bool(torch.equal(flat(yg), y)), "grouped and flat band entries disagree")
+    err = float((y.float() - yp.float()).abs().max())
+    ok = bool(torch.allclose(y.float(), yp.float(), rtol=0, atol=1 / 64))
+    _, blk, n, band, _ = FA._plan(S, True, W, 128, 128, True)
+    row = {"BH": BH, "S": S, "D": D, "window": W, "grouped": f"{H}/{KVr}",
+           "schedule": "band", "dtype": str(dt), "blk": blk, "band": band,
+           "steps": steps, "planned_steps": planned, "dense_steps": steps_d,
+           "max_abs_err": err, "tol": "atol 1/64 (one bf16 ulp at |o| < 4)", "ok": ok}
+    per = 2 * B * S * (H + KVr) * D * q.element_size()
+    qkv = copies(lambda: (q.clone(), k.clone(), v.clone()), per, ctx["on_card"])
+    if ctx["on_card"]:
+        row["ms"] = timer(lambda i: FA.flash_attention_grouped(*qkv[i % len(qkv)],
+                                                               causal=True, window=W),
+                          iters=10, warmup=2)
+        row["plain_ms"] = timer(lambda i: FA.flash_attention_plain(
+            qf, kf, vf, causal=True, window=W), iters=2, warmup=1)
+        ii = torch.arange(S, device=dev)
+        mask = (ii[None, :] <= ii[:, None]) & (ii[None, :] > ii[:, None] - W)
+        row["library_ms"] = timer(lambda i: F.scaled_dot_product_attention(
+            *(t.transpose(1, 2) for t in qkv[i % len(qkv)]), attn_mask=mask,
+            enable_gqa=True), iters=10, warmup=2)
+        row["library_call"] = ("F.scaled_dot_product_attention(causal-and-window bool "
+                               "mask, enable_gqa=True)")
+    # the (row, col) pairs the mask keeps: min(r + 1, W) for row r
+    pairs = sum(min(r + 1, W) for r in range(S))
+    row["bound_ms"], row["bound_by"] = bound(per, 4.0 * B * H * D * pairs, BF16_FLOPS)
+    row["scheduled_flops"] = 4.0 * BH * n * band * blk * blk * D
+    return row
+
+
 #: the PR product's knobs in phase 2: the (p, r) of these degrees (read from
 #: a device vector element, as the stream engine passes them) and raw (p, r)
 #: pairs as benchmarks/bench_dsp.py sweeps them
@@ -462,15 +524,54 @@ def phase_kernels(ctx, cfg):
                                                      cfg.n_kv_heads))
     for shape, what in ctx["pr_shapes"]:
         rows["pr_multiply"].append(check_pr_multiply(ctx, shape, what))
+    report_rows(rows)
+    return rows
+
+
+def report_rows(rows, tag: str = "") -> None:
     for name, rs in rows.items():
         for r in rs:
             shape = {k: r[k] for k in r if k in SHAPE_KEYS}
-            say(f"{name} {shape}: max_err={r['max_abs_err']:.3g} ({r['tol']}) "
+            say(f"{tag}{name} {shape}: max_err={r['max_abs_err']:.3g} ({r['tol']}) "
                 f"kernel_ms={r.get('ms')} plain_ms={r.get('plain_ms')} "
                 f"library_ms={r.get('library_ms')} bound_ms={r['bound_ms']:.4g} "
                 f"({r['bound_by']})")
-            require(r["ok"], f"{name} {shape} disagrees with its plain version: "
+            require(r["ok"], f"{tag}{name} {shape} disagrees with its plain version: "
                              f"max_abs_err {r['max_abs_err']}")
+
+
+def phase_kernels_swa(ctx, cfg):
+    """Phase 2, sliding-window rows: every kernel of the window arch's path
+    at its full-width shapes (h2o-danube-1.8b: d_model 2560, 32/8 heads,
+    head_dim 80, d_ff 6912, window 4096; a full ring at decode)."""
+    torch = ctx["torch"]
+    d, dff, V, W = cfg.d_model, cfg.d_ff, cfg.vocab, cfg.swa_window
+    D, H, KVr = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    deg = torch.tensor(6, dtype=torch.int32, device=ctx["dev"])
+    slots, prompt = ctx["slots"], ctx["prefill_m"]
+    rows = {"axqmm": [], "axqmm_gated": [], "flash_decode": [], "flash_decode_quant": [],
+            "flash_attention": []}
+    for M in (slots, prompt):
+        for N, K, res in ((H * D, d, False), (KVr * D, d, False), (d, H * D, True),
+                          (d, dff, True)):
+            rows["axqmm"].append(check_axqmm(ctx, M, N, K, res, deg))
+    rows["axqmm"].append(check_axqmm(ctx, slots, V, d, False, deg))
+    for M in (slots, prompt):
+        rows["axqmm_gated"].append(check_gated(ctx, M, dff, d, deg))
+    T = min(ctx["swa_max_len"], W)                   # the ring
+    nvalid = [T] * slots                            # every slot has wrapped
+    active = [1] * slots
+    active[slots // 2 + 1] = 0                      # one freed slot
+    rows["flash_decode"].append(check_decode(ctx, slots, KVr, H // KVr, D, T, nvalid,
+                                             active))
+    for e in (8, 5):
+        rows["flash_decode_quant"].append(check_decode_quant(
+            ctx, slots, KVr, H // KVr, D, T, nvalid, active, e))
+    for S in ctx["swa_band_lens"]:
+        rows["flash_attention"].append(check_band(ctx, 1, H, KVr, D, S, W))
+    # the largest bucket (S = T <= window: the tri schedule)
+    rows["flash_attention"].append(check_prefill(ctx, H, T, D, H, KVr))
+    report_rows(rows, f"{cfg.name}: ")
     return rows
 
 
@@ -564,6 +665,7 @@ def drive(ctx, eng, prompts, new_tokens):
             "a request finished without all its tokens")
     seen = {"wall_s": wall, "ticks": ticks, "decode_ticks": decode_ticks,
             "interleaved_ticks": interleaved, "launches": dict(_build.launches),
+            "flash_schedules": dict(_build.flash_schedules),
             "plain": dict(_build.plain_cuda_calls),
             "max_memory_allocated": (torch.cuda.max_memory_allocated()
                                      if ctx["on_card"] else None)}
@@ -607,7 +709,8 @@ def serve_summary(ctx, label, eng, reqs, seen, tick_bound_ms):
         "ttft_p50_ms": s["ttft_p50_ms"], "ttft_p95_ms": s["ttft_p95_ms"],
         "tpot_p50_ms": s["tpot_p50_ms"], "degree_rungs_visited": rungs,
         "degree_at_first_token": s.get("degree_at_first_token"),
-        "launches": seen["launches"], "max_memory_allocated": seen["max_memory_allocated"],
+        "launches": seen["launches"], "flash_schedules": seen["flash_schedules"],
+        "max_memory_allocated": seen["max_memory_allocated"],
         "cache": type(eng.cache).__name__, "cache_bytes": cache_bytes(eng.cache),
     }
     say(f"{label}: {len(reqs)} requests, {out['generated_tokens']} tokens in "
@@ -728,6 +831,177 @@ def phase_serve_chunked(ctx, cfg, model, params):
         f"{seen['interleaved_ticks']} ticks with both a chunk call and a decode step; "
         f"short-request TTFT p50 {out['short_ttft_p50_ms']} ms p95 "
         f"{out['short_ttft_p95_ms']} ms; long-request TTFT p50 {out['long_ttft_p50_ms']} ms")
+    return out
+
+
+def swa_prompts(ctx, cfg):
+    """Phase 3e/3f traffic, all submitted at t = 0: ``swa_n_long`` prompts
+    longer than the window (the ``band`` schedule at prefill), one prompt
+    just under the ring whose decode wraps it, and short ones, shuffled
+    from a seed.  Returns (prompts, kinds)."""
+    import numpy as np
+
+    rng = np.random.default_rng(14)
+    (llo, lhi), (slo, shi) = ctx["swa_long_range"], ctx["swa_short_range"]
+    lens = ([("long", int(rng.integers(llo, lhi + 1))) for _ in range(ctx["swa_n_long"] - 1)]
+            + [("long", lhi), ("wrap", ctx["swa_wrap_len"])]
+            + [("short", int(rng.integers(slo, shi + 1)))
+               for _ in range(ctx["swa_n_short"])])
+    order = rng.permutation(len(lens))
+    kinds = [lens[i][0] for i in order]
+    prompts = [rng.integers(0, cfg.vocab, lens[i][1]) for i in order]
+    return prompts, kinds
+
+
+@contextlib.contextmanager
+def _timed_prefills(ctx, eng, log):
+    """Time every exact-length prefill call (synchronised before and
+    after) into ``log`` as (prompt prefix length, seconds)."""
+    model = eng.workload.model
+    orig = model.prefill
+
+    def prefill(params, cache, toks, *a, **kw):
+        ctx["sync"]()
+        t = time.time()
+        out = orig(params, cache, toks, *a, **kw)
+        ctx["sync"]()
+        log.append((int(toks.shape[0]), time.time() - t))
+        return out
+
+    model.prefill = prefill
+    try:
+        yield
+    finally:
+        del model.prefill
+
+
+def _swa_summary(ctx, label, eng, reqs, seen, kinds, prefills, tick_bound_ms):
+    import numpy as np
+
+    out = serve_summary(ctx, label, eng, reqs, seen, tick_bound_ms)
+    pct = lambda xs, q: float(np.percentile(xs, q)) if xs else None
+    ttft = {k: [r.ttft * 1e3 for r, kk in zip(reqs, kinds) if kk == k]
+            for k in ("long", "short", "wrap")}
+    window = eng.workload.cfg.swa_window
+    out.update(prompt_lens=[int(r.prompt.size) for r in reqs], prompt_kinds=kinds,
+               long_ttft_p50_ms=pct(ttft["long"], 50), long_ttft_p95_ms=pct(ttft["long"], 95),
+               short_ttft_p50_ms=pct(ttft["short"], 50),
+               short_ttft_p95_ms=pct(ttft["short"], 95), wrap_ttft_ms=ttft["wrap"],
+               long_prefill_s=[{"prefix": n, "s": t} for n, t in prefills if n > window],
+               flash_schedules=seen["flash_schedules"])
+    say(f"{label}: TTFT long p50 {out['long_ttft_p50_ms']} p95 {out['long_ttft_p95_ms']} ms, "
+        f"short p50 {out['short_ttft_p50_ms']} p95 {out['short_ttft_p95_ms']} ms, wrap "
+        f"{out['wrap_ttft_ms']} ms; long prefills {out['long_prefill_s']}; flash_attention "
+        f"by schedule {seen['flash_schedules']}")
+    return out
+
+
+def phase_serve_swa(ctx, cfg, model, params):
+    """Phase 3e: the sliding-window arch at full width, exact-length
+    admission on the bf16 ring cache (T = window): prompts past the window
+    run the ``band`` schedule, one prompt's decode wraps the ring."""
+    wbytes = packed_bytes(params)
+    prompts, kinds = swa_prompts(ctx, cfg)
+    warm = make_engine(ctx, model, params, max_len=ctx["swa_max_len"])
+    warm.submit(prompts[kinds.index("short")][:16], 2)
+    warm.run_until_drained()
+    del warm
+    eng = make_engine(ctx, model, params, max_len=ctx["swa_max_len"])
+    T = eng.cache.k.shape[2]
+    require(T == min(ctx["swa_max_len"], cfg.swa_window) and eng.workload._max_prompt is None,
+            f"phase 3e: the cache is not a ring of the window (T = {T})")
+    prefills: list = []
+    with _timed_prefills(ctx, eng, prefills):
+        reqs, seen = drive(ctx, eng, prompts, ctx["swa_new_tokens"])
+    rungs = sorted({e for _, e in eng.stats.degree_history})
+    require(len(rungs) > 1, f"phase 3e: the QoS degree never moved: {rungs}")
+    wrapped = [r for r, k in zip(reqs, kinds) if k == "wrap"]
+    require(all(r.prompt.size + ctx["swa_new_tokens"] > T for r in wrapped),
+            "phase 3e: the wrap prompt's decode does not cross the ring")
+    steps, prefills_n, L = eng.stats.decode_steps, eng.stats.prefill_calls, cfg.n_layers
+    n_long = kinds.count("long")
+    check_launches(ctx, "phase 3e", seen, {
+        "axqmm": (5 * L + 1) * (steps + prefills_n), "axqmm_gated": L * (steps + prefills_n),
+        "flash_decode": L * steps, "flash_decode_quant": 0,
+        "flash_attention": L * prefills_n, "pr_multiply": 0})
+    if ctx["on_card"]:
+        require(seen["flash_schedules"] == {"dense": 0, "tri": L * (prefills_n - n_long),
+                                            "band": L * n_long},
+                f"phase 3e: flash_attention by schedule {seen['flash_schedules']}, expected "
+                f"band = {L} x {n_long}")
+    out = _swa_summary(ctx, "phase 3e (window arch, exact admission, bf16 ring)", eng, reqs,
+                       seen, kinds, prefills,
+                       (wbytes + cache_bytes(eng.cache[:2])) / HBM_BPS * 1e3)
+    out.update(arch=cfg.name, new_tokens=ctx["swa_new_tokens"], slots=ctx["slots"],
+               max_len=ctx["swa_max_len"], ring_T=T, packed_weight_bytes=wbytes,
+               kv_ring_bytes=cache_bytes(eng.cache[:2]))
+    return out, prompts, kinds
+
+
+def phase_serve_swa_int8(ctx, cfg, model, params, prompts, kinds):
+    """Phase 3f: 3e's traffic on the int8 ring with bucketed admission
+    (the ladder up to the window, pack 4): the long prompts take the exact
+    path (``band``), the others the buckets (``tri``); no call shape after
+    warmup is new.  The host-side write plan of each bucketed call is
+    timed."""
+    from repro_torch.models import transformer as TR
+    from repro_torch.serve.admission import AdmissionConfig
+
+    t = time.time()
+    eng = make_engine(ctx, model, params, max_len=ctx["swa_max_len"], quant=True,
+                      admission=AdmissionConfig(pack=4))
+    ctx["sync"]()
+    warmup_s = time.time() - t
+    wl = eng.workload
+    shapes = dict(wl.trace_counts)
+    nb = len(wl.admission.buckets)
+    require(shapes["prefill_batch"] == nb and shapes["step"] == 1,
+            f"phase 3f: warmup ran {shapes}, expected {nb} bucket shapes and one step shape")
+    plan_s: list = []
+    orig_plan = TR._batch_write_plan
+
+    def timed_plan(*a, **kw):
+        ctx["sync"]()
+        t0 = time.time()
+        res = orig_plan(*a, **kw)
+        plan_s.append(time.time() - t0)
+        return res
+
+    prefills: list = []
+    with _patched([(TR, "_batch_write_plan", timed_plan)]), \
+            _timed_prefills(ctx, eng, prefills):
+        reqs, seen = drive(ctx, eng, prompts, ctx["swa_new_tokens"])
+    n_long = kinds.count("long")
+    expect_shapes = dict(shapes, prefill=len({int(r.prompt.size) for r, k in
+                                              zip(reqs, kinds) if k == "long"}))
+    require(wl.trace_counts == expect_shapes,
+            f"phase 3f: call shapes {wl.trace_counts}, expected {expect_shapes} (the "
+            "exact-path long prompts only)")
+    rungs = sorted({e for _, e in eng.stats.degree_history})
+    require(len(rungs) > 1, f"phase 3f: the QoS degree never moved: {rungs}")
+    st, L = eng.stats, cfg.n_layers
+    steps = st.decode_steps
+    calls = sum(int(c.value) for c in st.c_admit_bucket.children.values())
+    require(len(plan_s) == calls, f"phase 3f: {len(plan_s)} write plans for {calls} calls")
+    check_launches(ctx, "phase 3f", seen, {
+        "axqmm": (5 * L + 1) * (steps + n_long) + 5 * L * calls,
+        "axqmm_gated": L * (steps + n_long + calls), "flash_decode": 0,
+        "flash_decode_quant": L * steps, "flash_attention": L * (n_long + calls),
+        "pr_multiply": 0})
+    if ctx["on_card"]:
+        require(seen["flash_schedules"] == {"dense": 0, "tri": L * calls, "band": L * n_long},
+                f"phase 3f: flash_attention by schedule {seen['flash_schedules']}")
+    out = _swa_summary(ctx, "phase 3f (window arch, int8 ring, buckets, pack 4)", eng, reqs,
+                       seen, kinds, prefills,
+                       (packed_bytes(params) + cache_bytes(eng.cache[:4])) / HBM_BPS * 1e3)
+    out.update(warmup_s=warmup_s, buckets=list(wl.admission.buckets), pack=wl.admission.pack,
+               call_shapes=dict(wl.trace_counts), bucketed_calls=calls,
+               bucket_flushes={k[0]: int(c.value) for k, c in st.c_admit_bucket.children.items()},
+               write_plan_ms=[1e3 * x for x in plan_s],
+               kv_ring_bytes=cache_bytes(eng.cache[:4]))
+    say(f"phase 3f: warmup {warmup_s:.2f} s over {shapes}; {calls} bucketed calls "
+        f"{out['bucket_flushes']}; host write plans {[round(x, 3) for x in out['write_plan_ms']]}"
+        f" ms; int8 ring {out['kv_ring_bytes']} bytes")
     return out
 
 
@@ -1079,9 +1353,11 @@ def _padded_vs_exact(ctx, model, params, deg, backend, quant, vocab):
             "logits_max_abs_diff": float((le - lp).abs().max())}
 
 
-def phase_model(ctx, cfg):
+def phase_model(ctx, cfg, prompt_len):
     """Phase 4: kernel vs plain on the model cut to 2 layers, on the bf16
-    and on the int8 cache.
+    and on the int8 cache, prefilling one ``prompt_len``-token prompt (for
+    a window arch, past the window: the ``band`` schedule and a ring
+    prefill, whose decode steps then wrap).
 
     (a) Every kernel call of a kernel run is checked against its plain
     version on the same (the model's own) inputs, at the stated tolerance.
@@ -1102,11 +1378,15 @@ def phase_model(ctx, cfg):
     from repro_torch.core.approx import policy_from_flag
     from repro_torch.models import build_model
 
+    from repro_torch.kernels import _build
+
     rng = np.random.default_rng(1)
-    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, ctx["prefill_m"]), device=dev)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, prompt_len), device=dev)
+    band = cfg.swa_window is not None and prompt_len > cfg.swa_window
     out = []
     for dtype, degree, quant in MODEL_RUNS:
-        label = f"2-layer {dtype} at degree {degree}, {'int8' if quant else 'bf16'} cache"
+        label = (f"{cfg.name} 2-layer {dtype} at degree {degree}, "
+                 f"{'int8' if quant else 'bf16'} cache, prompt {prompt_len}")
         cut = dataclasses.replace(cfg, n_layers=2, dtype=dtype)
         model = build_model(cut, policy_from_flag("axq8", dynamic=True), device=dev)
         params = model.prepack(model.init(seed=1))
@@ -1115,8 +1395,12 @@ def phase_model(ctx, cfg):
         # the CPU tensors to the plain versions (no kernel call to check)
         kernels = "cuda" if ctx["on_card"] else "auto"
         calls: dict = {}
+        band_before = _build.flash_schedules["band"]
         with _checked_kernels(ctx, dtype, calls):
             lk, fed = _model_logits(ctx, model, params, prompt, deg, kernels, None, quant)
+        band_launches = _build.flash_schedules["band"] - band_before
+        require(not (band and ctx["on_card"]) or band_launches == cut.n_layers,
+                f"{label}: {band_launches} band launches, expected {cut.n_layers}")
         # both plain runs decode the kernel run's greedy tokens
         lp, _ = _model_logits(ctx, model, params, prompt, deg, "torch", fed, quant)
         with _perturbed_projections(ctx, NOISE_EPS):
@@ -1146,7 +1430,8 @@ def phase_model(ctx, cfg):
         require(pve["logits_max_abs_diff"] <= tol,
                 f"{label}: padded-vs-exact prefill moves the next logits by "
                 f"{pve['logits_max_abs_diff']} (noise floor {floor})")
-        out.append({"dtype": dtype, "degree": degree, "int8_cache": quant,
+        out.append({"arch": cfg.name, "prompt_len": prompt_len, "band_launches": band_launches,
+                    "dtype": dtype, "degree": degree, "int8_cache": quant,
                     "kernel_calls": calls, "max_abs_logit_diff": diff,
                     "noise_floor": floor, "noise_eps": NOISE_EPS, "tolerance": tol,
                     "max_abs_logit": float(lp.abs().max()), "padded_vs_exact": pve})
@@ -1209,6 +1494,9 @@ def main(argv=None) -> int:
                "chunk_tokens": 256, "max_len_chunked": 1056, "n_long": 4,
                "long_range": (700, 1000), "n_short": 12, "short_range": (64, 200),
                "padded_lens": (20, 60, 255, 500),
+               "swa_max_len": 4096, "swa_long_range": (4500, 8192), "swa_wrap_len": 4080,
+               "swa_short_range": (64, 512), "swa_n_long": 4, "swa_n_short": 7,
+               "swa_new_tokens": 32, "swa_band_lens": (4500, 8192), "swa_model_prompt": 4500,
                "stream_slots": 64, "stream_clips": 256, "stream_frames": 32,
                "psnr_clips": 4, "psnr_frames": 8,
                "pr_shapes": (((8, 64, 256), "stream tick: FIR planes, 64 slots"),
@@ -1219,6 +1507,7 @@ def main(argv=None) -> int:
                              ((1_000_003,), "ragged"),
                              ((1 << 24,), "flat 2^24"))}
         cfg = get_config("tinyllama-1.1b")
+        swa_cfg = get_config("h2o-danube-1.8b")
     else:
         torch.set_num_threads(4)
         smi, kind, count = ["cpu rehearsal"], "cpu", 0
@@ -1229,6 +1518,10 @@ def main(argv=None) -> int:
                "chunk_tokens": 16, "max_len_chunked": 64, "n_long": 2,
                "long_range": (40, 56), "n_short": 4, "short_range": (8, 20),
                "padded_lens": (3, 9, 20, 37),
+               # window 32; prompts past 4 blocks of 128, where band < tri
+               "swa_max_len": 32, "swa_long_range": (520, 700), "swa_wrap_len": 24,
+               "swa_short_range": (8, 30), "swa_n_long": 4, "swa_n_short": 7,
+               "swa_new_tokens": 12, "swa_band_lens": (520, 700), "swa_model_prompt": 600,
                "stream_slots": 4, "stream_clips": 6, "stream_frames": 4,
                "psnr_clips": 2, "psnr_frames": 3,
                "pr_shapes": (((8, 4, 256), "stream tick: FIR planes, 4 slots"),
@@ -1237,10 +1530,12 @@ def main(argv=None) -> int:
                              ((32, 4064), "Ch. 7: 32-tap FIR over 4096 samples"),
                              ((1003,), "ragged"))}
         cfg = get_config("tinyllama-1.1b-smoke")
+        swa_cfg = get_config("h2o-danube-1.8b-smoke")
     ctx["timer"] = Timer(torch, on_card)
 
     record = {"card": smi, "kind": kind, "count": count}
     record["kernels"] = phase_kernels(ctx, cfg)
+    record["kernels_swa"] = phase_kernels_swa(ctx, swa_cfg)
     if args.kernels_only:
         write_record(args.record, record)
         say("kernel checks done (--kernels-only): no result line")
@@ -1253,26 +1548,47 @@ def main(argv=None) -> int:
     if on_card:
         torch.cuda.empty_cache()
     record["stream_path"] = phase_stream(ctx)
-    record["model_2layer"] = phase_model(ctx, cfg)
+    record["model_2layer"] = phase_model(ctx, cfg, ctx["prefill_m"])
+    model, params = serving_model(ctx, swa_cfg)
+    record["swa_path"], prompts, kinds = phase_serve_swa(ctx, swa_cfg, model, params)
+    record["swa_int8_path"] = phase_serve_swa_int8(ctx, swa_cfg, model, params, prompts,
+                                                   kinds)
+    del model, params
+    if on_card:
+        torch.cuda.empty_cache()
+    record["swa_model_2layer"] = phase_model(ctx, swa_cfg, ctx["swa_model_prompt"])
 
     paths = {"3": record["main_path"], "3b": record["int8_cache_path"],
-             "3c": record["chunked_path"], "3d": record["stream_path"]}
+             "3c": record["chunked_path"], "3d": record["stream_path"],
+             "3e": record["swa_path"], "3f": record["swa_int8_path"]}
     summary = []
     for name, rows in record["kernels"].items():
         src, replaces = SOURCES[name]
+        swa_rows = record["kernels_swa"].get(name, [])
         # the summary row: the unembedding GEMM (the largest decode GEMM)
         # for axqmm, the decode-shaped row for the others
         lead = rows[-1] if name == "axqmm" else rows[0]
         by_path = {k: v["launches"][name] for k, v in paths.items()}
-        summary.append({
+        entry = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "max_abs_err": max(r["max_abs_err"] for r in rows + swa_rows),
             "ms": lead.get("ms"), "plain_ms": lead.get("plain_ms"),
             "bound_ms": lead["bound_ms"], "bound_by": lead["bound_by"],
             "library_ms": lead.get("library_ms"),
             "shape": {k: lead[k] for k in lead if k in SHAPE_KEYS},
-        })
+        }
+        if name == "flash_attention":
+            entry["launches_by_schedule"] = {
+                sched: sum(v.get("flash_schedules", {}).get(sched, 0) for v in paths.values())
+                for sched in ("dense", "tri", "band")}
+            # the sliding-window arch's longest band row
+            band = max((r for r in swa_rows if r.get("schedule") == "band"),
+                       key=lambda r: r["S"])
+            entry["band"] = {k: band.get(k) for k in ("S", "BH", "D", "window", "ms",
+                                                        "plain_ms", "bound_ms", "bound_by",
+                                                        "library_ms", "max_abs_err")}
+        summary.append(entry)
     record["summary"] = summary
     write_record(args.record, record)
     if not on_card:

@@ -8,7 +8,8 @@ returns ``cudaGetLastError()``, which :func:`check` turns into an exception.
 Nothing here runs at import time.
 
 The module also holds the launch counters: ``launches[name]`` rises by one
-each time a wrapper launches kernel ``name``; ``plain_cuda_calls[name]``
+each time a wrapper launches kernel ``name`` (``flash_schedules`` splits
+the ``flash_attention`` launches by schedule); ``plain_cuda_calls[name]``
 counts calls of that kernel's plain PyTorch version on CUDA tensors (the
 comparison phases use it; the serving path never should).
 """
@@ -59,12 +60,14 @@ SIGNATURES = {
     "flash_decode_launch": ("flash_decode", [_P] * 6 + [_I] * 6 + [_F, _P]),
     "flash_decode_quant_launch": ("flash_decode", [_P] * 9 + [_I] * 5 + [_F, _P]),
     "flash_attention_launch": ("flash_attention",
-                               [_P] * 5 + [_I] * 8 + [_LL] * 9 + [_I, _F, _P]),
+                               [_P] * 5 + [_I] * 10 + [_LL] * 9 + [_I, _F, _P]),
     "pr_multiply_launch": ("axmult_elem", [_P] * 4 + [_LL, _I, _P]),
 }
 
 launches = dict.fromkeys(KERNELS, 0)
 plain_cuda_calls = dict.fromkeys(KERNELS, 0)
+#: ``flash_attention`` launches by schedule (they sum to its ``launches``)
+flash_schedules = dict.fromkeys(("dense", "tri", "band"), 0)
 
 #: ptxas resource lines of the last build, per library (chip_smoke prints them)
 ptxas_log: dict = {}
@@ -74,7 +77,7 @@ _lock = threading.Lock()
 
 
 def reset_counts() -> None:
-    for d in (launches, plain_cuda_calls):
+    for d in (launches, plain_cuda_calls, flash_schedules):
         for k in d:
             d[k] = 0
 

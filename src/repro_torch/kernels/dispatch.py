@@ -109,15 +109,13 @@ def prefill_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
                       window: Optional[int] = None) -> Tensor:
     """Full-sequence GQA attention, model layout: q (B, S, H, D), k/v
     (B, S, KVr, D) -> (B, S, H, D).  The kernel reads the grouped K/V
-    directly (no repeat to all heads)."""
-    if window is not None and window < q.shape[1]:
-        raise NotImplementedError(
-            "sliding-window prefill (the band schedule) is not ported yet")
+    directly (no repeat to all heads); a sliding ``window`` shorter than
+    the sequence runs its ``band`` schedule."""
     backend = resolved_backend(q.device)
     _record_route("prefill", backend)
     if backend == "cuda":
-        return flash_attention_grouped(q, k, v, causal=causal)
-    return flash_attention_grouped_plain(q, k, v, causal=causal)
+        return flash_attention_grouped(q, k, v, causal=causal, window=window)
+    return flash_attention_grouped_plain(q, k, v, causal=causal, window=window)
 
 
 def decode_attention(q1: Tensor, knew: Tensor, vnew: Tensor, cache, *,

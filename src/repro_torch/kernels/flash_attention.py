@@ -1,17 +1,20 @@
 """Flash-style attention forward with computation-skipping schedules.
 
 Wrappers around the CUDA kernel in ``csrc/flash_attention.cu`` (port of
-``repro.kernels.flash_attention``).  Two schedules (DESIGN.md §8):
+``repro.kernels.flash_attention``).  Three schedules (DESIGN.md §8):
 
   dense  every (q block, kv block) pair — non-causal layers and the
-         bit-identity oracle of the skip schedule;
-  tri    causal: only the n(n+1)/2 lower-triangular block pairs are visited.
+         bit-identity oracle of the skip schedules;
+  tri    causal: only the n(n+1)/2 lower-triangular block pairs are visited;
+  band   causal with a sliding window: each q block visits the
+         ceil((window-1)/blk)+1 kv blocks its window can reach, O(S*window)
+         block-steps in all.
 
-Both give bit-identical rows: a fully masked entry contributes an exact
+All give bit-identical rows: a fully masked entry contributes an exact
 zero, and rows that have seen only masked entries are guarded (``p`` forced
-to 0 while the running max is the sentinel).  The ``band`` schedule of
-sliding-window layers is not ported yet: a ``window`` shorter than the
-sequence raises.
+to 0 while the running max is the sentinel).  The window mask
+``col > row - window`` applies on every schedule, so ``dense`` with a
+window (``skip_grid=False``) is the oracle of ``band``.
 
 :func:`flash_attention` keeps the reference's (BH, S, D) layout;
 :func:`flash_attention_grouped` takes the model's (B, S, H, D) queries and
@@ -35,7 +38,8 @@ Tensor = torch.Tensor
 NEG_INF = -1e30
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (16, 32, 64)
+_HEAD_DIMS = (16, 32, 64, 80)
+_SCHEDULES = {"dense": 0, "tri": 1, "band": 2}
 
 
 def _block_for(S: int, bq: int, bk: int) -> int:
@@ -78,14 +82,24 @@ def planned_grid_steps(BH: int, S: int, *, causal: bool = True,
 
 
 def _plan(S, causal, window, bq, bk, skip_grid):
+    """(kind, blk, n, band, window) of :func:`_grid_plan`; a window without
+    the causal mask raises, as in the reference."""
     if window is not None and not causal:
         raise NotImplementedError("sliding-window attention requires causal=True")
-    kind, blk, n, _, window = _grid_plan(S, causal=causal, window=window,
-                                         bq=bq, bk=bk, skip_grid=skip_grid)
-    if window is not None:
-        raise NotImplementedError(
-            "the band (sliding-window) schedule is not ported yet")
-    return kind, blk, n
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1 token, got {window}")
+    return _grid_plan(S, causal=causal, window=window, bq=bq, bk=bk,
+                      skip_grid=skip_grid)
+
+
+def _kv_blocks(kind: str, i: int, n: int, band: int) -> range:
+    """The kv blocks q block ``i`` visits on schedule ``kind``."""
+    if kind == "tri":
+        return range(i + 1)
+    if kind == "band":
+        j0 = max(i - (band - 1), 0)
+        return range(j0, j0 + band)
+    return range(n)
 
 
 def flash_attention_plain(q: Tensor, k: Tensor, v: Tensor, *,
@@ -104,7 +118,7 @@ def flash_attention_plain(q: Tensor, k: Tensor, v: Tensor, *,
     if q.is_cuda:
         _build.plain_cuda_calls["flash_attention"] += 1
     BH, S, D = q.shape
-    kind, blk, n = _plan(S, causal, window, bq, bk, skip_grid)
+    kind, blk, n, band, window = _plan(S, causal, window, bq, bk, skip_grid)
     f64 = torch.float64
     qf = (q.to(torch.float32) * (1.0 / math.sqrt(D))).to(f64)
     kf, vf = k.to(f64), v.to(f64)
@@ -117,13 +131,15 @@ def flash_attention_plain(q: Tensor, k: Tensor, v: Tensor, *,
         m = torch.full((BH, r1 - r0, 1), NEG_INF, dtype=f64, device=q.device)
         l = torch.zeros((BH, r1 - r0, 1), dtype=f64, device=q.device)
         acc = torch.zeros((BH, r1 - r0, D), dtype=f64, device=q.device)
-        for j in range(i + 1 if kind == "tri" else n):
+        for j in _kv_blocks(kind, i, n, band):
             steps += BH
             c0, c1 = j * blk, min((j + 1) * blk, S)
             s = qi @ kf[:, c0:c1].transpose(1, 2)
+            cols = torch.arange(c0, c1, device=q.device)[None, :]
             if causal:
-                cols = torch.arange(c0, c1, device=q.device)[None, :]
                 s = torch.where(cols <= rows, s, NEG_INF)
+            if window is not None:
+                s = torch.where(cols > rows - window, s, NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
             p = torch.where(s > 0.5 * NEG_INF, torch.exp(s - m_new), 0.0)
             corr = torch.exp(m - m_new)
@@ -135,8 +151,10 @@ def flash_attention_plain(q: Tensor, k: Tensor, v: Tensor, *,
 
 
 def _launch(q4: Tensor, k4: Tensor, v4: Tensor, out4: Tensor, *, G: int,
-            blk: int, causal: bool, tri: bool, count_steps: bool):
-    """Launch on (B, S, H, D)-strided views (D contiguous)."""
+            plan, causal: bool, count_steps: bool):
+    """Launch on (B, S, H, D)-strided views (D contiguous) with ``plan`` =
+    (kind, blk, n, band, window) from :func:`_plan`."""
+    kind, blk, _, band, window = plan
     _build.require_sm90(q4)
     B, S, H, D = q4.shape
     dev = q4.device
@@ -158,13 +176,14 @@ def _launch(q4: Tensor, k4: Tensor, v4: Tensor, out4: Tensor, *, G: int,
     rc = _build.entry("flash_attention_launch")(
         q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), out4.data_ptr(),
         None if steps is None else steps.data_ptr(),
-        B, S, H, G, D, blk, int(causal), int(tri),
+        B, S, H, G, D, blk, int(causal), _SCHEDULES[kind], band, window or 0,
         q4.stride(0), q4.stride(1), q4.stride(2),
         k4.stride(0), k4.stride(1), k4.stride(2),
         out4.stride(0), out4.stride(1), out4.stride(2),
         _DTYPES[q4.dtype], 1.0 / math.sqrt(D), _build.stream_of(q4))
     _build.check(rc, "flash_attention")
     _build.launches["flash_attention"] += 1
+    _build.flash_schedules[kind] += 1
     return steps
 
 
@@ -178,12 +197,10 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
         out, steps = flash_attention_plain(q, k, v, causal=causal, window=window,
                                            bq=bq, bk=bk, skip_grid=skip_grid)
         return (out, steps) if return_steps else out
-    BH, S, D = q.shape
-    kind, blk, _ = _plan(S, causal, window, bq, bk, skip_grid)
+    plan = _plan(q.shape[1], causal, window, bq, bk, skip_grid)
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     steps = _launch(q[:, :, None], k[:, :, None], v[:, :, None], out[:, :, None],
-                    G=1, blk=blk, causal=causal, tri=kind == "tri",
-                    count_steps=return_steps)
+                    G=1, plan=plan, causal=causal, count_steps=return_steps)
     return (out, steps) if return_steps else out
 
 
@@ -193,19 +210,22 @@ def _flat(x: Tensor) -> Tensor:
 
 
 def flash_attention_grouped_plain(q: Tensor, k: Tensor, v: Tensor, *,
-                                  causal: bool = True) -> Tensor:
+                                  causal: bool = True,
+                                  window: Optional[int] = None) -> Tensor:
     """Plain version of :func:`flash_attention_grouped` (repeats K/V to all
     heads and runs the (BH, S, D) plain version)."""
     B, S, H, D = q.shape
     G = H // k.shape[2]
     kf = k.repeat_interleave(G, dim=2)
     vf = v.repeat_interleave(G, dim=2)
-    o, _ = flash_attention_plain(_flat(q), _flat(kf), _flat(vf), causal=causal)
+    o, _ = flash_attention_plain(_flat(q), _flat(kf), _flat(vf), causal=causal,
+                                 window=window)
     return o.reshape(B, H, S, D).transpose(1, 2)
 
 
 def flash_attention_grouped(q: Tensor, k: Tensor, v: Tensor, *,
-                            causal: bool = True) -> Tensor:
+                            causal: bool = True,
+                            window: Optional[int] = None) -> Tensor:
     """Model-layout entry: q (B, S, H, D), k/v (B, S, KVr, D) -> (B, S, H, D).
     The kernel indexes kv head ``h // (H // KVr)``; no K/V repeat."""
     B, S, H, D = q.shape
@@ -213,9 +233,8 @@ def flash_attention_grouped(q: Tensor, k: Tensor, v: Tensor, *,
     if H % KVr:
         raise ValueError(f"{H} query heads do not group over {KVr} kv heads")
     if q.device.type == "cpu":
-        return flash_attention_grouped_plain(q, k, v, causal=causal)
-    kind, blk, _ = _plan(S, causal, None, 128, 128, True)
+        return flash_attention_grouped_plain(q, k, v, causal=causal, window=window)
+    plan = _plan(S, causal, window, 128, 128, True)
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
-    _launch(q, k, v, out, G=H // KVr, blk=blk, causal=causal,
-            tri=kind == "tri", count_steps=False)
+    _launch(q, k, v, out, G=H // KVr, plan=plan, causal=causal, count_steps=False)
     return out

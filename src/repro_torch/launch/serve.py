@@ -4,6 +4,9 @@
   # int8 KV cache, bucketed prefill packed four prompts to a call:
   REPRO_KV_INT8=1 python -m repro_torch.launch.serve --arch tinyllama-1.1b \
       --approx axq8 --qos --prefill-buckets auto --pack 4 --metrics
+  # the sliding-window arch (window 4096: the cache is a ring, prompts may
+  # be longer than it, and their prefill runs the band schedule):
+  python -m repro_torch.launch.serve --arch h2o-danube-1.8b --approx axq8 --qos --metrics
   # the plain PyTorch versions on the host, at smoke size:
   python -m repro_torch.launch.serve --arch tinyllama-1.1b-smoke --device cpu
   # the streaming DSP workload (FIR -> blur -> gain on the PR multiplier):

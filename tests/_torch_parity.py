@@ -35,20 +35,22 @@ def jax_backend(name):
 _MODELS: dict = {}
 
 
-def models(dtype: str, approx: str, seed: int = 0):
+def models(dtype: str, approx: str, seed: int = 0, arch: str = ARCH,
+           **overrides):
     """(jax model, jax params, port model, port params) for the smoke arch
-    at ``dtype`` under ``approx`` (dynamic degree), prepacked for AXQ;
-    built once per process (the port's params are copies, so a test's
-    in-place cache updates never reach them)."""
-    key = (dtype, approx, seed)
+    ``arch`` at ``dtype`` under ``approx`` (dynamic degree), prepacked for
+    AXQ, with config fields ``overrides`` replaced on both sides; built
+    once per process (the port's params are copies, so a test's in-place
+    cache updates never reach them)."""
+    key = (dtype, approx, seed, arch, tuple(sorted(overrides.items())))
     if key not in _MODELS:
-        _MODELS[key] = _build_models(dtype, approx, seed)
+        _MODELS[key] = _build_models(dtype, approx, seed, arch, overrides)
     return _MODELS[key]
 
 
-def _build_models(dtype: str, approx: str, seed: int):
-    jcfg = dataclasses.replace(jget_config(ARCH), dtype=dtype)
-    tcfg = dataclasses.replace(tget_config(ARCH), dtype=dtype)
+def _build_models(dtype: str, approx: str, seed: int, arch: str, overrides):
+    jcfg = dataclasses.replace(jget_config(arch), dtype=dtype, **overrides)
+    tcfg = dataclasses.replace(tget_config(arch), dtype=dtype, **overrides)
     jm = jbuild_model(jcfg, jpolicy(approx, dynamic=True))
     tm = tbuild_model(tcfg, tpolicy(approx, dynamic=True), device="cpu")
     jp = jm.init(jax.random.PRNGKey(seed), tp=1)

@@ -83,6 +83,63 @@ def test_gpu_flash_kernels_match_plain(hopper):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("D", [16, 32, 64, 80])
+def test_gpu_flash_band_matches_dense_and_plain(hopper, D):
+    """The ``band`` schedule (window 300 on S = 1000: 4 of 8 kv blocks per
+    q block) equals ``dense`` under the same window bit for bit, counts
+    ``planned_grid_steps`` in the kernel, is within the f32 tolerance of
+    the plain version, and its grouped entry equals the flat one on
+    repeated K/V."""
+    g = torch.Generator(device=hopper).manual_seed(D)
+    B, S, H, KVr, W = 2, 1000, 4, 2, 300
+    q = torch.randn(B, S, H, D, generator=g, device=hopper)
+    k = torch.randn(B, S, KVr, D, generator=g, device=hopper)
+    v = torch.randn(B, S, KVr, D, generator=g, device=hopper)
+    flat = lambda t: t.transpose(1, 2).reshape(B * H, S, D)
+    qf, kf, vf = flat(q), flat(k.repeat_interleave(H // KVr, 2)), flat(
+        v.repeat_interleave(H // KVr, 2))
+    before = dict(_build.flash_schedules)
+    out, steps = tfa.flash_attention(qf, kf, vf, causal=True, window=W, return_steps=True)
+    dense, dsteps = tfa.flash_attention(qf, kf, vf, causal=True, window=W,
+                                        skip_grid=False, return_steps=True)
+    og = tfa.flash_attention_grouped(q, k, v, causal=True, window=W)
+    torch.cuda.synchronize()
+    assert _build.flash_schedules["band"] == before["band"] + 2
+    assert _build.flash_schedules["dense"] == before["dense"] + 1
+    assert int(steps) == tfa.planned_grid_steps(B * H, S, window=W) == B * H * 8 * 4
+    assert int(dsteps) == tfa.planned_grid_steps(B * H, S, window=W, skip_grid=False)
+    assert torch.equal(out, dense)
+    assert torch.equal(flat(og), out)
+    ref, ref_steps = tfa.flash_attention_plain(qf, kf, vf, causal=True, window=W)
+    torch.testing.assert_close(out, ref, rtol=RTOL, atol=ATOL)
+    assert ref_steps == int(steps)
+
+
+@pytest.mark.gpu
+def test_gpu_flash_decode_head_dim_80_full_ring(hopper):
+    """Both decode kernels at head_dim 80 on a full ring (every slot at
+    nvalid = T) with one freed slot."""
+    g = torch.Generator(device=hopper).manual_seed(80)
+    B, T, KVr, G, D = 4, 256, 2, 4, 80
+    qg = torch.randn(B, KVr, G, D, generator=g, device=hopper)
+    k = torch.randn(B, T, KVr, D, generator=g, device=hopper)
+    v = torch.randn(B, T, KVr, D, generator=g, device=hopper)
+    nv = torch.full((B,), T, dtype=torch.int32, device=hopper)
+    act = torch.tensor([1, 1, 0, 1], dtype=torch.int32, device=hopper)
+    o = tfd.flash_decode(qg, k.bfloat16(), v.bfloat16(), nv, act)
+    torch.testing.assert_close(o, tfd.flash_decode_plain(qg, k.bfloat16(), v.bfloat16(),
+                                                         nv, act), rtol=1e-4, atol=1e-4)
+    from repro_torch.models.attention import _q8
+    kq, ks = _q8(k)
+    vq, vs = _q8(v)
+    e = torch.tensor([8, 5], dtype=torch.int32, device=hopper)[1]
+    oq = tfd.flash_decode_quant(qg, kq, ks, vq, vs, nv, act, e)
+    torch.testing.assert_close(oq, tfd.flash_decode_quant_plain(qg, kq, ks, vq, vs, nv,
+                                                                act, e), rtol=0, atol=1e-5)
+    assert (o[2] == 0).all() and (oq[2] == 0).all()
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("ebits,T", [(8, 300), (5, 300), (6, 135)])
 def test_gpu_flash_decode_quant_matches_plain(hopper, ebits, T):
     g = torch.Generator(device=hopper).manual_seed(ebits * 1000 + T)

@@ -104,9 +104,20 @@ def test_flash_attention_grouped_entry_matches_flat():
 
 
 def test_flash_attention_window_not_ported_raises():
-    q = torch.zeros(1, 40, 16)
+    """The sliding window is ported (the ``band`` schedule): window 8 on
+    S = 40 matches the Pallas kernel with its step count; only a window
+    without the causal mask raises, as in the reference."""
+    rng = np.random.default_rng(8)
+    q, k, v = (rng.standard_normal((2, 40, 16)).astype(np.float32) for _ in range(3))
+    oj, sj = jfa.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                 causal=True, window=8, interpret=True,
+                                 return_steps=True)
+    ot, st = tfa.flash_attention(_t(q), _t(k), _t(v), causal=True, window=8,
+                                 return_steps=True)
+    np.testing.assert_allclose(ot.numpy(), np.asarray(oj), rtol=RTOL, atol=ATOL)
+    assert int(st) == int(sj) == tfa.planned_grid_steps(2, 40, window=8)
     with pytest.raises(NotImplementedError):
-        tfa.flash_attention(q, q, q, causal=True, window=8)
+        tfa.flash_attention(_t(q), _t(k), _t(v), causal=False, window=8)
 
 
 def _decode_inputs(rng, B, T, KVr, G, D):
