@@ -7,7 +7,9 @@
 
 Phases (any failure exits non-zero):
   1. the card (nvidia-smi name and power limit) and the kernel build
-     (nvcc for sm_90a from kernels/csrc, with the -Xptxas -v lines);
+     (nvcc for sm_90a from kernels/csrc, with the -Xptxas -v lines, and one
+     line of each flash_attention instantiation's registers, spills and
+     shared memory: none may spill);
   2. each hand-written kernel against its plain PyTorch version on the same
      seeded inputs at the serving paths' full-width shapes (tinyllama-1.1b
      for the LM kernels; the stream tick's planes and the Ch. 7 bench
@@ -375,9 +377,19 @@ def check_prefill(ctx, BH, S, D, H, KVr):
         row["library_ms"] = timer(lambda i: F.scaled_dot_product_attention(
             *(t[None] for t in qkv[i % len(qkv)]), is_causal=True))
         row["library_call"] = "F.scaled_dot_product_attention(is_causal=True)"
-    row["bound_ms"], row["bound_by"] = bound(per, 4.0 * BH * D * S * (S + 1) / 2,
-                                             BF16_FLOPS)
+    flops = 4.0 * BH * D * S * (S + 1) / 2
+    row["bound_ms"], row["bound_by"] = bound(per, flops, BF16_FLOPS)
+    attention_rates(row, flops)
     return row
+
+
+def attention_rates(row, flops) -> None:
+    """Achieved TFLOP/s of a timed attention row (the kept (row, col)
+    pairs x 4 D over its time) and its time over one SDPA call's."""
+    if row.get("ms"):
+        row["tflops"] = flops / (row["ms"] * 1e-3) / 1e12
+        if row.get("library_ms"):
+            row["ms_over_library"] = row["ms"] / row["library_ms"]
 
 
 def check_band(ctx, B, H, KVr, D, S, W):
@@ -439,6 +451,7 @@ def check_band(ctx, B, H, KVr, D, S, W):
     pairs = sum(min(r + 1, W) for r in range(S))
     row["bound_ms"], row["bound_by"] = bound(per, 4.0 * B * H * D * pairs, BF16_FLOPS)
     row["scheduled_flops"] = 4.0 * BH * n * band * blk * blk * D
+    attention_rates(row, 4.0 * B * H * D * pairs)
     return row
 
 
@@ -528,14 +541,49 @@ def phase_kernels(ctx, cfg):
     return rows
 
 
+def flash_resources(ctx) -> list:
+    """Registers, spill bytes and shared memory of every flash_attention
+    instantiation (ptxas -v of this build; the dynamic shared memory at the
+    reference's 128-row block from the C launcher).  Every one must run
+    with 0 bytes spilled."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    smem_of = _build.entry("flash_attention_smem_bytes")
+    out = []
+    for r in _build.kernel_resources(_build.ptxas_log.get("flash_attention", [])):
+        m = re.search(r"(flash_(?:tc|fwd)_kernel)I(13__nv_bfloat16|f)?Li(\d+)E", r["function"])
+        if m is None:
+            continue
+        kernel, D = m.group(1), int(m.group(3))
+        bf16 = m.group(2) != "f"
+        out.append({"instance": f"{kernel}<{'bf16' if bf16 else 'f32'}, D={D}>",
+                    "registers": r["registers"], "spill_stores": r["spill_stores"],
+                    "spill_loads": r["spill_loads"], "static_smem": r["smem"],
+                    "dynamic_smem_blk128": smem_of(D, 128, 1 if bf16 else 0)})
+    say("flash_attention instantiations: " + "; ".join(
+        f"{r['instance']} {r['registers']} regs, spill {r['spill_stores']}/"
+        f"{r['spill_loads']} B, smem {r['static_smem']} B static + "
+        f"{r['dynamic_smem_blk128']} B dynamic" for r in out))
+    require(len(out) == 8, f"expected 8 flash_attention instantiations, ptxas shows {len(out)}")
+    require(all(r["spill_stores"] == 0 and r["spill_loads"] == 0 for r in out),
+            "a flash_attention instantiation spills registers")
+    return out
+
+
 def report_rows(rows, tag: str = "") -> None:
     for name, rs in rows.items():
         for r in rs:
             shape = {k: r[k] for k in r if k in SHAPE_KEYS}
+            rates = ""
+            if "tflops" in r:
+                rates = (f" tflops={r['tflops']:.4g} "
+                         f"ms/library={r.get('ms_over_library', float('nan')):.3g}")
             say(f"{tag}{name} {shape}: max_err={r['max_abs_err']:.3g} ({r['tol']}) "
                 f"kernel_ms={r.get('ms')} plain_ms={r.get('plain_ms')} "
                 f"library_ms={r.get('library_ms')} bound_ms={r['bound_ms']:.4g} "
-                f"({r['bound_by']})")
+                f"({r['bound_by']}){rates}")
             require(r["ok"], f"{tag}{name} {shape} disagrees with its plain version: "
                              f"max_abs_err {r['max_abs_err']}")
 
@@ -1534,6 +1582,8 @@ def main(argv=None) -> int:
     ctx["timer"] = Timer(torch, on_card)
 
     record = {"card": smi, "kind": kind, "count": count}
+    if on_card:
+        record["flash_attention_resources"] = flash_resources(ctx)
     record["kernels"] = phase_kernels(ctx, cfg)
     record["kernels_swa"] = phase_kernels_swa(ctx, swa_cfg)
     if args.kernels_only:

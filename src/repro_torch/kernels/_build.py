@@ -20,6 +20,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -61,6 +62,7 @@ SIGNATURES = {
     "flash_decode_quant_launch": ("flash_decode", [_P] * 9 + [_I] * 5 + [_F, _P]),
     "flash_attention_launch": ("flash_attention",
                                [_P] * 5 + [_I] * 10 + [_LL] * 9 + [_I, _F, _P]),
+    "flash_attention_smem_bytes": ("flash_attention", [_I] * 3),
     "pr_multiply_launch": ("axmult_elem", [_P] * 4 + [_LL, _I, _P]),
 }
 
@@ -69,7 +71,8 @@ plain_cuda_calls = dict.fromkeys(KERNELS, 0)
 #: ``flash_attention`` launches by schedule (they sum to its ``launches``)
 flash_schedules = dict.fromkeys(("dense", "tri", "band"), 0)
 
-#: ptxas resource lines of the last build, per library (chip_smoke prints them)
+#: ptxas resource lines of each loaded library (chip_smoke prints them); kept
+#: beside the library (``.ptxas``) so a cached build reports them too
 ptxas_log: dict = {}
 
 _libs: dict = {}
@@ -117,7 +120,9 @@ def build_all(verbose: bool = False) -> dict:
                 continue
             path = CSRC / src
             out = BUILD_DIR / f"lib{name}-{_digest(path)}.so"
-            if out.exists():
+            log_path = out.with_suffix(".ptxas")
+            if out.exists() and log_path.exists():
+                ptxas_log[name] = log_path.read_text().splitlines()
                 _libs[name] = _load(name, out)
                 continue
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -135,6 +140,7 @@ def build_all(verbose: bool = False) -> dict:
             if proc.returncode != 0:
                 failed.append(f"--- nvcc {SOURCES[name]} (rc={proc.returncode})\n{log}")
                 continue
+            out.with_suffix(".ptxas").write_text("\n".join(ptxas_log[name]) + "\n")
             os.replace(tmp, out)
             _libs[name] = _load(name, out)
         if failed:
@@ -150,6 +156,31 @@ def _load(name: str, path: Path) -> ctypes.CDLL:
             f.argtypes = argtypes
             f.restype = ctypes.c_int
     return lib
+
+
+def kernel_resources(lines) -> list:
+    """Per entry function of ``ptxas -v`` output lines (one library's
+    ``ptxas_log``): its mangled name, registers, spill store/load bytes and
+    static shared memory."""
+    out = []
+    for ln in lines:
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            out.append({"function": m.group(1), "registers": None,
+                        "spill_stores": None, "spill_loads": None, "smem": 0})
+            continue
+        if not out:
+            continue
+        cur = out[-1]
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", ln)
+            cur["smem"] = int(m.group(1)) if m else 0
+    return out
 
 
 def entry(fn: str):

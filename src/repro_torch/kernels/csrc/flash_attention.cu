@@ -12,32 +12,64 @@
 // What bounds it here: at the serving path's bucketed prompt lengths (S <=
 // 4096) the causal work is ~2 S^2 D flops per head against 8 S D bytes of
 // q, k, v and o per head; at the sliding-window arch's long prompts (S up
-// to 8192, window 4096) the band schedules ~4 S (band blk) D flops per head
-// and is bound by operations.  This kernel does its dots on the CUDA cores
-// in f32, so its own time is set by instruction throughput, well above
-// either bound.  Design: one block per (q block of `blk` rows, batch*head),
-// one thread per query row holding its scaled q row and f32 accumulator in
-// registers.  The block visits kv blocks 0..i on the "tri" schedule (never
-// the upper triangle), all n of them on "dense", or the `band` blocks
-// j = max(i - (band - 1), 0) + jj, jj < band, on "band" (as the reference,
-// the first band - 1 q blocks also visit upper-triangle blocks, which the
-// causal mask empties).  Each kv block is staged through shared memory in
-// 16-row chunks shared by all rows of the q block, with an f32 online
-// softmax.  A chunk that the mask empties for every row of the block is
-// not loaded or computed (it still belongs to its block step); the
-// all-masked-row guard (p forced to 0 while the running max is still the
-// sentinel) makes a fully masked chunk leave the state untouched anyway,
-// so every schedule gives bit-identical rows: "dense" with a window is
-// the oracle of "band".  Padded query rows and kv columns past S are
-// masked in the kernel; nothing is padded or copied.  K/V are indexed by
-// kv head h / G straight from the model's grouped (B, S, KVr, D) layout,
-// so the caller never repeats K/V to all heads.  With a non-null `steps`
-// pointer, thread 0 of each block atomically adds one per visited
-// (q block, kv block) pair, so the count equals the reference's
-// planned_grid_steps.
-// Register state per thread is 2 x D floats (q row and accumulator): 160
-// at D = 80, before indices and the chunk's 16 scores.
-// Not yet used: tensor-core (wgmma / mma.sync) tiles, TMA, bf16 MMA inputs.
+// to 8192, window 4096) the band schedules ~4 S (band blk) D flops per head.
+// Past a few hundred tokens both are bound by operations (below, by the
+// bytes), so the bf16 body runs its two products on the tensor cores.
+//
+// Schedules (both bodies).  One block per (q block of `blk` rows,
+// batch*head).  The block visits kv blocks 0..i on the "tri" schedule
+// (never the upper triangle), all n of them on "dense", or the `band`
+// blocks j = max(i - (band - 1), 0) + jj, jj < band, on "band" (as the
+// reference, the first band - 1 q blocks also visit upper-triangle blocks,
+// which the causal mask empties).  Each kv block is walked in chunks of a
+// width fixed per body; a chunk that the mask empties for every row of the
+// block is not loaded or computed (it still belongs to its block step).
+// The all-masked-row guard (p forced to 0 while the running max is still
+// the sentinel) makes a fully masked chunk leave the state untouched
+// anyway (corr = exp(0) = 1, p = 0), and the chunks come in the same order
+// on every schedule, so every schedule gives bit-identical rows: "dense"
+// with a window is the oracle of "band".  Padded query rows and kv columns
+// past S are masked in the kernel; nothing is padded or copied.  K/V are
+// indexed by kv head h / G straight from the model's grouped (B, S, KVr, D)
+// layout, so the caller never repeats K/V to all heads.  With a non-null
+// `steps` pointer, thread 0 of each block counts the (q block, kv block)
+// pairs its loop visits and adds them atomically, so the count equals the
+// reference's planned_grid_steps.
+//
+// The launcher picks the body by dtype:
+//
+// bf16 (the serving dtype): tensor cores, FlashAttention-2's design.  Each
+// warp owns 16 query rows (ceil(blk / 16) warps; rows at or past the block
+// or S are masked).  Its Q tile goes global -> shared once by cp.async and
+// stays there for the whole walk; each chunk re-reads it as mma
+// A-fragments (ldmatrix.x4) rather than holding them in registers, which
+// keeps the body at <= 128 registers (D = 80 included) with no spill, so
+// two blocks (16 warps) share an SM; held in registers, they cost ~20 more
+// and left one block per SM, which measured slower (PERF.md).  K/V
+// stream through shared memory in chunks of CH = 64 kv rows, copied by
+// cp.async.cg in 16-byte pieces straight from the strided view and
+// double-buffered (chunk c+1's copy is in flight during chunk c's math);
+// rows are padded to D + 8 elements so ldmatrix is free of bank conflicts,
+// and rows past the chunk are zero-filled.  S = Q K^T by
+// mma.sync.m16n8k16 bf16 -> f32 (K fragments by ldmatrix); the scores are
+// scaled by scale * log2(e) and masked per fragment element from its
+// (row, col); the online softmax runs in f32 with ex2.approx, row max across the
+// quad by shuffles.  P is rounded to bf16 in registers, where its
+// accumulator fragment is already the A-fragment of P V (V fragments by
+// ldmatrix.trans), and the row sum l adds up the same rounded values, so
+// o = (P V) / l stays a weighted mean of V rows (its error scales with
+// |v - o|, not |v|); O stays in f32 registers and is written once as bf16.
+// The wrapper checks 16-byte alignment of the pointers and strides.
+// Dynamic shared memory: (16 * warps + 4 * CH) * (D + 8) * 2 bytes (67,584
+// at D = 80 and blk = 128), raised past 48 KB once per instantiation.
+//
+// f32 (the parity mode of the tests): CUDA cores, f32 dots, one thread per
+// query row holding its scaled q row and accumulator in registers (2 x D
+// floats), K/V staged as f32 in 16-row chunks.  bf16 or TF32 tensor-core
+// inputs could not meet its 1e-4 tolerance.
+//
+// Not yet used: wgmma warpgroup tiles, TMA with mbarriers, warp
+// specialisation (FlashAttention-3's shape).
 
 #include "common.cuh"
 
@@ -182,12 +214,345 @@ int by_dim(const void* q, const void* k, const void* v, void* o, int* steps, int
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// bf16 body: tensor cores (mma.sync m16n8k16), cp.async K/V chunks
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int CH = 64;              // kv rows per shared chunk (every schedule)
+constexpr int WROWS = 16;           // query rows per warp (one mma M tile)
+constexpr int MAXWARPS = MAXBLK / WROWS;
+
+__host__ __device__ constexpr int tc_row_elems(int D) { return D + 8; }
+
+__host__ __device__ constexpr int tc_warps(int blk) {
+  return blk <= WROWS ? 1 : (blk + WROWS - 1) / WROWS;
+}
+
+// Dynamic shared memory of one block: the warps' Q tiles and two stages of
+// K and V chunks, rows padded to D + 8 bf16.
+__host__ __device__ constexpr int tc_smem_bytes(int D, int blk) {
+  return (WROWS * tc_warps(blk) + 4 * CH) * tc_row_elems(D) * 2;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte global -> shared copy; src_bytes = 0 zero-fills the destination.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
+}
+
+// c += a (16x16, row) * b (16x8, col), bf16 inputs, f32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x by the special-function unit (2 ulp; 2^(-huge) = +0).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Two f32 values as one bf16x2 register (lo in the low half), rounded to
+// nearest even.
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&v);
+}
+
+// The two bf16 halves of a packed register as f32.
+__device__ __forceinline__ float bf16_lo(unsigned x) { return __uint_as_float(x << 16); }
+__device__ __forceinline__ float bf16_hi(unsigned x) { return __uint_as_float(x & 0xffff0000u); }
+
+// Fragment layouts (PTX ISA, mma.m16n8k16): lane = 4 g + t.  A holds rows
+// g and g + 8, columns 2t, 2t + 1 and 2t + 8, 2t + 9; the f32 C/D tile
+// holds rows g (c[0], c[1]) and g + 8 (c[2], c[3]) at columns 2t, 2t + 1.
+template <int D>
+__global__ void __launch_bounds__(MAXWARPS * 32, 2)
+flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, bf16* __restrict__ o, int* __restrict__ steps,
+                Plan p, Strides qs_, Strides ks_, Strides os_, float scale_log2) {
+  constexpr int LD = tc_row_elems(D);  // shared row stride (elements)
+  constexpr int KS = D / 16;           // k-steps of Q K^T
+  constexpr int NT = D / 8;            // n-tiles of O
+  constexpr int NC = CH / 8;           // n-tiles of a chunk's scores
+  constexpr int PK = CH / 16;          // k-steps of P V
+  constexpr int DP = D / 8;            // 16-byte pieces per row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+
+  const int S = p.S, blk = p.blk, window = p.window;
+  const int nthreads = blockDim.x, nw = nthreads / 32;
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int n = (S + blk - 1) / blk;
+  const int i = n - 1 - static_cast<int>(blockIdx.y);   // the longest rows first
+  const int bh = blockIdx.x;
+  const int b = bh / p.H, h = bh % p.H, kvh = h / p.G;
+  const int r_lo = i * blk, r_end = min(r_lo + blk, S);  // the block's rows
+  const int w_lo = r_lo + w * WROWS;                     // this warp's rows
+  const bool w_live = w_lo < r_end;
+  int j0 = 0, visits = n;
+  if (p.sched == kTri) {
+    visits = i + 1;
+  } else if (p.sched == kBand) {
+    j0 = max(i - (p.band - 1), 0);
+    visits = p.band;
+  }
+  const int cpb = (blk + CH - 1) / CH;                   // chunks per kv block
+  const int total = visits * cpb;
+
+  bf16* qsm = reinterpret_cast<bf16*>(smem_raw) + w * WROWS * LD;
+  bf16* ksm = reinterpret_cast<bf16*>(smem_raw) + nw * WROWS * LD;   // [2][CH][LD]
+  bf16* vsm = ksm + 2 * CH * LD;
+  const bf16* kbase = k + b * ks_.b + kvh * ks_.h;
+  const bf16* vbase = v + b * ks_.b + kvh * ks_.h;
+
+  // chunk t: kv columns [lo, end) of kv block j0 + t / cpb
+  auto chunk_lo = [&](int t) { return (j0 + t / cpb) * blk + (t % cpb) * CH; };
+  auto chunk_end = [&](int t) {
+    return min((j0 + t / cpb) * blk + min((t % cpb) * CH + CH, blk), S);
+  };
+  // block-uniform: the next chunk at or after t that the mask does not
+  // empty for every row of the block
+  auto next_live = [&](int t) {
+    for (; t < total; ++t) {
+      const int lo = chunk_lo(t), end = chunk_end(t);
+      if (lo < end && !(p.causal && lo > r_end - 1) &&
+          !(window > 0 && end - 1 <= r_lo - window))
+        break;
+    }
+    return t;
+  };
+  auto load_chunk = [&](int t, int st) {
+    const int lo = chunk_lo(t), width = chunk_end(t) - lo;
+    bf16* kd = ksm + st * CH * LD;
+    bf16* vd = vsm + st * CH * LD;
+    for (int e = tid; e < CH * DP; e += nthreads) {
+      const int r = e / DP, c = (e % DP) * 8;
+      const bool ok = r < width;
+      const long long off = (long long)(ok ? lo + r : lo) * ks_.s + c;
+      cp_async16(kd + r * LD + c, kbase + off, ok ? 16 : 0);
+      cp_async16(vd + r * LD + c, vbase + off, ok ? 16 : 0);
+    }
+  };
+
+  // this warp's Q tile (rows past the block or S zero-filled) and the
+  // first live chunk: one copy group
+  for (int e = lane; e < WROWS * DP; e += 32) {
+    const int r = e / DP, c = (e % DP) * 8;
+    const int row = w_lo + r;
+    const bool ok = row < r_end;
+    cp_async16(qsm + r * LD + c,
+               q + b * qs_.b + (long long)(ok ? row : r_lo) * qs_.s + h * qs_.h + c,
+               ok ? 16 : 0);
+  }
+  int cur = next_live(0);
+  if (cur < total) load_chunk(cur, 0);
+  cp_async_commit();
+
+  float acc[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;  // rows g, g + 8
+  const int row0 = w_lo + g, row1 = row0 + 8;
+  int nsteps = 0, st = 0;
+
+  for (int t = 0; t < total; ++t) {
+    if (t % cpb == 0) ++nsteps;          // a (q block, kv block) pair
+    if (t != cur) continue;              // emptied for the whole block
+    cp_async_wait<0>();                  // chunk t (and the Q tile) landed
+    __syncthreads();                     // ... for all; stage st ^ 1 is free
+    const int nxt = next_live(t + 1);
+    if (nxt < total) load_chunk(nxt, st ^ 1);   // in flight during chunk t
+    cp_async_commit();
+    const int lo = chunk_lo(t), end = chunk_end(t);
+    // warp-uniform: skip a chunk the mask empties for all of this warp's rows
+    const bool w_skip = !w_live || (p.causal && lo > w_lo + WROWS - 1) ||
+                        (window > 0 && end - 1 <= w_lo - window);
+    if (!w_skip) {
+      const bf16* kt = ksm + st * CH * LD;
+      const bf16* vt = vsm + st * CH * LD;
+      float s[NC][4];
+#pragma unroll
+      for (int nc = 0; nc < NC; ++nc) s[nc][0] = s[nc][1] = s[nc][2] = s[nc][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        unsigned qa[4];                  // Q's A fragment, re-read from shared
+        ldmatrix_x4(qa, qsm + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int np = 0; np < NC / 2; ++np) {
+          unsigned kb[4];
+          ldmatrix_x4(kb, kt + (np * 16 + (lane >> 4) * 8 + (lane & 7)) * LD + kk * 16 +
+                              ((lane >> 3) & 1) * 8);
+          mma_bf16(s[2 * np], qa, kb[0], kb[1]);
+          mma_bf16(s[2 * np + 1], qa, kb[2], kb[3]);
+        }
+      }
+      // scale into log2 units; mask per element unless the chunk is full
+      // and wholly inside every row's causal window
+      const bool full = end - lo == CH && (!p.causal || lo + CH - 1 <= w_lo) &&
+                        (window == 0 || lo > w_lo + WROWS - 1 - window);
+      float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+      for (int nc = 0; nc < NC; ++nc) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[nc][e] * scale_log2;
+          if (!full) {
+            const int col = lo + nc * 8 + 2 * t4 + (e & 1);
+            const int row = e < 2 ? row0 : row1;
+            const bool ok = col < end && (!p.causal || col <= row) &&
+                            (window == 0 || col > row - window);
+            x = ok ? x : kNegInf;
+          }
+          s[nc][e] = x;
+        }
+        mx0 = fmaxf(mx0, fmaxf(s[nc][0], s[nc][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[nc][2], s[nc][3]));
+      }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float corr0 = fast_exp2(m0 - mn0), corr1 = fast_exp2(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      float ps0 = 0.f, ps1 = 0.f;
+      unsigned pa[PK][4];
+#pragma unroll
+      for (int nc = 0; nc < NC; ++nc) {
+        // the guard: masked entries (and rows still at the sentinel) give 0
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[nc][e] = s[nc][e] > 0.5f * kNegInf ? fast_exp2(s[nc][e] - (e < 2 ? mn0 : mn1))
+                                               : 0.f;
+        // the scores' C fragment is P V's A fragment: n-tiles 2kk, 2kk + 1;
+        // l sums the same bf16-rounded P, so o is a weighted mean of V
+        const unsigned p01 = pack_bf16(s[nc][0], s[nc][1]);
+        const unsigned p23 = pack_bf16(s[nc][2], s[nc][3]);
+        pa[nc / 2][(nc & 1) * 2] = p01;
+        pa[nc / 2][(nc & 1) * 2 + 1] = p23;
+        ps0 += bf16_lo(p01) + bf16_hi(p01);
+        ps1 += bf16_lo(p23) + bf16_hi(p23);
+      }
+      l0 = l0 * corr0 + ps0;
+      l1 = l1 * corr1 + ps1;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        acc[nt][0] *= corr0;
+        acc[nt][1] *= corr0;
+        acc[nt][2] *= corr1;
+        acc[nt][3] *= corr1;
+      }
+#pragma unroll
+      for (int kk = 0; kk < PK; ++kk) {
+#pragma unroll
+        for (int dp = 0; dp < NT / 2; ++dp) {
+          unsigned vb[4];
+          ldmatrix_x4_trans(vb, vt + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LD +
+                                    dp * 16 + (lane >> 4) * 8);
+          mma_bf16(acc[2 * dp], pa[kk], vb[0], vb[1]);
+          mma_bf16(acc[2 * dp + 1], pa[kk], vb[2], vb[3]);
+        }
+      }
+    }
+    cur = nxt;
+    st ^= 1;
+  }
+  cp_async_wait<0>();
+  if (steps != nullptr && tid == 0) atomicAdd(steps, nsteps);
+  if (!w_live) return;
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+  bf16* obase = o + b * os_.b + h * os_.h + 2 * t4;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    if (row0 < r_end)
+      *reinterpret_cast<unsigned*>(obase + (long long)row0 * os_.s + nt * 8) =
+          pack_bf16(acc[nt][0] * inv0, acc[nt][1] * inv0);
+    if (row1 < r_end)
+      *reinterpret_cast<unsigned*>(obase + (long long)row1 * os_.s + nt * 8) =
+          pack_bf16(acc[nt][2] * inv1, acc[nt][3] * inv1);
+  }
+}
+
+template <int D>
+int launch_tc(const void* q, const void* k, const void* v, void* o, int* steps, int B,
+              const Plan& p, Strides qs_, Strides ks_, Strides os_, float scale,
+              cudaStream_t stream) {
+  // the largest block's shared memory, allowed once per device
+  static bool ready[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!ready[dev]) {
+    err = cudaFuncSetAttribute(flash_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               tc_smem_bytes(D, MAXBLK));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ready[dev] = true;
+  }
+  const int n = (p.S + p.blk - 1) / p.blk;
+  const dim3 grid(B * p.H, n);
+  const float log2e = 1.4426950408889634f;
+  flash_tc_kernel<D><<<grid, tc_warps(p.blk) * 32, tc_smem_bytes(D, p.blk), stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), steps, p, qs_, ks_, os_, scale * log2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int by_dim_tc(const void* q, const void* k, const void* v, void* o, int* steps, int B,
+              int D, const Plan& p, Strides qs_, Strides ks_, Strides os_, float scale,
+              cudaStream_t stream) {
+  switch (D) {
+    case 16: return launch_tc<16>(q, k, v, o, steps, B, p, qs_, ks_, os_, scale, stream);
+    case 32: return launch_tc<32>(q, k, v, o, steps, B, p, qs_, ks_, os_, scale, stream);
+    case 64: return launch_tc<64>(q, k, v, o, steps, B, p, qs_, ks_, os_, scale, stream);
+    case 80: return launch_tc<80>(q, k, v, o, steps, B, p, qs_, ks_, os_, scale, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 // q/o: (B, S, H, D) views, k/v: (B, S, H/G, D) views, given by element
 // strides (batch, seq, head); D is contiguous.  sched: 0 dense, 1 tri,
 // 2 band (visiting `band` kv blocks per q block); window: the sliding
-// window in tokens, 0 for none.
+// window in tokens, 0 for none.  bf16 takes the tensor-core body (16-byte
+// aligned pointers and strides), f32 the CUDA-core body.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
                                       void* o, void* steps, int B, int S, int H, int G,
                                       int D, int blk, int causal, int sched, int band,
@@ -206,8 +571,15 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   auto st = static_cast<cudaStream_t>(stream);
   auto sp = static_cast<int*>(steps);
   if (dtype == repro::kBF16)
-    return by_dim<__nv_bfloat16>(q, k, v, o, sp, B, D, p, qs_, ks_, os_, scale, st);
+    return by_dim_tc(q, k, v, o, sp, B, D, p, qs_, ks_, os_, scale, st);
   if (dtype == repro::kF32)
     return by_dim<float>(q, k, v, o, sp, B, D, p, qs_, ks_, os_, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Dynamic shared memory the launcher gives one block of the body that
+// `dtype` takes (0: the f32 body uses static shared memory only).
+extern "C" int flash_attention_smem_bytes(int D, int blk, int dtype) {
+  if (blk <= 0 || blk > MAXBLK) return -1;
+  return dtype == repro::kBF16 ? tc_smem_bytes(D, blk) : 0;
 }

@@ -22,6 +22,10 @@ grouped (B, S, KVr, D) keys/values and indexes kv head ``h // G`` in the
 kernel, so the serving path never repeats K/V to all heads.  The block
 size follows the reference (:func:`planned_grid_steps`), so the kernel's
 in-kernel step counter is comparable with it.
+
+On the card, bf16 operands take the kernel's tensor-core body, whose
+``cp.async`` copies need 16-byte aligned pointers and (batch, seq, head)
+strides (:func:`tc_view_error`); f32 operands take its CUDA-core body.
 """
 
 from __future__ import annotations
@@ -40,6 +44,24 @@ NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 80)
 _SCHEDULES = {"dense": 0, "tri": 1, "band": 2}
+
+#: the tensor-core body's copy width in bytes (``cp.async.cg``)
+TC_ALIGN = 16
+
+
+def tc_view_error(t: Tensor, name: str) -> Optional[str]:
+    """Why the tensor-core body cannot copy ``t`` (a (B, S, heads, D) view)
+    with 16-byte ``cp.async`` pieces, or None: its pointer and every
+    (batch, seq, head) stride of a dimension longer than 1 must be
+    multiples of 16 bytes."""
+    es, shape, stride = t.element_size(), t.shape, t.stride()
+    if t.data_ptr() % TC_ALIGN:
+        return f"{name}: data pointer is not {TC_ALIGN}-byte aligned"
+    for dim, label in enumerate(("batch", "seq", "head")):
+        if shape[dim] > 1 and (stride[dim] * es) % TC_ALIGN:
+            return (f"{name}: {label} stride of {stride[dim] * es} bytes is not a "
+                    f"multiple of {TC_ALIGN}")
+    return None
 
 
 def _block_for(S: int, bq: int, bk: int) -> int:
@@ -172,6 +194,11 @@ def _launch(q4: Tensor, k4: Tensor, v4: Tensor, out4: Tensor, *, G: int,
     if k4.shape != (B, S, H // G, D) or v4.stride() != k4.stride():
         raise ValueError(f"k/v must be (B, S, H/G, D) views with equal strides, "
                          f"got {tuple(k4.shape)}")
+    if q4.dtype == torch.bfloat16:
+        for t, name in ((q4, "q"), (k4, "k"), (v4, "v"), (out4, "out")):
+            why = tc_view_error(t, name)
+            if why is not None:
+                raise ValueError(f"flash_attention (bf16 tensor-core body): {why}")
     steps = torch.zeros((), dtype=torch.int32, device=dev) if count_steps else None
     rc = _build.entry("flash_attention_launch")(
         q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), out4.data_ptr(),

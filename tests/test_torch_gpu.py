@@ -8,7 +8,9 @@ Tolerances: the GEMMs rtol 1e-5 / atol 1e-4 (the qmm oracle tolerance; the
 kernels were observed bit-identical), the f32 attention kernels the same
 on f32 inputs, the decode kernel 1e-4 on a bf16 cache (f32 sums in another
 order), the int8-cache decode kernel 1e-5 abs (the reference's kernel-vs-
-jnp tolerance), the PR product exactly (integer bit math)."""
+jnp tolerance), the PR product exactly (integer bit math).  bf16 attention
+takes the kernel's tensor-core body (bf16 P in the P V product): atol 1/64
+against the f64 plain version, one bf16 ulp at |o| < 4."""
 import math
 
 import numpy as np
@@ -113,6 +115,68 @@ def test_gpu_flash_band_matches_dense_and_plain(hopper, D):
     ref, ref_steps = tfa.flash_attention_plain(qf, kf, vf, causal=True, window=W)
     torch.testing.assert_close(out, ref, rtol=RTOL, atol=ATOL)
     assert ref_steps == int(steps)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("S", [1, 7, 16, 129, 1000])
+@pytest.mark.parametrize("D", [16, 32, 64, 80])
+def test_gpu_flash_bf16_tensor_core_body(hopper, D, S, G):
+    """The bf16 (tensor-core) body on every schedule: ``tri`` == ``dense``
+    and ``band`` == ``dense`` under the same window, bit for bit; the
+    in-kernel step count == ``planned_grid_steps``; the grouped entry ==
+    the flat one on repeated K/V; within atol 1/64 of the plain version.
+    The window is 300 at S = 1000 (4 of 8 kv blocks per q block) and S // 2
+    below it, so the window mask also cuts inside one block."""
+    g = torch.Generator(device=hopper).manual_seed(1000 * D + 10 * S + G)
+    B, KVr = 2, 2
+    H, W = KVr * G, (300 if S > 300 else max(1, S // 2))
+    q = torch.randn(B, S, H, D, generator=g, device=hopper).bfloat16()
+    k = torch.randn(B, S, KVr, D, generator=g, device=hopper).bfloat16()
+    v = torch.randn(B, S, KVr, D, generator=g, device=hopper).bfloat16()
+    flat = lambda t: t.transpose(1, 2).reshape(B * t.shape[2], S, D)
+    qf, kf, vf = flat(q), flat(k.repeat_interleave(G, 2)), flat(v.repeat_interleave(G, 2))
+    for window in (None, W):
+        before = _build.launches["flash_attention"]
+        out, steps = tfa.flash_attention(qf, kf, vf, causal=True, window=window,
+                                         return_steps=True)
+        dense, dsteps = tfa.flash_attention(qf, kf, vf, causal=True, window=window,
+                                            skip_grid=False, return_steps=True)
+        og = tfa.flash_attention_grouped(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        assert _build.launches["flash_attention"] == before + 3
+        assert torch.equal(out, dense)
+        assert torch.equal(flat(og), out)
+        assert int(steps) == tfa.planned_grid_steps(B * H, S, window=window)
+        assert int(dsteps) == tfa.planned_grid_steps(B * H, S, window=window,
+                                                     skip_grid=False)
+        ref, ref_steps = tfa.flash_attention_plain(qf, kf, vf, causal=True, window=window)
+        assert ref_steps == int(steps)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=1 / 64)
+
+
+@pytest.mark.gpu
+def test_gpu_flash_bf16_refuses_misaligned_views(hopper):
+    """The tensor-core body copies 16-byte pieces: a view whose pointer
+    (offset by one element) or head stride (68 elements) is not 16-byte
+    aligned is refused before anything launches; the f32 body takes the
+    same views."""
+    g = torch.Generator(device=hopper).manual_seed(16)
+    kv = torch.randn(2, 64, 4, 64, generator=g, device=hopper)
+    for dt in (torch.bfloat16, torch.float32):
+        base = torch.randn(2, 64, 4, 72, generator=g, device=hopper).to(dt)
+        padded = torch.randn(2, 64, 4, 68, generator=g, device=hopper).to(dt)
+        for x in (base[..., 1:65], padded[..., :64]):
+            before = _build.launches["flash_attention"]
+            if dt == torch.bfloat16:
+                with pytest.raises(ValueError, match="16"):
+                    tfa.flash_attention_grouped(x, kv.to(dt), kv.to(dt))
+                assert _build.launches["flash_attention"] == before
+                continue
+            out = tfa.flash_attention_grouped(x, kv, kv)
+            assert _build.launches["flash_attention"] == before + 1
+            torch.testing.assert_close(out, tfa.flash_attention_grouped_plain(x, kv, kv),
+                                       rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.gpu
