@@ -11,34 +11,41 @@ Phases (any failure exits non-zero):
      line of each flash_attention instantiation's registers, spills and
      shared memory: none may spill);
   2. each hand-written kernel against its plain PyTorch version on the same
-     seeded inputs at the serving paths' full-width shapes (tinyllama-1.1b
-     for the LM kernels; the stream tick's planes and the Ch. 7 bench
-     layouts for the PR product), with the stated tolerance, timed with
-     CUDA events beside its bound and, where one PyTorch call computes the
-     same function, that call;
+     seeded inputs at the serving paths' full-width shapes (tinyllama-1.1b,
+     h2o-danube-1.8b and qwen2.5-3b for the LM kernels, with head_dim 128
+     in both attention bodies and the GEMM's bias epilogue; the stream
+     tick's planes and the Ch. 7 bench layouts for the PR product), with
+     the stated tolerance, timed with CUDA events beside its bound and,
+     where one PyTorch call computes the same function, that call;
   3. the serving paths, each with the launch counts set to 0 just before
-     it and read just after: tinyllama-1.1b (random weights from a seeded
-     CUDA generator) under axq8 with the QoS ladder 8 -> 5, prepacked,
-     served by the continuous-batching engine —
+     it and read just after, random weights from a seeded CUDA generator
+     under axq8 with the QoS ladder 8 -> 5, prepacked, served by the
+     continuous-batching engine — tinyllama-1.1b:
        3   exact-length admission, bf16 KV cache;
        3b  the int8 KV cache with bucketed, packed admission (warmup runs
            every bucket shape first; no new call shape after it);
        3c  the bf16 cache with bucketed, packed and chunked admission,
            long prompts among short ones;
-     and the streaming DSP workload at its StreamConfig() widths —
+     the streaming DSP workload at its StreamConfig() widths —
        3d  a backlog of clips (FIR -> 3x3 blur -> gain on the PR
            multiplier) on 64 slots with the per-site QoS ladder 8 -> 5,
            every frame bit-identical to a second run of the same traffic
            through the plain versions on the card;
+     h2o-danube-1.8b (sliding window 4096, head_dim 80) —
+       3e  prompts past the window (``band``) on the bf16 ring cache;
+       3f  the same on the int8 ring with bucketed admission;
+     qwen2.5-3b (head_dim 128, QKV bias, GQA 16/2, vocab 151936) —
+       3g  prompts of a few thousand tokens among short ones, exact-length
+           admission on the bf16 cache (``tri`` at D = 128);
+       3h  the same on the int8 cache with bucketed, packed admission;
      every request must finish and every kernel of the path must have
      launched exactly as the layer (or stage) count predicts, while no
      plain version ran on the card;
-  4. the same model cut to 2 layers (one prefill and 4 greedy decode
-     steps), on the bf16 and on the int8 cache: every kernel call checked
-     against its plain version on the model's own inputs, the logits of a
-     kernel run against a plain run within the model's measured noise
-     floor, and prompts padded to one bucket against their exact-length
-     prefill;
+  4. each LM cut to 2 layers (one prefill and 4 greedy decode steps), on
+     the bf16 and on the int8 cache: every kernel call checked against its
+     plain version on the model's own inputs, the logits of a kernel run
+     against a plain run within the model's measured noise floor, and
+     prompts padded to one bucket against their exact-length prefill;
   5. one {"kernels": [...]} line and, last, the result line.
 
 With ``--record PATH`` every number also goes to a JSON file.
@@ -58,10 +65,12 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 
-#: published H100 SXM peaks (dense): HBM bytes/s, int8 ops/s, bf16 flops/s
+#: published H100 SXM peaks (dense): HBM bytes/s, int8 ops/s, bf16 flops/s,
+#: f32 flops/s outside the tensor cores
 HBM_BPS = 3.35e12
 INT8_OPS = 1979e12
 BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
 
 #: bytes each timed loop cycles through, to keep repeated inputs out of the
 #: 50 MB L2 cache (the serving path meets its weights and caches cold)
@@ -81,7 +90,8 @@ SOURCES = {
 }
 
 #: the row keys that name a phase-2 shape
-SHAPE_KEYS = ("M", "N", "K", "B", "T", "BH", "S", "D", "window", "ebits", "shape")
+SHAPE_KEYS = ("M", "N", "K", "bias", "B", "T", "KVr", "G", "BH", "S", "D", "window", "ebits",
+              "dtype", "shape")
 
 
 def say(msg: str) -> None:
@@ -174,7 +184,7 @@ def copies(make, nbytes: int, on_card: bool) -> list:
 # ---------------------------------------------------------------------------
 
 
-def check_axqmm(ctx, M, N, K, residual, degree):
+def check_axqmm(ctx, M, N, K, residual, degree, bias=False):
     torch, dev, timer = ctx["torch"], ctx["dev"], ctx["timer"]
     from repro_torch.kernels import axqmm as A
     from repro_torch.kernels.qstore import PackedQWeight, prepack_weight, resolve_block
@@ -185,8 +195,9 @@ def check_axqmm(ctx, M, N, K, residual, degree):
     bk = resolve_block(K, 256)
     pw = prepack_weight(w, bk)
     res = torch.randn(M, N, generator=gen, device=dev) if residual else None
-    y = A.axqmm_packed(x, pw, degree, residual=res)
-    yp = A.axqmm_packed_plain(x, pw, degree, residual=res)
+    b = torch.randn(N, generator=gen, device=dev) if bias else None
+    y = A.axqmm_packed(x, pw, degree, bias=b, residual=res)
+    yp = A.axqmm_packed_plain(x, pw, degree, bias=b, residual=res)
     ctx["sync"]()
     err = float((y - yp).abs().max())
     ok = bool(torch.allclose(y, yp, rtol=1e-5, atol=1e-4))
@@ -195,21 +206,22 @@ def check_axqmm(ctx, M, N, K, residual, degree):
     pws = copies(lambda: PackedQWeight(pw.qw.clone(), pw.scales.clone()), wbytes,
                  ctx["on_card"])
     qx, sx = A.quantize_for_axqmm(x, bk)
-    row = {"M": M, "N": N, "K": K, "residual": residual, "max_abs_err": err,
+    row = {"M": M, "N": N, "K": K, "residual": residual, "bias": bias, "max_abs_err": err,
            "tol": "rtol 1e-5, atol 1e-4", "ok": ok}
     if ctx["on_card"]:
         row["ms"] = timer(lambda i: A.axqmm_quantized(qx, sx, pws[i % len(pws)],
-                                                      degree, residual=res))
+                                                      degree, bias=b, residual=res))
         row["wrapper_ms"] = timer(lambda i: A.axqmm_packed(x, pws[i % len(pws)],
-                                                           degree, residual=res))
+                                                           degree, bias=b, residual=res))
         row["plain_ms"] = timer(lambda i: A.axqmm_packed_plain(
-            x, pws[i % len(pws)], degree, residual=res), iters=5, warmup=1)
+            x, pws[i % len(pws)], degree, bias=b, residual=res), iters=5, warmup=1)
         # cuBLASLt's int8 GEMM wants M > 16: a decode-sized x is zero-padded
         qxl = qx if M > 16 else torch.cat([qx, qx.new_zeros(32 - M, K)])
         row["library_ms"] = timer(lambda i: torch._int_mm(qxl, pws[i % len(pws)].qw.t()))
         row["library_call"] = (f"torch._int_mm on ({qxl.shape[0]}, K) x (K, N) int8 "
                                "(no block scales or degrade)")
-    nbytes = M * K + M * nb * 4 + wbytes + M * N * 4 * (2 if residual else 1)
+    nbytes = (M * K + M * nb * 4 + wbytes + M * N * 4 * (2 if residual else 1)
+              + (N * 4 if bias else 0))
     row["bound_ms"], row["bound_by"] = bound(nbytes, 2.0 * M * N * K, INT8_OPS)
     return row
 
@@ -330,13 +342,24 @@ def check_decode_quant(ctx, B, KVr, G, D, T, nvalid, active, ebits):
     return row
 
 
-def check_prefill(ctx, BH, S, D, H, KVr):
+#: flash_attention against its f64 plain version: (rtol, atol, stated) by
+#: dtype — one bf16 ulp at |o| < 4 for the tensor-core body, the f32
+#: tolerance of tests/test_torch_gpu.py for the CUDA-core body
+FLASH_TOLS = {"bfloat16": (0.0, 1 / 64, "atol 1/64 (one bf16 ulp at |o| < 4)"),
+              "float32": (1e-5, 1e-4, "rtol 1e-5, atol 1e-4")}
+
+
+def flash_tol(dt):
+    return FLASH_TOLS[str(dt).removeprefix("torch.")]
+
+
+def check_prefill(ctx, BH, S, D, H, KVr, dtype=None):
     torch, dev, timer = ctx["torch"], ctx["dev"], ctx["timer"]
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as FA
 
-    dt = ctx["dtype"]
+    dt = dtype or ctx["dtype"]
     gen = torch.Generator(device=dev).manual_seed(4000 + S)
     q = torch.randn(BH, S, D, generator=gen, device=dev).to(dt)
     k = torch.randn(BH, S, D, generator=gen, device=dev).to(dt)
@@ -354,7 +377,8 @@ def check_prefill(ctx, BH, S, D, H, KVr):
     require(steps_d == planned_d, f"dense steps {steps_d} != planned {planned_d}")
     require(bool(torch.equal(y, yd)), "tri and dense schedules are not bit-identical")
     err = float((y.float() - yp.float()).abs().max())
-    ok = bool(torch.allclose(y.float(), yp.float(), rtol=0, atol=1 / 64))
+    rtol, atol, tol = flash_tol(dt)
+    ok = bool(torch.allclose(y.float(), yp.float(), rtol=rtol, atol=atol))
     # the grouped (model-layout) entry vs the (BH, S, D) entry on repeated K/V
     B = BH // H
     q4 = q.reshape(B, H, S, D).transpose(1, 2).contiguous()
@@ -367,7 +391,7 @@ def check_prefill(ctx, BH, S, D, H, KVr):
             "grouped and flat flash_attention entries disagree")
     row = {"BH": BH, "S": S, "D": D, "dtype": str(dt), "steps": steps,
            "planned_steps": planned, "dense_steps": steps_d,
-           "max_abs_err": err, "tol": "atol 1/64 (one bf16 ulp at |o| < 4)", "ok": ok}
+           "max_abs_err": err, "tol": tol, "ok": ok}
     per = 4 * BH * S * D * q.element_size()
     qkv = copies(lambda: (q.clone(), k.clone(), v.clone()), per, ctx["on_card"])
     if ctx["on_card"]:
@@ -378,7 +402,8 @@ def check_prefill(ctx, BH, S, D, H, KVr):
             *(t[None] for t in qkv[i % len(qkv)]), is_causal=True))
         row["library_call"] = "F.scaled_dot_product_attention(is_causal=True)"
     flops = 4.0 * BH * D * S * (S + 1) / 2
-    row["bound_ms"], row["bound_by"] = bound(per, flops, BF16_FLOPS)
+    peak = BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS
+    row["bound_ms"], row["bound_by"] = bound(per, flops, peak)
     attention_rates(row, flops)
     return row
 
@@ -426,12 +451,13 @@ def check_band(ctx, B, H, KVr, D, S, W):
     require(bool(torch.equal(y, yd)), "band and dense (same window) are not bit-identical")
     require(bool(torch.equal(flat(yg), y)), "grouped and flat band entries disagree")
     err = float((y.float() - yp.float()).abs().max())
-    ok = bool(torch.allclose(y.float(), yp.float(), rtol=0, atol=1 / 64))
+    rtol, atol, tol = flash_tol(dt)
+    ok = bool(torch.allclose(y.float(), yp.float(), rtol=rtol, atol=atol))
     _, blk, n, band, _ = FA._plan(S, True, W, 128, 128, True)
     row = {"BH": BH, "S": S, "D": D, "window": W, "grouped": f"{H}/{KVr}",
            "schedule": "band", "dtype": str(dt), "blk": blk, "band": band,
            "steps": steps, "planned_steps": planned, "dense_steps": steps_d,
-           "max_abs_err": err, "tol": "atol 1/64 (one bf16 ulp at |o| < 4)", "ok": ok}
+           "max_abs_err": err, "tol": tol, "ok": ok}
     per = 2 * B * S * (H + KVr) * D * q.element_size()
     qkv = copies(lambda: (q.clone(), k.clone(), v.clone()), per, ctx["on_card"])
     if ctx["on_card"]:
@@ -501,6 +527,13 @@ def check_pr_multiply(ctx, shape, what):
     return row
 
 
+def decode_lengths(T: int, slots: int):
+    """(nvalid, active) of a phase-2 decode row: mixed lengths up to a full
+    cache of T, one freed slot."""
+    nvalid = [T, (7 * T) // 10, T // 2 + 1, T // 16, 1, (3 * T) // 10, (9 * T) // 10, T // 8]
+    return nvalid[:slots], [1, 1, 1, 1, 1, 0, 1, 1][:slots]
+
+
 def phase_kernels(ctx, cfg):
     """Phase 2: every kernel against its plain version."""
     torch = ctx["torch"]
@@ -518,17 +551,15 @@ def phase_kernels(ctx, cfg):
     for M in (slots, prompt):
         rows["axqmm_gated"].append(check_gated(ctx, M, dff, d, deg))
     G, D, T = cfg.n_heads // cfg.n_kv_heads, cfg.head_dim, ctx["max_len"]
-    nvalid = [T, (7 * T) // 10, T // 2 + 1, T // 16, 1, (3 * T) // 10, (9 * T) // 10, T // 8]
-    active = [1, 1, 1, 1, 1, 0, 1, 1]
+    nvalid, active = decode_lengths(T, slots)
     rows["flash_decode"].append(check_decode(ctx, slots, cfg.n_kv_heads, G, D, T,
-                                             nvalid[:slots], active[:slots]))
+                                             nvalid, active))
     for e in (8, 5):
         rows["flash_decode_quant"].append(check_decode_quant(
-            ctx, slots, cfg.n_kv_heads, G, D, T, nvalid[:slots], active[:slots], e))
+            ctx, slots, cfg.n_kv_heads, G, D, T, nvalid, active, e))
     Tr = T - 3 * T // 128                      # ragged: 1000 at T = 1024
     rows["flash_decode_quant"].append(check_decode_quant(
-        ctx, slots, cfg.n_kv_heads, G, D, Tr, [min(n, Tr) for n in nvalid[:slots]],
-        active[:slots], 6))
+        ctx, slots, cfg.n_kv_heads, G, D, Tr, [min(n, Tr) for n in nvalid], active, 6))
     rows["flash_attention"].append(check_prefill(ctx, cfg.n_heads, prompt, D,
                                                  cfg.n_heads, cfg.n_kv_heads))
     # bucketed prefill shapes: four packed rows at half the cache, one at all of it
@@ -546,27 +577,25 @@ def flash_resources(ctx) -> list:
     instantiation (ptxas -v of this build; the dynamic shared memory at the
     reference's 128-row block from the C launcher).  Every one must run
     with 0 bytes spilled."""
-    import re
-
     from repro_torch.kernels import _build
 
     smem_of = _build.entry("flash_attention_smem_bytes")
     out = []
     for r in _build.kernel_resources(_build.ptxas_log.get("flash_attention", [])):
-        m = re.search(r"(flash_(?:tc|fwd)_kernel)I(13__nv_bfloat16|f)?Li(\d+)E", r["function"])
-        if m is None:
+        inst = _build.flash_instance(r["function"])
+        if inst is None:
             continue
-        kernel, D = m.group(1), int(m.group(3))
-        bf16 = m.group(2) != "f"
-        out.append({"instance": f"{kernel}<{'bf16' if bf16 else 'f32'}, D={D}>",
+        body, dtype, D = inst
+        out.append({"instance": f"flash_{body}_kernel<{dtype}, D={D}>", "D": D,
                     "registers": r["registers"], "spill_stores": r["spill_stores"],
                     "spill_loads": r["spill_loads"], "static_smem": r["smem"],
-                    "dynamic_smem_blk128": smem_of(D, 128, 1 if bf16 else 0)})
+                    "dynamic_smem_blk128": smem_of(D, 128, 1 if dtype == "bf16" else 0)})
     say("flash_attention instantiations: " + "; ".join(
         f"{r['instance']} {r['registers']} regs, spill {r['spill_stores']}/"
         f"{r['spill_loads']} B, smem {r['static_smem']} B static + "
         f"{r['dynamic_smem_blk128']} B dynamic" for r in out))
-    require(len(out) == 8, f"expected 8 flash_attention instantiations, ptxas shows {len(out)}")
+    require(len(out) == 10, f"expected 10 flash_attention instantiations (D 16, 32, 64, 80, "
+                            f"128 in each body), ptxas shows {len(out)}")
     require(all(r["spill_stores"] == 0 and r["spill_loads"] == 0 for r in out),
             "a flash_attention instantiation spills registers")
     return out
@@ -623,6 +652,42 @@ def phase_kernels_swa(ctx, cfg):
     return rows
 
 
+def phase_kernels_head128(ctx, cfg, nemo_cfg):
+    """Phase 2, head_dim 128 rows: qwen2.5-3b's kernels at its full-width
+    shapes (d_model 2048, 16/2 heads, d_ff 11008, vocab 151936, QKV bias:
+    the GEMM's bias epilogue), ``tri`` at D = 128 in both bodies, a ``band``
+    row at D = 128 (no registered arch runs it; it holds the template), and
+    both decode kernels at qwen's and mistral-nemo-12b's grouping (KVr 2,
+    G 8 and KVr 8, G 4) on a T = 4096 cache."""
+    torch = ctx["torch"]
+    d, dff, V = cfg.d_model, cfg.d_ff, cfg.vocab
+    D, H, KVr = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    deg = torch.tensor(6, dtype=torch.int32, device=ctx["dev"])
+    slots, prompt = ctx["slots"], ctx["prefill_m"]
+    rows = {"axqmm": [], "axqmm_gated": [], "flash_decode": [], "flash_decode_quant": [],
+            "flash_attention": []}
+    rows["axqmm"].append(check_axqmm(ctx, prompt, H * D, d, False, deg, bias=True))
+    rows["axqmm"].append(check_axqmm(ctx, slots, V, d, False, deg))
+    rows["axqmm_gated"].append(check_gated(ctx, prompt, dff, d, deg))
+    T = ctx["qwen_max_len"]
+    nvalid, active = decode_lengths(T, slots)
+    for c in (cfg, nemo_cfg):
+        G = c.n_heads // c.n_kv_heads
+        rows["flash_decode"].append(check_decode(ctx, slots, c.n_kv_heads, G, c.head_dim, T,
+                                                 nvalid, active))
+        rows["flash_decode_quant"].append(check_decode_quant(
+            ctx, slots, c.n_kv_heads, G, c.head_dim, T, nvalid, active,
+            5 if c is cfg else 8))
+    long_s, short_s = ctx["h128_tri_lens"]
+    for dt in (torch.bfloat16, torch.float32):
+        rows["flash_attention"].append(check_prefill(ctx, H, long_s, D, H, KVr, dtype=dt))
+    rows["flash_attention"].append(check_prefill(ctx, H, short_s, D, H, KVr))
+    S, W = ctx["h128_band"]
+    rows["flash_attention"].append(check_band(ctx, 1, H, KVr, D, S, W))
+    report_rows(rows, f"{cfg.name} (head_dim {D}): ")
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
@@ -640,9 +705,22 @@ def packed_bytes(params) -> int:
     return 0
 
 
+def seed_biases(ctx, params, seed: int) -> None:
+    """Fill the QKV bias leaves (zeros at init, as in the reference) with
+    seeded N(0, 0.5^2) values in place, so that the GEMMs' bias epilogue adds
+    something on the paths that carry one."""
+    torch = ctx["torch"]
+    gen = torch.Generator(device=ctx["dev"]).manual_seed(seed)
+    for key in ("wq", "wk", "wv"):
+        b = params["layers"][key].get("b")
+        if b is not None:
+            b.copy_(0.5 * torch.randn(b.shape, generator=gen, device=b.device))
+
+
 def serving_model(ctx, cfg):
     """The serving paths' model: axq8 with a dynamic degree, random weights
-    from a seeded generator on the device, prepacked."""
+    (and QKV biases, where the arch has them) from a seeded generator on the
+    device, prepacked."""
     torch, dev = ctx["torch"], ctx["dev"]
     from repro_torch.core.approx import policy_from_flag
     from repro_torch.models import build_model
@@ -650,6 +728,7 @@ def serving_model(ctx, cfg):
     model = build_model(cfg, policy_from_flag("axq8", dynamic=True), device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     params = model.prepack(model.init(generator=gen))   # rebind: the f32 copies go
+    seed_biases(ctx, params, 0)
     if ctx["on_card"]:
         torch.cuda.empty_cache()
     return model, params
@@ -902,101 +981,144 @@ def swa_prompts(ctx, cfg):
 
 
 @contextlib.contextmanager
-def _timed_prefills(ctx, eng, log):
-    """Time every exact-length prefill call (synchronised before and
-    after) into ``log`` as (prompt prefix length, seconds)."""
+def _timed_prefills(ctx, eng, log, method="prefill"):
+    """Time every call of the model's ``method`` (``prefill``: exact-length,
+    ``prefill_batch``: bucketed), synchronised before and after, into
+    ``log`` as (prompt prefix or bucket length, seconds)."""
     model = eng.workload.model
-    orig = model.prefill
+    orig = getattr(model, method)
 
     def prefill(params, cache, toks, *a, **kw):
         ctx["sync"]()
         t = time.time()
         out = orig(params, cache, toks, *a, **kw)
         ctx["sync"]()
-        log.append((int(toks.shape[0]), time.time() - t))
+        log.append((int(toks.shape[-1]), time.time() - t))
         return out
 
-    model.prefill = prefill
+    setattr(model, method, prefill)
     try:
         yield
     finally:
-        del model.prefill
+        delattr(model, method)
 
 
-def _swa_summary(ctx, label, eng, reqs, seen, kinds, prefills, tick_bound_ms):
+def _split_ttft(reqs, kinds) -> dict:
+    """TTFT p50/p95 of the long and of the short prompts (ms)."""
     import numpy as np
 
-    out = serve_summary(ctx, label, eng, reqs, seen, tick_bound_ms)
     pct = lambda xs, q: float(np.percentile(xs, q)) if xs else None
-    ttft = {k: [r.ttft * 1e3 for r, kk in zip(reqs, kinds) if kk == k]
-            for k in ("long", "short", "wrap")}
-    window = eng.workload.cfg.swa_window
-    out.update(prompt_lens=[int(r.prompt.size) for r in reqs], prompt_kinds=kinds,
-               long_ttft_p50_ms=pct(ttft["long"], 50), long_ttft_p95_ms=pct(ttft["long"], 95),
-               short_ttft_p50_ms=pct(ttft["short"], 50),
-               short_ttft_p95_ms=pct(ttft["short"], 95), wrap_ttft_ms=ttft["wrap"],
-               long_prefill_s=[{"prefix": n, "s": t} for n, t in prefills if n > window],
-               flash_schedules=seen["flash_schedules"])
-    say(f"{label}: TTFT long p50 {out['long_ttft_p50_ms']} p95 {out['long_ttft_p95_ms']} ms, "
-        f"short p50 {out['short_ttft_p50_ms']} p95 {out['short_ttft_p95_ms']} ms, wrap "
-        f"{out['wrap_ttft_ms']} ms; long prefills {out['long_prefill_s']}; flash_attention "
-        f"by schedule {seen['flash_schedules']}")
+    out = {}
+    for k in ("long", "short"):
+        xs = [r.ttft * 1e3 for r, kk in zip(reqs, kinds) if kk == k]
+        out.update({f"{k}_ttft_p50_ms": pct(xs, 50), f"{k}_ttft_p95_ms": pct(xs, 95)})
     return out
 
 
-def phase_serve_swa(ctx, cfg, model, params):
-    """Phase 3e: the sliding-window arch at full width, exact-length
-    admission on the bf16 ring cache (T = window): prompts past the window
-    run the ``band`` schedule, one prompt's decode wraps the ring."""
-    wbytes = packed_bytes(params)
-    prompts, kinds = swa_prompts(ctx, cfg)
-    warm = make_engine(ctx, model, params, max_len=ctx["swa_max_len"])
+def qwen_prompts(ctx, cfg):
+    """Phase 3g/3h traffic, all submitted at t = 0: ``qwen_n_long``
+    retrieval-sized prompts (``tri`` at D = 128 over up to ~4000 tokens)
+    among ``qwen_n_short`` chat turns, shuffled from a seed.  Returns
+    (prompts, kinds)."""
+    import numpy as np
+
+    rng = np.random.default_rng(16)
+    (llo, lhi), (slo, shi) = ctx["qwen_long_range"], ctx["qwen_short_range"]
+    lens = ([("long", int(rng.integers(llo, lhi + 1))) for _ in range(ctx["qwen_n_long"])]
+            + [("short", int(rng.integers(slo, shi + 1)))
+               for _ in range(ctx["qwen_n_short"])])
+    order = rng.permutation(len(lens))
+    kinds = [lens[i][0] for i in order]
+    prompts = [rng.integers(0, cfg.vocab, lens[i][1]) for i in order]
+    return prompts, kinds
+
+
+def _long_summary(ctx, label, cfg, params, eng, reqs, seen, kinds, long_prefills, n_kv):
+    """serve_summary, with TTFT split long/short and the KV cache's bytes
+    (its first ``n_kv`` tensors).  The decode tick's bound reads the packed
+    weights once, and the window arch's ring (its long prompts fill it from
+    their first tick) whole; a linear cache's rows are not counted."""
+    kv = cache_bytes(eng.cache[:n_kv])
+    bound_bytes = packed_bytes(params) + (kv if cfg.swa_window else 0)
+    out = serve_summary(ctx, label, eng, reqs, seen, bound_bytes / HBM_BPS * 1e3)
+    out.update(_split_ttft(reqs, kinds), prompt_lens=[int(r.prompt.size) for r in reqs],
+               prompt_kinds=kinds,
+               wrap_ttft_ms=[r.ttft * 1e3 for r, k in zip(reqs, kinds) if k == "wrap"],
+               long_prefill_s=long_prefills, flash_schedules=seen["flash_schedules"],
+               kv_cache_bytes=kv)
+    say(f"{label}: TTFT long p50 {out['long_ttft_p50_ms']} p95 {out['long_ttft_p95_ms']} ms, "
+        f"short p50 {out['short_ttft_p50_ms']} p95 {out['short_ttft_p95_ms']} ms, wrap "
+        f"{out['wrap_ttft_ms']} ms; long prefills {long_prefills}; flash_attention by "
+        f"schedule {seen['flash_schedules']}; KV cache {out['kv_cache_bytes']} bytes")
+    return out
+
+
+def phase_serve_long(ctx, tag, cfg, model, params, prompts, kinds, *, max_len, new_tokens,
+                     n_band):
+    """Phases 3e and 3g: exact-length admission on the bf16 cache, long
+    prompts among short ones (``swa_prompts`` / ``qwen_prompts``).  On the
+    window arch (3e) the cache is a ring of the window, the ``n_band``
+    prompts past it run the ``band`` schedule and the "wrap" prompt's
+    decode crosses the ring; elsewhere (3g: qwen2.5-3b, D = 128) every
+    prefill runs ``tri``.  A profiled window of steady decode ticks
+    follows the timed run."""
+    label = f"phase {tag}"
+    warm = make_engine(ctx, model, params, max_len=max_len)
     warm.submit(prompts[kinds.index("short")][:16], 2)
     warm.run_until_drained()
     del warm
-    eng = make_engine(ctx, model, params, max_len=ctx["swa_max_len"])
+    eng = make_engine(ctx, model, params, max_len=max_len)
     T = eng.cache.k.shape[2]
-    require(T == min(ctx["swa_max_len"], cfg.swa_window) and eng.workload._max_prompt is None,
-            f"phase 3e: the cache is not a ring of the window (T = {T})")
+    if cfg.swa_window:
+        require(T == min(max_len, cfg.swa_window) and eng.workload._max_prompt is None,
+                f"{label}: the cache is not a ring of the window (T = {T})")
     prefills: list = []
     with _timed_prefills(ctx, eng, prefills):
-        reqs, seen = drive(ctx, eng, prompts, ctx["swa_new_tokens"])
+        reqs, seen = drive(ctx, eng, prompts, new_tokens)
     rungs = sorted({e for _, e in eng.stats.degree_history})
-    require(len(rungs) > 1, f"phase 3e: the QoS degree never moved: {rungs}")
-    wrapped = [r for r, k in zip(reqs, kinds) if k == "wrap"]
-    require(all(r.prompt.size + ctx["swa_new_tokens"] > T for r in wrapped),
-            "phase 3e: the wrap prompt's decode does not cross the ring")
-    steps, prefills_n, L = eng.stats.decode_steps, eng.stats.prefill_calls, cfg.n_layers
-    n_long = kinds.count("long")
-    check_launches(ctx, "phase 3e", seen, {
-        "axqmm": (5 * L + 1) * (steps + prefills_n), "axqmm_gated": L * (steps + prefills_n),
-        "flash_decode": L * steps, "flash_decode_quant": 0,
-        "flash_attention": L * prefills_n, "pr_multiply": 0})
+    require(len(rungs) > 1, f"{label}: the QoS degree never moved: {rungs}")
+    require(all(r.prompt.size + new_tokens > T for r, k in zip(reqs, kinds) if k == "wrap"),
+            f"{label}: the wrap prompt's decode does not cross the ring")
+    steps, n, L = eng.stats.decode_steps, eng.stats.prefill_calls, cfg.n_layers
+    check_launches(ctx, label, seen, {
+        "axqmm": (5 * L + 1) * (steps + n), "axqmm_gated": L * (steps + n),
+        "flash_decode": L * steps, "flash_decode_quant": 0, "flash_attention": L * n,
+        "pr_multiply": 0})
     if ctx["on_card"]:
-        require(seen["flash_schedules"] == {"dense": 0, "tri": L * (prefills_n - n_long),
-                                            "band": L * n_long},
-                f"phase 3e: flash_attention by schedule {seen['flash_schedules']}, expected "
-                f"band = {L} x {n_long}")
-    out = _swa_summary(ctx, "phase 3e (window arch, exact admission, bf16 ring)", eng, reqs,
-                       seen, kinds, prefills,
-                       (wbytes + cache_bytes(eng.cache[:2])) / HBM_BPS * 1e3)
-    out.update(arch=cfg.name, new_tokens=ctx["swa_new_tokens"], slots=ctx["slots"],
-               max_len=ctx["swa_max_len"], ring_T=T, packed_weight_bytes=wbytes,
-               kv_ring_bytes=cache_bytes(eng.cache[:2]))
-    return out, prompts, kinds
+        require(seen["flash_schedules"] == {"dense": 0, "tri": L * (n - n_band),
+                                            "band": L * n_band},
+                f"{label}: flash_attention by schedule {seen['flash_schedules']}, expected "
+                f"band = {L} x {n_band}")
+    short_max = max(p.size for p, k in zip(prompts, kinds) if k != "long")
+    out = _long_summary(ctx, f"{label} ({cfg.name}, exact admission, bf16 cache)", cfg,
+                        params, eng, reqs, seen, kinds,
+                        [{"prefix": m, "s": t} for m, t in prefills if m > short_max], 2)
+    out.update(arch=cfg.name, new_tokens=new_tokens, slots=ctx["slots"], max_len=max_len,
+               cache_T=T, packed_weight_bytes=packed_bytes(params))
+    out["profile"] = prof = _profile_lm_ticks(ctx, eng, prompts, ctx["profile_ticks"])
+    say(f"{label}: profiled {prof['ticks']} steady decode ticks (prompts "
+        f"{prof['prompt_lens']}): {prof['tick_wall_ms']:.4f} ms wall per tick, "
+        f"{prof['device_us_per_tick']:.2f} us of device kernel time per tick (busy share "
+        f"{prof['device_busy_share']}); largest: " + "; ".join(
+            f"{r['name'][:60]} x{r['calls']} {r['device_us']:.1f} us ({r['share']:.4f})"
+            for r in prof["top_kernels"]))
+    return out
 
 
-def phase_serve_swa_int8(ctx, cfg, model, params, prompts, kinds):
-    """Phase 3f: 3e's traffic on the int8 ring with bucketed admission
-    (the ladder up to the window, pack 4): the long prompts take the exact
-    path (``band``), the others the buckets (``tri``); no call shape after
-    warmup is new.  The host-side write plan of each bucketed call is
-    timed."""
+def phase_serve_long_int8(ctx, tag, cfg, model, params, prompts, kinds, *, max_len,
+                          new_tokens, n_band):
+    """Phases 3f and 3h: 3e's / 3g's traffic on the int8 cache with bucketed
+    admission (the ladder up to ``max_len``, pack 4): warmup runs every
+    bucket shape first; the ``n_band`` prompts past the largest bucket take
+    the exact path (``band``, one call shape each), the others the buckets
+    (``tri``), and no other call shape is new.  The host-side write plan of
+    each bucketed call is timed."""
     from repro_torch.models import transformer as TR
-    from repro_torch.serve.admission import AdmissionConfig
+    from repro_torch.serve.admission import AdmissionConfig, bucket_for
 
+    label = f"phase {tag}"
     t = time.time()
-    eng = make_engine(ctx, model, params, max_len=ctx["swa_max_len"], quant=True,
+    eng = make_engine(ctx, model, params, max_len=max_len, quant=True,
                       admission=AdmissionConfig(pack=4))
     ctx["sync"]()
     warmup_s = time.time() - t
@@ -1004,7 +1126,7 @@ def phase_serve_swa_int8(ctx, cfg, model, params, prompts, kinds):
     shapes = dict(wl.trace_counts)
     nb = len(wl.admission.buckets)
     require(shapes["prefill_batch"] == nb and shapes["step"] == 1,
-            f"phase 3f: warmup ran {shapes}, expected {nb} bucket shapes and one step shape")
+            f"{label}: warmup ran {shapes}, expected {nb} bucket shapes and one step shape")
     plan_s: list = []
     orig_plan = TR._batch_write_plan
 
@@ -1015,41 +1137,47 @@ def phase_serve_swa_int8(ctx, cfg, model, params, prompts, kinds):
         plan_s.append(time.time() - t0)
         return res
 
-    prefills: list = []
+    exact_s: list = []
+    batch_s: list = []
     with _patched([(TR, "_batch_write_plan", timed_plan)]), \
-            _timed_prefills(ctx, eng, prefills):
-        reqs, seen = drive(ctx, eng, prompts, ctx["swa_new_tokens"])
-    n_long = kinds.count("long")
-    expect_shapes = dict(shapes, prefill=len({int(r.prompt.size) for r, k in
-                                              zip(reqs, kinds) if k == "long"}))
+            _timed_prefills(ctx, eng, exact_s), \
+            _timed_prefills(ctx, eng, batch_s, "prefill_batch"):
+        reqs, seen = drive(ctx, eng, prompts, new_tokens)
+    expect_shapes = dict(shapes)
+    if n_band:
+        expect_shapes["prefill"] = len({int(r.prompt.size) for r, k in zip(reqs, kinds)
+                                        if k == "long"})
     require(wl.trace_counts == expect_shapes,
-            f"phase 3f: call shapes {wl.trace_counts}, expected {expect_shapes} (the "
+            f"{label}: call shapes {wl.trace_counts}, expected {expect_shapes} (the "
             "exact-path long prompts only)")
     rungs = sorted({e for _, e in eng.stats.degree_history})
-    require(len(rungs) > 1, f"phase 3f: the QoS degree never moved: {rungs}")
+    require(len(rungs) > 1, f"{label}: the QoS degree never moved: {rungs}")
     st, L = eng.stats, cfg.n_layers
     steps = st.decode_steps
     calls = sum(int(c.value) for c in st.c_admit_bucket.children.values())
-    require(len(plan_s) == calls, f"phase 3f: {len(plan_s)} write plans for {calls} calls")
-    check_launches(ctx, "phase 3f", seen, {
-        "axqmm": (5 * L + 1) * (steps + n_long) + 5 * L * calls,
-        "axqmm_gated": L * (steps + n_long + calls), "flash_decode": 0,
-        "flash_decode_quant": L * steps, "flash_attention": L * (n_long + calls),
+    require(len(plan_s) == calls, f"{label}: {len(plan_s)} write plans for {calls} calls")
+    check_launches(ctx, label, seen, {
+        "axqmm": (5 * L + 1) * (steps + n_band) + 5 * L * calls,
+        "axqmm_gated": L * (steps + n_band + calls), "flash_decode": 0,
+        "flash_decode_quant": L * steps, "flash_attention": L * (n_band + calls),
         "pr_multiply": 0})
     if ctx["on_card"]:
-        require(seen["flash_schedules"] == {"dense": 0, "tri": L * calls, "band": L * n_long},
-                f"phase 3f: flash_attention by schedule {seen['flash_schedules']}")
-    out = _swa_summary(ctx, "phase 3f (window arch, int8 ring, buckets, pack 4)", eng, reqs,
-                       seen, kinds, prefills,
-                       (packed_bytes(params) + cache_bytes(eng.cache[:4])) / HBM_BPS * 1e3)
+        require(seen["flash_schedules"] == {"dense": 0, "tri": L * calls, "band": L * n_band},
+                f"{label}: flash_attention by schedule {seen['flash_schedules']}")
+    # the non-long prompts' largest bucket: a call past it holds a long prompt
+    short_bucket = bucket_for(max(p.size - 1 for p, k in zip(prompts, kinds) if k != "long"),
+                              wl.admission.buckets)
+    long_prefills = ([{"prefix": m, "s": t} for m, t in exact_s]
+                     + [{"bucket": m, "s": t} for m, t in batch_s if m > short_bucket])
+    out = _long_summary(ctx, f"{label} ({cfg.name}, int8 cache, buckets, pack 4)", cfg,
+                        params, eng, reqs, seen, kinds, long_prefills, 4)
     out.update(warmup_s=warmup_s, buckets=list(wl.admission.buckets), pack=wl.admission.pack,
                call_shapes=dict(wl.trace_counts), bucketed_calls=calls,
                bucket_flushes={k[0]: int(c.value) for k, c in st.c_admit_bucket.children.items()},
-               write_plan_ms=[1e3 * x for x in plan_s],
-               kv_ring_bytes=cache_bytes(eng.cache[:4]))
-    say(f"phase 3f: warmup {warmup_s:.2f} s over {shapes}; {calls} bucketed calls "
+               write_plan_ms=[1e3 * x for x in plan_s])
+    say(f"{label}: warmup {warmup_s:.2f} s over {shapes}; {calls} bucketed calls "
         f"{out['bucket_flushes']}; host write plans {[round(x, 3) for x in out['write_plan_ms']]}"
-        f" ms; int8 ring {out['kv_ring_bytes']} bytes")
+        f" ms")
     return out
 
 
@@ -1108,24 +1236,19 @@ def _serve_clips(ctx, cfg, clips, backend):
     return eng, reqs, seen
 
 
-def _profile_ticks(ctx, cfg, clips, n):
-    """Device time inside ``n`` steady stream ticks (every slot busy), from
-    a ``torch.profiler`` trace: the kernels' summed device time per tick
-    against the tick's host wall time, and the largest kernels by name."""
+def _profiled(ctx, tick, n):
+    """``n`` calls of ``tick`` under a ``torch.profiler`` trace: the
+    kernels' summed device time per tick against the tick's host wall time,
+    and the largest kernels by name with their share of that device time."""
     torch = ctx["torch"]
     from torch.profiler import ProfilerActivity, profile
 
-    eng = _stream_engine(ctx, cfg)
-    for c in clips[:ctx["stream_slots"]]:
-        eng.submit(c)
-    for _ in range(2):                        # admission tick + one more
-        eng.tick()
     ctx["sync"]()
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if ctx["on_card"] else [])
     with profile(activities=acts) as prof:
         t = time.time()
         for _ in range(n):
-            eng.tick()
+            tick()
         ctx["sync"]()
         wall = time.time() - t
     # the device-side events only: an operator's own entry repeats its
@@ -1134,10 +1257,37 @@ def _profile_ticks(ctx, cfg, clips, n):
             if e.device_type == torch.autograd.DeviceType.CUDA
             and e.self_device_time_total > 0]
     dev_us = sum(r[2] for r in rows)
-    top = sorted(rows, key=lambda r: -r[2])[:6]
+    top = sorted(rows, key=lambda r: -r[2])[:8]
     return {"ticks": n, "tick_wall_ms": 1e3 * wall / n, "device_us_per_tick": dev_us / n,
             "device_busy_share": dev_us * 1e-6 / wall if wall > 0 else None,
-            "top_kernels": [{"name": k, "calls": c, "device_us": t} for k, c, t in top]}
+            "top_kernels": [{"name": k, "calls": c, "device_us": t, "share": t / dev_us}
+                            for k, c, t in top]}
+
+
+def _profile_ticks(ctx, cfg, clips, n):
+    """Device time inside ``n`` steady stream ticks (every slot busy)."""
+    eng = _stream_engine(ctx, cfg)
+    for c in clips[:ctx["stream_slots"]]:
+        eng.submit(c)
+    for _ in range(2):                        # admission tick + one more
+        eng.tick()
+    return _profiled(ctx, eng.tick, n)
+
+
+def _profile_lm_ticks(ctx, eng, prompts, n):
+    """Device time inside ``n`` steady decode ticks of ``eng`` with every
+    slot busy: the phase's first ``slots`` prompts, all admitted (and one
+    decode tick run) before the trace opens."""
+    batch = prompts[:ctx["slots"]]
+    for p in batch:
+        eng.submit(p, n + 4)
+    while eng.queue:
+        eng.tick()
+    eng.tick()
+    out = _profiled(ctx, eng.tick, n)
+    eng.run_until_drained()
+    out["prompt_lens"] = [int(p.size) for p in batch]
+    return out
 
 
 def phase_stream(ctx):
@@ -1299,7 +1449,8 @@ def _checked_kernels(ctx, dtype, report):
             y = kernel(*a, **kw)
             yp = plain(*a, **kw)
             rtol, atol = tols[name]
-            row = report.setdefault(name, [0, 0.0, 0])
+            key = f"{name} (bias)" if kw.get("bias") is not None else name
+            row = report.setdefault(key, [0, 0.0, 0])
             row[0] += 1
             row[1] = max(row[1], float((y.float() - yp.float()).abs().max()))
             row[2] += not bool(torch.allclose(y.float(), yp.float(), rtol=rtol, atol=atol))
@@ -1438,6 +1589,7 @@ def phase_model(ctx, cfg, prompt_len):
         cut = dataclasses.replace(cfg, n_layers=2, dtype=dtype)
         model = build_model(cut, policy_from_flag("axq8", dynamic=True), device=dev)
         params = model.prepack(model.init(seed=1))
+        seed_biases(ctx, params, 1)
         deg = torch.tensor(degree, dtype=torch.int32, device=dev)
         # the rehearsal drives the same sequence with `auto`, which routes
         # the CPU tensors to the plain versions (no kernel call to check)
@@ -1468,7 +1620,8 @@ def phase_model(ctx, cfg, prompt_len):
             f"{pve['cache_max_abs_diff']}, next-step logits max |diff| "
             f"{pve['logits_max_abs_diff']:.4g}")
         decode = "flash_decode_quant" if quant else "flash_decode"
-        for name in ("axqmm", "axqmm_gated", decode, "flash_attention"):
+        names = ("axqmm", "axqmm_gated", decode, "flash_attention")
+        for name in names + (("axqmm (bias)",) if cfg.qkv_bias else ()):
             n, err, bad = calls.get(name, (0, 0.0, 0))
             require(n > 0 or not ctx["on_card"], f"{label}: {name} never ran")
             require(bad == 0, f"{label}: {bad} of {n} {name} calls outside "
@@ -1545,7 +1698,10 @@ def main(argv=None) -> int:
                "swa_max_len": 4096, "swa_long_range": (4500, 8192), "swa_wrap_len": 4080,
                "swa_short_range": (64, 512), "swa_n_long": 4, "swa_n_short": 7,
                "swa_new_tokens": 32, "swa_band_lens": (4500, 8192), "swa_model_prompt": 4500,
-               "stream_slots": 64, "stream_clips": 256, "stream_frames": 32,
+               "qwen_max_len": 4096, "qwen_long_range": (2048, 4000), "qwen_n_long": 3,
+               "qwen_short_range": (64, 512), "qwen_n_short": 9, "qwen_model_prompt": 1500,
+               "h128_tri_lens": (4096, 1024), "h128_band": (8192, 4096),
+               "profile_ticks": 8, "stream_slots": 64, "stream_clips": 256, "stream_frames": 32,
                "psnr_clips": 4, "psnr_frames": 8,
                "pr_shapes": (((8, 64, 256), "stream tick: FIR planes, 64 slots"),
                              ((9, 64, 256), "stream tick: 3x3 blur planes"),
@@ -1556,6 +1712,8 @@ def main(argv=None) -> int:
                              ((1 << 24,), "flat 2^24"))}
         cfg = get_config("tinyllama-1.1b")
         swa_cfg = get_config("h2o-danube-1.8b")
+        qwen_cfg = get_config("qwen2.5-3b")
+        nemo_cfg = get_config("mistral-nemo-12b")
     else:
         torch.set_num_threads(4)
         smi, kind, count = ["cpu rehearsal"], "cpu", 0
@@ -1570,7 +1728,10 @@ def main(argv=None) -> int:
                "swa_max_len": 32, "swa_long_range": (520, 700), "swa_wrap_len": 24,
                "swa_short_range": (8, 30), "swa_n_long": 4, "swa_n_short": 7,
                "swa_new_tokens": 12, "swa_band_lens": (520, 700), "swa_model_prompt": 600,
-               "stream_slots": 4, "stream_clips": 6, "stream_frames": 4,
+               "qwen_max_len": 64, "qwen_long_range": (40, 60), "qwen_n_long": 3,
+               "qwen_short_range": (8, 20), "qwen_n_short": 9, "qwen_model_prompt": 50,
+               "h128_tri_lens": (300, 40), "h128_band": (520, 32),
+               "profile_ticks": 2, "stream_slots": 4, "stream_clips": 6, "stream_frames": 4,
                "psnr_clips": 2, "psnr_frames": 3,
                "pr_shapes": (((8, 4, 256), "stream tick: FIR planes, 4 slots"),
                              ((9, 4, 256), "stream tick: 3x3 blur planes"),
@@ -1579,6 +1740,9 @@ def main(argv=None) -> int:
                              ((1003,), "ragged"))}
         cfg = get_config("tinyllama-1.1b-smoke")
         swa_cfg = get_config("h2o-danube-1.8b-smoke")
+        # the smoke variants have head_dim 16: keep the D = 128 paths
+        qwen_cfg = dataclasses.replace(get_config("qwen2.5-3b-smoke"), head_dim=128)
+        nemo_cfg = dataclasses.replace(get_config("mistral-nemo-12b-smoke"), head_dim=128)
     ctx["timer"] = Timer(torch, on_card)
 
     record = {"card": smi, "kind": kind, "count": count}
@@ -1586,6 +1750,7 @@ def main(argv=None) -> int:
         record["flash_attention_resources"] = flash_resources(ctx)
     record["kernels"] = phase_kernels(ctx, cfg)
     record["kernels_swa"] = phase_kernels_swa(ctx, swa_cfg)
+    record["kernels_h128"] = phase_kernels_head128(ctx, qwen_cfg, nemo_cfg)
     if args.kernels_only:
         write_record(args.record, record)
         say("kernel checks done (--kernels-only): no result line")
@@ -1600,21 +1765,38 @@ def main(argv=None) -> int:
     record["stream_path"] = phase_stream(ctx)
     record["model_2layer"] = phase_model(ctx, cfg, ctx["prefill_m"])
     model, params = serving_model(ctx, swa_cfg)
-    record["swa_path"], prompts, kinds = phase_serve_swa(ctx, swa_cfg, model, params)
-    record["swa_int8_path"] = phase_serve_swa_int8(ctx, swa_cfg, model, params, prompts,
-                                                   kinds)
+    prompts, kinds = swa_prompts(ctx, swa_cfg)
+    long_path = dict(max_len=ctx["swa_max_len"], new_tokens=ctx["swa_new_tokens"],
+                     n_band=kinds.count("long"))
+    record["swa_path"] = phase_serve_long(ctx, "3e", swa_cfg, model, params, prompts, kinds,
+                                          **long_path)
+    record["swa_int8_path"] = phase_serve_long_int8(ctx, "3f", swa_cfg, model, params,
+                                                    prompts, kinds, **long_path)
     del model, params
     if on_card:
         torch.cuda.empty_cache()
     record["swa_model_2layer"] = phase_model(ctx, swa_cfg, ctx["swa_model_prompt"])
+    model, params = serving_model(ctx, qwen_cfg)
+    prompts, kinds = qwen_prompts(ctx, qwen_cfg)
+    long_path = dict(max_len=ctx["qwen_max_len"], new_tokens=ctx["new_tokens"], n_band=0)
+    record["qwen_path"] = phase_serve_long(ctx, "3g", qwen_cfg, model, params, prompts, kinds,
+                                           **long_path)
+    record["qwen_int8_path"] = phase_serve_long_int8(ctx, "3h", qwen_cfg, model, params,
+                                                     prompts, kinds, **long_path)
+    del model, params
+    if on_card:
+        torch.cuda.empty_cache()
+    record["qwen_model_2layer"] = phase_model(ctx, qwen_cfg, ctx["qwen_model_prompt"])
 
     paths = {"3": record["main_path"], "3b": record["int8_cache_path"],
              "3c": record["chunked_path"], "3d": record["stream_path"],
-             "3e": record["swa_path"], "3f": record["swa_int8_path"]}
+             "3e": record["swa_path"], "3f": record["swa_int8_path"],
+             "3g": record["qwen_path"], "3h": record["qwen_int8_path"]}
     summary = []
     for name, rows in record["kernels"].items():
         src, replaces = SOURCES[name]
         swa_rows = record["kernels_swa"].get(name, [])
+        h128_rows = record["kernels_h128"].get(name, [])
         # the summary row: the unembedding GEMM (the largest decode GEMM)
         # for axqmm, the decode-shaped row for the others
         lead = rows[-1] if name == "axqmm" else rows[0]
@@ -1622,7 +1804,7 @@ def main(argv=None) -> int:
         entry = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
-            "max_abs_err": max(r["max_abs_err"] for r in rows + swa_rows),
+            "max_abs_err": max(r["max_abs_err"] for r in rows + swa_rows + h128_rows),
             "ms": lead.get("ms"), "plain_ms": lead.get("plain_ms"),
             "bound_ms": lead["bound_ms"], "bound_by": lead["bound_by"],
             "library_ms": lead.get("library_ms"),
@@ -1635,9 +1817,12 @@ def main(argv=None) -> int:
             # the sliding-window arch's longest band row
             band = max((r for r in swa_rows if r.get("schedule") == "band"),
                        key=lambda r: r["S"])
-            entry["band"] = {k: band.get(k) for k in ("S", "BH", "D", "window", "ms",
-                                                        "plain_ms", "bound_ms", "bound_by",
-                                                        "library_ms", "max_abs_err")}
+            keys = ("S", "BH", "D", "window", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "max_abs_err")
+            entry["band"] = {k: band.get(k) for k in keys}
+            # qwen2.5-3b's longest tri row at head_dim 128 (bf16 body)
+            tri128 = h128_rows[0]
+            entry["head_dim_128"] = {k: tri128.get(k) for k in keys + ("dtype",)}
         summary.append(entry)
     record["summary"] = summary
     write_record(args.record, record)

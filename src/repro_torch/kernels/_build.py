@@ -183,6 +183,18 @@ def kernel_resources(lines) -> list:
     return out
 
 
+def flash_instance(function: str):
+    """(body, dtype, D) of a mangled ``flash_attention`` kernel name from
+    ``ptxas -v`` — ("tc", "bf16", D) for the tensor-core body,
+    ("fwd", "f32", D) for the CUDA-core body — or None for any other."""
+    m = re.search(r"flash_(tc|fwd)_kernelI(13__nv_bfloat16|f)?Li(\d+)E", function)
+    if m is None:
+        return None
+    body = m.group(1)
+    dtype = "bf16" if body == "tc" or m.group(2) != "f" else "f32"
+    return body, dtype, int(m.group(3))
+
+
 def entry(fn: str):
     """The bound C entry point ``fn`` (building the libraries on first use)."""
     owner = SIGNATURES[fn][0]

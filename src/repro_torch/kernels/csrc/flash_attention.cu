@@ -46,11 +46,11 @@
 // keeps the body at <= 128 registers (D = 80 included) with no spill, so
 // two blocks (16 warps) share an SM; held in registers, they cost ~20 more
 // and left one block per SM, which measured slower (PERF.md).  K/V
-// stream through shared memory in chunks of CH = 64 kv rows, copied by
-// cp.async.cg in 16-byte pieces straight from the strided view and
-// double-buffered (chunk c+1's copy is in flight during chunk c's math);
-// rows are padded to D + 8 elements so ldmatrix is free of bank conflicts,
-// and rows past the chunk are zero-filled.  S = Q K^T by
+// stream through shared memory in chunks of CH = 64 kv rows (32 at D = 128,
+// below), copied by cp.async.cg in 16-byte pieces straight from the strided
+// view and double-buffered (chunk c+1's copy is in flight during chunk c's
+// math); rows are padded to D + 8 elements so ldmatrix is free of bank
+// conflicts, and rows past the chunk are zero-filled.  S = Q K^T by
 // mma.sync.m16n8k16 bf16 -> f32 (K fragments by ldmatrix); the scores are
 // scaled by scale * log2(e) and masked per fragment element from its
 // (row, col); the online softmax runs in f32 with ex2.approx, row max across the
@@ -62,14 +62,24 @@
 // The wrapper checks 16-byte alignment of the pointers and strides.
 // Dynamic shared memory: (16 * warps + 4 * CH) * (D + 8) * 2 bytes (67,584
 // at D = 80 and blk = 128), raised past 48 KB once per instantiation.
+// D = 128 (TcTile<128>): O alone is 64 f32 registers a thread, so its
+// chunks are 32 kv rows (the scores take 16 registers, not 32), which keeps
+// two blocks per SM at <= 128 registers with no spill; 69,632 bytes of
+// shared memory at blk = 128.
 //
 // f32 (the parity mode of the tests): CUDA cores, f32 dots, one thread per
-// query row holding its scaled q row and accumulator in registers (2 x D
-// floats), K/V staged as f32 in 16-row chunks.  bf16 or TF32 tensor-core
-// inputs could not meet its 1e-4 tolerance.
+// query row holding its accumulator in registers (D floats), K/V staged as
+// f32 in 16-row chunks.  The block's scaled q rows sit in dynamic shared
+// memory, d-major so that a warp's 32 rows read 32 banks (q and O both in
+// registers would take 256 floats at D = 128, over the 255-register
+// limit); the dots run d-outer over the chunk's 16 columns, one fmaf chain
+// per score in d order.  bf16 or TF32 tensor-core inputs could not meet its
+// 1e-4 tolerance.
 //
 // Not yet used: wgmma warpgroup tiles, TMA with mbarriers, warp
 // specialisation (FlashAttention-3's shape).
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -100,12 +110,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  Plan p, Strides qs_, Strides ks_, Strides os_, float scale) {
   __shared__ float ksm[KT][D + 1];
   __shared__ float vsm[KT][D];
+  extern __shared__ float qsm[];         // scaled q rows, [D][blockDim.x]
 
   const int S = p.S, blk = p.blk, window = p.window;
   const int i = blockIdx.x;              // q block
   const int bh = blockIdx.y;
   const int b = bh / p.H, h = bh % p.H, kvh = h / p.G;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, nthr = blockDim.x;
   const int row = i * blk + tid;
   const bool live = tid < blk && row < S;
   const int n = (S + blk - 1) / blk;
@@ -118,12 +129,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     visits = p.band;
   }
 
-  float qr[D], acc[D];
+  float acc[D];
   float m = kNegInf, l = 0.f;
   const T* qp = q + b * qs_.b + (long long)min(row, S - 1) * qs_.s + h * qs_.h;
 #pragma unroll
   for (int d = 0; d < D; ++d) {
-    qr[d] = live ? to_f32(qp[d]) * scale : 0.f;
+    qsm[d * nthr + tid] = live ? to_f32(qp[d]) * scale : 0.f;   // read by this thread only
     acc[d] = 0.f;
   }
   const T* kbase = k + b * ks_.b + kvh * ks_.h;
@@ -152,14 +163,19 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float s[KT];
       float mx = kNegInf;
 #pragma unroll
+      for (int c = 0; c < KT; ++c) s[c] = 0.f;
+#pragma unroll 4
+      for (int d = 0; d < D; ++d) {
+        const float qd = qsm[d * nthr + tid];
+#pragma unroll
+        for (int c = 0; c < KT; ++c) s[c] = fmaf(qd, ksm[c][d], s[c]);
+      }
+#pragma unroll
       for (int c = 0; c < KT; ++c) {
         const int col = c_lo + c;
         const bool ok = (c0 + c) < blk && col < S && (!p.causal || col <= row) &&
                         (window == 0 || col > row - window);
-        float dot = 0.f;
-#pragma unroll
-        for (int d = 0; d < D; ++d) dot = fmaf(qr[d], ksm[c][d], dot);
-        s[c] = ok ? dot : kNegInf;
+        s[c] = ok ? s[c] : kNegInf;
         mx = fmaxf(mx, s[c]);
       }
       const float m_new = fmaxf(m, mx);
@@ -188,30 +204,55 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int d = 0; d < D; ++d) op[d] = from_f32<T>(acc[d] * inv);
 }
 
+// Dynamic shared memory of one f32-body block: the scaled q rows.
+__host__ __device__ constexpr int fwd_smem_bytes(int D, int blk) {
+  return D * ((blk + 31) / 32) * 32 * 4;
+}
+
+// Allow `kernel` `bytes` of dynamic shared memory on the current device,
+// once per device (`ready` is the caller's per-instantiation flags).
+template <typename Kernel>
+int allow_smem(Kernel kernel, int bytes, bool (&ready)[64]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!ready[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ready[dev] = true;
+  }
+  return 0;
+}
+
 template <typename T, int D>
-void launch(const void* q, const void* k, const void* v, void* o, int* steps, int B,
-            const Plan& p, Strides qs_, Strides ks_, Strides os_, float scale,
-            cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, int* steps, int B,
+           const Plan& p, Strides qs_, Strides ks_, Strides os_, float scale,
+           cudaStream_t stream) {
+  static bool ready[64] = {};
+  const int err = allow_smem(flash_fwd_kernel<T, D>, fwd_smem_bytes(D, MAXBLK), ready);
+  if (err != 0) return err;
   const int n = (p.S + p.blk - 1) / p.blk;
   const dim3 grid(n, B * p.H);
   const int threads = ((p.blk + 31) / 32) * 32;
-  flash_fwd_kernel<T, D><<<grid, threads, 0, stream>>>(
+  flash_fwd_kernel<T, D><<<grid, threads, fwd_smem_bytes(D, p.blk), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), steps, p, qs_, ks_, os_, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int by_dim(const void* q, const void* k, const void* v, void* o, int* steps, int B,
-           int D, const Plan& p, Strides qs_, Strides ks_, Strides os_, float scale,
-           cudaStream_t stream) {
+// f(std::integral_constant<int, D>{}) for an instantiated head dim D;
+// cudaErrorInvalidValue for any other (the wrapper's _HEAD_DIMS).
+template <typename F>
+int with_head_dim(int D, F&& f) {
   switch (D) {
-    case 16: launch<T, 16>(q, k, v, o, steps, B, p, qs_, ks_, os_, scale, stream); break;
-    case 32: launch<T, 32>(q, k, v, o, steps, B, p, qs_, ks_, os_, scale, stream); break;
-    case 64: launch<T, 64>(q, k, v, o, steps, B, p, qs_, ks_, os_, scale, stream); break;
-    case 80: launch<T, 80>(q, k, v, o, steps, B, p, qs_, ks_, os_, scale, stream); break;
+    case 16: return f(std::integral_constant<int, 16>{});
+    case 32: return f(std::integral_constant<int, 32>{});
+    case 64: return f(std::integral_constant<int, 64>{});
+    case 80: return f(std::integral_constant<int, 80>{});
+    case 128: return f(std::integral_constant<int, 128>{});
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -220,9 +261,26 @@ int by_dim(const void* q, const void* k, const void* v, void* o, int* steps, int
 
 using bf16 = __nv_bfloat16;
 
-constexpr int CH = 64;              // kv rows per shared chunk (every schedule)
 constexpr int WROWS = 16;           // query rows per warp (one mma M tile)
 constexpr int MAXWARPS = MAXBLK / WROWS;
+
+// The bf16 body's kv rows per shared chunk, fixed per D so that every
+// schedule and every padded length sees the same chunks.  The body runs two
+// blocks per SM (__launch_bounds__ below), which caps a thread at
+// 65536 / (2 * 256) = 128 registers.
+template <int D>
+struct TcTile {
+  static constexpr int kCh = 64;
+};
+
+// D = 128: O alone is 64 f32 registers a thread.  64-row chunks (32 score
+// registers) spill under the 128-register cap; 32-row chunks (16) fit with
+// no spill, at a cost of 6-7% in time against the spilling build (PERF.md,
+// tools/tune_flash_tile.py).
+template <>
+struct TcTile<128> {
+  static constexpr int kCh = 32;
+};
 
 __host__ __device__ constexpr int tc_row_elems(int D) { return D + 8; }
 
@@ -232,8 +290,9 @@ __host__ __device__ constexpr int tc_warps(int blk) {
 
 // Dynamic shared memory of one block: the warps' Q tiles and two stages of
 // K and V chunks, rows padded to D + 8 bf16.
-__host__ __device__ constexpr int tc_smem_bytes(int D, int blk) {
-  return (WROWS * tc_warps(blk) + 4 * CH) * tc_row_elems(D) * 2;
+template <int D>
+__host__ __device__ constexpr int tc_smem_bytes(int blk) {
+  return (WROWS * tc_warps(blk) + 4 * TcTile<D>::kCh) * tc_row_elems(D) * 2;
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -301,6 +360,7 @@ __global__ void __launch_bounds__(MAXWARPS * 32, 2)
 flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, bf16* __restrict__ o, int* __restrict__ steps,
                 Plan p, Strides qs_, Strides ks_, Strides os_, float scale_log2) {
+  constexpr int CH = TcTile<D>::kCh;   // kv rows per chunk
   constexpr int LD = tc_row_elems(D);  // shared row stride (elements)
   constexpr int KS = D / 16;           // k-steps of Q K^T
   constexpr int NT = D / 8;            // n-tiles of O
@@ -515,35 +575,15 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int* steps, 
               cudaStream_t stream) {
   // the largest block's shared memory, allowed once per device
   static bool ready[64] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
-  if (!ready[dev]) {
-    err = cudaFuncSetAttribute(flash_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               tc_smem_bytes(D, MAXBLK));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    ready[dev] = true;
-  }
+  const int err = allow_smem(flash_tc_kernel<D>, tc_smem_bytes<D>(MAXBLK), ready);
+  if (err != 0) return err;
   const int n = (p.S + p.blk - 1) / p.blk;
   const dim3 grid(B * p.H, n);
   const float log2e = 1.4426950408889634f;
-  flash_tc_kernel<D><<<grid, tc_warps(p.blk) * 32, tc_smem_bytes(D, p.blk), stream>>>(
+  flash_tc_kernel<D><<<grid, tc_warps(p.blk) * 32, tc_smem_bytes<D>(p.blk), stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(o), steps, p, qs_, ks_, os_, scale * log2e);
   return static_cast<int>(cudaGetLastError());
-}
-
-int by_dim_tc(const void* q, const void* k, const void* v, void* o, int* steps, int B,
-              int D, const Plan& p, Strides qs_, Strides ks_, Strides os_, float scale,
-              cudaStream_t stream) {
-  switch (D) {
-    case 16: return launch_tc<16>(q, k, v, o, steps, B, p, qs_, ks_, os_, scale, stream);
-    case 32: return launch_tc<32>(q, k, v, o, steps, B, p, qs_, ks_, os_, scale, stream);
-    case 64: return launch_tc<64>(q, k, v, o, steps, B, p, qs_, ks_, os_, scale, stream);
-    case 80: return launch_tc<80>(q, k, v, o, steps, B, p, qs_, ks_, os_, scale, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
 }
 
 }  // namespace
@@ -570,16 +610,23 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   const Strides qs_{q_sb, q_ss, q_sh}, ks_{k_sb, k_ss, k_sh}, os_{o_sb, o_ss, o_sh};
   auto st = static_cast<cudaStream_t>(stream);
   auto sp = static_cast<int*>(steps);
-  if (dtype == repro::kBF16)
-    return by_dim_tc(q, k, v, o, sp, B, D, p, qs_, ks_, os_, scale, st);
-  if (dtype == repro::kF32)
-    return by_dim<float>(q, k, v, o, sp, B, D, p, qs_, ks_, os_, scale, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != repro::kBF16 && dtype != repro::kF32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return with_head_dim(D, [&](auto dim) {
+    constexpr int kD = decltype(dim)::value;
+    return dtype == repro::kBF16
+               ? launch_tc<kD>(q, k, v, o, sp, B, p, qs_, ks_, os_, scale, st)
+               : launch<float, kD>(q, k, v, o, sp, B, p, qs_, ks_, os_, scale, st);
+  });
 }
 
 // Dynamic shared memory the launcher gives one block of the body that
-// `dtype` takes (0: the f32 body uses static shared memory only).
+// `dtype` takes; -1 for a block size or head dim the kernel does not take.
 extern "C" int flash_attention_smem_bytes(int D, int blk, int dtype) {
   if (blk <= 0 || blk > MAXBLK) return -1;
-  return dtype == repro::kBF16 ? tc_smem_bytes(D, blk) : 0;
+  const int bytes = with_head_dim(D, [&](auto dim) {
+    constexpr int kD = decltype(dim)::value;
+    return dtype == repro::kBF16 ? tc_smem_bytes<kD>(blk) : fwd_smem_bytes(kD, blk);
+  });
+  return bytes == static_cast<int>(cudaErrorInvalidValue) ? -1 : bytes;
 }

@@ -7,6 +7,8 @@
   # the sliding-window arch (window 4096: the cache is a ring, prompts may
   # be longer than it, and their prefill runs the band schedule):
   python -m repro_torch.launch.serve --arch h2o-danube-1.8b --approx axq8 --qos --metrics
+  # head_dim 128 with QKV bias (the bias rides the AXQ GEMM's epilogue):
+  python -m repro_torch.launch.serve --arch qwen2.5-3b --approx axq8 --qos --metrics
   # the plain PyTorch versions on the host, at smoke size:
   python -m repro_torch.launch.serve --arch tinyllama-1.1b-smoke --device cpu
   # the streaming DSP workload (FIR -> blur -> gain on the PR multiplier):

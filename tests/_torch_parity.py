@@ -36,24 +36,40 @@ _MODELS: dict = {}
 
 
 def models(dtype: str, approx: str, seed: int = 0, arch: str = ARCH,
-           **overrides):
+           bias_seed=None, **overrides):
     """(jax model, jax params, port model, port params) for the smoke arch
     ``arch`` at ``dtype`` under ``approx`` (dynamic degree), prepacked for
     AXQ, with config fields ``overrides`` replaced on both sides; built
     once per process (the port's params are copies, so a test's in-place
-    cache updates never reach them)."""
-    key = (dtype, approx, seed, arch, tuple(sorted(overrides.items())))
+    cache updates never reach them).  ``bias_seed`` fills the QKV bias
+    leaves (zeros at init) with seeded N(0, 0.5^2) values first."""
+    key = (dtype, approx, seed, arch, bias_seed, tuple(sorted(overrides.items())))
     if key not in _MODELS:
-        _MODELS[key] = _build_models(dtype, approx, seed, arch, overrides)
+        _MODELS[key] = _build_models(dtype, approx, seed, arch, bias_seed, overrides)
     return _MODELS[key]
 
 
-def _build_models(dtype: str, approx: str, seed: int, arch: str, overrides):
+def with_qkv_biases(jp, seed: int):
+    """The reference's params with every QKV bias leaf replaced by seeded
+    N(0, 0.5^2) values (numpy, so both packages get the same numbers)."""
+    rng = np.random.default_rng(seed)
+    layers = dict(jp["layers"])
+    for key in ("wq", "wk", "wv"):
+        if "b" in layers[key]:
+            b = layers[key]["b"]
+            layers[key] = {**layers[key],
+                           "b": jnp.asarray(0.5 * rng.standard_normal(b.shape), b.dtype)}
+    return {**jp, "layers": layers}
+
+
+def _build_models(dtype: str, approx: str, seed: int, arch: str, bias_seed, overrides):
     jcfg = dataclasses.replace(jget_config(arch), dtype=dtype, **overrides)
     tcfg = dataclasses.replace(tget_config(arch), dtype=dtype, **overrides)
     jm = jbuild_model(jcfg, jpolicy(approx, dynamic=True))
     tm = tbuild_model(tcfg, tpolicy(approx, dynamic=True), device="cpu")
     jp = jm.init(jax.random.PRNGKey(seed), tp=1)
+    if bias_seed is not None:
+        jp = with_qkv_biases(jp, bias_seed)
     if approx != "exact":
         jp = jm.prepack(jp)
     return jm, jp, tm, params_from_numpy(jax.tree.map(np.asarray, jp))
@@ -84,11 +100,13 @@ def port_cache(jcache):
 _JITS: dict = {}
 
 
-def run_prefill_decode(dtype, approx, degree_kind, backend, quant=False):
-    """Prefill a 9-token prompt into slot 1 of a 3-slot cache (bf16, or the
-    int8 cache with ``quant``), then one decode step with slot 0 free, in
-    both packages."""
-    jm, jp, tm, tp = models(dtype, approx)
+def run_prefill_decode(dtype, approx, degree_kind, backend, quant=False,
+                       cache_dtype=jnp.bfloat16, **model_kw):
+    """Prefill a 9-token prompt into slot 1 of a 3-slot cache (``cache_dtype``,
+    bf16 by default, or the int8 cache with ``quant``), then one decode step
+    with slot 0 free, in both packages; ``model_kw`` goes to :func:`models`
+    (arch, bias_seed, config overrides)."""
+    jm, jp, tm, tp = models(dtype, approx, **model_kw)
     jdeg, tdeg = degrees(degree_kind)
     rng = np.random.default_rng(5)
     prompt = rng.integers(0, 512, 9).astype(np.int32)
@@ -101,7 +119,7 @@ def run_prefill_decode(dtype, approx, degree_kind, backend, quant=False):
         if key not in _JITS:
             _JITS[key] = (jax.jit(jm.prefill), jax.jit(jm.decode_step))
         prefill_j, decode_j = _JITS[key]
-        jc = jm.init_cache(tp=1, batch=3, max_len=32, quant=quant)
+        jc = jm.init_cache(tp=1, batch=3, max_len=32, dtype=cache_dtype, quant=quant)
         tc = port_cache(jc)
         lj, jc = prefill_j(jp, jc, jnp.asarray(prompt), jnp.int32(1), degree=jdeg)
         lt, tc = tm.prefill(tp, tc, torch.from_numpy(prompt), 1, degree=tdeg)

@@ -1,7 +1,7 @@
 """Host-side rules of the flash_attention kernel's bf16 tensor-core body,
 which run without a card: the 16-byte alignment rule of its ``cp.async``
 copies, and the ``ptxas -v`` lines (kept with each built library) that
-report every instantiation's registers and spills.  The kernel itself is
+report every instantiation's registers and spills, head_dim 128 included.  The kernel itself is
 held to its plain version on the card (tests/test_torch_gpu.py); the plain
 version to the JAX Pallas kernel in tests/test_torch_kernels.py."""
 import pytest
@@ -11,7 +11,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as tfa
 
 
-@pytest.mark.parametrize("D", [16, 32, 64, 80])
+@pytest.mark.parametrize("D", [16, 32, 64, 80, 128])
 def test_tc_view_error_accepts_the_callers_views(D):
     B, S, H, KVr = 2, 33, 8, 2
     q = torch.zeros(B, S, H, D, dtype=torch.bfloat16)
@@ -64,6 +64,43 @@ def test_kernel_resources_parses_ptxas():
     assert (rows[1]["registers"], rows[1]["spill_stores"], rows[1]["spill_loads"],
             rows[1]["smem"]) == (220, 12, 16, 8256)
     assert _build.kernel_resources(["ptxas info    : 0 bytes gmem"]) == []
+
+
+#: the head_dim-128 instantiations' lines as ptxas -v prints them for this
+#: source (anonymous-namespace prefix included), with a spill on the second
+PTXAS_128 = """\
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__e7510225_18_flash_attention_cu_23f0aea716flash_fwd_kernelIfLi128EEEvPKT_S3_S3_PS1_PiNS_4PlanENS_7StridesES7_S7_f' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N__e7510225_18_flash_attention_cu_23f0aea716flash_fwd_kernelIfLi128EEEvPKT_S3_S3_PS1_PiNS_4PlanENS_7StridesES7_S7_f
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 254 registers, used 1 barriers, 16448 bytes smem
+ptxas info    : Compile time = 685.750 ms
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__e7510225_18_flash_attention_cu_23f0aea715flash_tc_kernelILi128EEEvPK13__nv_bfloat16S3_S3_PS1_PiNS_4PlanENS_7StridesES7_S7_f' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N__e7510225_18_flash_attention_cu_23f0aea715flash_tc_kernelILi128EEEvPK13__nv_bfloat16S3_S3_PS1_PiNS_4PlanENS_7StridesES7_S7_f
+    96 bytes stack frame, 96 bytes spill stores, 108 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers
+"""
+
+
+@pytest.mark.parametrize("which,expect", [
+    (0, (("fwd", "f32", 128), 254, 0, 0, 16448)),
+    (1, (("tc", "bf16", 128), 128, 96, 108, 0))], ids=["f32-128", "bf16-128"])
+def test_kernel_resources_parses_head_dim_128_lines(which, expect):
+    """The D = 128 instantiations of both bodies: registers, spills and
+    static shared memory, and the (body, dtype, D) that phase 1 of
+    chip_smoke.py names them by and counts."""
+    r = _build.kernel_resources(PTXAS_128.splitlines())[which]
+    assert (_build.flash_instance(r["function"]), r["registers"], r["spill_stores"],
+            r["spill_loads"], r["smem"]) == expect
+
+
+def test_flash_instance_names_every_body_and_ignores_others():
+    rows = _build.kernel_resources(PTXAS.splitlines())
+    assert [_build.flash_instance(r["function"]) for r in rows] == [
+        ("tc", "bf16", 80), ("fwd", "f32", 64)]
+    assert _build.flash_instance("_ZN12_GLOBAL__N_113decode_kernelI8Int8RowsEEvT_") is None
+    assert _build.flash_instance(
+        "_ZN12_GLOBAL__N_116flash_fwd_kernelI13__nv_bfloat16Li32EEEvPKT_") == (
+            "fwd", "bf16", 32)
 
 
 def test_cached_build_keeps_its_ptxas_lines(tmp_path, monkeypatch):

@@ -85,7 +85,7 @@ def test_gpu_flash_kernels_match_plain(hopper):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("D", [16, 32, 64, 80])
+@pytest.mark.parametrize("D", [16, 32, 64, 80, 128])
 def test_gpu_flash_band_matches_dense_and_plain(hopper, D):
     """The ``band`` schedule (window 300 on S = 1000: 4 of 8 kv blocks per
     q block) equals ``dense`` under the same window bit for bit, counts
@@ -120,7 +120,7 @@ def test_gpu_flash_band_matches_dense_and_plain(hopper, D):
 @pytest.mark.gpu
 @pytest.mark.parametrize("G", [1, 4])
 @pytest.mark.parametrize("S", [1, 7, 16, 129, 1000])
-@pytest.mark.parametrize("D", [16, 32, 64, 80])
+@pytest.mark.parametrize("D", [16, 32, 64, 80, 128])
 def test_gpu_flash_bf16_tensor_core_body(hopper, D, S, G):
     """The bf16 (tensor-core) body on every schedule: ``tri`` == ``dense``
     and ``band`` == ``dense`` under the same window, bit for bit; the
@@ -201,6 +201,36 @@ def test_gpu_flash_decode_head_dim_80_full_ring(hopper):
     torch.testing.assert_close(oq, tfd.flash_decode_quant_plain(qg, kq, ks, vq, vs, nv,
                                                                 act, e), rtol=0, atol=1e-5)
     assert (o[2] == 0).all() and (oq[2] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("KVr,G", [(2, 8), (8, 4)], ids=["qwen-16-2", "nemo-32-8"])
+def test_gpu_flash_decode_head_dim_128_full_ring(hopper, KVr, G):
+    """Both decode kernels at head_dim 128 with qwen2.5-3b's and
+    mistral-nemo-12b's grouping, every live slot at nvalid = T and one
+    freed slot."""
+    g = torch.Generator(device=hopper).manual_seed(128 + KVr)
+    B, T, D = 4, 300, 128
+    qg = torch.randn(B, KVr, G, D, generator=g, device=hopper)
+    k = torch.randn(B, T, KVr, D, generator=g, device=hopper)
+    v = torch.randn(B, T, KVr, D, generator=g, device=hopper)
+    nv = torch.full((B,), T, dtype=torch.int32, device=hopper)
+    act = torch.tensor([1, 0, 1, 1], dtype=torch.int32, device=hopper)
+    before = dict(_build.launches)
+    o = tfd.flash_decode(qg, k.bfloat16(), v.bfloat16(), nv, act)
+    torch.testing.assert_close(o, tfd.flash_decode_plain(qg, k.bfloat16(), v.bfloat16(),
+                                                         nv, act), rtol=1e-4, atol=1e-4)
+    from repro_torch.models.attention import _q8
+    kq, ks = _q8(k)
+    vq, vs = _q8(v)
+    e = torch.tensor([8, 6], dtype=torch.int32, device=hopper)[1]
+    oq = tfd.flash_decode_quant(qg, kq, ks, vq, vs, nv, act, e)
+    torch.cuda.synchronize()
+    assert _build.launches["flash_decode"] == before["flash_decode"] + 1
+    assert _build.launches["flash_decode_quant"] == before["flash_decode_quant"] + 1
+    torch.testing.assert_close(oq, tfd.flash_decode_quant_plain(qg, kq, ks, vq, vs, nv,
+                                                                act, e), rtol=0, atol=1e-5)
+    assert (o[1] == 0).all() and (oq[1] == 0).all()
 
 
 @pytest.mark.gpu
