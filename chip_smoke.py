@@ -8,15 +8,17 @@
 Phases (any failure exits non-zero):
   1. the card (nvidia-smi name and power limit) and the kernel build
      (nvcc for sm_90a from kernels/csrc, with the -Xptxas -v lines, and one
-     line of each flash_attention instantiation's registers, spills and
-     shared memory: none may spill);
+     line of each flash_attention, decode_kernel and combine_kernel
+     instantiation's registers, spills and shared memory: none may spill);
   2. each hand-written kernel against its plain PyTorch version on the same
      seeded inputs at the serving paths' full-width shapes (tinyllama-1.1b,
      h2o-danube-1.8b and qwen2.5-3b for the LM kernels, with head_dim 128
      in both attention bodies and the GEMM's bias epilogue; the stream
-     tick's planes and the Ch. 7 bench layouts for the PR product), with
+     tick's planes and the Ch. 7 bench layouts for the PR product; a
+     decode row with lengths at the decode kernels' split edges), with
      the stated tolerance, timed with CUDA events beside its bound and,
-     where one PyTorch call computes the same function, that call;
+     where one PyTorch call computes the same function, that call (the
+     decode kernels and SDPA also by CUDA-graph replay, with their GB/s);
   3. the serving paths, each with the launch counts set to 0 just before
      it and read just after, random weights from a seeded CUDA generator
      under axq8 with the QoS ladder 8 -> 5, prepacked, served by the
@@ -58,6 +60,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -286,21 +289,38 @@ def check_decode(ctx, B, KVr, G, D, T, nvalid, active):
     row = {"B": B, "KVr": KVr, "G": G, "D": D, "T": T, "nvalid": nvalid,
            "active": active, "max_abs_err": err, "tol": "rtol 1e-4, atol 1e-4",
            "ok": ok}
-    if ctx["on_card"]:
-        row["ms"] = timer(lambda i: FD.flash_decode(qg, *caches[i % len(caches)], nv, act))
-        row["plain_ms"] = timer(lambda i: FD.flash_decode_plain(
-            qg, *caches[i % len(caches)], nv, act), iters=10)
-        q4 = qg.reshape(B, KVr * G, 1, D).to(torch.bfloat16)
-        mask = (torch.arange(T, device=dev)[None, :] < nv[:, None])[:, None, None, :]
-        row["library_ms"] = timer(lambda i: F.scaled_dot_product_attention(
-            q4, caches[i % len(caches)][0].transpose(1, 2),
-            caches[i % len(caches)][1].transpose(1, 2), attn_mask=mask,
-            enable_gqa=True))
-        row["library_call"] = "F.scaled_dot_product_attention(enable_gqa, length mask)"
     live = sum(n for n, a in zip(nvalid, active) if a)
     nbytes = live * KVr * D * 2 * 2 + 2 * B * KVr * G * D * 4 + 2 * B * 4
-    row["bound_ms"], row["bound_by"] = bound(nbytes, 4.0 * live * KVr * G * D, BF16_FLOPS)
+    # the kernel's arithmetic is f32 on the CUDA cores
+    row["bound_ms"], row["bound_by"] = bound(nbytes, 4.0 * live * KVr * G * D, F32_FLOPS)
+    if ctx["on_card"]:
+        kernel = lambda i: FD.flash_decode(qg, *caches[i % len(caches)], nv, act)
+        q4 = qg.reshape(B, KVr * G, 1, D).to(torch.bfloat16)
+        mask = (torch.arange(T, device=dev)[None, :] < nv[:, None])[:, None, None, :]
+        library = lambda i: F.scaled_dot_product_attention(
+            q4, caches[i % len(caches)][0].transpose(1, 2),
+            caches[i % len(caches)][1].transpose(1, 2), attn_mask=mask, enable_gqa=True)
+        decode_times(ctx, row, kernel, library, nbytes, len(caches))
+        row["plain_ms"] = timer(lambda i: FD.flash_decode_plain(
+            qg, *caches[i % len(caches)], nv, act), iters=10)
+        row["library_call"] = "F.scaled_dot_product_attention(enable_gqa, length mask)"
     return row
+
+
+def decode_times(ctx, row, kernel, library, nbytes, n_copies) -> None:
+    """A decode row's times: ``ms`` (and, where there is one, the library
+    call's ``library_ms``) by eager calls, as the serving path makes them,
+    the wrapper's host work included; ``ms_graph`` / ``library_ms_graph``
+    by CUDA-graph replay of one call on each rotated copy of the cache, the
+    device time alone; the achieved GB/s of the bound's bytes and
+    ms_graph / bound_ms."""
+    timer = ctx["timer"]
+    row["ms"] = timer(kernel)
+    row["ms_graph"] = timer.graph(kernel, n_copies)
+    row["library_ms"] = timer(library) if library else None
+    row["library_ms_graph"] = timer.graph(library, n_copies) if library else None
+    row["gb_per_s"] = nbytes / (row["ms_graph"] * 1e-3) / 1e9
+    row["ms_graph_over_bound"] = row["ms_graph"] / row["bound_ms"]
 
 
 def check_decode_quant(ctx, B, KVr, G, D, T, nvalid, active, ebits):
@@ -328,17 +348,16 @@ def check_decode_quant(ctx, B, KVr, G, D, T, nvalid, active, ebits):
                     ctx["on_card"])
     row = {"B": B, "KVr": KVr, "G": G, "D": D, "T": T, "ebits": ebits, "nvalid": nvalid,
            "active": active, "max_abs_err": err, "tol": "atol 1e-5", "ok": ok}
-    if ctx["on_card"]:
-        row["ms"] = timer(lambda i: FD.flash_decode_quant(
-            qg, *caches[i % len(caches)], nv, act, e))
-        row["plain_ms"] = timer(lambda i: FD.flash_decode_quant_plain(
-            qg, *caches[i % len(caches)], nv, act, e), iters=10)
-        row["library_ms"] = None
-        row["library_call"] = ("none: no single PyTorch call computes the degrade, "
-                               "the dequantization and the attention")
     live = sum(n for n, a in zip(nvalid, active) if a)
     nbytes = (live * KVr * (D + 4) * 2 + 2 * B * KVr * G * D * 4 + 2 * B * 4 + 4)
-    row["bound_ms"], row["bound_by"] = bound(nbytes, 4.0 * live * KVr * G * D, INT8_OPS)
+    row["bound_ms"], row["bound_by"] = bound(nbytes, 4.0 * live * KVr * G * D, F32_FLOPS)
+    if ctx["on_card"]:
+        decode_times(ctx, row, lambda i: FD.flash_decode_quant(
+            qg, *caches[i % len(caches)], nv, act, e), None, nbytes, len(caches))
+        row["plain_ms"] = timer(lambda i: FD.flash_decode_quant_plain(
+            qg, *caches[i % len(caches)], nv, act, e), iters=10)
+        row["library_call"] = ("none: no single PyTorch call computes the degrade, "
+                               "the dequantization and the attention")
     return row
 
 
@@ -534,6 +553,22 @@ def decode_lengths(T: int, slots: int):
     return nvalid[:slots], [1, 1, 1, 1, 1, 0, 1, 1][:slots]
 
 
+def split_edge_lengths(W: int, T: int, slots: int):
+    """(nvalid, active) of the split-edge decode row: lengths one past, at
+    and one short of the decode kernels' split width W, two splits, two
+    splits and one row, one row and T - 1; the slot at T is freed."""
+    nvalid = [W + 1, W, W - 1, 2 * W, 2 * W + 1, T, 1, T - 1]
+    return [min(n, T) for n in nvalid[:slots]], [1, 1, 1, 1, 1, 0, 1, 1][:slots]
+
+
+def decode_split_width(ctx, D: int) -> int:
+    """The decode kernels' split width at head dim D (32 in the CPU
+    rehearsal, which builds nothing: the smoke caches hold 64 rows)."""
+    from repro_torch.kernels import flash_decode as FD
+
+    return FD.split_width(D) if ctx["on_card"] else 32
+
+
 def phase_kernels(ctx, cfg):
     """Phase 2: every kernel against its plain version."""
     torch = ctx["torch"]
@@ -560,6 +595,11 @@ def phase_kernels(ctx, cfg):
     Tr = T - 3 * T // 128                      # ragged: 1000 at T = 1024
     rows["flash_decode_quant"].append(check_decode_quant(
         ctx, slots, cfg.n_kv_heads, G, D, Tr, [min(n, Tr) for n in nvalid], active, 6))
+    edge, edge_active = split_edge_lengths(decode_split_width(ctx, D), T, slots)
+    rows["flash_decode"].append(check_decode(ctx, slots, cfg.n_kv_heads, G, D, T, edge,
+                                             edge_active))
+    rows["flash_decode_quant"].append(check_decode_quant(
+        ctx, slots, cfg.n_kv_heads, G, D, T, edge, edge_active, 5))
     rows["flash_attention"].append(check_prefill(ctx, cfg.n_heads, prompt, D,
                                                  cfg.n_heads, cfg.n_kv_heads))
     # bucketed prefill shapes: four packed rows at half the cache, one at all of it
@@ -601,6 +641,39 @@ def flash_resources(ctx) -> list:
     return out
 
 
+def decode_resources(ctx) -> list:
+    """Registers, spill bytes and shared memory of every decode_kernel
+    instantiation and of its combine_kernel (ptxas -v of this build; the
+    split kernel's dynamic shared memory from the C launcher).  Every one
+    must run with 0 bytes spilled."""
+    from repro_torch.kernels import _build
+
+    smem_of = _build.entry("flash_decode_smem_bytes")
+    kinds = {"f32": 0, "bf16": 1, "int8": 2}
+    out = []
+    for r in _build.kernel_resources(_build.ptxas_log.get("flash_decode", [])):
+        inst = _build.decode_instance(r["function"])
+        if inst is None:
+            continue
+        _, cache, D, gq = inst
+        name = (f"decode_kernel<{cache}, D={D}, GQ={gq}>" if cache
+                else f"combine_kernel<D={D}>")
+        out.append({"instance": name, "D": D, "registers": r["registers"],
+                    "spill_stores": r["spill_stores"], "spill_loads": r["spill_loads"],
+                    "static_smem": r["smem"],
+                    "dynamic_smem": smem_of(D, kinds[cache], gq) if cache else 0})
+    say("decode instantiations: " + "; ".join(
+        f"{r['instance']} {r['registers']} regs, spill {r['spill_stores']}/"
+        f"{r['spill_loads']} B, smem {r['static_smem']} B static + "
+        f"{r['dynamic_smem']} B dynamic" for r in out))
+    require(len(out) == 35, f"expected 35 decode instantiations (decode_kernel at D 16, 32, "
+                            f"64, 80, 128 on the f32, bf16 and int8 caches with 4- and 8-row "
+                            f"P.V blocks; combine_kernel at each D), ptxas shows {len(out)}")
+    require(all(r["spill_stores"] == 0 and r["spill_loads"] == 0 for r in out),
+            "a decode instantiation spills registers")
+    return out
+
+
 def report_rows(rows, tag: str = "") -> None:
     for name, rs in rows.items():
         for r in rs:
@@ -609,6 +682,10 @@ def report_rows(rows, tag: str = "") -> None:
             if "tflops" in r:
                 rates = (f" tflops={r['tflops']:.4g} "
                          f"ms/library={r.get('ms_over_library', float('nan')):.3g}")
+            if "gb_per_s" in r:
+                rates = (f" GB/s={r['gb_per_s']:.4g} ms_graph/bound="
+                         f"{r['ms_graph_over_bound']:.3g} kernel_ms_graph={r['ms_graph']} "
+                         f"library_ms_graph={r['library_ms_graph']}")
             say(f"{tag}{name} {shape}: max_err={r['max_abs_err']:.3g} ({r['tol']}) "
                 f"kernel_ms={r.get('ms')} plain_ms={r.get('plain_ms')} "
                 f"library_ms={r.get('library_ms')} bound_ms={r['bound_ms']:.4g} "
@@ -1258,10 +1335,19 @@ def _profiled(ctx, tick, n):
             and e.self_device_time_total > 0]
     dev_us = sum(r[2] for r in rows)
     top = sorted(rows, key=lambda r: -r[2])[:8]
+    # device time by kernel function, template arguments dropped
+    # ("decode_kernel" sums every instantiation)
+    by_fn = {}
+    for k, _, t in rows:
+        fn = re.split(r"[<(]", k.replace("(anonymous namespace)::", ""))[0].split()[-1]
+        fn = fn.split("::")[-1]
+        by_fn[fn] = by_fn.get(fn, 0.0) + t
     return {"ticks": n, "tick_wall_ms": 1e3 * wall / n, "device_us_per_tick": dev_us / n,
             "device_busy_share": dev_us * 1e-6 / wall if wall > 0 else None,
             "top_kernels": [{"name": k, "calls": c, "device_us": t, "share": t / dev_us}
-                            for k, c, t in top]}
+                            for k, c, t in top],
+            "share_by_function": {fn: t / dev_us for fn, t in
+                                  sorted(by_fn.items(), key=lambda x: -x[1])}}
 
 
 def _profile_ticks(ctx, cfg, clips, n):
@@ -1748,6 +1834,7 @@ def main(argv=None) -> int:
     record = {"card": smi, "kind": kind, "count": count}
     if on_card:
         record["flash_attention_resources"] = flash_resources(ctx)
+        record["decode_resources"] = decode_resources(ctx)
     record["kernels"] = phase_kernels(ctx, cfg)
     record["kernels_swa"] = phase_kernels_swa(ctx, swa_cfg)
     record["kernels_h128"] = phase_kernels_head128(ctx, qwen_cfg, nemo_cfg)
@@ -1810,6 +1897,9 @@ def main(argv=None) -> int:
             "library_ms": lead.get("library_ms"),
             "shape": {k: lead[k] for k in lead if k in SHAPE_KEYS},
         }
+        if "ms_graph" in lead:
+            # decode: the device times beside the eager ones
+            entry.update(ms_graph=lead["ms_graph"], library_ms_graph=lead["library_ms_graph"])
         if name == "flash_attention":
             entry["launches_by_schedule"] = {
                 sched: sum(v.get("flash_schedules", {}).get(sched, 0) for v in paths.values())

@@ -58,8 +58,10 @@ _F = ctypes.c_float
 SIGNATURES = {
     "axqmm_launch": ("axqmm", [_P] * 8 + [_I] * 4 + [_P]),
     "axqmm_gated_launch": ("axqmm", [_P] * 8 + [_I] * 5 + [_P]),
-    "flash_decode_launch": ("flash_decode", [_P] * 6 + [_I] * 6 + [_F, _P]),
-    "flash_decode_quant_launch": ("flash_decode", [_P] * 9 + [_I] * 5 + [_F, _P]),
+    "flash_decode_launch": ("flash_decode", [_P] * 7 + [_I] * 6 + [_F, _P]),
+    "flash_decode_quant_launch": ("flash_decode", [_P] * 10 + [_I] * 5 + [_F, _P]),
+    "flash_decode_split_width": ("flash_decode", [_I]),
+    "flash_decode_smem_bytes": ("flash_decode", [_I] * 3),
     "flash_attention_launch": ("flash_attention",
                                [_P] * 5 + [_I] * 10 + [_LL] * 9 + [_I, _F, _P]),
     "flash_attention_smem_bytes": ("flash_attention", [_I] * 3),
@@ -105,6 +107,17 @@ def _digest(src: Path) -> str:
     return h.hexdigest()[:16]
 
 
+def _nvcc(src: Path, out: Path) -> subprocess.Popen:
+    """Start one ``nvcc`` build of ``src`` into ``out`` (output and errors
+    in one pipe)."""
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(out), str(src)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def _ptxas_lines(log: str) -> list:
+    return [ln for ln in log.splitlines() if "ptxas" in ln or "spill" in ln]
+
+
 def build_all(verbose: bool = False) -> dict:
     """Compile every missing library (one ``nvcc`` per source, all started
     together) and load them.  Returns {name: CDLL}.  Raises on a failed
@@ -113,7 +126,6 @@ def build_all(verbose: bool = False) -> dict:
         if len(_libs) == len(SOURCES):
             return dict(_libs)
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        nvcc = nvcc_path()
         procs = {}
         for name, src in SOURCES.items():
             if name in _libs:
@@ -126,15 +138,11 @@ def build_all(verbose: bool = False) -> dict:
                 _libs[name] = _load(name, out)
                 continue
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(path)]
-            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                            stderr=subprocess.STDOUT, text=True),
-                           tmp, out)
+            procs[name] = (_nvcc(path, tmp), tmp, out)
         failed = []
         for name, (proc, tmp, out) in procs.items():
             log, _ = proc.communicate()
-            ptxas_log[name] = [ln for ln in log.splitlines()
-                               if "ptxas" in ln or "spill" in ln]
+            ptxas_log[name] = _ptxas_lines(log)
             if verbose:
                 print(log, end="")
             if proc.returncode != 0:
@@ -146,6 +154,34 @@ def build_all(verbose: bool = False) -> dict:
         if failed:
             raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
         return dict(_libs)
+
+
+def build_variants(name: str, sources: dict, out_dir: Path) -> dict:
+    """Compile edited copies of library ``name``'s source ({tag: source
+    text}) into ``out_dir``, one ``nvcc`` each, all started together, and
+    load them (for the tuning tools).  Returns {tag: (CDLL, ptxas lines)};
+    raises on a failed build with the compiler's output.  ``use`` swaps
+    one in."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for tag, text in sources.items():
+        cu = out_dir / f"{name}_{tag}.cu"
+        cu.write_text(text)
+        so = out_dir / f"lib{name}_{tag}.so"
+        procs[tag] = (_nvcc(cu, so), so)
+    built = {}
+    for tag, (proc, so) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"CUDA kernel build failed: {name} {tag}\n{log}")
+        built[tag] = (_load(name, so), _ptxas_lines(log))
+    return built
+
+
+def use(name: str, lib: ctypes.CDLL) -> None:
+    """Make ``lib`` (a ``build_variants`` library) the one the wrappers of
+    library ``name`` launch."""
+    _libs[name] = lib
 
 
 def _load(name: str, path: Path) -> ctypes.CDLL:
@@ -195,6 +231,21 @@ def flash_instance(function: str):
     return body, dtype, int(m.group(3))
 
 
+def decode_instance(function: str):
+    """(kernel, cache, D, GQ) of a mangled name from ``ptxas -v`` of
+    ``flash_decode.cu`` — ("decode", "bf16" / "f32" / "int8", D, query rows
+    a P.V block) for the split kernel, ("combine", None, D, None) for the
+    merge of its partials — or None for any other."""
+    m = re.search(r"decode_kernelI(\S*?)Li(\d+)ELi(\d+)E", function)
+    if m is not None:
+        rows = m.group(1)
+        cache = ("int8" if "Int8Rows" in rows else "bf16" if "__nv_bfloat16" in rows
+                 else "f32")
+        return "decode", cache, int(m.group(2)), int(m.group(3))
+    m = re.search(r"combine_kernelILi(\d+)E", function)
+    return None if m is None else ("combine", None, int(m.group(1)), None)
+
+
 def entry(fn: str):
     """The bound C entry point ``fn`` (building the libraries on first use)."""
     owner = SIGNATURES[fn][0]
@@ -217,11 +268,17 @@ def check(rc: int, what: str) -> None:
 
 def require_sm90(t: torch.Tensor) -> None:
     """The kernels are built for sm_90a only: refuse any other card."""
-    cap = torch.cuda.get_device_capability(t.device)
+    cap = _capability(t.device.index)
     if cap != (9, 0):
         raise RuntimeError(
             f"the CUDA kernels target sm_90a (Hopper); device {t.device} has "
             f"capability {cap}")
+
+
+@functools.lru_cache(maxsize=None)
+def _capability(index: int) -> tuple:
+    # asked of each card once, not on every launch
+    return torch.cuda.get_device_capability(index)
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -1,14 +1,28 @@
 """Fused single-token decode attention against the serving KV cache.
 
-Wrappers around the CUDA kernels in ``csrc/flash_decode.cu`` (port of
-``repro.kernels.flash_decode``): :func:`flash_decode` for the bf16/f32
-cache and :func:`flash_decode_quant` for the int8 cache.  One block per
-(slot, kv head) walks the slot's cache up to its valid length, which the
-kernel reads from device memory; the GQA group shares each loaded K/V
-tile; free slots (``active == 0``) produce exact zeros.  The int8 kernel
-degrades the K/V codes to the runtime ``ebits`` (read from a device int32,
-as the GEMMs do) before it dequantizes them with their per-(token, head)
-scales.
+Wrappers around the CUDA kernels in ``csrc/flash_decode.cu``, which replace
+the TPU kernels ``repro.kernels.flash_decode._decode_kernel`` (bf16/f32
+cache: :func:`flash_decode`) and ``_decode_kernel_quant`` (int8 cache:
+:func:`flash_decode_quant`).  The int8 kernel degrades the K/V codes to the
+runtime ``ebits`` (read from a device int32, as the GEMMs do) before it
+dequantizes them with their per-(token, head) scales; free slots
+(``active == 0``) produce exact zeros.
+
+The work is bound by device-memory bytes: each cached K/V row is read once
+and meets the G query rows of its group (G flops a byte of a bf16 cache,
+against the card's ~20 f32 flops a byte of memory rate, so the FMAs are
+register-blocked to keep up).  The kernel splits each slot's cache into
+fixed-width splits at absolute positions (``split_width``, per head dim),
+one block each, so the card fills; blocks past a slot's valid length
+(read on the device) exit at once.  Each live split streams its rows
+through a ring of 16-byte ``cp.async`` tiles and writes an f32 partial
+(acc, m, l) to scratch the wrapper allocates; a second kernel from the
+same C entry point merges each slot's partials in a fixed order.  A slot's
+output is therefore bit-identical across launches, batch sizes and cache
+capacities, no length, flag or degree is read on the host, and a call can
+be captured in a CUDA graph.  The arithmetic stays f32 on the CUDA cores:
+tensor cores would round q and P (bf16) or q and K (TF32) past the 1e-4 /
+1e-5 gates.
 
 :func:`decode_attn_flash` writes the new token's K/V (its int8 codes and
 scales for the int8 cache) into the cache *before* the launch, in place
@@ -32,6 +46,37 @@ Tensor = torch.Tensor
 NEG_INF = -1e30
 
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: the head dims the kernels are instantiated for
+HEAD_DIMS = (16, 32, 64, 80, 128)
+
+#: the kernels' copy width in bytes (``cp.async.cg``): cache pointers align to it
+KV_ALIGN = 16
+
+
+def split_width(D: int) -> int:
+    """Cache rows a split of the decode kernels at head dim ``D`` (a
+    compile-time constant of the CUDA source, asked of each loaded library
+    once per head dim, not on every call; builds the library)."""
+    entry = _build.entry("flash_decode_split_width")
+    key = (id(entry), D)          # ctypes entry points do not hash
+    if key not in _widths:
+        _widths[key] = (entry, entry(D))   # held, so its id is not reused
+    return _widths[key][1]
+
+
+#: (id of a loaded entry point, D) -> (that entry point, its split width)
+_widths: dict = {}
+
+
+def _split_scratch(B: int, KVr: int, G: int, D: int, T: int, dev: torch.device) -> Tensor:
+    """The partials of one launch: f32 scratch (B, KVr, ceil(T / W), G,
+    D + 4) for each split's (acc, m, l; two pad floats keep its rows 16-byte
+    aligned).  Raises for a head dim the kernels were not built for."""
+    if D not in HEAD_DIMS:
+        raise ValueError(f"the decode kernels' head_dim must be one of {HEAD_DIMS}, got {D}")
+    n_split = -(-T // split_width(D))
+    return torch.empty((B, KVr, n_split, G, D + 4), dtype=torch.float32, device=dev)
 
 
 def flash_decode_plain(qg: Tensor, k: Tensor, v: Tensor, nvalid: Tensor,
@@ -73,15 +118,16 @@ def flash_decode(qg: Tensor, k: Tensor, v: Tensor, nvalid: Tensor,
     if k.dtype not in _KV_DTYPES:
         raise ValueError(f"flash_decode takes an f32 or bf16 cache, got {k.dtype}")
     q = qg.to(torch.float32).contiguous()
-    _build.expect(k, "k", k.dtype, dev, (B, T, KVr, D))
-    _build.expect(v, "v", k.dtype, dev, (B, T, KVr, D))
+    _build.expect(k, "k", k.dtype, dev, (B, T, KVr, D), align=KV_ALIGN)
+    _build.expect(v, "v", k.dtype, dev, (B, T, KVr, D), align=KV_ALIGN)
     _build.expect(nvalid, "nvalid", torch.int32, dev, (B,))
     _build.expect(active, "active", torch.int32, dev, (B,))
+    part = _split_scratch(B, KVr, G, D, T, dev)
     out = torch.empty((B, KVr, G, D), dtype=torch.float32, device=dev)
     rc = _build.entry("flash_decode_launch")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), nvalid.data_ptr(),
-        active.data_ptr(), out.data_ptr(), B, T, KVr, G, D, _KV_DTYPES[k.dtype],
-        1.0 / math.sqrt(D), _build.stream_of(qg))
+        active.data_ptr(), out.data_ptr(), part.data_ptr(), B, T, KVr, G, D,
+        _KV_DTYPES[k.dtype], 1.0 / math.sqrt(D), _build.stream_of(qg))
     _build.check(rc, "flash_decode")
     _build.launches["flash_decode"] += 1
     return out
@@ -114,21 +160,19 @@ def flash_decode_quant(qg: Tensor, k: Tensor, ks: Tensor, v: Tensor, vs: Tensor,
     T = k.shape[1]
     dev = qg.device
     q = qg.to(torch.float32).contiguous()
-    _build.expect(k, "k", torch.int8, dev, (B, T, KVr, D), align=16)
-    _build.expect(v, "v", torch.int8, dev, (B, T, KVr, D), align=16)
+    _build.expect(k, "k", torch.int8, dev, (B, T, KVr, D), align=KV_ALIGN)
+    _build.expect(v, "v", torch.int8, dev, (B, T, KVr, D), align=KV_ALIGN)
     _build.expect(ks, "ks", torch.float32, dev, (B, T, KVr))
     _build.expect(vs, "vs", torch.float32, dev, (B, T, KVr))
     _build.expect(nvalid, "nvalid", torch.int32, dev, (B,))
     _build.expect(active, "active", torch.int32, dev, (B,))
-    if D % 4:
-        raise ValueError(f"flash_decode_quant reads int8 rows as 4-byte words: "
-                         f"head_dim {D} must be a multiple of 4")
     e = _build.degree_ptr(ebits, dev)
+    part = _split_scratch(B, KVr, G, D, T, dev)
     out = torch.empty((B, KVr, G, D), dtype=torch.float32, device=dev)
     rc = _build.entry("flash_decode_quant_launch")(
         q.data_ptr(), k.data_ptr(), ks.data_ptr(), v.data_ptr(), vs.data_ptr(),
         nvalid.data_ptr(), active.data_ptr(), e.data_ptr(), out.data_ptr(),
-        B, T, KVr, G, D, 1.0 / math.sqrt(D), _build.stream_of(qg))
+        part.data_ptr(), B, T, KVr, G, D, 1.0 / math.sqrt(D), _build.stream_of(qg))
     _build.check(rc, "flash_decode_quant")
     _build.launches["flash_decode_quant"] += 1
     return out

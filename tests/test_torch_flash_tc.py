@@ -137,3 +137,31 @@ def test_cached_build_keeps_its_ptxas_lines(tmp_path, monkeypatch):
     _build.build_all()                        # its log lost: built again
     assert len(calls.read_text().split()) == n_built + 1
     assert _build.ptxas_log["flash_attention"] == first["flash_attention"]
+
+
+def test_build_variants_builds_each_edit_and_use_swaps_it_in(tmp_path, monkeypatch):
+    """The tuning tools' variant builder writes each edited source, runs one
+    nvcc for each (a stand-in that copies the source to the library and
+    prints one ptxas line), returns each library with its own ptxas lines,
+    and ``use`` makes one the library the wrappers launch."""
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(
+        "#!/bin/sh\n"
+        "while [ $# -gt 1 ]; do [ \"$1\" = -o ] && out=$2; shift; done\n"
+        "cp \"$1\" \"$out\"\n"
+        "echo \"ptxas info    : Used $(cat \"$1\") registers\"\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, "nvcc_path", lambda: str(nvcc))
+    monkeypatch.setattr(_build, "_load", lambda name, path: (name, path.read_text()))
+    monkeypatch.setattr(_build, "_libs", {})
+    built = _build.build_variants("flash_decode", {"w64": "64", "w128": "128"},
+                                  tmp_path / "tune")
+    assert built == {
+        "w64": (("flash_decode", "64"), ["ptxas info    : Used 64 registers"]),
+        "w128": (("flash_decode", "128"), ["ptxas info    : Used 128 registers"])}
+    assert (tmp_path / "tune" / "flash_decode_w64.cu").read_text() == "64"
+    _build.use("flash_decode", built["w128"][0])
+    assert _build._libs == {"flash_decode": ("flash_decode", "128")}
+    nvcc.write_text("#!/bin/sh\necho 'error: no'\nexit 2\n")
+    with pytest.raises(RuntimeError, match="flash_decode bad"):
+        _build.build_variants("flash_decode", {"bad": "x"}, tmp_path / "tune")

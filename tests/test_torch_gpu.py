@@ -8,7 +8,9 @@ Tolerances: the GEMMs rtol 1e-5 / atol 1e-4 (the qmm oracle tolerance; the
 kernels were observed bit-identical), the f32 attention kernels the same
 on f32 inputs, the decode kernel 1e-4 on a bf16 cache (f32 sums in another
 order), the int8-cache decode kernel 1e-5 abs (the reference's kernel-vs-
-jnp tolerance), the PR product exactly (integer bit math).  bf16 attention
+jnp tolerance), a decode slot's output exactly across launches, caches,
+batches and graph replays (the kernel's fixed split order), the PR
+product exactly (integer bit math).  bf16 attention
 takes the kernel's tensor-core body (bf16 P in the P V product): atol 1/64
 against the f64 plain version, one bf16 ulp at |o| < 4."""
 import math
@@ -253,6 +255,165 @@ def test_gpu_flash_decode_quant_matches_plain(hopper, ebits, T):
     torch.testing.assert_close(o, tfd.flash_decode_quant_plain(qg, k, ks, v, vs, nv, act, e),
                                rtol=0, atol=1e-5)
     assert (o[2] == 0).all()
+
+
+def _decode_calls(qg, k, v, nv, act, e):
+    """Both decode kernels on one set of rows: the bf16 cache and the int8
+    cache (its codes and scales from the same f32 rows), degree ``e``."""
+    from repro_torch.models.attention import _q8
+    kq, ks = _q8(k)
+    vq, vs = _q8(v)
+    return (tfd.flash_decode(qg, k.bfloat16(), v.bfloat16(), nv, act),
+            tfd.flash_decode_quant(qg, kq, ks, vq, vs, nv, act, e))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("D", [16, 32, 64, 80, 128])
+def test_gpu_decode_split_edges_match_plain(hopper, D, G):
+    """Both decode kernels (and the f32 cache) at lengths W - 1, W, W + 1,
+    2 W and T of the split width W, on a cache of T = 2 W + 37 rows (no
+    multiple of W), a freed slot of exact zeros, the degree read from a
+    device-vector element at 8 and 5; one launch a call."""
+    from repro_torch.models.attention import _q8
+    W = tfd.split_width(D)
+    T, KVr = 2 * W + 37, 2
+    g = torch.Generator(device=hopper).manual_seed(100 * D + G)
+    nv = torch.tensor([W - 1, W, W + 1, 2 * W, T, 5], dtype=torch.int32, device=hopper)
+    act = torch.tensor([1, 1, 1, 1, 1, 0], dtype=torch.int32, device=hopper)
+    B = nv.numel()
+    qg = torch.randn(B, KVr, G, D, generator=g, device=hopper)
+    k = torch.randn(B, T, KVr, D, generator=g, device=hopper)
+    v = torch.randn(B, T, KVr, D, generator=g, device=hopper)
+    for kv in ((k, v), (k.bfloat16(), v.bfloat16())):
+        before = _build.launches["flash_decode"]
+        o = tfd.flash_decode(qg, *kv, nv, act)
+        torch.cuda.synchronize()
+        assert _build.launches["flash_decode"] == before + 1
+        torch.testing.assert_close(o, tfd.flash_decode_plain(qg, *kv, nv, act),
+                                   rtol=1e-4, atol=1e-4)
+        assert (o[5] == 0).all()
+    kq, ks = _q8(k)
+    vq, vs = _q8(v)
+    deg = torch.tensor([8, 8, 5], dtype=torch.int32, device=hopper)
+    for e in (deg[1], deg[2]):
+        before = _build.launches["flash_decode_quant"]
+        o = tfd.flash_decode_quant(qg, kq, ks, vq, vs, nv, act, e)
+        torch.cuda.synchronize()
+        assert _build.launches["flash_decode_quant"] == before + 1
+        torch.testing.assert_close(o, tfd.flash_decode_quant_plain(qg, kq, ks, vq, vs, nv,
+                                                                   act, e), rtol=0, atol=1e-5)
+        assert (o[5] == 0).all()
+
+
+@pytest.mark.gpu
+def test_gpu_decode_slot_is_bit_identical_across_launches_caches_and_batches(hopper):
+    """A slot's output from both decode kernels is a function of its own
+    rows and length: bit for bit the same across two launches, with its
+    rows in a cache of another capacity (other rows past its length), and
+    in a batch of another size beside other slots and a freed one."""
+    D, KVr, G = 128, 2, 8
+    W = tfd.split_width(D)
+    T1, T2, n = 3 * W + 5, 5 * W + 64, 2 * W + 17
+    g = torch.Generator(device=hopper).manual_seed(17)
+    qg = torch.randn(1, KVr, G, D, generator=g, device=hopper)
+    k = torch.randn(1, T1, KVr, D, generator=g, device=hopper)
+    v = torch.randn(1, T1, KVr, D, generator=g, device=hopper)
+    e = torch.tensor([8, 5], dtype=torch.int32, device=hopper)[1]
+    one = lambda t: torch.tensor([t], dtype=torch.int32, device=hopper)
+    first = _decode_calls(qg, k, v, one(n), one(1), e)
+    again = _decode_calls(qg, k, v, one(n), one(1), e)
+
+    def bigger(x):
+        y = torch.randn(1, T2, KVr, D, generator=g, device=hopper)
+        y[:, :T1] = x
+        return y
+    wide = _decode_calls(qg, bigger(k), bigger(v), one(n), one(1), e)
+    B = 4
+    qb = torch.randn(B, KVr, G, D, generator=g, device=hopper)
+    kb = torch.randn(B, T1, KVr, D, generator=g, device=hopper)
+    vb = torch.randn(B, T1, KVr, D, generator=g, device=hopper)
+    qb[2], kb[2], vb[2] = qg[0], k[0], v[0]
+    nvb = torch.tensor([T1, 7, n, W], dtype=torch.int32, device=hopper)
+    actb = torch.tensor([1, 1, 1, 0], dtype=torch.int32, device=hopper)
+    batch = _decode_calls(qb, kb, vb, nvb, actb, e)
+    torch.cuda.synchronize()
+    for f, a, w, bt in zip(first, again, wide, batch):
+        assert torch.equal(f, a)
+        assert torch.equal(f, w)
+        assert torch.equal(f[0], bt[2])
+        assert (bt[3] == 0).all()
+
+
+@pytest.mark.gpu
+def test_gpu_decode_replays_from_a_cuda_graph(hopper):
+    """One ``flash_decode`` and one ``flash_decode_quant`` call captured in
+    a CUDA graph; lengths, active flags and the degree element changed in
+    place between replays give what eager calls on the same operands give,
+    bit for bit: nothing is read on the host and no state outlives a
+    call."""
+    from repro_torch.models.attention import _q8
+    D, KVr, G, B = 128, 2, 8, 4
+    W = tfd.split_width(D)
+    T = 4 * W
+    g = torch.Generator(device=hopper).manual_seed(23)
+    qg = torch.randn(B, KVr, G, D, generator=g, device=hopper)
+    k = torch.randn(B, T, KVr, D, generator=g, device=hopper)
+    v = torch.randn(B, T, KVr, D, generator=g, device=hopper)
+    kb, vb = k.bfloat16(), v.bfloat16()
+    kq, ks = _q8(k)
+    vq, vs = _q8(v)
+    nv = torch.tensor([T, 1, W + 1, 3 * W], dtype=torch.int32, device=hopper)
+    act = torch.ones(B, dtype=torch.int32, device=hopper)
+    deg = torch.tensor([8, 8], dtype=torch.int32, device=hopper)
+    e = deg[1]
+
+    def calls():
+        return (tfd.flash_decode(qg, kb, vb, nv, act),
+                tfd.flash_decode_quant(qg, kq, ks, vq, vs, nv, act, e))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        calls()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = calls()
+    for lens, flags, ebits in (([T, 1, W + 1, 3 * W], [1, 1, 1, 1], 8),
+                               ([W, 2 * W + 1, T, 5], [1, 0, 1, 1], 5),
+                               ([3, T, W - 1, 2 * W], [0, 1, 1, 0], 6)):
+        nv.copy_(torch.tensor(lens, dtype=torch.int32))
+        act.copy_(torch.tensor(flags, dtype=torch.int32))
+        deg[1] = ebits
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = calls()
+        torch.cuda.synchronize()
+        for c, o in zip(captured, eager):
+            assert torch.equal(c, o)
+        torch.testing.assert_close(eager[0], tfd.flash_decode_plain(qg, kb, vb, nv, act),
+                                   rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(eager[1], tfd.flash_decode_quant_plain(
+            qg, kq, ks, vq, vs, nv, act, e), rtol=0, atol=1e-5)
+        for i, f in enumerate(flags):
+            if not f:
+                assert (captured[0][i] == 0).all() and (captured[1][i] == 0).all()
+
+
+@pytest.mark.gpu
+def test_gpu_decode_refuses_misaligned_cache(hopper):
+    """The decode kernels copy 16-byte pieces: a contiguous cache whose
+    pointer is off by one element is refused before anything launches."""
+    B, T, KVr, G, D = 2, 64, 2, 4, 64
+    qg = torch.zeros(B, KVr, G, D, device=hopper)
+    n = torch.full((B,), T, dtype=torch.int32, device=hopper)
+    flat = torch.zeros(B * T * KVr * D + 1, dtype=torch.bfloat16, device=hopper)
+    off = flat[1:].view(B, T, KVr, D)
+    before = _build.launches["flash_decode"]
+    with pytest.raises(ValueError, match="16"):
+        tfd.flash_decode(qg, off, off, n, n)
+    assert _build.launches["flash_decode"] == before
 
 
 @pytest.mark.gpu

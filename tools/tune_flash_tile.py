@@ -42,29 +42,15 @@ def build(_build, out: Path) -> dict:
     """Compile every variant (all nvcc processes at once); print the D = 128
     resources and return {name: loaded library}."""
     src = (_build.CSRC / "flash_attention.cu").read_text()
-    nvcc = _build.nvcc_path()
-    procs = {}
-    for name, (ch, blocks) in VARIANTS.items():
-        cu = out / f"flash_attention_{name}.cu"
-        cu.write_text(variant_source(src, ch, blocks))
-        so = out / f"libflash_attention_{name}.so"
-        cmd = [nvcc, *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(so), str(cu)]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                        text=True), so)
-    libs = {}
-    for name, (proc, so) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            print(f"{name}: nvcc failed\n{log}")
-            continue
-        lines = [ln for ln in log.splitlines() if "ptxas" in ln or "spill" in ln]
+    built = _build.build_variants("flash_attention", {
+        name: variant_source(src, ch, blocks) for name, (ch, blocks) in VARIANTS.items()}, out)
+    for name, (_, lines) in built.items():
         for r in _build.kernel_resources(lines):
             inst = _build.flash_instance(r["function"])
             if inst and inst[2] == D:
                 print(f"{name} {inst[0]} {inst[1]} D={D}: {r['registers']} registers, spill "
                       f"{r['spill_stores']}/{r['spill_loads']} B", flush=True)
-        libs[name] = _build._load("flash_attention", so)
-    return libs
+    return {name: lib for name, (lib, _) in built.items()}
 
 
 def main() -> int:
@@ -79,9 +65,7 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(f"nvidia-smi: {smi}")
-    out = ROOT / "build" / "tune"
-    out.mkdir(parents=True, exist_ok=True)
-    libs = build(_build, out)
+    libs = build(_build, ROOT / "build" / "tune")
     dev = torch.device("cuda", 0)
 
     def timeit(fn, iters=20, warm=3):
@@ -109,7 +93,7 @@ def main() -> int:
         first = None
         line = f"{sched} S={S} D={D}"
         for name, lib in libs.items():
-            _build._libs["flash_attention"] = lib
+            _build.use("flash_attention", lib)
 
             def call(i):
                 return FA.flash_attention_grouped(*qkv[i % ncopy], causal=True, window=window)
