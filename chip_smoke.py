@@ -8,17 +8,19 @@
 Phases (any failure exits non-zero):
   1. the card (nvidia-smi name and power limit) and the kernel build
      (nvcc for sm_90a from kernels/csrc, with the -Xptxas -v lines, and one
-     line of each flash_attention, decode_kernel and combine_kernel
-     instantiation's registers, spills and shared memory: none may spill);
+     line of each flash_attention, flash_decode and axqmm instantiation's
+     registers, spills and shared memory: none may spill);
   2. each hand-written kernel against its plain PyTorch version on the same
      seeded inputs at the serving paths' full-width shapes (tinyllama-1.1b,
      h2o-danube-1.8b and qwen2.5-3b for the LM kernels, with head_dim 128
      in both attention bodies and the GEMM's bias epilogue; the stream
      tick's planes and the Ch. 7 bench layouts for the PR product; a
-     decode row with lengths at the decode kernels' split edges), with
-     the stated tolerance, timed with CUDA events beside its bound and,
-     where one PyTorch call computes the same function, that call (the
-     decode kernels and SDPA also by CUDA-graph replay, with their GB/s);
+     decode row with lengths at the decode kernels' split edges; qwen's
+     long-prefill GEMMs at M = 4096), with the stated tolerance (the GEMMs
+     also bit-identical, and at decode at least one block an SM), timed
+     with CUDA events beside its bound and, where one PyTorch call computes
+     the same function, that call (the decode kernels, the GEMMs, SDPA and
+     torch._int_mm also by CUDA-graph replay, with GB/s or TOP/s);
   3. the serving paths, each with the launch counts set to 0 just before
      it and read just after, random weights from a seeded CUDA generator
      under axq8 with the QoS ladder 8 -> 5, prepacked, served by the
@@ -128,6 +130,9 @@ class Timer:
     def __init__(self, torch, on_card: bool):
         self.torch = torch
         self.on_card = on_card
+        # one warm-up stream for every graph: each new stream would keep a
+        # cuBLAS workspace of its own (torch._int_mm) for the rest of the run
+        self.side = torch.cuda.Stream() if on_card else None
 
     def __call__(self, fn, iters: int = 30, warmup: int = 3):
         if not self.on_card:
@@ -155,7 +160,7 @@ class Timer:
             fn(0)
             return None
         torch = self.torch
-        side = torch.cuda.Stream()
+        side = self.side
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
             for i in range(3):
@@ -204,29 +209,62 @@ def check_axqmm(ctx, M, N, K, residual, degree, bias=False):
     ctx["sync"]()
     err = float((y - yp).abs().max())
     ok = bool(torch.allclose(y, yp, rtol=1e-5, atol=1e-4))
+    require(err == 0.0, f"axqmm M={M} N={N} K={K}: not bit-identical to its plain "
+                        f"version (max_abs_err {err})")
     nb = K // bk
     wbytes = N * K + N * nb * 4
     pws = copies(lambda: PackedQWeight(pw.qw.clone(), pw.scales.clone()), wbytes,
                  ctx["on_card"])
     qx, sx = A.quantize_for_axqmm(x, bk)
     row = {"M": M, "N": N, "K": K, "residual": residual, "bias": bias, "max_abs_err": err,
-           "tol": "rtol 1e-5, atol 1e-4", "ok": ok}
+           "tol": "rtol 1e-5, atol 1e-4 (and bit-identical)", "ok": ok}
+    gemm_plan(ctx, row, M, N, K, bk, False)
     if ctx["on_card"]:
-        row["ms"] = timer(lambda i: A.axqmm_quantized(qx, sx, pws[i % len(pws)],
-                                                      degree, bias=b, residual=res))
+        kernel = lambda i: A.axqmm_quantized(qx, sx, pws[i % len(pws)], degree, bias=b,
+                                             residual=res)
+        row["ms"] = timer(kernel)
+        row["ms_graph"] = timer.graph(kernel, len(pws))
         row["wrapper_ms"] = timer(lambda i: A.axqmm_packed(x, pws[i % len(pws)],
                                                            degree, bias=b, residual=res))
         row["plain_ms"] = timer(lambda i: A.axqmm_packed_plain(
             x, pws[i % len(pws)], degree, bias=b, residual=res), iters=5, warmup=1)
         # cuBLASLt's int8 GEMM wants M > 16: a decode-sized x is zero-padded
         qxl = qx if M > 16 else torch.cat([qx, qx.new_zeros(32 - M, K)])
-        row["library_ms"] = timer(lambda i: torch._int_mm(qxl, pws[i % len(pws)].qw.t()))
+        library = lambda i: torch._int_mm(qxl, pws[i % len(pws)].qw.t())
+        row["library_ms"] = timer(library)
+        row["library_ms_graph"] = timer.graph(library, len(pws))
         row["library_call"] = (f"torch._int_mm on ({qxl.shape[0]}, K) x (K, N) int8 "
                                "(no block scales or degrade)")
     nbytes = (M * K + M * nb * 4 + wbytes + M * N * 4 * (2 if residual else 1)
               + (N * 4 if bias else 0))
     row["bound_ms"], row["bound_by"] = bound(nbytes, 2.0 * M * N * K, INT8_OPS)
+    gemm_rates(row, 2.0 * M * N * K)
     return row
+
+
+def gemm_plan(ctx, row, M, N, K, bk, gated) -> None:
+    """The launch the wrapper plans for this shape on this card: tile
+    configuration, splits of K, units a block, and the main kernel's blocks
+    an SM (at decode, M <= 16, at least one an SM)."""
+    from repro_torch.kernels import axqmm as A
+
+    sms = ctx["torch"].cuda.get_device_properties(0).multi_processor_count \
+        if ctx["on_card"] else 132
+    p = A.plan(M, N, K, bk, gated, sms)
+    row["plan"] = {"cfg": ("decode", "tile64", "tile128")[p.cfg],
+                   "n_split": p.n_split, "part": p.part}
+    row["blocks_per_sm"] = A.blocks(p, M, N, gated) / sms
+    if M <= A.DECODE_M and ctx["on_card"]:   # the smoke widths cannot fill a card
+        require(row["blocks_per_sm"] >= 1, f"axqmm M={M} N={N} K={K}: {p} launches "
+                                            f"fewer blocks than the card has SMs")
+
+
+def gemm_rates(row, ops) -> None:
+    """Achieved int8 TOP/s of a GEMM row at its device (graph-replay) time,
+    and that time over its bound."""
+    if row.get("ms_graph"):
+        row["tops_graph"] = ops / (row["ms_graph"] * 1e-3) / 1e12
+        row["ms_graph_over_bound"] = row["ms_graph"] / row["bound_ms"]
 
 
 def check_gated(ctx, M, N, K, degree):
@@ -244,24 +282,36 @@ def check_gated(ctx, M, N, K, degree):
     ctx["sync"]()
     err = float((y - yp).abs().max())
     ok = bool(torch.allclose(y, yp, rtol=1e-5, atol=1e-4))
+    require(err == 0.0, f"axqmm_gated M={M} N={N} K={K}: not bit-identical to its plain "
+                        f"version (max_abs_err {err})")
     nb = K // bk
     wbytes = 2 * (N * K + N * nb * 4)
     pairs = copies(lambda: (PackedQWeight(pu.qw.clone(), pu.scales.clone()),
                             PackedQWeight(pg.qw.clone(), pg.scales.clone())),
                    wbytes, ctx["on_card"])
     qx, sx = A.quantize_for_axqmm(x, bk)
-    row = {"M": M, "N": N, "K": K, "max_abs_err": err, "tol": "rtol 1e-5, atol 1e-4",
-           "ok": ok}
+    row = {"M": M, "N": N, "K": K, "max_abs_err": err,
+           "tol": "rtol 1e-5, atol 1e-4 (and bit-identical)", "ok": ok}
+    gemm_plan(ctx, row, M, N, K, bk, True)
     if ctx["on_card"]:
-        row["ms"] = timer(lambda i: A.axqmm_gated_quantized(
-            qx, sx, *pairs[i % len(pairs)], degree))
+        kernel = lambda i: A.axqmm_gated_quantized(qx, sx, *pairs[i % len(pairs)], degree)
+        row["ms"] = timer(kernel)
+        row["ms_graph"] = timer.graph(kernel, len(pairs))
         row["wrapper_ms"] = timer(lambda i: A.axqmm_gated_packed(
             x, *pairs[i % len(pairs)], degree))
         row["plain_ms"] = timer(lambda i: A.axqmm_gated_plain(
             x, *pairs[i % len(pairs)], degree), iters=5, warmup=1)
+        # no one PyTorch call computes the gated product: `library_*` is
+        # null; torch._int_mm of x on both weights is kept beside it
+        qxl = qx if M > 16 else torch.cat([qx, qx.new_zeros(32 - M, K)])
+        two = lambda i: (torch._int_mm(qxl, pairs[i % len(pairs)][0].qw.t()),
+                         torch._int_mm(qxl, pairs[i % len(pairs)][1].qw.t()))
+        row["int_mm_pair_ms_graph"] = timer.graph(two, len(pairs))
         row["library_ms"] = None
+        row["library_ms_graph"] = None
     nbytes = M * K + M * nb * 4 + wbytes + M * N * 4
     row["bound_ms"], row["bound_by"] = bound(nbytes, 4.0 * M * N * K, INT8_OPS)
+    gemm_rates(row, 4.0 * M * N * K)
     return row
 
 
@@ -674,6 +724,35 @@ def decode_resources(ctx) -> list:
     return out
 
 
+def axqmm_resources(ctx) -> list:
+    """Registers, spill bytes and shared memory of every axqmm.cu
+    instantiation (ptxas -v of this build): axq_decode_kernel at (8 or 16
+    slots, gated or not, 64- or 256-byte steps), axq_tile_kernel (64-row
+    tiles) and axq_wgmma_kernel (128-row tiles), gated or not,
+    axq_combine_kernel and the pre-pass axq_degrade_kernel.  Every one must
+    run with 0 bytes spilled."""
+    from repro_torch.kernels import _build
+
+    out = []
+    for r in _build.kernel_resources(_build.ptxas_log.get("axqmm", [])):
+        inst = _build.axqmm_instance(r["function"])
+        if inst is None:
+            continue
+        kernel, targs = inst
+        out.append({"instance": f"axq_{kernel}_kernel<{', '.join(map(str, targs))}>",
+                    "registers": r["registers"], "spill_stores": r["spill_stores"],
+                    "spill_loads": r["spill_loads"], "static_smem": r["smem"]})
+    say("axqmm instantiations: " + "; ".join(
+        f"{r['instance']} {r['registers']} regs, spill {r['spill_stores']}/"
+        f"{r['spill_loads']} B, smem {r['static_smem']} B static" for r in out))
+    require(len(out) == 15, f"expected 15 axqmm instantiations (axq_decode_kernel x 8, "
+                            f"axq_tile_kernel x 2, axq_wgmma_kernel x 2, axq_combine_kernel "
+                            f"x 2, axq_degrade_kernel), ptxas shows {len(out)}")
+    require(all(r["spill_stores"] == 0 and r["spill_loads"] == 0 for r in out),
+            "an axqmm instantiation spills registers")
+    return out
+
+
 def report_rows(rows, tag: str = "") -> None:
     for name, rs in rows.items():
         for r in rs:
@@ -686,6 +765,13 @@ def report_rows(rows, tag: str = "") -> None:
                 rates = (f" GB/s={r['gb_per_s']:.4g} ms_graph/bound="
                          f"{r['ms_graph_over_bound']:.3g} kernel_ms_graph={r['ms_graph']} "
                          f"library_ms_graph={r['library_ms_graph']}")
+            if "plan" in r:
+                rates = (f" plan={r['plan']} blocks/SM={r['blocks_per_sm']:.3g}"
+                         f" kernel_ms_graph={r.get('ms_graph')} "
+                         f"library_ms_graph={r.get('library_ms_graph')}")
+                if "tops_graph" in r:
+                    rates += (f" TOP/s={r['tops_graph']:.4g} ms_graph/bound="
+                              f"{r['ms_graph_over_bound']:.3g}")
             say(f"{tag}{name} {shape}: max_err={r['max_abs_err']:.3g} ({r['tol']}) "
                 f"kernel_ms={r.get('ms')} plain_ms={r.get('plain_ms')} "
                 f"library_ms={r.get('library_ms')} bound_ms={r['bound_ms']:.4g} "
@@ -732,7 +818,8 @@ def phase_kernels_swa(ctx, cfg):
 def phase_kernels_head128(ctx, cfg, nemo_cfg):
     """Phase 2, head_dim 128 rows: qwen2.5-3b's kernels at its full-width
     shapes (d_model 2048, 16/2 heads, d_ff 11008, vocab 151936, QKV bias:
-    the GEMM's bias epilogue), ``tri`` at D = 128 in both bodies, a ``band``
+    the GEMM's bias epilogue; the gated and down projections of a
+    4096-token prefill call), ``tri`` at D = 128 in both bodies, a ``band``
     row at D = 128 (no registered arch runs it; it holds the template), and
     both decode kernels at qwen's and mistral-nemo-12b's grouping (KVr 2,
     G 8 and KVr 8, G 4) on a T = 4096 cache."""
@@ -744,8 +831,12 @@ def phase_kernels_head128(ctx, cfg, nemo_cfg):
     rows = {"axqmm": [], "axqmm_gated": [], "flash_decode": [], "flash_decode_quant": [],
             "flash_attention": []}
     rows["axqmm"].append(check_axqmm(ctx, prompt, H * D, d, False, deg, bias=True))
+    # a long prompt's prefill call: the down projection, then (last: the
+    # summary's lead row) the unembedding at decode
+    rows["axqmm"].append(check_axqmm(ctx, ctx["long_prefill_m"], d, dff, True, deg))
     rows["axqmm"].append(check_axqmm(ctx, slots, V, d, False, deg))
     rows["axqmm_gated"].append(check_gated(ctx, prompt, dff, d, deg))
+    rows["axqmm_gated"].append(check_gated(ctx, ctx["long_prefill_m"], dff, d, deg))
     T = ctx["qwen_max_len"]
     nvalid, active = decode_lengths(T, slots)
     for c in (cfg, nemo_cfg):
@@ -1785,6 +1876,7 @@ def main(argv=None) -> int:
                "swa_short_range": (64, 512), "swa_n_long": 4, "swa_n_short": 7,
                "swa_new_tokens": 32, "swa_band_lens": (4500, 8192), "swa_model_prompt": 4500,
                "qwen_max_len": 4096, "qwen_long_range": (2048, 4000), "qwen_n_long": 3,
+               "long_prefill_m": 4096,
                "qwen_short_range": (64, 512), "qwen_n_short": 9, "qwen_model_prompt": 1500,
                "h128_tri_lens": (4096, 1024), "h128_band": (8192, 4096),
                "profile_ticks": 8, "stream_slots": 64, "stream_clips": 256, "stream_frames": 32,
@@ -1815,6 +1907,7 @@ def main(argv=None) -> int:
                "swa_short_range": (8, 30), "swa_n_long": 4, "swa_n_short": 7,
                "swa_new_tokens": 12, "swa_band_lens": (520, 700), "swa_model_prompt": 600,
                "qwen_max_len": 64, "qwen_long_range": (40, 60), "qwen_n_long": 3,
+               "long_prefill_m": 70,
                "qwen_short_range": (8, 20), "qwen_n_short": 9, "qwen_model_prompt": 50,
                "h128_tri_lens": (300, 40), "h128_band": (520, 32),
                "profile_ticks": 2, "stream_slots": 4, "stream_clips": 6, "stream_frames": 4,
@@ -1835,6 +1928,7 @@ def main(argv=None) -> int:
     if on_card:
         record["flash_attention_resources"] = flash_resources(ctx)
         record["decode_resources"] = decode_resources(ctx)
+        record["axqmm_resources"] = axqmm_resources(ctx)
     record["kernels"] = phase_kernels(ctx, cfg)
     record["kernels_swa"] = phase_kernels_swa(ctx, swa_cfg)
     record["kernels_h128"] = phase_kernels_head128(ctx, qwen_cfg, nemo_cfg)

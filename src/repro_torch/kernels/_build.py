@@ -56,8 +56,8 @@ _F = ctypes.c_float
 
 #: C signatures: entry point -> (library, argtypes)
 SIGNATURES = {
-    "axqmm_launch": ("axqmm", [_P] * 8 + [_I] * 4 + [_P]),
-    "axqmm_gated_launch": ("axqmm", [_P] * 8 + [_I] * 5 + [_P]),
+    "axqmm_launch": ("axqmm", [_P] * 9 + [_I] * 7 + [_P]),
+    "axqmm_gated_launch": ("axqmm", [_P] * 9 + [_I] * 8 + [_P]),
     "flash_decode_launch": ("flash_decode", [_P] * 7 + [_I] * 6 + [_F, _P]),
     "flash_decode_quant_launch": ("flash_decode", [_P] * 10 + [_I] * 5 + [_F, _P]),
     "flash_decode_split_width": ("flash_decode", [_I]),
@@ -246,6 +246,18 @@ def decode_instance(function: str):
     return None if m is None else ("combine", None, int(m.group(1)), None)
 
 
+def axqmm_instance(function: str):
+    """(kernel, template arguments) of a mangled name from ``ptxas -v`` of
+    ``axqmm.cu`` — ("decode", (NT, gated, CH)), ("tile", (BM, BN, WM,
+    WN, gated)), ("wgmma", (gated,)), ("combine", (gated,)), ("degrade", ())
+    — or None for any other."""
+    m = re.search(r"axq_(decode|tile|wgmma|combine|degrade)_kernel(I(?:L[ib]\d+E)+E)?",
+                  function)
+    if m is None:
+        return None
+    return m.group(1), tuple(int(v) for v in re.findall(r"L[ib](\d+)E", m.group(2) or ""))
+
+
 def entry(fn: str):
     """The bound C entry point ``fn`` (building the libraries on first use)."""
     owner = SIGNATURES[fn][0]
@@ -273,6 +285,16 @@ def require_sm90(t: torch.Tensor) -> None:
         raise RuntimeError(
             f"the CUDA kernels target sm_90a (Hopper); device {t.device} has "
             f"capability {cap}")
+
+
+def sm_count(t: torch.Tensor) -> int:
+    """The streaming multiprocessors of ``t``'s card (asked once a card)."""
+    return _sm_count(t.device.index)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 @functools.lru_cache(maxsize=None)

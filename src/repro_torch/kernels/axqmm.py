@@ -6,9 +6,16 @@ Wrappers around the CUDA kernels in ``csrc/axqmm.cu`` (port of
 K-major + ``(N, K // bk)`` f32 scales), so the per-call work outside the
 kernel is the activation quantization; the kernel degrades both int8
 operands to the runtime ``ebits`` (read from a device int32), takes exact
-int32 block dots and accumulates them scaled in f32, with the bias/residual
-epilogue (:func:`axqmm_packed`) or the gate (:func:`axqmm_gated_packed`)
-fused before its single write.
+int32 block dots on the int8 tensor cores and folds them scaled in f32 in
+block order, with the bias/residual epilogue (:func:`axqmm_packed`) or the
+gate (:func:`axqmm_gated_packed`) fused before its single write.
+
+:func:`plan` picks the kernel's tile configuration and how far K is split
+across blocks (decode shapes, M <= 16, split until the card holds several
+blocks an SM); a split launch gets an int32 scratch of per-unit sums from
+:func:`_scratch`, which the C entry point's second kernel folds in block
+order, so the result does not depend on the split; a long prefill gets
+a scratch its pre-pass degrades x and the weights into once.
 
 Each wrapper launches its kernel for a CUDA tensor (or raises) and uses
 the plain PyTorch version only for a CPU tensor.  The plain versions
@@ -17,6 +24,9 @@ the plain PyTorch version only for a CPU tensor.  The plain versions
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -37,8 +47,107 @@ def _gelu(x: Tensor) -> Tensor:
 ACTS = {"silu": F.silu, "gelu": _gelu, "relu": F.relu}
 _ACT_CODES = {"silu": 0, "gelu": 1, "relu": 2}
 
-#: k-chunk of the kernel: the packed block must be a multiple of it
+#: the kernels' least step of K in bytes: the packed block must be a multiple of it
 KERNEL_KC = 64
+
+#: the C entry points' tile configurations (``cfg``): decode (M <= 16, one
+#: warp a block on 16 weight rows), 64-row tiles (mma.sync, K may be split)
+#: and 128-row tiles (wgmma; a block that is a multiple of 128 bytes, K not
+#: split)
+DECODE, TILE_SMALL, TILE_LARGE = range(3)
+#: the largest M the decode kernel takes (its slots fill the MMA's n side)
+DECODE_M = 16
+#: output rows, columns of a tile (gated: columns of each of up and gate)
+_TILE = {TILE_SMALL: (64, 64, 32), TILE_LARGE: (128, 128, 64)}
+#: decode blocks (one warp each) wanted an SM when K is split, and the
+#: blocks an SM past which K is not split (the combine costs more than the
+#: SMs it fills: tools/tune_axqmm.py --sweep)
+DECODE_BLOCKS_PER_SM = 8
+DECODE_NO_SPLIT_PER_SM = 2
+#: the most parts a decode split cuts a quantization block into (the
+#: combine kernel's unrolled bound)
+MAX_PARTS = 4
+#: the most scratch a split launch may ask for
+SCRATCH_MAX_BYTES = 64 << 20
+#: from this many rows a 128-row-tile launch degrades x and the weights
+#: once, in a pre-pass, instead of in every tile that meets them
+PREDEGRADE_M = 1024
+
+
+class Plan(NamedTuple):
+    """A launch's tile configuration, splits of K and units a quantization
+    block (``part`` > 1 splits inside a block, at decode only)."""
+
+    cfg: int
+    n_split: int = 1
+    part: int = 1
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=None)
+def plan(M: int, N: int, K: int, bk: int, gated: bool, sms: int) -> Plan:
+    """The launch of an (M, K) x (K, N) call with quantization block ``bk``
+    on a card of ``sms`` SMs.  Decode (M <= 16) splits K at block edges
+    toward ``DECODE_BLOCKS_PER_SM`` one-warp blocks an SM when its 16-row
+    tiles are fewer than ``DECODE_NO_SPLIT_PER_SM`` an SM, and at exact parts
+    of a block where whole blocks cannot give one block an SM; prefill takes
+    128-row tiles when they fill the card, else 64-row ones, split at block
+    edges when those fill less than half of it."""
+    nb = K // bk
+    if M <= DECODE_M:
+        cfg, tiles = DECODE, _cdiv(N, 16)
+        want = _cdiv(DECODE_BLOCKS_PER_SM * sms, tiles) \
+            if tiles < DECODE_NO_SPLIT_PER_SM * sms else 1
+    else:
+        rows, cols, gated_cols = _TILE[TILE_LARGE]
+        if bk % 128 == 0 and _cdiv(M, rows) * _cdiv(N, gated_cols if gated else cols) >= sms:
+            return Plan(TILE_LARGE)
+        cfg = TILE_SMALL
+        rows, cols, gated_cols = _TILE[TILE_SMALL]
+        tiles = _cdiv(M, rows) * _cdiv(N, gated_cols if gated else cols)
+        want = _cdiv(sms, tiles) if 2 * tiles < sms else 1
+    n_split, part = min(want, nb), 1
+    while (cfg == DECODE and tiles * n_split < sms and part < MAX_PARTS
+           and bk % (2 * part * KERNEL_KC) == 0):
+        part *= 2                     # parts of a block, until one block an SM
+        n_split = min(_cdiv(sms, tiles), nb * part)
+    if n_split <= 1 or _scratch_bytes(M, N, nb * part, gated) > SCRATCH_MAX_BYTES:
+        return Plan(cfg)
+    return Plan(cfg, n_split, part)
+
+
+def blocks(p: Plan, M: int, N: int, gated: bool) -> int:
+    """Thread blocks of the main kernel of launch ``p`` (the combine kernel
+    of a split launch not counted)."""
+    if p.cfg == DECODE:
+        return _cdiv(N, 16) * p.n_split
+    rows, cols, gated_cols = _TILE[p.cfg]
+    return _cdiv(M, rows) * _cdiv(N, gated_cols if gated else cols) * p.n_split
+
+
+def _scratch_bytes(M: int, N: int, units: int, gated: bool) -> int:
+    return (2 if gated else 1) * units * M * N * 4
+
+
+def _scratch(p: Plan, M: int, N: int, K: int, bk: int, gated: bool, device):
+    """The scratch of a launch: for a split launch an int32 (M, N) plane of
+    sums a unit (a block, or a part of one) of each weight; for a long
+    prefill on 128-row tiles the int8 codes of x and of each weight, which a
+    pre-pass degrades once; otherwise None."""
+    g = 2 if gated else 1
+    if p.n_split > 1:
+        return torch.empty((g, K // bk * p.part, M, N), dtype=torch.int32, device=device)
+    if p.cfg == TILE_LARGE and M >= PREDEGRADE_M:
+        return torch.empty(((M + g * N) * K,), dtype=torch.int8, device=device)
+    return None
+
+
+def _plan_for(qx: Tensor, N: int, bk: int, gated: bool) -> Plan:
+    M, K = qx.shape
+    return plan(M, N, K, bk, gated, _build.sm_count(qx))
 
 
 def quantize_for_axqmm(x: Tensor, bk: int):
@@ -121,11 +230,14 @@ def axqmm_quantized(qx: Tensor, sx: Tensor, pw: PackedQWeight, ebits=8, *,
         r = residual.to(torch.float32).contiguous()
         _build.expect(r, "residual", torch.float32, dev, (M, N))
     e = _build.degree_ptr(ebits, dev)
+    p = _plan_for(qx, N, bk, False)
+    scratch = _scratch(p, M, N, K, bk, False, dev)
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
     rc = _build.entry("axqmm_launch")(
         qx.data_ptr(), sx.data_ptr(), pw.qw.data_ptr(), pw.scales.data_ptr(),
         None if b is None else b.data_ptr(), None if r is None else r.data_ptr(),
-        e.data_ptr(), out.data_ptr(), M, N, K, bk, _build.stream_of(qx))
+        e.data_ptr(), out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        M, N, K, bk, *p, _build.stream_of(qx))
     _build.check(rc, "axqmm")
     _build.launches["axqmm"] += 1
     return out
@@ -133,9 +245,9 @@ def axqmm_quantized(qx: Tensor, sx: Tensor, pw: PackedQWeight, ebits=8, *,
 
 def axqmm_gated_packed(x: Tensor, pw_up: PackedQWeight, pw_gate: PackedQWeight,
                        ebits=8, *, act: str = "silu") -> Tensor:
-    """``act(x @ w_gate) * (x @ w_up)`` -> (M, N) f32 in one kernel: the
-    shared x tile is degraded once per k-chunk and the up/gate sums never
-    leave the block.  CPU tensors take the plain version."""
+    """``act(x @ w_gate) * (x @ w_up)`` -> (M, N) f32 in one launch: both
+    GEMMs read one staged x tile, and the up/gate sums meet in the
+    epilogue.  CPU tensors take the plain version."""
     if act not in _ACT_CODES:
         raise ValueError(f"act must be one of {sorted(_ACT_CODES)}, got {act!r}")
     if pw_up.n != pw_gate.n or pw_up.block != pw_gate.block:
@@ -160,11 +272,14 @@ def axqmm_gated_quantized(qx: Tensor, sx: Tensor, pw_up: PackedQWeight,
     _build.expect(qx, "qx", torch.int8, dev, (M, K), align=16)
     _build.expect(sx, "sx", torch.float32, dev, (M, K // bk))
     e = _build.degree_ptr(ebits, dev)
+    p = _plan_for(qx, N, bk, True)
+    scratch = _scratch(p, M, N, K, bk, True, dev)
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
     rc = _build.entry("axqmm_gated_launch")(
         qx.data_ptr(), sx.data_ptr(), pw_up.qw.data_ptr(), pw_up.scales.data_ptr(),
         pw_gate.qw.data_ptr(), pw_gate.scales.data_ptr(), e.data_ptr(),
-        out.data_ptr(), M, N, K, bk, _ACT_CODES[act], _build.stream_of(qx))
+        out.data_ptr(), None if scratch is None else scratch.data_ptr(), M, N, K, bk,
+        _ACT_CODES[act], *p, _build.stream_of(qx))
     _build.check(rc, "axqmm_gated")
     _build.launches["axqmm_gated"] += 1
     return out

@@ -22,21 +22,28 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(x);  // round to nearest even, as torch's .to(bfloat16)
 }
 
-// Runtime DyFXU degrade of four packed int8 mantissas: round to nearest at
-// 2^shift and saturate to +-127 (repro.core.quantization.degrade).
-__device__ __forceinline__ int degrade4(int w, int shift) {
-  if (shift <= 0) return w;
-  const int half = 1 << (shift - 1);
-  int out = 0;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int v = static_cast<int>(static_cast<signed char>((w >> (8 * i)) & 0xff));
-    int d = ((v + half) >> shift) << shift;
-    d = min(max(d, -127), 127);
-    out |= (d & 0xff) << (8 * i);
+// Runtime DyFXU degrade of four packed int8 codes at once (SIMD within a
+// 32-bit word): round to nearest at 2^shift and saturate to +-127, equal to
+// repro.core.quantization.degrade for every code at every shift (shift 0
+// is the identity and is skipped by the callers; shift >= 8 gives 0).
+// Eleven integer operations a word: the 7-bit magnitude plus half a step
+// cannot carry out of its byte, the sign bit is added back modulo 256, and
+// the only wrapped results, +128 and -128, both land on byte 0x80, told
+// apart by the code's sign and moved to +127 / -127.
+struct Degrade {
+  unsigned half4, mask4, sign4;  // 2^(shift-1), ~(2^shift - 1), 0x80 per byte
+  __device__ __forceinline__ explicit Degrade(int shift)
+      : half4(shift > 0 && shift < 8 ? (1u << (shift - 1)) * 0x01010101u : 0u),
+        mask4(shift < 8 ? ((0xffu << shift) & 0xffu) * 0x01010101u : 0u),
+        sign4(shift < 8 ? 0x80808080u : 0u) {}
+  __device__ __forceinline__ unsigned operator()(unsigned w) const {
+    const unsigned sgn = w & sign4;
+    const unsigned d = (((w & 0x7f7f7f7fu) + half4) & mask4) ^ sgn;
+    const unsigned t = (d & 0x7f7f7f7fu) + 0x7f7f7f7fu;   // bit 7: low bits nonzero
+    const unsigned z = d & ~t & 0x80808080u;               // bytes equal to 0x80
+    return d - (z >> 7) + ((z & sgn) >> 6);
   }
-  return out;
-}
+};
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll

@@ -4,8 +4,10 @@ JAX, so it runs where only the port's stack (PyTorch with CUDA) is
 installed; the plain versions it compares against are held to the JAX
 reference in tests/test_torch_kernels.py.
 
-Tolerances: the GEMMs rtol 1e-5 / atol 1e-4 (the qmm oracle tolerance; the
-kernels were observed bit-identical), the f32 attention kernels the same
+Tolerances: the GEMMs rtol 1e-5 / atol 1e-4 (the qmm oracle tolerance),
+and bit for bit (atol 0) across degrees 1..8, split plans, batch sizes and
+graph replays (exact int32 block sums, the plain version's f32 fold
+order); the f32 attention kernels rtol 1e-5 / atol 1e-4
 on f32 inputs, the decode kernel 1e-4 on a bf16 cache (f32 sums in another
 order), the int8-cache decode kernel 1e-5 abs (the reference's kernel-vs-
 jnp tolerance), a decode slot's output exactly across launches, caches,
@@ -63,6 +65,101 @@ def test_gpu_axqmm_kernels_match_plain(hopper, M):
                                rtol=RTOL, atol=ATOL)
     torch.testing.assert_close(yg, taxq.axqmm_gated_plain(x, pw, pg, e),
                                rtol=RTOL, atol=ATOL)
+
+
+def _gemm_operands(hopper, M, N, K, seed):
+    g = torch.Generator(device=hopper).manual_seed(seed)
+    x = torch.randn(M, K, generator=g, device=hopper)
+    pw = tprepack(torch.randn(K, N, generator=g, device=hopper) / math.sqrt(K), 256)
+    pg = tprepack(torch.randn(K, N, generator=g, device=hopper) / math.sqrt(K), 256)
+    b = torch.randn(N, generator=g, device=hopper)
+    r = torch.randn(M, N, generator=g, device=hopper)
+    return x, pw, pg, b, r
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,K", [(200, 512), (256, 512), (2560, 512), (200, 11008),
+                                 (256, 11008), (2560, 11008)])
+@pytest.mark.parametrize("M", [1, 8, 16, 17, 255, 4096])
+def test_gpu_axqmm_kernels_are_the_plain_versions_bit_for_bit(hopper, M, N, K):
+    """Both GEMM kernels equal their plain versions exactly (atol 0) on the
+    decode kernel (M <= 16), both tile sizes and the split plans the
+    wrapper picks, at every degree 1..8 set in one device int32."""
+    x, pw, pg, b, r = _gemm_operands(hopper, M, N, K, M + N + K)
+    e = torch.zeros((), dtype=torch.int32, device=hopper)
+    for ebits in range(1, 9):
+        e.fill_(ebits)
+        y = taxq.axqmm_packed(x, pw, e, bias=b, residual=r)
+        yg = taxq.axqmm_gated_packed(x, pw, pg, e, act="gelu")
+        torch.cuda.synchronize()
+        assert torch.equal(y, taxq.axqmm_packed_plain(x, pw, ebits, bias=b, residual=r)), ebits
+        assert torch.equal(yg, taxq.axqmm_gated_plain(x, pw, pg, ebits, act="gelu")), ebits
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gated", [False, True])
+def test_gpu_axqmm_slot_bits_do_not_depend_on_split_or_batch(hopper, monkeypatch, gated):
+    """Row 0 of x gives the same bits at M = 1, 8, 16, 17 and 255 and under
+    every plan the kernels take (decode: K split at whole blocks and at
+    parts of blocks; 64-row tiles: whole blocks; the 128-row wgmma tiles),
+    at ebits 5 and 8."""
+    N, K = 200, 11008
+    x, pw, pg, b, r = _gemm_operands(hopper, 255, N, K, 11)
+    call = ((lambda xx, e: taxq.axqmm_gated_packed(xx, pw, pg, e)) if gated else
+            (lambda xx, e: taxq.axqmm_packed(xx, pw, e, bias=b)))
+    nb = K // 256
+    for ebits in (5, 8):
+        first = call(x[:1], ebits)[0]
+        for M in (1, 8, 16, 17, 255):
+            decode = M <= taxq.DECODE_M
+            plans = ([taxq.Plan(taxq.DECODE, s, p) for s, p in
+                      ((1, 1), (2, 1), (5, 1), (nb, 1), (nb * 4 - 1, 4), (nb * 2, 2))]
+                     if decode else
+                     [taxq.Plan(taxq.TILE_SMALL, s) for s in (1, 3, nb)]
+                     + [taxq.Plan(taxq.TILE_LARGE)])
+            for p in plans:
+                monkeypatch.setattr(taxq, "_plan_for", lambda *a, p=p: p)
+                y = call(x[:M], ebits)
+                torch.cuda.synchronize()
+                assert torch.equal(y[0], first), (ebits, M, p)
+            monkeypatch.undo()
+
+
+@pytest.mark.gpu
+def test_gpu_axqmm_degree_moves_between_graph_replays(hopper):
+    """One capture of both GEMMs (a decode-shaped split plan and a
+    prefill tile) replays at each degree written into the device int32
+    between replays: the outputs follow the degree, bit for bit, with no
+    rebuild and no recapture."""
+    x, pw, pg, b, r = _gemm_operands(hopper, 255, 2560, 2048, 5)
+    e = torch.full((), 8, dtype=torch.int32, device=hopper)
+    xs = (x[:8].clone(), x)
+
+    def step():
+        return [taxq.axqmm_packed(xx, pw, e, residual=r[:xx.shape[0]]) for xx in xs] + \
+               [taxq.axqmm_gated_packed(xx, pw, pg, e) for xx in xs]
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = step()
+    libs = dict(_build._libs)
+    seen = []
+    for ebits in (8, 5, 2, 7):
+        e.fill_(ebits)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = [taxq.axqmm_packed_plain(xx, pw, ebits, residual=r[:xx.shape[0]]) for xx in xs] + \
+               [taxq.axqmm_gated_plain(xx, pw, pg, ebits) for xx in xs]
+        for o, w in zip(outs, want):
+            assert torch.equal(o, w), ebits
+        seen.append(outs[0].clone())
+    assert not torch.equal(seen[0], seen[1])
+    assert dict(_build._libs) == libs
 
 
 @pytest.mark.gpu
