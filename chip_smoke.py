@@ -8,13 +8,16 @@
 Phases (any failure exits non-zero):
   1. the card (nvidia-smi name and power limit) and the kernel build
      (nvcc for sm_90a from kernels/csrc, with the -Xptxas -v lines, and one
-     line of each flash_attention, flash_decode and axqmm instantiation's
-     registers, spills and shared memory: none may spill);
+     line of each flash_attention, flash_decode, axqmm and axmult_elem
+     instantiation's registers, spills and shared memory: none may spill);
   2. each hand-written kernel against its plain PyTorch version on the same
      seeded inputs at the serving paths' full-width shapes (tinyllama-1.1b,
      h2o-danube-1.8b and qwen2.5-3b for the LM kernels, with head_dim 128
      in both attention bodies and the GEMM's bias epilogue; the stream
-     tick's planes and the Ch. 7 bench layouts for the PR product; a
+     tick's stages and the Ch. 7 bench layouts for the PR kernels, each
+     product-sum row also bit-identical to the old route (the planes
+     through the elementwise pr_multiply, then torch.sum), beside one
+     empty launch by graph replay; a
      decode row with lengths at the decode kernels' split edges; qwen's
      long-prefill GEMMs at M = 4096), with the stated tolerance (the GEMMs
      also bit-identical, and at decode at least one block an SM), timed
@@ -32,7 +35,8 @@ Phases (any failure exits non-zero):
            long prompts among short ones;
      the streaming DSP workload at its StreamConfig() widths —
        3d  a backlog of clips (FIR -> 3x3 blur -> gain on the PR
-           multiplier) on 64 slots with the per-site QoS ladder 8 -> 5,
+           multiplier: one pr_fir and two pr_conv2d launches a tick, no
+           pr_multiply) on 64 slots with the per-site QoS ladder 8 -> 5,
            every frame bit-identical to a second run of the same traffic
            through the plain versions on the card;
      h2o-danube-1.8b (sliding window 4096, head_dim 80) —
@@ -92,11 +96,16 @@ SOURCES = {
                         "src/repro/kernels/flash_attention.py:117"),
     "pr_multiply": ("src/repro_torch/kernels/csrc/axmult_elem.cu",
                     "src/repro/kernels/axmult_elem.py:28"),
+    # the product-sum forms the reference builds around _pr_kernel
+    "pr_fir": ("src/repro_torch/kernels/csrc/axmult_elem.cu",
+               "src/repro/kernels/axmult_elem.py:28"),
+    "pr_conv2d": ("src/repro_torch/kernels/csrc/axmult_elem.cu",
+                  "src/repro/kernels/axmult_elem.py:28"),
 }
 
 #: the row keys that name a phase-2 shape
 SHAPE_KEYS = ("M", "N", "K", "bias", "B", "T", "KVr", "G", "BH", "S", "D", "window", "ebits",
-              "dtype", "shape")
+              "dtype", "shape", "L", "H", "W", "kh", "kw", "pad", "shift")
 
 
 def say(msg: str) -> None:
@@ -591,9 +600,180 @@ def check_pr_multiply(ctx, shape, what):
                                 iters=10)
         row["library_ms"] = None
         row["library_call"] = "none: no PyTorch call computes a PR product"
+        row["launch_floor_ms"] = launch_floor(ctx)
     # two int32 reads and one int32 write per element
     row["bound_ms"], row["bound_by"] = bound(12 * numel, 0, INT8_OPS)
     return row
+
+
+def launch_floor(ctx):
+    """Device time of one empty kernel launch by CUDA-graph replay (ms): the
+    floor under any launch, beside every PR row (their byte bounds are far
+    below it at the stream shapes)."""
+    if not ctx["on_card"]:
+        return None
+    torch = ctx["torch"]
+    from repro_torch.kernels import _build
+
+    fn = _build.entry("launch_floor_launch")
+    return ctx["timer"].graph(
+        lambda i: _build.check(fn(torch.cuda.current_stream().cuda_stream), "launch_floor"), 64)
+
+
+def fir_bytes(B, L, T) -> int:
+    """pr_fir's bytes: frames, tail and taps read once; y and the new tail
+    written once (int32)."""
+    return 4 * (2 * B * L + 2 * B * (T - 1) + T)
+
+
+def conv_bytes(B, H, W, kh, kw) -> int:
+    """pr_conv2d's bytes: the image and the weights read once, the output
+    written once (int32)."""
+    return 4 * (2 * B * H * W + kh * kw)
+
+
+def _pr_knobs(ctx) -> list:
+    """The fused wrappers' keywords for each phase-2 knob: the degrees as
+    elements of a device vector (the stream engine's operand) and the raw
+    pairs."""
+    torch = ctx["torch"]
+    degrees = torch.tensor(PR_DEGREES, dtype=torch.int32, device=ctx["dev"])
+    return ([{"degree": degrees[i]} for i in range(len(PR_DEGREES))]
+            + [{"pr": k} for k in PR_RAW])
+
+
+def _old_pr(pr=None, degree=None):
+    """The old route's (p, r): a degree mapped by ``degree_to_pr``, as the
+    stages did on every call before the fused kernels."""
+    from repro_torch.kernels import dsp
+
+    return pr if pr is not None else dsp.degree_to_pr(degree)
+
+
+def _fir_old_route(frames, tail, taps, shift, **knob):
+    """The stage as served before the fused kernels: the reference's
+    planes through the elementwise pr_multiply kernel, then torch.sum."""
+    import torch
+
+    from repro_torch.kernels import axmult_elem as PR
+
+    a, win, ext = PR.fir_planes(frames, tail, taps)
+    prod = PR.pr_multiply(a.expand(win.shape).contiguous(), win.contiguous(), _old_pr(**knob))
+    return torch.sum(prod, dim=0, dtype=torch.int32) >> shift, ext[:, frames.shape[1]:]
+
+
+def _conv_old_route(img, kern, shift, pad, **knob):
+    import torch
+
+    from repro_torch.kernels import axmult_elem as PR
+
+    a, patches = PR.conv_planes(img, kern, pad)
+    prod = PR.pr_multiply(a.expand(patches.shape).contiguous(), patches.contiguous(),
+                          _old_pr(**knob))
+    return torch.sum(prod, dim=0, dtype=torch.int32) >> shift
+
+
+def _diff(x, y) -> int:
+    import torch
+
+    if x.numel() == 0:
+        return 0
+    return int((x.to(torch.int64) - y.to(torch.int64)).abs().max())
+
+
+def _pr_sum_row(ctx, row, kernel, plain, old, rotate, nbytes, ops):
+    """Check one product-sum row at every knob (bit-exact against the plain
+    version and against the old route) and time it at degree 5: ``ms``
+    the kernel alone by CUDA-graph replay over rotating inputs,
+    ``wrapper_ms`` the eager call, ``plain_ms`` the plain version eagerly,
+    ``old_route_ms`` the pr_multiply route by graph replay (its degree
+    mapping included), ``launch_floor_ms`` one empty launch."""
+    timer = ctx["timer"]
+    knobs = _pr_knobs(ctx)
+    err_plain = err_old = 0
+    for kw in knobs:
+        got = kernel(0, **kw)
+        want = plain(0, **kw)
+        before = old(0, **kw)
+        ctx["sync"]()
+        got, want, before = ((t,) if not isinstance(t, tuple) else t
+                             for t in (got, want, before))
+        err_plain = max([err_plain] + [_diff(g, w) for g, w in zip(got, want)])
+        err_old = max([err_old] + [_diff(g, w) for g, w in zip(got, before)])
+    row.update(knobs=[f"degree {e}" for e in PR_DEGREES] + [f"(p, r) = {k}" for k in PR_RAW],
+               max_abs_err=max(err_plain, err_old), max_abs_err_plain=err_plain,
+               max_abs_err_old_route=err_old, tol="exact (0), plain version and old route",
+               ok=err_plain == 0 and err_old == 0)
+    kw5 = knobs[PR_DEGREES.index(5)]
+    if ctx["on_card"]:
+        n = max(rotate, 20)
+        row["ms"] = timer.graph(lambda i: kernel(i, **kw5), n)
+        row["wrapper_ms"] = timer(lambda i: kernel(i, **kw5))
+        row["plain_ms"] = timer(lambda i: plain(i, **kw5), iters=10)
+        row["old_route_ms"] = timer.graph(lambda i: old(i, **kw5), n)
+        row["launch_floor_ms"] = launch_floor(ctx)
+        row["library_ms"] = None
+        row["library_call"] = "none: no PyTorch call computes a PR product"
+    # int32 multiply-adds counted at the table's f32 CUDA-core rate (Hopper
+    # issues int32 multiply-adds at half of it: the looser bound)
+    row["bound_ms"], row["bound_by"] = bound(nbytes, ops, F32_FLOPS)
+    return row
+
+
+def check_pr_fir(ctx, B, L, T, shift, what):
+    torch, dev = ctx["torch"], ctx["dev"]
+    import numpy as np
+
+    from repro_torch.kernels import axmult_elem as PR
+    from repro_torch.kernels import dsp
+
+    rng = np.random.default_rng(7000 + B + L + T)
+    q = 12
+    frames = torch.from_numpy(rng.integers(-(1 << q), (1 << q) + 1, (B, L), dtype=np.int32))
+    tail = torch.from_numpy(rng.integers(-(1 << q), (1 << q) + 1, (B, T - 1), dtype=np.int32))
+    taps = torch.from_numpy(dsp.quantize_weights(rng.uniform(-1.0, 1.0, T), shift)).to(dev)
+    nbytes = fir_bytes(B, L, T)
+    ops = copies(lambda: (frames.to(dev), tail.to(dev)), nbytes, ctx["on_card"])
+
+    def kernel(i, **kw):
+        return PR.pr_fir(*ops[i % len(ops)], taps, shift=shift, **kw)
+
+    def plain(i, **kw):
+        return PR.pr_fir_plain(*ops[i % len(ops)], taps, shift=shift, **kw)
+
+    def old(i, **kw):
+        return _fir_old_route(*ops[i % len(ops)], taps, shift, **kw)
+
+    row = {"B": B, "L": L, "T": T, "shift": shift, "what": what}
+    return _pr_sum_row(ctx, row, kernel, plain, old, len(ops), nbytes, 2 * T * B * L)
+
+
+def check_pr_conv2d(ctx, B, H, W, kh, kw, pad, shift, what):
+    torch, dev = ctx["torch"], ctx["dev"]
+    import numpy as np
+
+    from repro_torch.kernels import axmult_elem as PR
+    from repro_torch.kernels import dsp
+
+    rng = np.random.default_rng(8000 + B + H + W + kh * kw)
+    img = torch.from_numpy(rng.integers(-(1 << 12), (1 << 12) + 1, (B, H, W), dtype=np.int32))
+    kern = torch.from_numpy(dsp.quantize_weights(rng.uniform(-1.0, 1.0, (kh, kw)), shift))
+    kern = kern.to(dev)
+    nbytes = conv_bytes(B, H, W, kh, kw)
+    ops = copies(lambda: img.to(dev), nbytes, ctx["on_card"])
+
+    def kernel(i, **kw_):
+        return PR.pr_conv2d(ops[i % len(ops)], kern, shift=shift, pad=pad, **kw_)
+
+    def plain(i, **kw_):
+        return PR.pr_conv2d_plain(ops[i % len(ops)], kern, shift=shift, pad=pad, **kw_)
+
+    def old(i, **kw_):
+        return _conv_old_route(ops[i % len(ops)], kern, shift, pad, **kw_)
+
+    row = {"B": B, "H": H, "W": W, "kh": kh, "kw": kw, "pad": pad, "shift": shift,
+           "what": what}
+    return _pr_sum_row(ctx, row, kernel, plain, old, len(ops), nbytes, 2 * kh * kw * B * H * W)
 
 
 def decode_lengths(T: int, slots: int):
@@ -627,7 +807,7 @@ def phase_kernels(ctx, cfg):
     deg = torch.tensor(6, dtype=torch.int32, device=ctx["dev"])
     slots, prompt = ctx["slots"], ctx["prefill_m"]
     rows = {"axqmm": [], "axqmm_gated": [], "flash_decode": [], "flash_decode_quant": [],
-            "flash_attention": [], "pr_multiply": []}
+            "flash_attention": [], "pr_multiply": [], "pr_fir": [], "pr_conv2d": []}
     for M in (slots, prompt):
         for N, K, res in ((qd, d, False), (kvd, d, False), (d, qd, True),
                           (d, dff, True)):
@@ -658,6 +838,10 @@ def phase_kernels(ctx, cfg):
                                                      cfg.n_kv_heads))
     for shape, what in ctx["pr_shapes"]:
         rows["pr_multiply"].append(check_pr_multiply(ctx, shape, what))
+    for shape, what in ctx["fir_shapes"]:
+        rows["pr_fir"].append(check_pr_fir(ctx, *shape, what))
+    for shape, what in ctx["conv_shapes"]:
+        rows["pr_conv2d"].append(check_pr_conv2d(ctx, *shape, what))
     report_rows(rows)
     return rows
 
@@ -753,6 +937,34 @@ def axqmm_resources(ctx) -> list:
     return out
 
 
+def pr_resources(ctx) -> list:
+    """Registers, spill bytes and shared memory of every axmult_elem.cu
+    kernel (ptxas -v of this build): pr_kernel with and without 16-byte
+    lanes, pr_fir_kernel, pr_conv2d_kernel and the empty
+    launch_floor_kernel.  Every one must run with 0 bytes spilled."""
+    from repro_torch.kernels import _build
+
+    out = []
+    for r in _build.kernel_resources(_build.ptxas_log.get("axmult_elem", [])):
+        inst = _build.pr_instance(r["function"])
+        if inst is None:
+            continue
+        out.append({"instance": inst, "registers": r["registers"],
+                    "spill_stores": r["spill_stores"], "spill_loads": r["spill_loads"],
+                    "static_smem": r["smem"]})
+    say("axmult_elem kernels: " + "; ".join(
+        f"{r['instance']} {r['registers']} regs, spill {r['spill_stores']}/"
+        f"{r['spill_loads']} B, smem {r['static_smem']} B static" for r in out))
+    names = sorted(r["instance"] for r in out)
+    require(names == ["launch_floor_kernel", "pr_conv2d_kernel", "pr_fir_kernel",
+                      "pr_kernel<scalar>", "pr_kernel<vec>"],
+            f"expected 5 axmult_elem kernels (pr_kernel x 2, pr_fir_kernel, pr_conv2d_kernel, "
+            f"launch_floor_kernel), ptxas shows {names}")
+    require(all(r["spill_stores"] == 0 and r["spill_loads"] == 0 for r in out),
+            "an axmult_elem kernel spills registers")
+    return out
+
+
 def report_rows(rows, tag: str = "") -> None:
     for name, rs in rows.items():
         for r in rs:
@@ -772,6 +984,9 @@ def report_rows(rows, tag: str = "") -> None:
                 if "tops_graph" in r:
                     rates += (f" TOP/s={r['tops_graph']:.4g} ms_graph/bound="
                               f"{r['ms_graph_over_bound']:.3g}")
+            if "launch_floor_ms" in r:
+                rates = (f" wrapper_ms={r.get('wrapper_ms')} old_route_ms="
+                         f"{r.get('old_route_ms')} launch_floor_ms={r['launch_floor_ms']}")
             say(f"{tag}{name} {shape}: max_err={r['max_abs_err']:.3g} ({r['tol']}) "
                 f"kernel_ms={r.get('ms')} plain_ms={r.get('plain_ms')} "
                 f"library_ms={r.get('library_ms')} bound_ms={r['bound_ms']:.4g} "
@@ -1038,7 +1253,7 @@ def phase_serve(ctx, cfg, model, params):
     check_launches(ctx, "phase 3", seen, {
         "axqmm": (5 * L + 1) * (steps + prefills), "axqmm_gated": L * (steps + prefills),
         "flash_decode": L * steps, "flash_decode_quant": 0, "flash_attention": L * prefills,
-        "pr_multiply": 0})
+        "pr_multiply": 0, "pr_fir": 0, "pr_conv2d": 0})
     out = serve_summary(ctx, "phase 3 (exact admission, bf16 cache)", eng, reqs, seen,
                         wbytes / HBM_BPS * 1e3)
     out.update(arch=cfg.name, new_tokens=ctx["new_tokens"], prompt_range=[lo, hi],
@@ -1071,7 +1286,7 @@ def phase_serve_int8(ctx, cfg, model, params, prompts):
     check_launches(ctx, "phase 3b", seen, {
         "axqmm": (5 * L + 1) * steps + 5 * L * calls, "axqmm_gated": L * (steps + calls),
         "flash_decode": 0, "flash_decode_quant": L * steps, "flash_attention": L * calls,
-        "pr_multiply": 0})
+        "pr_multiply": 0, "pr_fir": 0, "pr_conv2d": 0})
     out = serve_summary(ctx, "phase 3b (int8 cache, buckets, pack 4)", eng, reqs, seen,
                         packed_bytes(params) / HBM_BPS * 1e3)
     bf16 = init_lm_cache(cfg, 1, ctx["slots"], ctx["max_len"], device="meta")
@@ -1111,7 +1326,8 @@ def phase_serve_chunked(ctx, cfg, model, params):
     check_launches(ctx, "phase 3c", seen, {
         "axqmm": (5 * L + 1) * steps + 5 * L * (flushes + chunks),
         "axqmm_gated": L * (steps + flushes + chunks), "flash_decode": L * steps,
-        "flash_decode_quant": 0, "flash_attention": L * flushes, "pr_multiply": 0})
+        "flash_decode_quant": 0, "flash_attention": L * flushes, "pr_multiply": 0,
+        "pr_fir": 0, "pr_conv2d": 0})
     out = serve_summary(ctx, "phase 3c (bf16 cache, buckets, pack 4, chunks)", eng, reqs,
                         seen, packed_bytes(params) / HBM_BPS * 1e3)
     short = [r.ttft * 1e3 for i, r in enumerate(reqs) if i not in long_at]
@@ -1251,7 +1467,7 @@ def phase_serve_long(ctx, tag, cfg, model, params, prompts, kinds, *, max_len, n
     check_launches(ctx, label, seen, {
         "axqmm": (5 * L + 1) * (steps + n), "axqmm_gated": L * (steps + n),
         "flash_decode": L * steps, "flash_decode_quant": 0, "flash_attention": L * n,
-        "pr_multiply": 0})
+        "pr_multiply": 0, "pr_fir": 0, "pr_conv2d": 0})
     if ctx["on_card"]:
         require(seen["flash_schedules"] == {"dense": 0, "tri": L * (n - n_band),
                                             "band": L * n_band},
@@ -1328,7 +1544,7 @@ def phase_serve_long_int8(ctx, tag, cfg, model, params, prompts, kinds, *, max_l
         "axqmm": (5 * L + 1) * (steps + n_band) + 5 * L * calls,
         "axqmm_gated": L * (steps + n_band + calls), "flash_decode": 0,
         "flash_decode_quant": L * steps, "flash_attention": L * (n_band + calls),
-        "pr_multiply": 0})
+        "pr_multiply": 0, "pr_fir": 0, "pr_conv2d": 0})
     if ctx["on_card"]:
         require(seen["flash_schedules"] == {"dense": 0, "tri": L * calls, "band": L * n_band},
                 f"{label}: flash_attention by schedule {seen['flash_schedules']}")
@@ -1433,7 +1649,10 @@ def _profiled(ctx, tick, n):
         fn = re.split(r"[<(]", k.replace("(anonymous namespace)::", ""))[0].split()[-1]
         fn = fn.split("::")[-1]
         by_fn[fn] = by_fn.get(fn, 0.0) + t
+    copies_ = sum(c for k, c, _ in rows if k.startswith(("Memcpy", "Memset")))
     return {"ticks": n, "tick_wall_ms": 1e3 * wall / n, "device_us_per_tick": dev_us / n,
+            "kernels_per_tick": (sum(c for _, c, _ in rows) - copies_) / n,
+            "copies_per_tick": copies_ / n,
             "device_busy_share": dev_us * 1e-6 / wall if wall > 0 else None,
             "top_kernels": [{"name": k, "calls": c, "device_us": t, "share": t / dev_us}
                             for k, c, t in top],
@@ -1471,9 +1690,10 @@ def phase_stream(ctx):
     """Phase 3d: the streaming DSP workload at the repo's StreamConfig()
     widths (256-sample frames, 8 FIR taps, 16x16 tiles, Q12): a backlog of
     clips on ``stream_slots`` slots with the QoS ladder 8 -> 5 over the three
-    sites.  One ``pr_multiply`` launch per stage, three per tick; the frames
-    and the degree history must equal a second run of the same traffic
-    through the plain versions on the card.  Then the whole-clip forward's
+    sites.  One ``pr_fir`` and two ``pr_conv2d`` launches a tick, each stage
+    reading its element of the degree vector in place, and no
+    ``pr_multiply``; the frames and the degree history must equal a second
+    run of the same traffic through the plain versions on the card.  Then the whole-clip forward's
     PSNR against the exact pipeline at uniform degrees 8..4."""
     torch, dev = ctx["torch"], ctx["dev"]
     import numpy as np
@@ -1492,7 +1712,7 @@ def phase_stream(ctx):
             f"phase 3d: a clip did not return all {n_frames} frames")
     steps = eng.stats.decode_steps
     expect = dict.fromkeys(_build.KERNELS, 0)
-    expect["pr_multiply"] = 3 * steps
+    expect.update(pr_fir=steps, pr_conv2d=2 * steps)
     check_launches(ctx, "phase 3d", seen, expect)
     hist = [(t, tuple(d)) for t, d in eng.stats.degree_history]
     rungs = sorted({d for _, d in hist})
@@ -1508,7 +1728,9 @@ def phase_stream(ctx):
     s = summarize(reqs, eng.stats, wall_s=seen["wall_s"])
     frames = sum(len(r.out) for r in reqs)
     dts = seen["step_ticks"]
-    tick_bound = 18 * slots * cfg.frame * 12 / HBM_BPS * 1e3
+    H, W = cfg.tile
+    tick_bound = (fir_bytes(slots, cfg.frame, cfg.taps) + conv_bytes(slots, H, W, 3, 3)
+                  + conv_bytes(slots, H, W, 1, 1)) / HBM_BPS * 1e3
     out = {"config": dataclasses.asdict(cfg), "slots": slots, "clips": n_clips,
            "frames_per_clip": n_frames, "frames": frames, "wall_s": seen["wall_s"],
            "frames_per_s": frames / seen["wall_s"], "ticks": seen["ticks"],
@@ -1560,8 +1782,10 @@ def phase_stream(ctx):
         out["profile"] = prof = _profile_ticks(ctx, cfg, clips,
                                                min(16, n_frames - 2))
     say(f"phase 3d: profiled {prof['ticks']} steady ticks: {prof['tick_wall_ms']:.4f} ms "
-        f"wall per tick, {prof['device_us_per_tick']:.2f} us of device kernel time per "
-        f"tick (busy share {prof['device_busy_share']}); largest: "
+        f"wall per tick, {prof['device_us_per_tick']:.2f} us of device time per tick "
+        f"(busy share {prof['device_busy_share']}), {prof['kernels_per_tick']} kernel "
+        f"launches and {prof['copies_per_tick']} copies a tick; shares "
+        f"{ {k: round(v, 4) for k, v in prof['share_by_function'].items()} }; largest: "
         + "; ".join(f"{r['name'][:60]} x{r['calls']} {r['device_us']:.1f} us"
                     for r in prof["top_kernels"]))
     say(f"phase 3d: forward PSNR vs the exact pipeline ({ctx['psnr_clips']} clips x "
@@ -1887,7 +2111,15 @@ def main(argv=None) -> int:
                              ((32, 4064), "Ch. 7: 32-tap FIR over 4096 samples"),
                              ((25, 1, 128, 128), "Ch. 7: 5x5 blur on 128x128"),
                              ((1_000_003,), "ragged"),
-                             ((1 << 24,), "flat 2^24"))}
+                             ((1 << 24,), "flat 2^24")),
+               "fir_shapes": (((64, 256, 8, 12), "stream tick: FIR, 64 slots"),
+                              ((1, 4096, 32, 14), "Ch. 7: 32-tap FIR over 4096 samples"),
+                              ((5, 1001, 13, 12), "ragged")),
+               "conv_shapes": (((64, 16, 16, 3, 3, "edge", 8), "stream tick: 3x3 edge blur"),
+                               ((64, 16, 16, 1, 1, "zero", 12), "stream tick: 1x1 gain"),
+                               ((1, 128, 128, 5, 5, "zero", 8), "Ch. 7: 5x5 blur on 128x128"),
+                               ((1, 128, 128, 5, 5, "edge", 8), "Ch. 7: 5x5 edge blur"),
+                               ((3, 37, 45, 4, 6, "edge", 8), "ragged, even 4x6 kernel"))}
         cfg = get_config("tinyllama-1.1b")
         swa_cfg = get_config("h2o-danube-1.8b")
         qwen_cfg = get_config("qwen2.5-3b")
@@ -1916,7 +2148,14 @@ def main(argv=None) -> int:
                              ((9, 4, 256), "stream tick: 3x3 blur planes"),
                              ((1, 4, 256), "stream tick: 1x1 gain plane"),
                              ((32, 4064), "Ch. 7: 32-tap FIR over 4096 samples"),
-                             ((1003,), "ragged"))}
+                             ((1003,), "ragged")),
+               "fir_shapes": (((4, 256, 8, 12), "stream tick: FIR, 4 slots"),
+                              ((1, 4096, 32, 14), "Ch. 7: 32-tap FIR over 4096 samples"),
+                              ((2, 5, 13, 12), "ragged, frames shorter than the tail")),
+               "conv_shapes": (((4, 16, 16, 3, 3, "edge", 8), "stream tick: 3x3 edge blur"),
+                               ((4, 16, 16, 1, 1, "zero", 12), "stream tick: 1x1 gain"),
+                               ((1, 128, 128, 5, 5, "zero", 8), "Ch. 7: 5x5 blur on 128x128"),
+                               ((3, 37, 45, 4, 6, "edge", 8), "ragged, even 4x6 kernel"))}
         cfg = get_config("tinyllama-1.1b-smoke")
         swa_cfg = get_config("h2o-danube-1.8b-smoke")
         # the smoke variants have head_dim 16: keep the D = 128 paths
@@ -1929,6 +2168,7 @@ def main(argv=None) -> int:
         record["flash_attention_resources"] = flash_resources(ctx)
         record["decode_resources"] = decode_resources(ctx)
         record["axqmm_resources"] = axqmm_resources(ctx)
+        record["pr_resources"] = pr_resources(ctx)
     record["kernels"] = phase_kernels(ctx, cfg)
     record["kernels_swa"] = phase_kernels_swa(ctx, swa_cfg)
     record["kernels_h128"] = phase_kernels_head128(ctx, qwen_cfg, nemo_cfg)
@@ -1991,6 +2231,10 @@ def main(argv=None) -> int:
             "library_ms": lead.get("library_ms"),
             "shape": {k: lead[k] for k in lead if k in SHAPE_KEYS},
         }
+        for key in ("wrapper_ms", "old_route_ms", "launch_floor_ms"):
+            if key in lead:
+                # the PR rows: the eager call, the old route and the floor
+                entry[key] = lead[key]
         if "ms_graph" in lead:
             # decode: the device times beside the eager ones
             entry.update(ms_graph=lead["ms_graph"], library_ms_graph=lead["library_ms_graph"])

@@ -41,10 +41,11 @@ SOURCES = {
     "axmult_elem": "axmult_elem.cu",
 }
 #: the kernels of the serving paths (two live in axqmm.cu, two in
-#: flash_decode.cu; pr_multiply, in axmult_elem.cu, serves the stream
-#: workload)
+#: flash_decode.cu; axmult_elem.cu holds the elementwise pr_multiply, which
+#: the offline FIR bench layout takes, and pr_fir / pr_conv2d, the stream
+#: workload's stages)
 KERNELS = ("axqmm", "axqmm_gated", "flash_decode", "flash_decode_quant",
-           "flash_attention", "pr_multiply")
+           "flash_attention", "pr_multiply", "pr_fir", "pr_conv2d")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -66,6 +67,9 @@ SIGNATURES = {
                                [_P] * 5 + [_I] * 10 + [_LL] * 9 + [_I, _F, _P]),
     "flash_attention_smem_bytes": ("flash_attention", [_I] * 3),
     "pr_multiply_launch": ("axmult_elem", [_P] * 4 + [_LL, _I, _P]),
+    "pr_fir_launch": ("axmult_elem", [_P] * 6 + [_I] * 6 + [_P]),
+    "pr_conv2d_launch": ("axmult_elem", [_P] * 4 + [_I] * 9 + [_P]),
+    "launch_floor_launch": ("axmult_elem", [_P]),
 }
 
 launches = dict.fromkeys(KERNELS, 0)
@@ -256,6 +260,20 @@ def axqmm_instance(function: str):
     if m is None:
         return None
     return m.group(1), tuple(int(v) for v in re.findall(r"L[ib](\d+)E", m.group(2) or ""))
+
+
+def pr_instance(function: str):
+    """The kernel of a mangled name from ``ptxas -v`` of ``axmult_elem.cu``
+    — "pr_kernel<vec>" / "pr_kernel<scalar>" (elementwise),
+    "pr_fir_kernel", "pr_conv2d_kernel", "launch_floor_kernel" — or None for
+    any other."""
+    m = re.search(r"\d+(pr_kernel|pr_fir_kernel|pr_conv2d_kernel|launch_floor_kernel)"
+                  r"(ILb([01])EE)?", function)
+    if m is None:
+        return None
+    if m.group(1) == "pr_kernel":
+        return "pr_kernel<vec>" if m.group(3) == "1" else "pr_kernel<scalar>"
+    return m.group(1)
 
 
 def entry(fn: str):

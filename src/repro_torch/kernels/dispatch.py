@@ -21,7 +21,7 @@ prepacked weights take the quantize-once inference path, float weights a
 differentiable ``torch.autograd.Function`` with a kernel forward and a
 ``qmm_ref`` — or straight-through — backward), :func:`fir` /
 :func:`conv2d` / :func:`fir_approx` (the Ch. 7 DSP cores on the PR
-multiplier kernel).  ``last_route`` records the backend each call site
+multiplier kernels).  ``last_route`` records the backend each call site
 took.
 
 Runtime degree contract: every router takes the DyFXU degree as a device
@@ -247,23 +247,21 @@ def axq_gated(x2: Tensor, w_up, w_gate, *, act: str = "silu",
 # ---------------------------------------------------------------------------
 
 
-def _pr_knobs(degree, p, r, device) -> Tensor:
-    """Resolve the PR knobs to the (p, r) operand the kernel reads: either
-    a ladder ``degree`` (effective bits, mapped on the device by
-    ``dsp.degree_to_pr``) or explicit raw integer (p, r) — not both."""
-    from repro_torch.kernels import dsp as _dsp
-
+def _pr_knobs(degree, p, r):
+    """Resolve the PR knobs to ``(pr, degree)``: either a ladder ``degree``
+    (effective bits: a device int32 the kernels read in place, an int, or
+    None for exact) or explicit raw integer (p, r) — not both."""
     if degree is not None:
         if p is not None or r is not None:
             raise ValueError("pass either degree= or explicit p=/r=, not both")
-        return _dsp.degree_to_pr(degree, device=device)
-    return (0 if p is None else int(p), 0 if r is None else int(r))
+        return None, degree
+    return (0 if p is None else int(p), 0 if r is None else int(r)), None
 
 
 def fir(x, taps, *, tail=None, degree=None, p=None, r=None, n: int = 16,
         shift: int = 0):
-    """Approximate-FIR router (DyFXU PR datapath): the ``pr_multiply``
-    kernel or its plain version, selected like every other site
+    """Approximate-FIR router (DyFXU PR datapath): the kernels or their
+    plain versions, selected like every other site
     (``REPRO_TORCH_KERNELS`` / :func:`set_backend`, by the tensors'
     device), recorded under ``last_route["fir"]``.
 
@@ -271,39 +269,44 @@ def fir(x, taps, *, tail=None, degree=None, p=None, r=None, n: int = 16,
     :func:`fir_approx`):
 
     * offline / valid-mode (``tail=None``): ``x`` is a whole (L,) signal;
-      host-side int64 accumulation (arbitrary Q14 operands), returns a
-      numpy (L - T,) array.  Benchmarks and examples.
+      the elementwise ``pr_multiply`` over stacked planes, host-side int64
+      accumulation (arbitrary Q14 operands), returns a numpy (L - T,)
+      array.  Benchmarks and examples.
     * streaming (``tail`` given): ``x`` (B, L) frame batch, ``tail``
-      (B, T-1) carried history; int32 accumulation (taps l1 norm <=
-      ``2**shift``), returns ``(y, new_tail)``.  The serve engine.
+      (B, T-1) carried history; one ``pr_fir`` launch, int32 accumulation
+      (taps l1 norm <= ``2**shift``), returns ``(y, new_tail)``.  The serve
+      engine.
 
     ``degree`` is the ladder knob (None = exact, a device int32 = runtime
-    rung); raw (p, r) may be passed instead for sweep-style benches."""
+    rung, read by the kernel at its address); raw (p, r) may be passed
+    instead for sweep-style benches."""
     from repro_torch.kernels import dsp as _dsp
 
     x = torch.as_tensor(x)
     backend = resolved_backend(x.device)
     _record_route("fir", backend)
-    pr = _pr_knobs(degree, p, r, x.device)
+    pr, degree = _pr_knobs(degree, p, r)
+    plain = backend == "torch"
     if tail is None:
-        return _dsp.fir_valid(x, taps, pr, n=n, plain=backend == "torch")
-    return _dsp.fir_frames(x, tail, taps, pr, n=n, shift=shift,
-                           plain=backend == "torch")
+        if pr is None:
+            pr = _dsp.degree_to_pr(degree, device=x.device)
+        return _dsp.fir_valid(x, taps, pr, n=n, plain=plain)
+    return _dsp.fir_frames(x, tail, taps, pr, degree=degree, n=n, shift=shift, plain=plain)
 
 
 def conv2d(img, kern, *, degree=None, p=None, r=None, n: int = 16,
            shift: int = 0, pad: str = "zero"):
     """Approximate-conv2d router (same-size 2D correlation on the PR
-    datapath): img (B, H, W) int32, kern (kh, kw) int32 with l1 norm <=
-    ``2**shift``; recorded under ``last_route["conv2d"]``.  Same
-    degree/knob contract as :func:`fir`."""
+    datapath, one ``pr_conv2d`` launch): img (B, H, W) int32, kern (kh, kw)
+    int32 with l1 norm <= ``2**shift``; recorded under
+    ``last_route["conv2d"]``.  Same degree/knob contract as :func:`fir`."""
     from repro_torch.kernels import dsp as _dsp
 
     img = torch.as_tensor(img)
     backend = resolved_backend(img.device)
     _record_route("conv2d", backend)
-    pr = _pr_knobs(degree, p, r, img.device)
-    return _dsp.conv2d_pr(img, kern, pr, n=n, shift=shift, pad=pad,
+    pr, degree = _pr_knobs(degree, p, r)
+    return _dsp.conv2d_pr(img, kern, pr, degree=degree, n=n, shift=shift, pad=pad,
                           plain=backend == "torch")
 
 
@@ -314,7 +317,7 @@ class _FirApprox(torch.autograd.Function):
     knobs get no gradient."""
 
     @staticmethod
-    def forward(ctx, x, t, pr, q, n, plain):
+    def forward(ctx, x, t, pr, degree, q, n, plain):
         from repro_torch.kernels import dsp as _dsp
 
         scale = float(1 << q)
@@ -323,7 +326,7 @@ class _FirApprox(torch.autograd.Function):
         tq = torch.clamp(torch.round(t * scale), -lim, lim).to(torch.int32)
         tail = torch.zeros((x.shape[0], t.shape[0] - 1), dtype=torch.int32,
                            device=x.device)
-        y, _ = _dsp.fir_frames(xq, tail, tq, pr, n=n, shift=0, plain=plain)
+        y, _ = _dsp.fir_frames(xq, tail, tq, pr, degree=degree, n=n, shift=0, plain=plain)
         ctx.save_for_backward(x, t)
         return y.to(torch.float32) / (scale * scale)
 
@@ -334,7 +337,7 @@ class _FirApprox(torch.autograd.Function):
             xx = x.detach().requires_grad_()
             tt = t.detach().requires_grad_()
             dx, dt = torch.autograd.grad(_fir_exact(xx, tt), (xx, tt), g)
-        return dx, dt, None, None, None, None
+        return dx, dt, None, None, None, None, None
 
 
 def _fir_exact(x: Tensor, t: Tensor) -> Tensor:
@@ -354,6 +357,6 @@ def fir_approx(x: Tensor, taps: Tensor, *, degree=None, q: int = 12,
     exact correlation (STE)."""
     backend = resolved_backend(x.device)
     _record_route("fir", backend)
-    pr = _pr_knobs(degree, None, None, x.device)
-    return _FirApprox.apply(x.to(torch.float32), taps.to(torch.float32), pr, q,
+    pr, degree = _pr_knobs(degree, None, None)
+    return _FirApprox.apply(x.to(torch.float32), taps.to(torch.float32), pr, degree, q,
                             n, backend == "torch")

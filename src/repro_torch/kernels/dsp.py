@@ -4,59 +4,47 @@ the port of ``repro.kernels.dsp``).
 The dissertation's DSP accelerators — 1D FIR filtering and 2D convolution —
 are product-sum pipelines over the Ch. 5 PR (perforation + rounding)
 multiplier.  This module holds the *compute cores* behind the
-``kernels.dispatch.fir`` / ``dispatch.conv2d`` routers: the batched operand
-layout (all taps / all kernel offsets stacked into ONE elementwise PR call
-of ``kernels.axmult_elem.pr_multiply``) and the integer accumulation.
+``kernels.dispatch.fir`` / ``dispatch.conv2d`` routers: operand conversion
+and the choice of kernel (``kernels.axmult_elem``).
+
+* :func:`fir_frames` (the serving stage) takes ``pr_fir`` and
+  :func:`conv2d_pr` takes ``pr_conv2d``: one launch a stage, which reads
+  the signal and its halo once and never materialises the reference's
+  operand planes (their plain versions are that materialised route).
+* :func:`fir_valid` (the offline Tables 7.1/7.2 bench layout) keeps the
+  reference's stacked (T, L) planes through the elementwise
+  ``pr_multiply``: it sums on the host in int64, which an int32 sum on the
+  device would wrap.
 
 Operand convention (weight-stationary accelerator): the *weights* (FIR taps,
 conv kernel) are the rounded operand A, the *samples* (signal, pixels) the
 perforated operand B — matching ``_pr_kernel``'s (a, b) roles.
 
-The kernel takes flat contiguous int32, so :func:`pr_product` makes its
-operands contiguous: the broadcast taps and the window planes are
-materialised on the device before the launch, as in the reference.  The
-CUDA kernel handles a ragged size itself, so there is no padding to a block
-multiple (the reference's ``PR_BLOCK`` is a Pallas constraint).
+Fixed-point safety: accumulation stays in wrapping int32 (the reference's
+``jnp.sum`` of int32 wraps, where a plain ``torch.sum`` would widen to
+int64), so streaming entry points require the weight vector's l1 norm to
+fit ``2**shift`` — quantizing weights with :func:`quantize_weights`
+guarantees ``|sum_i w_i * x_i| <= 2**shift * max|x|`` and the post-sum
+``>> shift`` (arithmetic) returns the result to the input's Q format.
 
-Fixed-point safety: accumulation stays in wrapping int32 (``dtype=
-torch.int32``; the reference's ``jnp.sum`` of int32 wraps, where a plain
-``torch.sum`` would widen to int64), so streaming entry points require the
-weight vector's l1 norm to fit ``2**shift`` — quantizing weights with
-:func:`quantize_weights` guarantees ``|sum_i w_i * x_i| <= 2**shift *
-max|x|`` and the post-sum ``>> shift`` (arithmetic) returns the result to
-the input's Q format.  The offline :func:`fir_valid` (benchmarks, arbitrary
-Q14 operands) accumulates on the host in int64 instead.
+Knobs: every core takes ``pr`` — a device ``int32[2]`` or two ints — and
+the streaming cores take a ``degree`` instead (a device int32 read in place
+by the kernel, an int, or None for exact; :func:`degree_to_pr` is the
+mapping).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
-from repro_torch.kernels import _build
-from repro_torch.kernels.axmult_elem import pr_multiply, pr_multiply_plain
+from repro_torch.kernels.axmult_elem import degree_to_pr  # noqa: F401
+from repro_torch.kernels.axmult_elem import (pr_conv2d, pr_conv2d_plain, pr_fir,
+                                             pr_fir_plain, pr_multiply, pr_multiply_plain)
 
 Tensor = torch.Tensor
 
 I32 = torch.int32
-
-
-def degree_to_pr(degree, *, device=None) -> Tensor:
-    """Map an effective-bits degree (8 = exact, down the QoS ladder) to the
-    DyFXU (p, r) configuration registers: each lost bit costs two rounding
-    bits and every second lost bit one perforation step —
-    ``e=8 -> (0,0), 7 -> (0,2), 6 -> (1,4), 5 -> (1,6), 4 -> (2,8)``.
-
-    ``degree`` is None (exact: a cached device constant (0, 0)), an int, or
-    an int32 tensor on the device (the engine's site degree: computed with
-    device ops, never read on the host).  Returns the (p, r) pair as a
-    device ``int32[2]``."""
-    if degree is None:
-        return _build._const_i32((0, 0), str(torch.device(device or "cpu")))
-    deg = torch.as_tensor(degree, dtype=I32, device=device)
-    d = torch.clamp(8 - deg, min=0)
-    return torch.stack([d // 2, 2 * d]).to(I32)
 
 
 def quantize_weights(w, shift: int):
@@ -101,59 +89,34 @@ def fir_valid(sig, taps, pr, *, n: int = 16, plain: bool = False) -> np.ndarray:
     return prod.cpu().numpy().astype(np.int64).sum(axis=0)
 
 
-def fir_frames(frames: Tensor, tail: Tensor, taps: Tensor, pr, *, n: int = 16,
-               shift: int = 0, plain: bool = False):
+def fir_frames(frames: Tensor, tail: Tensor, taps: Tensor, pr=None, *, degree=None,
+               n: int = 16, shift: int = 0, plain: bool = False):
     """Streaming FIR over one frame batch (the serve-engine step).
 
     frames (B, L) int32 samples, tail (B, T-1) the previous frame's carried
     history (zeros at stream start), taps (T,) int32 with l1 norm <=
-    ``2**shift``.  Returns ``(y (B, L) int32 >> shift, new_tail (B, T-1))``
-    — outputs are continuous across frames: frame-by-frame equals one
-    whole-signal pass."""
-    frames = torch.as_tensor(frames).to(I32)
-    B, L = frames.shape
-    taps = torch.as_tensor(taps).to(device=frames.device, dtype=I32)
-    T = taps.shape[0]
-    ext = torch.cat([torch.as_tensor(tail).to(device=frames.device, dtype=I32),
-                     frames], dim=1)
-    win = torch.stack([ext[:, i:i + L] for i in range(T)])      # (T, B, L)
-    a = taps[:, None, None].expand(win.shape)
-    prod = pr_product(a, win, pr, n=n, plain=plain)
-    acc = torch.sum(prod, dim=0, dtype=I32)
-    y = acc >> shift if shift else acc
-    return y, ext[:, L:]
+    ``2**shift``; ``pr`` or ``degree`` the knobs.  Returns ``(y (B, L)
+    int32 >> shift, new_tail (B, T-1))`` — outputs are continuous across
+    frames: frame-by-frame equals one whole-signal pass.  One ``pr_fir``
+    launch (or, with ``plain``, its plain version)."""
+    frames = torch.as_tensor(frames).to(I32).contiguous()
+    dev = frames.device
+    tail = torch.as_tensor(tail).to(device=dev, dtype=I32).contiguous()
+    taps = torch.as_tensor(taps).to(device=dev, dtype=I32).contiguous()
+    fn = pr_fir_plain if plain else pr_fir
+    return fn(frames, tail, taps, pr, degree=degree, n=n, shift=shift)
 
 
-def _edge_index(size: int, before: int, after: int, device) -> Tensor:
-    """Clamped source indices of an edge-padded axis (works for any dtype
-    on any device, unlike replicate padding of int32)."""
-    return torch.clamp(torch.arange(-before, size + after, device=device), 0, size - 1)
-
-
-def conv2d_pr(img: Tensor, kern: Tensor, pr, *, n: int = 16, shift: int = 0,
-              pad: str = "zero", plain: bool = False) -> Tensor:
+def conv2d_pr(img: Tensor, kern: Tensor, pr=None, *, degree=None, n: int = 16,
+              shift: int = 0, pad: str = "zero", plain: bool = False) -> Tensor:
     """Same-size 2D correlation through the PR datapath.
 
     img (B, H, W) int32 pixels, kern (kh, kw) int32 weights with l1 norm <=
-    ``2**shift``; all kh*kw offsets ride ONE PR call as stacked patch
-    planes.  ``pad``: "edge" replicates the border, anything else pads with
-    zeros.  Returns (B, H, W) int32 ``>> shift``."""
-    img = torch.as_tensor(img).to(I32)
-    kern = torch.as_tensor(kern).to(device=img.device, dtype=I32)
-    B, H, W = img.shape
-    kh, kw = kern.shape
-    ph, pw = kh // 2, kw // 2
-    if kh == 1 and kw == 1:
-        ext = img
-    elif pad == "edge":
-        rows = _edge_index(H, ph, kh - 1 - ph, img.device)
-        cols = _edge_index(W, pw, kw - 1 - pw, img.device)
-        ext = img[:, rows][:, :, cols]
-    else:
-        ext = F.pad(img, (pw, kw - 1 - pw, ph, kh - 1 - ph))
-    patches = torch.stack([ext[:, dy:dy + H, dx:dx + W]
-                           for dy in range(kh) for dx in range(kw)])
-    a = kern.reshape(-1)[:, None, None, None].expand(patches.shape)
-    prod = pr_product(a, patches, pr, n=n, plain=plain)
-    acc = torch.sum(prod, dim=0, dtype=I32)
-    return acc >> shift if shift else acc
+    ``2**shift``; ``pr`` or ``degree`` the knobs.  ``pad``: "edge"
+    replicates the border, anything else pads with zeros.  Returns (B, H, W)
+    int32 ``>> shift``.  One ``pr_conv2d`` launch (or, with ``plain``, its
+    plain version)."""
+    img = torch.as_tensor(img).to(I32).contiguous()
+    kern = torch.as_tensor(kern).to(device=img.device, dtype=I32).contiguous()
+    fn = pr_conv2d_plain if plain else pr_conv2d
+    return fn(img, kern, pr, degree=degree, n=n, shift=shift, pad=pad)

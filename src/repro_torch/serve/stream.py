@@ -12,8 +12,9 @@ pushes one frame per slot through
     3x3 blur conv (approx, ``dispatch.conv2d``)  ->  1x1 gain conv
 
 with the three stages as degree *sites* (``fir`` / ``conv2d`` / ``gain``),
-each taking its own element of the device degree vector: one
-``pr_multiply`` launch per stage, three per tick.
+each taking its own element of the device degree vector, which the kernel
+reads in place: one ``pr_fir`` and two ``pr_conv2d`` launches a tick, each
+a whole stage's product-sum.
 
 Fixed-point contract: samples are Q-``cfg.q`` int32 (|x| <= 2**q); FIR
 taps and conv kernels are quantized with ``dsp.quantize_weights`` so their

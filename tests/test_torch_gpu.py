@@ -12,7 +12,8 @@ on f32 inputs, the decode kernel 1e-4 on a bf16 cache (f32 sums in another
 order), the int8-cache decode kernel 1e-5 abs (the reference's kernel-vs-
 jnp tolerance), a decode slot's output exactly across launches, caches,
 batches and graph replays (the kernel's fixed split order), the PR
-product exactly (integer bit math).  bf16 attention
+product and the FIR / conv product-sums exactly (integer bit math, also
+across graph replays with the degree moved).  bf16 attention
 takes the kernel's tensor-core body (bf16 P in the P V product): atol 1/64
 against the f64 plain version, one bf16 ulp at |o| < 4."""
 import math
@@ -559,3 +560,137 @@ def test_gpu_pr_multiply_matches_plain(hopper, numel):
         tpr.pr_multiply(a, b.cpu(), (1, 2))
     with pytest.raises(ValueError):
         tpr.pr_multiply(a, b, torch.tensor([1, 2], dtype=torch.int32))     # CPU knobs
+
+
+def _pr_knobs(hopper):
+    """The product-sums' knobs: every degree as an element of a device
+    vector, None (exact), an int degree and raw (p, r) pairs."""
+    degrees = torch.tensor(list(range(9)), dtype=torch.int32, device=hopper)
+    return ([{"degree": degrees[e]} for e in range(9)] + [{"degree": None}, {"degree": 5}]
+            + [{"pr": k} for k in ((1, 4), (2, 8), (3, 8))])
+
+
+def _ints(rng, shape, hopper, lim=2**12):
+    return torch.from_numpy(rng.integers(-lim, lim + 1, shape).astype(np.int32)).to(hopper)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,L,T", [(64, 256, 8), (3, 1001, 13), (2, 5, 13), (1, 4096, 32),
+                                   (4, 300, 1), (2, 600, 256)])
+def test_gpu_pr_fir_matches_plain(hopper, B, L, T):
+    """Bit-exact against the plain version (and the old route: the planes
+    through pr_multiply, then an int32 sum) at every knob, with tiles of
+    ragged length, frames shorter than the tail, one tap and the most
+    taps; one launch a call; sums that wrap."""
+    rng = np.random.default_rng(B * 7 + L + T)
+    frames, tail = _ints(rng, (B, L), hopper), _ints(rng, (B, T - 1), hopper)
+    taps = _ints(rng, (T,), hopper, lim=2**15)              # past l1: the sums wrap
+    for kw in _pr_knobs(hopper):
+        before = dict(_build.launches)
+        y, nt = tpr.pr_fir(frames, tail, taps, shift=12, **kw)
+        torch.cuda.synchronize()
+        assert _build.launches["pr_fir"] == before["pr_fir"] + 1
+        assert sum(_build.launches.values()) == sum(before.values()) + 1
+        yp, ntp = tpr.pr_fir_plain(frames, tail, taps, shift=12, **kw)
+        assert torch.equal(y, yp) and torch.equal(nt, ntp), kw
+        pr = kw.get("pr") or tdsp.degree_to_pr(kw["degree"], device=hopper)
+        a, win, _ = tpr.fir_planes(frames, tail, taps)
+        old = torch.sum(tpr.pr_multiply(a.expand(win.shape).contiguous(), win.contiguous(), pr),
+                        dim=0, dtype=torch.int32) >> 12
+        assert torch.equal(y, old), kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,W,kh,kw,pad", [(64, 16, 16, 3, 3, "edge"),
+                                             (64, 16, 16, 1, 1, "zero"),
+                                             (1, 128, 128, 5, 5, "zero"),
+                                             (1, 128, 128, 5, 5, "edge"),
+                                             (3, 37, 45, 4, 6, "edge"),
+                                             (2, 20, 9, 3, 5, "zero"),
+                                             (2, 5, 3, 16, 16, "edge")])
+def test_gpu_pr_conv2d_matches_plain(hopper, B, H, W, kh, kw, pad):
+    """Bit-exact against the plain version and the old route at every knob:
+    both paddings, odd, even and one-by-one kernels, ragged tiles, a kernel
+    larger than the image, sums that wrap; one launch a call."""
+    rng = np.random.default_rng(B + H * W + kh * kw)
+    img = _ints(rng, (B, H, W), hopper)
+    kern = _ints(rng, (kh, kw), hopper, lim=2**15)
+    for knob in _pr_knobs(hopper):
+        before = _build.launches["pr_conv2d"]
+        out = tpr.pr_conv2d(img, kern, shift=8, pad=pad, **knob)
+        torch.cuda.synchronize()
+        assert _build.launches["pr_conv2d"] == before + 1
+        assert torch.equal(out, tpr.pr_conv2d_plain(img, kern, shift=8, pad=pad, **knob)), knob
+        pr = knob.get("pr") or tdsp.degree_to_pr(knob["degree"], device=hopper)
+        a, patches = tpr.conv_planes(img, kern, pad)
+        old = torch.sum(tpr.pr_multiply(a.expand(patches.shape).contiguous(),
+                                        patches.contiguous(), pr), dim=0, dtype=torch.int32) >> 8
+        assert torch.equal(out, old), knob
+
+
+@pytest.mark.gpu
+def test_gpu_pr_stages_follow_the_degree_between_graph_replays(hopper):
+    """One capture of the stream tick's three stages replays at each degree
+    written into the device vector between replays: the outputs follow the
+    degree, bit for bit, with no rebuild and no recapture."""
+    rng = np.random.default_rng(3)
+    frames, tail = _ints(rng, (64, 256), hopper), _ints(rng, (64, 7), hopper)
+    taps = _ints(rng, (8,), hopper, lim=2**9)
+    kern, gain = _ints(rng, (3, 3), hopper, lim=2**5), _ints(rng, (1, 1), hopper)
+    vec = torch.full((3,), 8, dtype=torch.int32, device=hopper)
+
+    def tick():
+        y, nt = tpr.pr_fir(frames, tail, taps, degree=vec[0], shift=12)
+        img = tpr.pr_conv2d(y.reshape(64, 16, 16), kern, degree=vec[1], shift=8, pad="edge")
+        return tpr.pr_conv2d(img, gain, degree=vec[2], shift=12), nt
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tick()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, nt = tick()
+    libs = dict(_build._libs)
+    seen = []
+    for e in (8, 5, 0, 7):
+        vec.fill_(e)
+        graph.replay()
+        torch.cuda.synchronize()
+        y, _ = tpr.pr_fir_plain(frames, tail, taps, degree=e, shift=12)
+        img = tpr.pr_conv2d_plain(y.reshape(64, 16, 16), kern, degree=e, shift=8, pad="edge")
+        assert torch.equal(out, tpr.pr_conv2d_plain(img, gain, degree=e, shift=12)), e
+        assert torch.equal(nt, frames[:, -7:]), e
+        seen.append(out.clone())
+    assert not torch.equal(seen[0], seen[1])
+    assert dict(_build._libs) == libs
+
+
+@pytest.mark.gpu
+def test_gpu_pr_stages_refuse_bad_operands(hopper):
+    """int64 operands, strided views, CPU knobs, an int64 degree and sizes
+    past the limits raise before any launch; nothing falls back."""
+    fr = torch.zeros(4, 32, dtype=torch.int32, device=hopper)
+    tl = torch.zeros(4, 7, dtype=torch.int32, device=hopper)
+    tp = torch.ones(8, dtype=torch.int32, device=hopper)
+    img = torch.zeros(2, 16, 16, dtype=torch.int32, device=hopper)
+    k = torch.ones(3, 3, dtype=torch.int32, device=hopper)
+    before = dict(_build.launches)
+    for call, match in (
+            (lambda: tpr.pr_fir(fr.long(), tl, tp), "dtype"),
+            (lambda: tpr.pr_fir(fr[:, ::2], tl, tp), "contiguous"),
+            (lambda: tpr.pr_fir(fr, tl.cpu(), tp), "tail is on"),
+            (lambda: tpr.pr_fir(fr, tl, tp, torch.tensor([1, 2], dtype=torch.int32)), "int32"),
+            (lambda: tpr.pr_fir(fr, tl, tp, degree=torch.tensor(6, device=hopper)), "int32"),
+            (lambda: tpr.pr_fir(fr, torch.zeros(4, 256, dtype=torch.int32, device=hopper),
+                                torch.ones(257, dtype=torch.int32, device=hopper)), "256 taps"),
+            (lambda: tpr.pr_conv2d(img.long(), k), "dtype"),
+            (lambda: tpr.pr_conv2d(img[:, :, ::2], k), "contiguous"),
+            (lambda: tpr.pr_conv2d(img, k.cpu()), "kern is on"),
+            (lambda: tpr.pr_conv2d(img, k, degree=torch.tensor(6, dtype=torch.int32)), "int32"),
+            (lambda: tpr.pr_conv2d(img, torch.ones(17, 3, dtype=torch.int32, device=hopper)),
+             "1..16")):
+        with pytest.raises(ValueError, match=match):
+            call()
+    assert _build.launches == before
