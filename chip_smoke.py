@@ -39,6 +39,22 @@ Phases (any failure exits non-zero):
            pr_multiply) on 64 slots with the per-site QoS ladder 8 -> 5,
            every frame bit-identical to a second run of the same traffic
            through the plain versions on the card;
+     per-layer approximation plans (repro_torch.tune), served through
+     ``launch.serve --plan --qos`` with ``--trace-out``, ``--metrics-out``
+     and ``--quality-every 8`` —
+       3i  tinyllama-1.1b: a plan built on the card by ``build_plan``
+           (measured greedy over 23 sites, grid (8, 5), a (2, 64)-token
+           calibration batch on the launcher's seeded weights), checked
+           (validate_for, Pareto order, save/load), served on the bf16 cache
+           (the trace's decode_tick spans, qos_rung events with 23 degrees,
+           the degree gauges, route counters and quality histogram of the
+           metrics file held to the engine), a rung pinned through the plan
+           against its vector by hand, and the decode tick with the tracer
+           and the tap off and on;
+       3j  the stream pipeline: a plan on per-frame PSNR, built with the
+           kernels and with the plain versions (equal field for field),
+           served on 3d's traffic with the PSNR tap, frames bit-identical to
+           a plain run;
      h2o-danube-1.8b (sliding window 4096, head_dim 80) —
        3e  prompts past the window (``band``) on the bf16 ring cache;
        3f  the same on the int8 ring with bucketed admission;
@@ -1795,6 +1811,367 @@ def phase_stream(ctx):
 
 
 # ---------------------------------------------------------------------------
+# phases 3i / 3j: per-layer approximation plans, traced and tapped
+# ---------------------------------------------------------------------------
+
+
+def _obs_dir() -> Path:
+    d = HERE / "build" / "smoke_obs"
+    d.mkdir(parents=True, exist_ok=True)
+    return d
+
+
+def _fresh_obs():
+    """A fresh process-global registry and tracer and no route seen yet, as
+    a new launcher process has them."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.obs import trace as obs_trace
+
+    obs_metrics.set_registry(None)
+    obs_trace.set_tracer(None)
+    dispatch.last_route.clear()
+
+
+def _launch(ctx, argv):
+    """``launch.serve`` on ``argv`` with every launch count set to 0 just
+    before and read just after; the global tracer and registry are reset
+    around it.  Returns (summary, engine, seen)."""
+    from repro_torch.kernels import _build, dispatch
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.obs import trace as obs_trace
+
+    _fresh_obs()
+    ctx["sync"]()
+    _build.reset_counts()
+    t0 = time.time()
+    try:
+        s, eng = launch_serve.run(argv)
+        ctx["sync"]()
+    finally:
+        dispatch.set_backend(None)
+        obs_trace.set_tracer(None)
+    seen = {"wall_s": time.time() - t0, "launches": dict(_build.launches),
+            "plain": dict(_build.plain_cuda_calls)}
+    return s, eng, seen
+
+
+def _check_plan(label, plan, cfg, path):
+    from repro_torch.tune import ApproxPlan
+
+    plan.validate_for(cfg)
+    pts = plan.ladder
+    require(len(pts) > 1, f"{label}: the plan has {len(pts)} rung(s)")
+    require(all(a.cost > b.cost and a.error < b.error for a, b in zip(pts, pts[1:])),
+            f"{label}: the ladder is not Pareto-ordered: "
+            f"{[(p.cost, p.error) for p in pts]}")
+    plan.save(path)
+    loaded = ApproxPlan.load(path)
+    require(loaded == plan and loaded.to_dict() == plan.to_dict(),
+            f"{label}: the plan did not survive the save/load round trip")
+
+
+def _trace_events(path):
+    return json.loads(Path(path).read_text())["traceEvents"]
+
+
+def _metric(d, name, **labels):
+    """Sum of the parsed samples of ``name`` whose labels include ``labels``."""
+    return sum(v for (n, ls), v in d.items()
+               if n == name and all(dict(ls).get(k) == str(x) for k, x in labels.items()))
+
+
+def _timed_ticks(ctx, model, params, plan, prompts, new_tokens, *, tracer, quality_every):
+    """Mean decode tick (ms) of an engine serving ``plan`` under QoS with
+    ``tracer`` and the tap every ``quality_every`` ticks (0 = off)."""
+    from repro_torch.core.dynamic import QoSController
+    from repro_torch.serve.lm import ServeEngine
+
+    qos = QoSController(ladder=[], low_water=0.25, high_water=0.75, cooldown_steps=8)
+    eng = ServeEngine(model, params, slots=ctx["slots"], max_len=ctx["max_len"], qos=qos,
+                      plan=plan, prepack=False, tracer=tracer, quality_every=quality_every)
+    _, seen = drive(ctx, eng, prompts, new_tokens)
+    dts = seen["decode_ticks"]
+    return 1e3 * sum(dts) / max(len(dts), 1), len(dts)
+
+
+def phase_plan_lm(ctx, cfg):
+    """Phase 3i: a per-layer plan for ``cfg`` built on the device with
+    ``build_plan`` (the launcher's seeded weights, a seeded calibration
+    batch, the default nRMS metric), then served by ``launch.serve --plan
+    --qos`` with the trace, the metrics file and the quality tap on."""
+    torch, dev = ctx["torch"], ctx["dev"]
+    import numpy as np
+
+    from repro_torch.core.dynamic import QoSController
+    from repro_torch.models import build_model
+    from repro_torch.obs.metrics import parse_text
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.serve.lm import ServeEngine
+    from repro_torch.tune import build_plan, site_names, uniform_plan
+    from repro_torch.tune.autotune import _Prober
+
+    label = "phase 3i"
+    L, S = cfg.n_layers, cfg.n_layers + 1
+    # 1. the plan, calibrated on the weights the launcher will build (seed 0)
+    model = build_model(cfg, uniform_plan(cfg).policy(), device=dev)
+    params = model.init(seed=0)
+    rng = np.random.default_rng(7)
+    batch = {"tokens": rng.integers(0, cfg.vocab, ctx["calib_shape"]).astype(np.int32)}
+    kernels = "cuda" if ctx["on_card"] else "auto"
+    ctx["sync"]()
+    t = time.time()
+    with _backend(kernels):
+        prober = _Prober(model, params, batch)
+        plan = build_plan(model, params, batch, grid=ctx["plan_grid"], prober=prober)
+    ctx["sync"]()
+    build_s = time.time() - t
+    del model, params, prober
+    if ctx["on_card"]:
+        torch.cuda.empty_cache()
+    path = _obs_dir() / "plan_lm.json"
+    _check_plan(label, plan, cfg, path)
+    ladder = [{"degrees": list(p.degrees), "error": p.error, "cost": p.cost}
+              for p in plan.ladder]
+    say(f"{label}: plan for {cfg.name} built in {build_s:.2f} s, {plan.meta['visited']} "
+        f"vectors visited ({plan.meta['strategy']}, grid {plan.meta['grid']}, calibration "
+        f"{plan.meta['calibration']}), {len(ladder)} rungs: "
+        + "; ".join(f"{p['degrees']} err {p['error']:.6g} cost {p['cost']:.6g}"
+                    for p in ladder))
+
+    # 2. served through the launcher
+    tpath, mpath = _obs_dir() / "trace_lm.json", _obs_dir() / "metrics_lm.prom"
+    argv = ["--arch", cfg.name, "--plan", str(path), "--qos", "--quality-every", "8",
+            "--trace-out", str(tpath), "--metrics-out", str(mpath),
+            "--requests", str(ctx["requests"]), "--slots", str(ctx["slots"]),
+            "--new-tokens", str(ctx["new_tokens"]), "--max-len", str(ctx["max_len"]),
+            "--device", str(dev.type), "--kernels", kernels]
+    s, eng, seen = _launch(ctx, argv)
+    st = eng.stats
+    steps, prefills, samples = st.decode_steps, st.prefill_calls, eng._tap.samples
+    require(s["requests"] == ctx["requests"]
+            and s["generated_tokens"] == ctx["requests"] * ctx["new_tokens"],
+            f"{label}: {s['requests']} requests, {s['generated_tokens']} tokens")
+    # each tap sample runs two decode forwards beside the tick's step
+    fwd = steps + 2 * samples
+    check_launches(ctx, label, seen, {
+        "axqmm": (5 * L + 1) * (fwd + prefills), "axqmm_gated": L * (fwd + prefills),
+        "flash_decode": L * fwd, "flash_decode_quant": 0, "flash_attention": L * prefills,
+        "pr_multiply": 0, "pr_fir": 0, "pr_conv2d": 0})
+    rungs = {p.degrees for p in plan.ladder}
+    visited = {d for _, d in st.degree_history}
+    require(len(visited) > 1 and visited <= rungs,
+            f"{label}: visited {sorted(visited)}, ladder {sorted(rungs)}")
+    evs = _trace_events(tpath)
+    ticks = [e for e in evs if e["name"] == "decode_tick"]
+    moves = [e for e in evs if e["name"] == "qos_rung"]
+    require(len(ticks) == steps, f"{label}: {len(ticks)} decode_tick spans, {steps} steps")
+    require(moves and all(len(e["args"]["degrees"]) == S for e in moves),
+            f"{label}: qos_rung events {[e['args'].get('degrees') for e in moves]}")
+    d = parse_text(mpath.read_text())
+    sites = {dict(ls)["site"] for n, ls in d if n == "repro_degree_ebits"}
+    require(sites == set(site_names(cfg)), f"{label}: degree gauges for {sorted(sites)}")
+    backend = "cuda" if ctx["on_card"] else "torch"
+    routes = _metric(d, "repro_kernel_route_steps_total", site="decode", backend=backend)
+    require(routes == steps, f"{label}: decode route counters {routes}, {steps} steps")
+    counts = _metric(d, "repro_quality_logit_rms_count")
+    require(samples > 0 and counts == samples == _metric(d, "repro_quality_probes_total"),
+            f"{label}: {counts} logit-RMS observations, {samples} tap samples")
+    probes = [e["args"] for e in evs if e["name"] == "quality_probe"]
+    require(len(probes) == samples, f"{label}: {len(probes)} quality_probe events")
+
+    # 3. a rung pinned through the plan serves what its vector by hand serves
+    model, params = eng.workload.model, eng.params
+    r = len(plan.ladder) - 1
+    rng = np.random.default_rng(11)
+    short = [rng.integers(0, cfg.vocab, int(rng.integers(2, 10))) for _ in range(4)]
+
+    def pinned(**kw):
+        e = ServeEngine(model, params, slots=ctx["slots"], max_len=ctx["max_len"],
+                        prepack=False, **kw)
+        reqs = [e.submit(p, 8) for p in short]
+        e.run_until_drained()
+        return [q.out_tokens for q in reqs]
+
+    held = QoSController(ladder=[], low_water=-1.0, high_water=2.0, degree=r)
+    by_hand = pinned(degree=plan.degrees(r))
+    require(by_hand == pinned(plan=plan, qos=held),
+            f"{label}: rung {r} through the plan and by hand served different tokens")
+
+    # 4. the tick with the tracer and the tap off and on, in turns (off,
+    # traced, tapped, tapped, traced, off) on phase 3's prompts, and the
+    # tracer's own cost a call on this host
+    rng = np.random.default_rng(0)
+    lo, hi = ctx["prompt_range"]
+    prompts = [rng.integers(0, cfg.vocab, int(rng.integers(lo, hi + 1)))
+               for _ in range(ctx["requests"])]
+    modes = {"off": (False, 0), "traced": (True, 0), "tapped": (True, 8)}
+    ticks_ms = {m: [] for m in modes}
+    for m in ("off", "traced", "tapped", "tapped", "traced", "off"):
+        on, every = modes[m]
+        ms, n_ticks = _timed_ticks(ctx, model, params, plan, prompts, ctx["new_tokens"],
+                                   tracer=Tracer(enabled=on), quality_every=every)
+        ticks_ms[m].append(ms)
+    tracer_us = _tracer_call_us()
+    del eng, model, params
+    if ctx["on_card"]:
+        torch.cuda.empty_cache()
+    vals = [p["logit_rms"] for p in probes]
+    out = {"arch": cfg.name, "build_s": build_s, "probes": plan.meta["visited"],
+           "strategy": plan.meta["strategy"], "grid": plan.meta["grid"],
+           "calibration": plan.meta["calibration"], "ladder": ladder,
+           "requests": s["requests"], "generated_tokens": s["generated_tokens"],
+           "wall_s": seen["wall_s"], "gen_tok_per_s": s["gen_tok_per_s"],
+           "decode_steps": steps, "prefill_calls": prefills, "tap_samples": samples,
+           "tap_logit_rms": [min(vals), max(vals)],
+           "decode_tick_ms_traced_run": sum(e["dur"] for e in ticks) / 1e3 / len(ticks),
+           "rungs_visited": [list(v) for v in sorted(visited)],
+           "rung_moves": len(moves), "launches": seen["launches"],
+           "trace_events": len(evs),
+           "tick_ms": {"tracer_off_tap_off": ticks_ms["off"],
+                       "tracer_on_tap_off": ticks_ms["traced"],
+                       "tracer_on_tap_every_8": ticks_ms["tapped"], "ticks_timed": n_ticks},
+           "trace_events_per_step": len(evs) / steps, "tracer_call_us": tracer_us,
+           "pinned_rung": r}
+    say(f"{label}: launch.serve --plan --qos: {s['requests']} requests, "
+        f"{s['generated_tokens']} tokens, {s['gen_tok_per_s']} tok/s (launcher wall clock, "
+        f"model build excluded); {steps} decode steps, {prefills} prefills, {samples} tap "
+        f"samples (logit RMS {min(vals):.4g}..{max(vals):.4g}); mean decode_tick span "
+        f"{out['decode_tick_ms_traced_run']:.3f} ms; {len(moves)} rung moves over "
+        f"{len(visited)} rungs; {len(evs)} trace events; rung {r} pinned through the plan == "
+        f"by hand")
+    say(f"{label}: mean decode tick over {n_ticks} ticks, runs in the order off, traced, "
+        f"tapped, tapped, traced, off: tracer off, tap off {ticks_ms['off']} ms; tracer on "
+        f"{ticks_ms['traced']} ms; tracer on, tap every 8 {ticks_ms['tapped']} ms; "
+        f"{out['trace_events_per_step']:.2f} trace events a decode step; one tracer call "
+        f"on this host {tracer_us}")
+    return out
+
+
+def _tracer_call_us() -> dict:
+    """Host microseconds of one tracer call (a span, an event, a counter)
+    enabled and disabled: the instrumentation's own cost."""
+    from repro_torch.obs.trace import Tracer
+
+    out = {}
+    n = 20000
+    for on in (True, False):
+        tr = Tracer(capacity=n, enabled=on)
+        t = time.perf_counter()
+        for i in range(n):
+            with tr.span("decode_tick", track="engine", tick=i, active=8, queued=0):
+                pass
+        t_span = time.perf_counter() - t
+        t = time.perf_counter()
+        for i in range(n):
+            tr.event("first_token", track="engine", rid=i, slot=0, ttft_ms=1.0)
+        t_event = time.perf_counter() - t
+        t = time.perf_counter()
+        for i in range(n):
+            tr.counter("slots", track="engine", active=8, queued=0)
+        t_counter = time.perf_counter() - t
+        key = "enabled" if on else "disabled"
+        out[key] = {"span": 1e6 * t_span / n, "event": 1e6 * t_event / n,
+                    "counter": 1e6 * t_counter / n}
+    return out
+
+
+def phase_plan_stream(ctx):
+    """Phase 3j: a plan for the stream pipeline calibrated on per-frame
+    PSNR, built twice on the device (kernels, then plain versions: equal
+    field for field but the build time), served by ``launch.serve
+    --workload stream --plan --qos`` with the trace, the metrics file and
+    the PSNR tap on; the frames equal a plain run of the same traffic."""
+    import numpy as np
+
+    from repro_torch.kernels import _build
+    from repro_torch.obs.metrics import parse_text
+    from repro_torch.serve.stream import StreamAdapter, StreamConfig, make_clip, psnr_metric
+    from repro_torch.tune import build_plan
+
+    label = "phase 3j"
+    cfg = StreamConfig()
+    ad = StreamAdapter(cfg, device=ctx["dev"])
+    params = ad.init_params()
+    batch = {"frames": np.stack([make_clip(ctx["psnr_frames"], cfg.frame, q=cfg.q, seed=i)
+                                 for i in range(ctx["psnr_clips"])])}
+    kernels = "cuda" if ctx["on_card"] else "auto"
+    plans, secs = {}, {}
+    for backend in (kernels, "torch"):
+        t = time.time()
+        with _backend(backend):
+            plans[backend] = build_plan(ad, params, batch, grid=(8, 6, 4), metric=psnr_metric)
+        ctx["sync"]()
+        secs[backend] = time.time() - t
+    dk, dp = plans[kernels].to_dict(), plans["torch"].to_dict()
+    dk["meta"].pop("tune_seconds"), dp["meta"].pop("tune_seconds")
+    require(dk == dp, f"{label}: the kernel-built plan differs from the plain-built one")
+    plan = plans[kernels]
+    path = _obs_dir() / "plan_stream.json"
+    _check_plan(label, plan, cfg, path)
+    ladder = [{"degrees": list(p.degrees), "psnr_db": -p.error, "cost": p.cost}
+              for p in plan.ladder]
+    say(f"{label}: stream plan built in {secs[kernels]:.3f} s with the kernels "
+        f"({secs['torch']:.3f} s with the plain versions on the device; equal field for "
+        f"field), {plan.meta['visited']} vectors: "
+        + "; ".join(f"{p['degrees']} {p['psnr_db']:.3f} dB cost {p['cost']:.6g}"
+                    for p in ladder))
+
+    tpath, mpath = _obs_dir() / "trace_stream.json", _obs_dir() / "metrics_stream.prom"
+    base = ["--workload", "stream", "--plan", str(path), "--qos", "--quality-every", "8",
+            "--requests", str(ctx["stream_clips"]), "--frames", str(ctx["stream_frames"]),
+            "--slots", str(ctx["stream_slots"]), "--device", str(ctx["dev"].type)]
+    s, eng, seen = _launch(ctx, base + ["--kernels", kernels, "--trace-out", str(tpath),
+                                        "--metrics-out", str(mpath)])
+    ps, peng, pseen = _launch(ctx, base + ["--kernels", "torch"])
+    st = eng.stats
+    steps, samples = st.decode_steps, eng._tap.samples
+    reqs, preqs = sorted(eng.done, key=lambda r: r.rid), sorted(peng.done, key=lambda r: r.rid)
+    require(len(reqs) == ctx["stream_clips"]
+            and all(len(r.out) == ctx["stream_frames"] for r in reqs),
+            f"{label}: a clip did not return all its frames")
+    same = all(len(r.out) == len(q.out) and all(np.array_equal(x, y) for x, y in
+                                                 zip(r.out, q.out))
+               for r, q in zip(reqs, preqs))
+    require(same, f"{label}: the kernel run's frames differ from the plain run's")
+    require([d for _, d in st.degree_history] == [d for _, d in peng.stats.degree_history],
+            f"{label}: the plain run walked other rungs")
+    fwd = steps + 2 * samples
+    expect = dict.fromkeys(_build.KERNELS, 0)
+    expect.update(pr_fir=fwd, pr_conv2d=2 * fwd)
+    check_launches(ctx, label, seen, expect)
+    visited = {d for _, d in st.degree_history}
+    require(len(visited) > 1 and visited <= {p.degrees for p in plan.ladder},
+            f"{label}: visited {sorted(visited)}")
+    d = parse_text(mpath.read_text())
+    counts = _metric(d, "repro_quality_psnr_db_count")
+    require(samples > 0 and counts == samples,
+            f"{label}: {counts} PSNR observations, {samples} tap samples")
+    evs = _trace_events(tpath)
+    require(sum(e["name"] == "stream_tick" for e in evs) == steps,
+            f"{label}: stream_tick spans do not match the {steps} steps")
+    frames = sum(len(r.out) for r in reqs)
+    vals = [e["args"]["psnr_db"] for e in evs if e["name"] == "quality_probe"]
+    spans = [e["dur"] for e in evs if e["name"] == "stream_tick"]
+    out = {"build_s": secs[kernels], "build_s_plain": secs["torch"],
+           "probes": plan.meta["visited"], "ladder": ladder, "frames": frames,
+           "wall_s": seen["wall_s"], "frames_per_s": frames / seen["wall_s"],
+           "plain_frames_per_s": frames / pseen["wall_s"], "steps": steps,
+           "stream_tick_ms_traced_run": sum(spans) / 1e3 / len(spans),
+           "tap_samples": samples, "tap_psnr_db": [min(vals), max(vals)],
+           "rungs_visited": [list(v) for v in sorted(visited)],
+           "launches": seen["launches"], "frames_bit_identical_to_plain": same}
+    say(f"{label}: launch.serve --workload stream --plan --qos: {frames} frames in "
+        f"{seen['wall_s']:.3f} s ({out['frames_per_s']:.1f} frames/s; plain versions "
+        f"{out['plain_frames_per_s']:.1f}; the launcher's wall clock, making the clips "
+        f"included); mean stream_tick span {out['stream_tick_ms_traced_run']:.4f} ms; "
+        f"{steps} steps, {samples} tap samples (PSNR "
+        f"{min(vals):.3f}..{max(vals):.3f} dB); rungs {sorted(visited)}; frames "
+        f"bit-identical to the plain run: {same}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 4: kernel-vs-plain on the whole model
 # ---------------------------------------------------------------------------
 
@@ -2105,6 +2482,7 @@ def main(argv=None) -> int:
                "h128_tri_lens": (4096, 1024), "h128_band": (8192, 4096),
                "profile_ticks": 8, "stream_slots": 64, "stream_clips": 256, "stream_frames": 32,
                "psnr_clips": 4, "psnr_frames": 8,
+               "calib_shape": (2, 64), "plan_grid": (8, 5),
                "pr_shapes": (((8, 64, 256), "stream tick: FIR planes, 64 slots"),
                              ((9, 64, 256), "stream tick: 3x3 blur planes"),
                              ((1, 64, 256), "stream tick: 1x1 gain plane"),
@@ -2144,6 +2522,7 @@ def main(argv=None) -> int:
                "h128_tri_lens": (300, 40), "h128_band": (520, 32),
                "profile_ticks": 2, "stream_slots": 4, "stream_clips": 6, "stream_frames": 4,
                "psnr_clips": 2, "psnr_frames": 3,
+               "calib_shape": (2, 16), "plan_grid": (8, 6, 4),
                "pr_shapes": (((8, 4, 256), "stream tick: FIR planes, 4 slots"),
                              ((9, 4, 256), "stream tick: 3x3 blur planes"),
                              ((1, 4, 256), "stream tick: 1x1 gain plane"),
@@ -2184,6 +2563,8 @@ def main(argv=None) -> int:
     if on_card:
         torch.cuda.empty_cache()
     record["stream_path"] = phase_stream(ctx)
+    record["plan_path"] = phase_plan_lm(ctx, cfg)
+    record["stream_plan_path"] = phase_plan_stream(ctx)
     record["model_2layer"] = phase_model(ctx, cfg, ctx["prefill_m"])
     model, params = serving_model(ctx, swa_cfg)
     prompts, kinds = swa_prompts(ctx, swa_cfg)
@@ -2212,7 +2593,8 @@ def main(argv=None) -> int:
     paths = {"3": record["main_path"], "3b": record["int8_cache_path"],
              "3c": record["chunked_path"], "3d": record["stream_path"],
              "3e": record["swa_path"], "3f": record["swa_int8_path"],
-             "3g": record["qwen_path"], "3h": record["qwen_int8_path"]}
+             "3g": record["qwen_path"], "3h": record["qwen_int8_path"],
+             "3i": record["plan_path"], "3j": record["stream_plan_path"]}
     summary = []
     for name, rows in record["kernels"].items():
         src, replaces = SOURCES[name]

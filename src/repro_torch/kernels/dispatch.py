@@ -22,7 +22,8 @@ differentiable ``torch.autograd.Function`` with a kernel forward and a
 ``qmm_ref`` — or straight-through — backward), :func:`fir` /
 :func:`conv2d` / :func:`fir_approx` (the Ch. 7 DSP cores on the PR
 multiplier kernels).  ``last_route`` records the backend each call site
-took.
+took; a change of a site's backend is published to the metrics registry
+and the tracer (:func:`_record_route`).
 
 Runtime degree contract: every router takes the DyFXU degree as a device
 int32 (a global scalar or one element of a per-site vector,
@@ -51,12 +52,33 @@ _VALID = ("auto", "cuda", "torch")
 _override: Optional[str] = None
 
 #: last routing decision per call site ("prefill" / "decode" attention,
-#: "gemm" / "gated" AXQ projections)
+#: "gemm" / "gated" AXQ projections, "fir" / "conv2d" PR stages)
 last_route: dict = {}
 
 
 def _record_route(site: str, backend: str) -> None:
-    last_route[site] = backend
+    """Note one routing decision in ``last_route``.  When a site's backend
+    differs from the last one recorded (its first call, or a backend
+    switch) the decision is also published: the
+    ``repro_kernel_route_trace_total{site,backend}`` counter on the
+    process-global metrics registry and a ``kernel_route_trace`` event on
+    the global tracer.  The reference publishes at jit trace time; here the
+    router runs on every call (~130 a decode tick at full width), so a
+    backend change is the analogue of a retrace, and a steady call costs
+    one dict lookup.  The serve engine's ``repro_kernel_route_steps_total``
+    counts executed steps per backend."""
+    if last_route.get(site) != backend:
+        from repro_torch.obs import metrics as obs_metrics
+        from repro_torch.obs import trace as obs_trace
+
+        obs_metrics.get_registry().counter(
+            "repro_kernel_route_trace_total",
+            "kernel routing decisions that changed a call site's backend, by "
+            "call site and backend", labels=("site", "backend")
+        ).labels(site=site, backend=backend).inc()
+        obs_trace.event("kernel_route_trace", track="dispatch", site=site,
+                        backend=backend)
+        last_route[site] = backend
 
 
 def set_backend(name: Optional[str]) -> None:

@@ -13,6 +13,11 @@
   python -m repro_torch.launch.serve --arch tinyllama-1.1b-smoke --device cpu
   # the streaming DSP workload (FIR -> blur -> gain on the PR multiplier):
   python -m repro_torch.launch.serve --workload stream --qos --metrics
+  # a per-layer approximation plan (repro_torch.tune), the QoS controller
+  # stepping its calibrated ladder, with a Chrome trace, Prometheus metrics
+  # and the live-vs-exact quality tap every 8 ticks:
+  python -m repro_torch.launch.serve --arch tinyllama-1.1b --plan plan.json --qos \
+      --trace-out trace.json --metrics-out metrics.prom --quality-every 8
 
 Weights are random-init from ``--seed``.  ``--qos`` walks the AXQ degree
 ladder ebits 8 -> 5 with load, at a fixed set of kernels (the stream
@@ -20,7 +25,9 @@ workload: the per-site ladder [e] * 3 for e = 8 -> 5; its weights are the
 deterministic ``serve.stream.default_params`` and its clips ``make_clip``
 from seeds 0 .. requests - 1).
 ``REPRO_KV_INT8=1`` serves from the int8 KV cache (there is no flag for it,
-as in the reference launcher).
+as in the reference launcher).  ``--plan`` (either workload) serves under
+the plan's policy with its most accurate rung, or with ``--qos`` steps its
+ladder; ``--approx`` is then ignored.
 """
 
 from __future__ import annotations
@@ -35,6 +42,8 @@ from repro_torch.core.approx import policy_from_flag
 from repro_torch.core.dynamic import QoSController
 from repro_torch.kernels import dispatch as kdispatch
 from repro_torch.models import build_model
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 from repro_torch.serve.admission import AdmissionConfig
 from repro_torch.serve.lm import ServeEngine
 from repro_torch.serve.metrics import summarize
@@ -55,10 +64,16 @@ def build_parser() -> argparse.ArgumentParser:
                     help="KV-cache capacity per slot (prompt bound)")
     ap.add_argument("--approx", default="exact",
                     help="projection arithmetic: exact | axqN (block-int8 "
-                         "GEMMs at N effective bits, e.g. axq8/axq6)")
+                         "GEMMs at N effective bits, e.g. axq8/axq6); "
+                         "ignored when --plan is given (the plan carries "
+                         "its own policy)")
+    ap.add_argument("--plan", default=None,
+                    help="path to an ApproxPlan JSON (repro_torch.tune): "
+                         "serve with per-layer degrees; with --qos the "
+                         "controller steps the plan's calibrated ladder")
     ap.add_argument("--qos", action="store_true",
                     help="drive the runtime approximation degree from load "
-                         "(ladder ebits 8->5, no rebuild)")
+                         "(ladder ebits 8->5, or the plan's rungs; no rebuild)")
     ap.add_argument("--kernels", default=None, choices=("auto", "cuda", "torch"),
                     help="kernel backend (default: REPRO_TORCH_KERNELS or "
                          "auto = the CUDA kernels for tensors on the card)")
@@ -88,6 +103,18 @@ def build_parser() -> argparse.ArgumentParser:
                     help="print the latency summary and token accounting")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write a Chrome trace_event JSON of the run "
+                         "(enqueue/prefill/decode/QoS-rung spans; open in "
+                         "chrome://tracing or Perfetto)")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write Prometheus text-format metrics (engine "
+                         "counters, latency histograms, kernel routes, "
+                         "degree gauges) at exit")
+    ap.add_argument("--quality-every", type=int, default=0, metavar="N",
+                    help="sample the live-vs-exact output error every N "
+                         "ticks into a per-rung histogram (0 = off; needs "
+                         "--qos/--plan)")
     return ap
 
 
@@ -105,18 +132,43 @@ def admission_from_args(args):
                            chunk_tokens=args.chunk_tokens)
 
 
-def serve_stream(args) -> dict:
-    """--workload stream: frame clips through the DSP/vision pipeline."""
+def write_obs(args) -> None:
+    """Exit-time observability dumps (both workloads)."""
+    if args.trace_out:
+        obs_trace.get_tracer().write(args.trace_out)
+        print(f"[launch.serve] wrote Chrome trace -> {args.trace_out}")
+    if args.metrics_out:
+        obs_metrics.get_registry().write(args.metrics_out)
+        print(f"[launch.serve] wrote Prometheus metrics -> {args.metrics_out}")
+
+
+def load_plan(args):
+    """The ``--plan`` file, or None (ServeCore validates it against the
+    arch before serving)."""
+    if args.plan is None:
+        return None
+    from repro_torch.tune import ApproxPlan
+
+    return ApproxPlan.load(args.plan)
+
+
+def serve_stream(args):
+    """--workload stream: frame clips through the DSP/vision pipeline.
+    Returns (summary, engine)."""
     from repro_torch.serve.stream import (StreamAdapter, StreamServeEngine,
                                           make_clip)
 
     adapter = StreamAdapter(device=args.device)
     cfg = adapter.cfg
+    plan = load_plan(args)
     qos = QoSController(
         ladder=[{"degrees": [e] * (cfg.n_layers + 1)} for e in (8, 7, 6, 5)],
         low_water=0.25, high_water=0.75, cooldown_steps=8,
     ) if args.qos else None
-    eng = StreamServeEngine(adapter, slots=args.slots, seed=args.seed, qos=qos)
+    registry = obs_metrics.get_registry() if args.metrics_out else None
+    eng = StreamServeEngine(adapter, slots=args.slots, seed=args.seed, qos=qos,
+                            plan=plan, registry=registry,
+                            quality_every=args.quality_every)
     t0 = time.time()
     for i in range(args.requests):
         eng.submit(make_clip(args.frames, cfg.frame, q=cfg.q, seed=i))
@@ -134,19 +186,23 @@ def serve_stream(args) -> dict:
         if qos is not None:
             print(f"[launch.serve]   degree ladder visits: "
                   f"{[e for _, e in list(eng.stats.degree_history)[-8:]]} (last 8)")
-    return s
+    write_obs(args)
+    return s, eng
 
 
-def main(argv=None) -> dict:
-    args = build_parser().parse_args(argv)
-    kdispatch.set_backend(args.kernels)
-    if args.workload == "stream":
-        return serve_stream(args)
+def serve_lm(args):
+    """--workload lm: token decode.  Returns (summary, engine)."""
     cfg = get_config(args.arch)
-    try:
-        policy = policy_from_flag(args.approx, dynamic=args.qos)
-    except ValueError as e:
-        raise SystemExit(str(e))
+    plan = load_plan(args)
+    if plan is not None:
+        plan.validate_for(cfg)
+        # the plan pins mode/block; its degrees are the runtime knob
+        policy = plan.policy(dynamic=True)
+    else:
+        try:
+            policy = policy_from_flag(args.approx, dynamic=args.qos)
+        except ValueError as e:
+            raise SystemExit(str(e))
     model = build_model(cfg, policy, device=args.device)
     params = model.init(seed=args.seed)
     if not args.no_prepack:
@@ -156,10 +212,13 @@ def main(argv=None) -> dict:
         ladder=[{"ebits": e} for e in (8, 7, 6, 5)],
         low_water=0.25, high_water=0.75, cooldown_steps=8,
     ) if args.qos else None
+    registry = obs_metrics.get_registry() if args.metrics_out else None
     eng = ServeEngine(model, params, slots=args.slots, max_len=args.max_len,
                       eos_id=args.eos_id, greedy=args.temperature <= 0,
                       temperature=max(args.temperature, 1e-6),
                       top_k=args.top_k, seed=args.seed, qos=qos, prepack=False,
+                      plan=plan, registry=registry,
+                      quality_every=args.quality_every,
                       admission=admission_from_args(args))
     rng = np.random.default_rng(args.seed)
     t0 = time.time()
@@ -188,7 +247,26 @@ def main(argv=None) -> dict:
                   f"{int(st.c_packed_rows.value)}, chunk calls "
                   f"{int(st.c_chunk_calls.value)}; call shapes "
                   f"{eng.workload.trace_counts}")
-    return s
+    write_obs(args)
+    return s, eng
+
+
+def run(argv=None):
+    """Parse ``argv`` and serve; returns (summary dict, engine), so a caller
+    can inspect the engine after the run.  ``--trace-out`` enables the
+    process-global tracer; ``--metrics-out`` exports the process-global
+    registry, which the engine and the kernel dispatch share."""
+    args = build_parser().parse_args(argv)
+    kdispatch.set_backend(args.kernels)
+    if args.trace_out:
+        obs_trace.enable()
+    if args.workload == "stream":
+        return serve_stream(args)
+    return serve_lm(args)
+
+
+def main(argv=None) -> dict:
+    return run(argv)[0]
 
 
 if __name__ == "__main__":

@@ -159,16 +159,21 @@ def init_quant_kv_cache(batch: int, max_len: int, kv_heads: int, head_dim: int,
         torch.zeros((batch,), dtype=torch.int32, device=device))
 
 
+def token_rows(T: int, length: Tensor, window: Optional[int] = None) -> Tensor:
+    """The cache row each slot's next token is written to: ``length % T``
+    for a ring (``window <= T``), ``min(length, T - 1)`` otherwise."""
+    if window is not None and window <= T:
+        return torch.remainder(length, T)
+    return torch.clamp(length, max=T - 1)
+
+
 def write_token(cache, knew: Tensor, vnew: Tensor,
                 window: Optional[int] = None) -> None:
-    """Write each slot's new token K/V (B, 1, KVr, D) into its cache row, in
-    place: row ``length % T`` for a ring (``window <= T``), ``min(length,
-    T - 1)`` otherwise.  The int8 cache stores the token's codes and scales
-    (:func:`_q8`)."""
-    T = cache.k.shape[1]
+    """Write each slot's new token K/V (B, 1, KVr, D) into its cache row
+    (:func:`token_rows`), in place.  The int8 cache stores the token's codes
+    and scales (:func:`_q8`)."""
     pos = cache.length
-    ring = window is not None and window <= T
-    slot = torch.remainder(pos, T) if ring else torch.clamp(pos, max=T - 1)
+    slot = token_rows(cache.k.shape[1], pos, window)
     bidx = torch.arange(pos.shape[0], device=pos.device)
     if isinstance(cache, QuantKVCache):
         kq, ks = _q8(knew[:, 0])

@@ -1,18 +1,40 @@
-"""Typed metric registry: counters, gauges and histograms.
+"""Typed metric registry with a Prometheus text-format exporter (the port of
+``repro.obs.metrics``: the same families give the same text).
 
-The part of ``repro.obs.metrics`` the serve engine's ``EngineStats``
-touches (``serve/metrics.py`` is a thin view over one registry).  The
-Prometheus exporter, the parser and the process-global registry are not
-ported yet.
+One registry is the single source for every counter the stack maintains:
+the serve engine's token/step counters and latency histograms
+(``serve/metrics.py::EngineStats`` is a thin view over one of these),
+per-backend kernel-route counters (``kernels/dispatch.py``), the
+``repro_degree_ebits{site=..}`` gauge family and the online quality
+telemetry (``obs/quality.py``).
+
+Zero dependencies: the exporter emits the Prometheus text exposition
+format (``# HELP`` / ``# TYPE`` + samples; histograms as cumulative
+``_bucket{le=..}`` + ``_sum`` + ``_count``) and :func:`parse_text` parses
+it back — the round-trip is under test, so ``--metrics-out`` artifacts
+are guaranteed scrapeable.
+
+  reg = Registry()
+  c = reg.counter("repro_decode_steps_total", "engine ticks")
+  c.inc()
+  h = reg.histogram("repro_ttft_seconds", "enqueue->first token")
+  h.observe(0.031)
+  routes = reg.counter("repro_kernel_route_steps_total", "ticks by backend",
+                       labels=("site", "backend"))
+  routes.labels(site="decode", backend="cuda").inc()
+  text = reg.to_prometheus()          # scrape / --metrics-out artifact
+  snap = reg.snapshot()               # JSON-able dict
 """
 
 from __future__ import annotations
 
+import math
 import re
 import threading
 from typing import Optional, Sequence
 
-__all__ = ["Counter", "Gauge", "Histogram", "Registry", "DEFAULT_BUCKETS"]
+__all__ = ["Counter", "Gauge", "Histogram", "Registry", "get_registry",
+           "set_registry", "parse_text", "DEFAULT_BUCKETS"]
 
 _NAME_RE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
 _LABEL_RE = re.compile(r"^[a-zA-Z_][a-zA-Z0-9_]*$")
@@ -20,6 +42,14 @@ _LABEL_RE = re.compile(r"^[a-zA-Z_][a-zA-Z0-9_]*$")
 #: default histogram bucket upper bounds (seconds-flavored, latency-friendly)
 DEFAULT_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
                    0.5, 1.0, 2.5, 5.0, 10.0)
+
+
+def _fmt(v: float) -> str:
+    """Prometheus sample value formatting: integers stay integral."""
+    if v == math.inf:
+        return "+Inf"
+    f = float(v)
+    return str(int(f)) if f == int(f) and abs(f) < 1e15 else repr(f)
 
 
 class Counter:
@@ -215,3 +245,107 @@ class Registry:
     @property
     def families(self) -> dict:
         return dict(self._families)
+
+    # ---- export ------------------------------------------------------
+
+    @staticmethod
+    def _labelstr(names: tuple, values: tuple, extra: str = "") -> str:
+        parts = [f'{k}="{v}"' for k, v in zip(names, values)]
+        if extra:
+            parts.append(extra)
+        return "{" + ",".join(parts) + "}" if parts else ""
+
+    def to_prometheus(self) -> str:
+        """Prometheus text exposition format (round-trips :func:`parse_text`)."""
+        lines = []
+        for name in sorted(self._families):
+            fam = self._families[name]
+            lines.append(f"# HELP {name} {fam.help}")
+            lines.append(f"# TYPE {name} {fam.kind}")
+            for key in sorted(fam.children):
+                child = fam.children[key]
+                if fam.kind == "histogram":
+                    for le, acc in child.cumulative():
+                        ls = self._labelstr(fam.labelnames, key,
+                                            f'le="{_fmt(le)}"')
+                        lines.append(f"{name}_bucket{ls} {acc}")
+                    ls = self._labelstr(fam.labelnames, key, 'le="+Inf"')
+                    lines.append(f"{name}_bucket{ls} {child.count}")
+                    ls = self._labelstr(fam.labelnames, key)
+                    lines.append(f"{name}_sum{ls} {_fmt(child.sum)}")
+                    lines.append(f"{name}_count{ls} {child.count}")
+                else:
+                    ls = self._labelstr(fam.labelnames, key)
+                    lines.append(f"{name}{ls} {_fmt(child.value)}")
+        return "\n".join(lines) + "\n"
+
+    def snapshot(self) -> dict:
+        """JSON-able nested dict of every family/child (``--metrics-out``
+        twin artifact; also the programmatic read API)."""
+        out: dict = {}
+        for name, fam in sorted(self._families.items()):
+            children = {}
+            for key, child in sorted(fam.children.items()):
+                lk = ",".join(f"{k}={v}" for k, v in zip(fam.labelnames, key))
+                if fam.kind == "histogram":
+                    children[lk] = {"count": child.count, "sum": child.sum,
+                                    "buckets": {_fmt(le): acc for le, acc
+                                                in child.cumulative()}}
+                else:
+                    children[lk] = child.value
+            out[name] = {"type": fam.kind, "help": fam.help,
+                         "values": children}
+        return out
+
+    def write(self, path) -> str:
+        with open(path, "w") as f:
+            f.write(self.to_prometheus())
+        return str(path)
+
+
+# ---------------------------------------------------------------------------
+# text-format parser (round-trip tests; tools that read --metrics-out)
+# ---------------------------------------------------------------------------
+
+_SAMPLE_RE = re.compile(
+    r"^(?P<name>[a-zA-Z_:][a-zA-Z0-9_:]*)"
+    r"(?:\{(?P<labels>[^}]*)\})?\s+(?P<value>\S+)$")
+_LABEL_PAIR_RE = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="([^"]*)"')
+
+
+def parse_text(text: str) -> dict:
+    """Parse Prometheus exposition text into
+    ``{(name, ((label, value), ...)): float}`` — histogram series appear
+    under their ``_bucket`` / ``_sum`` / ``_count`` sample names, exactly
+    as a scraper sees them."""
+    out: dict = {}
+    for line in text.splitlines():
+        line = line.strip()
+        if not line or line.startswith("#"):
+            continue
+        m = _SAMPLE_RE.match(line)
+        if not m:
+            raise ValueError(f"unparseable sample line: {line!r}")
+        labels = tuple(sorted(_LABEL_PAIR_RE.findall(m.group("labels") or "")))
+        raw = m.group("value")
+        val = math.inf if raw == "+Inf" else float(raw)
+        out[(m.group("name"), labels)] = val
+    return out
+
+
+# ---------------------------------------------------------------------------
+# process-global registry (kernel dispatch counters; launch exporters)
+# ---------------------------------------------------------------------------
+
+_GLOBAL = Registry()
+
+
+def get_registry() -> Registry:
+    return _GLOBAL
+
+
+def set_registry(registry: Optional[Registry]) -> Registry:
+    """Swap the process-global registry (tests); None installs a fresh one."""
+    global _GLOBAL
+    _GLOBAL = registry if registry is not None else Registry()
+    return _GLOBAL

@@ -8,21 +8,33 @@ advances — so a freed slot can be handed to the next request with no stale
 state: admission into a reused slot equals a solo run on a fresh engine.
 
 The engine is generic over a :class:`~repro_torch.serve.servable.ServableModel`
-(``serve/lm.py`` adapts the language models).  The approximation degree is
-a device int32 operand — a global scalar or a per-site vector — and an
-optional :class:`~repro_torch.core.dynamic.QoSController` moves it with
-serving load (heavy load -> cheaper arithmetic, idle -> exact).  One device
-operand per ladder rung is built at construction, so a rung move swaps a
-reference: no rebuild, no host-to-device copy, no sync.
+(``serve/lm.py`` adapts the language models, ``serve/stream.py`` the DSP
+pipeline).  The approximation degree is a device int32 operand — a global
+scalar or, under an :class:`~repro_torch.tune.plan.ApproxPlan`, a per-site
+vector — and an optional :class:`~repro_torch.core.dynamic.QoSController`
+moves it with serving load (heavy load -> cheaper arithmetic, idle ->
+exact).  With a plan the controller steps along the plan's calibrated
+ladder (whole mixed per-site configurations) instead of one global knob.
+One device operand per ladder rung is built at construction, so a rung
+move swaps a reference: no rebuild, no host-to-device copy, no sync.
 
 With an admission config on the workload (``serve/admission.py``) the
 engine runs the admission pipeline: short prompts pack into bucketed
 prefill calls, long prompts admit chunk by chunk across ticks, interleaved
 with decode (a slot joins the fused step once its prompt is in), every
 admission and step call shape runs once at construction (warmup), and a
-background emitter detokenizes harvested tokens off the tick.  The
-reference's fault injection, guards, serving policy, quality tap and
-tracer are not ported yet.
+background emitter detokenizes harvested tokens off the tick.
+
+Observability: every lifecycle edge — enqueue, admission, the per-tick
+step, first emission, completion, QoS rung moves (with the per-site degree
+vector) — is traced through ``tracer`` (the process-global
+:mod:`repro_torch.obs.trace` tracer by default; one predicate per call
+site while it is disabled) under the workload's vocabulary; every counter
+lives in ``stats.registry`` (pass ``registry=`` to co-export with the
+dispatch counters); ``quality_every=N`` samples the live-vs-exact output
+error every N ticks into a per-rung histogram (``obs/quality.py``).  The
+reference's fault injection, guards and serving policy are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -38,17 +50,12 @@ import torch
 
 from repro_torch.core.dynamic import (QoSController, degree_operand,
                                       degree_record, entry_degree)
+from repro_torch.kernels import dispatch as kdispatch
+from repro_torch.obs import trace as obs_trace
 from repro_torch.serve.emitq import AsyncEmitter
 from repro_torch.serve.metrics import EngineStats
 from repro_torch.serve.servable import ServableModel
-
-
-def site_names(cfg) -> list:
-    """Canonical degree site names: ``layer_i`` in stacking order, then
-    ``head`` (a copy of ``repro.tune.plan.site_names``)."""
-    if hasattr(cfg, "site_names"):
-        return list(cfg.site_names())
-    return [f"layer_{i}" for i in range(cfg.n_layers)] + ["head"]
+from repro_torch.tune.plan import site_names
 
 
 @dataclass
@@ -92,16 +99,20 @@ class Request:
 class ServeCore:
     """Continuous-batching engine over a fixed batch of ``slots``.
 
-    ``qos`` drives the runtime degree from load; ``degree`` pins a static
-    initial degree (scalar or per-site vector) without a controller;
-    ``prepack`` applies the workload's quantize-once weight residency at
-    construction.  Host times (TTFT, e2e) are taken after each tick's
-    emissions reach the host, which waits for the device."""
+    ``qos`` drives the runtime degree from load; ``plan`` replaces the
+    controller's ladder with the plan's calibrated per-site rungs (and
+    supplies the initial degree vector); ``degree`` pins a static initial
+    degree (scalar or per-site vector) without a controller; ``prepack``
+    applies the workload's quantize-once weight residency at construction.
+    ``tracer``, ``registry`` and ``quality_every`` are the observability
+    hooks (module docstring).  Host times (TTFT, e2e) are taken after each
+    tick's emissions reach the host, which waits for the device."""
 
     def __init__(self, workload: ServableModel, params, *, slots: int = 8,
                  max_len: int = 512, seed: int = 0,
                  qos: Optional[QoSController] = None, degree=None,
-                 prepack: bool = True, emitter=None):
+                 prepack: bool = True, plan=None, registry=None,
+                 tracer=None, quality_every: int = 0, emitter=None):
         self.workload = workload
         self.device = workload.device
         self.params = workload.prepack(params) if prepack else params
@@ -113,30 +124,63 @@ class ServeCore:
         self.slot_budget = np.zeros(slots, np.int32)
         self.queue: deque[Request] = deque()
         self.done: list[Request] = []
-        self.stats = EngineStats(unit=workload.unit,
+        self.stats = EngineStats(registry, unit=workload.unit,
                                  admit_name=workload.admit_span,
                                  step_name=workload.step_span)
+        self._tracer = tracer if tracer is not None else obs_trace.get_tracer()
         self._feed = workload.init_feed(slots)
         self._rid = itertools.count()
         self._ticks = 0
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
-        # device degree operands: one per rung, built once
+        # approximation plan: validate against the arch, and point the QoS
+        # controller's ladder at the plan's calibrated per-site rungs
+        cfg = workload.cfg
+        self.plan = plan
+        if plan is not None:
+            plan.validate_for(cfg)
+            if qos is not None:
+                qos.ladder = plan.qos_ladder()
+                qos.degree = min(qos.degree, len(qos.ladder) - 1)
+        # device degree operands: one per rung, built once.  The initial
+        # degree is the pinned ``degree``, else the controller's current
+        # rung, else the plan's most accurate rung.
         self._rungs = None
-        self._degree = None
-        self._degree_host = None
         if qos is not None and qos.ladder:
             self._rungs = [degree_operand(e, self.device) for e in qos.ladder]
-            self._degree = self._rungs[qos.degree]
-            self._degree_host = entry_degree(qos.ladder[qos.degree])
-        elif degree is not None:
+        self._degree = None
+        self._degree_host = None
+        if degree is not None:
             self._degree = torch.as_tensor(degree, dtype=torch.int32,
                                            device=self.device)
             self._degree_host = degree_record(degree)
-        self._site_names = site_names(workload.cfg)
+        elif self._rungs is not None:
+            self._degree = self._rungs[qos.degree]
+            self._degree_host = entry_degree(qos.ladder[qos.degree])
+        elif plan is not None:
+            self._degree = torch.as_tensor(plan.degrees(0), device=self.device)
+            self._degree_host = tuple(plan.ladder[0].degrees)
+        # plan site names label the repro_degree_ebits{site=..} gauges (and
+        # trace events); scalar degrees export as site="global"
+        self._site_names = site_names(cfg)
         self._degree_rec: Optional[tuple] = None
         if self._degree is not None:
+            # the construction-time degree is served until the first QoS
+            # update: record it so the history covers every degree used
             self._degree_rec = self.stats.record_degree(
                 -1, self._degree_host, self._site_names)
+        # per-rung online quality telemetry (obs/quality.py): compare the
+        # live degree's outputs against the exact rung every N ticks
+        self._tap = None
+        if quality_every > 0:
+            if self._degree is None:
+                raise ValueError(
+                    "quality_every needs a driven degree (pass degree=, "
+                    "qos=, or plan=)")
+            self._tap = workload.quality_tap(every=quality_every,
+                                             registry=self.stats.registry,
+                                             tracer=self._tracer)
+        # backend last counted per dispatch call site (route counters)
+        self._route: dict = {}
         # admission pipeline: None = exact-length admission, one fused
         # prefill per request
         self._admission = getattr(workload, "admission", None)
@@ -153,12 +197,16 @@ class ServeCore:
         throwaway generator and every slot free, so the live state and the
         engine's sampling stream stay as they were."""
         wl = self.workload
-        wl.warmup_admission(self.params, self.state, self._feed, self._degree)
-        scratch = type(self.state)(*(t.clone() for t in self.state))
-        wl.step(self.params, scratch, torch.from_numpy(self._feed).to(self.device),
-                torch.zeros(self.slots, dtype=torch.bool, device=self.device),
-                torch.Generator(device=self.device).manual_seed(0), self._degree)
-        del scratch
+        a = self._admission
+        with self._tracer.span("admission_warmup", track="engine",
+                               buckets=list(a.buckets), pack=a.pack,
+                               chunk=a.chunk_tokens):
+            wl.warmup_admission(self.params, self.state, self._feed, self._degree)
+            scratch = type(self.state)(*(t.clone() for t in self.state))
+            wl.step(self.params, scratch, torch.from_numpy(self._feed).to(self.device),
+                    torch.zeros(self.slots, dtype=torch.bool, device=self.device),
+                    torch.Generator(device=self.device).manual_seed(0), self._degree)
+            del scratch
         self.stats.c_warmups.inc()
 
     # ------------------------------------------------------------------
@@ -173,17 +221,27 @@ class ServeCore:
             rid=next(self._rid), payload=payload, budget=int(budget),
             payload_units=wl.payload_units(payload), t_enqueue=time.time())
         self.queue.append(req)
+        self._tracer.event(
+            "enqueue", track="engine", rid=req.rid,
+            queue_depth=len(self.queue),
+            **{wl.payload_arg: req.payload_units, wl.budget_arg: int(budget)})
         return req
 
     def _admit(self, slot: int, req: Request):
         req.t_admitted = time.time()
         wl = self.workload
-        self.state, ingested = wl.admit(self.params, self.state, self._feed,
-                                        slot, req, self._degree)
+        with self._tracer.span(wl.admit_span, track="engine", rid=req.rid,
+                               slot=slot,
+                               **{wl.payload_arg: req.payload_units}):
+            self.state, ingested = wl.admit(self.params, self.state,
+                                            self._feed, slot, req,
+                                            self._degree)
         req.admitted_units = int(ingested)
         if req.admitted_units > 0:
             self.stats.c_admit_units.inc(req.admitted_units)
             self.stats.c_admit_calls.inc()
+            if wl.admit_site:
+                self._count_route(wl.admit_site)
         self.slot_req[slot] = req
         self.slot_budget[slot] = req.budget
         self.stats.c_admitted.inc()
@@ -192,22 +250,31 @@ class ServeCore:
 
     def _chunk_call(self, slot: int, req: Request) -> None:
         """One chunked-prefill call advancing ``req``'s admission."""
-        self.state, n = self.workload.admit_chunk(self.params, self.state,
-                                                  self._feed, slot, req,
-                                                  self._degree)
+        wl = self.workload
+        with self._tracer.span(wl.admit_span, track="engine", rid=req.rid,
+                               slot=slot, chunk=True, cursor=req.cursor):
+            self.state, n = wl.admit_chunk(self.params, self.state,
+                                           self._feed, slot, req,
+                                           self._degree)
         req.admitted_units += int(n)
         if n > 0:
             self.stats.c_admit_units.inc(int(n))
         self.stats.c_admit_calls.inc()
         self.stats.c_chunk_calls.inc()
+        if wl.admit_site:
+            self._count_route(wl.admit_site)
 
     def _flush_batch(self, pairs: list) -> None:
         """Admit up to ``pack`` requests in one bucketed prefill call."""
         if not pairs:
             return
         wl = self.workload
-        self.state, ingested = wl.admit_batch(self.params, self.state,
-                                              self._feed, pairs, self._degree)
+        with self._tracer.span(wl.admit_span, track="engine",
+                               rid=pairs[0][1].rid, slot=pairs[0][0],
+                               packed=len(pairs)):
+            self.state, ingested = wl.admit_batch(self.params, self.state,
+                                                  self._feed, pairs,
+                                                  self._degree)
         total = 0
         for (_, req), n in zip(pairs, ingested):
             req.admitted_units = int(n)
@@ -220,6 +287,8 @@ class ServeCore:
         bucket = getattr(wl, "last_admit_bucket", None)
         if bucket is not None:
             self.stats.c_admit_bucket.labels(bucket=str(bucket)).inc()
+        if wl.admit_site:
+            self._count_route(wl.admit_site)
 
     def _admit_pipeline(self) -> None:
         """Bucketed/packed/chunked admission: first advance mid-admission
@@ -261,14 +330,37 @@ class ServeCore:
     def _update_degree(self, n_active: int):
         """Feed the QoS controller a load-headroom signal: overload moves
         the degree down the ladder (cheaper arithmetic), idle capacity back
-        to exact — by swapping prebuilt device operands."""
+        to exact — by swapping prebuilt device operands.  Plan ladders step
+        whole per-site degree vectors; the global ladder one ebits scalar."""
         occupancy = (n_active + len(self.queue)) / self.slots
         headroom = max(0.0, 1.0 - occupancy)
         entry = self.qos.update(self._ticks, headroom)
         self._degree = self._rungs[self.qos.degree]
         self._degree_host = entry_degree(entry)
-        self._degree_rec = self.stats.record_degree(
-            self._ticks, self._degree_host, self._site_names)
+        rec = self.stats.record_degree(self._ticks, self._degree_host,
+                                       self._site_names)
+        if rec != self._degree_rec:
+            # QoS rung transition: the event carries the full per-site
+            # degree vector, so the trace shows which arithmetic served
+            # every span that follows
+            self._tracer.event("qos_rung", track="engine", tick=self._ticks,
+                               rung=self.qos.degree, degrees=list(rec),
+                               headroom=round(headroom, 4))
+            self._degree_rec = rec
+
+    def _count_route(self, site: str) -> None:
+        """Per-call kernel-route counter: the backend this call site took
+        (``dispatch.last_route``, written by the router on every call), so
+        ``sum(route counters) == call count``; a ``kernel_route`` event
+        marks each site's first backend and every change of it."""
+        backend = kdispatch.last_route.get(site)
+        if backend is None:
+            backend = kdispatch.resolved_backend(self.device)
+        if self._route.get(site) != backend:
+            self._route[site] = backend
+            self._tracer.event("kernel_route", track="engine", site=site,
+                               backend=backend)
+        self.stats.c_route_steps.labels(site=site, backend=backend).inc()
 
     # ------------------------------------------------------------------
 
@@ -298,13 +390,25 @@ class ServeCore:
         mask = np.zeros(self.slots, bool)
         mask[active] = True
         feed = torch.from_numpy(self._feed).to(self.device)
-        nxt, self.state = wl.step(self.params, self.state, feed,
-                                  torch.from_numpy(mask).to(self.device),
-                                  self._gen, self._degree)
-        nxt = nxt.cpu().numpy()          # the tick's one device->host read
+        mask_d = torch.from_numpy(mask).to(self.device)
+        if self._tap is not None and self._tap.due(self._ticks):
+            # probe BEFORE the step, on the inputs the step is about to
+            # consume; the tap leaves the state as it found it
+            self._tap.sample(self._ticks, self.params, self.state, feed,
+                             mask_d, self._degree, rung=self._degree_rec)
+        with self._tracer.span(f"{wl.step_span}_tick", track="engine",
+                               tick=self._ticks, active=len(active),
+                               queued=len(self.queue)):
+            nxt, self.state = wl.step(self.params, self.state, feed, mask_d,
+                                      self._gen, self._degree)
+            nxt = nxt.cpu().numpy()      # the tick's one device->host read
         self._ticks += 1
         self.stats.c_steps.inc()
         self.stats.c_step_units.inc(len(active))
+        for site in wl.step_sites:
+            self._count_route(site)
+        self._tracer.counter("slots", track="engine", active=len(active),
+                             queued=len(self.queue))
         now = time.time()
         for s in active:
             req = self.slot_req[s]
@@ -313,6 +417,9 @@ class ServeCore:
                 if req.t_first_emit == 0.0:
                     req.t_first_emit = now
                     req.degree_at_first_emit = self._degree_rec
+                    self._tracer.event(wl.first_event, track="engine",
+                                       rid=req.rid, slot=s,
+                                       ttft_ms=round(req.ttft * 1e3, 3))
                 if self.emitter is not None:
                     # detokenize/deliver off-thread: the tick does not wait
                     # on host-side emit work
@@ -324,6 +431,10 @@ class ServeCore:
                 self.done.append(req)
                 self.slot_req[s] = None
                 self.stats.record_completion(req)
+                self._tracer.event("request_done", track="engine",
+                                   rid=req.rid, slot=s,
+                                   e2e_ms=round(req.e2e * 1e3, 3),
+                                   **wl.done_args(req, info))
         return len(active)
 
     def run_until_drained(self, max_ticks: int = 10_000) -> list[Request]:

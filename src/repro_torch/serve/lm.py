@@ -1,7 +1,7 @@
 """LM workload adapter: token decode on the generic serve core.
 
-Sampling (greedy / top-k / temperature), EOS stopping, prompt admission and
-KV-cache init/reset live in :class:`LMAdapter`; :class:`ServeEngine` is the
+Sampling (greedy / top-k / temperature), EOS stopping, prompt admission,
+KV-cache init/reset and the logit-RMS quality tap live in :class:`LMAdapter`; :class:`ServeEngine` is the
 LM engine surface (``submit(prompt, max_new_tokens)``, ``cache``,
 ``eos_id``) over :class:`~repro_torch.serve.engine.ServeCore`.
 
@@ -71,6 +71,11 @@ class LMAdapter(ServableModel):
     unit = "tokens"
     admit_span = "prefill"
     step_span = "decode"
+    payload_arg = "prompt_tokens"
+    budget_arg = "max_new_tokens"
+    first_event = "first_token"
+    admit_site = "prefill"
+    step_sites = ("decode",)
     request_cls = Request
 
     def __init__(self, model: Model, *, tp: int = 1, eos_id: int = -1,
@@ -284,6 +289,16 @@ class LMAdapter(ServableModel):
     def done_args(self, req, info) -> dict:
         return {"eos": bool(info.get("eos", False)), "tokens": len(req.out)}
 
+    # ---- quality ------------------------------------------------------
+
+    def quality_tap(self, *, every, registry, tracer):
+        """The logit-RMS tap: live-degree vs exact-rung decode logits on the
+        tick's inputs, the cache rows it writes restored (obs/quality.py)."""
+        from repro_torch.obs.quality import QualityTap
+
+        return QualityTap(self.model, tp=self.tp, every=every,
+                          registry=registry, tracer=tracer)
+
 
 class ServeEngine(_engine.ServeCore):
     """The LM serving engine: ``ServeCore`` with an :class:`LMAdapter`.
@@ -293,14 +308,16 @@ class ServeEngine(_engine.ServeCore):
                  max_len: int = 512, eos_id: int = -1, tp: int = 1,
                  greedy: bool = True, temperature: float = 1.0,
                  top_k: int = 0, seed: int = 0, qos=None, degree=None,
-                 prepack: bool = True,
+                 prepack: bool = True, plan=None, registry=None,
+                 tracer=None, quality_every: int = 0,
                  admission: Optional[AdmissionConfig] = None, emitter=None):
         workload = LMAdapter(model, tp=tp, eos_id=eos_id, greedy=greedy,
                              temperature=temperature, top_k=top_k,
                              max_len=max_len, admission=admission)
         super().__init__(workload, params, slots=slots, max_len=max_len,
                          seed=seed, qos=qos, degree=degree, prepack=prepack,
-                         emitter=emitter)
+                         plan=plan, registry=registry, tracer=tracer,
+                         quality_every=quality_every, emitter=emitter)
         self.model = model
         self.eos_id = eos_id
         self.tp = tp

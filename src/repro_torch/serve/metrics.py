@@ -11,7 +11,9 @@ the fused prefill call (plus the final prompt token, which rides the decode
 step that emits the first output token); generated tokens are decode tokens.
 
 Counters live in a :class:`repro_torch.obs.metrics.Registry`:
-:class:`EngineStats` is a thin view over one.  ``degree_history`` entries
+:class:`EngineStats` is a thin view over one — the scalar reads
+(``stats.prefill_tokens`` etc.) keep working, while the same numbers export
+as Prometheus text / JSON through ``stats.registry``.  ``degree_history`` entries
 are normalized to ``(tick, degrees_tuple)`` at record time
 (``core.dynamic.degree_record(as_tuple=True)``): a global scalar degree
 records as a 1-tuple, so consumers never isinstance-branch.  The engine
@@ -35,14 +37,17 @@ class EngineStats:
     """Engine-lifetime counters (all ticks / admissions), registry-backed.
 
     Every counter the engine maintains is a family in ``self.registry``
-    (a fresh per-engine :class:`~repro_torch.obs.metrics.Registry`, so
-    co-resident engines don't sum into each other).  The scalar
+    (a fresh per-engine :class:`~repro_torch.obs.metrics.Registry` by
+    default, so co-resident engines don't sum into each other; pass a
+    shared one to co-export with the kernel-dispatch counters).  The scalar
     attributes are read-only properties over the registry.
     """
 
-    def __init__(self, *, unit: str = "tokens", admit_name: str = "prefill",
+    def __init__(self, registry: obs_metrics.Registry | None = None, *,
+                 unit: str = "tokens", admit_name: str = "prefill",
                  step_name: str = "decode"):
-        self.registry = obs_metrics.Registry()
+        self.registry = (registry if registry is not None
+                         else obs_metrics.Registry())
         # workload vocabulary (servable.py): the LM defaults give the
         # reference's family names (repro_prefill_tokens_total, ...)
         self.unit = unit
@@ -81,6 +86,9 @@ class EngineStats:
         self.h_e2e = r.histogram(
             "repro_e2e_seconds", "enqueue -> completion",
             buckets=LATENCY_BUCKETS)
+        self.c_route_steps = r.counter(
+            "repro_kernel_route_steps_total",
+            "engine ticks by resolved kernel backend", labels=("site", "backend"))
         self.g_degree = r.gauge(
             "repro_degree_ebits", "live approximation degree by plan site",
             labels=("site",))

@@ -4,8 +4,10 @@ The engine (``serve/engine.py::ServeCore``) owns the scheduling — FIFO
 queue, fixed slot batch, free-slot masking, the QoS degree ladder, metrics
 — and knows nothing about what flows through the slots.  Everything
 workload-specific (what a unit of work is, how a payload is ingested into a
-slot, what one fused step computes, when a request finishes) lives behind
-this protocol; ``serve/lm.py`` implements it for language models.
+slot, what one fused step computes, when a request finishes, the words the
+trace events speak, the quality tap) lives behind this protocol;
+``serve/lm.py`` implements it for language models, ``serve/stream.py`` for
+the DSP pipeline.
 
 State contract: ``init_state`` returns a NamedTuple on the cache layout of
 ``models/cache_ops.py`` (``length`` (batch,) at axis 0, other fields batch
@@ -18,16 +20,30 @@ never ``int()`` it: a host read would sync the device every tick.
 
 from __future__ import annotations
 
+from typing import Optional
+
 
 class ServableModel:
     """Base/protocol for engine workloads."""
 
+    # ---- vocabulary: how the engine narrates this workload ------------
     #: what one emitted unit is called (metric family names, summaries)
     unit: str = "items"
-    #: name of the admission/ingest edge (metric family names)
+    #: trace-span name for slot admission/ingest (and its metric families)
     admit_span: str = "admit"
-    #: step vocabulary stem of the step counter families
+    #: enqueue/admit trace arg naming the payload size
+    payload_arg: str = "payload_items"
+    #: enqueue trace arg naming the emission budget
+    budget_arg: str = "budget"
+    #: trace-event name for a request's first emission
+    first_event: str = "first_emit"
+    #: step vocabulary stem: the engine's tick span is "{step_span}_tick"
+    #: and the step counter families are "repro_{step_span}_*"
     step_span: str = "step"
+    #: dispatch call-site counted per admission ingest (None = uncounted)
+    admit_site: Optional[str] = "admit"
+    #: dispatch call-sites counted per fused step
+    step_sites: tuple = ()
     #: Request subclass the engine constructs on submit
     request_cls = None
     #: the arch config (degree site names); exposes ``name``, ``n_layers``
@@ -108,4 +124,18 @@ class ServableModel:
         raise NotImplementedError
 
     def done_args(self, req, info: dict) -> dict:
+        """Trace args for the request_done event (workload vocabulary)."""
         return {self.unit: len(req.out), **info}
+
+    # ---- quality / calibration hooks ---------------------------------
+
+    def quality_tap(self, *, every: int, registry, tracer):
+        """Build the live-vs-exact quality sampler (obs/quality.py) for
+        ``quality_every=N``; workloads without one raise."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no quality tap")
+
+    def exact_model(self):
+        """An exact-arithmetic twin for calibration references
+        (tune.autotune probes); self if ``degree=None`` already means exact."""
+        return self

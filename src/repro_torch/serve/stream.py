@@ -27,9 +27,11 @@ layout (``length`` (B,) at axis 0, other fields batch at axis 1), so the
 generic ``cache_reset_slot`` / ``cache_mask_update`` helpers give this
 workload the reuse-after-free bit-identity guarantee the LM caches have.
 
-Not ported yet: the quality tap (``quality_tap``, with the port of
-``obs/quality.py``) and the guard wiring into quarantine (``guard_limit``
-is kept as the bound a guard would hold).
+Plans calibrate on application-level quality — PSNR against the
+exact-arithmetic pipeline (``core.error_analysis.psnr_db``) through
+:func:`psnr_metric` — and the quality tap samples the same per-frame PSNR
+live.  Not ported yet: the guard wiring into quarantine (``guard_limit`` is
+kept as the bound a guard would hold).
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.approx import ApproxPolicy
 from repro_torch.core.error_analysis import psnr_db
 from repro_torch.device import resolve_device
 from repro_torch.kernels import dispatch as kdispatch
@@ -47,6 +50,9 @@ from repro_torch.kernels import dsp
 from repro_torch.models.cache_ops import cache_mask_update, cache_reset_slot
 from repro_torch.serve import engine as _engine
 from repro_torch.serve.servable import ServableModel
+
+#: 1 / ln 10 rounded to f32, the factor of the reference's log10
+_INV_LN10 = float(np.float32(1.0 / np.log(10.0)))
 
 #: PSNR-flavored histogram buckets (dB) for the stream quality tap
 PSNR_BUCKETS = (10.0, 15.0, 20.0, 25.0, 30.0, 35.0, 40.0, 45.0, 50.0,
@@ -56,7 +62,8 @@ PSNR_BUCKETS = (10.0, 15.0, 20.0, 25.0, 30.0, 35.0, 40.0, 45.0, 50.0,
 @dataclass(frozen=True)
 class StreamConfig:
     """Arch-config analogue for the stream pipeline: ``name``,
-    ``n_layers`` and ``site_names`` as the degree machinery reads them."""
+    ``n_layers`` and ``site_names`` as the degree machinery reads them, and
+    the autotuner's cost-model override (``site_macs``)."""
 
     name: str = "dsp-stream-v1"
     frame: int = 256              # samples per frame (== tile H*W)
@@ -70,6 +77,12 @@ class StreamConfig:
         if H * W != self.frame:
             raise ValueError(f"tile {self.tile} does not hold frame="
                              f"{self.frame} samples")
+
+    def site_macs(self) -> list:
+        """Per-frame MAC counts per plan site (autotune cost weights):
+        T per FIR output sample, 9 per blur pixel, 1 per gain pixel."""
+        return [float(self.taps * self.frame), float(9 * self.frame),
+                float(self.frame)]
 
     def site_names(self) -> list:
         return ["fir", "conv2d", "gain"]
@@ -120,10 +133,19 @@ class StreamAdapter(ServableModel):
     unit = "frames"
     admit_span = "admit"
     step_span = "stream"
+    payload_arg = "payload_frames"
+    budget_arg = "max_frames"
+    first_event = "first_frame"
+    admit_site = None             # admission is a slot reset, no fused math
+    step_sites = ("fir", "conv2d")
 
     def __init__(self, cfg: Optional[StreamConfig] = None, *, device="cuda"):
         self.cfg = cfg or StreamConfig()
         self.device = resolve_device(device)
+        # plan machinery hook: build_plan stamps the policy's default block;
+        # the pipeline is already integer arithmetic, so the default spec is
+        # just a carrier
+        self.policy = ApproxPolicy()
         # clean pipeline range bound: l1-safe taps/kern quantization and the
         # <1 gain keep |frame| <= 2**q end-to-end (what a guard would hold)
         self.guard_limit = float(2 << self.cfg.q)
@@ -235,6 +257,31 @@ class StreamAdapter(ServableModel):
             out, state = self.step(params, state, frames[:, f], active, None, degree)
             outs.append(out)
         return torch.stack(outs, dim=1).to(torch.float32) / (1 << self.cfg.q), {}
+
+    def exact_model(self):
+        return self
+
+    def quality_tap(self, *, every, registry, tracer):
+        """Live per-frame PSNR vs the exact-arithmetic pipeline, bucketed in
+        dB (the stream analogue of the LM logit-RMS tap).  The step builds a
+        new state, so the probe's two steps leave the live state as it was."""
+        from repro_torch.obs.quality import QualityTap
+
+        peak2 = float(1 << self.cfg.q) ** 2          # exact in f32
+
+        def probe(p, state, feed, active, deg, exact_deg):
+            approx, _ = self.step(p, state, feed, active, None, deg)
+            exact, _ = self.step(p, state, feed, active, None, exact_deg)
+            w = active.to(torch.float32)[:, None]
+            n = torch.clamp(w.sum() * approx.shape[-1], min=1.0)
+            err = (((approx - exact).to(torch.float32) ** 2) * w).sum() / n
+            # log10 as jnp.log10 computes it: log(x) * f32(1 / ln 10)
+            return 10.0 * (torch.log(peak2 / torch.clamp(err, min=peak2 * 1e-18))
+                           * _INV_LN10)
+
+        return QualityTap(probe=probe, every=every, registry=registry,
+                          tracer=tracer, metric_name="psnr_db",
+                          buckets=PSNR_BUCKETS)
 
 
 class StreamServeEngine(_engine.ServeCore):

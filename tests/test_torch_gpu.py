@@ -694,3 +694,125 @@ def test_gpu_pr_stages_refuse_bad_operands(hopper):
         with pytest.raises(ValueError, match=match):
             call()
     assert _build.launches == before
+
+
+# ---------------------------------------------------------------------------
+# per-layer plans and the quality tap on the card
+# ---------------------------------------------------------------------------
+
+
+def _smoke_lm(device, arch="tinyllama-1.1b-smoke"):
+    from repro_torch.configs import get_config
+    from repro_torch.core.approx import policy_from_flag
+    from repro_torch.models import build_model
+
+    m = build_model(get_config(arch), policy_from_flag("axq8", dynamic=True), device=device)
+    return m, m.prepack(m.init(seed=0))
+
+
+def _mixed_plan(cfg):
+    from repro_torch import tune
+
+    plan = tune.uniform_plan(cfg, ebits_ladder=(8, 6, 5, 4))
+    S = cfg.n_layers + 1
+    plan.ladder[1] = tune.PlanPoint("mixed", tuple([8, 5] * S)[:S], 0.1, 0.9)
+    return plan
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rung", [0, 1, 3])
+def test_gpu_plan_rung_served_by_the_kernels_equals_the_vector_by_hand(hopper, rung):
+    """An engine held on a plan rung (its operand built at construction)
+    and one given the rung's vector as ``degree=`` emit the same greedy
+    tokens, through the kernels."""
+    from repro_torch.core.dynamic import QoSController
+    from repro_torch.serve.lm import ServeEngine
+
+    m, params = _smoke_lm(hopper)
+    plan = _mixed_plan(m.cfg)
+    rng = np.random.default_rng(rung)
+    prompts = [rng.integers(0, m.cfg.vocab, int(rng.integers(2, 20))) for _ in range(3)]
+
+    def serve(**kw):
+        eng = ServeEngine(m, params, slots=2, max_len=64, prepack=False, **kw)
+        reqs = [eng.submit(p, 6) for p in prompts]
+        eng.run_until_drained()
+        return [r.out_tokens for r in reqs]
+
+    before = dict(_build.launches)
+    held = QoSController(ladder=[], low_water=-1.0, high_water=2.0, degree=rung)
+    through_plan = serve(plan=plan, qos=held)
+    assert _build.launches["axqmm"] > before["axqmm"]
+    assert _build.launches["flash_decode"] > before["flash_decode"]
+    assert through_plan == serve(degree=plan.degrees(rung))
+
+
+@pytest.mark.gpu
+def test_gpu_decode_graph_replay_follows_a_plan_rung_move(hopper):
+    """One decode step captured in a CUDA graph with a device degree
+    vector; each plan rung written into that vector between replays gives
+    the eager step's logits at that rung, bit for bit, with no rebuild."""
+    m, params = _smoke_lm(hopper)
+    plan = _mixed_plan(m.cfg)
+    cache = m.init_cache(tp=1, batch=2, max_len=64)
+    for slot, n in ((0, 9), (1, 17)):
+        toks = torch.arange(1, n + 1, device=hopper) % m.cfg.vocab
+        _, cache = m.prefill(params, cache, toks, slot)
+    feed = torch.tensor([[3], [5]], device=hopper)
+    active = torch.ones(2, dtype=torch.bool, device=hopper)
+    deg = torch.tensor(plan.degrees(0), device=hopper)
+
+    def step():
+        return m.decode_step(params, cache, feed, degree=deg, active=active)[0]
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = step()
+    libs = dict(_build._libs)
+    seen = []
+    for r in (0, 1, 3, 0):
+        deg.copy_(torch.tensor(plan.degrees(r), device=hopper))
+        graph.replay()
+        torch.cuda.synchronize()
+        want = m.decode_step(params, cache, feed, degree=deg, active=active)[0]
+        assert torch.equal(out, want), r
+        seen.append(out.clone())
+    assert not torch.equal(seen[0], seen[2]) and torch.equal(seen[0], seen[3])
+    assert dict(_build._libs) == libs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["bf16", "int8", "ring"])
+def test_gpu_quality_tap_leaves_the_cache_bit_identical(hopper, kind):
+    """The tap's two decode forwards write the cache rows the next step
+    writes; it restores them, so the state after ``sample()`` is the state
+    before, bit for bit, on the bf16, int8 and ring caches."""
+    from repro_torch.obs.quality import QualityTap
+    from repro_torch.obs.metrics import Registry
+
+    arch = "h2o-danube-1.8b-smoke" if kind == "ring" else "tinyllama-1.1b-smoke"
+    m, params = _smoke_lm(hopper, arch)
+    cache = m.init_cache(tp=1, batch=3, max_len=64, quant=kind == "int8")
+    for slot, n in ((0, 45 if kind == "ring" else 11), (1, 7)):
+        toks = torch.arange(2, n + 2, device=hopper) % m.cfg.vocab
+        _, cache = m.prefill(params, cache, toks, slot)
+    if kind == "ring":
+        assert cache.k.shape[2] == 32 and int(cache.length.max()) > 32
+    before = [t.clone() for t in cache]
+    tap = QualityTap(m, every=1, registry=Registry())
+    feed = torch.tensor([[3], [5], [0]], device=hopper)
+    active = torch.tensor([True, True, False], device=hopper)
+    launches = _build.launches["flash_decode_quant" if kind == "int8" else "flash_decode"]
+    for deg in (torch.full((3,), 5, dtype=torch.int32, device=hopper),
+                torch.tensor([8, 4, 6], dtype=torch.int32, device=hopper)):
+        val = tap.sample(0, params, cache, feed, active, deg)
+        assert math.isfinite(val) and val > 0
+        for a, b in zip(before, cache):
+            assert torch.equal(a, b)
+    name = "flash_decode_quant" if kind == "int8" else "flash_decode"
+    assert _build.launches[name] == launches + 2 * 2 * m.cfg.n_layers
