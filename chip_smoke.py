@@ -64,7 +64,14 @@ Phases (any failure exits non-zero):
        3h  the same on the int8 cache with bucketed, packed admission;
      every request must finish and every kernel of the path must have
      launched exactly as the layer (or stage) count predicts, while no
-     plain version ran on the card;
+     plain version ran on the card.  Every path serves from CUDA graphs,
+     one per call shape of the step, each bucket and the chunk, captured
+     when its engine is built (the launch counts rise by each replay's
+     recorded launches); 3, 3b, 3e, 3g and 3d also serve their traffic
+     eagerly (``capture=False``) in the same call, with equal tokens or
+     frames required, and print the two ticks beside the traced captured
+     tick's device time and busy share, the capture seconds and the graph
+     pool's bytes;
   4. each LM cut to 2 layers (one prefill and 4 greedy decode steps), on
      the bf16 and on the int8 cache: every kernel call checked against its
      plain version on the model's own inputs, the logits of a kernel run
@@ -1133,9 +1140,10 @@ def serving_model(ctx, cfg):
     return model, params
 
 
-def make_engine(ctx, model, params, *, max_len, quant=False, admission=None):
+def make_engine(ctx, model, params, *, max_len, quant=False, admission=None, capture=None):
     """A QoS-driven engine (ladder ebits 8 -> 5) over the shared weights;
-    ``quant`` picks the int8 KV cache (as REPRO_KV_INT8=1 does)."""
+    ``quant`` picks the int8 KV cache (as REPRO_KV_INT8=1 does); ``capture``
+    as ``ServeCore`` takes it (None: CUDA graphs on the card)."""
     import os
 
     from repro_torch.core.dynamic import QoSController
@@ -1147,7 +1155,7 @@ def make_engine(ctx, model, params, *, max_len, quant=False, admission=None):
     os.environ["REPRO_KV_INT8"] = "1" if quant else "0"
     try:
         eng = ServeEngine(model, params, slots=ctx["slots"], max_len=max_len, qos=qos,
-                          prepack=False, seed=0, admission=admission)
+                          prepack=False, seed=0, admission=admission, capture=capture)
     finally:
         if prev is None:
             del os.environ["REPRO_KV_INT8"]
@@ -1214,6 +1222,76 @@ def check_launches(ctx, label, seen, expect):
         require(n == 0 or launches[name] > 0, f"{label}: kernel {name} never launched")
 
 
+def graph_summary(eng) -> dict:
+    """The engine's CUDA graphs: call shapes captured, capture seconds,
+    device bytes the captures reserved (the graphs' shared pool) and each
+    shape's replays; None for an eager engine."""
+    if eng.graphs is None:
+        return None
+    s = eng.graphs.summary()
+    return {"graphs": s["graphs"], "capture_s": s["capture_s"], "pool_bytes": s["pool_bytes"],
+            "replays": {k: v["replays"] for k, v in s["shapes"].items()}}
+
+
+def eager_twin(ctx, label, make, prompts, new_tokens, reqs, eng):
+    """The same traffic through ``make(capture=False)``, an eager engine on
+    the card: its tokens and degree history must equal the captured
+    engine's.  Returns its decode tick and tokens/s."""
+    twin = make(capture=False)
+    treqs, tseen = drive(ctx, twin, prompts, new_tokens)
+    same = [r.out_tokens for r in reqs] == [r.out_tokens for r in treqs]
+    require(same, f"{label}: the captured engine's tokens differ from the eager engine's")
+    require([d for _, d in eng.stats.degree_history] ==
+            [d for _, d in twin.stats.degree_history],
+            f"{label}: the eager engine walked other rungs")
+    dts = tseen["decode_ticks"]
+    out = {"decode_tick_ms_mean": 1e3 * sum(dts) / max(len(dts), 1),
+           "gen_tok_per_s": sum(len(r.out_tokens) for r in treqs) / tseen["wall_s"],
+           "wall_s": tseen["wall_s"], "tokens_equal": same}
+    del twin
+    return out
+
+
+def replay_times(ctx, eng, n=16) -> dict:
+    """Untraced medians over ``n`` replays of ``eng``'s step graph (staging
+    done once before): how long the graph launch call holds the host, and
+    a replay's wall time to the device's end.  Run last on a drained
+    engine, every slot free: a replay then writes each slot's cache row at
+    its length, which no request reads."""
+    import numpy as np
+
+    torch = ctx["torch"]
+    g, key = eng.graphs, eng._step_key
+    g.stage(key, {"feed": eng._feed, "active": np.zeros(eng.slots, bool)})
+    torch.cuda.synchronize()
+    launch, wall = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        g.replay(key)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        launch.append(t1 - t0)
+        wall.append(time.perf_counter() - t0)
+    return {"replays": n, "launch_ms": 1e3 * float(np.median(launch)),
+            "replay_wall_ms": 1e3 * float(np.median(wall))}
+
+
+def capture_line(label, out) -> None:
+    """Print one path's captured-vs-eager line."""
+    g, e, prof = out["graphs"], out.get("eager"), out.get("profile")
+    say(f"{label} captured vs eager: decode tick {out['decode_tick_ms_mean']:.4f} ms "
+        f"captured, {e['decode_tick_ms_mean'] if e else None} ms eager; tokens/s "
+        f"{out['gen_tok_per_s']:.2f} vs {e['gen_tok_per_s'] if e else None}; traced tick "
+        f"device time {prof['device_us_per_tick'] if prof else None} us, busy share "
+        f"{prof['device_busy_share'] if prof else None}, graph launch call "
+        f"{prof['graph_launch_us_per_tick'] if prof else None} us; {g['graphs']} graphs "
+        f"captured in "
+        f"{g['capture_s']:.3f} s, pool {g['pool_bytes']} bytes; peak memory "
+        f"{out.get('max_memory_allocated')}; tokens equal to the eager run: "
+        f"{e['tokens_equal'] if e else None}; untraced replay: launch call "
+        f"{out['replay']['launch_ms']:.4f} ms, replay {out['replay']['replay_wall_ms']:.4f} ms")
+
+
 def cache_bytes(cache) -> int:
     return sum(t.numel() * t.element_size() for t in cache)
 
@@ -1238,6 +1316,7 @@ def serve_summary(ctx, label, eng, reqs, seen, tick_bound_ms):
         "launches": seen["launches"], "flash_schedules": seen["flash_schedules"],
         "max_memory_allocated": seen["max_memory_allocated"],
         "cache": type(eng.cache).__name__, "cache_bytes": cache_bytes(eng.cache),
+        "graphs": graph_summary(eng),
     }
     say(f"{label}: {len(reqs)} requests, {out['generated_tokens']} tokens in "
         f"{seen['wall_s']:.3f} s ({out['gen_tok_per_s']:.1f} tok/s); decode tick "
@@ -1259,7 +1338,8 @@ def phase_serve(ctx, cfg, model, params):
     warm.submit(rng.integers(0, cfg.vocab, lo), 2)
     warm.run_until_drained()
     del warm
-    eng = make_engine(ctx, model, params, max_len=ctx["max_len"])
+    make = lambda **kw: make_engine(ctx, model, params, max_len=ctx["max_len"], **kw)
+    eng = make()
     prompts = [rng.integers(0, cfg.vocab, int(rng.integers(lo, hi + 1)))
                for _ in range(ctx["requests"])]
     reqs, seen = drive(ctx, eng, prompts, ctx["new_tokens"])
@@ -1274,6 +1354,11 @@ def phase_serve(ctx, cfg, model, params):
                         wbytes / HBM_BPS * 1e3)
     out.update(arch=cfg.name, new_tokens=ctx["new_tokens"], prompt_range=[lo, hi],
                slots=ctx["slots"], max_len=ctx["max_len"], packed_weight_bytes=wbytes)
+    if ctx["on_card"]:
+        out["eager"] = eager_twin(ctx, "phase 3", make, prompts, ctx["new_tokens"], reqs, eng)
+        out["profile"] = _profile_lm_ticks(ctx, eng, prompts, ctx["profile_ticks"])
+        out["replay"] = replay_times(ctx, eng)
+        capture_line("phase 3", out)
     return out, prompts
 
 
@@ -1283,9 +1368,10 @@ def phase_serve_int8(ctx, cfg, model, params, prompts):
     from repro_torch.models.transformer import init_lm_cache
     from repro_torch.serve.admission import AdmissionConfig
 
+    make = lambda **kw: make_engine(ctx, model, params, max_len=ctx["max_len"], quant=True,
+                                    admission=AdmissionConfig(pack=4), **kw)
     t = time.time()
-    eng = make_engine(ctx, model, params, max_len=ctx["max_len"], quant=True,
-                      admission=AdmissionConfig(pack=4))
+    eng = make()
     ctx["sync"]()
     warmup_s = time.time() - t
     wl = eng.workload
@@ -1293,6 +1379,10 @@ def phase_serve_int8(ctx, cfg, model, params, prompts):
     require(shapes["prefill_batch"] == len(wl.admission.buckets) and shapes["step"] == 1,
             f"phase 3b: warmup ran {shapes}, expected {len(wl.admission.buckets)} bucket "
             "shapes and one step shape")
+    if ctx["on_card"]:
+        require(eng.graphs is not None and len(eng.graphs.graphs) == sum(shapes.values()),
+                f"phase 3b: {0 if eng.graphs is None else len(eng.graphs.graphs)} graphs "
+                f"for the warmed call shapes {shapes}")
     reqs, seen = drive(ctx, eng, prompts, ctx["new_tokens"])
     require(wl.trace_counts == shapes,
             f"phase 3b: a request met a new call shape: {wl.trace_counts} vs {shapes}")
@@ -1314,6 +1404,11 @@ def phase_serve_int8(ctx, cfg, model, params, prompts):
     say(f"phase 3b: warmup {warmup_s:.2f} s over {shapes}; int8 cache "
         f"{out['cache_bytes']} bytes vs {out['bf16_cache_bytes']} for bf16; "
         f"{calls} bucketed calls {out['bucket_flushes']}, {out['packed_rows']} packed rows")
+    if ctx["on_card"]:
+        out["eager"] = eager_twin(ctx, "phase 3b", make, prompts, ctx["new_tokens"], reqs, eng)
+        out["profile"] = _profile_lm_ticks(ctx, eng, prompts, ctx["profile_ticks"])
+        out["replay"] = replay_times(ctx, eng)
+        capture_line("phase 3b", out)
     return out
 
 
@@ -1403,6 +1498,28 @@ def _timed_prefills(ctx, eng, log, method="prefill"):
         delattr(model, method)
 
 
+@contextlib.contextmanager
+def _timed_bucket_calls(ctx, eng, log):
+    """Time every bucketed prefill call of ``eng``'s adapter (staging and
+    its bucket's graph replay, or the eager call), synchronised before and
+    after, into ``log`` as (bucket length, seconds)."""
+    wl = eng.workload
+    orig = wl._prefill_batch
+
+    def call(params, cache, host, *a, **kw):
+        ctx["sync"]()
+        t = time.time()
+        orig(params, cache, host, *a, **kw)
+        ctx["sync"]()
+        log.append((int(host["tokens"].shape[-1]), time.time() - t))
+
+    wl._prefill_batch = call
+    try:
+        yield
+    finally:
+        del wl._prefill_batch
+
+
 def _split_ttft(reqs, kinds) -> dict:
     """TTFT p50/p95 of the long and of the short prompts (ms)."""
     import numpy as np
@@ -1463,11 +1580,12 @@ def phase_serve_long(ctx, tag, cfg, model, params, prompts, kinds, *, max_len, n
     prefill runs ``tri``.  A profiled window of steady decode ticks
     follows the timed run."""
     label = f"phase {tag}"
-    warm = make_engine(ctx, model, params, max_len=max_len)
+    make = lambda **kw: make_engine(ctx, model, params, max_len=max_len, **kw)
+    warm = make()
     warm.submit(prompts[kinds.index("short")][:16], 2)
     warm.run_until_drained()
     del warm
-    eng = make_engine(ctx, model, params, max_len=max_len)
+    eng = make()
     T = eng.cache.k.shape[2]
     if cfg.swa_window:
         require(T == min(max_len, cfg.swa_window) and eng.workload._max_prompt is None,
@@ -1495,7 +1613,12 @@ def phase_serve_long(ctx, tag, cfg, model, params, prompts, kinds, *, max_len, n
                         [{"prefix": m, "s": t} for m, t in prefills if m > short_max], 2)
     out.update(arch=cfg.name, new_tokens=new_tokens, slots=ctx["slots"], max_len=max_len,
                cache_T=T, packed_weight_bytes=packed_bytes(params))
+    if ctx["on_card"]:
+        out["eager"] = eager_twin(ctx, label, make, prompts, new_tokens, reqs, eng)
     out["profile"] = prof = _profile_lm_ticks(ctx, eng, prompts, ctx["profile_ticks"])
+    if ctx["on_card"]:
+        out["replay"] = replay_times(ctx, eng)
+        capture_line(label, out)
     say(f"{label}: profiled {prof['ticks']} steady decode ticks (prompts "
         f"{prof['prompt_lens']}): {prof['tick_wall_ms']:.4f} ms wall per tick, "
         f"{prof['device_us_per_tick']:.2f} us of device kernel time per tick (busy share "
@@ -1512,8 +1635,8 @@ def phase_serve_long_int8(ctx, tag, cfg, model, params, prompts, kinds, *, max_l
     bucket shape first; the ``n_band`` prompts past the largest bucket take
     the exact path (``band``, one call shape each), the others the buckets
     (``tri``), and no other call shape is new.  The host-side write plan of
-    each bucketed call is timed."""
-    from repro_torch.models import transformer as TR
+    each bucketed call (staging and the replay of its bucket's graph, its
+    write plan on the device) is timed."""
     from repro_torch.serve.admission import AdmissionConfig, bucket_for
 
     label = f"phase {tag}"
@@ -1527,21 +1650,9 @@ def phase_serve_long_int8(ctx, tag, cfg, model, params, prompts, kinds, *, max_l
     nb = len(wl.admission.buckets)
     require(shapes["prefill_batch"] == nb and shapes["step"] == 1,
             f"{label}: warmup ran {shapes}, expected {nb} bucket shapes and one step shape")
-    plan_s: list = []
-    orig_plan = TR._batch_write_plan
-
-    def timed_plan(*a, **kw):
-        ctx["sync"]()
-        t0 = time.time()
-        res = orig_plan(*a, **kw)
-        plan_s.append(time.time() - t0)
-        return res
-
     exact_s: list = []
     batch_s: list = []
-    with _patched([(TR, "_batch_write_plan", timed_plan)]), \
-            _timed_prefills(ctx, eng, exact_s), \
-            _timed_prefills(ctx, eng, batch_s, "prefill_batch"):
+    with _timed_prefills(ctx, eng, exact_s), _timed_bucket_calls(ctx, eng, batch_s):
         reqs, seen = drive(ctx, eng, prompts, new_tokens)
     expect_shapes = dict(shapes)
     if n_band:
@@ -1555,7 +1666,11 @@ def phase_serve_long_int8(ctx, tag, cfg, model, params, prompts, kinds, *, max_l
     st, L = eng.stats, cfg.n_layers
     steps = st.decode_steps
     calls = sum(int(c.value) for c in st.c_admit_bucket.children.values())
-    require(len(plan_s) == calls, f"{label}: {len(plan_s)} write plans for {calls} calls")
+    require(len(batch_s) == calls, f"{label}: {len(batch_s)} timed calls for {calls} calls")
+    if ctx["on_card"]:
+        replays = sum(c.replays for k, c in eng.graphs.graphs.items()
+                      if k[0] == "prefill_batch")
+        require(replays == calls, f"{label}: {replays} bucket graph replays for {calls} calls")
     check_launches(ctx, label, seen, {
         "axqmm": (5 * L + 1) * (steps + n_band) + 5 * L * calls,
         "axqmm_gated": L * (steps + n_band + calls), "flash_decode": 0,
@@ -1574,38 +1689,44 @@ def phase_serve_long_int8(ctx, tag, cfg, model, params, prompts, kinds, *, max_l
     out.update(warmup_s=warmup_s, buckets=list(wl.admission.buckets), pack=wl.admission.pack,
                call_shapes=dict(wl.trace_counts), bucketed_calls=calls,
                bucket_flushes={k[0]: int(c.value) for k, c in st.c_admit_bucket.children.items()},
-               write_plan_ms=[1e3 * x for x in plan_s])
+               bucket_call_ms=[{"bucket": m, "ms": 1e3 * t} for m, t in batch_s])
+    if ctx["on_card"]:
+        out["replay"] = replay_times(ctx, eng)
     say(f"{label}: warmup {warmup_s:.2f} s over {shapes}; {calls} bucketed calls "
-        f"{out['bucket_flushes']}; host write plans {[round(x, 3) for x in out['write_plan_ms']]}"
-        f" ms")
+        f"{out['bucket_flushes']}; each call (staging + replay) "
+        f"{[(m, round(1e3 * t, 3)) for m, t in batch_s]} ms")
+    if ctx["on_card"]:
+        capture_line(label, out)
     return out
 
 
-def _stream_engine(ctx, cfg):
+def _stream_engine(ctx, cfg, capture=None):
     """A stream engine on the card with the per-site QoS ladder [e] * 3,
-    e = 8 -> 5 (as ``launch.serve --workload stream --qos`` builds it)."""
+    e = 8 -> 5 (as ``launch.serve --workload stream --qos`` builds it);
+    ``capture`` as ``ServeCore`` takes it."""
     from repro_torch.core.dynamic import QoSController
     from repro_torch.serve.stream import StreamAdapter, StreamServeEngine
 
     qos = QoSController(ladder=[{"degrees": [e] * (cfg.n_layers + 1)} for e in (8, 7, 6, 5)],
                         low_water=0.25, high_water=0.75, cooldown_steps=8)
     return StreamServeEngine(StreamAdapter(cfg, device=ctx["dev"]), slots=ctx["stream_slots"],
-                             qos=qos)
+                             qos=qos, capture=capture)
 
 
-def _serve_clips(ctx, cfg, clips, backend):
+def _serve_clips(ctx, cfg, clips, backend, capture=None):
     """Serve ``clips`` (all submitted at t = 0) on a fresh engine through
-    ``backend``, with every launch count set to 0 just before and read just
-    after.  Returns the engine, the requests and what was seen."""
+    ``backend`` (captured unless ``capture`` is False), with every launch
+    count set to 0 just before and read just after.  Returns the engine,
+    the requests and what was seen."""
     torch = ctx["torch"]
     from repro_torch.kernels import _build
 
     with _backend(backend):
-        warm = _stream_engine(ctx, cfg)               # allocator, first launches
+        warm = _stream_engine(ctx, cfg, capture)      # allocator, first launches
         warm.submit(clips[0][:2])
         warm.run_until_drained()
         del warm
-        eng = _stream_engine(ctx, cfg)
+        eng = _stream_engine(ctx, cfg, capture)
         ctx["sync"]()
         _build.reset_counts()
         base = 0
@@ -1666,7 +1787,11 @@ def _profiled(ctx, tick, n):
         fn = fn.split("::")[-1]
         by_fn[fn] = by_fn.get(fn, 0.0) + t
     copies_ = sum(c for k, c, _ in rows if k.startswith(("Memcpy", "Memset")))
+    # the host's side of a replay: the graph launch call (absent when eager)
+    launch_us = sum(e.self_cpu_time_total for e in prof.key_averages()
+                    if e.key == "cudaGraphLaunch")
     return {"ticks": n, "tick_wall_ms": 1e3 * wall / n, "device_us_per_tick": dev_us / n,
+            "graph_launch_us_per_tick": launch_us / n,
             "kernels_per_tick": (sum(c for _, c, _ in rows) - copies_) / n,
             "copies_per_tick": copies_ / n,
             "device_busy_share": dev_us * 1e-6 / wall if wall > 0 else None,
@@ -1676,9 +1801,9 @@ def _profiled(ctx, tick, n):
                                   sorted(by_fn.items(), key=lambda x: -x[1])}}
 
 
-def _profile_ticks(ctx, cfg, clips, n):
+def _profile_ticks(ctx, cfg, clips, n, capture=None):
     """Device time inside ``n`` steady stream ticks (every slot busy)."""
-    eng = _stream_engine(ctx, cfg)
+    eng = _stream_engine(ctx, cfg, capture)
     for c in clips[:ctx["stream_slots"]]:
         eng.submit(c)
     for _ in range(2):                        # admission tick + one more
@@ -1733,13 +1858,28 @@ def phase_stream(ctx):
     hist = [(t, tuple(d)) for t, d in eng.stats.degree_history]
     rungs = sorted({d for _, d in hist})
     require(len(rungs) > 1, f"phase 3d: the QoS degree never moved: {rungs}")
-    peng, preqs, pseen = _serve_clips(ctx, cfg, clips, "torch")
+    same_frames = lambda a, b: all(
+        len(r.out) == len(q.out) and all(np.array_equal(x, y) for x, y in zip(r.out, q.out))
+        for r, q in zip(a, b))
+    # the plain versions, and the kernels without graphs: eager comparisons
+    peng, preqs, pseen = _serve_clips(ctx, cfg, clips, "torch", capture=False)
     require([(t, tuple(d)) for t, d in peng.stats.degree_history] == hist,
             "phase 3d: the plain run's degree history differs from the kernel run's")
-    same = all(len(r.out) == len(q.out) and all(np.array_equal(x, y) for x, y in
-                                                 zip(r.out, q.out))
-               for r, q in zip(reqs, preqs))
+    same = same_frames(reqs, preqs)
     require(same, "phase 3d: the kernel run's frames differ from the plain run's")
+    eager = None
+    if ctx["on_card"]:
+        eeng, ereqs, eseen = _serve_clips(ctx, cfg, clips, kernels, capture=False)
+        require([(t, tuple(d)) for t, d in eeng.stats.degree_history] == hist,
+                "phase 3d: the eager run's degree history differs from the captured run's")
+        require(same_frames(reqs, ereqs),
+                "phase 3d: the captured run's frames differ from the eager run's")
+        out_replay = replay_times(ctx, eng)
+        edts = eseen["step_ticks"]
+        eager = {"tick_ms_mean": 1e3 * sum(edts) / max(len(edts), 1),
+                 "frames_per_s": sum(len(r.out) for r in ereqs) / eseen["wall_s"],
+                 "wall_s": eseen["wall_s"], "frames_equal": True}
+        del eeng, ereqs
 
     s = summarize(reqs, eng.stats, wall_s=seen["wall_s"])
     frames = sum(len(r.out) for r in reqs)
@@ -1761,7 +1901,8 @@ def phase_stream(ctx):
            "plain_run": {"wall_s": pseen["wall_s"], "frames_per_s": frames / pseen["wall_s"],
                          "tick_ms_mean": 1e3 * sum(pseen["step_ticks"])
                          / max(len(pseen["step_ticks"]), 1)},
-           "frames_bit_identical_to_plain": same}
+           "frames_bit_identical_to_plain": same, "graphs": graph_summary(eng),
+           "eager": eager, "replay": out_replay if ctx["on_card"] else None}
     say(f"phase 3d (stream, {slots} slots, {n_clips} clips x {n_frames} frames): "
         f"{frames} frames in {seen['wall_s']:.3f} s ({out['frames_per_s']:.1f} frames/s; "
         f"plain versions {out['plain_run']['frames_per_s']:.1f}); tick "
@@ -1797,6 +1938,9 @@ def phase_stream(ctx):
     with _backend(kernels):
         out["profile"] = prof = _profile_ticks(ctx, cfg, clips,
                                                min(16, n_frames - 2))
+        if ctx["on_card"]:
+            out["profile_eager"] = _profile_ticks(ctx, cfg, clips, min(16, n_frames - 2),
+                                                  capture=False)
     say(f"phase 3d: profiled {prof['ticks']} steady ticks: {prof['tick_wall_ms']:.4f} ms "
         f"wall per tick, {prof['device_us_per_tick']:.2f} us of device time per tick "
         f"(busy share {prof['device_busy_share']}), {prof['kernels_per_tick']} kernel "
@@ -1804,6 +1948,19 @@ def phase_stream(ctx):
         f"{ {k: round(v, 4) for k, v in prof['share_by_function'].items()} }; largest: "
         + "; ".join(f"{r['name'][:60]} x{r['calls']} {r['device_us']:.1f} us"
                     for r in prof["top_kernels"]))
+    if ctx["on_card"]:
+        pe, g = out["profile_eager"], out["graphs"]
+        say(f"phase 3d captured vs eager: tick {out['tick_ms_mean']:.4f} ms captured, "
+            f"{eager['tick_ms_mean']:.4f} ms eager; frames/s {out['frames_per_s']:.1f} vs "
+            f"{eager['frames_per_s']:.1f}; traced tick device time "
+            f"{prof['device_us_per_tick']:.2f} vs {pe['device_us_per_tick']:.2f} us, busy "
+            f"share {prof['device_busy_share']} vs {pe['device_busy_share']}, copies a tick "
+            f"{prof['copies_per_tick']} vs {pe['copies_per_tick']}, graph launch call "
+            f"{prof['graph_launch_us_per_tick']:.2f} us; untraced replay: launch call "
+            f"{out['replay']['launch_ms']:.4f} ms, replay {out['replay']['replay_wall_ms']:.4f} "
+            f"ms; {g['graphs']} graph "
+            f"captured in {g['capture_s']:.4f} s, pool {g['pool_bytes']} bytes; frames equal "
+            f"to the eager run: True")
     say(f"phase 3d: forward PSNR vs the exact pipeline ({ctx['psnr_clips']} clips x "
         f"{ctx['psnr_frames']} frames), kernel == plain bit for bit: "
         + ", ".join(f"degree {e}: {v:.3f} dB" for e, v in psnr.items()))
@@ -1952,8 +2109,9 @@ def phase_plan_lm(ctx, cfg):
     require(s["requests"] == ctx["requests"]
             and s["generated_tokens"] == ctx["requests"] * ctx["new_tokens"],
             f"{label}: {s['requests']} requests, {s['generated_tokens']} tokens")
-    # each tap sample runs two decode forwards beside the tick's step
-    fwd = steps + 2 * samples
+    # each tap sample runs two decode forwards beside the tick's step; a
+    # captured engine ran one eager warm-up step at construction
+    fwd = steps + 2 * samples + int(eng.capture)
     check_launches(ctx, label, seen, {
         "axqmm": (5 * L + 1) * (fwd + prefills), "axqmm_gated": L * (fwd + prefills),
         "flash_decode": L * fwd, "flash_decode_quant": 0, "flash_attention": L * prefills,
@@ -2136,7 +2294,7 @@ def phase_plan_stream(ctx):
     require(same, f"{label}: the kernel run's frames differ from the plain run's")
     require([d for _, d in st.degree_history] == [d for _, d in peng.stats.degree_history],
             f"{label}: the plain run walked other rungs")
-    fwd = steps + 2 * samples
+    fwd = steps + 2 * samples + int(eng.capture)
     expect = dict.fromkeys(_build.KERNELS, 0)
     expect.update(pr_fir=fwd, pr_conv2d=2 * fwd)
     check_launches(ctx, label, seen, expect)

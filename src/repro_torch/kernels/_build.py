@@ -341,10 +341,25 @@ def expect(t: torch.Tensor, name: str, dtype, device, shape=None,
         raise ValueError(f"{name} is not {align}-byte aligned")
 
 
-@functools.lru_cache(maxsize=64)
+#: (value, device) -> its int32 device constant
+_consts: dict = {}
+
+
 def _const_i32(value, device: str) -> torch.Tensor:
-    """A cached int32 device constant: a scalar, or a vector for a tuple."""
-    return torch.tensor(value, dtype=torch.int32, device=device)
+    """A cached int32 device constant: a scalar, or a vector for a tuple.
+    Making one copies from the host, which a CUDA graph capture must not
+    do (it would fail or keep a stale host pointer): the eager warm-up run
+    before a capture makes every constant the captured call uses, and a
+    constant first asked for inside a capture raises."""
+    key = (value, device)
+    t = _consts.get(key)
+    if t is None:
+        if device.startswith("cuda") and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"device constant {value!r} first asked for inside a CUDA graph "
+                "capture: run the call eagerly once before capturing it")
+        t = _consts[key] = torch.tensor(value, dtype=torch.int32, device=device)
+    return t
 
 
 def degree_ptr(ebits, device: torch.device) -> torch.Tensor:

@@ -22,6 +22,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
@@ -250,109 +251,187 @@ def lm_prefill(params, cfg: ArchConfig, policy: ApproxPolicy, cache,
     return logits.to(torch.float32)[:, 0], cache
 
 
-def _batch_write_plan(slots, lengths, B: int, T: int, Pb: int, device):
-    """Host-side index plan of a bucketed prefill's cache writes: rows with
-    ``slot < B`` keep the last ``min(length, T)`` of their ``length`` real
-    tokens at ring position ``j % T``.  Dummy rows (``slot >= B``) and pad
-    positions are never indexed (the reference drops them as out-of-bounds
-    scatters; here they are masked out).  Returns (live slots (list), their
-    lengths (list), row, src, slot and dst index tensors on ``device``)."""
-    slots = [int(s) for s in torch.as_tensor(slots).reshape(-1).tolist()]
-    lengths = [int(n) for n in torch.as_tensor(lengths).reshape(-1).tolist()]
-    live, live_len, rows, src, dsl, dst = [], [], [], [], [], []
-    for r, (s, n) in enumerate(zip(slots, lengths)):
-        if not 0 <= s < B:
-            continue
-        if n > Pb:
-            raise ValueError(f"row {r}: length {n} exceeds the bucket ({Pb})")
-        live.append(s)
-        live_len.append(n)
-        for j in range(max(n - T, 0), n):
-            rows.append(r)
-            src.append(j)
-            dsl.append(s)
-            dst.append(j % T)
-    as_t = lambda xs: torch.tensor(xs, dtype=torch.int64).to(device)
-    return live, live_len, as_t(rows), as_t(src), as_t(dsl), as_t(dst)
+class BatchWritePlan(NamedTuple):
+    """The cache writes of a bucketed prefill, as fixed-shape device
+    tensors (no host read): ring position ``t`` of row ``r`` takes the
+    row's token ``src[r, t]`` where ``valid[r, t]``, else zero; each row
+    writes slot ``target[r]`` — its own slot for a live row; for a dummy
+    row a slot no live row of its group writes, given back its old
+    values."""
+
+    live: Tensor      # (N,) bool: 0 <= slot < B
+    lengths: Tensor   # (N,) int32, 0 on dummy rows
+    src: Tensor       # (N, T) int64
+    valid: Tensor     # (N, T) bool
+    target: Tensor    # (N,) int64
+
+
+def _row_groups(N: int, B: int) -> list:
+    """Row ranges of at most ``B`` rows: the rows of one group write
+    distinct slots."""
+    return [(r, min(r + B, N)) for r in range(0, N, B)]
+
+
+def _row_targets(slots: Tensor, live: Tensor, B: int) -> Tensor:
+    """The slot each row of one group (at most B rows, distinct live slots)
+    writes: a live row its own; the k-th dummy row the k-th slot, in
+    order, that no live row of the group writes."""
+    used = torch.zeros((B + 1,), dtype=torch.bool, device=slots.device)
+    used.index_fill_(0, torch.where(live, slots, B), True)
+    free = torch.argsort(used[:B].to(torch.int32), stable=True)
+    rank = torch.cumsum((~live).to(torch.int64), 0) - 1
+    return torch.where(live, slots, free[torch.clamp(rank, 0, B - 1)])
+
+
+def _batch_write_plan(slots: Tensor, lengths: Tensor, B: int, T: int,
+                      Pb: int) -> BatchWritePlan:
+    """Device-side index plan of a bucketed prefill's cache writes, made
+    destination first: each live row keeps the last ``min(length, T)`` of
+    its ``length`` real tokens, token ``j`` at ring position ``j % T`` —
+    for ring position ``t`` the newest ``j < length`` with ``j % T == t``,
+    so every cache position is written once.  Dummy rows (``slot`` outside
+    ``[0, B)``) and pad positions write nothing new: the reference drops
+    them as out-of-bounds scatters, which a fixed-shape write cannot, so a
+    dummy row rewrites a slot no live row touches with its own bits.
+    ``slots``/``lengths``: (N,) int64 device tensors."""
+    live = (slots >= 0) & (slots < B)
+    n = torch.where(live, lengths, 0)
+    t = torch.arange(T, dtype=torch.int64, device=slots.device)
+    last = n[:, None] - 1                                          # (N, 1)
+    j = last - torch.remainder(last - t[None], T)                  # (N, T)
+    valid = (j >= 0) & live[:, None]
+    src = torch.clamp(j, 0, Pb - 1)
+    target = torch.cat([_row_targets(slots[r0:r1], live[r0:r1], B)
+                        for r0, r1 in _row_groups(slots.shape[0], B)])
+    return BatchWritePlan(live, n.to(torch.int32), src, valid, target)
+
+
+def _write_regions(cache, i: int, plan: BatchWritePlan, k: Tensor, v: Tensor) -> None:
+    """Write layer ``i``'s slot regions of a bucketed prefill (``k``/``v``
+    (N, Pb, KVr, D)) by ``plan``, in place: each row's whole region (its
+    tokens, zeros elsewhere — the reset), a dummy row its target's old
+    region.  The int8 cache stores codes and scales (:func:`attn._q8`, per
+    token and head, so quantizing before the gather is bit-identical)."""
+    if isinstance(cache, LMCacheQ):
+        kq, ksc = attn._q8(k)
+        vq, vsc = attn._q8(v)
+        fields = ((cache.k, kq), (cache.v, vq), (cache.ks, ksc), (cache.vs, vsc))
+    else:
+        fields = ((cache.k, k), (cache.v, v))
+    N = k.shape[0]
+    for r0, r1 in _row_groups(N, cache.k.shape[1]):
+        tgt, live = plan.target[r0:r1], plan.live[r0:r1]
+        src, valid = plan.src[r0:r1], plan.valid[r0:r1]
+        rows = torch.arange(r1 - r0, device=k.device)[:, None]
+        for dst, x in fields:
+            layer = dst[i]                                         # (B, T, ...)
+            tail = (1,) * (x.dim() - 2)
+            new = torch.where(valid.reshape(*valid.shape, *tail),
+                              x[r0:r1][rows, src].to(layer.dtype), 0)
+            old = layer.index_select(0, tgt)
+            layer.index_copy_(0, tgt, torch.where(live.reshape(-1, 1, *tail), new, old))
 
 
 def lm_prefill_batch(params, cfg: ArchConfig, policy: ApproxPolicy, cache,
                      tokens: Tensor, slots, lengths, tp: int = 1, degree=None):
     """Bucketed/packed prefill: ``tokens`` (N, Pb) — N prompt rows padded to
     one bucket length Pb — written into ``slots`` (N,) with true lengths
-    ``lengths`` (N,), in place; each live row's slot region is reset first.
-    ``slots``/``lengths`` are host integers (a list, numpy or a CPU tensor):
-    the write plan is made on the host.
+    ``lengths`` (N,), in place; each live row's slot region is reset (its
+    whole region is written).  ``slots``/``lengths`` are int tensors on the
+    tokens' device — then nothing is read on the host and the call can be
+    captured in a CUDA graph — or host integers (a list or numpy), whose
+    lengths are checked against the bucket first.
 
     Per-row results equal :func:`lm_prefill` at the exact length: every op
     below attention is position-local, and causal attention over a padded
     suffix leaves the prefix rows untouched.  Rows may be dummies: a row
-    with ``slot >= B`` writes nothing, a row with ``length == 0`` only
-    resets its slot.  Returns the cache (no logits — admission feeds the
-    last prompt token through decode)."""
+    with ``slot`` outside ``[0, B)`` writes nothing (live slots must be
+    distinct), a row with ``length == 0`` only resets its slot.  Returns
+    the cache (no logits — admission feeds the last prompt token through
+    decode)."""
     ldeg, _ = split_degree(degree, cfg.n_layers, tokens.device)
     N, Pb = tokens.shape
     B, T = cache.k.shape[1], cache.k.shape[2]
+    dev = tokens.device
     ring = cfg.swa_window is not None and cfg.swa_window <= T
     if Pb > T and not ring:
         raise ValueError(f"bucket ({Pb}) exceeds cache capacity ({T})")
-    live, live_len, rows, src, dsl, dst = _batch_write_plan(
-        slots, lengths, B, T, Pb, tokens.device)
-    for s in live:
-        cache_reset_slot(cache, s)
+    if not isinstance(lengths, Tensor):
+        hs = np.asarray(slots).reshape(-1)
+        for r, (s, n) in enumerate(zip(hs, np.asarray(lengths).reshape(-1))):
+            if 0 <= s < B and n > Pb:
+                raise ValueError(f"row {r}: length {n} exceeds the bucket ({Pb})")
+    slots = torch.as_tensor(slots, dtype=torch.int64).to(dev).reshape(N)
+    lengths = torch.as_tensor(lengths, dtype=torch.int64).to(dev).reshape(N)
+    plan = _batch_write_plan(slots, lengths, B, T, Pb)
     x = L.embed_apply(params["embed"], tokens, _dtype(cfg))          # (N, Pb, d)
-    positions = torch.arange(Pb, dtype=torch.int32,
-                             device=tokens.device)[None].expand(N, Pb)
+    positions = torch.arange(Pb, dtype=torch.int32, device=dev)[None].expand(N, Pb)
     for i in range(cfg.n_layers):
         x, (k, v) = block_apply(layer_params(params["layers"], i), x, cfg, tp,
                                 policy, "layer", positions,
                                 None if ldeg is None else ldeg[i], return_kv=True)
-        if rows.numel():
-            _write_kv(cache, i, dsl, dst, k[rows, src], v[rows, src])
-    if live:
-        cache.length[torch.tensor(live, device=tokens.device)] = torch.tensor(
-            live_len, dtype=torch.int32, device=tokens.device)
+        _write_regions(cache, i, plan, k, v)
+    for r0, r1 in _row_groups(N, B):
+        tgt = plan.target[r0:r1]
+        cache.length.index_copy_(0, tgt, torch.where(
+            plan.live[r0:r1], plan.lengths[r0:r1], cache.length.index_select(0, tgt)))
     return cache
 
 
+def _chunk_rows(layer: Tensor, rows: Tensor, write: Tensor, new: Tensor) -> None:
+    """Write ``new`` (C, KVr, D) into ``layer`` (B, T, KVr, D) at the flat
+    (slot, position) ``rows`` (C,) where ``write``, in place; the other
+    rows are given back their old values."""
+    flat = layer.view(layer.shape[0] * layer.shape[1], *layer.shape[2:])
+    old = flat.index_select(0, rows)
+    flat.index_copy_(0, rows, torch.where(write[:, None, None], new.to(layer.dtype), old))
+
+
 def lm_prefill_chunk(params, cfg: ArchConfig, policy: ApproxPolicy,
-                     cache: LMCache, tokens: Tensor, slot: int, offset: int,
-                     clen: int, tp: int = 1, degree=None) -> LMCache:
+                     cache: LMCache, tokens: Tensor, slot, offset, clen,
+                     tp: int = 1, degree=None) -> LMCache:
     """Incremental prefill of one chunk: ``tokens`` (C,) continues ``slot``'s
-    prompt at position ``offset``, with ``clen <= C`` real tokens (host
-    ints).  The chunk's K/V is written at ``offset + j`` for ``j < clen``
-    (positions past the cache are dropped) and each chunk position attends
-    over the slot's cache rows up to its own position — so long prompts can
-    be admitted across ticks, interleaved with decode.  Dense full-attention
-    bf16/f32 caches only; the adapter gates eligibility.  A ``slot`` outside
-    the cache (a warm-up dummy) attends over a scratch region and writes
-    nothing.  The attention is plain PyTorch, as the reference's is jnp:
-    deterministic, but not bit-exact against one-shot prefill (cache
-    precision, T-length reductions).  Sets ``length[slot] = offset + clen``;
-    returns the cache."""
+    prompt at position ``offset``, with ``clen <= C`` real tokens (ints or
+    int device scalars: as device scalars nothing is read on the host and
+    the call can be captured in a CUDA graph).  The chunk's K/V is written
+    at ``offset + j`` for ``j < clen`` (positions past the cache are
+    dropped) and each chunk position attends over the slot's cache rows up
+    to its own position — so long prompts can be admitted across ticks,
+    interleaved with decode.  Dense full-attention bf16/f32 caches only;
+    the adapter gates eligibility.  A ``slot`` outside the cache (a
+    warm-up dummy) writes nothing: its rows are given back their old
+    values and its attention, over another slot's rows, is discarded.  The
+    attention is plain PyTorch, as the reference's is jnp: deterministic,
+    but not bit-exact against one-shot prefill (cache precision, T-length
+    reductions).  Sets ``length[slot] = offset + clen``; returns the
+    cache."""
     ldeg, _ = split_degree(degree, cfg.n_layers, tokens.device)
     pd = cfg.padded(tp)
     C = tokens.shape[0]
     B, T, kvh = cache.k.shape[1], cache.k.shape[2], cache.k.shape[3]
+    if C > T:
+        raise ValueError(f"chunk ({C}) exceeds cache capacity ({T})")
     dev = tokens.device
-    live = 0 <= slot < B
-    take = max(min(clen, T - offset), 0)
+    slot, offset, clen = (torch.as_tensor(a, dtype=torch.int64).to(dev)
+                          for a in (slot, offset, clen))
+    live = (slot >= 0) & (slot < B)
+    sc = torch.clamp(slot, 0, B - 1).reshape(1)
+    j = torch.arange(C, dtype=torch.int64, device=dev)
+    pos = offset + j                                                  # (C,)
+    write = (j < clen) & (pos < T) & live
+    rows = sc * T + torch.remainder(pos, T)            # distinct: C <= T
     x = L.embed_apply(params["embed"], tokens[None], _dtype(cfg))     # (1, C, d)
-    j = torch.arange(C, dtype=torch.int32, device=dev)
-    positions = (offset + j)[None]                                    # (1, C)
-    qmask = torch.arange(T, device=dev)[None, :] <= (offset + j)[:, None]   # (C, T)
+    positions = pos.to(torch.int32)[None]                             # (1, C)
+    qmask = torch.arange(T, device=dev)[None, :] <= pos[:, None]      # (C, T)
     for i in range(cfg.n_layers):
         lp = layer_params(params["layers"], i)
         dg = None if ldeg is None else ldeg[i]
         hn = L.rmsnorm_apply(lp["ln1"], x, cfg.norm_eps)
         q, k, v = _qkv(lp, hn, cfg, pd, policy, "layer", positions, dg)
-        if live:
-            keys, vals = cache.k[i, slot], cache.v[i, slot]           # (T, KVr, D)
-        else:
-            keys = torch.zeros_like(cache.k[i, 0])
-            vals = torch.zeros_like(cache.v[i, 0])
-        keys[offset:offset + take] = k[0, :take].to(keys.dtype)
-        vals[offset:offset + take] = v[0, :take].to(vals.dtype)
+        _chunk_rows(cache.k[i], rows, write, k[0])
+        _chunk_rows(cache.v[i], rows, write, v[0])
+        keys = cache.k[i].index_select(0, sc)[0]                      # (T, KVr, D)
+        vals = cache.v[i].index_select(0, sc)[0]
         qg = attn._group_q(q, kvh)                                    # (1, C, KV, G, D)
         s = torch.einsum("bqkgd,tkd->bkgqt", qg.to(torch.float32),
                          keys.to(torch.float32)) / math.sqrt(cfg.head_dim)
@@ -364,8 +443,8 @@ def lm_prefill_chunk(params, cfg: ArchConfig, policy: ApproxPolicy,
         hn = L.rmsnorm_apply(lp["ln2"], x, cfg.norm_eps)
         x = L.gated_mlp_apply(lp["mlp"], hn, policy, "layer/mlp", cfg.act,
                               dg, residual=x)
-    if live:
-        cache.length[slot] = offset + clen
+    cache.length.index_copy_(0, sc, torch.where(
+        live, (offset + clen).to(torch.int32), cache.length.index_select(0, sc)))
     return cache
 
 

@@ -18,6 +18,21 @@ ladder (whole mixed per-site configurations) instead of one global knob.
 One device operand per ladder rung is built at construction, so a rung
 move swaps a reference: no rebuild, no host-to-device copy, no sync.
 
+Compiled step (``capture``): on a CUDA device the fused step — and, with
+an admission config, each bucket's prefill and the prefill chunk — runs
+as a replay of one CUDA graph per call shape (``serve/graphs.py``), the
+counterpart of the reference's ``jax.jit`` of each entry point, captured
+at construction so no request ever waits on a capture.  A tick stages the
+feed and the slot mask through pinned host buffers into the graph's
+static inputs, replays, and reads the emissions back into a pinned buffer
+— its one device-to-host read.  The graphs read the degree from one
+static device buffer; a rung move copies the prebuilt rung operand into
+it on the stream (device to device: no recapture, no host copy, no sync).
+``capture=None`` captures on a CUDA device and runs eagerly on the CPU,
+which has no graphs; ``capture=False`` runs the card eagerly (an explicit
+choice, for comparisons); ``capture=True`` on the CPU raises.  A capture
+that fails raises: the engine never falls back to eager serving.
+
 With an admission config on the workload (``serve/admission.py``) the
 engine runs the admission pipeline: short prompts pack into bucketed
 prefill calls, long prompts admit chunk by chunk across ticks, interleaved
@@ -53,6 +68,7 @@ from repro_torch.core.dynamic import (QoSController, degree_operand,
 from repro_torch.kernels import dispatch as kdispatch
 from repro_torch.obs import trace as obs_trace
 from repro_torch.serve.emitq import AsyncEmitter
+from repro_torch.serve.graphs import GraphSet
 from repro_torch.serve.metrics import EngineStats
 from repro_torch.serve.servable import ServableModel
 from repro_torch.tune.plan import site_names
@@ -105,16 +121,19 @@ class ServeCore:
     degree (scalar or per-site vector) without a controller; ``prepack``
     applies the workload's quantize-once weight residency at construction.
     ``tracer``, ``registry`` and ``quality_every`` are the observability
-    hooks (module docstring).  Host times (TTFT, e2e) are taken after each
-    tick's emissions reach the host, which waits for the device."""
+    hooks; ``capture`` picks graph replay or eager steps (module
+    docstring).  Host times (TTFT, e2e) are taken after each tick's
+    emissions reach the host, which waits for the device."""
 
     def __init__(self, workload: ServableModel, params, *, slots: int = 8,
                  max_len: int = 512, seed: int = 0,
                  qos: Optional[QoSController] = None, degree=None,
                  prepack: bool = True, plan=None, registry=None,
-                 tracer=None, quality_every: int = 0, emitter=None):
+                 tracer=None, quality_every: int = 0, emitter=None,
+                 capture: Optional[bool] = None):
         self.workload = workload
         self.device = workload.device
+        self.capture = resolve_capture(capture, self.device)
         self.params = workload.prepack(params) if prepack else params
         self.slots = slots
         self.max_len = max_len
@@ -187,26 +206,88 @@ class ServeCore:
         self.emitter = None
         if self._admission is not None and emitter is not False:
             self.emitter = emitter if emitter is not None else AsyncEmitter()
+        #: the engine's CUDA graphs (None: eager)
+        self.graphs: Optional[GraphSet] = None
+        # the rung the captured degree buffer holds (None: a pinned degree)
+        self._rung_in_buffer = (qos.degree if degree is None and self._rungs is not None
+                                else None)
+        if self.capture:
+            self._init_capture()
         if self._admission is not None and self._admission.warmup:
             self._warmup()
+        if self.capture and self._step_key not in self.graphs:
+            # no admission warmup: the step is still captured here, so the
+            # capture stays out of the first request's TTFT
+            self._capture_step()
+
+    def _init_capture(self) -> None:
+        """The graph set, the static degree buffer every graph reads, and
+        the step's static inputs (feed, slot mask)."""
+        wl = self.workload
+        sampling = not getattr(wl, "greedy", True)
+        self.graphs = GraphSet(self.device, (self._gen,) if sampling else ())
+        if hasattr(wl, "graphs"):
+            wl.graphs = self.graphs              # the workload's admission graphs
+        if self._degree is not None:
+            self._degree = self._degree.clone()
+            for r in self._rungs or ():
+                if r.shape != self._degree.shape:
+                    raise ValueError(
+                        f"a QoS rung of shape {tuple(r.shape)} cannot share the "
+                        f"captured degree buffer of shape {tuple(self._degree.shape)}")
+        self._step_inputs = {
+            "feed": torch.from_numpy(self._feed).to(self.device),
+            "active": torch.zeros(self.slots, dtype=torch.bool, device=self.device)}
+        self._step_key = ("step", (tuple(self._feed.shape),
+                                   None if self._degree is None
+                                   else tuple(self._degree.shape)))
+        self._read_event = torch.cuda.Event()
+        self._out_pin = None
+
+    def _scratch_step(self, feed, active) -> None:
+        """The fused step on a scratch copy of the state with a throwaway
+        generator, so the live state and the engine's sampling stream stay
+        as they were."""
+        scratch = type(self.state)(*(t.clone() for t in self.state))
+        self.workload.step(self.params, scratch, feed, active,
+                           torch.Generator(device=self.device).manual_seed(0),
+                           self._degree)
+        del scratch
+
+    def _capture_step(self) -> None:
+        """Capture the fused step against the live state (a capture executes
+        nothing, so the state stays bit-identical), warmed up on a scratch
+        copy."""
+        wl = self.workload
+
+        def step(feed, active):
+            nxt, _ = wl.step(self.params, self.state, feed, active, self._gen,
+                             self._degree)
+            return nxt
+
+        c = self.graphs.capture(self._step_key, step, self._step_inputs,
+                                warm_fn=self._scratch_step)
+        self._out_pin = self.graphs._pinned(c.out)
 
     def _warmup(self) -> None:
         """Run every admission call shape and the fused step once before
-        the first request.  The admission calls use dummy rows that write
-        nothing; the step runs on a scratch copy of the state, with a
-        throwaway generator and every slot free, so the live state and the
-        engine's sampling stream stay as they were."""
+        the first request — under capture, capture each one's graph.  The
+        admission calls use dummy rows that write nothing; the step runs on
+        a scratch copy of the state with every slot free (and is then
+        captured against the live state)."""
         wl = self.workload
         a = self._admission
         with self._tracer.span("admission_warmup", track="engine",
                                buckets=list(a.buckets), pack=a.pack,
                                chunk=a.chunk_tokens):
             wl.warmup_admission(self.params, self.state, self._feed, self._degree)
-            scratch = type(self.state)(*(t.clone() for t in self.state))
-            wl.step(self.params, scratch, torch.from_numpy(self._feed).to(self.device),
-                    torch.zeros(self.slots, dtype=torch.bool, device=self.device),
-                    torch.Generator(device=self.device).manual_seed(0), self._degree)
-            del scratch
+            if self.capture:
+                if self._step_key not in self.graphs:
+                    self._capture_step()
+            else:
+                self._scratch_step(
+                    torch.from_numpy(self._feed).to(self.device),
+                    torch.zeros(self.slots, dtype=torch.bool, device=self.device))
         self.stats.c_warmups.inc()
 
     # ------------------------------------------------------------------
@@ -335,7 +416,13 @@ class ServeCore:
         occupancy = (n_active + len(self.queue)) / self.slots
         headroom = max(0.0, 1.0 - occupancy)
         entry = self.qos.update(self._ticks, headroom)
-        self._degree = self._rungs[self.qos.degree]
+        if not self.capture:
+            self._degree = self._rungs[self.qos.degree]
+        elif self.qos.degree != self._rung_in_buffer:
+            # the graphs read one static buffer: copy the rung in, on the
+            # stream before the next replay
+            self._degree.copy_(self._rungs[self.qos.degree])
+            self._rung_in_buffer = self.qos.degree
         self._degree_host = entry_degree(entry)
         rec = self.stats.record_degree(self._ticks, self._degree_host,
                                        self._site_names)
@@ -389,19 +476,23 @@ class ServeCore:
             self._update_degree(len(active))
         mask = np.zeros(self.slots, bool)
         mask[active] = True
-        feed = torch.from_numpy(self._feed).to(self.device)
-        mask_d = torch.from_numpy(mask).to(self.device)
         if self._tap is not None and self._tap.due(self._ticks):
             # probe BEFORE the step, on the inputs the step is about to
             # consume; the tap leaves the state as it found it
-            self._tap.sample(self._ticks, self.params, self.state, feed,
-                             mask_d, self._degree, rung=self._degree_rec)
+            self._tap.sample(self._ticks, self.params, self.state,
+                             torch.from_numpy(self._feed).to(self.device),
+                             torch.from_numpy(mask).to(self.device), self._degree,
+                             rung=self._degree_rec)
         with self._tracer.span(f"{wl.step_span}_tick", track="engine",
                                tick=self._ticks, active=len(active),
                                queued=len(self.queue)):
-            nxt, self.state = wl.step(self.params, self.state, feed, mask_d,
-                                      self._gen, self._degree)
-            nxt = nxt.cpu().numpy()      # the tick's one device->host read
+            if self.capture:
+                nxt = self._replay_step(mask)
+            else:
+                nxt, self.state = wl.step(
+                    self.params, self.state, torch.from_numpy(self._feed).to(self.device),
+                    torch.from_numpy(mask).to(self.device), self._gen, self._degree)
+                nxt = nxt.cpu().numpy()      # the tick's one device->host read
         self._ticks += 1
         self.stats.c_steps.inc()
         self.stats.c_step_units.inc(len(active))
@@ -437,6 +528,17 @@ class ServeCore:
                                    **wl.done_args(req, info))
         return len(active)
 
+    def _replay_step(self, mask: np.ndarray) -> np.ndarray:
+        """Stage the feed and the slot mask, replay the step's graph and read
+        its emissions into pinned memory: the tick's one device-to-host
+        read (a copy out, so the next tick's read cannot overwrite them)."""
+        g = self.graphs
+        out = g.run(self._step_key, {"feed": self._feed, "active": mask})
+        self._out_pin.copy_(out, non_blocking=True)
+        self._read_event.record()
+        self._read_event.synchronize()
+        return self._out_pin.numpy().copy()
+
     def run_until_drained(self, max_ticks: int = 10_000) -> list[Request]:
         """Tick until the queue and every slot are empty (or ``max_ticks``);
         returns all finished requests in completion order."""
@@ -448,3 +550,15 @@ class ServeCore:
         if self.emitter is not None:
             self.emitter.flush()
         return self.done
+
+
+def resolve_capture(capture: Optional[bool], device) -> bool:
+    """The engine's ``capture`` switch: None -> graphs on a CUDA device,
+    eager on the CPU; True on a device without CUDA graphs raises."""
+    dev = torch.device(device)
+    if capture is None:
+        return dev.type == "cuda"
+    if capture and dev.type != "cuda":
+        raise ValueError(f"capture=True needs a CUDA device (CUDA graphs); the "
+                         f"workload runs on {dev}")
+    return bool(capture)

@@ -14,6 +14,17 @@ lengths, and long ones (bf16/f32 cache) admit in chunks across ticks.
 compiled reference would compile once each — so tests can pin admission to
 the bucket ladder.
 
+Under a capturing engine (``ServeCore(capture=...)``, the default on a
+CUDA device) each bucket's prefill, the prefill chunk and the step are
+replays of one CUDA graph per call shape (``serve/graphs.py``), captured
+at warmup (or at a shape's first use without warmup): their tokens, slots,
+lengths, offset and chunk length are staged through pinned host buffers
+into the graph's static inputs, and the write plans run on the device.
+Exact-length admission (:meth:`LMAdapter.admit`) stays eager: its call
+shape is the prompt's length, unbounded, and the reference too compiles
+one program per new length at first use — a shape seen once gains nothing
+from a capture.
+
   eos_id semantics: ``-1`` (the default) disables EOS stopping.  When set,
   sampling ``eos_id`` finishes the request; the EOS token itself is neither
   emitted into ``out_tokens`` nor charged against ``max_new_tokens``.
@@ -27,10 +38,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.models.cache_ops import cache_mask_update
+from repro_torch.models.cache_ops import cache_mask_update, cache_reset_slot
 from repro_torch.models.registry import Model
 from repro_torch.serve import engine as _engine
 from repro_torch.serve.admission import AdmissionConfig, bucket_for
+from repro_torch.serve.graphs import device_inputs
 from repro_torch.serve.sampling import sample_tokens
 from repro_torch.serve.servable import ServableModel
 
@@ -108,6 +120,9 @@ class LMAdapter(ServableModel):
                           and os.environ.get("REPRO_KV_INT8", "0") != "1")
         #: bucket length of the last bucketed prefill call
         self.last_admit_bucket: Optional[int] = None
+        #: the capturing engine's :class:`~repro_torch.serve.graphs.GraphSet`
+        #: (None: every call runs eagerly)
+        self.graphs = None
 
     def _note(self, name: str, shape) -> None:
         if shape not in self._shapes[name]:
@@ -145,7 +160,8 @@ class LMAdapter(ServableModel):
     def admit(self, params, cache, feed, slot, req, degree):
         """Ingest the prompt prefix with one fused prefill call; the final
         prompt token rides the next fused decode step (it produces the
-        first generated token)."""
+        first generated token).  Always eager, also under a capturing
+        engine: the call shape is the prompt's length (module docstring)."""
         prompt = req.payload
         if prompt.size > 1:
             toks = torch.from_numpy(prompt[:-1]).to(self.device)
@@ -162,19 +178,61 @@ class LMAdapter(ServableModel):
 
     # ---- bucketed / packed / chunked admission ------------------------
 
-    def _prefill_batch(self, params, cache, toks: np.ndarray, slots, lengths,
-                       degree):
-        t = torch.from_numpy(toks).to(self.device)
-        self._note("prefill_batch", tuple(t.shape))
-        return self.model.prefill_batch(params, cache, t, slots, lengths,
-                                        tp=self.tp, degree=degree)
+    def _call(self, key, fn, host: dict, dummy: dict, run: bool = True) -> None:
+        """One call of the capture-ready ``fn`` (keyword device inputs) at
+        call shape ``key``: eagerly on ``host`` copied to the device, or —
+        under a capturing engine — as a replay of ``key``'s graph with
+        ``host`` staged into its static inputs, the graph captured first
+        (on the ``dummy`` inputs, which write nothing) if ``key`` is new.
+        ``run=False`` only captures (warmup)."""
+        g = self.graphs
+        if g is None:
+            if run:
+                fn(**device_inputs(host, self.device))
+            return
+        if key not in g:
+            g.capture(key, fn, device_inputs(dummy, self.device))
+        if run:
+            g.run(key, host)
 
-    def _prefill_chunk(self, params, cache, toks: np.ndarray, slot: int,
-                       offset: int, clen: int, degree):
-        t = torch.from_numpy(toks).to(self.device)
-        self._note("prefill_chunk", tuple(t.shape))
-        return self.model.prefill_chunk(params, cache, t, slot, offset, clen,
-                                        tp=self.tp, degree=degree)
+    def _batch_inputs(self, pack: int, Pb: int, B: int) -> dict:
+        """A bucketed call's inputs, every row a dummy (slot B, length 0)."""
+        return {"tokens": np.zeros((pack, Pb), np.int64),
+                "slots": np.full((pack,), B, np.int64),
+                "lengths": np.zeros((pack,), np.int64)}
+
+    def _chunk_inputs(self, C: int, slot: int) -> dict:
+        """A chunk call's inputs into ``slot`` at offset 0, no real token
+        (for the dummy slot B, a call that writes nothing)."""
+        return {"tokens": np.zeros((C,), np.int64), "slot": np.asarray(slot, np.int64),
+                "offset": np.asarray(0, np.int64), "clen": np.asarray(0, np.int64)}
+
+    def _prefill_batch(self, params, cache, host: dict, degree, run: bool = True):
+        """One bucketed prefill call on ``host`` (:meth:`_batch_inputs`)."""
+        pack, Pb = host["tokens"].shape
+
+        def fn(tokens, slots, lengths):
+            self._note("prefill_batch", tuple(tokens.shape))
+            self.model.prefill_batch(params, cache, tokens, slots, lengths,
+                                     tp=self.tp, degree=degree)
+
+        self._call(("prefill_batch", (pack, Pb)), fn, host,
+                   self._batch_inputs(pack, Pb, cache.length.shape[0]), run)
+
+    def _prefill_chunk(self, params, cache, host: dict, degree, run: bool = True):
+        """One chunk call on ``host`` (:meth:`_chunk_inputs`); a prompt's
+        first chunk (offset 0) rewinds its slot inside the call."""
+        C = host["tokens"].shape[0]
+        B = cache.length.shape[0]
+
+        def fn(tokens, slot, offset, clen):
+            self._note("prefill_chunk", tuple(tokens.shape))
+            live = (slot >= 0) & (slot < B)
+            cache_reset_slot(cache, torch.clamp(slot, 0, B - 1), mask=live & (offset == 0))
+            self.model.prefill_chunk(params, cache, tokens, slot, offset, clen,
+                                     tp=self.tp, degree=degree)
+
+        self._call(("prefill_chunk", (C,)), fn, host, self._chunk_inputs(C, B), run)
 
     def admit_batch(self, params, cache, feed, pairs, degree):
         """Pack up to ``admission.pack`` prompt prefixes into ONE bucketed
@@ -200,18 +258,15 @@ class LMAdapter(ServableModel):
             group = bucketed[i:i + a.pack]
             lens = [r.payload_units - 1 for _, r in group]
             Pb = bucket_for(max(lens + [1]), a.buckets)
-            toks = np.zeros((a.pack, Pb), np.int64)
-            slots = np.full((a.pack,), B, np.int64)
-            lengths = np.zeros((a.pack,), np.int64)
+            host = self._batch_inputs(a.pack, Pb, B)
             for row, ((slot, req), n) in enumerate(zip(group, lens)):
-                toks[row, :n] = req.payload[:-1]
-                slots[row] = slot
-                lengths[row] = n
+                host["tokens"][row, :n] = req.payload[:-1]
+                host["slots"][row] = slot
+                host["lengths"][row] = n
                 feed[slot, 0] = int(req.payload[-1])
                 req.cursor = n
                 ingested[id(req)] = n
-            cache = self._prefill_batch(params, cache, toks, slots, lengths,
-                                        degree)
+            self._prefill_batch(params, cache, host, degree)
             self.last_admit_bucket = Pb
         return cache, [ingested[id(r)] for _, r in pairs]
 
@@ -222,13 +277,12 @@ class LMAdapter(ServableModel):
         C = self.admission.chunk_tokens
         prompt = req.payload
         target = prompt.size - 1
-        if req.cursor == 0:
-            cache = self.model.reset_slot(cache, slot)
         take = min(C, target - req.cursor)
-        toks = np.zeros((C,), np.int64)
-        toks[:take] = prompt[req.cursor:req.cursor + take]
-        cache = self._prefill_chunk(params, cache, toks, slot, req.cursor, take,
-                                    degree)
+        host = self._chunk_inputs(C, slot)
+        host["tokens"][:take] = prompt[req.cursor:req.cursor + take]
+        host["offset"][...] = req.cursor
+        host["clen"][...] = take
+        self._prefill_chunk(params, cache, host, degree)
         req.cursor += take
         if req.cursor >= target:
             feed[slot, 0] = int(prompt[-1])
@@ -251,32 +305,36 @@ class LMAdapter(ServableModel):
 
     def warmup_admission(self, params, cache, feed, degree) -> None:
         """Run one call per bucket shape (and the chunk shape) with all-dummy
-        rows: slot = B writes nothing, so the live cache is untouched."""
+        rows: slot = B writes nothing, so the live cache is untouched.  Under
+        a capturing engine each shape's graph is captured instead (its
+        eager warm-up runs the dummy call once)."""
         a = self.admission
         if a is None:
             return
         B = feed.shape[0]
+        run = self.graphs is None
         for Pb in a.buckets:
-            self._prefill_batch(params, cache, np.zeros((a.pack, Pb), np.int64),
-                                np.full((a.pack,), B, np.int64),
-                                np.zeros((a.pack,), np.int64), degree)
+            self._prefill_batch(params, cache, self._batch_inputs(a.pack, Pb, B),
+                                degree, run)
         if self._chunk_ok:
-            self._prefill_chunk(params, cache,
-                                np.zeros((a.chunk_tokens,), np.int64), B, 0, 0,
-                                degree)
+            self._prefill_chunk(params, cache, self._chunk_inputs(a.chunk_tokens, B),
+                                degree, run)
 
     def step(self, params, cache, feed, active, generator, degree):
+        """The fused decode step: one token a slot, the cache advanced in
+        place (free slots' lengths frozen), the next tokens sampled on the
+        device.  Reads nothing on the host: a capturing engine replays it
+        from a CUDA graph."""
         self._note("step", (tuple(feed.shape),
                             None if degree is None else tuple(getattr(degree, "shape", ()))))
         logits, new_cache = self.model.decode_step(params, cache, feed,
                                                    tp=self.tp, degree=degree,
                                                    active=active)
-        # free slots are masked out: length frozen
-        new_cache = cache_mask_update(cache, new_cache, active)
+        cache = cache_mask_update(cache, new_cache, active, into=cache)
         nxt = sample_tokens(logits[:, 0, :self.cfg.vocab], generator,
                             greedy=self.greedy, temperature=self.temperature,
                             top_k=self.top_k)
-        return nxt, new_cache
+        return nxt, cache
 
     def harvest(self, req, feed, slot, emission):
         tok = int(emission)
@@ -302,7 +360,8 @@ class LMAdapter(ServableModel):
 
 class ServeEngine(_engine.ServeCore):
     """The LM serving engine: ``ServeCore`` with an :class:`LMAdapter`.
-    Runs on the model's device (``build_model(..., device=...)``)."""
+    Runs on the model's device (``build_model(..., device=...)``), from
+    CUDA graphs there unless ``capture=False`` (``ServeCore``)."""
 
     def __init__(self, model: Model, params, *, slots: int = 8,
                  max_len: int = 512, eos_id: int = -1, tp: int = 1,
@@ -310,14 +369,16 @@ class ServeEngine(_engine.ServeCore):
                  top_k: int = 0, seed: int = 0, qos=None, degree=None,
                  prepack: bool = True, plan=None, registry=None,
                  tracer=None, quality_every: int = 0,
-                 admission: Optional[AdmissionConfig] = None, emitter=None):
+                 admission: Optional[AdmissionConfig] = None, emitter=None,
+                 capture: Optional[bool] = None):
         workload = LMAdapter(model, tp=tp, eos_id=eos_id, greedy=greedy,
                              temperature=temperature, top_k=top_k,
                              max_len=max_len, admission=admission)
         super().__init__(workload, params, slots=slots, max_len=max_len,
                          seed=seed, qos=qos, degree=degree, prepack=prepack,
                          plan=plan, registry=registry, tracer=tracer,
-                         quality_every=quality_every, emitter=emitter)
+                         quality_every=quality_every, emitter=emitter,
+                         capture=capture)
         self.model = model
         self.eos_id = eos_id
         self.tp = tp

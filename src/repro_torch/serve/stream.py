@@ -210,7 +210,9 @@ class StreamAdapter(ServableModel):
 
     def step(self, params, state, feed, active, generator, degree):
         """ONE pipeline step over all slots: FIR -> blur -> gain, each stage
-        at its own element of the device degree vector."""
+        at its own element of the device degree vector.  Advances ``state``
+        in place and returns it with the frames; reads nothing on the
+        host, so the serve engine replays it from a CUDA graph."""
         cfg = self.cfg
         H, W = cfg.tile
         feed = torch.as_tensor(feed).to(device=self.device, dtype=torch.int32)
@@ -226,8 +228,12 @@ class StreamAdapter(ServableModel):
                                degree=kdispatch.site_degree(degree, 2),
                                shift=cfg.q)
         out = img.reshape(B, cfg.frame)
-        new_state = StreamState(length=state.length + 1, tail=new_tail[None])
-        return out, cache_mask_update(state, new_state, active)
+        # the state advances in place (one address per field, as a step
+        # replayed from a CUDA graph needs): every slot's FIR history, the
+        # active slots' lengths
+        state.tail.copy_(new_tail[None])
+        advanced = StreamState(length=state.length + 1, tail=state.tail)
+        return out, cache_mask_update(state, advanced, active, into=state)
 
     def harvest(self, req, feed, slot, emission):
         req.out.append(np.asarray(emission, np.int32))
@@ -263,15 +269,17 @@ class StreamAdapter(ServableModel):
 
     def quality_tap(self, *, every, registry, tracer):
         """Live per-frame PSNR vs the exact-arithmetic pipeline, bucketed in
-        dB (the stream analogue of the LM logit-RMS tap).  The step builds a
-        new state, so the probe's two steps leave the live state as it was."""
+        dB (the stream analogue of the LM logit-RMS tap).  The step advances
+        its state in place, so the probe's two steps run on copies of the
+        live state, which stays as it was."""
         from repro_torch.obs.quality import QualityTap
 
         peak2 = float(1 << self.cfg.q) ** 2          # exact in f32
 
         def probe(p, state, feed, active, deg, exact_deg):
-            approx, _ = self.step(p, state, feed, active, None, deg)
-            exact, _ = self.step(p, state, feed, active, None, exact_deg)
+            copy = lambda: StreamState(*(t.clone() for t in state))
+            approx, _ = self.step(p, copy(), feed, active, None, deg)
+            exact, _ = self.step(p, copy(), feed, active, None, exact_deg)
             w = active.to(torch.float32)[:, None]
             n = torch.clamp(w.sum() * approx.shape[-1], min=1.0)
             err = (((approx - exact).to(torch.float32) ** 2) * w).sum() / n

@@ -816,3 +816,236 @@ def test_gpu_quality_tap_leaves_the_cache_bit_identical(hopper, kind):
             assert torch.equal(a, b)
     name = "flash_decode_quant" if kind == "int8" else "flash_decode"
     assert _build.launches[name] == launches + 2 * 2 * m.cfg.n_layers
+
+
+# ---------------------------------------------------------------------------
+# the compiled serve step: one CUDA graph per call shape
+# ---------------------------------------------------------------------------
+
+
+def _capture_engine(m, params, capture, kind, **kw):
+    """An engine on ``kind``'s cache (bf16 / int8 / ring: the window arch's
+    bf16 ring) with buckets, pack 2 and (bf16 only) 8-token chunks, under
+    the global QoS ladder 8 -> 5 unless ``kw`` says otherwise."""
+    import os
+
+    from repro_torch.core.dynamic import QoSController
+    from repro_torch.serve.admission import AdmissionConfig
+    from repro_torch.serve.lm import ServeEngine
+
+    kw.setdefault("qos", QoSController(ladder=[{"ebits": e} for e in (8, 7, 6, 5)],
+                                       low_water=0.25, high_water=0.75, cooldown_steps=2))
+    prev = os.environ.get("REPRO_KV_INT8")
+    os.environ["REPRO_KV_INT8"] = "1" if kind == "int8" else "0"
+    try:
+        return ServeEngine(m, params, slots=3, max_len=64, prepack=False, seed=5,
+                           capture=capture, emitter=False,
+                           admission=AdmissionConfig(pack=2, chunk_tokens=8), **kw)
+    finally:
+        if prev is None:
+            del os.environ["REPRO_KV_INT8"]
+        else:
+            os.environ["REPRO_KV_INT8"] = prev
+
+
+def _serve(eng, prompts, n=6):
+    reqs = [eng.submit(p, n) for p in prompts]
+    eng.run_until_drained()
+    return [r.out_tokens for r in reqs], [d for _, d in eng.stats.degree_history]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["bf16", "int8", "ring"])
+@pytest.mark.parametrize("plan", [False, True])
+def test_gpu_captured_engine_tokens_equal_eager(hopper, kind, plan):
+    """The captured engine's greedy tokens and degree history equal the
+    eager engine's on the same traffic (short prompts through the buckets
+    and pack, long ones through the chunks or the exact path), with the QoS
+    rung moving between replays — the global ladder or a plan's per-site
+    rungs — and the rung operand copied into the graphs' degree buffer."""
+    from repro_torch.core.dynamic import QoSController
+
+    arch = "h2o-danube-1.8b-smoke" if kind == "ring" else "tinyllama-1.1b-smoke"
+    m, params = _smoke_lm(hopper, arch)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, m.cfg.vocab, int(n)) for n in (5, 40, 9, 3, 30, 12, 50)]
+    kw = {}
+    if plan:
+        kw = lambda: dict(plan=_mixed_plan(m.cfg), qos=QoSController(
+            ladder=[], low_water=0.25, high_water=0.75, cooldown_steps=2))
+    runs = {}
+    for capture in (False, True):
+        eng = _capture_engine(m, params, capture, kind, **(kw() if plan else {}))
+        assert (eng.graphs is not None) == capture
+        runs[capture] = _serve(eng, prompts)
+        if capture:
+            c = eng.graphs.graphs[eng._step_key]
+            assert c.replays == eng.stats.decode_steps > 0
+            assert eng.workload.trace_counts["step"] == 1
+    assert runs[True] == runs[False]
+    assert len(set(map(tuple, map(np.atleast_1d, runs[True][1])))) > 1
+
+
+@pytest.mark.gpu
+def test_gpu_captured_sampling_is_reproducible_from_the_seed(hopper):
+    """Top-k sampling from the engine's generator, registered with the
+    step's graph: two captured runs from one seed give the same tokens.
+    Whether they equal the eager run's is printed, not asserted."""
+    from repro_torch.serve.lm import ServeEngine
+
+    m, params = _smoke_lm(hopper)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, m.cfg.vocab, int(n)) for n in (5, 9, 12)]
+
+    def run(capture):
+        eng = ServeEngine(m, params, slots=2, max_len=64, prepack=False, seed=9,
+                          greedy=False, top_k=8, temperature=0.8, capture=capture)
+        return _serve(eng, prompts, 8)[0]
+
+    a, b = run(True), run(True)
+    assert a == b
+    print(f"captured sampling equals the eager run: {a == run(False)}")
+
+
+@pytest.mark.gpu
+def test_gpu_captured_stream_frames_equal_eager(hopper):
+    from repro_torch.core.dynamic import QoSController
+    from repro_torch.serve.stream import StreamServeEngine, make_clip
+
+    clips = [make_clip(3 + i % 4, 256, seed=i) for i in range(10)]
+    runs = {}
+    for capture in (False, True):
+        qos = QoSController(ladder=[{"degrees": [e] * 3} for e in (8, 7, 6, 5)],
+                            low_water=0.25, high_water=0.75, cooldown_steps=2)
+        eng = StreamServeEngine(slots=4, device=hopper, qos=qos, capture=capture)
+        reqs = [eng.submit(c) for c in clips]
+        eng.run_until_drained()
+        runs[capture] = ([np.stack(r.out) for r in reqs],
+                         [tuple(d) for _, d in eng.stats.degree_history])
+    assert runs[True][1] == runs[False][1] and len(set(runs[True][1])) > 1
+    for x, y in zip(runs[True][0], runs[False][0]):
+        np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+def test_gpu_capture_leaves_live_state_bit_identical(hopper, kind):
+    """Capturing the buckets, the chunk and the step against a live cache
+    (slots mid-request) changes no byte of it: a capture executes nothing,
+    and the warm-ups run dummy rows or a scratch copy."""
+    m, params = _smoke_lm(hopper)
+    from repro_torch.serve.admission import AdmissionConfig
+    from repro_torch.serve.lm import ServeEngine
+    import os
+
+    os.environ["REPRO_KV_INT8"] = "1" if kind == "int8" else "0"
+    try:
+        eng = ServeEngine(m, params, slots=3, max_len=64, prepack=False, seed=11,
+                          emitter=False, capture=True,
+                          admission=AdmissionConfig(pack=2, chunk_tokens=16, warmup=False))
+    finally:
+        os.environ.pop("REPRO_KV_INT8")
+    rng = np.random.default_rng(4)
+    for n in (5, 9, 12):
+        eng.submit(rng.integers(0, m.cfg.vocab, n), 8)
+    for _ in range(3):
+        eng.tick()
+    torch.cuda.synchronize()
+    before = [t.clone() for t in eng.cache]
+    shapes = len(eng.graphs.graphs)
+    eng._warmup()                                      # captures the other buckets
+    del eng.graphs.graphs[eng._step_key]
+    eng._capture_step()                                # and the step again
+    torch.cuda.synchronize()
+    assert len(eng.graphs.graphs) > shapes
+    for a, b in zip(before, eng.cache):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("workload", ["lm", "stream"])
+def test_gpu_replay_runs_clean_under_sync_debug_mode(hopper, workload):
+    """Staging the tick's inputs and replaying the step's graph makes no
+    synchronizing call (``set_sync_debug_mode("error")`` raises on one)."""
+    if workload == "lm":
+        m, params = _smoke_lm(hopper)
+        eng = _capture_engine(m, params, True, "bf16")
+        eng.submit(np.arange(1, 9), 4)
+    else:
+        from repro_torch.serve.stream import StreamServeEngine, make_clip
+
+        eng = StreamServeEngine(slots=2, device=hopper, capture=True)
+        eng.submit(make_clip(4, 256))
+    eng.tick()
+    mask = np.array([s is not None for s in eng.slot_req])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.graphs.run(eng._step_key, {"feed": eng._feed, "active": mask})
+        eng.graphs.run(eng._step_key, {"feed": eng._feed, "active": mask})
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_gpu_capture_failure_raises_and_never_serves_eagerly(hopper, monkeypatch):
+    """A step that reads a value on the host cannot be captured: the
+    engine's construction raises with the call shape in the message."""
+    from repro_torch.serve import lm as tlm
+
+    m, params = _smoke_lm(hopper)
+    step = tlm.LMAdapter.step
+
+    def host_reading_step(self, *a, **kw):
+        nxt, cache = step(self, *a, **kw)
+        return nxt + int(nxt.sum()) * 0, cache
+
+    monkeypatch.setattr(tlm.LMAdapter, "step", host_reading_step)
+    with pytest.raises(RuntimeError, match=r"capture of call shape \('step'"):
+        tlm.ServeEngine(m, params, slots=2, max_len=64, prepack=False)
+    eng = tlm.ServeEngine(m, params, slots=2, max_len=64, prepack=False, capture=False)
+    assert eng.graphs is None
+
+
+@pytest.mark.gpu
+def test_gpu_replay_launches_what_its_capture_recorded(hopper):
+    """One replay of the step's graph runs, under the profiler, the same
+    compute kernels as one eager step (copies aside), and the hand-written
+    ones among them number what the graph set recorded at capture (the
+    counts each replay adds)."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    m, params = _smoke_lm(hopper)
+    eng = _capture_engine(m, params, True, "bf16")
+    c = eng.graphs.graphs[eng._step_key]
+    L = m.cfg.n_layers
+    assert c.delta[0] == {"axqmm": 5 * L + 1, "axqmm_gated": L, "flash_decode": L}
+    assert c.delta[1] == {} and c.delta[2] == {}
+    mask = np.ones(3, bool)
+
+    def kernels(fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sorted(e.name for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and not any(w in e.name.lower() for w in ("copy", "memcpy", "memset")))
+
+    eng.graphs.stage(eng._step_key, {"feed": eng._feed, "active": mask})
+    replayed = kernels(lambda: eng.graphs.replay(eng._step_key))
+    feed = torch.from_numpy(eng._feed).to(hopper)
+    active = torch.from_numpy(mask).to(hopper)
+    scratch = type(eng.state)(*(t.clone() for t in eng.state))
+    gen = torch.Generator(device=hopper).manual_seed(0)
+    eager = kernels(lambda: eng.workload.step(eng.params, scratch, feed, active, gen,
+                                              eng._degree))
+    gemm = r"axq_(decode|tile|wgmma)_kernel"
+    attn = r"(?<!axq_)decode_kernel"
+    n = lambda names, pat: sum(bool(re.search(pat, k)) for k in names)
+    assert n(replayed, gemm) == (5 * L + 1) + L
+    assert n(replayed, attn) == L
+    assert replayed == eager
