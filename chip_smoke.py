@@ -55,6 +55,25 @@ Phases (any failure exits non-zero):
            kernels and with the plain versions (equal field for field),
            served on 3d's traffic with the PSNR tap, frames bit-identical to
            a plain run;
+     the EMUL / POW2_W arithmetic and the resilience layer on tinyllama —
+       3k  PR_EMUL (p=1, r=2), RAD_EMUL (k=4), ROUP_EMUL (k=4, p=1, r=1) and
+           POW2_W, each uniform, prepacked and captured, 8 prompts of
+           64-512 tokens: at one decode tick every integer product's int32
+           accumulator equal to an exact CPU product of the same int8
+           operands (POW2_W: every snapped weight to a CPU snap), no GEMM
+           kernel launched (the product is torch._int_mm), the flash
+           kernels as predicted; torch._int_mm timed at decode (padded) and
+           at M = 255 beside its bound;
+       3l  guards, quarantine, scrubbing, deadlines, retries, shedding and
+           brownout under seeded fault storms: through ``launch.serve
+           --faults ... --brownout``; through ServeCore with a
+           VirtualClock on 3's and 3b's engines (two runs of one seed and
+           the eager twin with identical recovery traces, the guarded
+           clean run's tokens equal to the unguarded run's, a nan / drop /
+           spike storm at a fixed degree leaving every request ok with the
+           clean tokens); through the stream engine on 3d's traffic; every
+           request ends once, the parameters byte-equal to the golden copy
+           after the final scrub, no capture after warmup;
      h2o-danube-1.8b (sliding window 4096, head_dim 80) —
        3e  prompts past the window (``band``) on the bf16 ring cache;
        3f  the same on the int8 ring with bucketed admission;
@@ -1140,22 +1159,25 @@ def serving_model(ctx, cfg):
     return model, params
 
 
-def make_engine(ctx, model, params, *, max_len, quant=False, admission=None, capture=None):
-    """A QoS-driven engine (ladder ebits 8 -> 5) over the shared weights;
-    ``quant`` picks the int8 KV cache (as REPRO_KV_INT8=1 does); ``capture``
-    as ``ServeCore`` takes it (None: CUDA graphs on the card)."""
+def make_engine(ctx, model, params, *, max_len, quant=False, admission=None, capture=None,
+                qos=True, **resil_kw):
+    """A QoS-driven engine (ladder ebits 8 -> 5; without ``qos`` a fixed
+    degree) over the shared weights; ``quant`` picks the int8 KV cache (as
+    REPRO_KV_INT8=1 does); ``capture`` as ``ServeCore`` takes it (None:
+    CUDA graphs on the card); ``resil_kw`` the resilience keywords."""
     import os
 
     from repro_torch.core.dynamic import QoSController
     from repro_torch.serve.lm import ServeEngine
 
-    qos = QoSController(ladder=[{"ebits": e} for e in (8, 7, 6, 5)],
-                        low_water=0.25, high_water=0.75, cooldown_steps=8)
+    ladder = QoSController(ladder=[{"ebits": e} for e in (8, 7, 6, 5)], low_water=0.25,
+                           high_water=0.75, cooldown_steps=8) if qos else None
     prev = os.environ.get("REPRO_KV_INT8")
     os.environ["REPRO_KV_INT8"] = "1" if quant else "0"
     try:
-        eng = ServeEngine(model, params, slots=ctx["slots"], max_len=max_len, qos=qos,
-                          prepack=False, seed=0, admission=admission, capture=capture)
+        eng = ServeEngine(model, params, slots=ctx["slots"], max_len=max_len, qos=ladder,
+                          prepack=False, seed=0, admission=admission, capture=capture,
+                          **resil_kw)
     finally:
         if prev is None:
             del os.environ["REPRO_KV_INT8"]
@@ -2330,6 +2352,474 @@ def phase_plan_stream(ctx):
 
 
 # ---------------------------------------------------------------------------
+# phases 3k / 3l: the EMUL / POW2_W arithmetic and the resilience layer
+# ---------------------------------------------------------------------------
+
+#: phase 3k's policies: (mode, knobs), each uniform over every projection
+EMUL_MODES = (("pr_emul", {"p": 1, "r": 2}), ("rad_emul", {"k": 4}),
+              ("roup_emul", {"k": 4, "p": 1, "r": 1}), ("pow2_w", {}))
+
+
+def weight_bytes(params) -> int:
+    """Bytes of every weight as served (packs or floats) but the embedding
+    table: what one decode step reads at the least."""
+    from repro_torch.resil.faults import tree_leaves
+
+    return sum(t.numel() * t.element_size()
+               for k, v in params.items() if k != "embed" for t in tree_leaves(v))
+
+
+def _emul_model(ctx, cfg, mode, kw):
+    """tinyllama under one uniform EMUL / POW2_W policy: random weights
+    from a seeded generator on the device, prepacked (POW2_W keeps its
+    float weights: it has no pack)."""
+    torch, dev = ctx["torch"], ctx["dev"]
+    from repro_torch.core.approx import ApproxMode, ApproxSpec, uniform
+    from repro_torch.models import build_model
+
+    model = build_model(cfg, uniform(ApproxSpec(mode=ApproxMode(mode), **kw)), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = model.prepack(model.init(generator=gen))
+    if ctx["on_card"]:
+        torch.cuda.empty_cache()
+    return model, params
+
+
+def _check_emul_tick(ctx, eng, mode) -> dict:
+    """One decode step on a scratch copy of the engine's live cache (its
+    feed, every slot active), eagerly, with every integer product (or, for
+    POW2_W, every weight snap) checked as it is made: the card's int32
+    accumulator against an exact CPU product of the same int8 operands
+    (float64 products and sums of int8 codes are exact below 2^53; compared
+    as int64), the snapped weights against a CPU snap, bit for bit."""
+    torch, dev = ctx["torch"], ctx["dev"]
+    from repro_torch.core import encodings as enc
+    from repro_torch.kernels import ops
+
+    calls = {"n": 0, "max_abs_acc": 0}
+    if mode == "pow2_w":
+        snap = enc.pow2_snap
+
+        def hook(w):
+            out = snap(w)
+            want = snap(w.cpu())
+            same = torch.equal(out.cpu().view(torch.int32), want.view(torch.int32))
+            require(same, f"phase 3k pow2_w: snap {calls['n']} of {tuple(w.shape)} "
+                          "differs from the CPU snap")
+            calls["n"] += 1
+            return out
+
+        owner, name = enc, "pow2_snap"
+    else:
+        product = ops.int_product
+
+        def hook(qx, qw):
+            acc = product(qx, qw)
+            want = (qx.cpu().to(torch.float64) @ qw.cpu().to(torch.float64)).to(torch.int64)
+            got = acc.cpu().to(torch.int64)
+            require(acc.dtype == torch.int32 and torch.equal(got, want),
+                    f"phase 3k {mode}: product {calls['n']} of {tuple(qx.shape)} x "
+                    f"{tuple(qw.shape)}: the int32 accumulator differs from the int64 "
+                    f"CPU product (max diff {int((got - want).abs().max())})")
+            calls["n"] += 1
+            calls["max_abs_acc"] = max(calls["max_abs_acc"], int(got.abs().max()))
+            return acc
+
+        owner, name = ops, "int_product"
+    scratch = type(eng.state)(*(t.clone() for t in eng.state))
+    feed = torch.from_numpy(eng._feed).to(dev)
+    active = torch.ones(eng.slots, dtype=torch.bool, device=dev)
+    setattr(owner, name, hook)
+    try:
+        eng.model.decode_step(eng.params, scratch, feed, degree=None, active=active)
+    finally:
+        setattr(owner, name, snap if mode == "pow2_w" else product)
+    ctx["sync"]()
+    L = eng.model.cfg.n_layers
+    require(calls["n"] == 7 * L + 1, f"phase 3k {mode}: {calls['n']} products or snaps "
+                                     f"checked in one decode step, expected {7 * L + 1}")
+    return calls
+
+
+def _int_mm_rows(ctx, K, N) -> list:
+    """``torch._int_mm`` as the EMUL product calls it: at decode (8 rows
+    zero-padded to 32) and at M = 255, beside its bound (bytes: both
+    operands read and the int32 result written once; operations at the
+    int8 tensor-core peak)."""
+    torch, dev, timer = ctx["torch"], ctx["dev"], ctx["timer"]
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.qstore import emul_layout
+
+    rows = []
+    gen = torch.Generator(device=dev).manual_seed(K + N)
+    for M in (8, 255):
+        qx = torch.randint(-127, 128, (M, K), generator=gen, device=dev).to(torch.int8)
+        qws = copies(lambda: emul_layout(torch.randint(-127, 128, (K, N), generator=gen,
+                                                       device=dev).to(torch.int8)),
+                     K * N, ctx["on_card"])
+        Mp = ops.pad_for_int_mm(qx).shape[0]
+        row = {"M": M, "M_padded": Mp, "K": K, "N": N}
+        call = lambda i: ops.int_product(qx, qws[i % len(qws)])
+        row["ms"] = timer(call)
+        row["ms_graph"] = timer.graph(call, len(qws))
+        row["bound_ms"], row["bound_by"] = bound(M * K + K * N + M * N * 4, 2.0 * M * N * K,
+                                                 INT8_OPS)
+        rows.append(row)
+        say(f"phase 3k int product M={M} (padded {Mp}) K={K} N={N}: {row['ms']} ms eager, "
+            f"{row['ms_graph']} ms by graph replay, bound {row['bound_ms']:.6f} ms "
+            f"({row['bound_by']})")
+    return rows
+
+
+def phase_emul(ctx, cfg):
+    """Phase 3k: tinyllama under PR_EMUL (p=1, r=2), RAD_EMUL (k=4),
+    ROUP_EMUL (k=4, p=1, r=1) and POW2_W, each uniform at a fixed degree,
+    prepacked and captured: at one decode tick every integer product is
+    bit-identical to an exact CPU product (POW2_W: every snapped weight to
+    a CPU snap); the traffic served with no GEMM kernel launched (the
+    product is ``torch._int_mm``) and the flash kernels as predicted."""
+    torch = ctx["torch"]
+    import numpy as np
+
+    rng = np.random.default_rng(3)
+    lo, hi = ctx["prompt_range"]
+    prompts = [rng.integers(0, cfg.vocab, int(rng.integers(lo, hi + 1)))
+               for _ in range(ctx["slots"])]
+    out = {"modes": {}, "prompt_range": [lo, hi], "prompts": len(prompts),
+           "new_tokens": ctx["new_tokens"]}
+    from repro_torch.serve.lm import ServeEngine
+
+    for mode, kw in EMUL_MODES:
+        t0 = time.time()
+        model, params = _emul_model(ctx, cfg, mode, kw)
+        wbytes = weight_bytes(params)
+        eng = ServeEngine(model, params, slots=ctx["slots"], max_len=ctx["max_len"],
+                          prepack=False, seed=0)
+        graphs = 0 if eng.graphs is None else len(eng.graphs.graphs)
+        reqs, seen = drive(ctx, eng, prompts, ctx["new_tokens"])
+        require(eng.graphs is None or len(eng.graphs.graphs) == graphs,
+                f"phase 3k {mode}: a graph was captured after warmup")
+        steps, prefills, L = eng.stats.decode_steps, eng.stats.prefill_calls, cfg.n_layers
+        label = f"phase 3k ({mode} {kw})"
+        check_launches(ctx, label, seen, {
+            "axqmm": 0, "axqmm_gated": 0, "flash_decode": L * steps,
+            "flash_decode_quant": 0, "flash_attention": L * prefills,
+            "pr_multiply": 0, "pr_fir": 0, "pr_conv2d": 0})
+        checked = _check_emul_tick(ctx, eng, mode)
+        res = serve_summary(ctx, label, eng, reqs, seen, wbytes / HBM_BPS * 1e3)
+        res.update(spec=kw, weight_bytes=wbytes, checked_calls=checked["n"],
+                   max_abs_acc=checked["max_abs_acc"], seconds=time.time() - t0)
+        first = [r.out_tokens[:4] for r in reqs[:2]]
+        say(f"{label}: {checked['n']} products/snaps bit-identical at one decode tick "
+            f"(max |acc| {checked['max_abs_acc']}); first tokens {first}; "
+            f"{res['seconds']:.1f} s")
+        out["modes"][mode] = res
+        if mode == "pr_emul":
+            out["int_mm"] = (_int_mm_rows(ctx, cfg.d_model, cfg.vocab)
+                             + _int_mm_rows(ctx, cfg.d_model, cfg.d_ff))
+        del eng, model, params
+        if ctx["on_card"]:
+            torch.cuda.empty_cache()
+    out["launches"] = sum_launches(m["launches"] for m in out["modes"].values())
+    return out
+
+
+def drive_resil(ctx, eng, prompts, new_tokens, clock=None, dt=0.01):
+    """Serve ``prompts`` to the end of every request, whatever its status,
+    advancing ``clock`` (a VirtualClock) by ``dt`` a tick; then the final
+    scrub.  Checks the accounting (each request done once, the statuses a
+    partition, ok requests with all their tokens) and that the parameters
+    are byte-equal to the golden copy after the scrub."""
+    torch = ctx["torch"]
+    from repro_torch.kernels import _build
+
+    ctx["sync"]()
+    _build.reset_counts()
+    if ctx["on_card"]:
+        torch.cuda.reset_peak_memory_stats()
+    graphs = None if eng.graphs is None else len(eng.graphs.graphs)
+    shapes = dict(eng.workload.trace_counts)
+    t0 = time.time()
+    reqs = [eng.submit(p, new_tokens) for p in prompts]
+    ticks, step_ticks = 0, []
+    while eng.queue or any(r is not None for r in eng.slot_req):
+        require(ticks < 40 * len(prompts) * new_tokens, "a resilience run did not drain")
+        before = (eng.stats.admitted, eng.stats.decode_steps)
+        t = time.time()
+        eng.tick()
+        if eng.stats.decode_steps != before[1] and eng.stats.admitted == before[0]:
+            step_ticks.append(time.time() - t)
+        ticks += 1
+        if clock is not None:
+            clock.advance(dt)
+    ctx["sync"]()
+    wall = time.time() - t0
+    statuses = [r.status for r in reqs]
+    counts = {s: statuses.count(s) for s in sorted(set(statuses))}
+    require(all(r.done for r in reqs) and len(eng.done) == len(reqs)
+            and len({r.rid for r in eng.done}) == len(reqs),
+            f"resilience run: requests not terminated exactly once ({counts})")
+    require(set(counts) <= {"ok", "failed", "shed", "deadline"},
+            f"resilience run: a status outside the partition: {counts}")
+    require(all(len(r.out_tokens) == new_tokens for r in reqs if r.status == "ok"),
+            "resilience run: an ok request without all its tokens")
+    require(graphs is None or len(eng.graphs.graphs) == graphs,
+            "resilience run: a graph was captured after warmup")
+    require(eng.workload.trace_counts.get("prefill_batch", 0) == shapes.get("prefill_batch", 0),
+            f"resilience run: a request met a new bucket shape: {eng.workload.trace_counts}")
+    if eng.guards is not None:
+        eng._scrub("final")
+        require(eng.params_golden(), "resilience run: the parameters differ from the golden "
+                                     "copy after the final scrub")
+    events = {}
+    for _, name, _ in eng.resil_log:
+        events[name] = events.get(name, 0) + 1
+    return reqs, {"wall_s": wall, "ticks": ticks, "statuses": counts, "events": events,
+                  "log": list(eng.resil_log), "tokens": [list(r.out_tokens) for r in reqs],
+                  "status_list": statuses,
+                  "step_tick_ms_mean": 1e3 * sum(step_ticks) / max(len(step_ticks), 1),
+                  "step_ticks_timed": len(step_ticks), "launches": dict(_build.launches),
+                  "max_memory_allocated": (torch.cuda.max_memory_allocated()
+                                           if ctx["on_card"] else None),
+                  "graphs": graph_summary(eng)}
+
+
+def _storm_runs(ctx, label, make, prompts, new_tokens, storm, *, eager_twin=True):
+    """The storm twice with one seed (identical logs and statuses), its
+    eager twin (the same), the guarded clean run against the unguarded
+    captured run (the same tokens), and, at a fixed degree, a storm of only
+    nan, drop and spike (every request ok, with the clean run's tokens)."""
+    from repro_torch.resil import FaultPlan, FaultSpec, GuardConfig, ServePolicy, VirtualClock
+
+    def run(spec, seed=7, capture=None, qos=True, guards=True, policy=None):
+        clock = VirtualClock()
+        kw = {}
+        if spec is not None:
+            kw = dict(faults=FaultPlan(FaultSpec.parse(spec), seed=seed), clock=clock,
+                      policy=policy or ServePolicy(
+                          deadline_ms=ctx["resil_deadline_ms"], max_retries=4,
+                          max_queue=ctx["resil_shed"], brownout=True))
+        elif guards:
+            kw = dict(guards=GuardConfig(), clock=clock)
+        eng = make(capture=capture, qos=qos, **kw)
+        reqs, seen = drive_resil(ctx, eng, prompts, new_tokens, clock)
+        del eng
+        return seen
+
+    out = {}
+    plain = run(None, guards=False)
+    clean = run(None)
+    require(clean["tokens"] == plain["tokens"],
+            f"{label}: the guarded clean run's tokens differ from the unguarded run's")
+    require(clean["log"] == [], f"{label}: the clean guarded run logged {clean['events']}")
+    a = run(storm)
+    b = run(storm)
+    require(a["log"] == b["log"] and a["status_list"] == b["status_list"],
+            f"{label}: two storm runs with one seed differ")
+    require(a["events"].get("guard_tripped", 0) > 0 and a["events"].get("retry", 0) > 0,
+            f"{label}: the storm tripped no guard: {a['events']}")
+    out.update(unguarded=plain, guarded_clean=clean, storm=a)
+    if eager_twin and ctx["on_card"]:
+        e = run(storm, capture=False)
+        require(e["log"] == a["log"] and e["status_list"] == a["status_list"],
+                f"{label}: the eager twin's recovery trace differs from the captured run's")
+        out["storm_eager"] = e
+    fixed_clean = run(None, qos=False)
+    soft = run(ctx["resil_soft_storm"], qos=False, policy=ServePolicy(max_retries=4))
+    require(set(soft["statuses"]) == {"ok"},
+            f"{label}: the nan/drop/spike storm ended requests non-ok: {soft['statuses']}")
+    require(soft["tokens"] == fixed_clean["tokens"],
+            f"{label}: the nan/drop/spike storm changed the tokens of ok requests")
+    require(soft["events"].get("retry", 0) > 0,
+            f"{label}: the nan/drop/spike storm retried nothing: {soft['events']}")
+    out.update(fixed_clean=fixed_clean, soft_storm=soft)
+    for key in out:
+        out[key] = {k: v for k, v in out[key].items() if k not in ("tokens", "log")} | {
+            "log_len": len(out[key]["log"])}
+    say(f"{label}: storm {a['statuses']} {a['events']} in {a['ticks']} ticks; guarded clean "
+        f"tick {clean['step_tick_ms_mean']:.4f} ms vs unguarded {plain['step_tick_ms_mean']:.4f} "
+        f"ms; storm peak memory {a['max_memory_allocated']}; nan/drop/spike storm "
+        f"{soft['statuses']} {soft['events']}, tokens equal to the clean run")
+    return out
+
+
+def _ok_read(ctx, eng, n=16) -> dict:
+    """Untraced medians of the tick's staging, replay and pinned read (the
+    emissions with the ok bits packed in, under guards) on a drained
+    engine, every slot free."""
+    import numpy as np
+
+    torch = ctx["torch"]
+    host = {"feed": eng._feed, "active": np.zeros(eng.slots, bool)}
+    if eng.guards is not None:
+        host["fault"] = np.zeros(eng.slots, np.float32)
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        eng._replay_step(host)
+        ts.append(time.perf_counter() - t0)
+    return {"replay_and_read_ms": 1e3 * float(np.median(ts)),
+            "read_bytes": eng._out_pin.numel() * eng._out_pin.element_size()}
+
+
+def phase_resil(ctx, cfg, model, params, prompts):
+    """Phase 3l: the serving resilience layer on tinyllama, captured —
+    through ``launch.serve`` with a fault storm, deadlines, retries,
+    shedding and brownout; through ``ServeCore`` with a VirtualClock on
+    phase 3's engine and on 3b's int8 bucketed engine (:func:`_storm_runs`);
+    through the stream engine on 3d's traffic."""
+    torch = ctx["torch"]
+
+    from repro_torch.resil import GuardConfig
+    from repro_torch.serve.admission import AdmissionConfig
+
+    out = {}
+    # launch.serve: its own seeded weights, real clock
+    argv = ["--arch", cfg.name, "--approx", "axq8", "--qos", "--slots", str(ctx["slots"]),
+            "--requests", str(ctx["requests"]), "--new-tokens", str(ctx["new_tokens"]),
+            "--faults", ctx["resil_launch_storm"], "--fault-seed", "7",
+            "--deadline-ms", str(ctx["resil_launch_deadline_ms"]), "--retries", "4",
+            "--shed", str(ctx["resil_shed"]), "--brownout", "--metrics"]
+    if not ctx["on_card"]:
+        argv += ["--device", "cpu"]
+    s, eng, seen = _launch(ctx, argv)
+    statuses = [r.status for r in eng.done]
+    require(len(eng.done) == ctx["requests"] == len({r.rid for r in eng.done}),
+            f"phase 3l launch.serve: {len(eng.done)} terminations for {ctx['requests']} requests")
+    require(set(statuses) <= {"ok", "failed", "shed", "deadline"}, f"phase 3l: {statuses}")
+    require(eng.faults is not None and eng.faults.injected, "phase 3l launch.serve: no fault")
+    require(not ctx["on_card"] or eng.graphs is not None, "phase 3l launch.serve: not captured")
+    eng._scrub("final")
+    require(eng.params_golden(), "phase 3l launch.serve: parameters differ from golden "
+                                 "after the final scrub")
+    events = {}
+    for _, name, _ in eng.resil_log:
+        events[name] = events.get(name, 0) + 1
+    out["launch"] = {"argv": argv, "wall_s": seen["wall_s"], "summary": s, "events": events,
+                     "statuses": {k: statuses.count(k) for k in sorted(set(statuses))},
+                     "launches": seen["launches"]}
+    say(f"phase 3l launch.serve: {out['launch']['statuses']} {events} in "
+        f"{seen['wall_s']:.2f} s; {s.get('gen_tok_per_s')} tok/s")
+    del eng
+    # ServeCore with a VirtualClock: phase 3's engine, then 3b's
+    traffic = prompts[:ctx["resil_prompts"]]
+    make3 = lambda **kw: make_engine(ctx, model, params, max_len=ctx["max_len"], **kw)
+    out["3"] = _storm_runs(ctx, "phase 3l (3: exact admission, bf16)", make3, traffic,
+                           ctx["new_tokens"], ctx["resil_storm"])
+    if ctx["on_card"]:
+        eng = make3(guards=GuardConfig())
+        out["3"]["ok_read_guarded"] = _ok_read(ctx, eng)
+        del eng
+        eng = make3()
+        out["3"]["read_unguarded"] = _ok_read(ctx, eng)
+        del eng
+        say(f"phase 3l: replay + read {out['3']['ok_read_guarded']} guarded, "
+            f"{out['3']['read_unguarded']} unguarded")
+    adm = AdmissionConfig(buckets=(), pack=4)
+    make3b = lambda **kw: make_engine(ctx, model, params, max_len=ctx["max_len"], quant=True,
+                                      admission=adm, **kw)
+    out["3b"] = _storm_runs(ctx, "phase 3l (3b: int8, buckets, pack 4)", make3b, traffic,
+                            ctx["new_tokens"], ctx["resil_storm"], eager_twin=False)
+    if ctx["on_card"]:
+        torch.cuda.empty_cache()
+    out["stream"] = _resil_stream(ctx)
+    runs = [out["launch"]] + [r for k in ("3", "3b", "stream") for r in out[k].values()
+                              if isinstance(r, dict) and "launches" in r]
+    out["launches"] = sum_launches(r["launches"] for r in runs)
+    say(f"phase 3l launches over {len(runs)} runs: {out['launches']}")
+    return out
+
+
+def sum_launches(dicts) -> dict:
+    """Per-kernel totals of several runs' launch counts."""
+    from repro_torch.kernels import _build
+
+    tot = dict.fromkeys(_build.KERNELS, 0)
+    for d in dicts:
+        for k, n in d.items():
+            tot[k] += n
+    return tot
+
+
+def _resil_stream(ctx) -> dict:
+    """3d's traffic through the stream engine under a storm of nan,
+    seu_state and drop (twice with one seed, and eagerly: identical logs
+    and statuses), and under nan and drop alone (every clip ok, frames equal
+    to a clean run's)."""
+    import numpy as np
+
+    from repro_torch.resil import FaultPlan, FaultSpec, ServePolicy, VirtualClock
+    from repro_torch.serve.stream import StreamAdapter, StreamConfig, StreamServeEngine, make_clip
+
+    cfg = StreamConfig()
+    clips = [make_clip(ctx["stream_frames"], cfg.frame, q=cfg.q, seed=i)
+             for i in range(ctx["stream_clips"])]
+
+    def run(spec, capture=None):
+        from repro_torch.kernels import _build
+
+        clock = VirtualClock()
+        kw = {} if spec is None else dict(
+            faults=FaultPlan(FaultSpec.parse(spec), seed=7), clock=clock,
+            policy=ServePolicy(max_retries=6, backoff_ms=0.01))
+        eng = StreamServeEngine(StreamAdapter(cfg, device=ctx["dev"]), slots=ctx["stream_slots"],
+                                degree=[8, 8, 8], capture=capture, **kw)
+        graphs = None if eng.graphs is None else len(eng.graphs.graphs)
+        ctx["sync"]()
+        _build.reset_counts()
+        t0 = time.time()
+        reqs = [eng.submit(c) for c in clips]
+        ticks = 0
+        while eng.queue or any(r is not None for r in eng.slot_req):
+            require(ticks < 40 * len(clips) * len(clips[0]), "phase 3l stream: no drain")
+            eng.tick()
+            ticks += 1
+            clock.advance(0.001)
+        ctx["sync"]()
+        wall = time.time() - t0
+        require(len(eng.done) == len(reqs) == len({r.rid for r in eng.done}),
+                "phase 3l stream: a clip not terminated exactly once")
+        require(graphs is None or len(eng.graphs.graphs) == graphs,
+                "phase 3l stream: a graph was captured after warmup")
+        if eng.guards is not None:
+            eng._scrub("final")
+            require(eng.params_golden(), "phase 3l stream: parameters differ from golden")
+        st = [r.status for r in reqs]
+        events = {}
+        for _, name, _ in eng.resil_log:
+            events[name] = events.get(name, 0) + 1
+        return {"statuses": {k: st.count(k) for k in sorted(set(st))}, "status_list": st,
+                "events": events, "log": list(eng.resil_log), "ticks": ticks, "wall_s": wall,
+                "launches": dict(_build.launches),
+                "frames": [np.stack(r.out) if r.out else None for r in reqs]}
+
+    clean = run(None)
+    a = run(ctx["resil_stream_storm"])
+    b = run(ctx["resil_stream_storm"])
+    require(a["log"] == b["log"] and a["status_list"] == b["status_list"],
+            "phase 3l stream: two storm runs with one seed differ")
+    require(a["events"].get("guard_tripped", 0) > 0, f"phase 3l stream: no trip {a['events']}")
+    out = {"clean": clean, "storm": a}
+    if ctx["on_card"]:
+        e = run(ctx["resil_stream_storm"], capture=False)
+        require(e["log"] == a["log"] and e["status_list"] == a["status_list"],
+                "phase 3l stream: the eager twin's recovery trace differs")
+        out["storm_eager"] = e
+    soft = run("nan=0.05,drop=0.05")
+    require(set(soft["statuses"]) == {"ok"}, f"phase 3l stream: {soft['statuses']}")
+    require(all(np.array_equal(x, y) for x, y in zip(soft["frames"], clean["frames"])),
+            "phase 3l stream: the nan/drop storm changed an ok clip's frames")
+    out["soft_storm"] = soft
+    for k in out:
+        out[k] = {key: v for key, v in out[k].items() if key not in ("log", "frames")}
+    say(f"phase 3l stream ({len(clips)} clips on {ctx['stream_slots']} slots): storm "
+        f"{a['statuses']} {a['events']} in {a['ticks']} ticks ({a['wall_s']:.2f} s); "
+        f"nan/drop storm {soft['statuses']} {soft['events']}, frames equal to the clean run")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 4: kernel-vs-plain on the whole model
 # ---------------------------------------------------------------------------
 
@@ -2641,6 +3131,12 @@ def main(argv=None) -> int:
                "profile_ticks": 8, "stream_slots": 64, "stream_clips": 256, "stream_frames": 32,
                "psnr_clips": 4, "psnr_frames": 8,
                "calib_shape": (2, 64), "plan_grid": (8, 5),
+               "resil_prompts": 8, "resil_deadline_ms": 5000.0, "resil_shed": 8,
+               "resil_storm": "seu_state=0.05,seu_param=0.03,nan=0.08,spike=0.05,drop=0.05",
+               "resil_soft_storm": "nan=0.08,drop=0.05,spike=0.05",
+               "resil_launch_storm": "seu_state=0.02,seu_param=0.01,nan=0.05,spike=0.02,drop=0.02",
+               "resil_launch_deadline_ms": 1500.0,
+               "resil_stream_storm": "nan=0.05,seu_state=0.05,drop=0.05",
                "pr_shapes": (((8, 64, 256), "stream tick: FIR planes, 64 slots"),
                              ((9, 64, 256), "stream tick: 3x3 blur planes"),
                              ((1, 64, 256), "stream tick: 1x1 gain plane"),
@@ -2681,6 +3177,12 @@ def main(argv=None) -> int:
                "profile_ticks": 2, "stream_slots": 4, "stream_clips": 6, "stream_frames": 4,
                "psnr_clips": 2, "psnr_frames": 3,
                "calib_shape": (2, 16), "plan_grid": (8, 6, 4),
+               "resil_prompts": 4, "resil_deadline_ms": 5000.0, "resil_shed": 4,
+               "resil_storm": "seu_state=0.2,seu_param=0.1,nan=0.3,spike=0.1,drop=0.1",
+               "resil_soft_storm": "nan=0.3,drop=0.1,spike=0.1",
+               "resil_launch_storm": "seu_state=0.1,seu_param=0.05,nan=0.2,spike=0.05,drop=0.05",
+               "resil_launch_deadline_ms": 1500.0,
+               "resil_stream_storm": "nan=0.2,seu_state=0.2,drop=0.1",
                "pr_shapes": (((8, 4, 256), "stream tick: FIR planes, 4 slots"),
                              ((9, 4, 256), "stream tick: 3x3 blur planes"),
                              ((1, 4, 256), "stream tick: 1x1 gain plane"),
@@ -2717,9 +3219,11 @@ def main(argv=None) -> int:
     record["main_path"], prompts = phase_serve(ctx, cfg, model, params)
     record["int8_cache_path"] = phase_serve_int8(ctx, cfg, model, params, prompts)
     record["chunked_path"] = phase_serve_chunked(ctx, cfg, model, params)
+    record["resil_path"] = phase_resil(ctx, cfg, model, params, prompts)
     del model, params
     if on_card:
         torch.cuda.empty_cache()
+    record["emul_path"] = phase_emul(ctx, cfg)
     record["stream_path"] = phase_stream(ctx)
     record["plan_path"] = phase_plan_lm(ctx, cfg)
     record["stream_plan_path"] = phase_plan_stream(ctx)
@@ -2752,7 +3256,8 @@ def main(argv=None) -> int:
              "3c": record["chunked_path"], "3d": record["stream_path"],
              "3e": record["swa_path"], "3f": record["swa_int8_path"],
              "3g": record["qwen_path"], "3h": record["qwen_int8_path"],
-             "3i": record["plan_path"], "3j": record["stream_plan_path"]}
+             "3i": record["plan_path"], "3j": record["stream_plan_path"],
+             "3k": record["emul_path"], "3l": record["resil_path"]}
     summary = []
     for name, rows in record["kernels"].items():
         src, replaces = SOURCES[name]

@@ -2,7 +2,8 @@
 numpy arrays, into the port's tensors.
 
 The reference keeps parameters as nested dicts whose leaves are arrays or
-NamedTuples of arrays (packed weights: fields ``qw``/``scales``) and caches
+NamedTuples of arrays (packed weights: fields ``qw``/``scales`` for AXQ,
+``qw``/``scale`` for the *_EMUL modes) and caches
 as NamedTuples with fields ``k``/``v``/``length`` (the int8 cache also
 ``ks``/``vs``).  These walkers recognise
 them by duck typing — this module imports neither JAX nor the reference
@@ -15,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.kernels.qstore import PackedQWeight
+from repro_torch.kernels.qstore import PackedEmulWeight, PackedQWeight, emul_layout
 from repro_torch.models.transformer import LMCache, LMCacheQ
 
 
@@ -30,13 +31,19 @@ def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
 
 def params_from_numpy(tree, device="cpu"):
     """Nested dicts / lists of arrays, with packed weights as objects with
-    ``qw`` and ``scales`` -> the same tree of tensors, packed weights as
-    :class:`~repro_torch.kernels.qstore.PackedQWeight`."""
+    ``qw`` and ``scales`` (AXQ) or ``qw`` and ``scale`` (*_EMUL) -> the same
+    tree of tensors, packed weights as
+    :class:`~repro_torch.kernels.qstore.PackedQWeight` /
+    :class:`~repro_torch.kernels.qstore.PackedEmulWeight` (its ``qw`` in
+    the column-major layout the card's integer product takes)."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     if hasattr(tree, "qw") and hasattr(tree, "scales"):
         return PackedQWeight(tensor_from_numpy(tree.qw, device),
                              tensor_from_numpy(tree.scales, device))
+    if hasattr(tree, "qw") and hasattr(tree, "scale"):
+        return PackedEmulWeight(emul_layout(tensor_from_numpy(tree.qw, device)),
+                                tensor_from_numpy(tree.scale, device))
     if isinstance(tree, (list, tuple)) and not hasattr(tree, "_fields"):
         return type(tree)(params_from_numpy(v, device) for v in tree)
     return tensor_from_numpy(tree, device)

@@ -122,6 +122,23 @@ def site_degree(degree, site: int):
     return degree
 
 
+def inject_fault(x: Tensor, fault: Optional[Tensor]) -> Tensor:
+    """Resilience fault hook (``repro_torch.resil``): corrupt a batch
+    activation ``x`` (slots on the leading axis) with a per-slot ``fault``
+    operand — a (slots,) float32 vector, 0.0 = clean, NaN/Inf = corrupt
+    that slot.  Float activations take ``x + fault`` (exact for clean
+    slots, NaN/Inf for marked ones); integer activations flip the high
+    magnitude bit on marked slots (NaN compares unordered, so ``fault != 0``
+    holds for it).  ``fault=None`` returns ``x`` untouched."""
+    if fault is None:
+        return x
+    f = fault.to(torch.float32).reshape((x.shape[0],) + (1,) * (x.dim() - 1))
+    if x.is_floating_point():
+        return x + f.to(x.dtype)
+    mask = 1 << (8 * x.element_size() - 2)
+    return torch.where(f != 0.0, x ^ mask, x)
+
+
 # ---------------------------------------------------------------------------
 # attention routers
 # ---------------------------------------------------------------------------

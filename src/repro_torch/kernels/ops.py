@@ -1,12 +1,23 @@
 """approx_matmul: the single dispatch point between model code and the
 approximation techniques (DESIGN.md §3).
 
-  EXACT   plain matmul with f32 accumulation (baseline)
-  AXQ     block-quantized int8 GEMM with a runtime effective-bits degree —
-          the CUDA kernels on the card, their plain versions on the CPU
-          (kernels/dispatch.py)
+  EXACT      plain matmul with f32 accumulation (baseline)
+  AXQ        block-quantized int8 GEMM with a runtime effective-bits degree —
+             the CUDA kernels on the card, their plain versions on the CPU
+             (kernels/dispatch.py)
+  PR_EMUL    bit-exact AxFXU emulation: per-tensor int8 quantization, the
+             operand transforms (round the activation, perforate the
+             weight), an exact integer product, dequantization.  PR
+             transforms each operand on its own, so the approximate
+             product-sum equals the exact product of transformed operands.
+  RAD_EMUL   the same with the hybrid high-radix encoding on the weight
+  ROUP_EMUL  both
+  POW2_W     weights snapped to powers of two
 
-The emulation modes (PR/RAD/ROUP_EMUL), POW2_W, the int8 ring
+The *_EMUL product is an int32 integer product of int8 operands (exact for
+K <= 2^17): a plain integer ``torch.matmul`` on the CPU, ``torch._int_mm``
+on the card (cuBLASLt's int8 GEMM; no TPU kernel computes these modes,
+the reference's product is an integer ``jnp.matmul``).  The int8 ring
 tensor-parallel route and the bf16-backward lever are not ported yet.
 """
 
@@ -16,14 +27,75 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import encodings as enc
 from repro_torch.core.approx import ApproxMode, ApproxSpec
 from repro_torch.kernels import qstore
 
 Tensor = torch.Tensor
 
+#: cuBLASLt's int8 GEMM wants more than this many rows: a decode-sized
+#: activation is zero-padded to INT_MM_PAD_M rows (after quantization, so
+#: the pad never enters the per-tensor amax)
+INT_MM_MIN_M = 16
+INT_MM_PAD_M = 32
+
 
 def _degree_for(spec: ApproxSpec, degree):
     return degree if (spec.dynamic and degree is not None) else spec.ebits
+
+
+def _quantize_per_tensor(x: Tensor, bits: int):
+    """Symmetric per-tensor quantization: (int32 codes, f32 0-d scale)."""
+    qmax = (1 << (bits - 1)) - 1
+    amax = torch.clamp(x.abs().amax(), min=1e-30)
+    scale = amax / qmax
+    q = torch.clamp(torch.round(x / scale), -qmax, qmax).to(torch.int32)
+    return q, scale
+
+
+def pad_for_int_mm(qx: Tensor) -> Tensor:
+    """``qx`` (M, K) int8 with M <= 16 zero-padded to 32 rows (cuBLASLt's
+    int8 GEMM wants M > 16); larger M unchanged."""
+    M, K = qx.shape
+    if M <= INT_MM_MIN_M:
+        return torch.cat([qx, qx.new_zeros(INT_MM_PAD_M - M, K)])
+    return qx
+
+
+def int_product(qx: Tensor, qw: Tensor) -> Tensor:
+    """Exact int32 product of int8 ``qx`` (M, K) and ``qw`` (K, N): a plain
+    integer matmul on the CPU, ``torch._int_mm`` on the card (``qw``
+    column-major, as :func:`~repro_torch.kernels.qstore.emul_layout` stores
+    it; a decode-sized ``qx`` padded by :func:`pad_for_int_mm`).  No host
+    read: it runs inside a captured step."""
+    if qx.device.type != "cuda":
+        return torch.matmul(qx.to(torch.int32), qw.to(torch.int32))
+    K, N = qw.shape
+    if K % 8 or N % 8:
+        raise ValueError(f"torch._int_mm needs K and N multiples of 8, got K={K}, N={N}")
+    return torch._int_mm(pad_for_int_mm(qx), qw)[:qx.shape[0]]
+
+
+def _emul_matmul_packed(x: Tensor, pw, spec: ApproxSpec) -> Tensor:
+    """Exact integer product against a prepacked (quantized, transformed)
+    emulation weight; only the activation is quantized / rounded per call.
+    The int8 cast wraps as the reference's does (a rounded 128 is -128)."""
+    n = spec.lane_bits
+    assert n <= 8, "in-graph emulation lane limited to 8 bits (see module doc)"
+    qx, sx = _quantize_per_tensor(x, n)
+    if spec.mode in (ApproxMode.PR_EMUL, ApproxMode.ROUP_EMUL):
+        qx = enc.round_operand(qx, spec.r)
+    acc = int_product(qx.to(torch.int8), pw.qw)
+    return acc.to(torch.float32) * (sx * pw.scale)
+
+
+def _emul_matmul(x: Tensor, w, spec: ApproxSpec) -> Tensor:
+    """Float weights are packed on the fly through the same quantize and
+    transform the prepack runs once: prepacked and on-the-fly products are
+    bit-identical by construction."""
+    if not isinstance(w, qstore.PackedEmulWeight):
+        w = qstore.prepack_emul_weight(w, spec)
+    return _emul_matmul_packed(x, w, spec)
 
 
 def approx_matmul(x: Tensor, w, spec: ApproxSpec | None = None, *,
@@ -32,8 +104,9 @@ def approx_matmul(x: Tensor, w, spec: ApproxSpec | None = None, *,
                   residual: Optional[Tensor] = None) -> Tensor:
     """x (..., K) @ w through the approximation dispatch.
 
-    ``w``: a (K, N) float tensor or, for AXQ, a prepacked
-    :class:`~repro_torch.kernels.qstore.PackedQWeight`.  ``degree`` is the
+    ``w``: a (K, N) float tensor or a prepacked
+    :class:`~repro_torch.kernels.qstore.PackedQWeight` (AXQ) /
+    :class:`~repro_torch.kernels.qstore.PackedEmulWeight` (*_EMUL).  ``degree`` is the
     runtime DyFXU knob (device int32) used by dynamic AXQ specs.  ``bias``
     (N,) and ``residual`` (..., N) are AXQ-only epilogue operands, added in
     f32 before the output cast (in the kernel on the card)."""
@@ -56,12 +129,23 @@ def approx_matmul(x: Tensor, w, spec: ApproxSpec | None = None, *,
         # operands in the working dtype, products accumulated in f32
         y = torch.matmul(x2.to(torch.float32), w.to(x2.dtype).to(torch.float32))
     elif spec.mode == ApproxMode.AXQ:
+        if packed and not isinstance(w, qstore.PackedQWeight):
+            raise ValueError(f"AXQ spec at {path!r} got {type(w).__name__}")
         res2 = None if residual is None else residual.reshape(-1, N)
         y = kdispatch.axq_matmul(x2, w, block=spec.block,
                                  ebits=_degree_for(spec, degree),
                                  bias=bias, residual=res2)
+    elif spec.mode in qstore._EMUL_MODES:
+        if packed and not isinstance(w, qstore.PackedEmulWeight):
+            raise ValueError(f"emul spec at {path!r} got {type(w).__name__}")
+        y = _emul_matmul(x2.to(torch.float32), w, spec)
+    elif spec.mode == ApproxMode.POW2_W:
+        if packed:
+            raise ValueError(f"prepacked weight reached a POW2_W spec at {path!r}")
+        w2 = enc.pow2_snap(w.to(torch.float32)).to(x2.dtype)
+        y = torch.matmul(x2.to(torch.float32), w2.to(torch.float32))
     else:
-        raise NotImplementedError(f"approx mode {spec.mode.value} is not ported")
+        raise ValueError(spec.mode)
     return y.reshape(*lead, N).to(out_dtype)
 
 

@@ -6,10 +6,18 @@ what the on-the-fly path quantizes per call (same ``quantize_block``).  Only
 the runtime effective-bits degree varies per call, and the kernels apply it
 to the packed values, so one packed tree serves every rung of a QoS ladder.
 
+The ``*_EMUL`` modes pack into :class:`PackedEmulWeight`: a per-tensor int8
+weight (one scale per stacked-layer slice) with the static operand
+transform — perforation, RAD or ROUP encoding — already applied, again
+bit-identical to the per-call transform.  Its ``qw`` is the (..., K, N)
+operand of ``torch._int_mm`` in the layout that call takes on the card:
+column-major, a transposed view of an (..., N, K) buffer (set once here and
+in ``convert``, never per call).
+
 :func:`prepack_params` walks the dense transformer's parameter tree
 (``_pack_transformer``), including the separate ``unembed`` dense and the
-tied-embedding ``unembed_q`` pack.  The ``*_EMUL`` packs and the other
-model families are not ported yet.
+tied-embedding ``unembed_q`` pack.  The other model families are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -19,10 +27,13 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core.approx import ApproxMode, ApproxPolicy
+from repro_torch.core import encodings as enc
+from repro_torch.core.approx import ApproxMode, ApproxPolicy, ApproxSpec
 from repro_torch.core.quantization import quantize_block
 
 Tensor = torch.Tensor
+
+_EMUL_MODES = (ApproxMode.PR_EMUL, ApproxMode.RAD_EMUL, ApproxMode.ROUP_EMUL)
 
 
 @functools.lru_cache(maxsize=None)
@@ -61,8 +72,31 @@ class PackedQWeight(NamedTuple):
         return self.qw.shape[-1] // self.scales.shape[-1]
 
 
+class PackedEmulWeight(NamedTuple):
+    """*_EMUL weight residency: ``qw`` (..., K, N) int8, per-tensor
+    quantized with the static operand transform applied, column-major in
+    its last two dims; ``scale`` (...,) f32, one per leading slice."""
+
+    qw: Tensor
+    scale: Tensor
+
+    @property
+    def k(self) -> int:
+        return self.qw.shape[-2]
+
+    @property
+    def n(self) -> int:
+        return self.qw.shape[-1]
+
+
+def emul_layout(qw: Tensor) -> Tensor:
+    """``qw`` (..., K, N) as a transposed view of a contiguous (..., N, K)
+    buffer: the column-major second operand ``torch._int_mm`` takes."""
+    return qw.transpose(-1, -2).contiguous().transpose(-1, -2)
+
+
 def is_packed(w) -> bool:
-    return isinstance(w, PackedQWeight)
+    return isinstance(w, (PackedQWeight, PackedEmulWeight))
 
 
 def prepack_weight(w: Tensor, block: int) -> PackedQWeight:
@@ -73,16 +107,57 @@ def prepack_weight(w: Tensor, block: int) -> PackedQWeight:
     return PackedQWeight(qt.values.contiguous(), qt.scales.contiguous())
 
 
+def _quantize_per_tensor_sliced(w: Tensor, bits: int):
+    """Per-tensor symmetric quantization over the trailing (K, N) dims — per
+    slice for stacked weights, as each layer's 2-D weight quantizes per
+    call.  Returns (int32 codes, f32 scale (...,))."""
+    qmax = (1 << (bits - 1)) - 1
+    w = w.to(torch.float32)
+    amax = torch.clamp(w.abs().amax(dim=(-2, -1)), min=1e-30)
+    scale = amax / qmax
+    q = torch.clamp(torch.round(w / scale[..., None, None]), -qmax, qmax)
+    return q.to(torch.int32), scale
+
+
+def emul_weight_transform(qw: Tensor, spec: ApproxSpec) -> Tensor:
+    """The static weight-operand transform of the *_EMUL modes (int32
+    lanes), shared by the on-the-fly path and the prepack."""
+    n = spec.lane_bits
+    if spec.mode == ApproxMode.PR_EMUL:
+        return enc.perforate_operand(qw, n, spec.p) if spec.p else qw
+    if spec.mode == ApproxMode.RAD_EMUL:
+        return enc.rad_encode(qw, n, spec.k)
+    if spec.mode == ApproxMode.ROUP_EMUL:
+        qw = enc.rad_encode(qw, n, spec.k)
+        # perforation of the radix-4 digits above the high-radix digit
+        if spec.p:
+            y0 = enc.highradix_digit(qw, n, spec.k)
+            high = qw - y0
+            qw = enc.perforate_operand(high, 2 * n, spec.k // 2 + spec.p) + y0
+        return qw
+    raise ValueError(f"not an emulation mode: {spec.mode}")
+
+
+def prepack_emul_weight(w: Tensor, spec: ApproxSpec) -> PackedEmulWeight:
+    """Quantize and transform the weight operand once for a *_EMUL spec.
+    The int8 cast wraps as the reference's does (an encoded 128 becomes
+    -128)."""
+    assert spec.lane_bits <= 8, "emulation lane limited to 8 bits (ops.py)"
+    qw, scale = _quantize_per_tensor_sliced(w, spec.lane_bits)
+    qw = emul_weight_transform(qw, spec)
+    return PackedEmulWeight(emul_layout(qw.to(torch.int8)), scale)
+
+
 def pack_for_spec(w, spec):
-    """Pack one (..., K, N) weight for ``spec``; other modes (and weights
-    already packed) come back unchanged."""
+    """Pack one (..., K, N) weight for ``spec``; returns ``w`` unchanged for
+    specs with no static operand encoding (EXACT / POW2_W) and for weights
+    already packed."""
     if is_packed(w):
         return w
     if spec.mode == ApproxMode.AXQ:
         return prepack_weight(w, resolve_block(w.shape[-2], spec.block))
-    if spec.mode != ApproxMode.EXACT:
-        raise NotImplementedError(
-            f"prepack for {spec.mode.value} is not ported (AXQ only)")
+    if spec.mode in _EMUL_MODES:
+        return prepack_emul_weight(w, spec)
     return w
 
 
@@ -127,7 +202,9 @@ def _pack_transformer(params: dict, cfg, policy: ApproxPolicy) -> dict:
 
 def prepack_params(params: dict, cfg, policy: ApproxPolicy) -> dict:
     """Quantize-once pass over a dense transformer's param tree: every dense
-    weight whose policy spec is AXQ becomes a :class:`PackedQWeight`.
+    weight whose policy spec is AXQ becomes a :class:`PackedQWeight`, every
+    one whose spec is *_EMUL a :class:`PackedEmulWeight` (per stacked-layer
+    slice).
     Idempotent; EXACT-only policies return every tensor untouched.  The
     result is inference-only (int8 leaves carry no gradients)."""
     if cfg.family != "dense" or cfg.moe or cfg.frontend:

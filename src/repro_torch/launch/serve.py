@@ -18,6 +18,11 @@
   # and the live-vs-exact quality tap every 8 ticks:
   python -m repro_torch.launch.serve --arch tinyllama-1.1b --plan plan.json --qos \
       --trace-out trace.json --metrics-out metrics.prom --quality-every 8
+  # a seeded fault storm against guards, quarantine, scrubbing, deadlines,
+  # retries, queue shedding and brownout down the QoS ladder:
+  python -m repro_torch.launch.serve --arch tinyllama-1.1b --approx axq8 --qos \
+      --faults seu_state=0.02,seu_param=0.01,nan=0.05,spike=0.02,drop=0.02 \
+      --fault-seed 7 --deadline-ms 2000 --retries 4 --shed 8 --brownout --metrics
 
 Weights are random-init from ``--seed``.  ``--qos`` walks the AXQ degree
 ladder ebits 8 -> 5 with load, at a fixed set of kernels (the stream
@@ -27,7 +32,11 @@ from seeds 0 .. requests - 1).
 ``REPRO_KV_INT8=1`` serves from the int8 KV cache (there is no flag for it,
 as in the reference launcher).  ``--plan`` (either workload) serves under
 the plan's policy with its most accurate rung, or with ``--qos`` steps its
-ladder; ``--approx`` is then ignored.
+ladder; ``--approx`` is then ignored.  ``--faults`` (either workload)
+injects a seeded fault storm and turns on the runtime guards;
+``--deadline-ms``, ``--retries``, ``--shed`` and ``--brownout`` set the
+serving policy (``repro_torch.resil``).  ``replica_loss`` parses and a
+single engine ignores it; ``--replicas`` is not ported.
 """
 
 from __future__ import annotations
@@ -115,7 +124,83 @@ def build_parser() -> argparse.ArgumentParser:
                     help="sample the live-vs-exact output error every N "
                          "ticks into a per-rung histogram (0 = off; needs "
                          "--qos/--plan)")
+    # -- resilience (repro_torch.resil) -----------------------------------
+    ap.add_argument("--deadline-ms", type=float, default=None,
+                    help="per-request e2e deadline; a request past it "
+                         "terminates with status=deadline (queued or "
+                         "in-slot), never silently")
+    ap.add_argument("--retries", type=int, default=None, metavar="N",
+                    help="guard-trip requeues before a request fails "
+                         "(default 2; capped-exponential backoff)")
+    ap.add_argument("--shed", type=int, default=None, metavar="Q",
+                    help="queue-length backpressure cap: overflow sheds "
+                         "newest-first (or browns out first, see --brownout)")
+    ap.add_argument("--brownout", action="store_true",
+                    help="under overload force the QoS controller down the "
+                         "approximation ladder BEFORE shedding (needs --qos)")
+    ap.add_argument("--faults", default=None, metavar="SPEC",
+                    help="inject a seeded fault storm: comma list of "
+                         "kind=rate — seu_state, seu_param, nan, spike, drop "
+                         "(e.g. 'seu_state=0.02,nan=0.05'); enables runtime "
+                         "guards + quarantine")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="fault schedule seed: the same seed reproduces the "
+                         "injected-fault sequence and recovery trace")
     return ap
+
+
+def policy_from_args(args):
+    """ServePolicy from the CLI flags, or None when no policy flag is set."""
+    if (args.deadline_ms is None and args.retries is None
+            and args.shed is None and not args.brownout):
+        return None
+    from repro_torch.resil import ServePolicy
+
+    if args.brownout and not args.qos:
+        raise SystemExit("--brownout degrades the QoS ladder under "
+                         "overload: it needs --qos (or --plan with "
+                         "--qos) to have a ladder to walk")
+    return ServePolicy(
+        deadline_ms=args.deadline_ms,
+        max_retries=args.retries if args.retries is not None else 2,
+        max_queue=args.shed,
+        brownout=args.brownout)
+
+
+def resil_kwargs(args) -> dict:
+    """The engine's resilience keywords from the CLI flags (both
+    workloads); empty when no resilience flag is set (the plain step)."""
+    kw: dict = {}
+    if args.faults:
+        from repro_torch.resil import FaultPlan, FaultSpec, GuardConfig
+
+        kw["faults"] = FaultPlan(FaultSpec.parse(args.faults), seed=args.fault_seed)
+        kw["guards"] = GuardConfig()
+    policy = policy_from_args(args)
+    if policy is not None:
+        kw["policy"] = policy
+    return kw
+
+
+def print_resil(eng) -> None:
+    """Resilience summary line (only when something happened)."""
+    s = eng.stats
+
+    def fam_total(fam) -> int:
+        return sum(int(c.value) for c in fam.children.values())
+
+    counts = {
+        "faults_injected": fam_total(s.c_faults),
+        "guard_trips": fam_total(s.c_guard_trips),
+        "retries": int(s.c_retries.value),
+        "shed": fam_total(s.c_shed),
+        "deadline_miss": fam_total(s.c_deadline_miss),
+        "brownout_rungs": int(s.c_brownout.value),
+        "param_scrubs": int(s.c_scrubs.value),
+    }
+    if any(counts.values()):
+        line = " ".join(f"{k}={v}" for k, v in counts.items() if v)
+        print(f"[launch.serve]   resil: {line}")
 
 
 def admission_from_args(args):
@@ -168,7 +253,7 @@ def serve_stream(args):
     registry = obs_metrics.get_registry() if args.metrics_out else None
     eng = StreamServeEngine(adapter, slots=args.slots, seed=args.seed, qos=qos,
                             plan=plan, registry=registry,
-                            quality_every=args.quality_every)
+                            quality_every=args.quality_every, **resil_kwargs(args))
     t0 = time.time()
     for i in range(args.requests):
         eng.submit(make_clip(args.frames, cfg.frame, q=cfg.q, seed=i))
@@ -186,6 +271,7 @@ def serve_stream(args):
         if qos is not None:
             print(f"[launch.serve]   degree ladder visits: "
                   f"{[e for _, e in list(eng.stats.degree_history)[-8:]]} (last 8)")
+        print_resil(eng)
     write_obs(args)
     return s, eng
 
@@ -219,7 +305,7 @@ def serve_lm(args):
                       top_k=args.top_k, seed=args.seed, qos=qos, prepack=False,
                       plan=plan, registry=registry,
                       quality_every=args.quality_every,
-                      admission=admission_from_args(args))
+                      admission=admission_from_args(args), **resil_kwargs(args))
     rng = np.random.default_rng(args.seed)
     t0 = time.time()
     for _ in range(args.requests):
@@ -247,6 +333,7 @@ def serve_lm(args):
                   f"{int(st.c_packed_rows.value)}, chunk calls "
                   f"{int(st.c_chunk_calls.value)}; call shapes "
                   f"{eng.workload.trace_counts}")
+        print_resil(eng)
     write_obs(args)
     return s, eng
 

@@ -28,7 +28,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.approx import ApproxPolicy
 from repro_torch.kernels import dispatch as kdispatch
-from repro_torch.kernels.qstore import PackedQWeight
+from repro_torch.kernels.qstore import PackedEmulWeight, PackedQWeight
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models.cache_ops import cache_reset_slot, ring_write_indices
@@ -88,6 +88,8 @@ def layer_params(layers, i: int):
     """Layer ``i``'s slice of the stacked layer tree (views, no copies)."""
     if isinstance(layers, PackedQWeight):
         return PackedQWeight(layers.qw[i], layers.scales[i])
+    if isinstance(layers, PackedEmulWeight):
+        return PackedEmulWeight(layers.qw[i], layers.scale[i])
     if isinstance(layers, dict):
         return {k: layer_params(v, i) for k, v in layers.items()}
     return layers[i]

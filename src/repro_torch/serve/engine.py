@@ -47,9 +47,27 @@ vector) — is traced through ``tracer`` (the process-global
 site while it is disabled) under the workload's vocabulary; every counter
 lives in ``stats.registry`` (pass ``registry=`` to co-export with the
 dispatch counters); ``quality_every=N`` samples the live-vs-exact output
-error every N ticks into a per-rung histogram (``obs/quality.py``).  The
-reference's fault injection, guards and serving policy are not ported
-yet.
+error every N ticks into a per-rung histogram (``obs/quality.py``).
+
+Resilience (``repro_torch.resil``): ``faults=`` injects a seeded
+:class:`~repro_torch.resil.faults.FaultPlan` (SEU bit flips, NaN/Inf
+activations, latency spikes, dropped ticks); ``guards=`` switches the
+engine onto the workload's ``guarded_step`` — per-slot ok bits computed in
+the step, quarantine through the in-place slot reset, golden-parameter
+scrubbing, the quality-tap sentinel; ``policy=`` adds deadlines,
+capped-backoff retry, backpressure and brownout-by-approximation (the QoS
+ladder degrades before anything sheds).  ``clock=`` injects the engine's
+time source (``resil.policy.VirtualClock`` makes deadlines and backoff
+deterministic).  Faults imply guards, and guards imply a policy.  Under
+capture the guarded step is the one captured at warmup: the fault vector
+is a static input staged through pinned memory like the feed, and the ok
+bits come back packed into the emissions' one pinned read.  Flips, resets
+and scrubs are written in place, into the tensors the graphs read; the
+golden copy is a device clone of the parameter tree, and a scrub copies
+back only the leaves flipped since the last one.  Every request
+terminates exactly once in ``done`` with a status in {ok, failed, shed,
+deadline}, and ``resil_log`` records the (tick, event, args) recovery
+trace.
 """
 
 from __future__ import annotations
@@ -67,8 +85,10 @@ from repro_torch.core.dynamic import (QoSController, degree_operand,
                                       degree_record, entry_degree)
 from repro_torch.kernels import dispatch as kdispatch
 from repro_torch.obs import trace as obs_trace
+from repro_torch.resil import GuardConfig, ServePolicy
+from repro_torch.resil.faults import tree_leaves
 from repro_torch.serve.emitq import AsyncEmitter
-from repro_torch.serve.graphs import GraphSet
+from repro_torch.serve.graphs import GraphSet, device_inputs
 from repro_torch.serve.metrics import EngineStats
 from repro_torch.serve.servable import ServableModel
 from repro_torch.tune.plan import site_names
@@ -94,6 +114,15 @@ class Request:
     t_done: float = 0.0
     #: degree tuple that served the first emission
     degree_at_first_emit: Optional[tuple] = None
+    #: terminal disposition: ok | failed (retries spent) | shed | deadline
+    status: str = "ok"
+    #: guard-trip requeues so far
+    retries: int = 0
+    #: e2e / TTFT deadlines (seconds from t_enqueue; None = none)
+    deadline_s: Optional[float] = None
+    ttft_deadline_s: Optional[float] = None
+    #: earliest admission time (retry backoff gate)
+    eligible_at: float = 0.0
 
     @property
     def queue_time(self) -> float:
@@ -121,7 +150,8 @@ class ServeCore:
     degree (scalar or per-site vector) without a controller; ``prepack``
     applies the workload's quantize-once weight residency at construction.
     ``tracer``, ``registry`` and ``quality_every`` are the observability
-    hooks; ``capture`` picks graph replay or eager steps (module
+    hooks; ``capture`` picks graph replay or eager steps; ``faults``,
+    ``guards``, ``policy`` and ``clock`` the resilience layer (module
     docstring).  Host times (TTFT, e2e) are taken after each tick's
     emissions reach the host, which waits for the device."""
 
@@ -130,7 +160,8 @@ class ServeCore:
                  qos: Optional[QoSController] = None, degree=None,
                  prepack: bool = True, plan=None, registry=None,
                  tracer=None, quality_every: int = 0, emitter=None,
-                 capture: Optional[bool] = None):
+                 capture: Optional[bool] = None, faults=None, guards=None,
+                 policy=None, clock=None):
         self.workload = workload
         self.device = workload.device
         self.capture = resolve_capture(capture, self.device)
@@ -138,6 +169,7 @@ class ServeCore:
         self.slots = slots
         self.max_len = max_len
         self.qos = qos
+        self._clock = clock if clock is not None else time.time
         self.state = workload.init_state(batch=slots, max_len=max_len)
         self.slot_req: list[Optional[Request]] = [None] * slots
         self.slot_budget = np.zeros(slots, np.int32)
@@ -200,6 +232,7 @@ class ServeCore:
                                              tracer=self._tracer)
         # backend last counted per dispatch call site (route counters)
         self._route: dict = {}
+        self._init_resil(faults, guards, policy)
         # admission pipeline: None = exact-length admission, one fused
         # prefill per request
         self._admission = getattr(workload, "admission", None)
@@ -220,6 +253,41 @@ class ServeCore:
             # capture stays out of the first request's TTFT
             self._capture_step()
 
+    def _init_resil(self, faults, guards, policy) -> None:
+        """Faults imply guards (injected corruption must be catchable) and
+        guards imply a policy (something must own retry semantics); with
+        all three absent the engine runs the plain step."""
+        if faults is not None and guards is None:
+            guards = GuardConfig()
+        if guards is not None and policy is None:
+            policy = ServePolicy()
+        self.faults = faults
+        self.guards = guards
+        self.policy = policy
+        #: (tick, event, sorted-args) recovery trace: the same fault seed and
+        #: traffic give the same log
+        self.resil_log: list = []
+        self._golden = None
+        self._sentinel = None
+        self._fault_vec = np.zeros(self.slots, np.float32)
+        #: parameter leaves flipped since the last scrub (tree_leaves order)
+        self._dirty: set = set()
+        if guards is not None:
+            if guards.limit is not None:
+                self.workload.guard_limit = guards.limit
+            # the golden copy: a device clone (the live tensors are flipped
+            # in place, where the graphs read them)
+            self._live_leaves = tree_leaves(self.params)
+            self._golden = [t.clone() for t in self._live_leaves]
+            if guards.sentinel_threshold is not None:
+                if self._tap is None:
+                    raise ValueError(
+                        "sentinel_threshold needs quality_every > 0 (the "
+                        "sentinel watches the quality tap's samples)")
+                self._sentinel = guards.sentinel()
+        if faults is not None:
+            faults.bind(self.state, self.params, self.slots)
+
     def _init_capture(self) -> None:
         """The graph set, the static degree buffer every graph reads, and
         the step's static inputs (feed, slot mask)."""
@@ -238,34 +306,50 @@ class ServeCore:
         self._step_inputs = {
             "feed": torch.from_numpy(self._feed).to(self.device),
             "active": torch.zeros(self.slots, dtype=torch.bool, device=self.device)}
+        if self.guards is not None:
+            self._step_inputs["fault"] = torch.zeros(self.slots, dtype=torch.float32,
+                                                     device=self.device)
         self._step_key = ("step", (tuple(self._feed.shape),
                                    None if self._degree is None
                                    else tuple(self._degree.shape)))
         self._read_event = torch.cuda.Event()
         self._out_pin = None
 
-    def _scratch_step(self, feed, active) -> None:
+    def _scratch_step(self, feed, active, fault=None) -> None:
         """The fused step on a scratch copy of the state with a throwaway
         generator, so the live state and the engine's sampling stream stay
         as they were."""
         scratch = type(self.state)(*(t.clone() for t in self.state))
-        self.workload.step(self.params, scratch, feed, active,
-                           torch.Generator(device=self.device).manual_seed(0),
-                           self._degree)
+        args = (self.params, scratch, feed, active,
+                torch.Generator(device=self.device).manual_seed(0), self._degree)
+        if self.guards is not None:
+            self.workload.guarded_step(*args, fault)
+        else:
+            self.workload.step(*args)
         del scratch
 
+    def _run_step(self, feed, active, fault=None):
+        """One step on the live state (advanced in place; the eager engine
+        also takes the returned tuple): the emissions, with the ok bits
+        packed in as a last column under guards (:func:`pack_ok`)."""
+        if self.guards is None:
+            nxt, state = self.workload.step(self.params, self.state, feed, active,
+                                            self._gen, self._degree)
+        else:
+            nxt, state, ok = self.workload.guarded_step(
+                self.params, self.state, feed, active, self._gen, self._degree, fault)
+            self._emit_shape = tuple(nxt.shape)
+            self._emit_dtype = torch.empty(0, dtype=nxt.dtype).numpy().dtype
+            nxt = pack_ok(nxt, ok)
+        if not self.capture:
+            self.state = state
+        return nxt
+
     def _capture_step(self) -> None:
-        """Capture the fused step against the live state (a capture executes
-        nothing, so the state stays bit-identical), warmed up on a scratch
-        copy."""
-        wl = self.workload
-
-        def step(feed, active):
-            nxt, _ = wl.step(self.params, self.state, feed, active, self._gen,
-                             self._degree)
-            return nxt
-
-        c = self.graphs.capture(self._step_key, step, self._step_inputs,
+        """Capture the fused step (guarded under guards) against the live
+        state — a capture executes nothing, so the state stays bit-identical
+        — warmed up on a scratch copy."""
+        c = self.graphs.capture(self._step_key, self._run_step, self._step_inputs,
                                 warm_fn=self._scratch_step)
         self._out_pin = self.graphs._pinned(c.out)
 
@@ -287,20 +371,34 @@ class ServeCore:
             else:
                 self._scratch_step(
                     torch.from_numpy(self._feed).to(self.device),
-                    torch.zeros(self.slots, dtype=torch.bool, device=self.device))
+                    torch.zeros(self.slots, dtype=torch.bool, device=self.device),
+                    torch.zeros(self.slots, dtype=torch.float32, device=self.device))
         self.stats.c_warmups.inc()
 
     # ------------------------------------------------------------------
 
-    def submit(self, payload, budget: Optional[int] = None) -> Request:
-        """Enqueue one request (FIFO); returns the live Request."""
+    def submit(self, payload, budget: Optional[int] = None, *,
+               deadline_ms: Optional[float] = None,
+               ttft_deadline_ms: Optional[float] = None) -> Request:
+        """Enqueue one request (FIFO); returns the live Request.
+        ``deadline_ms`` / ``ttft_deadline_ms`` override the policy defaults
+        per request (ignored without a policy: nothing would enforce them)."""
         wl = self.workload
         payload = wl.validate(payload)
         if budget is None:
             budget = wl.default_budget(payload)
+        p = self.policy
+        if p is not None:
+            if deadline_ms is None:
+                deadline_ms = p.deadline_ms
+            if ttft_deadline_ms is None:
+                ttft_deadline_ms = p.ttft_deadline_ms
         req = (wl.request_cls or Request)(
             rid=next(self._rid), payload=payload, budget=int(budget),
-            payload_units=wl.payload_units(payload), t_enqueue=time.time())
+            payload_units=wl.payload_units(payload), t_enqueue=self._clock(),
+            deadline_s=None if deadline_ms is None else deadline_ms / 1e3,
+            ttft_deadline_s=(None if ttft_deadline_ms is None
+                             else ttft_deadline_ms / 1e3))
         self.queue.append(req)
         self._tracer.event(
             "enqueue", track="engine", rid=req.rid,
@@ -309,7 +407,7 @@ class ServeCore:
         return req
 
     def _admit(self, slot: int, req: Request):
-        req.t_admitted = time.time()
+        req.t_admitted = self._clock()
         wl = self.workload
         with self._tracer.span(wl.admit_span, track="engine", rid=req.rid,
                                slot=slot,
@@ -371,7 +469,7 @@ class ServeCore:
         if wl.admit_site:
             self._count_route(wl.admit_site)
 
-    def _admit_pipeline(self) -> None:
+    def _admit_pipeline(self, now: float) -> None:
         """Bucketed/packed/chunked admission: first advance mid-admission
         chunked slots (a bounded number of calls per tick, so long-prompt
         ingestion interleaves with decode instead of stalling short-request
@@ -388,13 +486,15 @@ class ServeCore:
                 if wl.admit_complete(req):
                     break
         batch: list = []
-        now = time.time()
         for s in range(self.slots):
             if self.slot_req[s] is not None:
                 continue
-            if not self.queue:
+            if self.policy is None:
+                req = self.queue.popleft() if self.queue else None
+            else:
+                req = self._next_admittable(now)
+            if req is None:
                 break
-            req = self.queue.popleft()
             req.t_admitted = now
             self.slot_req[s] = req
             self.slot_budget[s] = req.budget
@@ -449,19 +549,217 @@ class ServeCore:
                                backend=backend)
         self.stats.c_route_steps.labels(site=site, backend=backend).inc()
 
+    # ---- resilience machinery (repro_torch.resil) -----------------------
+
+    def _resil_event(self, name: str, **args) -> None:
+        """Record one recovery-trace entry and the matching trace event.
+        The entry is a plain (tick, name, sorted-args) tuple, so two runs
+        compare with ``==``."""
+        self.resil_log.append((self._ticks, name, tuple(sorted(args.items()))))
+        self._tracer.event(name, track="resil", tick=self._ticks, **args)
+
+    def _finish(self, req: Request, status: str, now: float,
+                slot: Optional[int] = None) -> None:
+        """Terminate one request non-ok (failed/shed/deadline): exactly one
+        ``done`` entry per submitted request, whatever its fate."""
+        req.status = status
+        req.done = True
+        req.t_done = now
+        self.done.append(req)
+        if slot is not None:
+            self.slot_req[slot] = None
+
+    def _scrub(self, reason: str) -> None:
+        """Copy the golden parameters back, in place, into the leaves
+        flipped since the last scrub (memory scrubbing).  Free when nothing
+        was flipped."""
+        if self._golden is None or not self._dirty:
+            return
+        for i in sorted(self._dirty):
+            self._live_leaves[i].copy_(self._golden[i])
+        self._dirty.clear()
+        self.stats.c_scrubs.inc()
+        self._resil_event("param_scrub", reason=reason)
+
+    def params_golden(self) -> bool:
+        """Whether every parameter leaf is byte-equal to its golden copy
+        (reads the card: for checks, never on the serving path)."""
+        if self._golden is None:
+            return True
+        return all(torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+                   for a, b in zip(self._live_leaves, self._golden))
+
+    def _quarantine(self, slot: int, now: float) -> None:
+        """Per-slot guard trip: reset the slot in place, scrub, and requeue
+        the request (rewound to a fresh admission, behind capped backoff) or
+        fail it per policy."""
+        req = self.slot_req[slot]
+        self.stats.c_guard_trips.labels(reason="slot").inc()
+        self._resil_event("guard_tripped", reason="slot", rid=req.rid, slot=slot)
+        self.state = self.workload.reset_slot(self.state, slot)
+        self.slot_req[slot] = None
+        if self.guards.scrub_on_trip:
+            self._scrub("guard_trip")
+        req.retries += 1
+        if req.retries > self.policy.max_retries:
+            self._finish(req, "failed", now)
+            self.stats.c_failed.inc()
+            self._resil_event("request_failed", rid=req.rid, retries=req.retries)
+            return
+        # full rewind: the retry is indistinguishable from a fresh admission
+        req.out.clear()
+        req.cursor = 0
+        req.admitted_units = 0
+        req.t_first_emit = 0.0
+        req.degree_at_first_emit = None
+        backoff = self.policy.backoff_s(req.retries)
+        req.eligible_at = now + backoff
+        self.queue.appendleft(req)
+        self.stats.c_retries.inc()
+        self._resil_event("retry", rid=req.rid, retries=req.retries,
+                          backoff_ms=round(backoff * 1e3, 3))
+
+    def _next_admittable(self, now: float) -> Optional[Request]:
+        """Oldest queued request whose retry backoff has elapsed."""
+        for req in self.queue:
+            if req.eligible_at <= now:
+                self.queue.remove(req)
+                return req
+        return None
+
+    def _enforce_queue_policy(self, now: float) -> None:
+        """Deadline-cull the queue, apply queue-age shedding, and resolve
+        queue-length overload: brownout first (force the QoS controller one
+        rung down its ladder), shed — newest first — only once the ladder
+        is exhausted."""
+        p = self.policy
+        keep: deque = deque()
+        for req in self.queue:
+            age = now - req.t_enqueue
+            if req.deadline_s is not None and age > req.deadline_s:
+                self._finish(req, "deadline", now)
+                self.stats.c_deadline_miss.labels(edge="queue").inc()
+                self._resil_event("deadline_miss", edge="queue", rid=req.rid)
+                continue
+            if req.ttft_deadline_s is not None and req.t_first_emit == 0.0:
+                # TTFT runs from enqueue: past the deadline a queued request
+                # can no longer emit in time, and one whose remaining budget
+                # cannot cover its admission calls is doomed
+                if age > req.ttft_deadline_s:
+                    self._finish(req, "deadline", now)
+                    self.stats.c_deadline_miss.labels(edge="queue_ttft").inc()
+                    self._resil_event("deadline_miss", edge="queue_ttft", rid=req.rid)
+                    continue
+                if p.admit_eta_ms is not None:
+                    eta = self.workload.admit_calls(req) * p.admit_eta_ms / 1e3
+                    if age + eta > req.ttft_deadline_s:
+                        self._finish(req, "shed", now)
+                        self.stats.c_shed.labels(reason="doomed").inc()
+                        self._resil_event("shed", reason="doomed", rid=req.rid)
+                        continue
+            if (p.max_queue_age_ms is not None
+                    and age * 1e3 > p.max_queue_age_ms):
+                self._finish(req, "shed", now)
+                self.stats.c_shed.labels(reason="stale").inc()
+                self._resil_event("shed", reason="stale", rid=req.rid)
+                continue
+            keep.append(req)
+        self.queue = keep
+        if p.max_queue is None or len(self.queue) <= p.max_queue:
+            return
+        qos = self.qos
+        if (p.brownout and qos is not None and qos.ladder
+                and qos.degree < len(qos.ladder) - 1):
+            # graceful degradation: one rung per tick, with the controller's
+            # own cooldown armed so it cannot climb straight back
+            qos.degree += 1
+            qos._cooldown = qos.cooldown_steps
+            self.stats.c_brownout.inc()
+            self._resil_event("brownout_rung", rung=qos.degree, queued=len(self.queue))
+            return
+        while len(self.queue) > p.max_queue:
+            victim = self.queue.pop()
+            self._finish(victim, "shed", now)
+            self.stats.c_shed.labels(reason="overload").inc()
+            self._resil_event("shed", reason="overload", rid=victim.rid)
+
+    def _enforce_active_deadlines(self, now: float) -> None:
+        """Terminate in-slot requests past their e2e or TTFT deadline (the
+        freed slot region is rewound by the next admission's reset)."""
+        for s in range(self.slots):
+            req = self.slot_req[s]
+            if req is None:
+                continue
+            age = now - req.t_enqueue
+            if req.deadline_s is not None and age > req.deadline_s:
+                edge = "active"
+            elif (req.ttft_deadline_s is not None and req.t_first_emit == 0.0
+                    and age > req.ttft_deadline_s):
+                edge = "ttft"
+            else:
+                continue
+            self._finish(req, "deadline", now, slot=s)
+            self.stats.c_deadline_miss.labels(edge=edge).inc()
+            self._resil_event("deadline_miss", edge=edge, rid=req.rid, slot=s)
+
+    def _stall(self, seconds: float) -> None:
+        """Latency spike: advance an injectable clock, sleep a real one."""
+        advance = getattr(self._clock, "advance", None)
+        if advance is not None:
+            advance(seconds)
+        else:
+            time.sleep(seconds)
+
+    def _apply_faults(self) -> bool:
+        """Apply this tick's scheduled faults; True = the step is dropped.
+        State and parameter flips land in place in the live tensors (the
+        golden clone is apart); activation faults arm the fault vector."""
+        drop = False
+        for ev in self.faults.events_at(self._ticks):
+            self.faults.record(ev)
+            self.stats.c_faults.labels(kind=ev.kind).inc()
+            self._resil_event("fault_injected", **ev.args())
+            if ev.kind == "seu_state":
+                self.state = self.faults.apply_state(self.state, ev)
+            elif ev.kind == "seu_param":
+                self.params = self.faults.apply_params(self.params, ev)
+                self._dirty.add(ev.leaf)
+            elif ev.kind == "nan":
+                self._fault_vec[ev.slot] = ev.value
+            elif ev.kind == "spike":
+                self._stall(ev.value)
+            elif ev.kind == "drop":
+                drop = True
+        return drop
+
     # ------------------------------------------------------------------
 
     def tick(self) -> int:
-        """One engine iteration: admit queued requests into free slots,
-        update the QoS degree, run ONE fused step over all slots, and
-        harvest emissions.  Returns the number of active slots."""
+        """One engine iteration: the policy's deadline and queue checks,
+        admission into free slots, the periodic scrub, the QoS degree, this
+        tick's faults, the quality tap (and sentinel), then ONE fused step
+        over all slots and the harvest (quarantining any slot whose ok bit
+        is False).  Returns the number of active slots."""
         wl = self.workload
+        now = self._clock()
+        if self.policy is not None:
+            self._enforce_queue_policy(now)
+            self._enforce_active_deadlines(now)
         if self._admission is None:
             for s in range(self.slots):
                 if self.slot_req[s] is None and self.queue:
-                    self._admit(s, self.queue.popleft())
+                    if self.policy is None:
+                        self._admit(s, self.queue.popleft())
+                    else:
+                        req = self._next_admittable(now)
+                        if req is None:
+                            break
+                        self._admit(s, req)
         else:
-            self._admit_pipeline()
+            self._admit_pipeline(now)
+        if self.guards is not None and self.guards.scrub_every > 0 \
+                and self._ticks and self._ticks % self.guards.scrub_every == 0:
+            self._scrub("periodic")
         busy = [s for s in range(self.slots) if self.slot_req[s] is not None]
         if not busy:
             return 0
@@ -474,25 +772,47 @@ class ServeCore:
             return len(busy)
         if self.qos is not None:
             self._update_degree(len(active))
+        # scheduled faults land before the step: flips are what the step
+        # reads, the armed fault vector poisons its activations
+        drop = self.faults is not None and self._apply_faults()
         mask = np.zeros(self.slots, bool)
         mask[active] = True
         if self._tap is not None and self._tap.due(self._ticks):
             # probe BEFORE the step, on the inputs the step is about to
             # consume; the tap leaves the state as it found it
-            self._tap.sample(self._ticks, self.params, self.state,
-                             torch.from_numpy(self._feed).to(self.device),
-                             torch.from_numpy(mask).to(self.device), self._degree,
-                             rung=self._degree_rec)
+            val = self._tap.sample(self._ticks, self.params, self.state,
+                                   torch.from_numpy(self._feed).to(self.device),
+                                   torch.from_numpy(mask).to(self.device), self._degree,
+                                   rung=self._degree_rec)
+            if self._sentinel is not None and self._sentinel.observe(val):
+                self.stats.c_guard_trips.labels(reason="quality").inc()
+                self._resil_event("guard_tripped", reason="quality",
+                                  sample=round(float(val), 6))
+                if self.guards.scrub_on_trip:
+                    self._scrub("sentinel")
+        if drop:
+            # dropped tick: no step (no replay), no state advance, no
+            # emission, no budget charge; an armed fault evaporates
+            self._fault_vec[:] = 0.0
+            self._ticks += 1
+            self.stats.c_dropped_ticks.inc()
+            return len(active)
         with self._tracer.span(f"{wl.step_span}_tick", track="engine",
                                tick=self._ticks, active=len(active),
                                queued=len(self.queue)):
+            host = {"feed": self._feed, "active": mask}
+            if self.guards is not None:
+                host["fault"] = self._fault_vec
             if self.capture:
-                nxt = self._replay_step(mask)
+                out = self._replay_step(host)
             else:
-                nxt, self.state = wl.step(
-                    self.params, self.state, torch.from_numpy(self._feed).to(self.device),
-                    torch.from_numpy(mask).to(self.device), self._gen, self._degree)
-                nxt = nxt.cpu().numpy()      # the tick's one device->host read
+                dev = device_inputs(host, self.device)
+                out = self._run_step(**dev).cpu().numpy()   # the tick's one read
+            if self.guards is not None:
+                self._fault_vec[:] = 0.0
+                nxt, ok = unpack_ok(out, self._emit_shape, self._emit_dtype)
+            else:
+                nxt, ok = out, None
         self._ticks += 1
         self.stats.c_steps.inc()
         self.stats.c_step_units.inc(len(active))
@@ -500,9 +820,13 @@ class ServeCore:
             self._count_route(site)
         self._tracer.counter("slots", track="engine", active=len(active),
                              queued=len(self.queue))
-        now = time.time()
+        now = self._clock()
         for s in active:
             req = self.slot_req[s]
+            if ok is not None and not ok[s]:
+                # corrupted emission: never banked — quarantine the slot
+                self._quarantine(s, now)
+                continue
             emitted, finished, info = wl.harvest(req, self._feed, s, nxt[s])
             if emitted:
                 if req.t_first_emit == 0.0:
@@ -528,12 +852,11 @@ class ServeCore:
                                    **wl.done_args(req, info))
         return len(active)
 
-    def _replay_step(self, mask: np.ndarray) -> np.ndarray:
-        """Stage the feed and the slot mask, replay the step's graph and read
-        its emissions into pinned memory: the tick's one device-to-host
-        read (a copy out, so the next tick's read cannot overwrite them)."""
-        g = self.graphs
-        out = g.run(self._step_key, {"feed": self._feed, "active": mask})
+    def _replay_step(self, host: dict) -> np.ndarray:
+        """Stage the step's inputs, replay its graph and read its output
+        into pinned memory: the tick's one device-to-host read (a copy out,
+        so the next tick's read cannot overwrite it)."""
+        out = self.graphs.run(self._step_key, host)
         self._out_pin.copy_(out, non_blocking=True)
         self._read_event.record()
         self._read_event.synchronize()
@@ -550,6 +873,21 @@ class ServeCore:
         if self.emitter is not None:
             self.emitter.flush()
         return self.done
+
+
+def pack_ok(emission: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
+    """The guarded step's emissions and ok bits as one (slots, E + 1)
+    tensor — int64 for integer emissions, float64 for float ones (both
+    exact) — so the tick reads them back in one copy."""
+    wide = torch.float64 if emission.is_floating_point() else torch.int64
+    rows = emission.reshape(emission.shape[0], -1).to(wide)
+    return torch.cat([rows, ok.reshape(-1, 1).to(wide)], dim=1)
+
+
+def unpack_ok(packed: np.ndarray, shape: tuple, dtype) -> tuple:
+    """Inverse of :func:`pack_ok` on the host: (emissions of ``shape`` and
+    ``dtype``, ok bools)."""
+    return (packed[:, :-1].astype(dtype).reshape(shape), packed[:, -1] != 0)
 
 
 def resolve_capture(capture: Optional[bool], device) -> bool:

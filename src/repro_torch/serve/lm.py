@@ -38,8 +38,10 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.kernels import dispatch as kdispatch
 from repro_torch.models.cache_ops import cache_mask_update, cache_reset_slot
 from repro_torch.models.registry import Model
+from repro_torch.resil import guards
 from repro_torch.serve import engine as _engine
 from repro_torch.serve.admission import AdmissionConfig, bucket_for
 from repro_torch.serve.graphs import device_inputs
@@ -89,6 +91,9 @@ class LMAdapter(ServableModel):
     admit_site = "prefill"
     step_sites = ("decode",)
     request_cls = Request
+    #: clean logits sit well under this; a high-exponent SEU or a NaN/Inf
+    #: injection blows past it (resil.guards)
+    guard_limit = 1e4
 
     def __init__(self, model: Model, *, tp: int = 1, eos_id: int = -1,
                  greedy: bool = True, temperature: float = 1.0,
@@ -320,21 +325,40 @@ class LMAdapter(ServableModel):
             self._prefill_chunk(params, cache, self._chunk_inputs(a.chunk_tokens, B),
                                 degree, run)
 
-    def step(self, params, cache, feed, active, generator, degree):
-        """The fused decode step: one token a slot, the cache advanced in
-        place (free slots' lengths frozen), the next tokens sampled on the
-        device.  Reads nothing on the host: a capturing engine replays it
-        from a CUDA graph."""
+    def _logits(self, params, cache, feed, active, degree):
+        """The fused decode: one token a slot, the cache advanced in place
+        (free slots' lengths frozen); returns the last position's (slots,
+        vocab) logits and the cache."""
         self._note("step", (tuple(feed.shape),
                             None if degree is None else tuple(getattr(degree, "shape", ()))))
         logits, new_cache = self.model.decode_step(params, cache, feed,
                                                    tp=self.tp, degree=degree,
                                                    active=active)
         cache = cache_mask_update(cache, new_cache, active, into=cache)
-        nxt = sample_tokens(logits[:, 0, :self.cfg.vocab], generator,
-                            greedy=self.greedy, temperature=self.temperature,
-                            top_k=self.top_k)
-        return nxt, cache
+        return logits[:, 0, :self.cfg.vocab], cache
+
+    def _sample(self, logits, generator):
+        return sample_tokens(logits, generator, greedy=self.greedy,
+                             temperature=self.temperature, top_k=self.top_k)
+
+    def step(self, params, cache, feed, active, generator, degree):
+        """The fused decode step, the next tokens sampled on the device.
+        Reads nothing on the host: a capturing engine replays it from a
+        CUDA graph."""
+        logits, cache = self._logits(params, cache, feed, active, degree)
+        return self._sample(logits, generator), cache
+
+    def guarded_step(self, params, cache, feed, active, generator, degree, fault):
+        """:meth:`step` with the fault injected into, and the guard run on,
+        the logits before sampling — where corruption is still observable
+        (sampling collapses a poisoned distribution to a plausible token).
+        Sampling stays defined on a quarantined slot: its non-finite logits
+        are zeroed (the token is discarded).  Returns (tokens, cache, ok)."""
+        logits, cache = self._logits(params, cache, feed, active, degree)
+        lv = kdispatch.inject_fault(logits, fault)
+        ok = guards.slot_ok(lv, limit=self.guard_limit)
+        safe = torch.where(torch.isfinite(lv), lv, torch.zeros_like(lv))
+        return self._sample(safe, generator), cache, ok
 
     def harvest(self, req, feed, slot, emission):
         tok = int(emission)
@@ -370,7 +394,7 @@ class ServeEngine(_engine.ServeCore):
                  prepack: bool = True, plan=None, registry=None,
                  tracer=None, quality_every: int = 0,
                  admission: Optional[AdmissionConfig] = None, emitter=None,
-                 capture: Optional[bool] = None):
+                 capture: Optional[bool] = None, **resil_kw):
         workload = LMAdapter(model, tp=tp, eos_id=eos_id, greedy=greedy,
                              temperature=temperature, top_k=top_k,
                              max_len=max_len, admission=admission)
@@ -378,7 +402,7 @@ class ServeEngine(_engine.ServeCore):
                          seed=seed, qos=qos, degree=degree, prepack=prepack,
                          plan=plan, registry=registry, tracer=tracer,
                          quality_every=quality_every, emitter=emitter,
-                         capture=capture)
+                         capture=capture, **resil_kw)
         self.model = model
         self.eos_id = eos_id
         self.tp = tp
@@ -391,7 +415,8 @@ class ServeEngine(_engine.ServeCore):
     def cache(self, value):
         self.state = value
 
-    def submit(self, prompt, max_new_tokens: int = 32) -> Request:
+    def submit(self, prompt, max_new_tokens: int = 32, **kw) -> Request:
         """Enqueue one request (FIFO).  Returns the live Request — tokens
-        appear in ``request.out_tokens`` as ticks generate them."""
-        return super().submit(prompt, max_new_tokens)
+        appear in ``request.out_tokens`` as ticks generate them.  ``kw``:
+        ``deadline_ms`` / ``ttft_deadline_ms`` (``ServeCore.submit``)."""
+        return super().submit(prompt, max_new_tokens, **kw)

@@ -92,6 +92,32 @@ class EngineStats:
         self.g_degree = r.gauge(
             "repro_degree_ebits", "live approximation degree by plan site",
             labels=("site",))
+        # resilience families (repro_torch.resil); zero-valued unless the
+        # engine runs with faults/guards/policy
+        self.c_faults = r.counter(
+            "repro_faults_injected_total",
+            "faults injected by the engine's FaultPlan", labels=("kind",))
+        self.c_guard_trips = r.counter(
+            "repro_guard_trips_total",
+            "runtime guard trips (slot quarantine or quality sentinel)",
+            labels=("reason",))
+        self.c_retries = r.counter(
+            "repro_retries_total", "guard-tripped requests requeued")
+        self.c_failed = r.counter(
+            "repro_requests_failed_total", "requests failed (retries spent)")
+        self.c_shed = r.counter(
+            "repro_requests_shed_total",
+            "requests shed by backpressure", labels=("reason",))
+        self.c_deadline_miss = r.counter(
+            "repro_deadline_miss_total",
+            "requests terminated past their deadline", labels=("edge",))
+        self.c_brownout = r.counter(
+            "repro_brownout_total",
+            "forced QoS rung degradations under overload")
+        self.c_scrubs = r.counter(
+            "repro_param_scrubs_total", "golden parameter restores")
+        self.c_dropped_ticks = r.counter(
+            "repro_dropped_ticks_total", "fused steps skipped by drop faults")
         # admission pipeline families; zero-valued unless the engine runs
         # with an AdmissionConfig
         self.c_warmups = r.counter(
@@ -236,6 +262,14 @@ def summarize(done, stats: EngineStats | None = None,
             first_deg[key] = first_deg.get(key, 0) + 1
     if first_deg:
         out["degree_at_first_token"] = dict(sorted(first_deg.items()))
+    # terminal status partition (resilience policies): only surfaced when
+    # some request ended non-ok, so clean summaries are unchanged
+    statuses: dict = {}
+    for r in done:
+        st = getattr(r, "status", "ok")
+        statuses[st] = statuses.get(st, 0) + 1
+    if set(statuses) - {"ok"}:
+        out["request_status"] = dict(sorted(statuses.items()))
     if wall_s is not None and wall_s > 0:
         out["gen_tok_per_s"] = round(gen / wall_s, 1)
     if stats is not None:

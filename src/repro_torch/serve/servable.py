@@ -22,6 +22,9 @@ from __future__ import annotations
 
 from typing import Optional
 
+from repro_torch.kernels import dispatch as kdispatch
+from repro_torch.resil import guards
+
 
 class ServableModel:
     """Base/protocol for engine workloads."""
@@ -50,6 +53,9 @@ class ServableModel:
     cfg = None
     #: the device the workload's state lives on
     device = None
+    #: magnitude bound of a clean emission (``resil.guards.slot_ok``);
+    #: None = finiteness only
+    guard_limit: Optional[float] = None
 
     def prepack(self, params):
         """Quantize-once residency hook; identity by default."""
@@ -118,6 +124,21 @@ class ServableModel:
         """ONE fused step over all slots: (emission (slots,), new_state);
         free slots are masked so their state never advances."""
         raise NotImplementedError
+
+    def guarded_step(self, params, state, feed, active, generator, degree, fault):
+        """Fault-aware twin of :meth:`step` (``repro_torch.resil``): the same
+        contract plus a per-slot ``fault`` operand — a (slots,) float32
+        tensor, 0.0 = clean, NaN/Inf = corrupt that slot's activations via
+        ``dispatch.inject_fault`` — and a third output, the per-slot ``ok``
+        bools of ``resil.guards.slot_ok`` against :attr:`guard_limit`.  The
+        engine never banks an emission whose ok bit is False; it quarantines
+        the slot.  This default injects into and guards the emission;
+        workloads may place both inside the pipeline (the LM adapter guards
+        the logits before sampling).  No host read: it is captured."""
+        emission, new_state = self.step(params, state, feed, active, generator,
+                                        degree)
+        emission = kdispatch.inject_fault(emission, fault)
+        return emission, new_state, guards.slot_ok(emission, limit=self.guard_limit)
 
     def harvest(self, req, feed, slot: int, emission):
         """Bank one slot's emission; returns (emitted, finished, info)."""

@@ -30,8 +30,10 @@ workload the reuse-after-free bit-identity guarantee the LM caches have.
 Plans calibrate on application-level quality — PSNR against the
 exact-arithmetic pipeline (``core.error_analysis.psnr_db``) through
 :func:`psnr_metric` — and the quality tap samples the same per-frame PSNR
-live.  Not ported yet: the guard wiring into quarantine (``guard_limit`` is
-kept as the bound a guard would hold).
+live.  Under guards the engine runs the generic guarded step
+(``ServableModel.guarded_step``): an activation fault flips the frame's
+high magnitude bit, and a frame outside ``guard_limit`` (the range the
+clean pipeline never leaves) quarantines its slot.
 """
 
 from __future__ import annotations
@@ -147,7 +149,7 @@ class StreamAdapter(ServableModel):
         # just a carrier
         self.policy = ApproxPolicy()
         # clean pipeline range bound: l1-safe taps/kern quantization and the
-        # <1 gain keep |frame| <= 2**q end-to-end (what a guard would hold)
+        # <1 gain keep |frame| <= 2**q end-to-end; the guarded step holds it
         self.guard_limit = float(2 << self.cfg.q)
 
     # ---- weights / slot state ----------------------------------------
@@ -304,10 +306,11 @@ class StreamServeEngine(_engine.ServeCore):
         kw.setdefault("max_len", 0)
         super().__init__(adapter, params, slots=slots, **kw)
 
-    def submit(self, frames, max_frames: Optional[int] = None):
+    def submit(self, frames, max_frames: Optional[int] = None, **kw):
         """Enqueue one clip; processed frames accumulate in
-        ``request.out`` as (frame,) int32 arrays."""
-        return super().submit(frames, max_frames)
+        ``request.out`` as (frame,) int32 arrays.  ``kw``: ``deadline_ms`` /
+        ``ttft_deadline_ms`` (``ServeCore.submit``)."""
+        return super().submit(frames, max_frames, **kw)
 
 
 def make_clip(n_frames: int, frame: int, q: int = 12, seed: int = 0,

@@ -1049,3 +1049,99 @@ def test_gpu_replay_launches_what_its_capture_recorded(hopper):
     assert n(replayed, gemm) == (5 * L + 1) + L
     assert n(replayed, attn) == L
     assert replayed == eager
+
+
+# ---------------------------------------------------------------------------
+# the EMUL / POW2_W products and the resilience layer on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["pr_emul", "rad_emul", "roup_emul", "pow2_w"])
+def test_gpu_emul_products_match_cpu(hopper, mode):
+    """``approx_matmul`` under each emulation mode on the card (the integer
+    product by ``torch._int_mm``, M <= 16 padded to 32 rows) gives the CPU's
+    output bit for bit, packed and on the fly, eagerly and replayed from a
+    CUDA graph; POW2_W's snapped weights equal the CPU snap (its product is
+    an f32 GEMM, held to 1e-5)."""
+    from repro_torch.core import encodings as enc
+    from repro_torch.core.approx import ApproxMode, ApproxSpec
+    from repro_torch.kernels import ops, qstore
+
+    kw = {"pr_emul": dict(p=1, r=2), "rad_emul": dict(k=4),
+          "roup_emul": dict(k=4, p=1, r=1), "pow2_w": {}}[mode]
+    spec = ApproxSpec(mode=ApproxMode(mode), **kw)
+    g = torch.Generator().manual_seed(5)
+    K, N = 256, 200
+    w = torch.randn(K, N, generator=g) / math.sqrt(K)
+    for M in (1, 8, 255):
+        x = torch.randn(M, K, generator=g)
+        for packed in ((False, True) if mode != "pow2_w" else (False,)):
+            wc = qstore.pack_for_spec(w, spec) if packed else w
+            wg = (qstore.PackedEmulWeight(wc.qw.to(hopper), wc.scale.to(hopper))
+                  if packed else w.to(hopper))
+            if packed:
+                assert wg.qw.stride() == (1, K)
+            want = ops.approx_matmul(x, wc, spec)
+            xg = x.to(hopper)
+            got = ops.approx_matmul(xg, wg, spec)
+            if mode == "pow2_w":
+                torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-5)
+                assert torch.equal(enc.pow2_snap(w.to(hopper)).cpu(), enc.pow2_snap(w))
+                continue
+            assert torch.equal(got.cpu(), want), (M, packed)
+            graph = torch.cuda.CUDAGraph()
+            s = torch.cuda.Stream()
+            s.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(s):
+                ops.approx_matmul(xg, wg, spec)
+            torch.cuda.current_stream().wait_stream(s)
+            with torch.cuda.graph(graph):
+                out = ops.approx_matmul(xg, wg, spec)
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out.cpu(), want), (M, packed, "graph")
+
+
+@pytest.mark.gpu
+def test_gpu_guarded_step_captured_and_flip_reaches_the_replay(hopper):
+    """Under guards the captured step is the guarded one (the fault vector a
+    static input, the ok bits packed into the one pinned read).  An
+    in-place flip of the unembedding's first scale (bit 30) at tick 2
+    reaches that tick's replay: its ok bits fall (the trip is logged when
+    that step's tick has counted, one past the injection's), the slots are quarantined
+    and retried, the scrub restores the parameters byte for byte, and the
+    tokens equal a clean captured run's and the eager twin's; no graph is
+    captured after warmup."""
+    from repro_torch.resil import FaultEvent, FaultPlan, GuardConfig
+    from repro_torch.resil.faults import tree_leaves
+    from repro_torch.serve.lm import ServeEngine
+
+    m, params = _smoke_lm(hopper)
+    target = next(i for i, t in enumerate(tree_leaves(params))
+                  if t is params["unembed"]["w"].scales)
+    prompts = [np.arange(1, 9), np.arange(3, 8)]
+
+    def run(faults=None, capture=True, guards=None):
+        eng = ServeEngine(m, params, slots=2, max_len=64, prepack=False, seed=0,
+                          emitter=False, capture=capture, faults=faults, guards=guards)
+        n = None if eng.graphs is None else len(eng.graphs.graphs)
+        reqs = [eng.submit(p, 6) for p in prompts]
+        eng.run_until_drained()
+        assert n is None or len(eng.graphs.graphs) == n
+        return eng, [r.out_tokens for r in reqs]
+
+    flip = lambda: FaultPlan(events=[FaultEvent(tick=2, kind="seu_param", leaf=target,
+                                                target=str(target), index=0, bit=30)])
+    clean, clean_tokens = run(guards=GuardConfig())
+    c = clean.graphs.graphs[clean._step_key]
+    assert set(c.inputs) == {"feed", "active", "fault"} and clean.resil_log == []
+    assert tuple(clean._out_pin.shape) == (2, 2)          # one token + the ok bit a slot
+    eng, tokens = run(faults=flip())
+    names = [n for _, n, _ in eng.resil_log]
+    assert names[:2] == ["fault_injected", "guard_tripped"]
+    assert (eng.resil_log[0][0], eng.resil_log[1][0]) == (2, 3)
+    assert "param_scrub" in names and "retry" in names
+    assert eng.params_golden() and tokens == clean_tokens
+    eager, eager_tokens = run(faults=flip(), capture=False)
+    assert eager.resil_log == eng.resil_log and eager_tokens == tokens
