@@ -19,7 +19,11 @@ Phases (any failure exits non-zero):
      through the elementwise pr_multiply, then torch.sum), beside one
      empty launch by graph replay; a
      decode row with lengths at the decode kernels' split edges; qwen's
-     long-prefill GEMMs at M = 4096), with the stated tolerance (the GEMMs
+     long-prefill GEMMs at M = 4096; granite-moe-3b-a800m's and
+     qwen2-moe-a2.7b's experts on the expert-batched launches at the decode
+     capacity and at a 512-token prefill's, qwen2-moe's shared experts,
+     granite's unembedding at N = 49155, both decode kernels at groups of
+     3 and 1, tri at 24/8 heads), with the stated tolerance (the GEMMs
      also bit-identical, and at decode at least one block an SM), timed
      with CUDA events beside its bound and, where one PyTorch call computes
      the same function, that call (the decode kernels, the GEMMs, SDPA and
@@ -81,12 +85,18 @@ Phases (any failure exits non-zero):
        3g  prompts of a few thousand tokens among short ones, exact-length
            admission on the bf16 cache (``tri`` at D = 128);
        3h  the same on the int8 cache with bucketed, packed admission;
+     granite-moe-3b-a800m (32 layers, 40 experts of 512, top-8, GQA 24/8,
+     vocab 49155) on phase 3's traffic, exact-length admission (MoE's only
+     one: capacity couples the rows of a call) —
+       3m  the bf16 cache, the experts on one expert-batched gated and one
+           down launch a layer;
+       3n  the same on the int8 cache;
      every request must finish and every kernel of the path must have
      launched exactly as the layer (or stage) count predicts, while no
      plain version ran on the card.  Every path serves from CUDA graphs,
      one per call shape of the step, each bucket and the chunk, captured
      when its engine is built (the launch counts rise by each replay's
-     recorded launches); 3, 3b, 3e, 3g and 3d also serve their traffic
+     recorded launches); 3, 3b, 3e, 3g, 3m, 3n and 3d also serve their traffic
      eagerly (``capture=False``) in the same call, with equal tokens or
      frames required, and print the two ticks beside the traced captured
      tick's device time and busy share, the capture seconds and the graph
@@ -95,7 +105,8 @@ Phases (any failure exits non-zero):
      the bf16 and on the int8 cache: every kernel call checked against its
      plain version on the model's own inputs, the logits of a kernel run
      against a plain run within the model's measured noise floor, and
-     prompts padded to one bucket against their exact-length prefill;
+     (but for the MoE arch, exact-length only) prompts padded to one
+     bucket against their exact-length prefill;
   5. one {"kernels": [...]} line and, last, the result line.
 
 With ``--record PATH`` every number also goes to a JSON file.
@@ -130,6 +141,11 @@ ROTATE_BYTES = 256 << 20
 SOURCES = {
     "axqmm": ("src/repro_torch/kernels/csrc/axqmm.cu", "src/repro/kernels/axqmm.py:89"),
     "axqmm_gated": ("src/repro_torch/kernels/csrc/axqmm.cu", "src/repro/kernels/axqmm.py:117"),
+    # the expert-batched launches of the same kernels (the reference vmaps
+    # their Pallas calls over an MoE layer's experts)
+    "axqmm_experts": ("src/repro_torch/kernels/csrc/axqmm.cu", "src/repro/kernels/axqmm.py:89"),
+    "axqmm_gated_experts": ("src/repro_torch/kernels/csrc/axqmm.cu",
+                            "src/repro/kernels/axqmm.py:117"),
     "flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu",
                      "src/repro/kernels/flash_decode.py:78"),
     "flash_decode_quant": ("src/repro_torch/kernels/csrc/flash_decode.cu",
@@ -146,7 +162,7 @@ SOURCES = {
 }
 
 #: the row keys that name a phase-2 shape
-SHAPE_KEYS = ("M", "N", "K", "bias", "B", "T", "KVr", "G", "BH", "S", "D", "window", "ebits",
+SHAPE_KEYS = ("E", "M", "N", "K", "bias", "B", "T", "KVr", "G", "BH", "S", "D", "window", "ebits",
               "dtype", "shape", "L", "H", "W", "kh", "kw", "pad", "shift")
 
 
@@ -279,12 +295,17 @@ def check_axqmm(ctx, M, N, K, residual, degree, bias=False):
                                                            degree, bias=b, residual=res))
         row["plain_ms"] = timer(lambda i: A.axqmm_packed_plain(
             x, pws[i % len(pws)], degree, bias=b, residual=res), iters=5, warmup=1)
-        # cuBLASLt's int8 GEMM wants M > 16: a decode-sized x is zero-padded
+        # cuBLASLt's int8 GEMM wants M > 16: a decode-sized x is zero-padded;
+        # and N a multiple of 8: a ragged N (granite's vocab 49155) gets
+        # zero weight rows
         qxl = qx if M > 16 else torch.cat([qx, qx.new_zeros(32 - M, K)])
-        library = lambda i: torch._int_mm(qxl, pws[i % len(pws)].qw.t())
+        Nl = -(-N // 8) * 8
+        lib_w = [pw.qw if Nl == N else torch.cat([pw.qw, pw.qw.new_zeros(Nl - N, K)])
+                 for pw in pws]
+        library = lambda i: torch._int_mm(qxl, lib_w[i % len(lib_w)].t())
         row["library_ms"] = timer(library)
         row["library_ms_graph"] = timer.graph(library, len(pws))
-        row["library_call"] = (f"torch._int_mm on ({qxl.shape[0]}, K) x (K, N) int8 "
+        row["library_call"] = (f"torch._int_mm on ({qxl.shape[0]}, K) x (K, {Nl}) int8 "
                                "(no block scales or degrade)")
     nbytes = (M * K + M * nb * 4 + wbytes + M * N * 4 * (2 if residual else 1)
               + (N * 4 if bias else 0))
@@ -293,18 +314,19 @@ def check_axqmm(ctx, M, N, K, residual, degree, bias=False):
     return row
 
 
-def gemm_plan(ctx, row, M, N, K, bk, gated) -> None:
-    """The launch the wrapper plans for this shape on this card: tile
-    configuration, splits of K, units a block, and the main kernel's blocks
-    an SM (at decode, M <= 16, at least one an SM)."""
+def gemm_plan(ctx, row, M, N, K, bk, gated, experts=1) -> None:
+    """The launch the wrapper plans for this shape (``experts`` of them in
+    one expert-batched launch) on this card: tile configuration, splits of
+    K, units a block, and the main kernel's blocks an SM (at decode, M <=
+    16, at least one an SM)."""
     from repro_torch.kernels import axqmm as A
 
     sms = ctx["torch"].cuda.get_device_properties(0).multi_processor_count \
         if ctx["on_card"] else 132
-    p = A.plan(M, N, K, bk, gated, sms)
+    p = A.plan(M, N, K, bk, gated, sms, experts)
     row["plan"] = {"cfg": ("decode", "tile64", "tile128")[p.cfg],
                    "n_split": p.n_split, "part": p.part}
-    row["blocks_per_sm"] = A.blocks(p, M, N, gated) / sms
+    row["blocks_per_sm"] = A.blocks(p, M, N, gated, experts) / sms
     if M <= A.DECODE_M and ctx["on_card"]:   # the smoke widths cannot fill a card
         require(row["blocks_per_sm"] >= 1, f"axqmm M={M} N={N} K={K}: {p} launches "
                                             f"fewer blocks than the card has SMs")
@@ -363,6 +385,68 @@ def check_gated(ctx, M, N, K, degree):
     nbytes = M * K + M * nb * 4 + wbytes + M * N * 4
     row["bound_ms"], row["bound_by"] = bound(nbytes, 4.0 * M * N * K, INT8_OPS)
     gemm_rates(row, 4.0 * M * N * K)
+    return row
+
+
+def check_experts(ctx, E, C, N, K, degree, gated):
+    """An expert-batched GEMM row (E experts of C capacity rows, K -> N;
+    ``gated``: the fused up/gate half, else the down projection): the
+    launch bit-identical to its plain version (and so each expert to the
+    2-D launch on its slice), with every expert's last capacity row empty,
+    as a decode tick leaves most of them.  Timed eagerly (``ms``, on the
+    quantized x; ``wrapper_ms`` with the quantization) and by graph replay
+    (``ms_graph``); beside it the E torch._int_mm calls of each weight
+    (rows padded to 32), replayed from one graph (``int_mm_loop_ms_graph``:
+    PyTorch has no batched int8 product), which is the down row's
+    ``library_ms`` as the 2-D GEMM row's is one torch._int_mm."""
+    torch, dev, timer = ctx["torch"], ctx["dev"], ctx["timer"]
+    from repro_torch.kernels import axqmm as A
+    from repro_torch.kernels.qstore import PackedQWeight, prepack_weight, resolve_block
+
+    name = "axqmm_gated_experts" if gated else "axqmm_experts"
+    gen = torch.Generator(device=dev).manual_seed(6000 + E + C + N + K)
+    x = torch.randn(E, C, K, generator=gen, device=dev)
+    x[:, -1] = 0.0
+    bk = resolve_block(K, 256)
+    packs = [prepack_weight(torch.randn(E, K, N, generator=gen, device=dev) / math.sqrt(K), bk)
+             for _ in range(2 if gated else 1)]
+    kernel_of = A.axqmm_gated_experts_quantized if gated else A.axqmm_experts_quantized
+    wrapper_of = A.axqmm_gated_experts_packed if gated else A.axqmm_experts_packed
+    plain_of = A.axqmm_gated_experts_plain if gated else A.axqmm_experts_plain
+    y = wrapper_of(x, *packs, degree)
+    yp = plain_of(x, *packs, degree)
+    ctx["sync"]()
+    err = float((y - yp).abs().max())
+    ok = bool(torch.allclose(y, yp, rtol=1e-5, atol=1e-4))
+    require(err == 0.0, f"{name} E={E} C={C} N={N} K={K}: not bit-identical to its plain "
+                        f"version (max_abs_err {err})")
+    nb = K // bk
+    wbytes = len(packs) * E * (N * K + N * nb * 4)
+    sets = copies(lambda: [PackedQWeight(pw.qw.clone(), pw.scales.clone()) for pw in packs],
+                  wbytes, ctx["on_card"])
+    qx, sx = A.quantize_for_axqmm(x, bk)
+    row = {"E": E, "M": C, "N": N, "K": K, "max_abs_err": err,
+           "tol": "rtol 1e-5, atol 1e-4 (and bit-identical)", "ok": ok}
+    gemm_plan(ctx, row, C, N, K, bk, gated, E)
+    if ctx["on_card"]:
+        kernel = lambda i: kernel_of(qx, sx, *sets[i % len(sets)], degree)
+        row["ms"] = timer(kernel)
+        row["ms_graph"] = timer.graph(kernel, len(sets))
+        row["wrapper_ms"] = timer(lambda i: wrapper_of(x, *sets[i % len(sets)], degree))
+        row["plain_ms"] = timer(lambda i: plain_of(x, *sets[i % len(sets)], degree), iters=3,
+                                warmup=1)
+        qxl = qx if C > 16 else torch.cat([qx, qx.new_zeros(E, 32 - C, K)], dim=1)
+        loop = lambda i: [torch._int_mm(qxl[e], pw.qw[e].t())
+                          for pw in sets[i % len(sets)] for e in range(E)]
+        row["int_mm_loop_ms_graph"] = timer.graph(loop, len(sets))
+        row["library_ms"] = None if gated else row["int_mm_loop_ms_graph"]
+        row["library_ms_graph"] = row["library_ms"]
+        row["library_call"] = (f"{len(packs) * E} torch._int_mm calls on ({qxl.shape[1]}, K) x "
+                               "(K, N) int8 from one graph (no block scales or degrade)")
+    nbytes = E * (C * K + C * nb * 4 + C * N * 4) + wbytes
+    ops = 2.0 * len(packs) * E * C * N * K
+    row["bound_ms"], row["bound_by"] = bound(nbytes, ops, INT8_OPS)
+    gemm_rates(row, ops)
     return row
 
 
@@ -1113,6 +1197,47 @@ def phase_kernels_head128(ctx, cfg, nemo_cfg):
     return rows
 
 
+def phase_kernels_moe(ctx, cfg, q_cfg):
+    """Phase 2, MoE rows: granite-moe-3b-a800m's kernels at its full-width
+    shapes (40 experts of d_expert 512 over d_model 1536; GQA 24/8 at
+    head_dim 64; vocab 49155, the first N on the card that is no multiple
+    of 16) and qwen2-moe-a2.7b's expert shapes (60 experts of 1408 over
+    2048, K 1408 taking bk 128; its shared experts' 5632-wide gated half;
+    MHA 16/16 at head_dim 128): the expert-batched launches at the decode
+    capacity of ``slots`` slots and of a ``moe_prefill_len``-token
+    prefill, the unembedding at M = slots and ``prefill_m``, both decode
+    kernels at groups of 3 and 1 (padded to 4 in the kernel), and tri
+    prefill attention at granite's heads."""
+    torch = ctx["torch"]
+    from repro_torch.models.moe import capacity
+
+    deg = torch.tensor(6, dtype=torch.int32, device=ctx["dev"])
+    slots, prompt = ctx["slots"], ctx["prefill_m"]
+    rows = {"axqmm_experts": [], "axqmm_gated_experts": [], "axqmm": [], "axqmm_gated": [],
+            "flash_decode": [], "flash_decode_quant": [], "flash_attention": []}
+    for c in (cfg, q_cfg):
+        E, d, f = c.moe.n_experts, c.d_model, c.moe.d_expert
+        for C in (capacity(c, slots), capacity(c, ctx["moe_prefill_len"])):
+            rows["axqmm_gated_experts"].append(check_experts(ctx, E, C, f, d, deg, True))
+            rows["axqmm_experts"].append(check_experts(ctx, E, C, d, f, deg, False))
+    fs = q_cfg.moe.n_shared * q_cfg.moe.d_shared
+    for M in (slots, prompt):
+        rows["axqmm_gated"].append(check_gated(ctx, M, fs, q_cfg.d_model, deg))
+        rows["axqmm"].append(check_axqmm(ctx, M, cfg.vocab, cfg.d_model, False, deg))
+    T = ctx["max_len"]
+    nvalid, active = decode_lengths(T, slots)
+    for c in (cfg, q_cfg):
+        G = c.n_heads // c.n_kv_heads
+        rows["flash_decode"].append(check_decode(ctx, slots, c.n_kv_heads, G, c.head_dim, T,
+                                                 nvalid, active))
+        rows["flash_decode_quant"].append(check_decode_quant(
+            ctx, slots, c.n_kv_heads, G, c.head_dim, T, nvalid, active, 5))
+    rows["flash_attention"].append(check_prefill(ctx, cfg.n_heads, ctx["moe_prefill_len"],
+                                                 cfg.head_dim, cfg.n_heads, cfg.n_kv_heads))
+    report_rows(rows, f"{cfg.name} / {q_cfg.name} (MoE): ")
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
@@ -1237,8 +1362,9 @@ def check_launches(ctx, label, seen, expect):
     if not ctx["on_card"]:
         return
     for name in launches:
-        require(launches[name] == expect[name],
-                f"{label}: kernel {name}: {launches[name]} launches, expected {expect[name]}")
+        want = expect.get(name, 0)   # a kernel the prediction does not name: none
+        require(launches[name] == want,
+                f"{label}: kernel {name}: {launches[name]} launches, expected {want}")
         require(plain[name] == 0, f"{label}: the plain version of {name} ran on the card")
     for name, n in expect.items():
         require(n == 0 or launches[name] > 0, f"{label}: kernel {name} never launched")
@@ -1719,6 +1845,64 @@ def phase_serve_long_int8(ctx, tag, cfg, model, params, prompts, kinds, *, max_l
         f"{[(m, round(1e3 * t, 3)) for m, t in batch_s]} ms")
     if ctx["on_card"]:
         capture_line(label, out)
+    return out
+
+
+def moe_launches(cfg, steps, prefills, quant) -> dict:
+    """The launches an MoE model's serving makes: each decode step and each
+    exact-length prefill runs every layer's q/k/v/o projections and one
+    expert-batched gated and down launch (plus the shared experts' gated
+    half and down, where the config has them) and the unembedding; decode
+    one attention kernel a layer, prefill one flash_attention."""
+    L, calls = cfg.n_layers, steps + prefills
+    shared = L if cfg.moe.n_shared else 0
+    return {"axqmm": (4 * L + shared + 1) * calls, "axqmm_gated": shared * calls,
+            "axqmm_experts": L * calls, "axqmm_gated_experts": L * calls,
+            "flash_decode": 0 if quant else L * steps,
+            "flash_decode_quant": L * steps if quant else 0, "flash_attention": L * prefills}
+
+
+def phase_serve_moe(ctx, tag, cfg, model, params, prompts, *, quant):
+    """Phases 3m and 3n: the MoE arch at full width on phase 3's traffic
+    (its prompts, slots and budgets), exact-length admission (MoE's only
+    one), on the bf16 (3m) or the int8 (3n) cache: the decode step replayed
+    from one CUDA graph, an eager twin with equal tokens, the launches a
+    tick predicted (the experts on one expert-batched launch each), and a
+    profiled window of steady decode ticks.  The tick's bound reads every
+    packed weight once: the capacity buffer runs every expert each tick."""
+    label = f"phase {tag}"
+    max_len, new_tokens = ctx["max_len"], ctx["new_tokens"]
+    make = lambda **kw: make_engine(ctx, model, params, max_len=max_len, quant=quant, **kw)
+    warm = make()
+    warm.submit(prompts[0][:16], 2)
+    warm.run_until_drained()
+    del warm
+    eng = make()
+    require(eng.workload.admission is None, f"{label}: MoE admission is not exact-length")
+    reqs, seen = drive(ctx, eng, prompts, new_tokens)
+    rungs = sorted({e for _, e in eng.stats.degree_history})
+    require(len(rungs) > 1, f"{label}: the QoS degree never moved: {rungs}")
+    steps, prefills = eng.stats.decode_steps, eng.stats.prefill_calls
+    check_launches(ctx, label, seen, moe_launches(cfg, steps, prefills, quant))
+    wbytes = packed_bytes(params)
+    out = serve_summary(ctx, f"{label} ({cfg.name}, exact admission, "
+                             f"{'int8' if quant else 'bf16'} cache)", eng, reqs, seen,
+                        wbytes / HBM_BPS * 1e3)
+    out.update(arch=cfg.name, new_tokens=new_tokens, slots=ctx["slots"], max_len=max_len,
+               packed_weight_bytes=wbytes, prompt_lens=[int(p.size) for p in prompts],
+               experts=cfg.moe.n_experts, top_k=cfg.moe.top_k)
+    if ctx["on_card"]:
+        out["eager"] = eager_twin(ctx, label, make, prompts, new_tokens, reqs, eng)
+    out["profile"] = prof = _profile_lm_ticks(ctx, eng, prompts, ctx["profile_ticks"])
+    if ctx["on_card"]:
+        out["replay"] = replay_times(ctx, eng)
+        capture_line(label, out)
+    say(f"{label}: profiled {prof['ticks']} steady decode ticks: {prof['tick_wall_ms']:.4f} ms "
+        f"wall per tick, {prof['device_us_per_tick']:.2f} us of device kernel time per tick "
+        f"(busy share {prof['device_busy_share']}, {prof['kernels_per_tick']} kernels a tick); "
+        "largest: " + "; ".join(
+            f"{r['name'][:60]} x{r['calls']} {r['device_us']:.1f} us ({r['share']:.4f})"
+            for r in prof["top_kernels"]))
     return out
 
 
@@ -2841,6 +3025,7 @@ def _call_tols(dtype):
     reference's kernel-vs-jnp tolerance."""
     attn = (1e-4, 1e-4) if dtype == "float32" else (0.0, 1 / 64)
     return {"axqmm": (1e-5, 1e-4), "axqmm_gated": (1e-5, 1e-4),
+            "axqmm_experts": (1e-5, 1e-4), "axqmm_gated_experts": (1e-5, 1e-4),
             "flash_decode": (1e-4, 1e-4), "flash_decode_quant": (0.0, 1e-5),
             "flash_attention": attn}
 
@@ -2887,6 +3072,11 @@ def _checked_kernels(ctx, dtype, report):
         (A, "axqmm_packed", checked("axqmm", A.axqmm_packed, A.axqmm_packed_plain)),
         (A, "axqmm_gated_packed", checked("axqmm_gated", A.axqmm_gated_packed,
                                           A.axqmm_gated_plain)),
+        (A, "axqmm_experts_packed", checked("axqmm_experts", A.axqmm_experts_packed,
+                                            A.axqmm_experts_plain)),
+        (A, "axqmm_gated_experts_packed", checked("axqmm_gated_experts",
+                                                  A.axqmm_gated_experts_packed,
+                                                  A.axqmm_gated_experts_plain)),
         (FD, "flash_decode", checked("flash_decode", FD.flash_decode,
                                      FD.flash_decode_plain)),
         (FD, "flash_decode_quant", checked("flash_decode_quant", FD.flash_decode_quant,
@@ -2904,14 +3094,16 @@ def _perturbed_projections(ctx, eps):
     torch, dev = ctx["torch"], ctx["dev"]
     from repro_torch.kernels import axqmm as A
 
-    plain = A.axqmm_packed_plain
     gen = torch.Generator(device=dev).manual_seed(7)
 
-    def call(*a, **kw):
-        y = plain(*a, **kw)
-        return y * (1 + eps * torch.randn(y.shape, generator=gen, device=dev))
+    def perturbed(plain):
+        def call(*a, **kw):
+            y = plain(*a, **kw)
+            return y * (1 + eps * torch.randn(y.shape, generator=gen, device=dev))
+        return call
 
-    return _patched([(A, "axqmm_packed_plain", call)])
+    return _patched([(A, name, perturbed(getattr(A, name)))
+                     for name in ("axqmm_packed_plain", "axqmm_experts_plain")])
 
 
 @contextlib.contextmanager
@@ -3035,18 +3227,23 @@ def phase_model(ctx, cfg, prompt_len):
         diff = float((lk - lp).abs().max())
         floor = float((ln - lp).abs().max())
         tol = 4 * max(floor, 1e-3)
-        pve = _padded_vs_exact(ctx, model, params, deg, kernels, quant, cfg.vocab)
+        # MoE admits at the exact length only (capacity couples the rows)
+        pve = None if cfg.moe else _padded_vs_exact(ctx, model, params, deg, kernels, quant,
+                                                    cfg.vocab)
         say(f"{label}: kernel calls vs plain on the model's inputs "
             f"{{name: [calls, max_err, outside tolerance]}} {calls}")
         say(f"{label}: logits kernels vs plain max |diff| {diff:.4g}; the plain model's "
             f"own change under a {NOISE_EPS:g} relative perturbation of its projections "
             f"{floor:.4g}; tolerance {tol:.4g}")
-        say(f"{label}: padded (bucket {pve['bucket']}) vs exact prefill of lengths "
-            f"{pve['lens']}: bit-identical {pve['bit_identical']}, cache max |diff| "
-            f"{pve['cache_max_abs_diff']}, next-step logits max |diff| "
-            f"{pve['logits_max_abs_diff']:.4g}")
+        if pve is not None:
+            say(f"{label}: padded (bucket {pve['bucket']}) vs exact prefill of lengths "
+                f"{pve['lens']}: bit-identical {pve['bit_identical']}, cache max |diff| "
+                f"{pve['cache_max_abs_diff']}, next-step logits max |diff| "
+                f"{pve['logits_max_abs_diff']:.4g}")
         decode = "flash_decode_quant" if quant else "flash_decode"
-        names = ("axqmm", "axqmm_gated", decode, "flash_attention")
+        ffn = (("axqmm_experts", "axqmm_gated_experts")
+               + (("axqmm_gated",) if cfg.moe.n_shared else ())) if cfg.moe else ("axqmm_gated",)
+        names = ("axqmm",) + ffn + (decode, "flash_attention")
         for name in names + (("axqmm (bias)",) if cfg.qkv_bias else ()):
             n, err, bad = calls.get(name, (0, 0.0, 0))
             require(n > 0 or not ctx["on_card"], f"{label}: {name} never ran")
@@ -3054,9 +3251,10 @@ def phase_model(ctx, cfg, prompt_len):
                               f"tolerance of the plain version (max err {err})")
         require(diff <= tol, f"{label}: kernel-vs-plain logits differ by {diff} "
                              f"(noise floor {floor})")
-        require(pve["logits_max_abs_diff"] <= tol,
-                f"{label}: padded-vs-exact prefill moves the next logits by "
-                f"{pve['logits_max_abs_diff']} (noise floor {floor})")
+        if pve is not None:
+            require(pve["logits_max_abs_diff"] <= tol,
+                    f"{label}: padded-vs-exact prefill moves the next logits by "
+                    f"{pve['logits_max_abs_diff']} (noise floor {floor})")
         out.append({"arch": cfg.name, "prompt_len": prompt_len, "band_launches": band_launches,
                     "dtype": dtype, "degree": degree, "int8_cache": quant,
                     "kernel_calls": calls, "max_abs_logit_diff": diff,
@@ -3128,6 +3326,7 @@ def main(argv=None) -> int:
                "long_prefill_m": 4096,
                "qwen_short_range": (64, 512), "qwen_n_short": 9, "qwen_model_prompt": 1500,
                "h128_tri_lens": (4096, 1024), "h128_band": (8192, 4096),
+               "moe_prefill_len": 512,
                "profile_ticks": 8, "stream_slots": 64, "stream_clips": 256, "stream_frames": 32,
                "psnr_clips": 4, "psnr_frames": 8,
                "calib_shape": (2, 64), "plan_grid": (8, 5),
@@ -3156,6 +3355,8 @@ def main(argv=None) -> int:
         swa_cfg = get_config("h2o-danube-1.8b")
         qwen_cfg = get_config("qwen2.5-3b")
         nemo_cfg = get_config("mistral-nemo-12b")
+        moe_cfg = get_config("granite-moe-3b-a800m")
+        qmoe_cfg = get_config("qwen2-moe-a2.7b")
     else:
         torch.set_num_threads(4)
         smi, kind, count = ["cpu rehearsal"], "cpu", 0
@@ -3174,6 +3375,7 @@ def main(argv=None) -> int:
                "long_prefill_m": 70,
                "qwen_short_range": (8, 20), "qwen_n_short": 9, "qwen_model_prompt": 50,
                "h128_tri_lens": (300, 40), "h128_band": (520, 32),
+               "moe_prefill_len": 37,
                "profile_ticks": 2, "stream_slots": 4, "stream_clips": 6, "stream_frames": 4,
                "psnr_clips": 2, "psnr_frames": 3,
                "calib_shape": (2, 16), "plan_grid": (8, 6, 4),
@@ -3200,6 +3402,8 @@ def main(argv=None) -> int:
         # the smoke variants have head_dim 16: keep the D = 128 paths
         qwen_cfg = dataclasses.replace(get_config("qwen2.5-3b-smoke"), head_dim=128)
         nemo_cfg = dataclasses.replace(get_config("mistral-nemo-12b-smoke"), head_dim=128)
+        moe_cfg = get_config("granite-moe-3b-a800m-smoke")
+        qmoe_cfg = get_config("qwen2-moe-a2.7b-smoke")
     ctx["timer"] = Timer(torch, on_card)
 
     record = {"card": smi, "kind": kind, "count": count}
@@ -3211,15 +3415,16 @@ def main(argv=None) -> int:
     record["kernels"] = phase_kernels(ctx, cfg)
     record["kernels_swa"] = phase_kernels_swa(ctx, swa_cfg)
     record["kernels_h128"] = phase_kernels_head128(ctx, qwen_cfg, nemo_cfg)
+    record["kernels_moe"] = phase_kernels_moe(ctx, moe_cfg, qmoe_cfg)
     if args.kernels_only:
         write_record(args.record, record)
         say("kernel checks done (--kernels-only): no result line")
         return 0
     model, params = serving_model(ctx, cfg)
-    record["main_path"], prompts = phase_serve(ctx, cfg, model, params)
-    record["int8_cache_path"] = phase_serve_int8(ctx, cfg, model, params, prompts)
+    record["main_path"], prompts_3 = phase_serve(ctx, cfg, model, params)
+    record["int8_cache_path"] = phase_serve_int8(ctx, cfg, model, params, prompts_3)
     record["chunked_path"] = phase_serve_chunked(ctx, cfg, model, params)
-    record["resil_path"] = phase_resil(ctx, cfg, model, params, prompts)
+    record["resil_path"] = phase_resil(ctx, cfg, model, params, prompts_3)
     del model, params
     if on_card:
         torch.cuda.empty_cache()
@@ -3251,22 +3456,36 @@ def main(argv=None) -> int:
     if on_card:
         torch.cuda.empty_cache()
     record["qwen_model_2layer"] = phase_model(ctx, qwen_cfg, ctx["qwen_model_prompt"])
+    model, params = serving_model(ctx, moe_cfg)
+    record["moe_path"] = phase_serve_moe(ctx, "3m", moe_cfg, model, params, prompts_3,
+                                         quant=False)
+    record["moe_int8_path"] = phase_serve_moe(ctx, "3n", moe_cfg, model, params, prompts_3,
+                                              quant=True)
+    del model, params
+    if on_card:
+        torch.cuda.empty_cache()
+    record["moe_model_2layer"] = phase_model(ctx, moe_cfg, ctx["prefill_m"])
 
     paths = {"3": record["main_path"], "3b": record["int8_cache_path"],
              "3c": record["chunked_path"], "3d": record["stream_path"],
              "3e": record["swa_path"], "3f": record["swa_int8_path"],
              "3g": record["qwen_path"], "3h": record["qwen_int8_path"],
              "3i": record["plan_path"], "3j": record["stream_plan_path"],
-             "3k": record["emul_path"], "3l": record["resil_path"]}
+             "3k": record["emul_path"], "3l": record["resil_path"],
+             "3m": record["moe_path"], "3n": record["moe_int8_path"]}
     summary = []
-    for name, rows in record["kernels"].items():
+    moe_rows = record["kernels_moe"]
+    for name in list(record["kernels"]) + ["axqmm_experts", "axqmm_gated_experts"]:
         src, replaces = SOURCES[name]
+        rows = record["kernels"].get(name) or moe_rows[name]
         swa_rows = record["kernels_swa"].get(name, [])
         h128_rows = record["kernels_h128"].get(name, [])
+        if name in record["kernels"]:
+            h128_rows = h128_rows + moe_rows.get(name, [])
         # the summary row: the unembedding GEMM (the largest decode GEMM)
         # for axqmm, the decode-shaped row for the others
         lead = rows[-1] if name == "axqmm" else rows[0]
-        by_path = {k: v["launches"][name] for k, v in paths.items()}
+        by_path = {k: v["launches"].get(name, 0) for k, v in paths.items()}
         entry = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -3276,7 +3495,7 @@ def main(argv=None) -> int:
             "library_ms": lead.get("library_ms"),
             "shape": {k: lead[k] for k in lead if k in SHAPE_KEYS},
         }
-        for key in ("wrapper_ms", "old_route_ms", "launch_floor_ms"):
+        for key in ("wrapper_ms", "old_route_ms", "launch_floor_ms", "int_mm_loop_ms_graph"):
             if key in lead:
                 # the PR rows: the eager call, the old route and the floor
                 entry[key] = lead[key]

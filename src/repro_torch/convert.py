@@ -7,7 +7,9 @@ NamedTuples of arrays (packed weights: fields ``qw``/``scales`` for AXQ,
 as NamedTuples with fields ``k``/``v``/``length`` (the int8 cache also
 ``ks``/``vs``).  These walkers recognise
 them by duck typing — this module imports neither JAX nor the reference
-package.  The caller does the array-to-numpy step (for example
+package.  An MoE tree comes across the same way: the router, the experts
+with leading (n_layers, n_experts) axes (packed per slice, or float), the
+shared experts, and each one's packs.  The caller does the array-to-numpy step (for example
 ``jax.tree.map(np.asarray, tree)``).
 """
 

@@ -40,12 +40,13 @@ SOURCES = {
     "flash_attention": "flash_attention.cu",
     "axmult_elem": "axmult_elem.cu",
 }
-#: the kernels of the serving paths (two live in axqmm.cu, two in
-#: flash_decode.cu; axmult_elem.cu holds the elementwise pr_multiply, which
-#: the offline FIR bench layout takes, and pr_fir / pr_conv2d, the stream
-#: workload's stages)
-KERNELS = ("axqmm", "axqmm_gated", "flash_decode", "flash_decode_quant",
-           "flash_attention", "pr_multiply", "pr_fir", "pr_conv2d")
+#: the kernels of the serving paths (two live in axqmm.cu, with their
+#: expert-batched launches for the MoE experts, two in flash_decode.cu;
+#: axmult_elem.cu holds the elementwise pr_multiply, which the offline FIR
+#: bench layout takes, and pr_fir / pr_conv2d, the stream workload's stages)
+KERNELS = ("axqmm", "axqmm_gated", "axqmm_experts", "axqmm_gated_experts",
+           "flash_decode", "flash_decode_quant", "flash_attention", "pr_multiply",
+           "pr_fir", "pr_conv2d")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -59,6 +60,8 @@ _F = ctypes.c_float
 SIGNATURES = {
     "axqmm_launch": ("axqmm", [_P] * 9 + [_I] * 7 + [_P]),
     "axqmm_gated_launch": ("axqmm", [_P] * 9 + [_I] * 8 + [_P]),
+    "axqmm_experts_launch": ("axqmm", [_P] * 7 + [_I] * 8 + [_P]),
+    "axqmm_gated_experts_launch": ("axqmm", [_P] * 9 + [_I] * 9 + [_P]),
     "flash_decode_launch": ("flash_decode", [_P] * 7 + [_I] * 6 + [_F, _P]),
     "flash_decode_quant_launch": ("flash_decode", [_P] * 10 + [_I] * 5 + [_F, _P]),
     "flash_decode_split_width": ("flash_decode", [_I]),

@@ -60,6 +60,17 @@
 //    scratch the wrapper allocates, which the wgmma tiles then read.
 //  * Ragged M, N and K edges are zero-filled by the copies (source size 0)
 //    and masked at the stores; nothing is padded or copied on the host.
+//  * Experts.  The expert-batched entries (axqmm_experts_launch,
+//    axqmm_gated_experts_launch) run E independent products of one shape
+//    in one launch, the counterpart of the reference's vmap of the Pallas
+//    call over an MoE layer's experts: the expert is the grid's last axis
+//    (z; y for the combine and the pre-pass), and each block first moves
+//    every operand pointer to its expert's slice of the contiguous
+//    (E, ...) tensors (expert_slice).  A block then computes exactly what
+//    the 2-D launch computes on that slice, so each expert's output is
+//    bit-identical to it.  The plan counts the tiles of all E experts
+//    (kernels/axqmm.py::plan): at an MoE decode the experts alone fill the
+//    card, and K is not split.
 
 #include "common.cuh"
 
@@ -83,8 +94,34 @@ struct Args {
   float* out;
   void* scratch;  // int32 (G, nb * part, M, N) sums of a split launch, or the
                   // int8 degraded x then weights of a pre-degraded wgmma launch
+                  // (each expert's in turn, for an expert-batched launch)
   int M, N, K, bk, act, n_split, part;
+  int E;          // experts of an expert-batched launch; 1 for a 2-D one
 };
+
+// Expert e's slice of an expert-batched launch: each operand is a
+// contiguous (E, ...) tensor, so expert e's data sits e whole slices past
+// the first (expert 0, every 2-D launch, is the launch itself).
+template <bool GATED>
+__device__ __forceinline__ Args expert_slice(const Args& a, int e) {
+  constexpr int G = GATED ? 2 : 1;
+  const size_t M = a.M, N = a.N, K = a.K, nb = a.K / a.bk;
+  Args b = a;
+  b.qx += e * M * K;
+  b.sx += e * M * nb;
+#pragma unroll
+  for (int gi = 0; gi < G; ++gi) {
+    b.qw[gi] += e * N * K;
+    b.sw[gi] += e * N * nb;
+  }
+  b.out += e * M * N;
+  if (a.scratch != nullptr) {
+    b.scratch = a.n_split > 1
+        ? static_cast<void*>(static_cast<int*>(a.scratch) + e * G * nb * a.part * M * N)
+        : static_cast<void*>(static_cast<int8_t*>(a.scratch) + e * (M + G * N) * K);
+  }
+  return b;
+}
 
 // The gated activations, each written as PyTorch's CUDA kernel writes it
 // (same operations in the same order, so the same contractions and
@@ -215,7 +252,8 @@ struct DecodeTile {
 
 template <int NT, bool GATED, int CH>
 __global__ void __launch_bounds__(32)
-axq_decode_kernel(const __grid_constant__ Args a) {
+axq_decode_kernel(const __grid_constant__ Args batch) {
+  const Args a = expert_slice<GATED>(batch, blockIdx.z);
   using T = DecodeTile<NT, GATED, CH>;
   constexpr int G = T::kG, S = T::kStages, CPR = T::kCPR, P = T::kSets, SB = 64 * CH;
   extern __shared__ __align__(128) unsigned char ring[];
@@ -393,7 +431,8 @@ struct TileCfg {
 
 template <int BM, int BN, int WM, int WN, bool GATED>
 __global__ void __launch_bounds__(TileCfg<BM, BN, WM, WN, GATED>::kThreads, 1)
-axq_tile_kernel(const __grid_constant__ Args a) {
+axq_tile_kernel(const __grid_constant__ Args batch) {
+  const Args a = expert_slice<GATED>(batch, blockIdx.z);
   using C = TileCfg<BM, BN, WM, WN, GATED>;
   constexpr int G = C::kG, S = C::kStages, MT = C::kMT, NT = C::kNT;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -428,7 +467,7 @@ axq_tile_kernel(const __grid_constant__ Args a) {
     } else {
       const int gi = (row - BM) / BN, n = n0 + (row - BM) % BN;
       in = n < N;
-      src[j] = a.qw[gi] + (size_t)(in ? n : 0) * K;
+      src[j] = (gi == 0 ? a.qw[0] : a.qw[1]) + (size_t)(in ? n : 0) * K;
     }
     src[j] += (size_t)u0 * bk + ch * 16;
     dst[j] = swizzle<4>(row, ch);
@@ -442,7 +481,7 @@ axq_tile_kernel(const __grid_constant__ Args a) {
   } else {
     const int gi = (tid - BM) / BN, n = n0 + (tid - BM) % BN;
     sok = n < N;
-    ssrc = a.sw[gi] + (size_t)(sok ? n : 0) * nb;
+    ssrc = (gi == 0 ? a.sw[0] : a.sw[1]) + (size_t)(sok ? n : 0) * nb;
   }
   ssrc += u0;  // the split's first block
   int fetched_in_block = 0;  // fetch(i) is called for i = 0, 1, 2, ... in order
@@ -665,7 +704,9 @@ struct WgCfg {
 // wgmma blocks, each of which meets an x row and a weight row many times
 // over, read codes already degraded.  Nothing runs at shift 0.
 __global__ void __launch_bounds__(256)
-axq_degrade_kernel(const __grid_constant__ Args a, int gated) {
+axq_degrade_kernel(const __grid_constant__ Args batch, int gated) {
+  const Args a = gated ? expert_slice<true>(batch, blockIdx.y)
+                       : expert_slice<false>(batch, blockIdx.y);
   const int shift = shift_of(a.ebits);
   if (shift == 0) return;
   const Degrade dg(shift);
@@ -682,7 +723,8 @@ axq_degrade_kernel(const __grid_constant__ Args a, int gated) {
 
 template <bool GATED>
 __global__ void __launch_bounds__(256, 1)
-axq_wgmma_kernel(const __grid_constant__ Args a) {
+axq_wgmma_kernel(const __grid_constant__ Args batch) {
+  const Args a = expert_slice<GATED>(batch, blockIdx.z);
   using C = WgCfg<GATED>;
   constexpr int S = C::kStages, BM = C::BM, BN = C::BN, BK = C::BK;
   extern __shared__ __align__(1024) unsigned char wsmem[];
@@ -735,7 +777,7 @@ axq_wgmma_kernel(const __grid_constant__ Args a) {
   } else {
     const int r = tid - BM, gi = GATED ? r / BN : 0, n = n0 + (GATED ? r % BN : r);
     sok = n < N;
-    ssrc = a.sw[gi] + (size_t)(sok ? n : 0) * nb;
+    ssrc = (gi == 0 ? a.sw[0] : a.sw[1]) + (size_t)(sok ? n : 0) * nb;
   }
   int fetched_in_block = 0;  // fetch(i) is called for i = 0, 1, 2, ... in order
   auto fetch = [&](int i) {
@@ -839,7 +881,8 @@ constexpr int kMaxParts = 4;
 
 template <bool GATED>
 __global__ void __launch_bounds__(256)
-axq_combine_kernel(const __grid_constant__ Args a) {
+axq_combine_kernel(const __grid_constant__ Args batch) {
+  const Args a = expert_slice<GATED>(batch, blockIdx.y);
   constexpr int G = GATED ? 2 : 1, B = 8;  // blocks whose loads are in flight together
   const long long idx = blockIdx.x * 256LL + threadIdx.x;
   if (idx >= static_cast<long long>(a.M) * a.N) return;
@@ -901,7 +944,7 @@ int launch_decode(const Args& a, cudaStream_t s) {
   static bool ready[64] = {};
   const int err = allow_smem(axq_decode_kernel<NT, GATED, CH>, T::kSmem, ready);
   if (err != 0) return err;
-  axq_decode_kernel<NT, GATED, CH><<<dim3((a.N + 15) / 16, a.n_split), 32, T::kSmem, s>>>(a);
+  axq_decode_kernel<NT, GATED, CH><<<dim3((a.N + 15) / 16, a.n_split, a.E), 32, T::kSmem, s>>>(a);
   return 0;
 }
 
@@ -918,9 +961,10 @@ int launch_wgmma(const Args& a, cudaStream_t s) {
   static bool ready[64] = {};
   const int err = allow_smem(axq_wgmma_kernel<GATED>, C::kSmem, ready);
   if (err != 0) return err;
-  if (a.scratch != nullptr) axq_degrade_kernel<<<132 * 8, 256, 0, s>>>(a, GATED);
+  if (a.scratch != nullptr)  // ~8 blocks an SM over all the experts
+    axq_degrade_kernel<<<dim3((132 * 8 + a.E - 1) / a.E, a.E), 256, 0, s>>>(a, GATED);
   const int tiles = ((a.M + C::BM - 1) / C::BM) * ((a.N + C::BN - 1) / C::BN);
-  axq_wgmma_kernel<GATED><<<tiles, C::kThreads, C::kSmem, s>>>(a);
+  axq_wgmma_kernel<GATED><<<dim3(tiles, 1, a.E), C::kThreads, C::kSmem, s>>>(a);
   return 0;
 }
 
@@ -931,7 +975,8 @@ int launch_tile(const Args& a, cudaStream_t s) {
   const int err = allow_smem(axq_tile_kernel<BM, BN, WM, WN, GATED>, C::kSmem, ready);
   if (err != 0) return err;
   const int tiles = ((a.M + BM - 1) / BM) * ((a.N + BN - 1) / BN);
-  axq_tile_kernel<BM, BN, WM, WN, GATED><<<dim3(tiles, a.n_split), C::kThreads, C::kSmem, s>>>(a);
+  axq_tile_kernel<BM, BN, WM, WN, GATED><<<dim3(tiles, a.n_split, a.E), C::kThreads, C::kSmem,
+                                           s>>>(a);
   return 0;
 }
 
@@ -939,6 +984,10 @@ bool bad_plan(const Args& a, int cfg) {
   if (a.M <= 0 || a.N <= 0 || a.K <= 0 || a.bk <= 0 || a.bk % KC != 0 || a.K % a.bk != 0)
     return true;
   if (a.part <= 0 || a.part > kMaxParts || a.bk % (KC * a.part) != 0) return true;
+  // an expert-batched launch: at most 65535 experts (the grid's z / y),
+  // no bias or residual epilogue
+  if (a.E <= 0 || a.E > 65535 || (a.E > 1 && (a.bias != nullptr || a.res != nullptr)))
+    return true;
   const int nb = a.K / a.bk;
   if (a.n_split <= 0 || a.n_split > nb * a.part) return true;
   if (a.n_split == 1 ? a.part != 1 : a.scratch == nullptr) return true;
@@ -963,7 +1012,7 @@ int dispatch(const Args& a, int cfg, void* stream) {
   if (err != 0) return err;
   if (a.n_split > 1) {
     const long long n = static_cast<long long>(a.M) * a.N;
-    axq_combine_kernel<GATED><<<static_cast<unsigned>((n + 255) / 256), 256, 0, s>>>(a);
+    axq_combine_kernel<GATED><<<dim3(static_cast<unsigned>((n + 255) / 256), a.E), 256, 0, s>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -975,7 +1024,9 @@ int dispatch(const Args& a, int cfg, void* stream) {
 // splits of K (1: fold in the kernel, part must be 1); part: units a
 // quantization block (decode only); scratch: int32 (G, K / bk * part, M, N)
 // when n_split > 1; for kTileLarge, null or M K + G N K bytes that the
-// pre-pass degrades x and the weights into; else null.
+// pre-pass degrades x and the weights into; else null.  The *_experts_
+// entries take E experts' contiguous (E, ...) operands and an E-fold
+// scratch (each expert's as above, in turn), and no bias or residual.
 
 extern "C" int axqmm_launch(const void* qx, const void* sx, const void* qw,
                             const void* sw, const void* bias, const void* res,
@@ -986,7 +1037,19 @@ extern "C" int axqmm_launch(const void* qx, const void* sx, const void* qw,
                {static_cast<const float*>(sw), nullptr},
                static_cast<const float*>(bias), static_cast<const float*>(res),
                static_cast<const int*>(ebits), static_cast<float*>(out),
-               scratch, M, N, K, bk, 0, n_split, part};
+               scratch, M, N, K, bk, 0, n_split, part, 1};
+  return dispatch<false>(a, cfg, stream);
+}
+
+extern "C" int axqmm_experts_launch(const void* qx, const void* sx, const void* qw,
+                                    const void* sw, const void* ebits, void* out,
+                                    void* scratch, int E, int M, int N, int K, int bk, int cfg,
+                                    int n_split, int part, void* stream) {
+  const Args a{static_cast<const int8_t*>(qx), static_cast<const float*>(sx),
+               {static_cast<const int8_t*>(qw), nullptr},
+               {static_cast<const float*>(sw), nullptr},
+               nullptr, nullptr, static_cast<const int*>(ebits), static_cast<float*>(out),
+               scratch, M, N, K, bk, 0, n_split, part, E};
   return dispatch<false>(a, cfg, stream);
 }
 
@@ -999,6 +1062,19 @@ extern "C" int axqmm_gated_launch(const void* qx, const void* sx, const void* qu
                {static_cast<const int8_t*>(qu), static_cast<const int8_t*>(qg)},
                {static_cast<const float*>(su), static_cast<const float*>(sg)},
                nullptr, nullptr, static_cast<const int*>(ebits), static_cast<float*>(out),
-               scratch, M, N, K, bk, act, n_split, part};
+               scratch, M, N, K, bk, act, n_split, part, 1};
+  return dispatch<true>(a, cfg, stream);
+}
+
+extern "C" int axqmm_gated_experts_launch(const void* qx, const void* sx, const void* qu,
+                                          const void* su, const void* qg, const void* sg,
+                                          const void* ebits, void* out, void* scratch, int E,
+                                          int M, int N, int K, int bk, int act, int cfg,
+                                          int n_split, int part, void* stream) {
+  const Args a{static_cast<const int8_t*>(qx), static_cast<const float*>(sx),
+               {static_cast<const int8_t*>(qu), static_cast<const int8_t*>(qg)},
+               {static_cast<const float*>(su), static_cast<const float*>(sg)},
+               nullptr, nullptr, static_cast<const int*>(ebits), static_cast<float*>(out),
+               scratch, M, N, K, bk, act, n_split, part, E};
   return dispatch<true>(a, cfg, stream);
 }

@@ -19,7 +19,9 @@ layout), :func:`decode_attention` (one-token decode against a KVCache or a
 QuantKVCache), :func:`axq_matmul` / :func:`axq_gated` (AXQ projections;
 prepacked weights take the quantize-once inference path, float weights a
 differentiable ``torch.autograd.Function`` with a kernel forward and a
-``qmm_ref`` — or straight-through — backward), :func:`fir` /
+``qmm_ref`` — or straight-through — backward), :func:`axq_matmul_experts`
+/ :func:`axq_gated_experts` (the same for E experts of an MoE layer in one
+expert-batched launch), :func:`fir` /
 :func:`conv2d` / :func:`fir_approx` (the Ch. 7 DSP cores on the PR
 multiplier kernels).  ``last_route`` records the backend each call site
 took; a change of a site's backend is published to the metrics registry
@@ -43,7 +45,7 @@ from repro_torch.kernels import axqmm as _axq
 from repro_torch.kernels.flash_attention import (flash_attention_grouped,
                                                  flash_attention_grouped_plain)
 from repro_torch.kernels.flash_decode import decode_attn_flash
-from repro_torch.kernels.qstore import PackedQWeight, resolve_block
+from repro_torch.kernels.qstore import PackedQWeight, prepack_weight, resolve_block
 
 Tensor = torch.Tensor
 
@@ -200,18 +202,22 @@ class _AxqMatmul(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
-        if ctx.ste:
-            dx = _ste_mm(g, w.t()).to(x.dtype)
-            dw = _ste_mm(x.t(), g).to(w.dtype)
-        else:
-            with torch.enable_grad():
-                xx = x.detach().requires_grad_()
-                ww = w.detach().requires_grad_()
-                y = qmm_ref(xx, ww, block=ctx.block, ebits=ctx.e)
-                dx, dw = torch.autograd.grad(y, (xx, ww), g, allow_unused=True)
-            dx = torch.zeros_like(x) if dx is None else dx
-            dw = torch.zeros_like(w) if dw is None else dw
-        return dx, dw, None, None, None, None
+        return (*_matmul_grads(x, w, g, ctx.e, ctx.block, ctx.ste),
+                None, None, None, None)
+
+
+def _matmul_grads(x, w, g, e, block, ste):
+    """(dx, dw) of the float-weight AXQ matmul: straight-through, or
+    through the ``qmm_ref`` oracle."""
+    if ste:
+        return _ste_mm(g, w.t()).to(x.dtype), _ste_mm(x.t(), g).to(w.dtype)
+    with torch.enable_grad():
+        xx = x.detach().requires_grad_()
+        ww = w.detach().requires_grad_()
+        y = qmm_ref(xx, ww, block=block, ebits=e)
+        dx, dw = torch.autograd.grad(y, (xx, ww), g, allow_unused=True)
+    return (torch.zeros_like(x) if dx is None else dx,
+            torch.zeros_like(w) if dw is None else dw)
 
 
 class _AxqGated(torch.autograd.Function):
@@ -227,17 +233,22 @@ class _AxqGated(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, wu, wg = ctx.saved_tensors
-        actf = _axq.ACTS[ctx.act]
-        with torch.enable_grad():
-            xx, wuu, wgg = (t.detach().requires_grad_() for t in (x, wu, wg))
-            if ctx.ste:
-                y = actf(xx @ wgg) * (xx @ wuu)
-            else:
-                y = qmm_gated_ref(xx, wuu, wgg, actf, block=ctx.block, ebits=ctx.e)
-            grads = torch.autograd.grad(y, (xx, wuu, wgg), g, allow_unused=True)
-        grads = [torch.zeros_like(t) if d is None else d.to(t.dtype)
-                 for d, t in zip(grads, (x, wu, wg))]
-        return (*grads, None, None, None, None, None)
+        return (*_gated_grads(x, wu, wg, g, ctx.e, ctx.block, ctx.act, ctx.ste),
+                None, None, None, None, None)
+
+
+def _gated_grads(x, wu, wg, g, e, block, act, ste):
+    """(dx, dw_up, dw_gate) of the float-weight fused gated core."""
+    actf = _axq.ACTS[act]
+    with torch.enable_grad():
+        xx, wuu, wgg = (t.detach().requires_grad_() for t in (x, wu, wg))
+        if ste:
+            y = actf(xx @ wgg) * (xx @ wuu)
+        else:
+            y = qmm_gated_ref(xx, wuu, wgg, actf, block=block, ebits=e)
+        grads = torch.autograd.grad(y, (xx, wuu, wgg), g, allow_unused=True)
+    return [torch.zeros_like(t) if d is None else d.to(t.dtype)
+            for d, t in zip(grads, (x, wu, wg))]
 
 
 def axq_matmul(x2: Tensor, w, *, block: int = 256, ebits=8,
@@ -279,6 +290,71 @@ def axq_gated(x2: Tensor, w_up, w_gate, *, act: str = "silu",
     blk = resolve_block(x2.shape[-1], block)
     return _AxqGated.apply(x2, w_up.to(torch.float32), w_gate.to(torch.float32),
                            ebits, blk, act, backend == "torch", ste)
+
+
+class _AxqExperts(torch.autograd.Function):
+    """Float-weight expert-batched AXQ products (``gated``: the fused first
+    half): packed on the fly, one batched kernel (or plain) forward; the
+    backward is each expert's 2-D one (:class:`_AxqMatmul`,
+    :class:`_AxqGated`), in expert order."""
+
+    @staticmethod
+    def forward(ctx, x, wu, wg, e, block, act, plain, ste):
+        ctx.save_for_backward(x, wu, wg)
+        ctx.e, ctx.block, ctx.act, ctx.ste = e, block, act, ste
+        pu = prepack_weight(wu, block)
+        if wg is None:
+            f = _axq.axqmm_experts_plain if plain else _axq.axqmm_experts_packed
+            return f(x, pu, e)
+        f = _axq.axqmm_gated_experts_plain if plain else _axq.axqmm_gated_experts_packed
+        return f(x, pu, prepack_weight(wg, block), e, act=act)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, wu, wg = ctx.saved_tensors
+        grads = [_matmul_grads(x[i], wu[i], g[i], ctx.e, ctx.block, ctx.ste)
+                 if wg is None else
+                 _gated_grads(x[i], wu[i], wg[i], g[i], ctx.e, ctx.block, ctx.act, ctx.ste)
+                 for i in range(x.shape[0])]
+        dx, dwu, *dwg = (torch.stack(d) for d in zip(*grads))
+        return dx, dwu, (dwg[0] if dwg else None), None, None, None, None, None
+
+
+def axq_matmul_experts(x3: Tensor, w, *, block: int = 256, ebits=8,
+                       ste: bool = False) -> Tensor:
+    """Expert-batched AXQ GEMM router: x3 (E, C, K) @ each expert's weight
+    -> (E, C, N) f32, one launch for the E products (recorded under the
+    2-D router's site, ``gemm``: the reference vmaps that router).  ``w`` is
+    a :class:`PackedQWeight` with a leading E (inference) or a float
+    (E, K, N) tensor (quantized on the fly; ``ste`` picks the
+    straight-through backward, as for :func:`axq_matmul`)."""
+    backend = resolved_backend(x3.device)
+    _record_route("gemm", backend)
+    x3 = x3.to(torch.float32)
+    if isinstance(w, PackedQWeight):
+        if backend == "cuda":
+            return _axq.axqmm_experts_packed(x3, w, ebits)
+        return _axq.axqmm_experts_plain(x3, w, ebits)
+    blk = resolve_block(x3.shape[-1], block)
+    return _AxqExperts.apply(x3, w.to(torch.float32), None, ebits, blk, "silu",
+                             backend == "torch", ste)
+
+
+def axq_gated_experts(x3: Tensor, w_up, w_gate, *, act: str = "silu",
+                      block: int = 256, ebits=8, ste: bool = False) -> Tensor:
+    """Expert-batched fused gated first half ``act(x @ w_gate) * (x @ w_up)``
+    (site ``gated``); same packed-vs-float contract as
+    :func:`axq_matmul_experts`."""
+    backend = resolved_backend(x3.device)
+    _record_route("gated", backend)
+    x3 = x3.to(torch.float32)
+    if isinstance(w_up, PackedQWeight):
+        if backend == "cuda":
+            return _axq.axqmm_gated_experts_packed(x3, w_up, w_gate, ebits, act=act)
+        return _axq.axqmm_gated_experts_plain(x3, w_up, w_gate, ebits, act=act)
+    blk = resolve_block(x3.shape[-1], block)
+    return _AxqExperts.apply(x3, w_up.to(torch.float32), w_gate.to(torch.float32), ebits,
+                             blk, act, backend == "torch", ste)
 
 
 # ---------------------------------------------------------------------------

@@ -14,10 +14,11 @@ operand of ``torch._int_mm`` in the layout that call takes on the card:
 column-major, a transposed view of an (..., N, K) buffer (set once here and
 in ``convert``, never per call).
 
-:func:`prepack_params` walks the dense transformer's parameter tree
-(``_pack_transformer``), including the separate ``unembed`` dense and the
-tied-embedding ``unembed_q`` pack.  The other model families are not
-ported yet.
+:func:`prepack_params` walks the dense and MoE transformers' parameter
+tree (``_pack_transformer``), including the separate ``unembed`` dense,
+the tied-embedding ``unembed_q`` pack, and an MoE layer's experts (packed
+per (layer, expert) slice when they route AXQ) and shared experts.  The
+other model families are not ported yet.
 """
 
 from __future__ import annotations
@@ -191,7 +192,21 @@ def _pack_transformer(params: dict, cfg, policy: ApproxPolicy) -> dict:
     layers = dict(params["layers"])
     for key in ("wq", "wk", "wv", "wo"):
         layers[key] = _pack_dense(layers[key], f"layer/{key}", policy)
-    layers["mlp"] = _pack_gated_mlp(layers["mlp"], "layer/mlp", policy)
+    if "mlp" in layers:
+        layers["mlp"] = _pack_gated_mlp(layers["mlp"], "layer/mlp", policy)
+    if "moe" in layers:
+        from repro_torch.models.moe import expert_spec  # lazy: layering
+
+        moe = dict(layers["moe"])
+        # the apply-time expert spec (REPRO_MOE_INT8 included): pack iff
+        # the experts will route AXQ
+        espec = expert_spec(policy, "layer/moe")
+        if espec.mode == ApproxMode.AXQ:
+            moe["experts"] = {k: pack_for_spec(w, espec) for k, w in moe["experts"].items()}
+        if "shared" in moe:
+            moe["shared"] = {k: pack_for_spec(w, policy.spec_for(f"layer/moe/shared/{k}"))
+                             for k, w in moe["shared"].items()}
+        layers["moe"] = moe
     out["layers"] = layers
     if "unembed" in params:
         out["unembed"] = _pack_dense(params["unembed"], "unembed", policy)
@@ -201,14 +216,14 @@ def _pack_transformer(params: dict, cfg, policy: ApproxPolicy) -> dict:
 
 
 def prepack_params(params: dict, cfg, policy: ApproxPolicy) -> dict:
-    """Quantize-once pass over a dense transformer's param tree: every dense
+    """Quantize-once pass over a dense or MoE transformer's param tree: every dense
     weight whose policy spec is AXQ becomes a :class:`PackedQWeight`, every
     one whose spec is *_EMUL a :class:`PackedEmulWeight` (per stacked-layer
     slice).
     Idempotent; EXACT-only policies return every tensor untouched.  The
     result is inference-only (int8 leaves carry no gradients)."""
-    if cfg.family != "dense" or cfg.moe or cfg.frontend:
+    if cfg.family not in ("dense", "moe") or cfg.frontend:
         raise NotImplementedError(
-            f"prepack_params is ported for the dense family only, not "
+            f"prepack_params is ported for the dense and MoE families only, not "
             f"{cfg.name!r} ({cfg.family})")
     return _pack_transformer(params, cfg, policy)

@@ -9,6 +9,9 @@
   python -m repro_torch.launch.serve --arch h2o-danube-1.8b --approx axq8 --qos --metrics
   # head_dim 128 with QKV bias (the bias rides the AXQ GEMM's epilogue):
   python -m repro_torch.launch.serve --arch qwen2.5-3b --approx axq8 --qos --metrics
+  # the MoE family at full width (granite: 40 experts, top-8; exact-length
+  # admission only, on either cache)
+  python -m repro_torch.launch.serve --arch granite-moe-3b-a800m --approx axq8 --qos --metrics
   # the plain PyTorch versions on the host, at smoke size:
   python -m repro_torch.launch.serve --arch tinyllama-1.1b-smoke --device cpu
   # the streaming DSP workload (FIR -> blur -> gain on the PR multiplier):

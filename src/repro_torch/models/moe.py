@@ -1,0 +1,186 @@
+"""Mixture-of-Experts block, in PyTorch on one device.
+
+Port of ``repro.models.moe``.  The reference runs the block inside a
+shard_map over the ``model`` mesh axis (experts sharded, a psum combining
+the shards); the port runs on one device (``tp = 1``): every expert is
+local and the combine needs no collective.
+
+Routing (sort-free, all shapes static, nothing read on the host, so the
+decode step stays one CUDA graph): an f32 router product, softmax, top-k
+(descending, ties to the lower expert, as ``jax.lax.top_k``), gates
+renormalised; each (token, k) assignment is ranked within its expert by a
+cumsum over the flat ``(token, k)`` order, and the ranks below the
+capacity ``C`` are kept.  Kept rows are gathered into an ``(E, C, d)``
+buffer, the expert FFNs run as expert-batched GEMMs (one
+``axqmm_gated_experts`` and one ``axqmm_experts`` launch on the AXQ route,
+the counterpart of the reference's ``vmap`` of its Pallas calls), and the
+gated rows are summed back per token in a fixed order.  Every expert runs
+its whole capacity buffer, so each decode tick reads every expert's
+weights.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.approx import ApproxMode, ApproxPolicy, ApproxSpec
+from repro_torch.models.layers import act_fn, gated_mlp_apply, truncated_normal
+
+Tensor = torch.Tensor
+
+# the pre-dispatch int8 expert lever: promotes an EXACT expert spec to AXQ-8
+_MOE_INT8 = os.environ.get("REPRO_MOE_INT8", "0") == "1"
+# the reference's int8-ring combine; the port has one device and no ring
+_MOE_RING = os.environ.get("REPRO_RING_TP", "0") == "1"
+
+
+def init_moe(gen: torch.Generator, cfg: ArchConfig, tp: int = 1, stack: tuple = (),
+             device="cpu"):
+    """Router (d, E), experts up/gate (E, d, f) and down (E, f, d), and the
+    shared experts' gated MLP when the config has them; ``stack`` prepends
+    leading dims (stacked layers)."""
+    m = cfg.moe
+    E, d, f = cfg.padded(tp).n_experts, cfg.d_model, m.d_expert
+    tn = lambda shape, std: truncated_normal(gen, (*stack, *shape), std, device)
+    params = {
+        "router": {"w": tn((d, E), 1.0 / math.sqrt(d))},
+        "experts": {
+            "up": tn((E, d, f), 1.0 / math.sqrt(d)),
+            "gate": tn((E, d, f), 1.0 / math.sqrt(d)),
+            "down": tn((E, f, d), 1.0 / math.sqrt(f)),
+        },
+    }
+    if m.n_shared:
+        fs = m.d_shared * m.n_shared
+        params["shared"] = {
+            "up": tn((d, fs), 1.0 / math.sqrt(d)),
+            "gate": tn((d, fs), 1.0 / math.sqrt(d)),
+            "down": tn((fs, d), 1.0 / math.sqrt(fs)),
+        }
+    return params
+
+
+def expert_spec(policy: ApproxPolicy, path: str) -> ApproxSpec:
+    """Expert GEMM spec: policy-resolved at ``<path>/experts``; the
+    REPRO_MOE_INT8 lever promotes an EXACT spec to AXQ-8.  One source for
+    :func:`moe_apply` and the prepack walker (``kernels/qstore.py``): the
+    experts are packed iff they will route AXQ."""
+    spec = policy.spec_for(path + "/experts")
+    if _MOE_INT8 and spec.mode == ApproxMode.EXACT:
+        spec = ApproxSpec(mode=ApproxMode.AXQ, ebits=8)
+    return spec
+
+
+def _local_expert_ffn(w, x: Tensor, act: str, spec=None, ebits=None) -> Tensor:
+    """x (E, C, d) -> (E, C, d) f32; ``w`` up/gate (E, d, f) and down
+    (E, f, d), float or prepacked with a leading E.  AXQ specs take the
+    expert-batched routers with the straight-through backward; ``ebits`` is
+    the runtime degree already resolved against the spec.  Other specs run
+    the exact f32 product, as the reference's einsum does."""
+    from repro_torch.kernels import dispatch as kdispatch  # lazy: import cycle
+
+    if spec is not None and spec.mode == ApproxMode.AXQ:
+        h = kdispatch.axq_gated_experts(x.to(torch.float32), w["up"], w["gate"], act=act,
+                                        block=spec.block, ebits=ebits, ste=True)
+        return kdispatch.axq_matmul_experts(h.to(x.dtype).to(torch.float32), w["down"],
+                                            block=spec.block, ebits=ebits, ste=True)
+    x32 = x.to(torch.float32)
+    up = torch.einsum("ecd,edf->ecf", x32, w["up"].to(torch.float32))
+    gate = torch.einsum("ecd,edf->ecf", x32, w["gate"].to(torch.float32))
+    h = (act_fn(act)(gate) * up).to(x.dtype)
+    return torch.einsum("ecf,efd->ecd", h.to(torch.float32), w["down"].to(torch.float32))
+
+
+def capacity(cfg: ArchConfig, tokens: int, tp: int = 1) -> int:
+    """Rows each expert takes in a call of ``tokens`` rows (every row of the
+    call, free decode slots included), at least 4."""
+    m = cfg.moe
+    E = cfg.padded(tp).n_experts
+    return max(int(math.ceil(tokens * m.top_k / E * m.capacity_factor)), 4)
+
+
+def route(router_w: Tensor, xt: Tensor, cfg: ArchConfig, tp: int = 1):
+    """Router of ``xt`` (t, d): returns (gates (t, k) f32 renormalised,
+    expert ids (t, k) int64 descending by probability, probs (t, E) f32)."""
+    m = cfg.moe
+    E = cfg.padded(tp).n_experts
+    pad = torch.where(torch.arange(E, device=xt.device) < m.n_experts, 0.0, -1e9)
+    logits = xt.to(torch.float32) @ router_w.to(torch.float32) + pad
+    probs = torch.softmax(logits, dim=-1)
+    # a stable descending sort: ties keep the lower expert first, as
+    # jax.lax.top_k does (the k order decides which rows capacity drops)
+    gate_vals, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, ids = gate_vals[:, :m.top_k], ids[:, :m.top_k]
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(dim=-1, keepdim=True), min=1e-9)
+    return gate_vals, ids, probs
+
+
+def dispatch_plan(ids: Tensor, C: int, E: int):
+    """The capacity dispatch of expert ids (t, k): each flat ``(token, k)``
+    assignment's rank within its expert (a cumsum in flat order) and
+    whether it is kept (rank < C).  Returns (flat ids, ranks, keep)."""
+    flat = ids.reshape(-1)
+    onehot = (flat[:, None] == torch.arange(E, device=ids.device)[None]).to(torch.int32)
+    ranks = torch.cumsum(onehot, dim=0) - onehot
+    slot = (ranks * onehot).sum(dim=-1)
+    return flat, slot, slot < C
+
+
+def moe_apply(params, x: Tensor, cfg: ArchConfig, policy: ApproxPolicy, path: str,
+              degree=None) -> tuple[Tensor, Tensor]:
+    """x (B, S, d) -> (y (B, S, d) in x.dtype, aux load-balance loss (f32
+    scalar))."""
+    if _MOE_RING:
+        raise NotImplementedError(
+            "REPRO_RING_TP: the int8-ring combine is not ported (the port's MoE "
+            "runs on one device)")
+    m = cfg.moe
+    E, topk = cfg.padded(1).n_experts, m.top_k
+    B, S, d = x.shape
+    t = B * S
+    C = capacity(cfg, t)
+    espec = expert_spec(policy, path)
+    e_run = degree if (espec.dynamic and degree is not None) else espec.ebits
+
+    xt = x.reshape(t, d)
+    gate_vals, ids, probs = route(params["router"]["w"], xt, cfg)
+
+    # aux load-balance loss (Switch-style): E * sum_e f_e * p_e; the counts
+    # are whole numbers, exact in f32 in any order
+    me = probs.mean(dim=0)
+    counts = torch.zeros((E,), dtype=torch.float32, device=x.device).scatter_add_(
+        0, ids.reshape(-1), torch.ones((t * topk,), dtype=torch.float32, device=x.device))
+    aux = E * torch.sum(me * (counts / (t * topk)))
+
+    flat, slot, keep = dispatch_plan(ids, C, E)
+    tok = torch.arange(t * topk, device=x.device) // topk
+    # kept rows to their (expert, rank) row of the buffer; dropped rows to
+    # one spare row past it, which is cut off (a plain copy: no row is
+    # summed onto another)
+    dst = torch.where(keep, flat * C + slot, E * C)
+    buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device)
+    buf.index_copy_(0, dst, xt[tok])
+    y_buf = _local_expert_ffn(params["experts"], buf[:E * C].view(E, C, d), cfg.act,
+                              espec, e_run).to(x.dtype)
+
+    rows = y_buf.reshape(E * C, d)[torch.where(keep, flat * C + slot, 0)]
+    rows = torch.where(keep[:, None], rows, 0) * gate_vals.reshape(-1)[:, None].to(x.dtype)
+    # each token's k rows summed in k order, in x.dtype (the reference's
+    # scatter-add order; no atomics)
+    rows = rows.view(t, topk, d)
+    yt = torch.zeros((t, d), dtype=x.dtype, device=x.device)
+    for j in range(topk):
+        yt = yt + rows[:, j]
+    y = yt.view(B, S, d)
+
+    if "shared" in params:
+        sh = params["shared"]
+        shared = gated_mlp_apply({"up": {"w": sh["up"]}, "gate": {"w": sh["gate"]},
+                                  "down": {"w": sh["down"]}},
+                                 x, policy, path + "/shared", act=cfg.act, degree=degree)
+        y = y + shared
+    return y, aux

@@ -1,4 +1,4 @@
-"""Model API over the ported families (dense so far).
+"""Model API over the ported families (dense and MoE so far).
 
     model = build_model(cfg, policy)               # device="cuda" by default
     params = model.init(seed=0)
@@ -77,7 +77,8 @@ class Model:
         bucket length, written into ``slots`` (N,) with true ``lengths``
         (N,) — host integers; a row with ``slot >= B`` is a dummy and writes
         nothing.  Per row equal to :meth:`prefill` at the exact length.
-        Returns the cache."""
+        Returns the cache.  MoE raises: capacity routing couples the rows of
+        one call, so MoE admits at the exact length."""
         return transformer.lm_prefill_batch(params, self.cfg, self.policy, cache,
                                             tokens, slots, lengths, tp, degree)
 

@@ -1,9 +1,10 @@
-"""Decoder transformer LM (dense family), config-driven, in PyTorch.
+"""Decoder transformer LM (dense and MoE families), config-driven, in PyTorch.
 
 Layer parameters are stacked along a leading (n_layers, ...) axis as in the
 reference; its layer ``scan`` is a Python loop over the stack here.  All
 matmuls dispatch through the approximation layer, attention through
-``kernels/dispatch.py``.
+``kernels/dispatch.py``.  An MoE config replaces each block's gated MLP
+with :mod:`repro_torch.models.moe`, added to the residual stream.
 
 The KV cache is updated in place by prefill and decode (the functional
 reference returns fresh caches): the cache is the largest serving tensor,
@@ -14,7 +15,9 @@ codes with per-(token, head) f32 scales).
 Prefill entry points: :func:`lm_prefill` (one prompt at its exact length),
 :func:`lm_prefill_batch` (bucketed/packed rows padded to one length) and
 :func:`lm_prefill_chunk` (one chunk of a long prompt, interleaved with
-decode; bf16/f32 cache only).
+decode; bf16/f32 cache only).  MoE configs take :func:`lm_prefill` only:
+capacity routing couples the rows of one call, so a padded or packed
+prefill would not equal the exact-length one (the reference's rule).
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from repro_torch.kernels import dispatch as kdispatch
 from repro_torch.kernels.qstore import PackedEmulWeight, PackedQWeight
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.cache_ops import cache_reset_slot, ring_write_indices
 from repro_torch.models.degrees import split_degree
 
@@ -42,10 +46,17 @@ def _dtype(cfg: ArchConfig):
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """The port covers the dense family (no MoE, no frontend) so far."""
-    if cfg.family != "dense" or cfg.moe or cfg.frontend:
+    """The port covers the dense and MoE families (no frontend) so far."""
+    if (cfg.family not in ("dense", "moe") or bool(cfg.moe) != (cfg.family == "moe")
+            or cfg.frontend):
         raise NotImplementedError(
-            f"{cfg.name!r} ({cfg.family}) is not ported; the dense family is")
+            f"{cfg.name!r} ({cfg.family}) is not ported; the dense and MoE families are")
+
+
+def _no_moe(cfg: ArchConfig, what: str) -> None:
+    if cfg.moe:
+        raise ValueError(f"{what} is exact-length only for MoE ({cfg.name}): capacity "
+                         "routing couples the rows of one call")
 
 
 # ---------------------------------------------------------------------------
@@ -71,8 +82,11 @@ def init_lm(gen: torch.Generator, cfg: ArchConfig, tp: int = 1, device="cpu"):
                            stack=st, device=device),
         "wo": L.init_dense(gen, H * D, d, scale=1.0 / math.sqrt(H * D),
                            stack=st, device=device),
-        "mlp": L.init_gated_mlp(gen, d, cfg.d_ff, st, device),
     }
+    if cfg.moe:
+        layers["moe"] = moe_mod.init_moe(gen, cfg, tp, st, device)
+    else:
+        layers["mlp"] = L.init_gated_mlp(gen, d, cfg.d_ff, st, device)
     params = {
         "embed": L.init_embedding(gen, pd.vocab, d, device),
         "layers": layers,
@@ -114,11 +128,24 @@ def _qkv(bp, x, cfg: ArchConfig, pd, policy, path, positions, degree):
     return q, attn.repeat_kv(k, KVr), attn.repeat_kv(v, KVr)
 
 
+def _ffn(bp, h: Tensor, x: Tensor, cfg: ArchConfig, policy: ApproxPolicy, path: str,
+         degree):
+    """The block's second half on the normed ``h``, added to the residual
+    ``x``: the gated MLP (the add fused in its down projection) or the MoE
+    block.  Returns (out, aux loss or None)."""
+    if cfg.moe:
+        f, aux = moe_mod.moe_apply(bp["moe"], h, cfg, policy, path + "/moe", degree)
+        return x + f, aux
+    return L.gated_mlp_apply(bp["mlp"], h, policy, path + "/mlp", cfg.act, degree,
+                             residual=x), None
+
+
 def block_apply(bp, x: Tensor, cfg: ArchConfig, tp: int, policy: ApproxPolicy,
                 path: str, positions: Tensor, degree=None,
-                return_kv: bool = False):
+                return_kv: bool = False, return_aux: bool = False):
     """One block's forward; with ``return_kv`` also the post-rope (k, v)
-    that prefill writes into a slot's cache region."""
+    that prefill writes into a slot's cache region; with ``return_aux``
+    (out, the MoE aux load-balance loss, None for a dense block) instead."""
     pd = cfg.padded(tp)
     h = L.rmsnorm_apply(bp["ln1"], x, cfg.norm_eps)
     q, k, v = _qkv(bp, h, cfg, pd, policy, path, positions, degree)
@@ -128,8 +155,9 @@ def block_apply(bp, x: Tensor, cfg: ArchConfig, tp: int, policy: ApproxPolicy,
     # residual adds ride the projection epilogues (fused in-kernel on AXQ)
     x = L.dense_apply(bp["wo"], o, policy, path + "/wo", degree, residual=x)
     h = L.rmsnorm_apply(bp["ln2"], x, cfg.norm_eps)
-    out = L.gated_mlp_apply(bp["mlp"], h, policy, path + "/mlp", cfg.act,
-                            degree, residual=x)
+    out, aux = _ffn(bp, h, x, cfg, policy, path, degree)
+    if return_aux:
+        return out, aux
     return (out, (k, v)) if return_kv else out
 
 
@@ -147,7 +175,8 @@ def _head(params, cfg, policy, x, hdeg) -> Tensor:
 
 def lm_forward(params, cfg: ArchConfig, policy: ApproxPolicy, batch: dict,
                tp: int = 1, degree=None) -> tuple[Tensor, Tensor]:
-    """Returns (logits (B, S, vocab_padded) f32, aux loss 0)."""
+    """Returns (logits (B, S, vocab_padded) f32, the layers' summed aux
+    load-balance loss (0 for a dense model))."""
     tokens = batch["tokens"]
     ldeg, hdeg = split_degree(degree, cfg.n_layers, tokens.device)
     x = L.embed_apply(params["embed"], tokens, _dtype(cfg))
@@ -156,10 +185,13 @@ def lm_forward(params, cfg: ArchConfig, policy: ApproxPolicy, batch: dict,
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device)[None].expand(B, S)
-    for i in range(cfg.n_layers):
-        x = block_apply(layer_params(params["layers"], i), x, cfg, tp, policy,
-                        "layer", positions, None if ldeg is None else ldeg[i])
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    for i in range(cfg.n_layers):
+        x, a = block_apply(layer_params(params["layers"], i), x, cfg, tp, policy,
+                           "layer", positions, None if ldeg is None else ldeg[i],
+                           return_aux=True)
+        if a is not None:
+            aux = aux + a
     return _head(params, cfg, policy, x, hdeg), aux
 
 
@@ -351,6 +383,7 @@ def lm_prefill_batch(params, cfg: ArchConfig, policy: ApproxPolicy, cache,
     distinct), a row with ``length == 0`` only resets its slot.  Returns
     the cache (no logits — admission feeds the last prompt token through
     decode)."""
+    _no_moe(cfg, "bucketed prefill")
     ldeg, _ = split_degree(degree, cfg.n_layers, tokens.device)
     N, Pb = tokens.shape
     B, T = cache.k.shape[1], cache.k.shape[2]
@@ -407,6 +440,7 @@ def lm_prefill_chunk(params, cfg: ArchConfig, policy: ApproxPolicy,
     but not bit-exact against one-shot prefill (cache precision, T-length
     reductions).  Sets ``length[slot] = offset + clen``; returns the
     cache."""
+    _no_moe(cfg, "chunked prefill")
     ldeg, _ = split_degree(degree, cfg.n_layers, tokens.device)
     pd = cfg.padded(tp)
     C = tokens.shape[0]
@@ -473,7 +507,6 @@ def lm_decode_step(params, cfg: ArchConfig, policy: ApproxPolicy, cache,
         o = o.reshape(B, 1, pd.n_heads * cfg.head_dim)
         x = L.dense_apply(lp["wo"], o, policy, "layer/wo", dg, residual=x)
         hn = L.rmsnorm_apply(lp["ln2"], x, cfg.norm_eps)
-        x = L.gated_mlp_apply(lp["mlp"], hn, policy, "layer/mlp", cfg.act,
-                              dg, residual=x)
+        x, _ = _ffn(lp, hn, x, cfg, policy, "layer", dg)
     logits = _head(params, cfg, policy, x, hdeg)
     return logits, cache._replace(length=cache.length + 1)

@@ -6,7 +6,8 @@ LM engine surface (``submit(prompt, max_new_tokens)``, ``cache``,
 ``eos_id``) over :class:`~repro_torch.serve.engine.ServeCore`.
 
 Admission is exact-length (one fused prefill per request) unless an
-:class:`~repro_torch.serve.admission.AdmissionConfig` is given: then short
+:class:`~repro_torch.serve.admission.AdmissionConfig` is given (and the
+model is no MoE, whose admission stays exact-length): then short
 prompts pack into bucketed prefill calls padded to a fixed ladder of
 lengths, and long ones (bf16/f32 cache) admit in chunks across ticks.
 ``trace_counts`` counts the distinct call shapes each entry point has seen
@@ -117,6 +118,12 @@ class LMAdapter(ServableModel):
                              "prefill_chunk": 0, "step": 0}
         self._shapes: dict = {name: set() for name in self.trace_counts}
         self.admission = admission.resolved(max_len) if admission else None
+        if self.admission is not None and self.cfg.moe:
+            # MoE capacity routing couples the rows of one call (the
+            # per-expert capacity counts them all), so a bucketed or packed
+            # prefill would not equal sequential admission: MoE keeps the
+            # exact-length path, as the reference does
+            self.admission = None
         # chunked prefill serves the bf16/f32 cache only (REPRO_KV_INT8 picks
         # the int8 cache at init_state)
         self._chunk_ok = (self.admission is not None

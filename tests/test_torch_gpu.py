@@ -126,6 +126,69 @@ def test_gpu_axqmm_slot_bits_do_not_depend_on_split_or_batch(hopper, monkeypatch
             monkeypatch.undo()
 
 
+def _expert_operands(hopper, E, C, N, K, seed):
+    g = torch.Generator(device=hopper).manual_seed(seed)
+    x = torch.randn(E, C, K, generator=g, device=hopper)
+    x[:, -1] = 0.0                                  # an empty capacity row
+    bk = 256 if K % 256 == 0 else 128
+    pw, pg = (tprepack(torch.randn(E, K, N, generator=g, device=hopper) / math.sqrt(K), bk)
+              for _ in range(2))
+    return x, pw, pg, bk
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("E,C,N,K", [(40, 4, 512, 1536), (40, 4, 1536, 512), (3, 9, 200, 1024),
+                                     (40, 128, 512, 1536), (60, 43, 1408, 2048),
+                                     (6, 43, 2048, 1408), (2, 1024, 200, 512)])
+def test_gpu_expert_batched_kernels_are_the_plain_versions_bit_for_bit(hopper, monkeypatch,
+                                                                       E, C, N, K):
+    """The expert-batched launches equal their plain versions exactly (atol
+    0), and so each expert the 2-D launch on its slice, at every degree
+    1..8 set in one device int32 and under every plan the kernels take at
+    that shape (decode: K split at whole blocks and at parts of blocks;
+    64-row tiles split or not; 128-row wgmma tiles, with the pre-pass at
+    C = 1024); every expert's empty capacity row comes out as the plain
+    version gives it."""
+    x, pw, pg, bk = _expert_operands(hopper, E, C, N, K, E + C + N + K)
+    nb = K // bk
+    planned = taxq.plan(C, N, K, bk, True, _build.sm_count(x), E)
+    plans = ([taxq.Plan(taxq.DECODE, s, p) for s, p in ((1, 1), (2, 1), (nb, 1), (nb * 2, 2))]
+             if C <= taxq.DECODE_M else
+             [taxq.Plan(taxq.TILE_SMALL, s) for s in sorted({1, min(3, nb), nb})]
+             + [taxq.Plan(taxq.TILE_LARGE)])
+    e = torch.zeros((), dtype=torch.int32, device=hopper)
+    for p in [planned] + plans:
+        monkeypatch.setattr(taxq, "plan", lambda *a, p=p: p)
+        for ebits in range(1, 9):
+            e.fill_(ebits)
+            y = taxq.axqmm_experts_packed(x, pw, e)
+            yg = taxq.axqmm_gated_experts_packed(x, pw, pg, e)
+            torch.cuda.synchronize()
+            assert torch.equal(y, taxq.axqmm_experts_plain(x, pw, ebits)), (p, ebits)
+            assert torch.equal(yg, taxq.axqmm_gated_experts_plain(x, pw, pg, ebits)), (p, ebits)
+        monkeypatch.undo()
+    # one expert's slice through the 2-D launch gives the same bits
+    i = E - 1
+    y = taxq.axqmm_experts_packed(x, pw, 5)
+    assert torch.equal(y[i], taxq.axqmm_packed(x[i], taxq.expert_pack(pw, i), 5))
+
+
+@pytest.mark.gpu
+def test_gpu_expert_batched_launch_counts_and_refusals(hopper):
+    """One batched call is one launch of its kernel (no loop of 2-D
+    launches), and a pack whose leading E disagrees with x raises."""
+    x, pw, pg, bk = _expert_operands(hopper, 8, 4, 256, 512, 3)
+    before = dict(_build.launches)
+    taxq.axqmm_gated_experts_packed(x, pw, pg, 6)
+    taxq.axqmm_experts_packed(x, pw, 6)
+    torch.cuda.synchronize()
+    assert _build.launches["axqmm_gated_experts"] == before["axqmm_gated_experts"] + 1
+    assert _build.launches["axqmm_experts"] == before["axqmm_experts"] + 1
+    assert sum(_build.launches.values()) == sum(before.values()) + 2
+    with pytest.raises(ValueError):
+        taxq.axqmm_experts_packed(x[:7], pw, 6)
+
+
 @pytest.mark.gpu
 def test_gpu_axqmm_degree_moves_between_graph_replays(hopper):
     """One capture of both GEMMs (a decode-shaped split plan and a
@@ -366,7 +429,7 @@ def _decode_calls(qg, k, v, nv, act, e):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("G", [1, 3, 4, 8])
 @pytest.mark.parametrize("D", [16, 32, 64, 80, 128])
 def test_gpu_decode_split_edges_match_plain(hopper, D, G):
     """Both decode kernels (and the f32 cache) at lengths W - 1, W, W + 1,
@@ -884,6 +947,33 @@ def test_gpu_captured_engine_tokens_equal_eager(hopper, kind, plan):
             assert eng.workload.trace_counts["step"] == 1
     assert runs[True] == runs[False]
     assert len(set(map(tuple, map(np.atleast_1d, runs[True][1])))) > 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+def test_gpu_captured_moe_engine_tokens_equal_eager(hopper, kind):
+    """granite-moe-3b-a800m-smoke served captured (one graph for the decode
+    step: the routing reads nothing on the host) and eagerly: the same
+    greedy tokens and degree history, with the QoS rung moving; admission
+    stays exact-length (the engine drops the buckets it was asked for)."""
+    m, params = _smoke_lm(hopper, "granite-moe-3b-a800m-smoke")
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, m.cfg.vocab, int(n)) for n in (5, 40, 9, 3, 30, 12, 50)]
+    runs = {}
+    before = dict(_build.launches)
+    plain_before = dict(_build.plain_cuda_calls)
+    for capture in (False, True):
+        eng = _capture_engine(m, params, capture, kind)
+        assert eng.workload.admission is None
+        runs[capture] = _serve(eng, prompts)
+        if capture:
+            assert eng.graphs.graphs[eng._step_key].replays == eng.stats.decode_steps > 0
+            assert eng.workload.trace_counts["step"] == 1
+    assert runs[True] == runs[False]
+    assert len(set(map(tuple, map(np.atleast_1d, runs[True][1])))) > 1
+    for name in ("axqmm_experts", "axqmm_gated_experts"):
+        assert _build.launches[name] > before[name]
+    assert _build.plain_cuda_calls == plain_before
 
 
 @pytest.mark.gpu
