@@ -23,7 +23,13 @@ Phases (any failure exits non-zero):
      qwen2-moe-a2.7b's experts on the expert-batched launches at the decode
      capacity and at a 512-token prefill's, qwen2-moe's shared experts,
      granite's unembedding at N = 49155, both decode kernels at groups of
-     3 and 1, tri at 24/8 heads), with the stated tolerance (the GEMMs
+     3 and 1, tri at 24/8 heads; the recurrent families: mamba2-370m's
+     fused in_proj at N = 4384 and tied unembedding at N = 50280,
+     recurrentgemma-2b's projections, gelu gated half and 256000-wide
+     unembedding, flash_attention at head_dim 256 with MQA 10/1 -- band
+     at window 2048 over 8192 tokens, tri over 2048 in bf16 and f32 --
+     and flash_decode at D = 256, G = 10 on the 2048-row ring, lengths at
+     the split edges), with the stated tolerance (the GEMMs
      also bit-identical, and at decode at least one block an SM), timed
      with CUDA events beside its bound and, where one PyTorch call computes
      the same function, that call (the decode kernels, the GEMMs, SDPA and
@@ -91,13 +97,21 @@ Phases (any failure exits non-zero):
        3m  the bf16 cache, the experts on one expert-batched gated and one
            down launch a layer;
        3n  the same on the int8 cache;
+     the recurrent families, bucketed packed admission (buckets 64-512,
+     pack 4; the long prompts past the ladder at their exact length) on
+     their state caches, whose bytes must not depend on the prompts —
+       3o  mamba2-370m (48 layers, d_inner 2048, 32 SSD heads of 64, state
+           128, chunk 256): 16 prompts of 64-512 tokens and 2 of 4096-8192;
+       3p  recurrentgemma-2b (8 groups of (rec, rec, attn) and 2 tail
+           blocks, MQA 10/1 at head_dim 256, window 2048: a ring): 3
+           prompts of 4096-8192 tokens (band) among 9 of 64-512;
      every request must finish and every kernel of the path must have
      launched exactly as the layer (or stage) count predicts, while no
      plain version ran on the card.  Every path serves from CUDA graphs,
      one per call shape of the step, each bucket and the chunk, captured
      when its engine is built (the launch counts rise by each replay's
-     recorded launches); 3, 3b, 3e, 3g, 3m, 3n and 3d also serve their traffic
-     eagerly (``capture=False``) in the same call, with equal tokens or
+     recorded launches); 3, 3b, 3e, 3g, 3m, 3n, 3o, 3p and 3d also serve their
+     traffic eagerly (``capture=False``) in the same call, with equal tokens or
      frames required, and print the two ticks beside the traced captured
      tick's device time and busy share, the capture seconds and the graph
      pool's bytes;
@@ -106,7 +120,9 @@ Phases (any failure exits non-zero):
      plain version on the model's own inputs, the logits of a kernel run
      against a plain run within the model's measured noise floor, and
      (but for the MoE arch, exact-length only) prompts padded to one
-     bucket against their exact-length prefill;
+     bucket against their exact-length prefill; mamba2-370m cut to 2
+     layers and recurrentgemma-2b to 4 (one group and one tail block) on
+     their one cache, the padded prompts' state bit-identical;
   5. one {"kernels": [...]} line and, last, the result line.
 
 With ``--record PATH`` every number also goes to a JSON file.
@@ -162,8 +178,8 @@ SOURCES = {
 }
 
 #: the row keys that name a phase-2 shape
-SHAPE_KEYS = ("E", "M", "N", "K", "bias", "B", "T", "KVr", "G", "BH", "S", "D", "window", "ebits",
-              "dtype", "shape", "L", "H", "W", "kh", "kw", "pad", "shift")
+SHAPE_KEYS = ("E", "M", "N", "K", "bias", "act", "B", "T", "KVr", "G", "BH", "S", "D", "window",
+              "ebits", "dtype", "shape", "L", "H", "W", "kh", "kw", "pad", "shift")
 
 
 def say(msg: str) -> None:
@@ -340,7 +356,7 @@ def gemm_rates(row, ops) -> None:
         row["ms_graph_over_bound"] = row["ms_graph"] / row["bound_ms"]
 
 
-def check_gated(ctx, M, N, K, degree):
+def check_gated(ctx, M, N, K, degree, act="silu"):
     torch, dev, timer = ctx["torch"], ctx["dev"], ctx["timer"]
     from repro_torch.kernels import axqmm as A
     from repro_torch.kernels.qstore import PackedQWeight, prepack_weight, resolve_block
@@ -350,30 +366,31 @@ def check_gated(ctx, M, N, K, degree):
     bk = resolve_block(K, 256)
     pu = prepack_weight(torch.randn(K, N, generator=gen, device=dev) / math.sqrt(K), bk)
     pg = prepack_weight(torch.randn(K, N, generator=gen, device=dev) / math.sqrt(K), bk)
-    y = A.axqmm_gated_packed(x, pu, pg, degree)
-    yp = A.axqmm_gated_plain(x, pu, pg, degree)
+    y = A.axqmm_gated_packed(x, pu, pg, degree, act=act)
+    yp = A.axqmm_gated_plain(x, pu, pg, degree, act=act)
     ctx["sync"]()
     err = float((y - yp).abs().max())
     ok = bool(torch.allclose(y, yp, rtol=1e-5, atol=1e-4))
-    require(err == 0.0, f"axqmm_gated M={M} N={N} K={K}: not bit-identical to its plain "
-                        f"version (max_abs_err {err})")
+    require(err == 0.0, f"axqmm_gated M={M} N={N} K={K} {act}: not bit-identical to its "
+                        f"plain version (max_abs_err {err})")
     nb = K // bk
     wbytes = 2 * (N * K + N * nb * 4)
     pairs = copies(lambda: (PackedQWeight(pu.qw.clone(), pu.scales.clone()),
                             PackedQWeight(pg.qw.clone(), pg.scales.clone())),
                    wbytes, ctx["on_card"])
     qx, sx = A.quantize_for_axqmm(x, bk)
-    row = {"M": M, "N": N, "K": K, "max_abs_err": err,
+    row = {"M": M, "N": N, "K": K, "act": act, "max_abs_err": err,
            "tol": "rtol 1e-5, atol 1e-4 (and bit-identical)", "ok": ok}
     gemm_plan(ctx, row, M, N, K, bk, True)
     if ctx["on_card"]:
-        kernel = lambda i: A.axqmm_gated_quantized(qx, sx, *pairs[i % len(pairs)], degree)
+        kernel = lambda i: A.axqmm_gated_quantized(qx, sx, *pairs[i % len(pairs)], degree,
+                                                   act=act)
         row["ms"] = timer(kernel)
         row["ms_graph"] = timer.graph(kernel, len(pairs))
         row["wrapper_ms"] = timer(lambda i: A.axqmm_gated_packed(
-            x, *pairs[i % len(pairs)], degree))
+            x, *pairs[i % len(pairs)], degree, act=act))
         row["plain_ms"] = timer(lambda i: A.axqmm_gated_plain(
-            x, *pairs[i % len(pairs)], degree), iters=5, warmup=1)
+            x, *pairs[i % len(pairs)], degree, act=act), iters=5, warmup=1)
         # no one PyTorch call computes the gated product: `library_*` is
         # null; torch._int_mm of x on both weights is kept beside it
         qxl = qx if M > 16 else torch.cat([qx, qx.new_zeros(32 - M, K)])
@@ -994,8 +1011,8 @@ def flash_resources(ctx) -> list:
         f"{r['instance']} {r['registers']} regs, spill {r['spill_stores']}/"
         f"{r['spill_loads']} B, smem {r['static_smem']} B static + "
         f"{r['dynamic_smem_blk128']} B dynamic" for r in out))
-    require(len(out) == 10, f"expected 10 flash_attention instantiations (D 16, 32, 64, 80, "
-                            f"128 in each body), ptxas shows {len(out)}")
+    require(len(out) == 12, f"expected 12 flash_attention instantiations (D 16, 32, 64, 80, "
+                            f"128, 256 in each body), ptxas shows {len(out)}")
     require(all(r["spill_stores"] == 0 and r["spill_loads"] == 0 for r in out),
             "a flash_attention instantiation spills registers")
     return out
@@ -1026,9 +1043,10 @@ def decode_resources(ctx) -> list:
         f"{r['instance']} {r['registers']} regs, spill {r['spill_stores']}/"
         f"{r['spill_loads']} B, smem {r['static_smem']} B static + "
         f"{r['dynamic_smem']} B dynamic" for r in out))
-    require(len(out) == 35, f"expected 35 decode instantiations (decode_kernel at D 16, 32, "
+    require(len(out) == 38, f"expected 38 decode instantiations (decode_kernel at D 16, 32, "
                             f"64, 80, 128 on the f32, bf16 and int8 caches with 4- and 8-row "
-                            f"P.V blocks; combine_kernel at each D), ptxas shows {len(out)}")
+                            f"P.V blocks, at D 256 on the f32 and bf16 caches with 8-row "
+                            f"blocks; combine_kernel at each D), ptxas shows {len(out)}")
     require(all(r["spill_stores"] == 0 and r["spill_loads"] == 0 for r in out),
             "a decode instantiation spills registers")
     return out
@@ -1238,6 +1256,54 @@ def phase_kernels_moe(ctx, cfg, q_cfg):
     return rows
 
 
+def phase_kernels_recurrent(ctx, ssm_cfg, rg_cfg):
+    """Phase 2, the recurrent families' rows: mamba2-370m's GEMMs (the
+    fused in_proj at N = 2 d_inner + 2 d_state + heads = 4384, no multiple
+    of 64; out_proj K 2048 with the residual; the tied unembedding at N =
+    50280) and recurrentgemma-2b's (the rec block's 2560-square
+    projections, the MQA k projection at N = 256, the gelu gated half at N
+    7680, the down projection K 7680 with the residual, the unembedding at
+    N = 256000), each at decode and at a prefill of ``prefill_m`` rows;
+    ``flash_attention`` at head_dim 256 (MQA 10/1): ``band`` at window 2048
+    over the longest prompt, ``tri`` at one window's length in bf16 and in
+    f32; ``flash_decode`` at B 8, KVr 1, G 10 on the 2048-row ring, lengths
+    at the split edges and a full ring with one free slot."""
+    torch = ctx["torch"]
+    deg = torch.tensor(6, dtype=torch.int32, device=ctx["dev"])
+    slots, prompt = ctx["slots"], ctx["prefill_m"]
+    rows = {"axqmm": [], "axqmm_gated": [], "flash_decode": [], "flash_attention": []}
+    d = ssm_cfg.d_model
+    s = ssm_cfg.ssm
+    d_in = s.expand * d
+    n_in = 2 * d_in + 2 * s.d_state + d_in // s.headdim
+    for M in (slots, prompt):
+        rows["axqmm"].append(check_axqmm(ctx, M, n_in, d, False, deg))
+        rows["axqmm"].append(check_axqmm(ctx, M, d, d_in, True, deg))
+    rows["axqmm"].append(check_axqmm(ctx, slots, ssm_cfg.vocab, d, False, deg))
+    d, D, H, KVr = rg_cfg.d_model, rg_cfg.head_dim, rg_cfg.n_heads, rg_cfg.n_kv_heads
+    for M in (slots, prompt):
+        rows["axqmm"].append(check_axqmm(ctx, M, d, d, True, deg))
+        rows["axqmm"].append(check_axqmm(ctx, M, KVr * D, d, False, deg))
+        rows["axqmm"].append(check_axqmm(ctx, M, d, rg_cfg.d_ff, True, deg))
+        rows["axqmm_gated"].append(check_gated(ctx, M, rg_cfg.d_ff, d, deg, act=rg_cfg.act))
+    # last: the summary's lead row, the largest decode GEMM of the slice
+    rows["axqmm"].append(check_axqmm(ctx, slots, rg_cfg.vocab, d, False, deg))
+    W = rg_cfg.local_window
+    T = min(W, ctx["rg_max_len"])
+    edge, edge_active = split_edge_lengths(decode_split_width(ctx, D), T, slots)
+    rows["flash_decode"].append(check_decode(ctx, slots, KVr, H // KVr, D, T, edge,
+                                             edge_active))
+    full = [1] * slots
+    full[slots // 2] = 0
+    rows["flash_decode"].append(check_decode(ctx, slots, KVr, H // KVr, D, T, [T] * slots,
+                                             full))
+    rows["flash_attention"].append(check_band(ctx, 1, H, KVr, D, ctx["rg_band_len"], W))
+    for dt in (torch.bfloat16, torch.float32):
+        rows["flash_attention"].append(check_prefill(ctx, H, T, D, H, KVr, dtype=dt))
+    report_rows(rows, f"{ssm_cfg.name} / {rg_cfg.name} (recurrent): ")
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
@@ -1261,8 +1327,9 @@ def seed_biases(ctx, params, seed: int) -> None:
     something on the paths that carry one."""
     torch = ctx["torch"]
     gen = torch.Generator(device=ctx["dev"]).manual_seed(seed)
+    layers = params.get("layers", {})
     for key in ("wq", "wk", "wv"):
-        b = params["layers"][key].get("b")
+        b = layers.get(key, {}).get("b")
         if b is not None:
             b.copy_(0.5 * torch.randn(b.shape, generator=gen, device=b.device))
 
@@ -1903,6 +1970,148 @@ def phase_serve_moe(ctx, tag, cfg, model, params, prompts, *, quant):
         "largest: " + "; ".join(
             f"{r['name'][:60]} x{r['calls']} {r['device_us']:.1f} us ({r['share']:.4f})"
             for r in prof["top_kernels"]))
+    return out
+
+
+def recurrent_prompts(ctx, cfg, tag):
+    """Phase 3o / 3p traffic, all submitted at t = 0: ``{tag}_n_long``
+    prompts of ``long_range`` tokens (past the bucket ladder: exact-length
+    prefill; on the hybrid past its window: ``band`` and the ring) among
+    ``{tag}_n_short`` of ``prompt_range``, shuffled from a seed.  Returns
+    (prompts, kinds)."""
+    import numpy as np
+
+    rng = np.random.default_rng(24 if tag == "ssm" else 25)
+    (llo, lhi), (slo, shi) = ctx["rec_long_range"], ctx["prompt_range"]
+    lens = ([("long", int(rng.integers(llo, lhi + 1))) for _ in range(ctx[f"{tag}_n_long"])]
+            + [("short", int(rng.integers(slo, shi + 1)))
+               for _ in range(ctx[f"{tag}_n_short"])])
+    order = rng.permutation(len(lens))
+    kinds = [lens[i][0] for i in order]
+    prompts = [rng.integers(0, cfg.vocab, lens[i][1]) for i in order]
+    return prompts, kinds
+
+
+def recurrent_launches(cfg, steps, exact, calls) -> dict:
+    """The launches a recurrent family's serving makes.  Mamba-2: each
+    layer's in_proj and out_proj, and the tied unembedding on a decode step
+    or an exact-length prefill (not on a bucketed call, which returns no
+    logits).  The hybrid: a recurrent block's wx, wg, wa, wi, wo and down
+    projections and its gated half, an attention block's q, k, v, o and
+    down and its gated half; one flash_decode an attention block a decode
+    step, one flash_attention a prefill call."""
+    L = cfg.n_layers
+    if cfg.family == "ssm":
+        return {"axqmm": (2 * L + 1) * (steps + exact) + 2 * L * calls}
+    n_attn = L // len(cfg.block_pattern) * cfg.block_pattern.count("attn")
+    per = 6 * (L - n_attn) + 5 * n_attn
+    return {"axqmm": (per + 1) * (steps + exact) + per * calls,
+            "axqmm_gated": L * (steps + exact + calls), "flash_decode": n_attn * steps,
+            "flash_attention": n_attn * (exact + calls)}
+
+
+def phase_serve_recurrent(ctx, tag, cfg, model, params, prompts, kinds, *, max_len):
+    """Phases 3o (mamba2-370m) and 3p (recurrentgemma-2b) at full width:
+    bucketed, packed admission (``rec_buckets``, pack 4; warmup captures
+    every bucket shape and the step, and no call shape is new after it:
+    the long prompts take the exact-length path, eagerly) on the family's
+    state cache, whose bytes must not depend on the prompts' lengths; the
+    launches a tick and a call predicted; an eager twin with equal tokens;
+    a profiled window of steady decode ticks.  The tick's bound reads the
+    packed weights once, the recurrent state twice (read and written) and,
+    on the hybrid, the attention rings whole."""
+    torch = ctx["torch"]
+    from repro_torch.serve.admission import AdmissionConfig
+
+    label = f"phase {tag}"
+    new_tokens = ctx["new_tokens"]
+    adm = AdmissionConfig(buckets=ctx["rec_buckets"], pack=4)
+    make = lambda **kw: make_engine(ctx, model, params, max_len=max_len, admission=adm, **kw)
+    warm = make_engine(ctx, model, params, max_len=max_len, capture=False)
+    warm.submit(prompts[kinds.index("short")][:16], 2)
+    warm.run_until_drained()
+    del warm
+    t = time.time()
+    eng = make()
+    ctx["sync"]()
+    warmup_s = time.time() - t
+    wl = eng.workload
+    shapes = dict(wl.trace_counts)
+    nb = len(wl.admission.buckets)
+    require(shapes["prefill_batch"] == nb and shapes["step"] == 1,
+            f"{label}: warmup ran {shapes}, expected {nb} bucket shapes and one step shape")
+    n_graphs = None if eng.graphs is None else len(eng.graphs.graphs)
+    before = cache_bytes(eng.cache)
+    longest = max(p.size for p in prompts) + new_tokens
+    sizes = {n: cache_bytes(model.init_cache(1, ctx["slots"], n))
+             for n in (max_len, max(max_len, longest))}
+    exact_s: list = []
+    batch_s: list = []
+    with _timed_prefills(ctx, eng, exact_s), _timed_bucket_calls(ctx, eng, batch_s):
+        reqs, seen = drive(ctx, eng, prompts, new_tokens)
+    require(cache_bytes(eng.cache) == before and len(set(sizes.values())) == 1,
+            f"{label}: the cache's bytes depend on the prompts' lengths: {before} served, "
+            f"{sizes} by max_len")
+    n_long = sum(k == "long" for k in kinds)
+    expect_shapes = dict(shapes, prefill=len({int(r.prompt.size) for r, k in zip(reqs, kinds)
+                                              if k == "long"}))
+    require(wl.trace_counts == expect_shapes,
+            f"{label}: call shapes {wl.trace_counts}, expected {expect_shapes}")
+    require(n_graphs is None or len(eng.graphs.graphs) == n_graphs,
+            f"{label}: a graph was captured after warmup")
+    rungs = sorted({e for _, e in eng.stats.degree_history})
+    require(len(rungs) > 1, f"{label}: the QoS degree never moved: {rungs}")
+    st = eng.stats
+    steps, exact, calls = st.decode_steps, len(exact_s), len(batch_s)
+    require(exact == n_long, f"{label}: {exact} exact-length prefills for {n_long} long "
+                             "prompts")
+    require(calls == sum(int(c.value) for c in st.c_admit_bucket.children.values()),
+            f"{label}: {calls} timed bucketed calls, the engine counted others")
+    check_launches(ctx, label, seen, dict(
+        {"axqmm_gated": 0, "flash_decode": 0, "flash_decode_quant": 0, "flash_attention": 0,
+         "pr_multiply": 0, "pr_fir": 0, "pr_conv2d": 0},
+        **recurrent_launches(cfg, steps, exact, calls)))
+    hybrid = cfg.family == "hybrid"
+    n_attn = cfg.n_layers // 3 if hybrid else 0
+    if ctx["on_card"] and hybrid:
+        require(seen["flash_schedules"] == {"dense": 0, "tri": n_attn * calls,
+                                            "band": n_attn * exact},
+                f"{label}: flash_attention by schedule {seen['flash_schedules']}")
+    c = eng.cache
+    state = c.h.numel() * 4 + c.conv.numel() * c.conv.element_size()
+    ring = (c.k.numel() + c.v.numel()) * c.k.element_size() if hybrid else 0
+    wbytes = packed_bytes(params)
+    out = serve_summary(ctx, f"{label} ({cfg.name}, buckets {list(wl.admission.buckets)}, "
+                             f"pack 4, {type(c).__name__})", eng, reqs, seen,
+                        (wbytes + 2 * state + ring) / HBM_BPS * 1e3)
+    out.update(_split_ttft(reqs, kinds), arch=cfg.name, new_tokens=new_tokens,
+               slots=ctx["slots"], max_len=max_len, packed_weight_bytes=wbytes,
+               state_bytes=state, ring_bytes=ring, cache_bytes_by_max_len=sizes,
+               prompt_lens=[int(r.prompt.size) for r in reqs], prompt_kinds=kinds,
+               warmup_s=warmup_s, buckets=list(wl.admission.buckets), bucketed_calls=calls,
+               call_shapes=dict(wl.trace_counts), flash_schedules=seen["flash_schedules"],
+               long_prefill_s=[{"prefix": m, "s": t} for m, t in exact_s],
+               bucket_call_ms=[{"bucket": m, "ms": 1e3 * t} for m, t in batch_s])
+    say(f"{label}: warmup {warmup_s:.2f} s over {shapes}; TTFT long p50 "
+        f"{out['long_ttft_p50_ms']} p95 {out['long_ttft_p95_ms']} ms, short p50 "
+        f"{out['short_ttft_p50_ms']} p95 {out['short_ttft_p95_ms']} ms; long prefills "
+        f"{[(m, round(t, 4)) for m, t in exact_s]} s; {calls} bucketed calls; cache "
+        f"{before} bytes (state {state}, rings {ring}) at every max_len {sizes}")
+    if ctx["on_card"]:
+        out["eager"] = eager_twin(ctx, label, make, prompts, new_tokens, reqs, eng)
+    out["profile"] = prof = _profile_lm_ticks(ctx, eng, prompts, ctx["profile_ticks"])
+    if ctx["on_card"]:
+        out["replay"] = replay_times(ctx, eng)
+        capture_line(label, out)
+    say(f"{label}: profiled {prof['ticks']} steady decode ticks: {prof['tick_wall_ms']:.4f} ms "
+        f"wall per tick, {prof['device_us_per_tick']:.2f} us of device kernel time per tick "
+        f"(busy share {prof['device_busy_share']}, {prof['kernels_per_tick']} kernels a tick); "
+        "largest: " + "; ".join(
+            f"{r['name'][:60]} x{r['calls']} {r['device_us']:.1f} us ({r['share']:.4f})"
+            for r in prof["top_kernels"]))
+    del eng
+    if ctx["on_card"]:
+        torch.cuda.empty_cache()
     return out
 
 
@@ -3170,11 +3379,12 @@ def _padded_vs_exact(ctx, model, params, deg, backend, quant, vocab):
             "logits_max_abs_diff": float((le - lp).abs().max())}
 
 
-def phase_model(ctx, cfg, prompt_len):
-    """Phase 4: kernel vs plain on the model cut to 2 layers, on the bf16
-    and on the int8 cache, prefilling one ``prompt_len``-token prompt (for
-    a window arch, past the window: the ``band`` schedule and a ring
-    prefill, whose decode steps then wrap).
+def phase_model(ctx, cfg, prompt_len, n_layers=2):
+    """Phase 4: kernel vs plain on the model cut to ``n_layers`` layers
+    (2; the hybrid 4: one group and one tail block), on the bf16 and on the
+    int8 cache (the recurrent families on their one cache), prefilling one
+    ``prompt_len``-token prompt (for a window arch, past the window: the
+    ``band`` schedule and a ring prefill, whose decode steps then wrap).
 
     (a) Every kernel call of a kernel run is checked against its plain
     version on the same (the model's own) inputs, at the stated tolerance.
@@ -3188,23 +3398,36 @@ def phase_model(ctx, cfg, prompt_len):
     (c) Bucketed prefill against exact-length prefill through the kernels:
     the attention tile width follows the padded length, so the online
     softmax may sum in another order; the difference is reported, and the
-    next decode step's logits are held to the same 4x floor."""
+    next decode step's logits are held to the same 4x floor.  The
+    recurrent families' states must be bit-identical (the SSD chunk
+    products of one shape, the doubling scan, and at head_dim 256 chunks
+    at absolute multiples of 32 for every tile width)."""
     torch, dev = ctx["torch"], ctx["dev"]
     import numpy as np
 
     from repro_torch.core.approx import policy_from_flag
     from repro_torch.models import build_model
+    from repro_torch.models.transformer import attn_window
 
     from repro_torch.kernels import _build
 
     rng = np.random.default_rng(1)
     prompt = torch.as_tensor(rng.integers(0, cfg.vocab, prompt_len), device=dev)
-    band = cfg.swa_window is not None and prompt_len > cfg.swa_window
+    recurrent = cfg.family in ("ssm", "hybrid")
+    window = attn_window(cfg)
+    band = window is not None and prompt_len > window
+    # attention blocks of the cut model
+    n_attn = (0 if cfg.family == "ssm" else
+              n_layers // len(cfg.block_pattern) if cfg.family == "hybrid" else n_layers)
     out = []
     for dtype, degree, quant in MODEL_RUNS:
-        label = (f"{cfg.name} 2-layer {dtype} at degree {degree}, "
+        if recurrent and quant:
+            continue                 # no int8 cache: init_cache gives the state cache
+        if isinstance(degree, list):
+            degree = (degree * n_layers)[:n_layers] + degree[-1:]
+        label = (f"{cfg.name} {n_layers}-layer {dtype} at degree {degree}, "
                  f"{'int8' if quant else 'bf16'} cache, prompt {prompt_len}")
-        cut = dataclasses.replace(cfg, n_layers=2, dtype=dtype)
+        cut = dataclasses.replace(cfg, n_layers=n_layers, dtype=dtype)
         model = build_model(cut, policy_from_flag("axq8", dynamic=True), device=dev)
         params = model.prepack(model.init(seed=1))
         seed_biases(ctx, params, 1)
@@ -3217,8 +3440,8 @@ def phase_model(ctx, cfg, prompt_len):
         with _checked_kernels(ctx, dtype, calls):
             lk, fed = _model_logits(ctx, model, params, prompt, deg, kernels, None, quant)
         band_launches = _build.flash_schedules["band"] - band_before
-        require(not (band and ctx["on_card"]) or band_launches == cut.n_layers,
-                f"{label}: {band_launches} band launches, expected {cut.n_layers}")
+        require(not (band and ctx["on_card"]) or band_launches == n_attn,
+                f"{label}: {band_launches} band launches, expected {n_attn}")
         # both plain runs decode the kernel run's greedy tokens
         lp, _ = _model_logits(ctx, model, params, prompt, deg, "torch", fed, quant)
         with _perturbed_projections(ctx, NOISE_EPS):
@@ -3244,6 +3467,11 @@ def phase_model(ctx, cfg, prompt_len):
         ffn = (("axqmm_experts", "axqmm_gated_experts")
                + (("axqmm_gated",) if cfg.moe.n_shared else ())) if cfg.moe else ("axqmm_gated",)
         names = ("axqmm",) + ffn + (decode, "flash_attention")
+        if cfg.family == "ssm":
+            names = ("axqmm",)
+        if recurrent:
+            require(pve["bit_identical"], f"{label}: padded prefill's state differs from the "
+                                          f"exact-length prefill's: {pve['cache_max_abs_diff']}")
         for name in names + (("axqmm (bias)",) if cfg.qkv_bias else ()):
             n, err, bad = calls.get(name, (0, 0.0, 0))
             require(n > 0 or not ctx["on_card"], f"{label}: {name} never ran")
@@ -3258,7 +3486,8 @@ def phase_model(ctx, cfg, prompt_len):
         out.append({"arch": cfg.name, "prompt_len": prompt_len, "band_launches": band_launches,
                     "dtype": dtype, "degree": degree, "int8_cache": quant,
                     "kernel_calls": calls, "max_abs_logit_diff": diff,
-                    "noise_floor": floor, "noise_eps": NOISE_EPS, "tolerance": tol,
+                    "n_layers": n_layers, "noise_floor": floor, "noise_eps": NOISE_EPS,
+                    "tolerance": tol,
                     "max_abs_logit": float(lp.abs().max()), "padded_vs_exact": pve})
     return out
 
@@ -3327,6 +3556,11 @@ def main(argv=None) -> int:
                "qwen_short_range": (64, 512), "qwen_n_short": 9, "qwen_model_prompt": 1500,
                "h128_tri_lens": (4096, 1024), "h128_band": (8192, 4096),
                "moe_prefill_len": 512,
+               "rg_max_len": 8192, "rg_band_len": 8192,
+               "ssm_max_len": 512, "rec_buckets": (64, 128, 256, 512),
+               "rec_long_range": (4096, 8192), "ssm_n_long": 2, "ssm_n_short": 16,
+               "rg_n_long": 3, "rg_n_short": 9, "ssm_model_prompt": 1000,
+               "rg_model_prompt": 4500,
                "profile_ticks": 8, "stream_slots": 64, "stream_clips": 256, "stream_frames": 32,
                "psnr_clips": 4, "psnr_frames": 8,
                "calib_shape": (2, 64), "plan_grid": (8, 5),
@@ -3357,6 +3591,8 @@ def main(argv=None) -> int:
         nemo_cfg = get_config("mistral-nemo-12b")
         moe_cfg = get_config("granite-moe-3b-a800m")
         qmoe_cfg = get_config("qwen2-moe-a2.7b")
+        ssm_cfg = get_config("mamba2-370m")
+        rg_cfg = get_config("recurrentgemma-2b")
     else:
         torch.set_num_threads(4)
         smi, kind, count = ["cpu rehearsal"], "cpu", 0
@@ -3376,6 +3612,14 @@ def main(argv=None) -> int:
                "qwen_short_range": (8, 20), "qwen_n_short": 9, "qwen_model_prompt": 50,
                "h128_tri_lens": (300, 40), "h128_band": (520, 32),
                "moe_prefill_len": 37,
+               # window 32 at smoke width; a band past 4 blocks of 128
+               "rg_max_len": 64, "rg_band_len": 600,
+               # chunk 16 at smoke width; the long prompts past the ladder
+               # and the window of 32
+               "ssm_max_len": 64, "rec_buckets": (16, 32, 64),
+               "rec_long_range": (70, 120), "ssm_n_long": 2, "ssm_n_short": 6,
+               "rg_n_long": 3, "rg_n_short": 5, "ssm_model_prompt": 50,
+               "rg_model_prompt": 100,
                "profile_ticks": 2, "stream_slots": 4, "stream_clips": 6, "stream_frames": 4,
                "psnr_clips": 2, "psnr_frames": 3,
                "calib_shape": (2, 16), "plan_grid": (8, 6, 4),
@@ -3404,6 +3648,9 @@ def main(argv=None) -> int:
         nemo_cfg = dataclasses.replace(get_config("mistral-nemo-12b-smoke"), head_dim=128)
         moe_cfg = get_config("granite-moe-3b-a800m-smoke")
         qmoe_cfg = get_config("qwen2-moe-a2.7b-smoke")
+        ssm_cfg = get_config("mamba2-370m-smoke")
+        # head_dim 16 at smoke width: keep the D = 256 paths
+        rg_cfg = dataclasses.replace(get_config("recurrentgemma-2b-smoke"), head_dim=256)
     ctx["timer"] = Timer(torch, on_card)
 
     record = {"card": smi, "kind": kind, "count": count}
@@ -3416,6 +3663,7 @@ def main(argv=None) -> int:
     record["kernels_swa"] = phase_kernels_swa(ctx, swa_cfg)
     record["kernels_h128"] = phase_kernels_head128(ctx, qwen_cfg, nemo_cfg)
     record["kernels_moe"] = phase_kernels_moe(ctx, moe_cfg, qmoe_cfg)
+    record["kernels_rec"] = phase_kernels_recurrent(ctx, ssm_cfg, rg_cfg)
     if args.kernels_only:
         write_record(args.record, record)
         say("kernel checks done (--kernels-only): no result line")
@@ -3465,6 +3713,17 @@ def main(argv=None) -> int:
     if on_card:
         torch.cuda.empty_cache()
     record["moe_model_2layer"] = phase_model(ctx, moe_cfg, ctx["prefill_m"])
+    for tag, c in (("ssm", ssm_cfg), ("rg", rg_cfg)):
+        model, params = serving_model(ctx, c)
+        prompts, kinds = recurrent_prompts(ctx, c, tag)
+        record[f"{tag}_path"] = phase_serve_recurrent(
+            ctx, "3o" if tag == "ssm" else "3p", c, model, params, prompts, kinds,
+            max_len=ctx[f"{tag}_max_len"])
+        del model, params
+        if on_card:
+            torch.cuda.empty_cache()
+        record[f"{tag}_model"] = phase_model(ctx, c, ctx[f"{tag}_model_prompt"],
+                                             n_layers=2 if tag == "ssm" else 4)
 
     paths = {"3": record["main_path"], "3b": record["int8_cache_path"],
              "3c": record["chunked_path"], "3d": record["stream_path"],
@@ -3472,7 +3731,8 @@ def main(argv=None) -> int:
              "3g": record["qwen_path"], "3h": record["qwen_int8_path"],
              "3i": record["plan_path"], "3j": record["stream_plan_path"],
              "3k": record["emul_path"], "3l": record["resil_path"],
-             "3m": record["moe_path"], "3n": record["moe_int8_path"]}
+             "3m": record["moe_path"], "3n": record["moe_int8_path"],
+             "3o": record["ssm_path"], "3p": record["rg_path"]}
     summary = []
     moe_rows = record["kernels_moe"]
     for name in list(record["kernels"]) + ["axqmm_experts", "axqmm_gated_experts"]:
@@ -3480,8 +3740,9 @@ def main(argv=None) -> int:
         rows = record["kernels"].get(name) or moe_rows[name]
         swa_rows = record["kernels_swa"].get(name, [])
         h128_rows = record["kernels_h128"].get(name, [])
+        rec_rows = record["kernels_rec"].get(name, [])
         if name in record["kernels"]:
-            h128_rows = h128_rows + moe_rows.get(name, [])
+            h128_rows = h128_rows + moe_rows.get(name, []) + rec_rows
         # the summary row: the unembedding GEMM (the largest decode GEMM)
         # for axqmm, the decode-shaped row for the others
         lead = rows[-1] if name == "axqmm" else rows[0]
@@ -3515,6 +3776,13 @@ def main(argv=None) -> int:
             # qwen2.5-3b's longest tri row at head_dim 128 (bf16 body)
             tri128 = h128_rows[0]
             entry["head_dim_128"] = {k: tri128.get(k) for k in keys + ("dtype",)}
+            # recurrentgemma-2b's band row at head_dim 256, MQA 10/1
+            entry["head_dim_256"] = {k: rec_rows[0].get(k) for k in keys + ("dtype",)}
+        if name == "flash_decode":
+            # recurrentgemma-2b's decode at head_dim 256, G 10, split edges
+            keys = ("B", "KVr", "G", "D", "T", "ms", "ms_graph", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms", "library_ms_graph", "max_abs_err")
+            entry["head_dim_256"] = {k: rec_rows[0].get(k) for k in keys}
         summary.append(entry)
     record["summary"] = summary
     write_record(args.record, record)

@@ -9,7 +9,8 @@ as NamedTuples with fields ``k``/``v``/``length`` (the int8 cache also
 them by duck typing — this module imports neither JAX nor the reference
 package.  An MoE tree comes across the same way: the router, the experts
 with leading (n_layers, n_experts) axes (packed per slice, or float), the
-shared experts, and each one's packs.  The caller does the array-to-numpy step (for example
+shared experts, and each one's packs; a hybrid tree with its ``tail`` list of
+recurrent blocks.  The caller does the array-to-numpy step (for example
 ``jax.tree.map(np.asarray, tree)``).
 """
 
@@ -19,6 +20,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.qstore import PackedEmulWeight, PackedQWeight, emul_layout
+from repro_torch.models.rglru import HybridCache
+from repro_torch.models.ssm import SSMCache
 from repro_torch.models.transformer import LMCache, LMCacheQ
 
 
@@ -53,9 +56,15 @@ def params_from_numpy(tree, device="cpu"):
 
 def cache_from_numpy(cache, device="cpu"):
     """A cache with fields ``k``/``v``/``length`` (arrays) -> :class:`LMCache`;
-    one that also has ``ks``/``vs`` (the int8 cache) -> :class:`LMCacheQ`."""
+    one that also has ``ks``/``vs`` (the int8 cache) -> :class:`LMCacheQ`;
+    ``h``/``conv``/``length`` (the SSM's) -> ``SSMCache``; and with ``k``/``v``
+    besides (the hybrid's) -> ``HybridCache``."""
     t = lambda a: tensor_from_numpy(a, device)
     length = t(cache.length).to(torch.int32)
+    if hasattr(cache, "h") and hasattr(cache, "conv"):
+        if hasattr(cache, "k"):
+            return HybridCache(t(cache.k), t(cache.v), t(cache.h), t(cache.conv), length)
+        return SSMCache(t(cache.h), t(cache.conv), length)
     if hasattr(cache, "ks") and hasattr(cache, "vs"):
         return LMCacheQ(t(cache.k), t(cache.v), t(cache.ks), t(cache.vs), length)
     return LMCache(t(cache.k), t(cache.v), length)

@@ -65,11 +65,18 @@
 // D = 128 (TcTile<128>): O alone is 64 f32 registers a thread, so its
 // chunks are 32 kv rows (the scores take 16 registers, not 32), which keeps
 // two blocks per SM at <= 128 registers with no spill; 69,632 bytes of
-// shared memory at blk = 128.
+// shared memory at blk = 128.  D = 256 (TcTile<256>): O is 128 registers a
+// thread, which no 128-register budget holds; the block keeps its 16-row
+// warps and 32-row chunks and runs alone on its SM (__launch_bounds__ min
+// blocks 1: up to 255 registers a thread), with 135,168 bytes of shared
+// memory at blk = 128.
 //
 // f32 (the parity mode of the tests): CUDA cores, f32 dots, one thread per
 // query row holding its accumulator in registers (D floats), K/V staged as
-// f32 in 16-row chunks.  The block's scaled q rows sit in dynamic shared
+// f32 in 16-row chunks.  At D = 256 a row takes two neighbouring threads,
+// each holding the accumulator of one half of D (D floats would pass the
+// 255-register limit): each sums its half of a score, the pair adds the two
+// halves by a shuffle (the same sum in both), and each writes its half.  The block's scaled q rows sit in dynamic shared
 // memory, d-major so that a warp's 32 rows read 32 banks (q and O both in
 // registers would take 256 floats at D = 128, over the 255-register
 // limit); the dots run d-outer over the chunk's 16 columns, one fmaf chain
@@ -103,22 +110,35 @@ struct Plan {
   int S, H, G, blk, causal, sched, band, window;
 };
 
+// Threads a query row of the f32 body: 2 at D = 256, where one thread's D
+// accumulators would pass the 255-register limit; 1 below.
+__host__ __device__ constexpr int fwd_split(int D) { return D > 128 ? 2 : 1; }
+
+// Query rows of one f32-body block of `blk` rows (its threads, a multiple of
+// 32, over the threads a row).
+__host__ __device__ constexpr int fwd_rows(int D, int blk) {
+  return (blk * fwd_split(D) + 31) / 32 * 32 / fwd_split(D);
+}
+
 template <typename T, int D>
-__global__ void __launch_bounds__(MAXBLK)
+__global__ void __launch_bounds__(MAXBLK * fwd_split(D))
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int* __restrict__ steps,
                  Plan p, Strides qs_, Strides ks_, Strides os_, float scale) {
+  constexpr int R = fwd_split(D);        // threads a query row
+  constexpr int DH = D / R;              // accumulators a thread
   __shared__ float ksm[KT][D + 1];
   __shared__ float vsm[KT][D];
-  extern __shared__ float qsm[];         // scaled q rows, [D][blockDim.x]
+  extern __shared__ float qsm[];         // scaled q rows, [D][nrow]
 
   const int S = p.S, blk = p.blk, window = p.window;
   const int i = blockIdx.x;              // q block
   const int bh = blockIdx.y;
   const int b = bh / p.H, h = bh % p.H, kvh = h / p.G;
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  const int row = i * blk + tid;
-  const bool live = tid < blk && row < S;
+  const int tid = threadIdx.x, nrow = blockDim.x / R;
+  const int ri = tid / R, d0 = (tid % R) * DH;   // the row, the first column held
+  const int row = i * blk + ri;
+  const bool live = ri < blk && row < S;
   const int n = (S + blk - 1) / blk;
   const int r_lo = i * blk, r_hi = min(r_lo + blk, S) - 1;   // the block's rows
   int j0 = 0, visits = n;
@@ -129,12 +149,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     visits = p.band;
   }
 
-  float acc[D];
+  float acc[DH];
   float m = kNegInf, l = 0.f;
-  const T* qp = q + b * qs_.b + (long long)min(row, S - 1) * qs_.s + h * qs_.h;
+  const T* qp = q + b * qs_.b + (long long)min(row, S - 1) * qs_.s + h * qs_.h + d0;
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    qsm[d * nthr + tid] = live ? to_f32(qp[d]) * scale : 0.f;   // read by this thread only
+  for (int d = 0; d < DH; ++d) {
+    qsm[(d0 + d) * nrow + ri] = live ? to_f32(qp[d]) * scale : 0.f;   // read by this thread only
     acc[d] = 0.f;
   }
   const T* kbase = k + b * ks_.b + kvh * ks_.h;
@@ -159,16 +179,21 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         vsm[c][d] = ok ? to_f32(vbase[(long long)col * ks_.s + d]) : 0.f;
       }
       __syncthreads();
-      if (!live) continue;
+      // a split row's pair meets in the shuffle below: no thread leaves early
+      if (R == 1 && !live) continue;
       float s[KT];
       float mx = kNegInf;
 #pragma unroll
       for (int c = 0; c < KT; ++c) s[c] = 0.f;
 #pragma unroll 4
-      for (int d = 0; d < D; ++d) {
-        const float qd = qsm[d * nthr + tid];
+      for (int d = 0; d < DH; ++d) {
+        const float qd = qsm[(d0 + d) * nrow + ri];
 #pragma unroll
-        for (int c = 0; c < KT; ++c) s[c] = fmaf(qd, ksm[c][d], s[c]);
+        for (int c = 0; c < KT; ++c) s[c] = fmaf(qd, ksm[c][d0 + d], s[c]);
+      }
+      if constexpr (R == 2) {
+#pragma unroll
+        for (int c = 0; c < KT; ++c) s[c] += __shfl_xor_sync(0xffffffffu, s[c], 1);
       }
 #pragma unroll
       for (int c = 0; c < KT; ++c) {
@@ -189,24 +214,24 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       l = l * corr + psum;
       m = m_new;
 #pragma unroll
-      for (int d = 0; d < D; ++d) {
+      for (int d = 0; d < DH; ++d) {
         float pv = 0.f;
 #pragma unroll
-        for (int c = 0; c < KT; ++c) pv = fmaf(s[c], vsm[c][d], pv);
+        for (int c = 0; c < KT; ++c) pv = fmaf(s[c], vsm[c][d0 + d], pv);
         acc[d] = acc[d] * corr + pv;
       }
     }
   }
   if (!live) return;
-  T* op = o + b * os_.b + (long long)row * os_.s + h * os_.h;
+  T* op = o + b * os_.b + (long long)row * os_.s + h * os_.h + d0;
   const float inv = 1.f / fmaxf(l, 1e-30f);
 #pragma unroll
-  for (int d = 0; d < D; ++d) op[d] = from_f32<T>(acc[d] * inv);
+  for (int d = 0; d < DH; ++d) op[d] = from_f32<T>(acc[d] * inv);
 }
 
 // Dynamic shared memory of one f32-body block: the scaled q rows.
 __host__ __device__ constexpr int fwd_smem_bytes(int D, int blk) {
-  return D * ((blk + 31) / 32) * 32 * 4;
+  return D * fwd_rows(D, blk) * 4;
 }
 
 // Allow `kernel` `bytes` of dynamic shared memory on the current device,
@@ -234,7 +259,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int* steps, int
   if (err != 0) return err;
   const int n = (p.S + p.blk - 1) / p.blk;
   const dim3 grid(n, B * p.H);
-  const int threads = ((p.blk + 31) / 32) * 32;
+  const int threads = fwd_rows(D, p.blk) * fwd_split(D);
   flash_fwd_kernel<T, D><<<grid, threads, fwd_smem_bytes(D, p.blk), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), steps, p, qs_, ks_, os_, scale);
@@ -251,6 +276,7 @@ int with_head_dim(int D, F&& f) {
     case 64: return f(std::integral_constant<int, 64>{});
     case 80: return f(std::integral_constant<int, 80>{});
     case 128: return f(std::integral_constant<int, 128>{});
+    case 256: return f(std::integral_constant<int, 256>{});
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -265,12 +291,13 @@ constexpr int WROWS = 16;           // query rows per warp (one mma M tile)
 constexpr int MAXWARPS = MAXBLK / WROWS;
 
 // The bf16 body's kv rows per shared chunk, fixed per D so that every
-// schedule and every padded length sees the same chunks.  The body runs two
-// blocks per SM (__launch_bounds__ below), which caps a thread at
-// 65536 / (2 * 256) = 128 registers.
+// schedule and every padded length sees the same chunks, and its blocks an
+// SM (__launch_bounds__ below): two cap a thread at 65536 / (2 * 256) = 128
+// registers, one at 255.
 template <int D>
 struct TcTile {
   static constexpr int kCh = 64;
+  static constexpr int kBlocks = 2;
 };
 
 // D = 128: O alone is 64 f32 registers a thread.  64-row chunks (32 score
@@ -280,6 +307,16 @@ struct TcTile {
 template <>
 struct TcTile<128> {
   static constexpr int kCh = 32;
+  static constexpr int kBlocks = 2;
+};
+
+// D = 256: O alone is 128 f32 registers a thread, the whole of a two-block
+// budget; one block an SM gives the body 255 (O, 16 score registers of a
+// 32-row chunk, the P fragments and the addressing), with no spill.
+template <>
+struct TcTile<256> {
+  static constexpr int kCh = 32;
+  static constexpr int kBlocks = 1;
 };
 
 __host__ __device__ constexpr int tc_row_elems(int D) { return D + 8; }
@@ -356,7 +393,7 @@ __device__ __forceinline__ float bf16_hi(unsigned x) { return __uint_as_float(x 
 // g and g + 8, columns 2t, 2t + 1 and 2t + 8, 2t + 9; the f32 C/D tile
 // holds rows g (c[0], c[1]) and g + 8 (c[2], c[3]) at columns 2t, 2t + 1.
 template <int D>
-__global__ void __launch_bounds__(MAXWARPS * 32, 2)
+__global__ void __launch_bounds__(MAXWARPS * 32, TcTile<D>::kBlocks)
 flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, bf16* __restrict__ o, int* __restrict__ steps,
                 Plan p, Strides qs_, Strides ks_, Strides os_, float scale_log2) {

@@ -72,7 +72,11 @@ constexpr int BT = 32;        // cache rows a tile (one per lane of a softmax wa
 constexpr int STAGES = 2;     // tiles of the cp.async ring
 constexpr int CH = 8;         // row elements a chunk (a thread's unit of a row)
 constexpr int MAXG = 32;
-constexpr int MAXGD = 2048;   // G * D bound
+constexpr int MAXGD = 2048;   // G * D bound below D = 256
+
+// G * D bound at head dim D: 16 query rows at D = 256 (recurrentgemma-2b's
+// group of 10 over one kv head), MAXGD below.
+__host__ __device__ constexpr int max_gd(int D) { return D > 128 ? 16 * D : MAXGD; }
 constexpr int PT = MAXG + 4;  // row stride (floats) of the p^T tile
 constexpr int NTC = 128;      // threads a combine block
 
@@ -82,15 +86,18 @@ constexpr int NTC = 128;      // threads a combine block
 // lengths of a steady serving tick of the arch that has the head dim
 // (tinyllama-1.1b's path 3 at D = 64, h2o-danube-1.8b's 3e at 80,
 // qwen2.5-3b's 3g at 128; tools/tune_decode_split.py, PERF.md); no one
-// width came within 5% of each of them.
+// width came within 5% of each of them.  D = 256 (recurrentgemma-2b's ring
+// of 2048) takes 128, untuned: 16 splits of its 8 slots fill the card once.
 template <int D>
 struct Split {
   static constexpr int W = D == 64 ? 64 : D == 80 ? 256 : 128;
 };
 
 // f(std::integral_constant<int, D>{}) for an instantiated head dim D;
-// cudaErrorInvalidValue for any other (the wrapper's HEAD_DIMS).
-template <typename F>
+// cudaErrorInvalidValue for any other (the wrapper's HEAD_DIMS; D = 256
+// only with kWide: the bf16/f32 cache, not the int8 one, which no path
+// reaches at D = 256, the wrapper's QUANT_HEAD_DIMS).
+template <bool kWide, typename F>
 int with_head_dim(int D, F&& f) {
   switch (D) {
     case 16: return f(std::integral_constant<int, 16>{});
@@ -98,8 +105,24 @@ int with_head_dim(int D, F&& f) {
     case 64: return f(std::integral_constant<int, 64>{});
     case 80: return f(std::integral_constant<int, 80>{});
     case 128: return f(std::integral_constant<int, 128>{});
+    case 256:
+      if constexpr (kWide) return f(std::integral_constant<int, 256>{});
+      return static_cast<int>(cudaErrorInvalidValue);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// Query rows a P.V register block at head dim D for a group of G: 4 for
+// groups of at most 4 below D = 256, else 8 (D = 256 has the one width).
+__host__ __device__ constexpr int gq_for(int D, int G) { return G <= 4 && D <= 128 ? 4 : 8; }
+
+// Blocks an SM of decode_kernel's launch bounds: at D = 256 one, so that a
+// thread may hold the 8 x 8 P.V block and its 32 floats of a K row in up to
+// 255 registers (B x KVr x T / W blocks fill the card about once at
+// recurrentgemma-2b's decode anyway); below, 4 for 4-row and 2 for 8-row
+// P.V blocks.
+__host__ __device__ constexpr int decode_blocks(int D, int GQ) {
+  return D > 128 ? 1 : GQ == 4 ? 4 : 2;
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -235,12 +258,12 @@ struct Tile {
   // the ring, which every thread's P.V block reuses at the split's end
   static constexpr int kRed = Threads<GQ>::kN * GQ * CH * 4;
   static constexpr int kRing = STAGES * kStage > kRed ? STAGES * kStage : kRed;
-  static constexpr int kSmem = kRing + (MAXGD + MAXG * (BT + 1) + BT * PT + 3 * MAXG) * 4;
+  static constexpr int kSmem = kRing + (max_gd(D) + MAXG * (BT + 1) + BT * PT + 3 * MAXG) * 4;
 };
 
-// GQ query rows a P.V register block: 4 for groups of at most 4, else 8.
+// GQ query rows a P.V register block (gq_for).
 template <typename Rows, int D, int GQ>
-__global__ void __launch_bounds__(Threads<GQ>::kN, GQ == 4 ? 4 : 2)
+__global__ void __launch_bounds__(Threads<GQ>::kN, decode_blocks(D, GQ))
 decode_kernel(Rows rows, const float* __restrict__ q, const int* __restrict__ nvalid,
               const int* __restrict__ active, float* __restrict__ out,
               float* __restrict__ part, int T, int KVr, int G, float scale) {
@@ -254,7 +277,7 @@ decode_kernel(Rows rows, const float* __restrict__ q, const int* __restrict__ nv
   constexpr int ESZ = sizeof(typename Rows::Elem);
   extern __shared__ __align__(16) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem + L::kRing);  // scaled q [G][D]
-  float* sc = qs + MAXGD;                                 // scores [MAXG][BT + 1]
+  float* sc = qs + max_gd(D);                             // scores [MAXG][BT + 1]
   float* pt = sc + MAXG * (BT + 1);                       // probabilities [BT][PT]
   float* m_s = pt + BT * PT;                              // running max a query row
   float* l_s = m_s + MAXG;                                // running sum
@@ -567,12 +590,14 @@ int launch(const Rows& rows, const void* q, const void* nvalid, const void* acti
   auto act = static_cast<const int*>(active);
   auto o = static_cast<float*>(out);
   auto pp = static_cast<float*>(part);
-  return G <= 4 ? launch<Rows, D, 4>(rows, q, nv, act, o, pp, B, T, KVr, G, scale, stream)
-                : launch<Rows, D, 8>(rows, q, nv, act, o, pp, B, T, KVr, G, scale, stream);
+  if constexpr (gq_for(D, 1) == 4) {
+    if (G <= 4) return launch<Rows, D, 4>(rows, q, nv, act, o, pp, B, T, KVr, G, scale, stream);
+  }
+  return launch<Rows, D, 8>(rows, q, nv, act, o, pp, B, T, KVr, G, scale, stream);
 }
 
 bool bad_shape(int B, int T, int KVr, int G, int D) {
-  return B <= 0 || T <= 0 || KVr <= 0 || G <= 0 || G > MAXG || G * D > MAXGD;
+  return B <= 0 || T <= 0 || KVr <= 0 || G <= 0 || G > MAXG || G * D > max_gd(D);
 }
 
 }  // namespace
@@ -580,7 +605,7 @@ bool bad_shape(int B, int T, int KVr, int G, int D) {
 // Cache rows a split at head dim D (the partial scratch holds ceil(T / W)
 // splits); -1 for a head dim the kernel does not take.
 extern "C" int flash_decode_split_width(int D) {
-  const int w = with_head_dim(D, [](auto dim) { return Split<decltype(dim)::value>::W; });
+  const int w = with_head_dim<true>(D, [](auto dim) { return Split<decltype(dim)::value>::W; });
   return w == static_cast<int>(cudaErrorInvalidValue) ? -1 : w;
 }
 
@@ -588,10 +613,10 @@ extern "C" int flash_decode_split_width(int D) {
 // (0 f32, 1 bf16, 2 int8) at head dim D and group size G; -1 for a head dim
 // or kind the kernel does not take.
 extern "C" int flash_decode_smem_bytes(int D, int kind, int G) {
-  if (kind < 0 || kind > 2 || G <= 0 || G > MAXG) return -1;
-  const int bytes = with_head_dim(D, [&](auto dim) {
+  if (kind < 0 || kind > 2 || G <= 0 || G > MAXG || (kind == 2 && D > 128)) return -1;
+  const int bytes = with_head_dim<true>(D, [&](auto dim) {
     constexpr int kD = decltype(dim)::value;
-    if (G <= 4)
+    if (gq_for(kD, G) == 4)
       return kind == repro::kF32    ? Tile<FloatRows<float>, kD, 4>::kSmem
              : kind == repro::kBF16 ? Tile<FloatRows<__nv_bfloat16>, kD, 4>::kSmem
                                     : Tile<Int8Rows, kD, 4>::kSmem;
@@ -612,13 +637,13 @@ extern "C" int flash_decode_launch(const void* q, const void* k, const void* v,
   auto kb = static_cast<const unsigned char*>(k);
   auto vb = static_cast<const unsigned char*>(v);
   if (kv_dtype == repro::kBF16) {
-    return with_head_dim(D, [&](auto dim) {
+    return with_head_dim<true>(D, [&](auto dim) {
       return launch<FloatRows<__nv_bfloat16>, decltype(dim)::value>(
           {kb, vb}, q, nvalid, active, out, part, B, T, KVr, G, scale, s);
     });
   }
   if (kv_dtype == repro::kF32) {
-    return with_head_dim(D, [&](auto dim) {
+    return with_head_dim<true>(D, [&](auto dim) {
       return launch<FloatRows<float>, decltype(dim)::value>(
           {kb, vb}, q, nvalid, active, out, part, B, T, KVr, G, scale, s);
     });
@@ -635,7 +660,7 @@ extern "C" int flash_decode_quant_launch(const void* q, const void* k, const voi
   const Int8Rows rows{static_cast<const unsigned char*>(k), static_cast<const unsigned char*>(v),
                       static_cast<const float*>(ks), static_cast<const float*>(vs),
                       static_cast<const int*>(ebits), 0};
-  return with_head_dim(D, [&](auto dim) {
+  return with_head_dim<false>(D, [&](auto dim) {
     return launch<Int8Rows, decltype(dim)::value>(rows, q, nvalid, active, out, part, B, T,
                                                    KVr, G, scale,
                                                    static_cast<cudaStream_t>(stream));

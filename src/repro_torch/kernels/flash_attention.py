@@ -44,7 +44,7 @@ NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the head dims the kernel is instantiated for (``with_head_dim`` in the
 #: CUDA source); any other raises on the card, with no fallback
-_HEAD_DIMS = (16, 32, 64, 80, 128)
+_HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 _SCHEDULES = {"dense": 0, "tri": 1, "band": 2}
 
 #: the tensor-core body's copy width in bytes (``cp.async.cg``)

@@ -47,8 +47,10 @@ NEG_INF = -1e30
 
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-#: the head dims the kernels are instantiated for
-HEAD_DIMS = (16, 32, 64, 80, 128)
+#: the head dims the kernels are instantiated for: the bf16/f32 cache's and
+#: the int8 cache's (no serving path reaches the int8 cache at D = 256)
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)
+QUANT_HEAD_DIMS = (16, 32, 64, 80, 128)
 
 #: the kernels' copy width in bytes (``cp.async.cg``): cache pointers align to it
 KV_ALIGN = 16
@@ -69,12 +71,14 @@ def split_width(D: int) -> int:
 _widths: dict = {}
 
 
-def _split_scratch(B: int, KVr: int, G: int, D: int, T: int, dev: torch.device) -> Tensor:
+def _split_scratch(B: int, KVr: int, G: int, D: int, T: int, dev: torch.device,
+                   dims=HEAD_DIMS) -> Tensor:
     """The partials of one launch: f32 scratch (B, KVr, ceil(T / W), G,
     D + 4) for each split's (acc, m, l; two pad floats keep its rows 16-byte
-    aligned).  Raises for a head dim the kernels were not built for."""
-    if D not in HEAD_DIMS:
-        raise ValueError(f"the decode kernels' head_dim must be one of {HEAD_DIMS}, got {D}")
+    aligned).  Raises for a head dim outside ``dims``, the ones the kernel
+    was built for."""
+    if D not in dims:
+        raise ValueError(f"the decode kernel's head_dim must be one of {dims}, got {D}")
     n_split = -(-T // split_width(D))
     return torch.empty((B, KVr, n_split, G, D + 4), dtype=torch.float32, device=dev)
 
@@ -167,7 +171,7 @@ def flash_decode_quant(qg: Tensor, k: Tensor, ks: Tensor, v: Tensor, vs: Tensor,
     _build.expect(nvalid, "nvalid", torch.int32, dev, (B,))
     _build.expect(active, "active", torch.int32, dev, (B,))
     e = _build.degree_ptr(ebits, dev)
-    part = _split_scratch(B, KVr, G, D, T, dev)
+    part = _split_scratch(B, KVr, G, D, T, dev, QUANT_HEAD_DIMS)
     out = torch.empty((B, KVr, G, D), dtype=torch.float32, device=dev)
     rc = _build.entry("flash_decode_quant_launch")(
         q.data_ptr(), k.data_ptr(), ks.data_ptr(), v.data_ptr(), vs.data_ptr(),

@@ -215,15 +215,60 @@ def _pack_transformer(params: dict, cfg, policy: ApproxPolicy) -> dict:
     return out
 
 
+def _pack_ssm(params: dict, cfg, policy: ApproxPolicy) -> dict:
+    out = dict(params)
+    layers = dict(params["layers"])
+    for key in ("in_proj", "out_proj"):
+        layers[key] = _pack_dense(layers[key], f"layer/{key}", policy)
+    out["layers"] = layers
+    out["embed"] = _pack_embed(params["embed"], policy)
+    return out
+
+
+def _pack_rec_block(bp: dict, path: str, policy: ApproxPolicy) -> dict:
+    out = dict(bp)
+    for key in ("wx", "wg", "wa", "wi", "wo"):
+        out[key] = _pack_dense(bp[key], f"{path}/{key}", policy)
+    out["mlp"] = _pack_gated_mlp(bp["mlp"], f"{path}/mlp", policy)
+    return out
+
+
+def _pack_attn_block(bp: dict, path: str, policy: ApproxPolicy) -> dict:
+    out = dict(bp)
+    for key in ("wq", "wk", "wv", "wo"):
+        out[key] = _pack_dense(bp[key], f"{path}/{key}", policy)
+    if "mlp" in bp:
+        out["mlp"] = _pack_gated_mlp(bp["mlp"], f"{path}/mlp", policy)
+    return out
+
+
+def _pack_hybrid(params: dict, cfg, policy: ApproxPolicy) -> dict:
+    # packs resolve against the serve-time paths ("g/...", "tail/..."): the
+    # ones prefill and decode dispatch through (models/rglru.py)
+    out = dict(params)
+    groups = dict(params["groups"])
+    for gkey, gp in groups.items():
+        pack = _pack_rec_block if gkey.startswith("rec") else _pack_attn_block
+        groups[gkey] = pack(gp, "g", policy)
+    out["groups"] = groups
+    out["tail"] = [_pack_rec_block(bp, "tail", policy) for bp in params["tail"]]
+    out["unembed"] = _pack_dense(params["unembed"], "unembed", policy)
+    return out
+
+
 def prepack_params(params: dict, cfg, policy: ApproxPolicy) -> dict:
-    """Quantize-once pass over a dense or MoE transformer's param tree: every dense
-    weight whose policy spec is AXQ becomes a :class:`PackedQWeight`, every
-    one whose spec is *_EMUL a :class:`PackedEmulWeight` (per stacked-layer
-    slice).
+    """Quantize-once pass over a model's param tree (dense, MoE, SSM or
+    hybrid): every dense weight whose policy spec is AXQ becomes a
+    :class:`PackedQWeight`, every one whose spec is *_EMUL a
+    :class:`PackedEmulWeight` (per stacked-layer slice).
     Idempotent; EXACT-only policies return every tensor untouched.  The
     result is inference-only (int8 leaves carry no gradients)."""
-    if cfg.family not in ("dense", "moe") or cfg.frontend:
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid") or cfg.frontend:
         raise NotImplementedError(
-            f"prepack_params is ported for the dense and MoE families only, not "
-            f"{cfg.name!r} ({cfg.family})")
+            f"prepack_params is ported for the dense, MoE, SSM and hybrid families, "
+            f"not {cfg.name!r} ({cfg.family})")
+    if cfg.family == "ssm":
+        return _pack_ssm(params, cfg, policy)
+    if cfg.family == "hybrid":
+        return _pack_hybrid(params, cfg, policy)
     return _pack_transformer(params, cfg, policy)

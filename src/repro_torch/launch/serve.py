@@ -12,6 +12,12 @@
   # the MoE family at full width (granite: 40 experts, top-8; exact-length
   # admission only, on either cache)
   python -m repro_torch.launch.serve --arch granite-moe-3b-a800m --approx axq8 --qos --metrics
+  # the recurrent families: Mamba-2 SSD (a fixed state a slot, prompts of
+  # any length) and the RG-LRU hybrid (a local-attention ring of 2048 at
+  # head_dim 256), bucketed or not (chunked admission is not offered):
+  python -m repro_torch.launch.serve --arch mamba2-370m --approx axq8 --qos --metrics
+  python -m repro_torch.launch.serve --arch recurrentgemma-2b --approx axq8 --qos \
+      --prefill-buckets auto --pack 4 --metrics
   # the plain PyTorch versions on the host, at smoke size:
   python -m repro_torch.launch.serve --arch tinyllama-1.1b-smoke --device cpu
   # the streaming DSP workload (FIR -> blur -> gain on the PR multiplier):

@@ -133,6 +133,35 @@ def act_fn(name: str):
     return ACTS[name]
 
 
+def _as(dtype, v: float) -> float:
+    """``v`` rounded to ``dtype`` (a constant the reference casts first)."""
+    return float(torch.tensor(v, dtype=torch.float32).to(dtype))
+
+
+def _silu_rounded(x: Tensor) -> Tensor:
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def _gelu_rounded(x: Tensor) -> Tensor:
+    c, k = _as(x.dtype, math.sqrt(2 / math.pi)), _as(x.dtype, 0.044715)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * x ** 3))))
+
+
+_ROUNDED_ACTS = {"silu": _silu_rounded, "gelu": _gelu_rounded}
+
+
+def act_rounded(name: str):
+    """The activation outside a GEMM on a tensor in the model's dtype, as
+    ``jax.nn.silu`` / ``gelu`` (tanh form) write it, op for op, each op
+    rounded to x's dtype and gelu's constants cast to it first.  ``ACTS``
+    (``act_fn``) is the GEMM epilogue's form, one rounding of an f32
+    value, which the kernels compute.  The recurrent blocks need this one:
+    in bf16 under AXQ the fused form rounds ~40% of values one ulp away
+    from the reference, and the int8 codes carry that past the bf16
+    bounds (tests/test_torch_rglru.py::test_rounded_activations_hold_bf16_parity)."""
+    return _ROUNDED_ACTS[name]
+
+
 def init_gated_mlp(gen, d: int, d_ff: int, stack: tuple = (), device="cpu"):
     return {
         "up": init_dense(gen, d, d_ff, stack=stack, device=device),
@@ -160,3 +189,34 @@ def gated_mlp_apply(p, x: Tensor, policy: ApproxPolicy, path: str,
         h = act_fn(act)(gate) * up
     return dense_apply(p["down"], h, policy, path + "/down", degree,
                        residual=residual)
+
+
+# ---------------------------------------------------------------------------
+# Causal depthwise conv1d (the RG-LRU / Mamba front conv)
+# ---------------------------------------------------------------------------
+
+
+def init_conv1d(gen, channels: int, width: int, stack: tuple = (), device="cpu"):
+    return {"w": truncated_normal(gen, (*stack, width, channels), 1.0 / math.sqrt(width),
+                                  device),
+            "b": torch.zeros((*stack, channels), dtype=torch.float32, device=device)}
+
+
+def conv1d_apply(p, x: Tensor, state: Optional[Tensor] = None):
+    """Causal depthwise conv.  x: (B, S, C).  With ``state`` (B, width-1, C)
+    (decode) it is prepended in place of the zero history.  The f32 taps
+    are summed in order ``i = 0..width-1``.  Returns (out in x.dtype, the
+    last ``width - 1`` inputs: the state decode continues from)."""
+    width = p["w"].shape[0]
+    if state is None:
+        pad = torch.zeros((x.shape[0], width - 1, x.shape[2]), dtype=x.dtype, device=x.device)
+    else:
+        pad = state.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)
+    S = x.shape[1]
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for i in range(width):
+        out = out + xp[:, i:i + S].to(torch.float32) * p["w"][i]
+    out = (out + p["b"]).to(x.dtype)
+    new_state = xp[:, xp.shape[1] - (width - 1):] if width > 1 else pad
+    return out, new_state

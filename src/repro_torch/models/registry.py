@@ -1,4 +1,5 @@
-"""Model API over the ported families (dense and MoE so far).
+"""Model API over the ported families: dense, MoE, SSM (Mamba-2) and hybrid
+(RG-LRU + local attention), dispatched by ``cfg.family``.
 
     model = build_model(cfg, policy)               # device="cuda" by default
     params = model.init(seed=0)
@@ -9,7 +10,10 @@
     logits, cache = model.decode_step(params, cache, tokens)
 
 Every compute entry point takes a runtime ``degree``: None, a global
-scalar, or an ``(n_layers + 1,)`` per-site vector (models/degrees.py).
+scalar, or an ``(n_layers + 1,)`` per-site vector (models/degrees.py).  The
+SSM and hybrid families keep a cache of per-slot state (their recurrent
+state and conv tails, the hybrid also its attention rings), whatever
+``quant`` or ``REPRO_KV_INT8`` say: neither has an int8 cache.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.approx import ApproxPolicy
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import rglru, ssm, transformer
 
 
 @dataclass
@@ -45,16 +49,29 @@ class Model:
         gen = generator
         if gen is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
+        if self.cfg.family == "hybrid":
+            return rglru.init_hybrid(gen, self.cfg, tp, self.device)
+        if self.cfg.family == "ssm":
+            return ssm.init_ssm_lm(gen, self.cfg, tp, self.device)
         return transformer.init_lm(gen, self.cfg, tp, self.device)
 
     def forward(self, params, batch, tp: int = 1, degree=None):
+        if self.cfg.family == "hybrid":
+            return rglru.hybrid_forward(params, self.cfg, self.policy, batch, tp, degree)
+        if self.cfg.family == "ssm":
+            return ssm.ssm_forward(params, self.cfg, self.policy, batch, tp, degree)
         return transformer.lm_forward(params, self.cfg, self.policy, batch,
                                       tp, degree)
 
     def init_cache(self, tp: int, batch: int, max_len: int,
                    dtype=torch.bfloat16, quant: Optional[bool] = None):
-        """The decode cache: int8 (:class:`~repro_torch.models.transformer.LMCacheQ`)
+        """The decode cache: for the SSM and hybrid families their state
+        cache; else int8 (:class:`~repro_torch.models.transformer.LMCacheQ`)
         when ``quant``, or when ``quant`` is None and ``REPRO_KV_INT8=1``."""
+        if self.cfg.family == "hybrid":
+            return rglru.init_hybrid_cache(self.cfg, tp, batch, max_len, dtype, self.device)
+        if self.cfg.family == "ssm":
+            return ssm.init_ssm_cache(self.cfg, tp, batch, max_len, dtype, self.device)
         if quant is None:
             quant = os.environ.get("REPRO_KV_INT8", "0") == "1"
         return transformer.init_lm_cache(self.cfg, tp, batch, max_len, dtype,
@@ -62,12 +79,26 @@ class Model:
 
     def decode_step(self, params, cache, tokens, tp: int = 1, degree=None,
                     active=None):
+        """``active`` (B,) bool: the attention kernel's free-slot mask (the
+        SSM has no attention and ignores it)."""
+        if self.cfg.family == "hybrid":
+            return rglru.hybrid_decode_step(params, self.cfg, self.policy, cache, tokens,
+                                            tp, degree, active)
+        if self.cfg.family == "ssm":
+            return ssm.ssm_decode_step(params, self.cfg, self.policy, cache, tokens, tp,
+                                       degree)
         return transformer.lm_decode_step(params, self.cfg, self.policy,
                                           cache, tokens, tp, degree, active)
 
     def prefill(self, params, cache, tokens, slot, tp: int = 1, degree=None):
         """Fused prefill of prompt ``tokens`` (P,) into ``slot``'s region.
         Returns (last-position logits (1, V) f32, cache)."""
+        if self.cfg.family == "hybrid":
+            return rglru.hybrid_prefill(params, self.cfg, self.policy, cache, tokens, slot,
+                                        tp, degree)
+        if self.cfg.family == "ssm":
+            return ssm.ssm_prefill(params, self.cfg, self.policy, cache, tokens, slot, tp,
+                                   degree)
         return transformer.lm_prefill(params, self.cfg, self.policy,
                                       cache, tokens, slot, tp, degree)
 
@@ -79,6 +110,12 @@ class Model:
         nothing.  Per row equal to :meth:`prefill` at the exact length.
         Returns the cache.  MoE raises: capacity routing couples the rows of
         one call, so MoE admits at the exact length."""
+        if self.cfg.family == "hybrid":
+            return rglru.hybrid_prefill_batch(params, self.cfg, self.policy, cache, tokens,
+                                              slots, lengths, tp, degree)
+        if self.cfg.family == "ssm":
+            return ssm.ssm_prefill_batch(params, self.cfg, self.policy, cache, tokens,
+                                         slots, lengths, tp, degree)
         return transformer.lm_prefill_batch(params, self.cfg, self.policy, cache,
                                             tokens, slots, lengths, tp, degree)
 
@@ -108,7 +145,8 @@ class Model:
 
     def prepack(self, params):
         """Quantize-once weight residency: every AXQ dense weight becomes a
-        PackedQWeight.  Idempotent; inference-only."""
+        PackedQWeight (the hybrid's against its serve-time paths ``g/...``
+        and ``tail/...``).  Idempotent; inference-only."""
         from repro_torch.kernels import qstore
 
         return qstore.prepack_params(params, self.cfg, self.policy)

@@ -46,11 +46,19 @@ def _dtype(cfg: ArchConfig):
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """The port covers the dense and MoE families (no frontend) so far."""
-    if (cfg.family not in ("dense", "moe") or bool(cfg.moe) != (cfg.family == "moe")
-            or cfg.frontend):
+    """The port covers the dense, MoE, SSM and hybrid families; the
+    frontend (vision, audio) archs are not ported."""
+    if (cfg.family not in ("dense", "moe", "ssm", "hybrid")
+            or bool(cfg.moe) != (cfg.family == "moe") or cfg.frontend):
         raise NotImplementedError(
-            f"{cfg.name!r} ({cfg.family}) is not ported; the dense and MoE families are")
+            f"{cfg.name!r} ({cfg.family}) is not ported; the dense, MoE, SSM and "
+            "hybrid families are")
+
+
+def attn_window(cfg: ArchConfig):
+    """The window of a family's attention blocks: the hybrid's local
+    window, else ``swa_window`` (None: full attention)."""
+    return cfg.local_window if cfg.family == "hybrid" else cfg.swa_window
 
 
 def _no_moe(cfg: ArchConfig, what: str) -> None:
@@ -64,29 +72,36 @@ def _no_moe(cfg: ArchConfig, what: str) -> None:
 # ---------------------------------------------------------------------------
 
 
-def init_lm(gen: torch.Generator, cfg: ArchConfig, tp: int = 1, device="cpu"):
-    """Random-init parameters: truncated normal at ±2σ, every layer's weights
-    stacked along a leading (n_layers,) axis."""
-    check_supported(cfg)
+def init_block(gen: torch.Generator, cfg: ArchConfig, tp: int = 1, stack: tuple = (),
+               device="cpu"):
+    """One attention block's parameters (``stack`` prepends leading dims:
+    stacked layers, one draw each): truncated normal at ±2σ."""
     pd = cfg.padded(tp)
-    d, D, nl = cfg.d_model, cfg.head_dim, cfg.n_layers
-    H = pd.n_heads
-    st = (nl,)
-    layers = {
-        "ln1": L.init_rmsnorm(d, st, device),
-        "ln2": L.init_rmsnorm(d, st, device),
-        "wq": L.init_dense(gen, d, H * D, bias=cfg.qkv_bias, stack=st, device=device),
+    d, D, H = cfg.d_model, cfg.head_dim, pd.n_heads
+    p = {
+        "ln1": L.init_rmsnorm(d, stack, device),
+        "ln2": L.init_rmsnorm(d, stack, device),
+        "wq": L.init_dense(gen, d, H * D, bias=cfg.qkv_bias, stack=stack, device=device),
         "wk": L.init_dense(gen, d, cfg.n_kv_heads * D, bias=cfg.qkv_bias,
-                           stack=st, device=device),
+                           stack=stack, device=device),
         "wv": L.init_dense(gen, d, cfg.n_kv_heads * D, bias=cfg.qkv_bias,
-                           stack=st, device=device),
+                           stack=stack, device=device),
         "wo": L.init_dense(gen, H * D, d, scale=1.0 / math.sqrt(H * D),
-                           stack=st, device=device),
+                           stack=stack, device=device),
     }
     if cfg.moe:
-        layers["moe"] = moe_mod.init_moe(gen, cfg, tp, st, device)
+        p["moe"] = moe_mod.init_moe(gen, cfg, tp, stack, device)
     else:
-        layers["mlp"] = L.init_gated_mlp(gen, d, cfg.d_ff, st, device)
+        p["mlp"] = L.init_gated_mlp(gen, d, cfg.d_ff, stack, device)
+    return p
+
+
+def init_lm(gen: torch.Generator, cfg: ArchConfig, tp: int = 1, device="cpu"):
+    """Random-init parameters, every layer's weights stacked along a
+    leading (n_layers,) axis."""
+    check_supported(cfg)
+    d, pd = cfg.d_model, cfg.padded(tp)
+    layers = init_block(gen, cfg, tp, (cfg.n_layers,), device)
     params = {
         "embed": L.init_embedding(gen, pd.vocab, d, device),
         "layers": layers,
@@ -387,10 +402,29 @@ def lm_prefill_batch(params, cfg: ArchConfig, policy: ApproxPolicy, cache,
     ldeg, _ = split_degree(degree, cfg.n_layers, tokens.device)
     N, Pb = tokens.shape
     B, T = cache.k.shape[1], cache.k.shape[2]
-    dev = tokens.device
     ring = cfg.swa_window is not None and cfg.swa_window <= T
     if Pb > T and not ring:
         raise ValueError(f"bucket ({Pb}) exceeds cache capacity ({T})")
+    plan = state_write_plan(tokens, slots, lengths, B, T)
+    x = L.embed_apply(params["embed"], tokens, _dtype(cfg))          # (N, Pb, d)
+    positions = torch.arange(Pb, dtype=torch.int32, device=tokens.device)[None].expand(N, Pb)
+    for i in range(cfg.n_layers):
+        x, (k, v) = block_apply(layer_params(params["layers"], i), x, cfg, tp,
+                                policy, "layer", positions,
+                                None if ldeg is None else ldeg[i], return_kv=True)
+        _write_regions(cache, i, plan, k, v)
+    write_lengths(cache, plan)
+    return cache
+
+
+def state_write_plan(tokens: Tensor, slots, lengths, B: int, T: int = 1) -> BatchWritePlan:
+    """The write plan of a bucketed prefill of ``tokens`` (N, Pb) into a
+    cache of ``B`` slots (and ring positions ``T``: the KV rows; 1 for a
+    cache of per-slot states alone).  ``slots`` / ``lengths``: int device
+    tensors (nothing read on the host) or host integers, whose lengths are
+    checked against the bucket first."""
+    N, Pb = tokens.shape
+    dev = tokens.device
     if not isinstance(lengths, Tensor):
         hs = np.asarray(slots).reshape(-1)
         for r, (s, n) in enumerate(zip(hs, np.asarray(lengths).reshape(-1))):
@@ -398,19 +432,28 @@ def lm_prefill_batch(params, cfg: ArchConfig, policy: ApproxPolicy, cache,
                 raise ValueError(f"row {r}: length {n} exceeds the bucket ({Pb})")
     slots = torch.as_tensor(slots, dtype=torch.int64).to(dev).reshape(N)
     lengths = torch.as_tensor(lengths, dtype=torch.int64).to(dev).reshape(N)
-    plan = _batch_write_plan(slots, lengths, B, T, Pb)
-    x = L.embed_apply(params["embed"], tokens, _dtype(cfg))          # (N, Pb, d)
-    positions = torch.arange(Pb, dtype=torch.int32, device=dev)[None].expand(N, Pb)
-    for i in range(cfg.n_layers):
-        x, (k, v) = block_apply(layer_params(params["layers"], i), x, cfg, tp,
-                                policy, "layer", positions,
-                                None if ldeg is None else ldeg[i], return_kv=True)
-        _write_regions(cache, i, plan, k, v)
-    for r0, r1 in _row_groups(N, B):
+    return _batch_write_plan(slots, lengths, B, T, Pb)
+
+
+def write_rows(field: Tensor, plan: BatchWritePlan, new: Tensor) -> None:
+    """Write a bucketed prefill's per-row states ``new`` (N, ...) into
+    ``field`` (B, ...), slot axis first, by ``plan``, in place: each live
+    row into its slot, a dummy row its target's old values back."""
+    tail = (1,) * (field.dim() - 1)
+    for r0, r1 in _row_groups(new.shape[0], field.shape[0]):
+        tgt = plan.target[r0:r1]
+        old = field.index_select(0, tgt)
+        field.index_copy_(0, tgt, torch.where(plan.live[r0:r1].reshape(-1, *tail),
+                                              new[r0:r1].to(field.dtype), old))
+
+
+def write_lengths(cache, plan: BatchWritePlan) -> None:
+    """Set each live row's slot length of a bucketed prefill, in place."""
+    B = cache.length.shape[0]
+    for r0, r1 in _row_groups(plan.live.shape[0], B):
         tgt = plan.target[r0:r1]
         cache.length.index_copy_(0, tgt, torch.where(
             plan.live[r0:r1], plan.lengths[r0:r1], cache.length.index_select(0, tgt)))
-    return cache
 
 
 def _chunk_rows(layer: Tensor, rows: Tensor, write: Tensor, new: Tensor) -> None:
@@ -492,21 +535,27 @@ def lm_decode_step(params, cfg: ArchConfig, policy: ApproxPolicy, cache,
     ``length + 1``).  ``active`` (B,) bool: free-slot mask for the attention
     kernel."""
     ldeg, hdeg = split_degree(degree, cfg.n_layers, tokens.device)
-    pd = cfg.padded(tp)
-    B = tokens.shape[0]
     x = L.embed_apply(params["embed"], tokens, _dtype(cfg))
-    positions = cache.length[:, None]
     for i in range(cfg.n_layers):
-        lp = layer_params(params["layers"], i)
-        dg = None if ldeg is None else ldeg[i]
-        hn = L.rmsnorm_apply(lp["ln1"], x, cfg.norm_eps)
-        q, k, v = _qkv(lp, hn, cfg, pd, policy, "layer", positions, dg)
-        o, _ = kdispatch.decode_attention(q, k, v, _layer_cache(cache, i),
-                                          window=cfg.swa_window, degree=dg,
-                                          active=active)
-        o = o.reshape(B, 1, pd.n_heads * cfg.head_dim)
-        x = L.dense_apply(lp["wo"], o, policy, "layer/wo", dg, residual=x)
-        hn = L.rmsnorm_apply(lp["ln2"], x, cfg.norm_eps)
-        x, _ = _ffn(lp, hn, x, cfg, policy, "layer", dg)
+        x = decode_block(layer_params(params["layers"], i), x, _layer_cache(cache, i), cfg,
+                         tp, policy, "layer", None if ldeg is None else ldeg[i], active)
     logits = _head(params, cfg, policy, x, hdeg)
     return logits, cache._replace(length=cache.length + 1)
+
+
+def decode_block(bp, x: Tensor, layer_cache, cfg: ArchConfig, tp: int,
+                 policy: ApproxPolicy, path: str, degree=None, active=None) -> Tensor:
+    """One attention block's decode step on x (B, 1, d): the token's K/V
+    written into ``layer_cache`` (one layer's KV cache, at the positions
+    its ``length`` gives) in place, attention over ``cfg.swa_window``.
+    Returns the block's output."""
+    pd = cfg.padded(tp)
+    B = x.shape[0]
+    hn = L.rmsnorm_apply(bp["ln1"], x, cfg.norm_eps)
+    q, k, v = _qkv(bp, hn, cfg, pd, policy, path, layer_cache.length[:, None], degree)
+    o, _ = kdispatch.decode_attention(q, k, v, layer_cache, window=cfg.swa_window,
+                                      degree=degree, active=active)
+    o = o.reshape(B, 1, pd.n_heads * cfg.head_dim)
+    x = L.dense_apply(bp["wo"], o, policy, path + "/wo", degree, residual=x)
+    hn = L.rmsnorm_apply(bp["ln2"], x, cfg.norm_eps)
+    return _ffn(bp, hn, x, cfg, policy, path, degree)[0]

@@ -51,25 +51,38 @@ def rung_label(degree) -> str:
     return str(int(rec))
 
 
+#: cache fields of per-slot state, which a decode step rewrites whole
+_STATE_FIELDS = ("h", "conv")
+
+
 def lm_logit_rms_probe(model, tp: int = 1):
     """The LM probe: live-degree and exact-rung decode logits on identical
-    inputs, normalized RMS deviation over the active slots.  The cache rows
-    both forwards write are saved first and restored after."""
+    inputs, normalized RMS deviation over the active slots.  What both
+    forwards write is saved first and restored after: each slot's token
+    row of the K/V fields, and the recurrent families' state fields whole."""
     from repro_torch.models.attention import token_rows
+    from repro_torch.models.transformer import attn_window
 
-    window = model.cfg.swa_window
+    cfg = model.cfg
+    window = attn_window(cfg)
 
     def probe(params, cache, tokens, active, deg, exact_deg):
-        rows = token_rows(cache.k.shape[2], cache.length, window)
-        bidx = torch.arange(rows.shape[0], device=rows.device)
-        fields = [f for f in cache._fields if f != "length"]
+        fields = [f for f in cache._fields if f not in ("length",) + _STATE_FIELDS]
+        states = [f for f in cache._fields if f in _STATE_FIELDS]
+        bidx = rows = None
+        if fields:
+            rows = token_rows(cache.k.shape[2], cache.length, window)
+            bidx = torch.arange(rows.shape[0], device=rows.device)
         saved = [getattr(cache, f)[:, bidx, rows].clone() for f in fields]
+        saved_states = [getattr(cache, f).clone() for f in states]
         approx, _ = model.decode_step(params, cache, tokens, tp=tp,
                                       degree=deg, active=active)
         exact, _ = model.decode_step(params, cache, tokens, tp=tp,
                                      degree=exact_deg, active=active)
         for f, old in zip(fields, saved):
             getattr(cache, f)[:, bidx, rows] = old
+        for f, old in zip(states, saved_states):
+            getattr(cache, f).copy_(old)
         w = active.to(torch.float32)[:, None, None]
         n = torch.clamp(w.sum() * approx.shape[-2] * approx.shape[-1], min=1.0)
         dev = torch.sqrt((((approx - exact) ** 2) * w).sum() / n)

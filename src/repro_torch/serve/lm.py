@@ -42,6 +42,7 @@ import torch
 from repro_torch.kernels import dispatch as kdispatch
 from repro_torch.models.cache_ops import cache_mask_update, cache_reset_slot
 from repro_torch.models.registry import Model
+from repro_torch.models.transformer import attn_window
 from repro_torch.resil import guards
 from repro_torch.serve import engine as _engine
 from repro_torch.serve.admission import AdmissionConfig, bucket_for
@@ -108,11 +109,16 @@ class LMAdapter(ServableModel):
         self.greedy = greedy
         self.temperature = temperature
         self.top_k = top_k
-        window = self.cfg.swa_window
-        # dense attention is bounded by the cache capacity; a window cache
-        # ring-wraps only while window <= max_len
-        self._max_prompt = None if (window is not None and window <= max_len) \
-            else max_len
+        cfg = self.cfg
+        # the prompt bound: the SSM ingests unbounded prompts into its fixed
+        # state; a window cache (the hybrid's local window, a sliding-window
+        # arch's) ring-wraps only while window <= max_len; dense attention is
+        # bounded by the cache capacity
+        window = attn_window(cfg)
+        if cfg.family == "ssm" or (window is not None and window <= max_len):
+            self._max_prompt = None
+        else:
+            self._max_prompt = max_len
         #: distinct call shapes seen per entry point
         self.trace_counts = {"prefill": 0, "prefill_batch": 0,
                              "prefill_chunk": 0, "step": 0}

@@ -138,6 +138,58 @@ def run_prefill_decode(dtype, approx, degree_kind, backend, quant=False,
     return prefill, decode
 
 
+def run_state_prefill_decode(dtype, approx, degree, *, prompt_len, steps=1, max_len=48,
+                             compiled=True, **model_kw):
+    """The recurrent families' form of :func:`run_prefill_decode`: prefill
+    a ``prompt_len``-token prompt into slot 1 of a 3-slot cache (f32 for an
+    f32 model, else bf16), then ``steps`` decode steps with slot 0 free, in
+    both packages.  Returns one dict a stage (prefill, each step) of
+    (reference, port) arrays for the logits and every cache field of the
+    live slots.  ``compiled=False`` evaluates the reference op by op
+    (``jax.disable_jit``)."""
+    jm, jp, tm, tp = models(dtype, approx, **model_kw)
+    jdeg, tdeg = degrees(degree)
+    rng = np.random.default_rng(prompt_len + steps)
+    prompt = rng.integers(0, 512, prompt_len).astype(np.int32)
+    active = np.array([False, True, True])
+    cdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    jit = jax.jit if compiled else (lambda f: f)
+    out = []
+    with jax_backend("pallas"), jax.disable_jit(not compiled):
+        jc = jm.init_cache(tp=1, batch=3, max_len=max_len, dtype=cdt)
+        tc = port_cache(jc)
+        lj, jc = jit(jm.prefill)(jp, jc, jnp.asarray(prompt), jnp.int32(1), degree=jdeg)
+        lt, tc = tm.prefill(tp, tc, torch.from_numpy(prompt), 1, degree=tdeg)
+        fields = [f for f in tc._fields if f != "length"]
+        stage = {"logits": (to_np(lj), to_np(lt))}
+        stage.update({f: (to_np(getattr(jc, f))[:, 1], to_np(getattr(tc, f))[:, 1])
+                      for f in fields})
+        out.append(stage)
+        step = jit(jm.decode_step)
+        for _ in range(steps):
+            toks = rng.integers(0, 512, (3, 1)).astype(np.int32)
+            lj, jc = step(jp, jc, jnp.asarray(toks), degree=jdeg, active=jnp.asarray(active))
+            lt, tc = tm.decode_step(tp, tc, torch.from_numpy(toks).long(), degree=tdeg,
+                                    active=torch.from_numpy(active))
+            stage = {"logits": (to_np(lj)[1:], to_np(lt)[1:])}
+            stage.update({f: (to_np(getattr(jc, f))[:, 1:], to_np(getattr(tc, f))[:, 1:])
+                          for f in fields})
+            out.append(stage)
+    assert to_np(tc.length).tolist() == to_np(jc.length).tolist()
+    return out
+
+
+def padded_rows(lens, Pb, seed):
+    """Seeded prompts of ``lens`` tokens and the (N, Pb) int32 rows they
+    make padded with zeros to one bucket."""
+    rng = np.random.default_rng(seed)
+    rows = [rng.integers(0, 512, n).astype(np.int32) for n in lens]
+    toks = np.zeros((len(lens), Pb), np.int32)
+    for i, r in enumerate(rows):
+        toks[i, :len(r)] = r
+    return rows, toks
+
+
 class MarginRecorder:
     """Wraps a port model: keeps the top-2 logit margin of the last decode
     step per slot, so a harvested token can be paired with its margin."""

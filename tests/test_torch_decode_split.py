@@ -337,7 +337,7 @@ def test_split_width_is_asked_once_per_library_and_head_dim(monkeypatch):
     assert tfd.split_width(80) == 64 and asked[-1] == (64, 80)
 
 
-@pytest.mark.parametrize("bad", [48, 96, 256])
+@pytest.mark.parametrize("bad", [48, 96, 512])
 def test_unbuilt_decode_head_dim_raises_without_fallback(fake_card, bad):
     """A head dim the decode kernels were not instantiated for raises
     before any launch, on both wrappers, and never runs a plain version."""

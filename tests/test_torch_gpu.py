@@ -1235,3 +1235,128 @@ def test_gpu_guarded_step_captured_and_flip_reaches_the_replay(hopper):
     assert eng.params_golden() and tokens == clean_tokens
     eager, eager_tokens = run(faults=flip(), capture=False)
     assert eager.resil_log == eng.resil_log and eager_tokens == tokens
+
+
+# ---------------------------------------------------------------------------
+# head_dim 256 and the recurrent families (recurrentgemma-2b, mamba2-370m)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("S", [7, 129, 1000])
+def test_gpu_flash_head256_mqa_matches_plain(hopper, S, dtype):
+    """Both bodies at D = 256 with recurrentgemma's MQA (10 query heads on
+    one kv head): ``tri`` == ``dense`` and ``band`` == ``dense`` under the
+    same window (300, cutting inside a block) bit for bit, the in-kernel
+    step count == ``planned_grid_steps``, the grouped entry == the flat one;
+    within atol 1/64 (bf16 body) or rtol 1e-5 / atol 1e-4 (f32 body) of the
+    plain version."""
+    g = torch.Generator(device=hopper).manual_seed(256 + S)
+    B, H, D = 1, 10, 256
+    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    q = torch.randn(B, S, H, D, generator=g, device=hopper).to(dt)
+    k = torch.randn(B, S, 1, D, generator=g, device=hopper).to(dt)
+    v = torch.randn(B, S, 1, D, generator=g, device=hopper).to(dt)
+    flat = lambda t: t.transpose(1, 2).reshape(B * t.shape[2], S, D)
+    qf, kf, vf = flat(q), flat(k.repeat_interleave(H, 2)), flat(v.repeat_interleave(H, 2))
+    for window in (None, 300):
+        out, steps = tfa.flash_attention(qf, kf, vf, causal=True, window=window,
+                                         return_steps=True)
+        dense = tfa.flash_attention(qf, kf, vf, causal=True, window=window, skip_grid=False)
+        og = tfa.flash_attention_grouped(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        assert torch.equal(out, dense) and torch.equal(flat(og), out)
+        assert int(steps) == tfa.planned_grid_steps(B * H, S, window=window)
+        ref, _ = tfa.flash_attention_plain(qf, kf, vf, causal=True, window=window)
+        if dtype == "bf16":
+            torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=1 / 64)
+        else:
+            torch.testing.assert_close(out, ref, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G", [10, 4])
+def test_gpu_decode_head256_split_edges_match_plain(hopper, G):
+    """The decode kernel at D = 256 on f32 and bf16 caches, one kv head
+    with recurrentgemma's group of 10 (two 8-row P.V blocks, the second
+    ragged) and a group of 4, at lengths W - 1, W, W + 1, 2 W and T of the
+    split width on a T = 2 W + 37 cache, a freed slot of exact zeros,
+    within 1e-4 of the plain version; one launch a call."""
+    D = 256
+    W = tfd.split_width(D)
+    T = 2 * W + 37
+    g = torch.Generator(device=hopper).manual_seed(G)
+    nv = torch.tensor([W - 1, W, W + 1, 2 * W, T, 5], dtype=torch.int32, device=hopper)
+    act = torch.tensor([1, 1, 1, 1, 1, 0], dtype=torch.int32, device=hopper)
+    B = nv.numel()
+    qg = torch.randn(B, 1, G, D, generator=g, device=hopper)
+    k = torch.randn(B, T, 1, D, generator=g, device=hopper)
+    v = torch.randn(B, T, 1, D, generator=g, device=hopper)
+    for kv in ((k, v), (k.bfloat16(), v.bfloat16())):
+        before = _build.launches["flash_decode"]
+        o = tfd.flash_decode(qg, *kv, nv, act)
+        torch.cuda.synchronize()
+        assert _build.launches["flash_decode"] == before + 1
+        torch.testing.assert_close(o, tfd.flash_decode_plain(qg, *kv, nv, act),
+                                   rtol=1e-4, atol=1e-4)
+        assert (o[5] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [8, 255])
+@pytest.mark.parametrize("N,K,gated,act", [
+    (4384, 1024, False, None), (50280, 1024, False, None), (1024, 2048, False, None),
+    (256, 2560, False, None), (256000, 2560, False, None), (7680, 2560, True, "gelu")],
+    ids=["mamba-in_proj", "mamba-unembed", "mamba-out_proj", "rg-wk", "rg-unembed",
+         "rg-gated-gelu"])
+def test_gpu_recurrent_gemm_shapes_are_bit_identical(hopper, M, N, K, gated, act):
+    """The GEMMs at the recurrent families' shapes (an N that is no
+    multiple of 64, the 256000-wide unembedding, the gelu gated half), at
+    degree 6 read from a device-vector element: bit for bit their plain
+    versions."""
+    g = torch.Generator(device=hopper).manual_seed(N + M)
+    x = torch.randn(M, K, generator=g, device=hopper)
+    pw = tprepack(torch.randn(K, N, generator=g, device=hopper) / math.sqrt(K), 256)
+    e = torch.tensor([8, 6], dtype=torch.int32, device=hopper)[1]
+    if gated:
+        pg = tprepack(torch.randn(K, N, generator=g, device=hopper) / math.sqrt(K), 256)
+        y = taxq.axqmm_gated_packed(x, pw, pg, e, act=act)
+        yp = taxq.axqmm_gated_plain(x, pw, pg, e, act=act)
+    else:
+        y = taxq.axqmm_packed(x, pw, e)
+        yp = taxq.axqmm_packed_plain(x, pw, e)
+    torch.cuda.synchronize()
+    assert torch.equal(y, yp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mamba2-370m-smoke", "recurrentgemma-2b-smoke"])
+def test_gpu_captured_recurrent_engine_tokens_equal_eager(hopper, arch):
+    """The recurrent families served captured (the decode step and each
+    bucket's prefill from CUDA graphs, the state advanced in place) and
+    eagerly: the same greedy tokens and degree history, with the QoS rung
+    moving; prompts past the ladder (and the hybrid's window of 32) take
+    the exact path; the chunk size asked for is not taken; their kernels
+    launched, no plain version on the card."""
+    m, params = _smoke_lm(hopper, arch)
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, m.cfg.vocab, int(n)) for n in (5, 40, 9, 3, 30, 12, 70)]
+    runs = {}
+    before = dict(_build.launches)
+    plain_before = dict(_build.plain_cuda_calls)
+    for capture in (False, True):
+        eng = _capture_engine(m, params, capture, "bf16")
+        assert not eng.workload._chunk_ok
+        runs[capture] = _serve(eng, prompts)
+        if capture:
+            assert eng.graphs.graphs[eng._step_key].replays == eng.stats.decode_steps > 0
+            assert eng.workload.trace_counts["step"] == 1
+            assert eng.workload.trace_counts["prefill_chunk"] == 0
+    assert runs[True] == runs[False]
+    assert len(set(map(tuple, map(np.atleast_1d, runs[True][1])))) > 1
+    names = ("axqmm",) if arch.startswith("mamba") else (
+        "axqmm", "axqmm_gated", "flash_decode", "flash_attention")
+    for name in names:
+        assert _build.launches[name] > before[name], name
+    assert _build.plain_cuda_calls == plain_before

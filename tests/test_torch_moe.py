@@ -578,11 +578,10 @@ def test_adapter_and_registry_keep_moe_exact_length():
         model.prefill_chunk(params, cache, toks[0], 0, 0, 8)
 
 
-@pytest.mark.parametrize("arch", ["mamba2-370m-smoke", "recurrentgemma-2b-smoke",
-                                  "internvl2-1b-smoke", "hubert-xlarge-smoke"])
+@pytest.mark.parametrize("arch", ["internvl2-1b-smoke", "hubert-xlarge-smoke"])
 def test_check_supported_still_refuses_other_families(arch):
-    """ssm, hybrid and the frontend families stay unported: the registry,
-    init and prepack refuse them."""
+    """The frontend families stay unported: the registry, init and prepack
+    refuse them."""
     cfg = tget_config(arch)
     with pytest.raises(NotImplementedError):
         TT.check_supported(cfg)
