@@ -123,7 +123,28 @@ Phases (any failure exits non-zero):
      bucket against their exact-length prefill; mamba2-370m cut to 2
      layers and recurrentgemma-2b to 4 (one group and one tail block) on
      their one cache, the padded prompts' state bit-identical;
-  5. one {"kernels": [...]} line and, last, the result line.
+  5. training (after the serving paths), the forward on the kernels and the
+     backward through the oracles (no TPU kernel has a backward):
+       5a  tinyllama-1.1b at full width and depth, axq8 with the QoS ladder
+           8 -> 5 moving, batch 8 x seq 1024 from the synthetic pipeline,
+           8 train steps: finite loss and grad norm, launches as predicted
+           (22 flash_attention, 111 axqmm, 22 axqmm_gated a step), no plain
+           version on the card; step time, tokens/s, peak memory and the
+           backward oracles' share of the last step (CUDA events); first the
+           kernels at the step's shapes (GEMMs at M = 8192, tri at BH = 256,
+           S = 1024) against their plain versions;
+       5b  the same cut to 2 layers: one step with the kernels against one
+           with the plain versions (loss, every gradient, the updated
+           parameters; the attention projections' gradients nonzero), and
+           30 EXACT steps on one batch dropping the loss by more than 1.0;
+       5c  ``launch.train`` at 2 layers with --compress-grads --trace-out
+           --metrics-out in child processes: uninterrupted; preempted by
+           SIGTERM; resumed from its checkpoint (restored bit for bit) to
+           the end, the losses within tolerance of the uninterrupted run's;
+       5d  one step each of granite-moe-3b-a800m (2 layers), mamba2-370m (2
+           layers) and recurrentgemma-2b (one group, past its window:
+           ``band`` at head_dim 256), kernels against plain;
+  6. one {"kernels": [...]} line and, last, the result line.
 
 With ``--record PATH`` every number also goes to a JSON file.
 """
@@ -3258,7 +3279,6 @@ def _checked_kernels(ctx, dtype, report):
     tolerance into ``report`` {name: [calls, max_err, bad_calls]}."""
     torch = ctx["torch"]
     from repro_torch.kernels import axqmm as A
-    from repro_torch.kernels import dispatch
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import flash_decode as FD
 
@@ -3290,8 +3310,8 @@ def _checked_kernels(ctx, dtype, report):
                                      FD.flash_decode_plain)),
         (FD, "flash_decode_quant", checked("flash_decode_quant", FD.flash_decode_quant,
                                            FD.flash_decode_quant_plain)),
-        (dispatch, "flash_attention_grouped",
-         checked("flash_attention", dispatch.flash_attention_grouped,
+        (FA, "flash_attention_grouped",
+         checked("flash_attention", FA.flash_attention_grouped,
                  FA.flash_attention_grouped_plain)),
     ])
 
@@ -3493,6 +3513,506 @@ def phase_model(ctx, cfg, prompt_len, n_layers=2):
 
 
 # ---------------------------------------------------------------------------
+# phase 5: training
+# ---------------------------------------------------------------------------
+
+
+def _train_batch(ctx, cfg, batch, seq, step=0):
+    """One batch of the synthetic pipeline (numpy-seeded, the reference's
+    numbers) on the device."""
+    torch = ctx["torch"]
+    from repro_torch.data.pipeline import make_pipeline
+
+    pipe = make_pipeline(cfg, seq_len=seq, global_batch=batch)
+    return {k: torch.from_numpy(v).to(ctx["dev"], torch.int64)
+            for k, v in pipe.batch_at(step).items()}
+
+
+def _train_model(ctx, cfg, approx):
+    from repro_torch.core.approx import policy_from_flag
+    from repro_torch.models import build_model
+
+    return build_model(cfg, policy_from_flag(approx, dynamic=True), device=ctx["dev"])
+
+
+def _finite(t) -> bool:
+    return bool(t.isfinite().all())
+
+
+def train_launches(cfg, remat: str) -> dict:
+    """Forward launches of one dense train step: each layer's wq, wk, wv,
+    wo and down on ``axqmm``, its up/gate half on ``axqmm_gated``, its
+    attention on ``flash_attention`` (``tri``), and the unembedding; remat
+    ``dots`` / ``full`` run each layer's forward twice."""
+    r = 1 if remat == "none" else 2
+    L = cfg.n_layers
+    return {"axqmm": 5 * L * r + (0 if cfg.tie_embeddings else 1),
+            "axqmm_gated": L * r, "flash_attention": L * r}
+
+
+def train_kernel_rows(ctx, cfg):
+    """The kernels at the training step's shapes (M = batch x seq rows on
+    float weights quantized per call; tri over the batch's heads)."""
+    torch = ctx["torch"]
+    M = ctx["train_batch"] * ctx["train_seq"]
+    d, dff, V = cfg.d_model, cfg.d_ff, cfg.vocab
+    qd = cfg.n_heads * cfg.head_dim
+    deg = torch.tensor(8, dtype=torch.int32, device=ctx["dev"])
+    rows = {"axqmm": [check_axqmm(ctx, M, qd, d, False, deg),
+                      check_axqmm(ctx, M, d, dff, False, deg),
+                      check_axqmm(ctx, M, V, d, False, deg)],
+            "axqmm_gated": [check_gated(ctx, M, dff, d, deg)],
+            "flash_attention": [check_prefill(ctx, ctx["train_batch"] * cfg.n_heads,
+                                              ctx["train_seq"], cfg.head_dim, cfg.n_heads,
+                                              cfg.n_kv_heads, dtype=torch.bfloat16)]}
+    report_rows(rows, "phase 5 (training shapes): ")
+    return rows
+
+
+def phase_train(ctx, cfg):
+    """Phase 5a: tinyllama-1.1b at full width and depth trained under axq8
+    with the QoS ladder 8 -> 5 (the trainer's control law on the loss
+    improvement, thresholds that step it down at every check), batch x seq
+    from the synthetic pipeline, one ``train_step`` a step: the forward on
+    the kernels, the backward through the oracles.  Gates: finite loss and
+    grad norm, the degree moving, launches as predicted, no plain version
+    on the card.  The last step times the backward oracles with CUDA
+    events."""
+    torch = ctx["torch"]
+    from repro_torch.core.dynamic import QoSController, degree_operand, entry_degree
+    from repro_torch.data.pipeline import make_pipeline
+    from repro_torch.kernels import _build
+    from repro_torch.train import step as S
+
+    label = "phase 5a"
+    B, T, n = ctx["train_batch"], ctx["train_seq"], ctx["train_steps"]
+    remat = ctx["train_remat"]
+    model = _train_model(ctx, cfg, "axq8")
+    pipe = make_pipeline(cfg, seq_len=T, global_batch=B)
+    if ctx["on_card"]:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    state = S.init_state(model, seed=0)
+    ctx["sync"]()
+    init_s = time.time() - t0
+    scfg = S.StepConfig(remat=remat, total_steps=4 * n, warmup=2)
+    qos = QoSController(ladder=[{"ebits": e} for e in (8, 7, 6, 5)], low_water=1e9,
+                        high_water=2e9, cooldown_steps=0)
+    entry = qos.ladder[0]
+    degree = degree_operand(entry, ctx["dev"])
+    hist, last_loss = [], None
+    ctx["sync"]()
+    _build.reset_counts()
+    for step in range(n):
+        batch = {k: torch.from_numpy(v).to(ctx["dev"], torch.int64)
+                 for k, v in pipe.batch_at(step).items()}
+        _build.time_backwards = step == n - 1
+        ctx["sync"]()
+        t = time.time()
+        state, met = S.train_step(model, scfg, state, batch, degree=degree)
+        loss, gn = float(met["loss"]), float(met["grad_norm"])
+        ctx["sync"]()
+        dt = time.time() - t
+        hist.append({"step": step, "loss": loss, "grad_norm": gn, "s": dt,
+                     "degree": entry_degree(entry)})
+        require(math.isfinite(loss) and math.isfinite(gn),
+                f"{label}: step {step} loss {loss} grad_norm {gn} not finite")
+        if step % 2 == 0 and step > 0:      # the trainer's QoS check, qos_every 2
+            entry = qos.update(step, (last_loss - loss) if last_loss is not None else 0.0)
+            degree = degree_operand(entry, ctx["dev"])
+            last_loss = loss
+        elif last_loss is None:
+            last_loss = loss
+    _build.time_backwards = False
+    oracle_ms = _build.backward_ms()
+    seen = {"launches": dict(_build.launches), "plain": dict(_build.plain_cuda_calls),
+            "flash_schedules": dict(_build.flash_schedules),
+            "backward_calls": dict(_build.backward_calls)}
+    want = {k: v * n for k, v in train_launches(cfg, remat).items()}
+    check_launches(ctx, label, seen, want)
+    require(not ctx["on_card"] or seen["flash_schedules"]["tri"] == want["flash_attention"],
+            f"{label}: flash schedules {seen['flash_schedules']}")
+    bwd_want = {"flash_attention_bwd": cfg.n_layers * n,
+                "axqmm_bwd": (5 * cfg.n_layers + 1) * n,
+                "axqmm_gated_bwd": cfg.n_layers * n, "axqmm_experts_bwd": 0}
+    require(seen["backward_calls"] == bwd_want,
+            f"{label}: backward oracles {seen['backward_calls']}, expected {bwd_want}")
+    degrees = [h["degree"] for h in hist]
+    require(len(set(degrees)) > 1, f"{label}: the QoS degree never moved: {degrees}")
+    steady = [h["s"] for h in hist[1:]]
+    step_s = sum(steady) / len(steady)
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "batch": B, "seq": T, "steps": n,
+           "remat": remat, "history": hist, "init_s": init_s, "step_s_mean": step_s,
+           "tokens_per_s": B * T / step_s, "seen": seen, "oracle_ms": oracle_ms,
+           "oracle_share_last_step": sum(oracle_ms.values()) / 1e3 / hist[-1]["s"]
+           if oracle_ms else None}
+    if ctx["on_card"]:
+        out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    say(f"{label} ({cfg.name}, {cfg.n_layers} layers, batch {B} x seq {T}, axq8, remat "
+        f"{remat}): losses {[round(h['loss'], 4) for h in hist]}, grad norms "
+        f"{[round(h['grad_norm'], 4) for h in hist]}, degrees {degrees}")
+    say(f"{label}: step {step_s:.4f} s mean over steps 1-{n - 1} (first {hist[0]['s']:.4f} s), "
+        f"{out['tokens_per_s']:.1f} tokens/s, init {init_s:.3f} s, peak memory "
+        f"{out.get('peak_memory_bytes')} B; backward oracles in the last step "
+        f"{ {k: round(v, 3) for k, v in oracle_ms.items()} } ms = "
+        f"{out['oracle_share_last_step']} of its {hist[-1]['s']:.4f} s; launches "
+        f"{ {k: v for k, v in seen['launches'].items() if v} }")
+    del state
+    return out
+
+
+def _leaf_rel(a, b) -> float:
+    """||a - b|| / ||b|| (0 where they are equal)."""
+    na = float((a.float() - b.float()).norm())
+    nb = float(b.float().norm())
+    return 0.0 if na == 0 else na / max(nb, 1e-30)
+
+
+#: kernel-route vs plain-route tolerances of one training step: the loss at
+#: the bf16 logit bound of tests/test_torch_models_bf16.py; under EXACT each
+#: gradient leaf within TRAIN_GRAD_REL in relative Frobenius norm; the
+#: updated parameters within two learning-rate steps (a gradient entry
+#: whose sign flips, or that is zero in one run, moves Adam's first update
+#: by up to 2 lr).  Under AXQ the gradient reaches x and w only at each
+#: block's amax (kernels/axq_grad.py): a one-ulp bf16 difference of an
+#: activation (the tensor-core attention's bf16 P) can move a block's amax
+#: to another entry and the gradient with it, so each leaf is held to
+#: TRAIN_NOISE_MULT x the model's own noise floor — the change of the plain
+#: run's gradient when its projections' f32 outputs are perturbed by
+#: NOISE_EPS relative (phase 4's measure) and its attention outputs moved by
+#: one ulp at random entries (the kernel's documented difference) — plus
+#: TRAIN_NOISE_SLACK
+TRAIN_LOSS_ATOL = 0.25
+TRAIN_GRAD_REL = 5e-2
+TRAIN_NOISE_MULT = 4.0
+TRAIN_NOISE_SLACK = 1e-3
+
+
+@contextlib.contextmanager
+def _train_noise(ctx):
+    """The plain versions with phase 4's projection noise, and each plain
+    attention output moved by one ulp (of its dtype) up or down at a random
+    half of its entries."""
+    torch, dev = ctx["torch"], ctx["dev"]
+    from repro_torch.kernels import flash_attention as FA
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    plain = FA.flash_attention_grouped_plain
+    ints = {2: torch.int16, 4: torch.int32}
+
+    def moved(*a, **kw):
+        o = plain(*a, **kw)
+        step = torch.randint(-1, 2, o.shape, generator=gen, device=dev)
+        bits = o.view(ints[o.element_size()])
+        return torch.where((o != 0) & o.isfinite(), (bits + step.to(bits.dtype)).view(o.dtype),
+                           o)
+
+    with _perturbed_projections(ctx, NOISE_EPS), _patched(
+            [(FA, "flash_attention_grouped_plain", moved)]):
+        yield
+
+
+def _step_both_routes(ctx, label, cfg, approx, batch, degree, expect_band=False):
+    """One ``train_step`` (and its gradients) with the kernels and with the
+    plain versions on the card, from one seeded state."""
+    torch = ctx["torch"]
+    from repro_torch.kernels import _build
+    from repro_torch.tree import named_leaves, tree_leaves, tree_map
+    from repro_torch.train import step as S
+
+    model = _train_model(ctx, cfg, approx)
+    scfg = S.StepConfig(remat="none", total_steps=10, warmup=2)
+    exact = approx == "exact"
+    runs = {}
+    # the rehearsal's "kernel" run is auto on the CPU: the plain versions
+    routes = [("kernel", "cuda" if ctx["on_card"] else "auto", contextlib.nullcontext()),
+              ("plain", "torch", contextlib.nullcontext())]
+    if not exact:
+        routes.append(("noise", "torch", _train_noise(ctx)))
+    host = lambda tree: tree_map(lambda t: t.detach().float().cpu(), tree)
+    for route, backend, patch in routes:
+        with _backend(backend), patch:
+            state = S.init_state(model, seed=0)
+            ctx["sync"]()
+            _build.reset_counts()
+            (loss, _), grads = S.value_and_grad(model, state.params, batch, degree=degree,
+                                                remat="none")
+            # what is compared goes to the host: three routes' gradients and
+            # updated parameters do not fit beside a full-width state
+            run = {"loss": float(loss), "grads": host(grads)}
+            del grads
+            if route != "noise":
+                new, met = S.train_step(model, scfg, state, batch, degree=degree)
+                run.update(step_loss=float(met["loss"]), params=host(new.params))
+                del new, met
+            ctx["sync"]()
+            run.update(launches=dict(_build.launches), plain=dict(_build.plain_cuda_calls),
+                       schedules=dict(_build.flash_schedules))
+            runs[route] = run
+        del state
+        if ctx["on_card"]:
+            torch.cuda.empty_cache()
+    k, p = runs["kernel"], runs["plain"]
+    if ctx["on_card"]:
+        require(not any(k["plain"].values()), f"{label}: the kernel run called plain "
+                                              f"versions {k['plain']}")
+        require(k["launches"]["flash_attention"] > 0 or cfg.family == "ssm",
+                f"{label}: no flash_attention launch")
+        gemm = sum(v for n, v in k["launches"].items() if n.startswith("axqmm"))
+        require(gemm > 0 or exact, f"{label}: no GEMM kernel launched")
+        require(not any(p["launches"].values()), f"{label}: the plain run launched kernels")
+        if expect_band:
+            require(k["schedules"]["band"] > 0, f"{label}: no band schedule ({k['schedules']})")
+    dl = abs(k["loss"] - p["loss"])
+    require(dl <= TRAIN_LOSS_ATOL and math.isfinite(k["loss"]),
+            f"{label}: loss {k['loss']} vs plain {p['loss']}")
+    names = [n for n, _ in named_leaves(k["grads"])]
+    grel = [_leaf_rel(a, b) for a, b in zip(tree_leaves(k["grads"]), tree_leaves(p["grads"]))]
+    if exact:
+        tols = [TRAIN_GRAD_REL] * len(grel)
+        floor = None
+    else:
+        floor = [_leaf_rel(a, b) for a, b in zip(tree_leaves(runs["noise"]["grads"]),
+                                                  tree_leaves(p["grads"]))]
+        tols = [TRAIN_NOISE_MULT * f + TRAIN_NOISE_SLACK for f in floor]
+    worst = max(range(len(grel)), key=lambda i: grel[i] / tols[i])
+    require(grel[worst] <= tols[worst],
+            f"{label}: gradient {names[worst]} {grel[worst]} relative to the plain run's "
+            f"(tolerance {tols[worst]}; noise floor {None if floor is None else floor[worst]})")
+    lr = 2 * 3e-4
+    pdiff = max(float((a.float() - b.float()).abs().max())
+                for a, b in zip(tree_leaves(k["params"]), tree_leaves(p["params"])))
+    require(pdiff <= lr, f"{label}: updated params differ by {pdiff} (> {lr})")
+    zero = [n for n, g in named_leaves(k["grads"]) if n.split("/")[-2:-1] in (["wq"], ["wk"], ["wv"])
+            and float(g.abs().sum()) == 0]
+    require(not zero, f"{label}: zero attention gradients on the kernel route: {zero}")
+    out = {"approx": approx, "loss": k["loss"], "plain_loss": p["loss"], "loss_diff": dl,
+           "grad_rel_worst": grel[worst], "grad_rel_worst_leaf": names[worst],
+           "grad_tol_worst": tols[worst], "grad_rel": dict(zip(names, grel)),
+           "noise_floor": None if floor is None else dict(zip(names, floor)),
+           "params_max_abs_diff": pdiff, "launches": k["launches"],
+           "schedules": k["schedules"]}
+    say(f"{label}: {approx}, loss {k['loss']:.6f} kernels vs {p['loss']:.6f} plain (|d| "
+        f"{dl:.3g} <= {TRAIN_LOSS_ATOL}); gradient nearest its tolerance {names[worst]} "
+        f"{grel[worst]:.3g} relative (<= {tols[worst]:.3g}{'' if floor is None else f', noise floor {floor[worst]:.3g}'}); "
+        f"largest {max(grel):.3g}; params after the step within {pdiff:.3g} (<= {lr}); "
+        f"launches {dict((n, v) for n, v in k['launches'].items() if v)}")
+    return out
+
+
+def phase_train_cut(ctx, cfg):
+    """Phase 5b: tinyllama-1.1b cut to 2 layers at full width — one EXACT
+    and one axq8 step with the kernels against the same with the plain
+    versions (TRAIN_* tolerances), then 30
+    EXACT steps on one batch dropping the loss by more than 1.0 (as
+    tests/test_train.py::test_overfit_tiny_batch holds the reference)."""
+    torch = ctx["torch"]
+    from repro_torch.train import step as S
+
+    c2 = dataclasses.replace(cfg, n_layers=2)
+    batch = _train_batch(ctx, c2, *ctx["train_cut_shape"])
+    deg = torch.tensor(8, dtype=torch.int32, device=ctx["dev"])
+    out = {f"routes_{a}": _step_both_routes(ctx, "phase 5b (kernels vs plain)", c2, a, batch,
+                                            deg)
+           for a in ("exact", "axq8")}
+    model = _train_model(ctx, c2, "exact")
+    state = S.init_state(model, seed=0)
+    scfg = S.StepConfig(remat="none", total_steps=60, warmup=5)
+    ob = _train_batch(ctx, c2, *ctx["overfit_shape"])
+    losses = []
+    t = time.time()
+    for _ in range(30):
+        state, met = S.train_step(model, scfg, state, ob)
+        losses.append(float(met["loss"]))
+    out["overfit"] = {"losses": losses, "s": time.time() - t, "shape": ctx["overfit_shape"]}
+    say(f"phase 5b (overfit, exact, batch x seq {ctx['overfit_shape']}): loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} in 30 steps ({out['overfit']['s']:.2f} s)")
+    require(losses[-1] < losses[0] - 1.0,
+            f"phase 5b: 30 exact steps dropped the loss by {losses[0] - losses[-1]} (<= 1.0)")
+    del state
+    return out
+
+
+#: the launcher run by phase 5c: a 2-layer variant of the arch registered
+#: first; a restored state's bytes checked against the checkpoint's
+#: manifest digests; the run's losses printed as JSON
+TRAIN_WRAPPER = r"""
+import dataclasses, hashlib, json, sys
+from repro_torch.configs import base, get_config
+arch = sys.argv[1]
+base.register(dataclasses.replace(get_config(arch), name=arch + "-2l", n_layers=2))
+from repro_torch.checkpoint import checkpointer as C
+from repro_torch.train import trainer as T
+from repro_torch.tree import named_leaves
+orig, check = T.Trainer.init_or_restore, {}
+def init_or_restore(self, seed=0):
+    state, start = orig(self, seed)
+    if start:
+        man = json.loads((self.ckpt.dir / f"step_{start:010d}" / "manifest.json").read_text())
+        check["restored_step"] = start
+        check["restored_equal"] = all(
+            hashlib.sha1(C._host(v).tobytes()).hexdigest()[:16] == man["arrays"][n]["digest"]
+            for n, v in named_leaves(state))
+    return state, start
+T.Trainer.init_or_restore = init_or_restore
+from repro_torch.launch import train as L
+out = L.main(["--arch", arch + "-2l"] + sys.argv[2:])
+print("TRAIN_RESULT " + json.dumps({"final_step": out["final_step"],
+      "preempted": out["preempted"], "losses": [h["loss"] for h in out["history"]],
+      "steps": [h["step"] for h in out["history"]], **check}), flush=True)
+"""
+
+
+def _train_launcher(ctx, arch, argv, preempt_after=None):
+    """``python -m repro_torch.launch.train`` (through TRAIN_WRAPPER) in a
+    child process; with ``preempt_after`` a SIGTERM once the child has
+    logged that step."""
+    import os
+    import signal
+
+    env = dict(os.environ, PYTHONPATH=str(HERE / "src"))
+    proc = subprocess.Popen([sys.executable, "-u", "-c", TRAIN_WRAPPER, arch, *argv],
+                            cwd=HERE, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines, result, sent = [], None, False
+    t = time.time()
+    try:
+        for ln in proc.stdout:
+            lines.append(ln.rstrip())
+            if (preempt_after is not None and not sent
+                    and ln.startswith(f"[trainer] step {preempt_after} ")):
+                proc.send_signal(signal.SIGTERM)
+                sent = True
+            if ln.startswith("TRAIN_RESULT "):
+                result = json.loads(ln[len("TRAIN_RESULT "):])
+        rc = proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    require(rc == 0 and result is not None,
+            f"phase 5c: launch.train {argv} exited {rc}: " + " | ".join(lines[-15:]))
+    result["wall_s"] = time.time() - t
+    result["log"] = [ln for ln in lines if ln.startswith(("[trainer]", "[launch.train]"))]
+    return result
+
+
+def phase_train_launch(ctx, cfg):
+    """Phase 5c: ``launch.train`` end to end at full width and 2 layers with
+    --compress-grads --trace-out --metrics-out: an uninterrupted run; a run
+    preempted by SIGTERM (a blocking checkpoint, exit); its resumption
+    from that checkpoint (the restored device state's bytes equal to the
+    saved manifest's digests) to the end.  The resumed losses sit within
+    TRAIN_RESUME_ATOL of the uninterrupted run's (CUDA's embedding backward
+    sums with atomics: runs differ in the last bits), the trace holds every
+    step's spans and the metrics file the trainer's families.  The
+    checkpoints go to a temporary directory removed afterwards."""
+    import shutil
+    import tempfile
+
+    from repro_torch.obs.metrics import parse_text
+
+    B, T, n = ctx["launch_shape"]
+    tmp = Path(tempfile.mkdtemp(prefix="smoke_train_", dir=HERE / "build"
+                                if (HERE / "build").is_dir() else None))
+    dev = ["--device", "cuda" if ctx["on_card"] else "cpu"]
+    common = ["--steps", str(n), "--seq", str(T), "--batch", str(B), "--compress-grads",
+              *dev]
+    try:
+        ref = _train_launcher(ctx, cfg.name, common + [
+            "--ckpt-dir", str(tmp / "ref"), "--trace-out", str(tmp / "trace.json"),
+            "--metrics-out", str(tmp / "metrics.prom")])
+        cut = _train_launcher(ctx, cfg.name, common + ["--ckpt-dir", str(tmp / "run")],
+                              preempt_after=0)
+        p = cut["final_step"]
+        require(cut["preempted"] and 0 < p < n,
+                f"phase 5c: the SIGTERM did not preempt the run ({cut['final_step']}, "
+                f"{cut['preempted']})")
+        step_dir = tmp / "run" / f"step_{p:010d}"
+        ckpt_bytes = sum(f.stat().st_size for f in step_dir.iterdir())
+        res = _train_launcher(ctx, cfg.name, common + ["--ckpt-dir", str(tmp / "run")])
+        require(res.get("restored_step") == p and res.get("restored_equal"),
+                f"phase 5c: the restored state is not the saved one ({res.get('restored_step')}"
+                f", {res.get('restored_equal')})")
+        require(res["steps"][0] == p and res["final_step"] == n,
+                f"phase 5c: resumed at {res['steps'][:1]} to {res['final_step']}")
+        losses = cut["losses"] + res["losses"]
+        require(len(losses) == len(ref["losses"]) == n, f"phase 5c: {len(losses)} losses")
+        dl = max(abs(a - b) for a, b in zip(losses, ref["losses"]))
+        require(dl <= TRAIN_RESUME_ATOL,
+                f"phase 5c: resumed losses {losses} vs uninterrupted {ref['losses']}")
+        ev = json.loads((tmp / "trace.json").read_text())["traceEvents"]
+        spans = {name: sorted(e["args"]["step"] for e in ev if e.get("name") == name)
+                 for name in ("data_batch", "train_step")}
+        require(spans["train_step"] == spans["data_batch"] == list(range(n)),
+                f"phase 5c: trace spans {spans}")
+        require(any(e.get("name") == "checkpoint" for e in ev), "phase 5c: no checkpoint span")
+        prom = parse_text((tmp / "metrics.prom").read_text())
+        fams = {k[0] for k in prom}
+        need = {"repro_train_steps_total", "repro_train_checkpoints_total", "repro_train_loss",
+                "repro_degree_ebits", "repro_train_step_seconds_count"}
+        require(need <= fams and prom[("repro_train_steps_total", ())] == n,
+                f"phase 5c: metrics {sorted(fams)}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = {"shape": ctx["launch_shape"], "preempted_at": p, "checkpoint_bytes": ckpt_bytes,
+           "losses_uninterrupted": ref["losses"], "losses_resumed": losses,
+           "max_loss_diff": dl, "wall_s": {"ref": ref["wall_s"], "preempted": cut["wall_s"],
+                                           "resumed": res["wall_s"]},
+           "logs": {"ref": ref["log"], "preempted": cut["log"], "resumed": res["log"]}}
+    say(f"phase 5c (launch.train, {cfg.name} at 2 layers, batch {B} x seq {T}, {n} steps, "
+        f"--compress-grads): preempted at step {p}, checkpoint {ckpt_bytes} B, restored "
+        f"bit for bit, resumed to {n}; losses within {dl:.3g} of the uninterrupted run "
+        f"(<= {TRAIN_RESUME_ATOL}); wall {ref['wall_s']:.1f} / {cut['wall_s']:.1f} / "
+        f"{res['wall_s']:.1f} s")
+    return out
+
+
+#: resumed vs uninterrupted launcher losses (phase 5c): the same data and
+#: seed; only the card's atomics differ
+TRAIN_RESUME_ATOL = 2e-2
+
+
+def train_phases(ctx, cfg, moe_cfg, ssm_cfg, rg_cfg) -> dict:
+    """Phase 5, in order; each sub-phase frees the card's cache after it."""
+    out = {}
+    for key, fn, args in (("train_kernels", train_kernel_rows, (cfg,)),
+                          ("train_path", phase_train, (cfg,)),
+                          ("train_cut", phase_train_cut, (cfg,)),
+                          ("train_launch", phase_train_launch, (cfg,)),
+                          ("train_families", phase_train_families, (moe_cfg, ssm_cfg, rg_cfg))):
+        t = time.time()
+        out[key] = fn(ctx, *args)
+        say(f"{key}: {time.time() - t:.1f} s")
+        if ctx["on_card"]:
+            ctx["torch"].cuda.empty_cache()
+    return out
+
+
+def phase_train_families(ctx, moe_cfg, ssm_cfg, rg_cfg):
+    """Phase 5d: one axq8 train step each of granite-moe-3b-a800m (2
+    layers), mamba2-370m (2 layers) and recurrentgemma-2b (one (rec, rec,
+    attn) group, a sequence past its 2048 window: ``band`` at head_dim 256),
+    at full width, the kernels against the plain versions."""
+    torch = ctx["torch"]
+    deg = torch.tensor(8, dtype=torch.int32, device=ctx["dev"])
+    out = {}
+    for tag, c, layers, shape in (("moe", moe_cfg, 2, ctx["fam_shape"]),
+                                  ("ssm", ssm_cfg, 2, ctx["fam_shape"]),
+                                  ("rg", rg_cfg, len(rg_cfg.block_pattern),
+                                   ctx["rg_train_shape"])):
+        cut = dataclasses.replace(c, n_layers=layers)
+        batch = _train_batch(ctx, cut, *shape)
+        out[tag] = _step_both_routes(ctx, f"phase 5d ({c.name}, {layers} layers, "
+                                          f"batch x seq {shape})", cut, "axq8", batch, deg,
+                                     expect_band=tag == "rg" and ctx["on_card"])
+        if ctx["on_card"]:
+            torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def write_record(path, record) -> None:
@@ -3511,6 +4031,8 @@ def main(argv=None) -> int:
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after phase 2 (build and kernel checks; prints "
                          "no result line)")
+    ap.add_argument("--train-only", action="store_true",
+                    help="build, then only phase 5 (training; prints no result line)")
     args = ap.parse_args(argv)
     if not (HERE / "src" / "repro_torch").is_dir():
         say("FAIL: src/repro_torch not found next to this script (run it from "
@@ -3563,6 +4085,9 @@ def main(argv=None) -> int:
                "rg_model_prompt": 4500,
                "profile_ticks": 8, "stream_slots": 64, "stream_clips": 256, "stream_frames": 32,
                "psnr_clips": 4, "psnr_frames": 8,
+               "train_batch": 8, "train_seq": 1024, "train_steps": 8, "train_remat": "none",
+               "train_cut_shape": (2, 1024), "overfit_shape": (1, 256),
+               "launch_shape": (2, 256, 10), "fam_shape": (2, 512), "rg_train_shape": (1, 2304),
                "calib_shape": (2, 64), "plan_grid": (8, 5),
                "resil_prompts": 8, "resil_deadline_ms": 5000.0, "resil_shed": 8,
                "resil_storm": "seu_state=0.05,seu_param=0.03,nan=0.08,spike=0.05,drop=0.05",
@@ -3622,6 +4147,9 @@ def main(argv=None) -> int:
                "rg_model_prompt": 100,
                "profile_ticks": 2, "stream_slots": 4, "stream_clips": 6, "stream_frames": 4,
                "psnr_clips": 2, "psnr_frames": 3,
+               "train_batch": 2, "train_seq": 32, "train_steps": 4, "train_remat": "none",
+               "train_cut_shape": (2, 32), "overfit_shape": (2, 16),
+               "launch_shape": (2, 16, 10), "fam_shape": (2, 32), "rg_train_shape": (1, 48),
                "calib_shape": (2, 16), "plan_grid": (8, 6, 4),
                "resil_prompts": 4, "resil_deadline_ms": 5000.0, "resil_shed": 4,
                "resil_storm": "seu_state=0.2,seu_param=0.1,nan=0.3,spike=0.1,drop=0.1",
@@ -3659,6 +4187,11 @@ def main(argv=None) -> int:
         record["decode_resources"] = decode_resources(ctx)
         record["axqmm_resources"] = axqmm_resources(ctx)
         record["pr_resources"] = pr_resources(ctx)
+    if args.train_only:
+        record.update(train_phases(ctx, cfg, moe_cfg, ssm_cfg, rg_cfg))
+        write_record(args.record, record)
+        say("training phases done (--train-only): no result line")
+        return 0
     record["kernels"] = phase_kernels(ctx, cfg)
     record["kernels_swa"] = phase_kernels_swa(ctx, swa_cfg)
     record["kernels_h128"] = phase_kernels_head128(ctx, qwen_cfg, nemo_cfg)
@@ -3725,7 +4258,10 @@ def main(argv=None) -> int:
         record[f"{tag}_model"] = phase_model(ctx, c, ctx[f"{tag}_model_prompt"],
                                              n_layers=2 if tag == "ssm" else 4)
 
-    paths = {"3": record["main_path"], "3b": record["int8_cache_path"],
+    record.update(train_phases(ctx, cfg, moe_cfg, ssm_cfg, rg_cfg))
+
+    paths = {"5a": record["train_path"]["seen"],
+             "3": record["main_path"], "3b": record["int8_cache_path"],
              "3c": record["chunked_path"], "3d": record["stream_path"],
              "3e": record["swa_path"], "3f": record["swa_int8_path"],
              "3g": record["qwen_path"], "3h": record["qwen_int8_path"],

@@ -7,7 +7,9 @@ NamedTuples of arrays (packed weights: fields ``qw``/``scales`` for AXQ,
 as NamedTuples with fields ``k``/``v``/``length`` (the int8 cache also
 ``ks``/``vs``).  These walkers recognise
 them by duck typing — this module imports neither JAX nor the reference
-package.  An MoE tree comes across the same way: the router, the experts
+package.  A training state (fields ``params``, ``opt`` with ``step``/``mu``/
+``nu``, and ``step``) goes both ways: :func:`train_state_from_numpy`,
+:func:`train_state_to_numpy`.  An MoE tree comes across the same way: the router, the experts
 with leading (n_layers, n_experts) axes (packed per slice, or float), the
 shared experts, and each one's packs; a hybrid tree with its ``tail`` list of
 recurrent blocks.  The caller does the array-to-numpy step (for example
@@ -68,3 +70,26 @@ def cache_from_numpy(cache, device="cpu"):
     if hasattr(cache, "ks") and hasattr(cache, "vs"):
         return LMCacheQ(t(cache.k), t(cache.v), t(cache.ks), t(cache.vs), length)
     return LMCache(t(cache.k), t(cache.v), length)
+
+
+def train_state_from_numpy(state, device="cpu"):
+    """A training state with fields ``params``, ``opt`` (``step``, ``mu``,
+    ``nu``) and ``step``, given as arrays -> the port's
+    :class:`~repro_torch.train.step.TrainState` of tensors."""
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.train.step import TrainState
+
+    t = lambda tree: params_from_numpy(tree, device)
+    return TrainState(t(state.params),
+                      AdamWState(tensor_from_numpy(state.opt.step, device), t(state.opt.mu),
+                                 t(state.opt.nu)),
+                      tensor_from_numpy(state.step, device))
+
+
+def train_state_to_numpy(state):
+    """The port's TrainState -> the same NamedTuples holding numpy arrays
+    (f32 and int32 leaves; the reference's ``TrainState(*tree)`` takes the
+    fields in this order)."""
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda x: x.detach().cpu().numpy(), state)

@@ -11,7 +11,9 @@ The ``qmm_*`` functions are the plain oracles of the AXQ GEMM kernels
 which is exact for any block (products are at most 127², so a block sum stays
 far below 2**53) and runs on the CPU and the card alike; the per-block
 scaled terms are then summed in block order, the order the kernel
-accumulates them in.
+accumulates them in.  One block's (M, N) product is alive at a time (the
+reference's einsum builds all (M, N, nb) at once; each entry is the same
+exact integer either way).
 """
 
 from __future__ import annotations
@@ -78,14 +80,6 @@ def dequantize(qt: QTensor) -> Tensor:
     return (v * qt.scales[..., None]).reshape(*lead, K)
 
 
-def _block_sum(terms: Tensor) -> Tensor:
-    """Sum (M, N, nb) scaled block terms over nb, in block order."""
-    y = terms[..., 0]
-    for b in range(1, terms.shape[-1]):
-        y = y + terms[..., b]
-    return y
-
-
 def qmm_packed_ref(x: Tensor, qw: Tensor, sw: Tensor, ebits=8,
                    out_dtype=torch.float32) -> Tensor:
     """Block-quantized matmul against a prepacked K-major weight.
@@ -100,11 +94,14 @@ def qmm_packed_ref(x: Tensor, qw: Tensor, sw: Tensor, ebits=8,
     nb = sw.shape[-1]
     block = K // nb
     qx = quantize_block(x.to(torch.float32), block)
-    vx = degrade(qx.values, ebits).reshape(M, nb, block).to(torch.float64)
-    vw = degrade(qw, ebits).reshape(N, nb, block).to(torch.float64)
-    acc = torch.einsum("mbk,nbk->mnb", vx, vw).to(torch.float32)
-    scale = qx.scales[:, None, :] * sw[None, :, :]
-    return _block_sum(acc * scale).to(out_dtype)
+    vx = degrade(qx.values, ebits).reshape(M, nb, block)
+    vw = degrade(qw, ebits).reshape(N, nb, block)
+    y = None
+    for b in range(nb):
+        acc = (vx[:, b].to(torch.float64) @ vw[:, b].to(torch.float64).t()).to(torch.float32)
+        term = acc * (qx.scales[:, None, b] * sw[None, :, b])
+        y = term if y is None else y + term
+    return y.to(out_dtype)
 
 
 def qmm_ref(x: Tensor, w: Tensor, block: int = 256, ebits=8,

@@ -12,6 +12,11 @@ each time a wrapper launches kernel ``name`` (``flash_schedules`` splits
 the ``flash_attention`` launches by schedule); ``plain_cuda_calls[name]``
 counts calls of that kernel's plain PyTorch version on CUDA tensors (the
 comparison phases use it; the serving path never should).
+``backward_calls[name]`` counts the backward oracles run under autograd
+(:data:`BACKWARDS`, on any device: no TPU kernel has a backward, so the
+training path's backward is these PyTorch oracles by design); with
+``time_backwards`` set they also record a pair of CUDA events each into
+``backward_events``.
 """
 
 from __future__ import annotations
@@ -75,8 +80,15 @@ SIGNATURES = {
     "launch_floor_launch": ("axmult_elem", [_P]),
 }
 
+#: the backward oracles of the kernels' autograd Functions (training)
+BACKWARDS = ("flash_attention_bwd", "axqmm_bwd", "axqmm_gated_bwd", "axqmm_experts_bwd")
+
 launches = dict.fromkeys(KERNELS, 0)
 plain_cuda_calls = dict.fromkeys(KERNELS, 0)
+backward_calls = dict.fromkeys(BACKWARDS, 0)
+#: (name, start event, end event) of each timed backward oracle on the card
+backward_events: list = []
+time_backwards = False
 #: ``flash_attention`` launches by schedule (they sum to its ``launches``)
 flash_schedules = dict.fromkeys(("dense", "tri", "band"), 0)
 
@@ -89,9 +101,45 @@ _lock = threading.Lock()
 
 
 def reset_counts() -> None:
-    for d in (launches, plain_cuda_calls, flash_schedules):
+    for d in (launches, plain_cuda_calls, flash_schedules, backward_calls):
         for k in d:
             d[k] = 0
+    backward_events.clear()
+
+
+class backward_oracle:
+    """Context of one backward oracle ``name``: counts it and, with
+    ``time_backwards`` set and ``t`` on the card, brackets it with CUDA
+    events (recorded on the current stream: no host sync)."""
+
+    def __init__(self, name: str, t: torch.Tensor):
+        backward_calls[name] += 1
+        self.name = name
+        self.ev = None
+        if time_backwards and t.is_cuda:
+            self.ev = (torch.cuda.Event(enable_timing=True),
+                       torch.cuda.Event(enable_timing=True))
+
+    def __enter__(self):
+        if self.ev is not None:
+            self.ev[0].record()
+        return self
+
+    def __exit__(self, *exc):
+        if self.ev is not None:
+            self.ev[1].record()
+            backward_events.append((self.name, *self.ev))
+        return False
+
+
+def backward_ms() -> dict:
+    """Milliseconds of the timed backward oracles by name (syncs)."""
+    if backward_events:
+        torch.cuda.synchronize()
+    out: dict = {}
+    for name, a, b in backward_events:
+        out[name] = out.get(name, 0.0) + a.elapsed_time(b)
+    return out
 
 
 def nvcc_path() -> str:

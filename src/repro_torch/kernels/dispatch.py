@@ -40,10 +40,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.quantization import qmm_gated_ref, qmm_ref
+from repro_torch.kernels import _build, axq_grad
 from repro_torch.kernels import axqmm as _axq
-from repro_torch.kernels.flash_attention import (flash_attention_grouped,
-                                                 flash_attention_grouped_plain)
+from repro_torch.kernels.flash_attention import flash_attention_vjp
 from repro_torch.kernels.flash_decode import decode_attn_flash
 from repro_torch.kernels.qstore import PackedQWeight, prepack_weight, resolve_block
 
@@ -151,12 +150,13 @@ def prefill_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
     """Full-sequence GQA attention, model layout: q (B, S, H, D), k/v
     (B, S, KVr, D) -> (B, S, H, D).  The kernel reads the grouped K/V
     directly (no repeat to all heads); a sliding ``window`` shorter than
-    the sequence runs its ``band`` schedule."""
+    the sequence runs its ``band`` schedule.  Differentiable on both
+    devices (:func:`~repro_torch.kernels.flash_attention.flash_attention_vjp`:
+    the kernel or plain forward, the oracle's gradients)."""
     backend = resolved_backend(q.device)
     _record_route("prefill", backend)
-    if backend == "cuda":
-        return flash_attention_grouped(q, k, v, causal=causal, window=window)
-    return flash_attention_grouped_plain(q, k, v, causal=causal, window=window)
+    return flash_attention_vjp(q, k, v, causal=causal, window=window,
+                               plain=backend == "torch")
 
 
 def decode_attention(q1: Tensor, knew: Tensor, vnew: Tensor, cache, *,
@@ -190,8 +190,9 @@ def _ste_mm(a: Tensor, b: Tensor) -> Tensor:
 
 
 class _AxqMatmul(torch.autograd.Function):
-    """Float-weight AXQ matmul: kernel (or plain) forward; backward through
-    the ``qmm_ref`` oracle, or straight-through exact matmul for ``ste``."""
+    """Float-weight AXQ matmul: kernel (or plain) forward; backward: the
+    ``qmm_ref`` oracle's gradient block by block (``axq_grad``), or the
+    straight-through exact matmul for ``ste``; counted as ``axqmm_bwd``."""
 
     @staticmethod
     def forward(ctx, x, w, e, block, plain, ste):
@@ -202,26 +203,23 @@ class _AxqMatmul(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
-        return (*_matmul_grads(x, w, g, ctx.e, ctx.block, ctx.ste),
-                None, None, None, None)
+        with _build.backward_oracle("axqmm_bwd", x):
+            grads = _matmul_grads(x, w, g, ctx.e, ctx.block, ctx.ste)
+        return (*grads, None, None, None, None)
 
 
 def _matmul_grads(x, w, g, e, block, ste):
-    """(dx, dw) of the float-weight AXQ matmul: straight-through, or
-    through the ``qmm_ref`` oracle."""
+    """(dx, dw) of the float-weight AXQ matmul: straight-through, or the
+    gradient of the ``qmm_ref`` oracle (through the block scales only)."""
     if ste:
         return _ste_mm(g, w.t()).to(x.dtype), _ste_mm(x.t(), g).to(w.dtype)
-    with torch.enable_grad():
-        xx = x.detach().requires_grad_()
-        ww = w.detach().requires_grad_()
-        y = qmm_ref(xx, ww, block=block, ebits=e)
-        dx, dw = torch.autograd.grad(y, (xx, ww), g, allow_unused=True)
-    return (torch.zeros_like(x) if dx is None else dx,
-            torch.zeros_like(w) if dw is None else dw)
+    dx, dw = axq_grad.qmm_grads(x, w, g, block, e)
+    return dx.to(x.dtype), dw.to(w.dtype)
 
 
 class _AxqGated(torch.autograd.Function):
-    """Float-weight fused gated AXQ core (see :class:`_AxqMatmul`)."""
+    """Float-weight fused gated AXQ core (see :class:`_AxqMatmul`); counted
+    as ``axqmm_gated_bwd``."""
 
     @staticmethod
     def forward(ctx, x, wu, wg, e, block, act, plain, ste):
@@ -233,22 +231,22 @@ class _AxqGated(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, wu, wg = ctx.saved_tensors
-        return (*_gated_grads(x, wu, wg, g, ctx.e, ctx.block, ctx.act, ctx.ste),
-                None, None, None, None, None)
+        with _build.backward_oracle("axqmm_gated_bwd", x):
+            grads = _gated_grads(x, wu, wg, g, ctx.e, ctx.block, ctx.act, ctx.ste)
+        return (*grads, None, None, None, None, None)
 
 
 def _gated_grads(x, wu, wg, g, e, block, act, ste):
     """(dx, dw_up, dw_gate) of the float-weight fused gated core."""
     actf = _axq.ACTS[act]
-    with torch.enable_grad():
-        xx, wuu, wgg = (t.detach().requires_grad_() for t in (x, wu, wg))
-        if ste:
+    if ste:
+        with torch.enable_grad():
+            xx, wuu, wgg = (t.detach().requires_grad_() for t in (x, wu, wg))
             y = actf(xx @ wgg) * (xx @ wuu)
-        else:
-            y = qmm_gated_ref(xx, wuu, wgg, actf, block=block, ebits=e)
-        grads = torch.autograd.grad(y, (xx, wuu, wgg), g, allow_unused=True)
-    return [torch.zeros_like(t) if d is None else d.to(t.dtype)
-            for d, t in zip(grads, (x, wu, wg))]
+            grads = torch.autograd.grad(y, (xx, wuu, wgg), g)
+    else:
+        grads = axq_grad.qmm_gated_grads(x, wu, wg, g, actf, block, e)
+    return [d.to(t.dtype) for d, t in zip(grads, (x, wu, wg))]
 
 
 def axq_matmul(x2: Tensor, w, *, block: int = 256, ebits=8,
@@ -312,10 +310,12 @@ class _AxqExperts(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, wu, wg = ctx.saved_tensors
-        grads = [_matmul_grads(x[i], wu[i], g[i], ctx.e, ctx.block, ctx.ste)
-                 if wg is None else
-                 _gated_grads(x[i], wu[i], wg[i], g[i], ctx.e, ctx.block, ctx.act, ctx.ste)
-                 for i in range(x.shape[0])]
+        with _build.backward_oracle("axqmm_experts_bwd", x):
+            grads = [_matmul_grads(x[i], wu[i], g[i], ctx.e, ctx.block, ctx.ste)
+                     if wg is None else
+                     _gated_grads(x[i], wu[i], wg[i], g[i], ctx.e, ctx.block, ctx.act,
+                                  ctx.ste)
+                     for i in range(x.shape[0])]
         dx, dwu, *dwg = (torch.stack(d) for d in zip(*grads))
         return dx, dwu, (dwg[0] if dwg else None), None, None, None, None, None
 

@@ -267,3 +267,68 @@ def flash_attention_grouped(q: Tensor, k: Tensor, v: Tensor, *,
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     _launch(q, k, v, out, G=H // KVr, plan=plan, causal=causal, count_steps=False)
     return out
+
+
+# ---------------------------------------------------------------------------
+# differentiable wrapper — the forward through the kernel, the backward
+# through the materialized oracle (the reference's flash_attention_vjp)
+# ---------------------------------------------------------------------------
+
+
+def flash_attention_ref(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
+                        window: Optional[int] = None) -> Tensor:
+    """Materialized oracle in the model layout, the math of the reference's
+    ``flash_attention_ref``: f32 scores over all (S, S) pairs, the mask,
+    softmax, an f32 P V product, the output cast to q's dtype.  q (B, S, H,
+    D), k/v (B, S, KVr, D) grouped: query head h reads kv head h // (H //
+    KVr), so autograd sums dK and dV over each group's heads (the
+    reference repeats K/V to all heads first; its repeat's transpose sums
+    the same terms)."""
+    B, S, H, D = q.shape
+    KVr = k.shape[2]
+    qg = q.reshape(B, S, KVr, H // KVr, D).to(torch.float32)
+    s = torch.einsum("bskgd,btkd->bkgst", qg, k.to(torch.float32)) / math.sqrt(D)
+    ii = torch.arange(S, device=q.device)[:, None]
+    jj = torch.arange(S, device=q.device)[None, :]
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= jj <= ii
+    if window is not None:
+        mask &= jj > ii - window
+    p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
+    o = torch.einsum("bkgst,btkd->bskgd", p, v.to(torch.float32))
+    return o.reshape(B, S, H, D).to(q.dtype)
+
+
+class _FlashAttentionVJP(torch.autograd.Function):
+    """Forward: :func:`flash_attention_grouped` (the kernel on the card; with
+    ``plain``, or on the CPU, its plain version).  Backward: autograd
+    through :func:`flash_attention_ref` on the saved q, k, v, counted as
+    ``flash_attention_bwd`` (``_build.backward_calls``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, plain):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        if plain:
+            return flash_attention_grouped_plain(q, k, v, causal=causal, window=window)
+        return flash_attention_grouped(q, k, v, causal=causal, window=window)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        with _build.backward_oracle("flash_attention_bwd", q), torch.enable_grad():
+            qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+            o = flash_attention_ref(qq, kk, vv, causal=ctx.causal, window=ctx.window)
+            dq, dk, dv = torch.autograd.grad(o, (qq, kk, vv), g)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_vjp(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
+                        window: Optional[int] = None, plain: bool = False) -> Tensor:
+    """Differentiable grouped prefill attention, model layout: q (B, S, H,
+    D), k/v (B, S, KVr, D) -> (B, S, H, D).  The forward is the kernel (or,
+    with ``plain`` or on the CPU, its plain version); the gradients come
+    from the materialized oracle, as the reference's custom VJP takes them
+    (O(S^2) memory in the backward)."""
+    return _FlashAttentionVJP.apply(q, k, v, causal, window, plain)

@@ -17,12 +17,17 @@ approximation techniques (DESIGN.md §3).
 The *_EMUL product is an int32 integer product of int8 operands (exact for
 K <= 2^17): a plain integer ``torch.matmul`` on the CPU, ``torch._int_mm``
 on the card (cuBLASLt's int8 GEMM; no TPU kernel computes these modes,
-the reference's product is an integer ``jnp.matmul``).  The int8 ring
-tensor-parallel route and the bf16-backward lever are not ported yet.
+the reference's product is an integer ``jnp.matmul``).
+
+``REPRO_BWD_BF16=1`` (read at import, as in the reference) routes the EXACT
+products through :class:`_MatmulBf16Bwd`: bf16 partials forward and bf16
+activation gradients, the weight gradient accumulated in f32.  The int8
+ring tensor-parallel route is not ported yet (one device).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -38,6 +43,31 @@ Tensor = torch.Tensor
 #: the pad never enters the per-tensor amax)
 INT_MM_MIN_M = 16
 INT_MM_PAD_M = 32
+
+
+#: the bf16-backward lever: the activation-gradient partial sums in bf16
+#: (half the bytes of a tensor-parallel all-reduce of dx in the reference)
+_BWD_BF16 = os.environ.get("REPRO_BWD_BF16", "0") == "1"
+
+
+class _MatmulBf16Bwd(torch.autograd.Function):
+    """``x2 @ w`` with bf16 operands and bf16 output partials; backward: dx
+    from bf16 partials (cast to x2's dtype), dw accumulated in f32 (cast to
+    w's dtype)."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(x2, w)
+        return torch.matmul(x2.to(torch.bfloat16), w.to(torch.bfloat16))
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        g16 = g.to(torch.bfloat16)
+        dx = torch.matmul(g16, w.to(torch.bfloat16).t()).to(x2.dtype)
+        dw = torch.matmul(x2.to(torch.bfloat16).t().to(torch.float32),
+                          g16.to(torch.float32)).to(w.dtype)
+        return dx, dw
 
 
 def _degree_for(spec: ApproxSpec, degree):
@@ -126,8 +156,11 @@ def approx_matmul(x: Tensor, w, spec: ApproxSpec | None = None, *,
             raise ValueError(
                 f"prepacked weight reached an EXACT spec at {path!r} — the "
                 "prepack policy and the apply policy disagree")
-        # operands in the working dtype, products accumulated in f32
-        y = torch.matmul(x2.to(torch.float32), w.to(x2.dtype).to(torch.float32))
+        if _BWD_BF16:
+            y = _MatmulBf16Bwd.apply(x2, w)
+        else:
+            # operands in the working dtype, products accumulated in f32
+            y = torch.matmul(x2.to(torch.float32), w.to(x2.dtype).to(torch.float32))
     elif spec.mode == ApproxMode.AXQ:
         if packed and not isinstance(w, qstore.PackedQWeight):
             raise ValueError(f"AXQ spec at {path!r} got {type(w).__name__}")

@@ -1,3 +1,4 @@
-"""Model zoo of the port (dense transformer family)."""
+"""Model zoo of the port (dense, MoE, SSM and hybrid families)."""
 
-from repro_torch.models.registry import Model, build_model  # noqa: F401
+from repro_torch.models.registry import (Model, build_model, concrete_batch,  # noqa: F401
+                                         input_specs)

@@ -3,6 +3,7 @@
 
     model = build_model(cfg, policy)               # device="cuda" by default
     params = model.init(seed=0)
+    loss, metrics = model.loss(params, batch, remat="none")   # training
     cache = model.init_cache(tp, batch, max_len)   # int8 with REPRO_KV_INT8=1
     logits, cache = model.prefill(params, cache, tokens, slot)
     cache = model.prefill_batch(params, cache, tokens, slots, lengths)
@@ -55,13 +56,26 @@ class Model:
             return ssm.init_ssm_lm(gen, self.cfg, tp, self.device)
         return transformer.init_lm(gen, self.cfg, tp, self.device)
 
-    def forward(self, params, batch, tp: int = 1, degree=None):
+    def forward(self, params, batch, tp: int = 1, degree=None, remat="dots"):
+        """(logits f32, aux loss); ``remat`` is the layers' activation
+        policy under autograd (``transformer.remat_call``)."""
         if self.cfg.family == "hybrid":
-            return rglru.hybrid_forward(params, self.cfg, self.policy, batch, tp, degree)
+            return rglru.hybrid_forward(params, self.cfg, self.policy, batch, tp, degree,
+                                        remat)
         if self.cfg.family == "ssm":
-            return ssm.ssm_forward(params, self.cfg, self.policy, batch, tp, degree)
+            return ssm.ssm_forward(params, self.cfg, self.policy, batch, tp, degree, remat)
         return transformer.lm_forward(params, self.cfg, self.policy, batch,
-                                      tp, degree)
+                                      tp, degree, remat)
+
+    def loss(self, params, batch, tp: int = 1, degree=None, remat="dots"):
+        """(loss, {"ce", "aux", "ntokens"}): the masked cross-entropy over
+        ``labels >= 0``; the dense and MoE families add 0.01 x the aux
+        load-balance loss, the SSM and hybrid families do not."""
+        if self.cfg.family in ("hybrid", "ssm"):
+            logits, aux = self.forward(params, batch, tp, degree, remat)
+            ce, ntok = transformer.masked_ce(logits, batch["labels"])
+            return ce, {"ce": ce, "aux": aux, "ntokens": ntok}
+        return transformer.lm_loss(params, self.cfg, self.policy, batch, tp, degree, remat)
 
     def init_cache(self, tp: int, batch: int, max_len: int,
                    dtype=torch.bfloat16, quant: Optional[bool] = None):
@@ -158,3 +172,48 @@ def build_model(cfg: ArchConfig, policy: Optional[ApproxPolicy] = None,
     one unless ``device="cpu"``)."""
     transformer.check_supported(cfg)
     return Model(cfg, policy or ApproxPolicy(), device)
+
+
+# ---------------------------------------------------------------------------
+# input specs — shape-only stand-ins for every model input
+# ---------------------------------------------------------------------------
+
+
+def input_specs(cfg: ArchConfig, shape_name: str) -> dict:
+    """The input batch of (arch, shape) as ``meta`` tensors: shapes and
+    dtypes with no storage (the reference's ShapeDtypeStructs)."""
+    from repro_torch.configs.base import SHAPES
+
+    s = SHAPES[shape_name]
+    B, S = s.global_batch, s.seq_len
+    sd = lambda *shape, dtype=torch.int32: torch.empty(shape, dtype=dtype, device="meta")
+    if s.kind == "decode":
+        return {"tokens": sd(B, 1)}
+    if cfg.frontend == "vision":
+        s_img = cfg.frontend_tokens
+        return {"tokens": sd(B, S - s_img),
+                "patch_embeds": sd(B, s_img, cfg.frontend_dim, dtype=torch.float32),
+                "labels": sd(B, S - s_img)}
+    if cfg.frontend == "audio":
+        return {"frame_feats": sd(B, S, cfg.frontend_dim, dtype=torch.float32),
+                "labels": sd(B, S)}
+    return {"tokens": sd(B, S), "labels": sd(B, S)}
+
+
+def concrete_batch(cfg: ArchConfig, seq: int, batch: int,
+                   generator: Optional[torch.Generator] = None, device="cpu") -> dict:
+    """A small random batch (tokens and labels uniform over the vocab, int64,
+    and the frontends' float features) on ``device``, drawn from
+    ``generator`` (or one seeded with 0 on ``device``)."""
+    dev = torch.device(device)
+    gen = generator if generator is not None else torch.Generator(device=dev).manual_seed(0)
+    ints = lambda *shape: torch.randint(0, cfg.vocab, shape, generator=gen, device=dev)
+    normal = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    if cfg.frontend == "audio":
+        return {"frame_feats": normal(batch, seq, cfg.frontend_dim),
+                "labels": ints(batch, seq)}
+    if cfg.frontend == "vision":
+        s_txt = seq - cfg.frontend_tokens
+        return {"patch_embeds": normal(batch, cfg.frontend_tokens, cfg.frontend_dim),
+                "tokens": ints(batch, s_txt), "labels": ints(batch, s_txt)}
+    return {"tokens": ints(batch, seq), "labels": ints(batch, seq)}

@@ -44,7 +44,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.cache_ops import cache_reset_slot, ring_write_indices
 from repro_torch.models.degrees import split_degree
-from repro_torch.models.ssm import _conv_tail
+from repro_torch.models.ssm import _conv_tail, init_conv_tail, tail_decoded, tail_value
 
 Tensor = torch.Tensor
 _C = 8.0
@@ -200,22 +200,29 @@ def init_hybrid(gen: torch.Generator, cfg: ArchConfig, tp: int = 1, device="cpu"
 
 
 def hybrid_forward(params, cfg: ArchConfig, policy: ApproxPolicy, batch: dict, tp: int = 1,
-                   degree=None) -> tuple[Tensor, Tensor]:
-    """Returns (logits (B, S, vocab_padded) f32, a zero aux loss)."""
+                   degree=None, remat: str = "dots") -> tuple[Tensor, Tensor]:
+    """Returns (logits (B, S, vocab_padded) f32, a zero aux loss).  Under
+    autograd each (rec, rec, attn) group runs under ``remat``
+    (``transformer.remat_call``); the tail blocks keep their activations,
+    as in the reference."""
     tokens = batch["tokens"]
     gdeg, tdeg, hdeg = _group_degrees(degree, cfg, tokens.device)
     pat, n_groups, _, _ = _counts(cfg)
     x = L.embed_apply(params["embed"], tokens, T._dtype(cfg))
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)[None].expand(B, S)
-    for g in range(n_groups):
-        gp = T.layer_params(params["groups"], g)
+
+    def group_body(gp, h, g):
         for i, name in enumerate(pat):
             bp, di = gp[f"{name}{i}"], _site(gdeg, g, i)
             if name == "rec":
-                x, _ = rec_block_apply(bp, x, cfg, policy, f"g/{name}{i}", di)
+                h, _ = rec_block_apply(bp, h, cfg, policy, f"g/{name}{i}", di)
             else:
-                x = attn_block_apply(bp, x, cfg, tp, policy, f"g/{name}{i}", positions, di)
+                h = attn_block_apply(bp, h, cfg, tp, policy, f"g/{name}{i}", positions, di)
+        return h
+
+    for g in range(n_groups):
+        x = T.remat_call(remat, group_body, T.layer_params(params["groups"], g), x, g)
     for i, bp in enumerate(params["tail"]):
         x, _ = rec_block_apply(bp, x, cfg, policy, f"tail/{i}", _site(tdeg, i))
     return (T._head(params, cfg, policy, x, hdeg),
@@ -240,7 +247,7 @@ def init_hybrid_cache(cfg: ArchConfig, tp: int, batch: int, max_len: int,
         k=torch.zeros(kv, dtype=dtype, device=device),
         v=torch.zeros(kv, dtype=dtype, device=device),
         h=torch.zeros((n_rec, batch, cfg.d_model), dtype=torch.float32, device=device),
-        conv=torch.zeros((n_rec, batch, 3, cfg.d_model), dtype=dtype, device=device),
+        conv=init_conv_tail((n_rec, batch, 3, cfg.d_model), cfg, dtype, device),
         length=torch.zeros((batch,), dtype=torch.int32, device=device))
 
 
@@ -291,7 +298,7 @@ def hybrid_prefill(params, cfg: ArchConfig, policy: ApproxPolicy, cache: HybridC
         if name == "rec":
             x, (nh, nc) = rec_block_apply(bp, x, cfg, policy, path, di)
             cache.h[ri, slot] = nh[0]
-            cache.conv[ri, slot] = nc[0].to(cache.conv.dtype)
+            cache.conv[ri, slot] = tail_value(cache.conv, nc[0])
         else:
             x, (k, v) = attn_block_apply(bp, x, cfg, tp, policy, path, positions, di,
                                          return_kv=True)
@@ -326,7 +333,7 @@ def hybrid_prefill_batch(params, cfg: ArchConfig, policy: ApproxPolicy, cache: H
         if name == "rec":
             x, (nh, nc) = rec_block_apply(bp, x, cfg, policy, path, di, lengths=plan.lengths)
             T.write_rows(cache.h[ri], plan, nh)
-            T.write_rows(cache.conv[ri], plan, nc)
+            T.write_rows(cache.conv[ri], plan, tail_value(cache.conv, nc))
         else:
             x, (k, v) = attn_block_apply(bp, x, cfg, tp, policy, path, positions, di,
                                          return_kv=True)
@@ -355,4 +362,5 @@ def hybrid_decode_step(params, cfg: ArchConfig, policy: ApproxPolicy, cache: Hyb
         else:
             x = T.decode_block(bp, x, attn.KVCache(cache.k[g], cache.v[g], cache.length),
                                cfg_l, tp, policy, "g", di, active)
+    tail_decoded(cache.conv)
     return T._head(params, cfg, policy, x, hdeg), cache._replace(length=cache.length + 1)

@@ -41,8 +41,8 @@ from repro_torch.core.approx import ApproxPolicy
 from repro_torch.models import layers as L
 from repro_torch.models.cache_ops import cache_reset_slot
 from repro_torch.models.degrees import split_degree
-from repro_torch.models.transformer import (_dtype, _head, layer_params, state_write_plan,
-                                            write_lengths, write_rows)
+from repro_torch.models.transformer import (_dtype, _head, layer_params, remat_call,
+                                            state_write_plan, write_lengths, write_rows)
 
 Tensor = torch.Tensor
 
@@ -216,16 +216,47 @@ def _layer_degree(ldeg, i):
 
 
 def ssm_forward(params, cfg: ArchConfig, policy: ApproxPolicy, batch: dict, tp: int = 1,
-                degree=None) -> tuple[Tensor, Tensor]:
-    """Returns (logits (B, S, vocab_padded) f32, a zero aux loss)."""
+                degree=None, remat: str = "dots") -> tuple[Tensor, Tensor]:
+    """Returns (logits (B, S, vocab_padded) f32, a zero aux loss).  Under
+    autograd each layer runs under ``remat`` (``transformer.remat_call``)."""
     tokens = batch["tokens"]
     ldeg, hdeg = split_degree(degree, cfg.n_layers, tokens.device)
     x = L.embed_apply(params["embed"], tokens, _dtype(cfg))
+
+    def body(bp, h, dg):
+        return ssm_block_apply(bp, h, cfg, policy, "layer", dg)[0]
+
     for i in range(cfg.n_layers):
-        x, _ = ssm_block_apply(layer_params(params["layers"], i), x, cfg, policy, "layer",
-                               _layer_degree(ldeg, i))
+        x = remat_call(remat, body, layer_params(params["layers"], i), x,
+                       _layer_degree(ldeg, i))
     return (_head(params, cfg, policy, x, hdeg),
             torch.zeros((), dtype=torch.float32, device=tokens.device))
+
+
+def init_conv_tail(shape, cfg: ArchConfig, dtype, device) -> Tensor:
+    """A state cache's conv-tail field, zeros in the model's compute dtype:
+    the dtype the reference's decode returns it in.  Where the cache dtype
+    differs, the tensor carries ``tail_round = dtype``: prefill writes round
+    through it (:func:`tail_value`), as the reference's prefills write into
+    its cache-dtype field, until the cache's first decode step
+    (:func:`tail_decoded`), after which the reference's field holds the
+    compute dtype and its prefills write unrounded.  The field keeps one
+    address throughout, as a captured step needs."""
+    t = torch.zeros(shape, dtype=_dtype(cfg), device=device)
+    t.tail_round = dtype if dtype != t.dtype else None
+    return t
+
+
+def tail_value(conv: Tensor, nc: Tensor) -> Tensor:
+    """A prefill's conv tail ``nc`` as ``conv`` stores it."""
+    rd = getattr(conv, "tail_round", None)
+    return (nc if rd is None else nc.to(rd)).to(conv.dtype)
+
+
+def tail_decoded(conv: Tensor) -> None:
+    """The cache took a decode step: prefills stop rounding its tails."""
+    if getattr(conv, "tail_round", None) is not None:
+        conv.tail_round = None
 
 
 class SSMCache(NamedTuple):
@@ -241,8 +272,7 @@ def init_ssm_cache(cfg: ArchConfig, tp: int, batch: int, max_len: int,
     w = cfg.ssm.conv_width
     return SSMCache(
         h=torch.zeros((cfg.n_layers, batch, H, P, N), dtype=torch.float32, device=device),
-        conv=torch.zeros((cfg.n_layers, batch, w - 1, d_in + 2 * N), dtype=dtype,
-                         device=device),
+        conv=init_conv_tail((cfg.n_layers, batch, w - 1, d_in + 2 * N), cfg, dtype, device),
         length=torch.zeros((batch,), dtype=torch.int32, device=device))
 
 
@@ -270,7 +300,7 @@ def ssm_prefill(params, cfg: ArchConfig, policy: ApproxPolicy, cache: SSMCache,
                                       "layer", _layer_degree(ldeg, i), return_state=True,
                                       lengths=lengths)
         cache.h[i, slot] = nh[0]
-        cache.conv[i, slot] = nc[0].to(cache.conv.dtype)
+        cache.conv[i, slot] = tail_value(cache.conv, nc[0])
     cache.length[slot] = P
     logits = _head(params, cfg, policy, x[:, P - 1:P], hdeg)
     return logits[:, 0], cache
@@ -294,7 +324,7 @@ def ssm_prefill_batch(params, cfg: ArchConfig, policy: ApproxPolicy, cache: SSMC
                                       "layer", _layer_degree(ldeg, i), return_state=True,
                                       lengths=plan.lengths)
         write_rows(cache.h[i], plan, nh)
-        write_rows(cache.conv[i], plan, nc)
+        write_rows(cache.conv[i], plan, tail_value(cache.conv, nc))
     write_lengths(cache, plan)
     return cache
 
@@ -312,4 +342,5 @@ def ssm_decode_step(params, cfg: ArchConfig, policy: ApproxPolicy, cache: SSMCac
                                       state=(cache.h[i], cache.conv[i]))
         cache.h[i].copy_(nh)
         cache.conv[i].copy_(nc)
+    tail_decoded(cache.conv)
     return _head(params, cfg, policy, x, hdeg), cache._replace(length=cache.length + 1)

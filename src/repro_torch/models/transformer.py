@@ -188,10 +188,35 @@ def _head(params, cfg, policy, x, hdeg) -> Tensor:
 # ---------------------------------------------------------------------------
 
 
+REMAT = ("none", "dots", "full")
+
+
+def remat_call(remat: str, fn, *args):
+    """``fn(*args)`` under the ``remat`` policy of a layer (or group) body:
+    ``none`` keeps its activations for the backward; ``dots`` and ``full``
+    both recompute the whole body in the backward
+    (``torch.utils.checkpoint.checkpoint``, non-reentrant).  The reference's
+    ``dots`` keeps the matmul outputs and recomputes the rest; here the
+    projections are ``torch.autograd.Function``s (the kernel forwards) whose
+    outputs a selective-checkpoint policy cannot pick out, so ``dots``
+    takes ``full``'s schedule.  A saving policy changes memory and
+    recompute time, never a value: every op recomputes bit for bit (the
+    kernels are deterministic).  Without autograd recording (serving,
+    ``torch.no_grad``) the body just runs."""
+    if remat not in REMAT:
+        raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
+    if remat == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    from torch.utils.checkpoint import checkpoint
+
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
 def lm_forward(params, cfg: ArchConfig, policy: ApproxPolicy, batch: dict,
-               tp: int = 1, degree=None) -> tuple[Tensor, Tensor]:
+               tp: int = 1, degree=None, remat: str = "dots") -> tuple[Tensor, Tensor]:
     """Returns (logits (B, S, vocab_padded) f32, the layers' summed aux
-    load-balance loss (0 for a dense model))."""
+    load-balance loss (0 for a dense model)).  ``remat`` is the layers'
+    activation policy under autograd (:func:`remat_call`)."""
     tokens = batch["tokens"]
     ldeg, hdeg = split_degree(degree, cfg.n_layers, tokens.device)
     x = L.embed_apply(params["embed"], tokens, _dtype(cfg))
@@ -201,13 +226,39 @@ def lm_forward(params, cfg: ArchConfig, policy: ApproxPolicy, batch: dict,
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device)[None].expand(B, S)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+
+    def body(bp, h, dg):
+        return block_apply(bp, h, cfg, tp, policy, "layer", positions, dg, return_aux=True)
+
     for i in range(cfg.n_layers):
-        x, a = block_apply(layer_params(params["layers"], i), x, cfg, tp, policy,
-                           "layer", positions, None if ldeg is None else ldeg[i],
-                           return_aux=True)
+        x, a = remat_call(remat, body, layer_params(params["layers"], i), x,
+                          None if ldeg is None else ldeg[i])
         if a is not None:
             aux = aux + a
     return _head(params, cfg, policy, x, hdeg), aux
+
+
+def lm_loss(params, cfg: ArchConfig, policy: ApproxPolicy, batch: dict,
+            tp: int = 1, degree=None, remat: str = "dots") -> tuple[Tensor, dict]:
+    """Masked next-token cross-entropy over ``labels >= 0`` plus 0.01 x the
+    aux load-balance loss.  Returns (loss, {"ce", "aux", "ntokens"}), all
+    device scalars."""
+    logits, aux = lm_forward(params, cfg, policy, batch, tp, degree, remat)
+    ce, ntok = masked_ce(logits, batch["labels"])
+    loss = ce + 0.01 * aux
+    return loss, {"ce": ce, "aux": aux, "ntokens": ntok}
+
+
+def masked_ce(logits: Tensor, labels: Tensor) -> tuple[Tensor, Tensor]:
+    """(mean negative log-likelihood of ``labels`` over the entries with
+    ``labels >= 0``, their count as f32)."""
+    mask = (labels >= 0).to(torch.float32)
+    labels_c = torch.clamp(labels, min=0).to(torch.int64)
+    logp = torch.log_softmax(logits, dim=-1)
+    ll = torch.gather(logp, -1, labels_c[..., None])[..., 0]
+    ntok = torch.sum(mask)
+    ce = -torch.sum(ll * mask) / torch.clamp(ntok, min=1.0)
+    return ce, ntok
 
 
 # ---------------------------------------------------------------------------

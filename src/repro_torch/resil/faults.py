@@ -43,6 +43,7 @@ from typing import Optional
 import numpy as np
 
 from repro_torch.models import cache_ops
+from repro_torch.tree import tree_leaves
 
 #: spec-string aliases accepted by :meth:`FaultSpec.parse`
 _ALIASES = {
@@ -53,19 +54,6 @@ _ALIASES = {
     "drop": "drop", "drop_tick": "drop",
     "replica": "replica_loss", "replica_loss": "replica_loss",
 }
-
-
-def tree_leaves(tree) -> list:
-    """The leaves of a parameter tree in ``jax.tree_util.tree_flatten``
-    order: dict keys sorted, NamedTuple fields and list items in order,
-    None contributing nothing."""
-    if isinstance(tree, dict):
-        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [leaf for v in tree for leaf in tree_leaves(v)]
-    if tree is None:
-        return []
-    return [tree]
 
 
 @dataclass(frozen=True)

@@ -454,13 +454,18 @@ def test_stream_storm_prometheus_equals_reference():
 
 
 def test_recovery_trace_determinism_same_seed():
+    """Same seed, same trace: the engines run on a VirtualClock advanced 2 ms
+    a tick (past the 10 us retry backoff), so the host's clock cannot move
+    a retry to another tick."""
     def run(seed):
         R = tresil
         spec = R.FaultSpec(seu_state=0.25, seu_param=0.15, nan=0.25, drop=0.1)
-        eng = T.stream_engine(slots=2, faults=R.FaultPlan(spec, seed=seed),
+        clock = R.VirtualClock()
+        eng = T.stream_engine(slots=2, faults=R.FaultPlan(spec, seed=seed), clock=clock,
                               policy=R.ServePolicy(max_retries=8, backoff_ms=0.01))
         reqs = [eng.submit(_clip(3, seed=i)) for i in range(4)]
-        eng.run_until_drained(max_ticks=2000)
+        _drive(eng, reqs, clock, 0.002, max_ticks=2000)
+        assert all(r.done for r in reqs)
         outs = [tuple(np.asarray(f).tobytes() for f in r.out) for r in reqs]
         return eng.faults.injected, eng.resil_log, outs, eng
 

@@ -23,9 +23,9 @@ amplify it), while the port equals the op-by-op evaluation (logits 0.0, h
 7e-8 relative).  So the compiled reference is the bound at degree 8 and
 EXACT, and the op-by-op one at the low degrees.  (2) The reference's decode
 returns the conv tail in the compute dtype, so an f32 model's bf16 cache
-turns f32 after its first step (a functional cache may change dtype; the
-port's, captured in place, keeps its dtype).  The engines therefore run on
-f32 caches, where both keep every value."""
+turns f32 after its first step (a functional cache may change dtype).  The
+engines here run on f32 caches; an f32 model on a bf16 cache is held to
+the reference in tests/test_torch_conv_tail.py."""
 import dataclasses
 import functools
 
