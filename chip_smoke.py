@@ -29,7 +29,13 @@ Phases (any failure exits non-zero):
      unembedding, flash_attention at head_dim 256 with MQA 10/1 -- band
      at window 2048 over 8192 tokens, tri over 2048 in bf16 and f32 --
      and flash_decode at D = 256, G = 10 on the 2048-row ring, lengths at
-     the split edges), with the stated tolerance (the GEMMs
+     the split edges; the frontend archs: hubert-xlarge's non-causal
+     ``dense`` attention at D = 80 (16 heads, 1024 frames, timed beside
+     SDPA(is_causal=False)), unembedding (N = 504) and gelu gated half at
+     its training rows, internvl2-1b's unembedding at its odd, unpadded N =
+     151655, its gated half, ``v_proj/fc1`` (K 1024, bias) at 4 x 1024 image
+     rows, ``tri`` at GQA 14/2 (G = 7) over 2048 tokens and both decode
+     kernels at G = 7), with the stated tolerance (the GEMMs
      also bit-identical, and at decode at least one block an SM), timed
      with CUDA events beside its bound and, where one PyTorch call computes
      the same function, that call (the decode kernels, the GEMMs, SDPA and
@@ -105,6 +111,19 @@ Phases (any failure exits non-zero):
        3p  recurrentgemma-2b (8 groups of (rec, rec, attn) and 2 tail
            blocks, MQA 10/1 at head_dim 256, window 2048: a ring): 3
            prompts of 4096-8192 tokens (band) among 9 of 64-512;
+     the VLM's backbone, text-only as the reference serves it —
+       3q  internvl2-1b (24 layers, GQA 14/2, QKV bias, vocab 151655) on
+           phase 3's traffic: exact-length admission on the bf16 cache
+           (captured, its eager twin, a traced tick) and bucketed, packed
+           admission;
+     the replica fleet on one card —
+       3r  tinyllama-1.1b behind a FleetSupervisor of 3 replicas sharing
+           one packed weight set, under seeded replica_loss on a
+           VirtualClock: every request ends once, ok token streams equal a
+           clean single engine's bit for bit, two runs of one seed give one
+           recovery trace, the packs held once (peak memory); then
+           ``launch.serve --replicas 3 --faults replica_loss=...`` for the
+           wall numbers;
      every request must finish and every kernel of the path must have
      launched exactly as the layer (or stage) count predicts, while no
      plain version ran on the card.  Every path serves from CUDA graphs,
@@ -142,8 +161,16 @@ Phases (any failure exits non-zero):
            SIGTERM; resumed from its checkpoint (restored bit for bit) to
            the end, the losses within tolerance of the uninterrupted run's;
        5d  one step each of granite-moe-3b-a800m (2 layers), mamba2-370m (2
-           layers) and recurrentgemma-2b (one group, past its window:
-           ``band`` at head_dim 256), kernels against plain;
+           layers), recurrentgemma-2b (one group, past its window:
+           ``band`` at head_dim 256), internvl2-1b (2 layers, 1024 image +
+           1024 text tokens) and hubert-xlarge (2 layers, non-causal
+           ``dense``), kernels against plain;
+       5e  internvl2-1b at full width and depth (24 layers), axq8, batch 4
+           x seq 2048 (1024 image + 1024 text tokens), 8 steps: 5a's gates
+           and numbers, launches 123 / 24 / 24 (tri) a step;
+       5f  hubert-xlarge at full width and depth (48 layers), axq8, batch 8
+           x 1024 frames, remat none, 8 steps: launches 242 / 48 / 48
+           (dense) a step;
   6. one {"kernels": [...]} line and, last, the result line.
 
 With ``--record PATH`` every number also goes to a JSON file.
@@ -1325,6 +1352,97 @@ def phase_kernels_recurrent(ctx, ssm_cfg, rg_cfg):
     return rows
 
 
+def check_dense(ctx, B, H, KVr, D, S, dtype=None):
+    """Non-causal ``dense`` attention (the audio encoder's): grouped (B, S,
+    H, D) queries over (B, S, KVr, D) keys/values, every (q block, kv
+    block) pair.  The in-kernel step count must equal
+    ``planned_grid_steps(causal=False)`` and the grouped entry the flat
+    one on repeated K/V bit for bit; timed beside SDPA(is_causal=False).
+    The bound counts 4 BH D S^2 flops: every (row, col) pair is kept."""
+    torch, dev, timer = ctx["torch"], ctx["dev"], ctx["timer"]
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as FA
+
+    dt = dtype or ctx["dtype"]
+    G, BH = H // KVr, B * H
+    gen = torch.Generator(device=dev).manual_seed(4700 + S + D)
+    q = torch.randn(B, S, H, D, generator=gen, device=dev).to(dt)
+    k = torch.randn(B, S, KVr, D, generator=gen, device=dev).to(dt)
+    v = torch.randn(B, S, KVr, D, generator=gen, device=dev).to(dt)
+    flat = lambda t: t.transpose(1, 2).reshape(B * t.shape[2], S, D)
+    qf, kf, vf = flat(q), flat(k.repeat_interleave(G, 2)), flat(v.repeat_interleave(G, 2))
+    y, steps = FA.flash_attention(qf, kf, vf, causal=False, return_steps=True)
+    yg = FA.flash_attention_grouped(q, k, v, causal=False)
+    yp, steps_p = FA.flash_attention_plain(qf, kf, vf, causal=False)
+    ctx["sync"]()
+    steps = int(steps)
+    planned = FA.planned_grid_steps(BH, S, causal=False)
+    require(steps == planned == steps_p,
+            f"dense steps {steps} (plain {steps_p}) != planned {planned}")
+    require(bool(torch.equal(flat(yg), y)), "grouped and flat dense entries disagree")
+    err = float((y.float() - yp.float()).abs().max())
+    rtol, atol, tol = flash_tol(dt)
+    ok = bool(torch.allclose(y.float(), yp.float(), rtol=rtol, atol=atol))
+    row = {"BH": BH, "S": S, "D": D, "grouped": f"{H}/{KVr}", "schedule": "dense",
+           "causal": False, "dtype": str(dt), "steps": steps, "planned_steps": planned,
+           "max_abs_err": err, "tol": tol, "ok": ok}
+    per = 2 * B * S * (H + KVr) * D * q.element_size()
+    qkv = copies(lambda: (q.clone(), k.clone(), v.clone()), per, ctx["on_card"])
+    if ctx["on_card"]:
+        row["ms"] = timer(lambda i: FA.flash_attention_grouped(*qkv[i % len(qkv)],
+                                                               causal=False))
+        row["plain_ms"] = timer(lambda i: FA.flash_attention_plain(qf, kf, vf, causal=False),
+                                iters=3, warmup=1)
+        row["library_ms"] = timer(lambda i: F.scaled_dot_product_attention(
+            *(t.transpose(1, 2) for t in qkv[i % len(qkv)]), is_causal=False,
+            enable_gqa=G > 1))
+        row["library_call"] = "F.scaled_dot_product_attention(is_causal=False)"
+    flops = 4.0 * BH * D * S * S
+    peak = BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS
+    row["bound_ms"], row["bound_by"] = bound(per, flops, peak)
+    attention_rates(row, flops)
+    return row
+
+
+def phase_kernels_frontends(ctx, vlm_cfg, audio_cfg):
+    """Phase 2, the frontend archs' rows: internvl2-1b's unembedding at its
+    odd, unpadded N = 151655 (the GEMMs' unpaired-store path), its gated
+    half (N 4864, K 896) at decode, ``v_proj/fc1`` (K 1024 -> N 896, with
+    bias) at the training step's 4 x 1024 image rows, ``tri`` at GQA 14/2
+    (G = 7, the first odd group) over 2048 tokens and both decode kernels
+    at G = 7, D = 64; hubert-xlarge's non-causal ``dense`` attention at
+    head_dim 80 (16 heads, 1024 frames, batch 8: the card's first
+    non-causal run), its unembedding (N 504, K 1280) and gelu gated half
+    (N 5120, K 1280) at the training step's 8 x 1024 rows."""
+    torch = ctx["torch"]
+    deg = torch.tensor(6, dtype=torch.int32, device=ctx["dev"])
+    slots = ctx["slots"]
+    rows = {"axqmm": [], "axqmm_gated": [], "flash_decode": [], "flash_decode_quant": [],
+            "flash_attention": []}
+    c, a = vlm_cfg, audio_cfg
+    vb, vs = ctx["vlm_train_shape"]
+    ab, as_ = ctx["audio_train_shape"]
+    rows["axqmm"].append(check_axqmm(ctx, vb * c.frontend_tokens, c.d_model,
+                                     c.frontend_dim, False, deg, bias=True))
+    rows["axqmm"].append(check_axqmm(ctx, ab * as_, a.vocab, a.d_model, False, deg))
+    rows["axqmm"].append(check_axqmm(ctx, slots, c.vocab, c.d_model, False, deg))
+    rows["axqmm_gated"].append(check_gated(ctx, slots, c.d_ff, c.d_model, deg))
+    rows["axqmm_gated"].append(check_gated(ctx, ab * as_, a.d_ff, a.d_model, deg, act=a.act))
+    G, D, T = c.n_heads // c.n_kv_heads, c.head_dim, ctx["max_len"]
+    nvalid, active = decode_lengths(T, slots)
+    rows["flash_decode"].append(check_decode(ctx, slots, c.n_kv_heads, G, D, T, nvalid,
+                                             active))
+    rows["flash_decode_quant"].append(check_decode_quant(ctx, slots, c.n_kv_heads, G, D, T,
+                                                         nvalid, active, 5))
+    rows["flash_attention"].append(check_dense(ctx, ab, a.n_heads, a.n_kv_heads, a.head_dim,
+                                               as_))
+    rows["flash_attention"].append(check_prefill(ctx, vb * c.n_heads, vs, D, c.n_heads,
+                                                 c.n_kv_heads))
+    report_rows(rows, f"{c.name} / {a.name} (frontends): ")
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
@@ -1689,6 +1807,229 @@ def phase_serve_chunked(ctx, cfg, model, params):
         f"{seen['interleaved_ticks']} ticks with both a chunk call and a decode step; "
         f"short-request TTFT p50 {out['short_ttft_p50_ms']} ms p95 "
         f"{out['short_ttft_p95_ms']} ms; long-request TTFT p50 {out['long_ttft_p50_ms']} ms")
+    return out
+
+
+def phase_serve_vlm(ctx, tag, cfg, model, params, prompts):
+    """Phase 3q: internvl2-1b (the VLM's Qwen2-0.5B backbone: 24 layers,
+    GQA 14/2 — G = 7 in ``tri`` and both decode kernels — QKV bias, vocab
+    151655, an odd N the GEMMs store unpaired) at full width on phase 3's
+    text-only traffic, as the reference serves it: exact-length admission
+    on the bf16 cache (captured, with its eager twin, a traced tick and
+    the replay times, as 3g reports), then bucketed packed admission on the
+    same cache (no chunks: the frontend archs take none)."""
+    from repro_torch.serve.admission import AdmissionConfig
+
+    label = f"phase {tag}"
+    require(not ctx["on_card"] or (cfg.vocab % 2 == 1 and cfg.padded(1).vocab == cfg.vocab),
+            f"{label}: vocab {cfg.vocab} is not the odd, unpadded N this path holds")
+    wbytes = packed_bytes(params)
+    make = lambda **kw: make_engine(ctx, model, params, max_len=ctx["max_len"], **kw)
+    warm = make()
+    warm.submit(prompts[0][:16], 2)
+    warm.run_until_drained()
+    del warm
+    eng = make()
+    require(not eng.workload._chunk_ok, f"{label}: chunked admission offered to a VLM")
+    reqs, seen = drive(ctx, eng, prompts, ctx["new_tokens"])
+    rungs = sorted({e for _, e in eng.stats.degree_history})
+    require(len(rungs) > 1, f"{label}: the QoS degree never moved: {rungs}")
+    steps, n, L = eng.stats.decode_steps, eng.stats.prefill_calls, cfg.n_layers
+    check_launches(ctx, label, seen, {
+        "axqmm": (5 * L + 1) * (steps + n), "axqmm_gated": L * (steps + n),
+        "flash_decode": L * steps, "flash_decode_quant": 0, "flash_attention": L * n,
+        "pr_multiply": 0, "pr_fir": 0, "pr_conv2d": 0})
+    require(not ctx["on_card"] or seen["flash_schedules"] == {"dense": 0, "tri": L * n,
+                                                               "band": 0},
+            f"{label}: flash_attention by schedule {seen['flash_schedules']}")
+    out = serve_summary(ctx, f"{label} ({cfg.name}, exact admission, bf16 cache)", eng, reqs,
+                        seen, wbytes / HBM_BPS * 1e3)
+    out.update(arch=cfg.name, new_tokens=ctx["new_tokens"], slots=ctx["slots"],
+               max_len=ctx["max_len"], packed_weight_bytes=wbytes)
+    if ctx["on_card"]:
+        out["eager"] = eager_twin(ctx, label, make, prompts, ctx["new_tokens"], reqs, eng)
+    out["profile"] = prof = _profile_lm_ticks(ctx, eng, prompts, ctx["profile_ticks"])
+    if ctx["on_card"]:
+        out["replay"] = replay_times(ctx, eng)
+        capture_line(label, out)
+    say(f"{label}: profiled {prof['ticks']} steady decode ticks: "
+        f"{prof['tick_wall_ms']:.4f} ms wall per tick, {prof['device_us_per_tick']:.2f} us "
+        f"of device kernel time per tick (busy share {prof['device_busy_share']}); largest: "
+        + "; ".join(f"{r['name'][:60]} x{r['calls']} {r['device_us']:.1f} us "
+                    f"({r['share']:.4f})" for r in prof["top_kernels"]))
+    del eng
+    beng = make(admission=AdmissionConfig(pack=4))
+    shapes = dict(beng.workload.trace_counts)
+    breqs, bseen = drive(ctx, beng, prompts, ctx["new_tokens"])
+    require(beng.workload.trace_counts == shapes,
+            f"{label} (buckets): a request met a new call shape: "
+            f"{beng.workload.trace_counts} vs {shapes}")
+    steps, calls = beng.stats.decode_steps, beng.stats.prefill_calls
+    check_launches(ctx, f"{label} (buckets)", bseen, {
+        "axqmm": (5 * L + 1) * steps + 5 * L * calls, "axqmm_gated": L * (steps + calls),
+        "flash_decode": L * steps, "flash_decode_quant": 0, "flash_attention": L * calls,
+        "pr_multiply": 0, "pr_fir": 0, "pr_conv2d": 0})
+    out["buckets"] = serve_summary(ctx, f"{label} ({cfg.name}, buckets, pack 4, bf16 cache)",
+                                   beng, breqs, bseen, wbytes / HBM_BPS * 1e3)
+    out["buckets"].update(call_shapes=shapes, buckets=list(beng.workload.admission.buckets),
+                          packed_rows=int(beng.stats.c_packed_rows.value))
+    out["launches"] = sum_launches([seen["launches"], bseen["launches"]])
+    out["flash_schedules"] = {k: seen["flash_schedules"].get(k, 0)
+                              + bseen["flash_schedules"].get(k, 0)
+                              for k in ("dense", "tri", "band")}
+    return out
+
+
+def _fleet_policy():
+    """The fleet's and its engines' serving policy: no deadlines, no
+    queue caps, no backoff (the reference's fleet tests' policy)."""
+    from repro_torch.resil import ServePolicy
+
+    return ServePolicy(deadline_ms=None, ttft_deadline_ms=None, max_queue=None,
+                       max_queue_age_ms=None, backoff_ms=0.0)
+
+
+def _fleet_run(ctx, model, params, prompts, new_tokens, *, seed):
+    """``prompts`` through a FleetSupervisor of ``fleet_replicas``
+    captured engines on the one device (a fixed degree, exact-length
+    admission, the bf16 cache), every replica over the one packed weight
+    set, under seeded ``replica_loss`` draws at ``fleet_loss`` a tick, on
+    a VirtualClock; launch counts set to 0 just before the traffic and
+    read just after."""
+    torch = ctx["torch"]
+    from repro_torch.dist.fleet import FleetSupervisor
+    from repro_torch.kernels import _build
+    from repro_torch.resil import FaultPlan, FaultSpec, VirtualClock
+
+    clock = VirtualClock()
+    policy = _fleet_policy()
+    plan = FaultPlan(FaultSpec(replica_loss=ctx["fleet_loss"]), seed=seed)
+    build = lambda device, rid: make_engine(ctx, model, params, max_len=ctx["max_len"],
+                                            qos=False, clock=clock, policy=policy)
+    sup = FleetSupervisor(build, ctx["fleet_replicas"], clock=clock, faults=plan,
+                          policy=policy, rescale_ms=5.0, device=ctx["dev"])
+    ctx["sync"]()
+    _build.reset_counts()
+    if ctx["on_card"]:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    reqs = [sup.submit(p, new_tokens) for p in prompts]
+    done = sup.run_until_drained(max_ticks=8 * len(prompts) * new_tokens)
+    ctx["sync"]()
+    seen = {"wall_s": time.time() - t0, "launches": dict(_build.launches),
+            "plain": dict(_build.plain_cuda_calls),
+            "flash_schedules": dict(_build.flash_schedules),
+            "max_memory_allocated": (torch.cuda.max_memory_allocated()
+                                     if ctx["on_card"] else None)}
+    return sup, plan, reqs, done, seen
+
+
+def phase_fleet(ctx, tag, cfg, model, params, prompts):
+    """Phase 3r: tinyllama-1.1b at full width behind a FleetSupervisor of 3
+    replicas on the one card, under seeded ``replica_loss``.  Gates: every
+    request ends exactly once; the ok token streams equal a clean
+    single-engine run's on the card bit for bit; two runs of one seed give
+    one recovery trace; the packs are held once (every replica serves the
+    same tensors, and the fleet's peak memory over the single engine's is
+    less than the packs' bytes); launches as the engines' steps and
+    prefills predict, no plain version.  Then ``launch.serve --replicas 3
+    --faults replica_loss=...`` for the wall numbers."""
+    torch = ctx["torch"]
+    label = f"phase {tag}"
+    new_tokens, L = ctx["new_tokens"], cfg.n_layers
+    wbytes = packed_bytes(params)
+    # the clean reference: one engine, the same fixed degree, no fault
+    clean = make_engine(ctx, model, params, max_len=ctx["max_len"], qos=False,
+                        policy=_fleet_policy())
+    creqs, cseen = drive(ctx, clean, prompts, new_tokens)
+    ref = {r.rid: list(r.out_tokens) for r in creqs}
+    single_peak = cseen["max_memory_allocated"]
+    single_extra = cache_bytes(clean.cache) + (graph_summary(clean) or {}).get("pool_bytes", 0)
+    del clean
+    if ctx["on_card"]:
+        torch.cuda.empty_cache()
+    runs = []
+    for _ in range(2):
+        sup, plan, reqs, done, seen = _fleet_run(ctx, model, params, prompts, new_tokens,
+                                                 seed=ctx["fleet_seed"])
+        rids = sorted(r.rid for r in done)
+        require(rids == sorted(r.rid for r in reqs) == list(range(len(prompts))),
+                f"{label}: requests did not end exactly once: {rids}")
+        require(all(r.done for r in reqs), f"{label}: a request never ended")
+        ok = [r for r in done if r.status == "ok"]
+        bad = [r.rid for r in ok if list(r.out_tokens) != ref[r.rid]]
+        require(not bad, f"{label}: ok requests {bad} differ from the clean single engine")
+        names = [n for _, n, _ in sup.resil_log]
+        require("replica_lost" in names and "rewind" in names and "rescale" in names,
+                f"{label}: the seeded schedule killed no replica mid-decode: {names}")
+        leaf = params["layers"]["wq"]["w"].qw
+        require(all(r.engine.params is params for r in sup.replicas) and
+                all(r.engine.params["layers"]["wq"]["w"].qw.data_ptr() == leaf.data_ptr()
+                    for r in sup.replicas), f"{label}: a replica holds its own weights")
+        steps = sum(r.engine.stats.decode_steps for r in sup.replicas)
+        fills = sum(r.engine.stats.prefill_calls for r in sup.replicas)
+        check_launches(ctx, label, seen, {
+            "axqmm": (5 * L + 1) * (steps + fills), "axqmm_gated": L * (steps + fills),
+            "flash_decode": L * steps, "flash_decode_quant": 0,
+            "flash_attention": L * fills, "pr_multiply": 0, "pr_fir": 0, "pr_conv2d": 0})
+        trace = (tuple(sup.resil_log),
+                 tuple((e.tick, e.kind, e.slot) for e in plan.injected),
+                 tuple(sorted((r.rid, r.status, tuple(r.out_tokens)) for r in done)))
+        pools = sum((graph_summary(r.engine) or {}).get("pool_bytes", 0)
+                    for r in sup.replicas)
+        caches = sum(cache_bytes(r.engine.cache) for r in sup.replicas)
+        runs.append({"trace": trace, "seen": seen, "statuses": sup.status_counts(),
+                     "events": {n: names.count(n) for n in sorted(set(names))},
+                     "live": len(sup.live), "steps": steps, "prefills": fills,
+                     "pools": pools, "caches": caches,
+                     "rescales": [dataclasses.asdict(p) for p in sup.rescales]})
+        del sup, plan, reqs, done
+        if ctx["on_card"]:
+            torch.cuda.empty_cache()
+    require(runs[0]["trace"] == runs[1]["trace"],
+            f"{label}: two runs of seed {ctx['fleet_seed']} gave two recovery traces")
+    a = runs[0]
+    fleet_peak = a["seen"]["max_memory_allocated"]
+    if ctx["on_card"]:
+        require(fleet_peak - single_peak < wbytes,
+                f"{label}: the fleet's peak {fleet_peak} B is {fleet_peak - single_peak} B "
+                f"over the single engine's: a second copy of the {wbytes} B of packs?")
+    out = {"arch": cfg.name, "replicas": ctx["fleet_replicas"], "loss_rate": ctx["fleet_loss"],
+           "seed": ctx["fleet_seed"], "statuses": a["statuses"], "events": a["events"],
+           "live_at_exit": a["live"], "decode_steps": a["steps"], "prefill_calls": a["prefills"],
+           "launches": a["seen"]["launches"], "flash_schedules": a["seen"]["flash_schedules"],
+           "wall_s": a["seen"]["wall_s"], "single_wall_s": cseen["wall_s"],
+           "fleet_peak_bytes": fleet_peak, "single_peak_bytes": single_peak,
+           "packed_weight_bytes": wbytes, "single_cache_and_pool_bytes": single_extra,
+           "fleet_cache_bytes": a["caches"], "fleet_pool_bytes": a["pools"],
+           "rescales": a["rescales"], "trace_len": len(a["trace"][0])}
+    say(f"{label} ({cfg.name}, {out['replicas']} replicas on one device, replica_loss "
+        f"{out['loss_rate']} seed {out['seed']}, VirtualClock): {out['statuses']}, events "
+        f"{out['events']}, {out['live_at_exit']} live at exit; ok streams == the clean "
+        f"single engine's; one recovery trace for two runs ({out['trace_len']} events); "
+        f"peak {fleet_peak} B vs single {single_peak} B (packs {wbytes} B, held once); "
+        f"fleet wall {out['wall_s']:.3f} s vs single {out['single_wall_s']:.3f} s")
+    # the launcher: its own seeded weights, the real clock
+    argv = ["--arch", cfg.name, "--device", str(ctx["dev"]), "--approx", "axq8",
+            "--replicas", str(ctx["fleet_replicas"]), "--slots", str(ctx["slots"]),
+            "--requests", str(ctx["requests"]), "--new-tokens", str(new_tokens),
+            "--max-len", str(ctx["max_len"]), "--faults",
+            f"replica_loss={ctx['fleet_loss']}", "--fault-seed", str(ctx["fleet_seed"]),
+            "--metrics"]
+    s, lsup, lseen = _launch(ctx, argv)
+    require(s["requests"] == ctx["requests"] and
+            sum(s["statuses"].values()) == ctx["requests"],
+            f"{label} launch.serve: {s['requests']} terminations for {ctx['requests']}")
+    require(not any(lseen["plain"].values()) or not ctx["on_card"],
+            f"{label} launch.serve: plain versions on the card {lseen['plain']}")
+    out["launch"] = {"argv": argv, "summary": s, "wall_s": lseen["wall_s"],
+                     "launches": lseen["launches"]}
+    out["launches"] = sum_launches([out["launches"], lseen["launches"]])
+    say(f"{label} launch.serve --replicas {ctx['fleet_replicas']}: {s['statuses']}, "
+        f"{s['generated_tokens']} tokens, {s.get('gen_tok_per_s')} tok/s, TTFT p50 "
+        f"{s['ttft_p50_ms']} ms, {s['live']} live, {s['rescales']} rescale(s), "
+        f"{lseen['wall_s']:.2f} s with init")
+    del lsup
     return out
 
 
@@ -3524,8 +3865,16 @@ def _train_batch(ctx, cfg, batch, seq, step=0):
     from repro_torch.data.pipeline import make_pipeline
 
     pipe = make_pipeline(cfg, seq_len=seq, global_batch=batch)
-    return {k: torch.from_numpy(v).to(ctx["dev"], torch.int64)
-            for k, v in pipe.batch_at(step).items()}
+    return device_batch(ctx, pipe.batch_at(step))
+
+
+def device_batch(ctx, batch: dict) -> dict:
+    """A pipeline batch on the device: token ids and labels as int64, the
+    frontends' features as f32."""
+    torch = ctx["torch"]
+    return {k: torch.from_numpy(v).to(ctx["dev"], torch.int64 if v.dtype.kind in "iu"
+                                      else torch.float32)
+            for k, v in batch.items()}
 
 
 def _train_model(ctx, cfg, approx):
@@ -3539,14 +3888,21 @@ def _finite(t) -> bool:
     return bool(t.isfinite().all())
 
 
+#: the frontend projections a train step runs on ``axqmm``
+FRONTEND_GEMMS = {None: 0, "vision": 2, "audio": 1}
+
+
 def train_launches(cfg, remat: str) -> dict:
     """Forward launches of one dense train step: each layer's wq, wk, wv,
     wo and down on ``axqmm``, its up/gate half on ``axqmm_gated``, its
-    attention on ``flash_attention`` (``tri``), and the unembedding; remat
-    ``dots`` / ``full`` run each layer's forward twice."""
+    attention on ``flash_attention`` (``tri``; ``dense`` for a non-causal
+    encoder), the unembedding and the frontend projections (the VLM's
+    fc1 and fc2, the audio encoder's fc1); remat ``dots`` / ``full`` run
+    each layer's forward twice."""
     r = 1 if remat == "none" else 2
     L = cfg.n_layers
-    return {"axqmm": 5 * L * r + (0 if cfg.tie_embeddings else 1),
+    return {"axqmm": 5 * L * r + (0 if cfg.tie_embeddings else 1)
+            + FRONTEND_GEMMS[cfg.frontend],
             "axqmm_gated": L * r, "flash_attention": L * r}
 
 
@@ -3569,7 +3925,7 @@ def train_kernel_rows(ctx, cfg):
     return rows
 
 
-def phase_train(ctx, cfg):
+def phase_train(ctx, cfg, label="phase 5a", shape=None, remat=None):
     """Phase 5a: tinyllama-1.1b at full width and depth trained under axq8
     with the QoS ladder 8 -> 5 (the trainer's control law on the loss
     improvement, thresholds that step it down at every check), batch x seq
@@ -3577,16 +3933,17 @@ def phase_train(ctx, cfg):
     the kernels, the backward through the oracles.  Gates: finite loss and
     grad norm, the degree moving, launches as predicted, no plain version
     on the card.  The last step times the backward oracles with CUDA
-    events."""
+    events.  Phases 5e / 5f run the same on the frontend archs, at their
+    own ``shape`` (batch, seq) and ``remat``."""
     torch = ctx["torch"]
     from repro_torch.core.dynamic import QoSController, degree_operand, entry_degree
     from repro_torch.data.pipeline import make_pipeline
     from repro_torch.kernels import _build
     from repro_torch.train import step as S
 
-    label = "phase 5a"
-    B, T, n = ctx["train_batch"], ctx["train_seq"], ctx["train_steps"]
-    remat = ctx["train_remat"]
+    B, T = shape or (ctx["train_batch"], ctx["train_seq"])
+    n = ctx["train_steps"]
+    remat = remat or ctx["train_remat"]
     model = _train_model(ctx, cfg, "axq8")
     pipe = make_pipeline(cfg, seq_len=T, global_batch=B)
     if ctx["on_card"]:
@@ -3605,8 +3962,7 @@ def phase_train(ctx, cfg):
     ctx["sync"]()
     _build.reset_counts()
     for step in range(n):
-        batch = {k: torch.from_numpy(v).to(ctx["dev"], torch.int64)
-                 for k, v in pipe.batch_at(step).items()}
+        batch = device_batch(ctx, pipe.batch_at(step))
         _build.time_backwards = step == n - 1
         ctx["sync"]()
         t = time.time()
@@ -3631,10 +3987,11 @@ def phase_train(ctx, cfg):
             "backward_calls": dict(_build.backward_calls)}
     want = {k: v * n for k, v in train_launches(cfg, remat).items()}
     check_launches(ctx, label, seen, want)
-    require(not ctx["on_card"] or seen["flash_schedules"]["tri"] == want["flash_attention"],
+    sched = "tri" if cfg.causal else "dense"
+    require(not ctx["on_card"] or seen["flash_schedules"][sched] == want["flash_attention"],
             f"{label}: flash schedules {seen['flash_schedules']}")
-    bwd_want = {"flash_attention_bwd": cfg.n_layers * n,
-                "axqmm_bwd": (5 * cfg.n_layers + 1) * n,
+    once = train_launches(cfg, "none")
+    bwd_want = {"flash_attention_bwd": cfg.n_layers * n, "axqmm_bwd": once["axqmm"] * n,
                 "axqmm_gated_bwd": cfg.n_layers * n, "axqmm_experts_bwd": 0}
     require(seen["backward_calls"] == bwd_want,
             f"{label}: backward oracles {seen['backward_calls']}, expected {bwd_want}")
@@ -3644,6 +4001,8 @@ def phase_train(ctx, cfg):
     step_s = sum(steady) / len(steady)
     out = {"arch": cfg.name, "layers": cfg.n_layers, "batch": B, "seq": T, "steps": n,
            "remat": remat, "history": hist, "init_s": init_s, "step_s_mean": step_s,
+           "launches_per_step": {k: v / n for k, v in seen["launches"].items() if v},
+           "predicted_per_step": train_launches(cfg, remat),
            "tokens_per_s": B * T / step_s, "seen": seen, "oracle_ms": oracle_ms,
            "oracle_share_last_step": sum(oracle_ms.values()) / 1e3 / hist[-1]["s"]
            if oracle_ms else None}
@@ -3713,7 +4072,7 @@ def _train_noise(ctx):
         yield
 
 
-def _step_both_routes(ctx, label, cfg, approx, batch, degree, expect_band=False):
+def _step_both_routes(ctx, label, cfg, approx, batch, degree, expect_schedule=None):
     """One ``train_step`` (and its gradients) with the kernels and with the
     plain versions on the card, from one seeded state."""
     torch = ctx["torch"]
@@ -3762,8 +4121,9 @@ def _step_both_routes(ctx, label, cfg, approx, batch, degree, expect_band=False)
         gemm = sum(v for n, v in k["launches"].items() if n.startswith("axqmm"))
         require(gemm > 0 or exact, f"{label}: no GEMM kernel launched")
         require(not any(p["launches"].values()), f"{label}: the plain run launched kernels")
-        if expect_band:
-            require(k["schedules"]["band"] > 0, f"{label}: no band schedule ({k['schedules']})")
+        if expect_schedule:
+            require(k["schedules"][expect_schedule] > 0,
+                    f"{label}: no {expect_schedule} schedule ({k['schedules']})")
     dl = abs(k["loss"] - p["loss"])
     require(dl <= TRAIN_LOSS_ATOL and math.isfinite(k["loss"]),
             f"{label}: loss {k['loss']} vs plain {p['loss']}")
@@ -3974,45 +4334,70 @@ def phase_train_launch(ctx, cfg):
 TRAIN_RESUME_ATOL = 2e-2
 
 
-def train_phases(ctx, cfg, moe_cfg, ssm_cfg, rg_cfg) -> dict:
-    """Phase 5, in order; each sub-phase frees the card's cache after it."""
-    out = {}
+def train_phases(ctx, record, cfg, moe_cfg, ssm_cfg, rg_cfg, vlm_cfg, audio_cfg) -> None:
+    """Phase 5, in order, each sub-phase's result set in ``record`` (which
+    times it); each sub-phase frees the card's cache after it."""
     for key, fn, args in (("train_kernels", train_kernel_rows, (cfg,)),
                           ("train_path", phase_train, (cfg,)),
                           ("train_cut", phase_train_cut, (cfg,)),
                           ("train_launch", phase_train_launch, (cfg,)),
-                          ("train_families", phase_train_families, (moe_cfg, ssm_cfg, rg_cfg))):
-        t = time.time()
-        out[key] = fn(ctx, *args)
-        say(f"{key}: {time.time() - t:.1f} s")
+                          ("train_families", phase_train_families,
+                           (moe_cfg, ssm_cfg, rg_cfg, vlm_cfg, audio_cfg)),
+                          ("train_vlm", phase_train,
+                           (vlm_cfg, "phase 5e", ctx["vlm_train_shape"])),
+                          ("train_audio", phase_train,
+                           (audio_cfg, "phase 5f", ctx["audio_train_shape"],
+                            ctx["audio_train_remat"]))):
+        record[key] = fn(ctx, *args)
         if ctx["on_card"]:
             ctx["torch"].cuda.empty_cache()
-    return out
 
 
-def phase_train_families(ctx, moe_cfg, ssm_cfg, rg_cfg):
+def phase_train_families(ctx, moe_cfg, ssm_cfg, rg_cfg, vlm_cfg, audio_cfg):
     """Phase 5d: one axq8 train step each of granite-moe-3b-a800m (2
-    layers), mamba2-370m (2 layers) and recurrentgemma-2b (one (rec, rec,
+    layers), mamba2-370m (2 layers), recurrentgemma-2b (one (rec, rec,
     attn) group, a sequence past its 2048 window: ``band`` at head_dim 256),
-    at full width, the kernels against the plain versions."""
+    internvl2-1b (2 layers, its image and text tokens) and hubert-xlarge (2
+    layers, non-causal ``dense`` at head_dim 80), at full width, the
+    kernels against the plain versions."""
     torch = ctx["torch"]
     deg = torch.tensor(8, dtype=torch.int32, device=ctx["dev"])
     out = {}
     for tag, c, layers, shape in (("moe", moe_cfg, 2, ctx["fam_shape"]),
                                   ("ssm", ssm_cfg, 2, ctx["fam_shape"]),
                                   ("rg", rg_cfg, len(rg_cfg.block_pattern),
-                                   ctx["rg_train_shape"])):
+                                   ctx["rg_train_shape"]),
+                                  ("vlm", vlm_cfg, 2, ctx["vlm_fam_shape"]),
+                                  ("audio", audio_cfg, 2, ctx["fam_shape"])):
         cut = dataclasses.replace(c, n_layers=layers)
         batch = _train_batch(ctx, cut, *shape)
         out[tag] = _step_both_routes(ctx, f"phase 5d ({c.name}, {layers} layers, "
                                           f"batch x seq {shape})", cut, "axq8", batch, deg,
-                                     expect_band=tag == "rg" and ctx["on_card"])
+                                     expect_schedule={"rg": "band", "audio": "dense"}.get(tag))
         if ctx["on_card"]:
             torch.cuda.empty_cache()
     return out
 
 
 # ---------------------------------------------------------------------------
+
+
+class TimedRecord(dict):
+    """The run's record; each entry set also notes (and prints) the
+    seconds since the entry before it — the phase's cost, its model's
+    construction included — in ``times``."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.times: dict = {}
+        self._t = time.time()
+
+    def __setitem__(self, key, value):
+        now = time.time()
+        self.times[key] = round(now - self._t, 1)
+        self._t = now
+        say(f"{key}: {self.times[key]} s since the entry before")
+        super().__setitem__(key, value)
 
 
 def write_record(path, record) -> None:
@@ -4088,6 +4473,9 @@ def main(argv=None) -> int:
                "train_batch": 8, "train_seq": 1024, "train_steps": 8, "train_remat": "none",
                "train_cut_shape": (2, 1024), "overfit_shape": (1, 256),
                "launch_shape": (2, 256, 10), "fam_shape": (2, 512), "rg_train_shape": (1, 2304),
+               "vlm_train_shape": (4, 2048), "audio_train_shape": (8, 1024),
+               "audio_train_remat": "none", "vlm_fam_shape": (1, 2048),
+               "fleet_replicas": 3, "fleet_loss": 0.05, "fleet_seed": 3,
                "calib_shape": (2, 64), "plan_grid": (8, 5),
                "resil_prompts": 8, "resil_deadline_ms": 5000.0, "resil_shed": 8,
                "resil_storm": "seu_state=0.05,seu_param=0.03,nan=0.08,spike=0.05,drop=0.05",
@@ -4118,6 +4506,8 @@ def main(argv=None) -> int:
         qmoe_cfg = get_config("qwen2-moe-a2.7b")
         ssm_cfg = get_config("mamba2-370m")
         rg_cfg = get_config("recurrentgemma-2b")
+        vlm_cfg = get_config("internvl2-1b")
+        audio_cfg = get_config("hubert-xlarge")
     else:
         torch.set_num_threads(4)
         smi, kind, count = ["cpu rehearsal"], "cpu", 0
@@ -4150,6 +4540,9 @@ def main(argv=None) -> int:
                "train_batch": 2, "train_seq": 32, "train_steps": 4, "train_remat": "none",
                "train_cut_shape": (2, 32), "overfit_shape": (2, 16),
                "launch_shape": (2, 16, 10), "fam_shape": (2, 32), "rg_train_shape": (1, 48),
+               "vlm_train_shape": (2, 24), "audio_train_shape": (2, 32),
+               "audio_train_remat": "none", "vlm_fam_shape": (1, 24),
+               "fleet_replicas": 3, "fleet_loss": 0.2, "fleet_seed": 3,
                "calib_shape": (2, 16), "plan_grid": (8, 6, 4),
                "resil_prompts": 4, "resil_deadline_ms": 5000.0, "resil_shed": 4,
                "resil_storm": "seu_state=0.2,seu_param=0.1,nan=0.3,spike=0.1,drop=0.1",
@@ -4179,16 +4572,18 @@ def main(argv=None) -> int:
         ssm_cfg = get_config("mamba2-370m-smoke")
         # head_dim 16 at smoke width: keep the D = 256 paths
         rg_cfg = dataclasses.replace(get_config("recurrentgemma-2b-smoke"), head_dim=256)
+        vlm_cfg = get_config("internvl2-1b-smoke")
+        audio_cfg = get_config("hubert-xlarge-smoke")
     ctx["timer"] = Timer(torch, on_card)
 
-    record = {"card": smi, "kind": kind, "count": count}
+    record = TimedRecord(card=smi, kind=kind, count=count)
     if on_card:
         record["flash_attention_resources"] = flash_resources(ctx)
         record["decode_resources"] = decode_resources(ctx)
         record["axqmm_resources"] = axqmm_resources(ctx)
         record["pr_resources"] = pr_resources(ctx)
     if args.train_only:
-        record.update(train_phases(ctx, cfg, moe_cfg, ssm_cfg, rg_cfg))
+        train_phases(ctx, record, cfg, moe_cfg, ssm_cfg, rg_cfg, vlm_cfg, audio_cfg)
         write_record(args.record, record)
         say("training phases done (--train-only): no result line")
         return 0
@@ -4197,6 +4592,7 @@ def main(argv=None) -> int:
     record["kernels_h128"] = phase_kernels_head128(ctx, qwen_cfg, nemo_cfg)
     record["kernels_moe"] = phase_kernels_moe(ctx, moe_cfg, qmoe_cfg)
     record["kernels_rec"] = phase_kernels_recurrent(ctx, ssm_cfg, rg_cfg)
+    record["kernels_fe"] = phase_kernels_frontends(ctx, vlm_cfg, audio_cfg)
     if args.kernels_only:
         write_record(args.record, record)
         say("kernel checks done (--kernels-only): no result line")
@@ -4206,6 +4602,7 @@ def main(argv=None) -> int:
     record["int8_cache_path"] = phase_serve_int8(ctx, cfg, model, params, prompts_3)
     record["chunked_path"] = phase_serve_chunked(ctx, cfg, model, params)
     record["resil_path"] = phase_resil(ctx, cfg, model, params, prompts_3)
+    record["fleet_path"] = phase_fleet(ctx, "3r", cfg, model, params, prompts_3)
     del model, params
     if on_card:
         torch.cuda.empty_cache()
@@ -4246,6 +4643,11 @@ def main(argv=None) -> int:
     if on_card:
         torch.cuda.empty_cache()
     record["moe_model_2layer"] = phase_model(ctx, moe_cfg, ctx["prefill_m"])
+    model, params = serving_model(ctx, vlm_cfg)
+    record["vlm_path"] = phase_serve_vlm(ctx, "3q", vlm_cfg, model, params, prompts_3)
+    del model, params
+    if on_card:
+        torch.cuda.empty_cache()
     for tag, c in (("ssm", ssm_cfg), ("rg", rg_cfg)):
         model, params = serving_model(ctx, c)
         prompts, kinds = recurrent_prompts(ctx, c, tag)
@@ -4258,9 +4660,11 @@ def main(argv=None) -> int:
         record[f"{tag}_model"] = phase_model(ctx, c, ctx[f"{tag}_model_prompt"],
                                              n_layers=2 if tag == "ssm" else 4)
 
-    record.update(train_phases(ctx, cfg, moe_cfg, ssm_cfg, rg_cfg))
+    train_phases(ctx, record, cfg, moe_cfg, ssm_cfg, rg_cfg, vlm_cfg, audio_cfg)
 
     paths = {"5a": record["train_path"]["seen"],
+             "5e": record["train_vlm"]["seen"], "5f": record["train_audio"]["seen"],
+             "3q": record["vlm_path"], "3r": record["fleet_path"],
              "3": record["main_path"], "3b": record["int8_cache_path"],
              "3c": record["chunked_path"], "3d": record["stream_path"],
              "3e": record["swa_path"], "3f": record["swa_int8_path"],
@@ -4277,8 +4681,9 @@ def main(argv=None) -> int:
         swa_rows = record["kernels_swa"].get(name, [])
         h128_rows = record["kernels_h128"].get(name, [])
         rec_rows = record["kernels_rec"].get(name, [])
+        fe_rows = record["kernels_fe"].get(name, [])
         if name in record["kernels"]:
-            h128_rows = h128_rows + moe_rows.get(name, []) + rec_rows
+            h128_rows = h128_rows + moe_rows.get(name, []) + rec_rows + fe_rows
         # the summary row: the unembedding GEMM (the largest decode GEMM)
         # for axqmm, the decode-shaped row for the others
         lead = rows[-1] if name == "axqmm" else rows[0]
@@ -4314,6 +4719,10 @@ def main(argv=None) -> int:
             entry["head_dim_128"] = {k: tri128.get(k) for k in keys + ("dtype",)}
             # recurrentgemma-2b's band row at head_dim 256, MQA 10/1
             entry["head_dim_256"] = {k: rec_rows[0].get(k) for k in keys + ("dtype",)}
+            # hubert-xlarge's non-causal dense row (D 80) and internvl2-1b's
+            # tri at G = 7
+            entry["dense_noncausal"] = {k: fe_rows[0].get(k) for k in keys + ("dtype",)}
+            entry["tri_g7"] = {k: fe_rows[1].get(k) for k in keys + ("dtype",)}
         if name == "flash_decode":
             # recurrentgemma-2b's decode at head_dim 256, G 10, split edges
             keys = ("B", "KVr", "G", "D", "T", "ms", "ms_graph", "plain_ms", "bound_ms",
@@ -4321,6 +4730,7 @@ def main(argv=None) -> int:
             entry["head_dim_256"] = {k: rec_rows[0].get(k) for k in keys}
         summary.append(entry)
     record["summary"] = summary
+    record["phase_seconds"] = dict(record.times)
     write_record(args.record, record)
     if not on_card:
         say("rehearsal done on the CPU (plain versions, smoke size): no device result")

@@ -208,6 +208,9 @@ def _pack_transformer(params: dict, cfg, policy: ApproxPolicy) -> dict:
                              for k, w in moe["shared"].items()}
         layers["moe"] = moe
     out["layers"] = layers
+    for fe, fcs in (("v_proj", ("fc1", "fc2")), ("a_proj", ("fc1",))):
+        if fe in params:
+            out[fe] = {k: _pack_dense(params[fe][k], f"{fe}/{k}", policy) for k in fcs}
     if "unembed" in params:
         out["unembed"] = _pack_dense(params["unembed"], "unembed", policy)
     elif cfg.tie_embeddings:
@@ -257,16 +260,16 @@ def _pack_hybrid(params: dict, cfg, policy: ApproxPolicy) -> dict:
 
 
 def prepack_params(params: dict, cfg, policy: ApproxPolicy) -> dict:
-    """Quantize-once pass over a model's param tree (dense, MoE, SSM or
-    hybrid): every dense weight whose policy spec is AXQ becomes a
+    """Quantize-once pass over a model's param tree (dense, MoE, SSM,
+    hybrid, or a frontend arch, its ``v_proj`` / ``a_proj`` projections
+    included): every dense weight whose policy spec is AXQ becomes a
     :class:`PackedQWeight`, every one whose spec is *_EMUL a
     :class:`PackedEmulWeight` (per stacked-layer slice).
     Idempotent; EXACT-only policies return every tensor untouched.  The
     result is inference-only (int8 leaves carry no gradients)."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid") or cfg.frontend:
-        raise NotImplementedError(
-            f"prepack_params is ported for the dense, MoE, SSM and hybrid families, "
-            f"not {cfg.name!r} ({cfg.family})")
+    from repro_torch.models.transformer import check_supported  # lazy: layering
+
+    check_supported(cfg)
     if cfg.family == "ssm":
         return _pack_ssm(params, cfg, policy)
     if cfg.family == "hybrid":

@@ -32,6 +32,13 @@
   python -m repro_torch.launch.serve --arch tinyllama-1.1b --approx axq8 --qos \
       --faults seu_state=0.02,seu_param=0.01,nan=0.05,spike=0.02,drop=0.02 \
       --fault-seed 7 --deadline-ms 2000 --retries 4 --shed 8 --brownout --metrics
+  # the VLM's backbone (internvl2-1b; text-only prompts, as the reference
+  # serves it):
+  python -m repro_torch.launch.serve --arch internvl2-1b --approx axq8 --qos --metrics
+  # a fleet of 3 replica engines on the one card, surviving seeded replica
+  # losses (queue migration, in-flight rewind, survivor replanning):
+  python -m repro_torch.launch.serve --arch tinyllama-1.1b --approx axq8 --replicas 3 \
+      --faults replica_loss=0.02 --metrics
 
 Weights are random-init from ``--seed``.  ``--qos`` walks the AXQ degree
 ladder ebits 8 -> 5 with load, at a fixed set of kernels (the stream
@@ -44,8 +51,21 @@ the plan's policy with its most accurate rung, or with ``--qos`` steps its
 ladder; ``--approx`` is then ignored.  ``--faults`` (either workload)
 injects a seeded fault storm and turns on the runtime guards;
 ``--deadline-ms``, ``--retries``, ``--shed`` and ``--brownout`` set the
-serving policy (``repro_torch.resil``).  ``replica_loss`` parses and a
-single engine ignores it; ``--replicas`` is not ported.
+serving policy (``repro_torch.resil``).  A single engine ignores
+``replica_loss``.
+
+``--replicas N`` (N > 1) serves either workload through a
+:class:`repro_torch.dist.fleet.FleetSupervisor` over N replica engines on
+the one device: least-loaded routing (``--route-by slots|backlog``), a
+fleet-level ``replica_loss`` plan drawn from ``--faults`` (the engine
+kinds become one plan a replica, seeded ``--fault-seed + rid``), queue
+migration and in-flight rewind when a replica dies, and the survivor plan
+with its modeled latency (``--rescale-ms``).  LM replicas share one packed
+weight set (each has its own cache and graphs; a storm with ``seu_param``
+gives each replica its own copy, since flips land in place).  Tensor
+parallelism (``--tp`` above 1, ``--ring``, ``--mesh`` other than 1x1) is
+not ported and raises.  An encoder-only arch (hubert-xlarge) has no decode
+step and raises, as in the reference.
 """
 
 from __future__ import annotations
@@ -54,6 +74,7 @@ import argparse
 import time
 
 import numpy as np
+import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core.approx import policy_from_flag
@@ -75,6 +96,24 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--frames", type=int, default=8,
                     help="frames per clip (stream workload)")
     ap.add_argument("--arch", default="tinyllama-1.1b-smoke")
+    ap.add_argument("--mesh", default="1x1",
+                    help="device mesh; only 1x1 is ported (one device)")
+    # -- the replica fleet (repro_torch.dist.fleet) -----------------------
+    ap.add_argument("--replicas", type=int, default=1, metavar="N",
+                    help="serve through a FleetSupervisor over N replica engines "
+                         "(N > 1), all on the one device")
+    ap.add_argument("--tp", type=int, default=0, metavar="M",
+                    help="tensor-parallel degree per replica: not ported, "
+                         "above 1 raises")
+    ap.add_argument("--ring", action="store_true",
+                    help="the int8 ring reductions of tensor-parallel decode: "
+                         "not ported, raises")
+    ap.add_argument("--rescale-ms", type=float, default=5.0,
+                    help="modeled survivor re-shard latency charged per rescale "
+                         "(repro_rescale_seconds histogram)")
+    ap.add_argument("--route-by", default="slots", choices=("slots", "backlog"),
+                    help="fleet routing load: slots counts requests (queued + in "
+                         "a slot); backlog counts admission work in payload units")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--new-tokens", type=int, default=16)
@@ -151,7 +190,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="inject a seeded fault storm: comma list of "
                          "kind=rate — seu_state, seu_param, nan, spike, drop "
                          "(e.g. 'seu_state=0.02,nan=0.05'); enables runtime "
-                         "guards + quarantine")
+                         "guards + quarantine; with --replicas, "
+                         "replica_loss=RATE kills whole replicas (drawn fleet-"
+                         "level; the engine kinds keep per-replica storms)")
     ap.add_argument("--fault-seed", type=int, default=0,
                     help="fault schedule seed: the same seed reproduces the "
                          "injected-fault sequence and recovery trace")
@@ -285,9 +326,14 @@ def serve_stream(args):
     return s, eng
 
 
-def serve_lm(args):
-    """--workload lm: token decode.  Returns (summary, engine)."""
+def lm_model(args):
+    """(cfg, plan, model, params) of ``--workload lm``: the arch under the
+    plan's or ``--approx``'s policy, seeded weights, prepacked unless
+    ``--no-prepack``.  An encoder-only arch raises before any weight is
+    made: it has no decode step."""
     cfg = get_config(args.arch)
+    if cfg.encoder_only:
+        raise ValueError("encoder-only arch has no decode step")
     plan = load_plan(args)
     if plan is not None:
         plan.validate_for(cfg)
@@ -303,23 +349,41 @@ def serve_lm(args):
     if not args.no_prepack:
         # rebind: the f32 copies of packed weights are dropped here
         params = model.prepack(params)
-    qos = QoSController(
+    return cfg, plan, model, params
+
+
+def lm_qos(args):
+    """A fresh QoS controller (stateful: one an engine), or None."""
+    return QoSController(
         ladder=[{"ebits": e} for e in (8, 7, 6, 5)],
         low_water=0.25, high_water=0.75, cooldown_steps=8,
     ) if args.qos else None
-    registry = obs_metrics.get_registry() if args.metrics_out else None
-    eng = ServeEngine(model, params, slots=args.slots, max_len=args.max_len,
-                      eos_id=args.eos_id, greedy=args.temperature <= 0,
-                      temperature=max(args.temperature, 1e-6),
-                      top_k=args.top_k, seed=args.seed, qos=qos, prepack=False,
-                      plan=plan, registry=registry,
-                      quality_every=args.quality_every,
-                      admission=admission_from_args(args), **resil_kwargs(args))
+
+
+def lm_prompts(args, cfg) -> list:
+    """The launcher's prompts: 2-9 tokens uniform over the vocab, seeded."""
     rng = np.random.default_rng(args.seed)
+    return [rng.integers(0, cfg.vocab, int(rng.integers(2, 10)))
+            for _ in range(args.requests)]
+
+
+def lm_engine_kwargs(args) -> dict:
+    return dict(max_len=args.max_len, eos_id=args.eos_id, greedy=args.temperature <= 0,
+                temperature=max(args.temperature, 1e-6), top_k=args.top_k,
+                seed=args.seed, prepack=False, quality_every=args.quality_every,
+                admission=admission_from_args(args))
+
+
+def serve_lm(args):
+    """--workload lm: token decode.  Returns (summary, engine)."""
+    cfg, plan, model, params = lm_model(args)
+    qos = lm_qos(args)
+    registry = obs_metrics.get_registry() if args.metrics_out else None
+    eng = ServeEngine(model, params, slots=args.slots, qos=qos, plan=plan,
+                      registry=registry, **lm_engine_kwargs(args), **resil_kwargs(args))
     t0 = time.time()
-    for _ in range(args.requests):
-        eng.submit(rng.integers(0, cfg.vocab, int(rng.integers(2, 10))),
-                   args.new_tokens)
+    for p in lm_prompts(args, cfg):
+        eng.submit(p, args.new_tokens)
     done = eng.run_until_drained()
     dt = time.time() - t0
     s = summarize(done, eng.stats, wall_s=dt)
@@ -347,15 +411,152 @@ def serve_lm(args):
     return s, eng
 
 
+def fleet_fault_plans(args, replicas: int):
+    """Split ``--faults`` for a fleet: ``replica_loss`` is drawn by one
+    fleet-level plan (the supervisor binds it to the replica count); the
+    engine kinds become one plan a replica, seeded ``--fault-seed + rid``
+    so the replicas see distinct storms, with ``replica_loss`` zeroed (an
+    engine ignores the kind, so leaving it there would drop the rate).
+    Returns (fleet plan or None, [engine plan or None] a replica)."""
+    if not args.faults:
+        return None, [None] * replicas
+    import dataclasses
+
+    from repro_torch.resil import FaultPlan, FaultSpec
+
+    spec = FaultSpec.parse(args.faults)
+    fleet_plan = (FaultPlan(FaultSpec(replica_loss=spec.replica_loss), seed=args.fault_seed)
+                  if spec.replica_loss else None)
+    espec = dataclasses.replace(spec, replica_loss=0.0)
+    if not any((espec.seu_state, espec.seu_param, espec.nan, espec.spike, espec.drop)):
+        return fleet_plan, [None] * replicas
+    return fleet_plan, [FaultPlan(espec, seed=args.fault_seed + rid)
+                        for rid in range(replicas)]
+
+
+def serve_fleet(args):
+    """--replicas N: N replica engines of either workload under one
+    FleetSupervisor on the one device.  Returns (summary, supervisor)."""
+    from repro_torch.dist.fleet import FleetSupervisor
+    from repro_torch.resil import GuardConfig
+
+    fleet_plan, engine_plans = fleet_fault_plans(args, args.replicas)
+    policy = policy_from_args(args)
+    registry = obs_metrics.get_registry() if args.metrics_out else None
+
+    def engine_kwargs(rid: int) -> dict:
+        kw: dict = {"slots": args.slots, "registry": registry}
+        if engine_plans[rid] is not None:
+            kw["faults"] = engine_plans[rid]
+            kw["guards"] = GuardConfig()
+        if policy is not None:
+            kw["policy"] = policy
+        return kw
+
+    if args.workload == "stream":
+        from repro_torch.serve.stream import StreamAdapter, StreamServeEngine, make_clip
+
+        adapter = StreamAdapter(device=args.device)
+        scfg = adapter.cfg
+        ladder = [{"degrees": [e] * (scfg.n_layers + 1)} for e in (8, 7, 6, 5)]
+        plan = load_plan(args)
+
+        def build(device, rid):
+            # QoS controllers are stateful: one a replica, never shared
+            qos = QoSController(ladder=ladder, low_water=0.25, high_water=0.75,
+                                cooldown_steps=8) if args.qos else None
+            return StreamServeEngine(adapter, seed=args.seed, qos=qos, plan=plan,
+                                     quality_every=args.quality_every,
+                                     **engine_kwargs(rid))
+
+        payloads = [make_clip(args.frames, scfg.frame, q=scfg.q, seed=i)
+                    for i in range(args.requests)]
+        budget, unit, device = None, "frames", adapter.device
+    else:
+        cfg, plan, model, params = lm_model(args)
+        # one packed weight set for every replica; a parameter storm flips
+        # in place, so it gets a copy a replica
+        own = args.faults is not None and any(
+            p is not None and p.spec.seu_param for p in engine_plans)
+
+        def build(device, rid):
+            p = params
+            if own:
+                from repro_torch.tree import tree_map
+
+                p = tree_map(torch.clone, params)
+            return ServeEngine(model, p, qos=lm_qos(args), plan=plan,
+                               **lm_engine_kwargs(args), **engine_kwargs(rid))
+
+        payloads = lm_prompts(args, cfg)
+        budget, unit, device = args.new_tokens, "tokens", model.device
+
+    sup = FleetSupervisor(build, args.replicas, faults=fleet_plan, policy=policy,
+                          registry=registry, rescale_ms=args.rescale_ms,
+                          route_by=args.route_by, device=device)
+    t0 = time.time()
+    for p in payloads:
+        sup.submit(p, budget)
+    done = sup.run_until_drained()
+    dt = time.time() - t0
+    units = sum(len(r.out) for r in done)
+    counts = sup.status_counts()
+    status = " ".join(f"{k}={v}" for k, v in sorted(counts.items()))
+    print(f"[launch.serve] fleet: {len(done)} reqs on {args.replicas} replica(s), "
+          f"{len(sup.live)} up at exit, {units} {unit}, {dt:.2f}s [{status}] "
+          f"[device={device} kernels={kdispatch.resolved_backend(device)}]")
+    if sup.rescales:
+        last = sup.rescales[-1]
+        print(f"[launch.serve]   last rescale: data={last.data} model={last.model} "
+              f"idle={last.idle_devices} ({len(sup.rescales)} rescale(s))")
+    s = summarize(done, None, wall_s=dt)
+    s.update(replicas=args.replicas, live=len(sup.live), statuses=counts,
+             rescales=len(sup.rescales))
+    if args.metrics:
+        for k, v in s.items():
+            print(f"[launch.serve]   {k:24s} {v}")
+        events: dict = {}
+        for _, name, _ in sup.resil_log:
+            events[name] = events.get(name, 0) + 1
+        if events:
+            line = " ".join(f"{k}={v}" for k, v in sorted(events.items()))
+            print(f"[launch.serve]   fleet events: {line}")
+        for r in sup.replicas:
+            state = "up" if r.alive else f"dead@tick{r.died_at}"
+            print(f"[launch.serve]   replica {r.rid}: {state}, "
+                  f"{len(r.engine.done)} reqs finished")
+    write_obs(args)
+    return s, sup
+
+
+def check_one_device(args) -> None:
+    """Tensor parallelism is not ported: ``--tp`` above 1, ``--ring`` and a
+    mesh other than 1x1 raise (never a silent one-device run)."""
+    d, m = (int(x) for x in args.mesh.split("x")[:2])
+    if (d, m) != (1, 1):
+        raise SystemExit(f"--mesh {args.mesh}: the port serves on one device (1x1); "
+                         "the mesh is not ported yet")
+    if args.tp > 1:
+        raise SystemExit(f"--tp {args.tp}: tensor parallelism is not ported yet "
+                         "(one device a replica)")
+    if args.ring:
+        raise SystemExit("--ring: the int8 ring reductions of tensor-parallel decode "
+                         "are not ported yet")
+
+
 def run(argv=None):
     """Parse ``argv`` and serve; returns (summary dict, engine), so a caller
-    can inspect the engine after the run.  ``--trace-out`` enables the
+    can inspect the engine after the run — with ``--replicas`` above 1,
+    (summary, the FleetSupervisor).  ``--trace-out`` enables the
     process-global tracer; ``--metrics-out`` exports the process-global
     registry, which the engine and the kernel dispatch share."""
     args = build_parser().parse_args(argv)
+    check_one_device(args)
     kdispatch.set_backend(args.kernels)
     if args.trace_out:
         obs_trace.enable()
+    if args.replicas > 1:
+        return serve_fleet(args)
     if args.workload == "stream":
         return serve_stream(args)
     return serve_lm(args)

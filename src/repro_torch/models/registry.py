@@ -1,5 +1,6 @@
-"""Model API over the ported families: dense, MoE, SSM (Mamba-2) and hybrid
-(RG-LRU + local attention), dispatched by ``cfg.family``.
+"""Model API over the ported families: dense, MoE, SSM (Mamba-2), hybrid
+(RG-LRU + local attention), VLM and audio (the transformer with its
+frontend stub), dispatched by ``cfg.family``.
 
     model = build_model(cfg, policy)               # device="cuda" by default
     params = model.init(seed=0)
@@ -14,7 +15,9 @@ Every compute entry point takes a runtime ``degree``: None, a global
 scalar, or an ``(n_layers + 1,)`` per-site vector (models/degrees.py).  The
 SSM and hybrid families keep a cache of per-slot state (their recurrent
 state and conv tails, the hybrid also its attention rings), whatever
-``quant`` or ``REPRO_KV_INT8`` say: neither has an int8 cache.
+``quant`` or ``REPRO_KV_INT8`` say: neither has an int8 cache.  The VLM
+serves text-only prompts (its prefill and decode embed tokens alone, as the
+reference's do); the audio arch is encoder-only and has no cache.
 """
 
 from __future__ import annotations
@@ -81,7 +84,11 @@ class Model:
                    dtype=torch.bfloat16, quant: Optional[bool] = None):
         """The decode cache: for the SSM and hybrid families their state
         cache; else int8 (:class:`~repro_torch.models.transformer.LMCacheQ`)
-        when ``quant``, or when ``quant`` is None and ``REPRO_KV_INT8=1``."""
+        when ``quant``, or when ``quant`` is None and ``REPRO_KV_INT8=1``.
+        An encoder-only arch (the audio family) has no decode step: it
+        raises, as the reference does."""
+        if self.cfg.encoder_only:
+            raise ValueError("encoder-only arch has no decode step")
         if self.cfg.family == "hybrid":
             return rglru.init_hybrid_cache(self.cfg, tp, batch, max_len, dtype, self.device)
         if self.cfg.family == "ssm":

@@ -1,10 +1,20 @@
-"""Decoder transformer LM (dense and MoE families), config-driven, in PyTorch.
+"""Decoder / encoder transformer LM (dense, MoE, VLM and audio families),
+config-driven, in PyTorch.
 
 Layer parameters are stacked along a leading (n_layers, ...) axis as in the
 reference; its layer ``scan`` is a Python loop over the stack here.  All
 matmuls dispatch through the approximation layer, attention through
 ``kernels/dispatch.py``.  An MoE config replaces each block's gated MLP
 with :mod:`repro_torch.models.moe`, added to the residual stream.
+
+The frontends are the reference's stubs (:func:`embed_inputs`): the VLM
+projects precomputed patch embeddings (``v_proj``: fc1, gelu, fc2) and
+prepends them to the token embeddings; the audio encoder projects
+precomputed frame features (``a_proj``: fc1) and adds sinusoidal positions.
+Both projections run at the head site's degree.  The audio arch is
+encoder-only (``causal=False``: non-causal ``dense`` attention, no rope)
+and has no decode step; the VLM serves text-only prompts, as the reference
+does.
 
 The KV cache is updated in place by prefill and decode (the functional
 reference returns fresh caches): the cache is the largest serving tensor,
@@ -45,14 +55,19 @@ def _dtype(cfg: ArchConfig):
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
+#: the frontend each family carries (None: token embeddings only)
+FAMILY_FRONTENDS = {"dense": None, "moe": None, "ssm": None, "hybrid": None,
+                    "vlm": "vision", "audio": "audio"}
+
+
 def check_supported(cfg: ArchConfig) -> None:
-    """The port covers the dense, MoE, SSM and hybrid families; the
-    frontend (vision, audio) archs are not ported."""
-    if (cfg.family not in ("dense", "moe", "ssm", "hybrid")
-            or bool(cfg.moe) != (cfg.family == "moe") or cfg.frontend):
+    """The port covers the dense, MoE, SSM and hybrid families and the
+    frontend archs (VLM with the vision stub, audio with the frame stub)."""
+    if (cfg.family not in FAMILY_FRONTENDS or bool(cfg.moe) != (cfg.family == "moe")
+            or cfg.frontend != FAMILY_FRONTENDS[cfg.family]):
         raise NotImplementedError(
-            f"{cfg.name!r} ({cfg.family}) is not ported; the dense, MoE, SSM and "
-            "hybrid families are")
+            f"{cfg.name!r} ({cfg.family}, frontend {cfg.frontend}) is not ported; the "
+            "dense, MoE, SSM, hybrid, VLM (vision) and audio families are")
 
 
 def attn_window(cfg: ArchConfig):
@@ -110,6 +125,14 @@ def init_lm(gen: torch.Generator, cfg: ArchConfig, tp: int = 1, device="cpu"):
     if not cfg.tie_embeddings:
         params["unembed"] = L.init_dense(gen, d, pd.vocab,
                                          scale=1.0 / math.sqrt(d), device=device)
+    if cfg.frontend == "vision":
+        params["v_proj"] = {
+            "fc1": L.init_dense(gen, cfg.frontend_dim, d, bias=True, device=device),
+            "fc2": L.init_dense(gen, d, d, bias=True, device=device),
+        }
+    elif cfg.frontend == "audio":
+        params["a_proj"] = {
+            "fc1": L.init_dense(gen, cfg.frontend_dim, d, bias=True, device=device)}
     return params
 
 
@@ -212,20 +235,52 @@ def remat_call(remat: str, fn, *args):
     return checkpoint(fn, *args, use_reentrant=False)
 
 
+def _sinusoidal(S: int, d: int, device=None) -> Tensor:
+    """(S, d) f32 absolute positions, ``[sin | cos]`` halves (not
+    interleaved), frequencies ``10000^(-2i/d)``."""
+    pos = torch.arange(S, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(10_000.0, 2 * dim / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def embed_inputs(params, cfg: ArchConfig, batch: dict, dtype, policy: ApproxPolicy,
+                 degree) -> tuple[Tensor, Tensor]:
+    """The token embeddings, with the frontend stubs: audio frames through
+    ``a_proj/fc1`` plus sinusoidal positions (computed in f32, cast to
+    ``dtype``); image patches through ``v_proj`` (fc1, gelu, fc2) prepended
+    to the tokens.  ``degree`` is the head site's (the frontends share
+    it).  Returns (x (B, S, d), positions (B, S) int32)."""
+    if cfg.frontend == "audio":
+        fe = batch["frame_feats"].to(dtype)                       # (B, S, frontend_dim)
+        x = L.dense_apply(params["a_proj"]["fc1"], fe, policy, "a_proj/fc1", degree)
+        x = x + _sinusoidal(x.shape[1], x.shape[2], x.device).to(dtype)[None]
+    else:
+        x = L.embed_apply(params["embed"], batch["tokens"], dtype)
+        if cfg.frontend == "vision":
+            pe = batch["patch_embeds"].to(dtype)                  # (B, S_img, frontend_dim)
+            h = L.dense_apply(params["v_proj"]["fc1"], pe, policy, "v_proj/fc1", degree)
+            # jax.nn.gelu's tanh form, each op rounded as the reference's
+            h = L.act_rounded("gelu")(h)
+            h = L.dense_apply(params["v_proj"]["fc2"], h, policy, "v_proj/fc2", degree)
+            x = torch.cat([h, x], dim=1)
+    B, S = x.shape[:2]
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+    return x, positions
+
+
 def lm_forward(params, cfg: ArchConfig, policy: ApproxPolicy, batch: dict,
                tp: int = 1, degree=None, remat: str = "dots") -> tuple[Tensor, Tensor]:
     """Returns (logits (B, S, vocab_padded) f32, the layers' summed aux
-    load-balance loss (0 for a dense model)).  ``remat`` is the layers'
-    activation policy under autograd (:func:`remat_call`)."""
-    tokens = batch["tokens"]
-    ldeg, hdeg = split_degree(degree, cfg.n_layers, tokens.device)
-    x = L.embed_apply(params["embed"], tokens, _dtype(cfg))
-    B, S = tokens.shape
-    positions = batch.get("positions")
-    if positions is None:
-        positions = torch.arange(S, dtype=torch.int32,
-                                 device=tokens.device)[None].expand(B, S)
-    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    load-balance loss (0 for a dense model)); S counts a VLM's image
+    tokens.  ``remat`` is the layers' activation policy under autograd
+    (:func:`remat_call`)."""
+    dev = next(iter(batch.values())).device
+    ldeg, hdeg = split_degree(degree, cfg.n_layers, dev)
+    x, positions = embed_inputs(params, cfg, batch, _dtype(cfg), policy, hdeg)
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
 
     def body(bp, h, dg):
         return block_apply(bp, h, cfg, tp, policy, "layer", positions, dg, return_aux=True)
@@ -240,11 +295,15 @@ def lm_forward(params, cfg: ArchConfig, policy: ApproxPolicy, batch: dict,
 
 def lm_loss(params, cfg: ArchConfig, policy: ApproxPolicy, batch: dict,
             tp: int = 1, degree=None, remat: str = "dots") -> tuple[Tensor, dict]:
-    """Masked next-token cross-entropy over ``labels >= 0`` plus 0.01 x the
-    aux load-balance loss.  Returns (loss, {"ce", "aux", "ntokens"}), all
-    device scalars."""
+    """Masked next-token cross-entropy over ``labels >= 0`` (a VLM's text
+    positions only) plus 0.01 x the aux load-balance loss.  Returns (loss,
+    {"ce", "aux", "ntokens"}), all device scalars."""
     logits, aux = lm_forward(params, cfg, policy, batch, tp, degree, remat)
-    ce, ntok = masked_ce(logits, batch["labels"])
+    labels = batch["labels"]
+    if cfg.frontend == "vision":
+        # the logits cover [image tokens | text tokens]: the loss is the text's
+        logits = logits[:, -labels.shape[1]:]
+    ce, ntok = masked_ce(logits, labels)
     loss = ce + 0.01 * aux
     return loss, {"ce": ce, "aux": aux, "ntokens": ntok}
 

@@ -18,8 +18,10 @@ spectrum, against the serving stack:
     its clock);
   * ``drop``       — a dropped tick: the fused step is skipped outright (no
     state advance, no emissions, no budget charged);
-  * ``replica_loss`` — a whole serving replica dies (fleet level; a single
-    engine ignores the kind).
+  * ``replica_loss`` — a whole serving replica dies (fleet level: a
+    :class:`~repro_torch.dist.fleet.FleetSupervisor` binds its plan with
+    ``bind_fleet`` and consumes the draws; a single engine records the
+    kind and ignores it).
 
 Flips land in place, in the tensors the engine's CUDA graphs read by
 address, so the next replay computes on the corrupted bits.

@@ -578,17 +578,37 @@ def test_adapter_and_registry_keep_moe_exact_length():
         model.prefill_chunk(params, cache, toks[0], 0, 0, 8)
 
 
-@pytest.mark.parametrize("arch", ["internvl2-1b-smoke", "hubert-xlarge-smoke"])
-def test_check_supported_still_refuses_other_families(arch):
-    """The frontend families stay unported: the registry, init and prepack
-    refuse them."""
+@pytest.mark.parametrize("arch", ["internvl2-1b", "hubert-xlarge", "internvl2-1b-smoke",
+                                  "hubert-xlarge-smoke"])
+def test_check_supported_admits_frontend_families(arch):
+    """The frontend families are ported: ``check_supported``,
+    ``build_model`` and ``prepack_params`` admit them, and each builds its
+    frontend projections (``v_proj`` fc1 / fc2, ``a_proj`` fc1, with
+    biases) at its registered widths (a meta device init: no weights
+    made); a config whose frontend does not match its family is refused."""
+    import dataclasses
+
     cfg = tget_config(arch)
+    TT.check_supported(cfg)
+    build_model(cfg, device="cpu")
+    params = TT.init_lm(torch.Generator(), cfg, device="meta")
+    d, fd = cfg.d_model, cfg.frontend_dim
+    if cfg.frontend == "vision":
+        assert params["v_proj"]["fc1"]["w"].shape == (fd, d)
+        assert params["v_proj"]["fc2"]["w"].shape == (d, d)
+        assert params["v_proj"]["fc2"]["b"].shape == (d,)
+        assert "a_proj" not in params
+    else:
+        assert params["a_proj"]["fc1"]["w"].shape == (fd, d)
+        assert params["a_proj"]["fc1"]["b"].shape == (d,)
+        assert "v_proj" not in params and not cfg.causal
+    assert params["unembed"]["w"].shape == (d, cfg.padded(1).vocab)
+    if not arch.endswith("-smoke"):
+        packed = prepack_params(TT.init_lm(torch.Generator(), tget_config(arch + "-smoke")),
+                                tget_config(arch + "-smoke"), ApproxPolicy())
+        assert ("v_proj" in packed) == (cfg.frontend == "vision")
     with pytest.raises(NotImplementedError):
-        TT.check_supported(cfg)
-    with pytest.raises(NotImplementedError):
-        build_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        prepack_params({}, cfg, ApproxPolicy())
+        TT.check_supported(dataclasses.replace(cfg, frontend=None))
 
 
 @pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "qwen2-moe-a2.7b"])
