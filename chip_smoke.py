@@ -35,7 +35,10 @@ Phases (any failure exits non-zero):
      its training rows, internvl2-1b's unembedding at its odd, unpadded N =
      151655, its gated half, ``v_proj/fc1`` (K 1024, bias) at 4 x 1024 image
      rows, ``tri`` at GQA 14/2 (G = 7) over 2048 tokens and both decode
-     kernels at G = 7), with the stated tolerance (the GEMMs
+     kernels at G = 7; the tp=2 shard shapes of 3s and 3t: tinyllama's and
+     granite's q/kv/wo/down GEMMs, vocab shards and gated half per rank,
+     both decode at the kv heads a rank, tri at 16/2 and 12/4, granite's
+     expert-batched launches at 20 experts a rank), with the stated tolerance (the GEMMs
      also bit-identical, and at decode at least one block an SM), timed
      with CUDA events beside its bound and, where one PyTorch call computes
      the same function, that call (the decode kernels, the GEMMs, SDPA and
@@ -124,6 +127,27 @@ Phases (any failure exits non-zero):
            recovery trace, the packs held once (peak memory); then
            ``launch.serve --replicas 3 --faults replica_loss=...`` for the
            wall numbers;
+     tensor-parallel serving, two ranks on the one card (processes joined
+     by an explicit gloo group: NCCL refuses two ranks on one GPU; gloo
+     reduces CUDA tensors through its own host copies, and the all-gather
+     and the ring's hops are staged through host memory, ``"transport"``
+     in the record), each with its shards of the weights (packed on the shard)
+     and its heads of the cache, eager —
+       3s  tinyllama-1.1b at full width and depth, tp=2, on phase 3's
+           traffic: every request ok, the ranks' streams equal, each rank's
+           launches as the layer count predicts (111 ``axqmm``, 22 gated,
+           22 decode a tick, at the shard shapes), the collectives as
+           predicted (the embedding's all-reduce and two a layer, the
+           logits' all-gather a tick); cut to 2 layers, the first decode
+           step's logits at tp=2 against tp=1 on the same weights (4x the
+           noise floor), and under EXACT (f32) the int8 ring within rel
+           0.05 of exact tp=2 at most half its bytes; then ``launch.serve
+           --tp 2 --dist-backend gloo`` for the wall numbers;
+       3t  granite-moe-3b-a800m at full width and depth, tp=2, 20 experts
+           a rank, with the exact combine and with the int8-ring combine
+           (the same gates), and its 2-layer cut under EXACT (f32): tp=2
+           against tp=1 within 1e-4 of the largest logit, the ring combine
+           within rel 0.05 at most half the combine's bytes;
      every request must finish and every kernel of the path must have
      launched exactly as the layer (or stage) count predicts, while no
      plain version ran on the card.  Every path serves from CUDA graphs,
@@ -172,6 +196,9 @@ Phases (any failure exits non-zero):
            x 1024 frames, remat none, 8 steps: launches 242 / 48 / 48
            (dense) a step;
   6. one {"kernels": [...]} line and, last, the result line.
+
+``--tp-only`` builds, then runs only phase 2's tp=2 shard rows, 3s and 3t
+(no result line).
 
 With ``--record PATH`` every number also goes to a JSON file.
 """
@@ -3575,6 +3602,413 @@ def _resil_stream(ctx) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phases 3s / 3t: tensor-parallel serving, two ranks on the one card
+# ---------------------------------------------------------------------------
+
+#: the tensor-parallel degree of 3s / 3t: two ranks, both on the one card
+TP = 2
+
+
+def phase_kernels_tp(ctx, cfg, moe_cfg):
+    """Phase 2's rows at the tp=2 shard shapes that 3s and 3t launch, each
+    held to its plain version.  Per rank at decode (M = the slots), for
+    tinyllama-1.1b and granite-moe-3b-a800m: wq (N 1024 / 768), wk/wv
+    (N 128 / 256), wo (K 1024 / 768) and tinyllama's down (K 2816) as
+    row-parallel partials (no residual in the epilogue), the unembedding's
+    vocab shard (N 16000 / 24578), tinyllama's gated half (N 2816); decode
+    at the kv heads a rank (2 of G 8 / 4 of G 3); tri prefill at the heads
+    a rank (16 over 2 kv / 12 over 4 kv).  granite's expert-batched
+    launches on its 20 experts a rank, at the decode and prefill
+    capacities."""
+    torch = ctx["torch"]
+    from repro_torch.models.moe import capacity
+
+    deg = torch.tensor(6, dtype=torch.int32, device=ctx["dev"])
+    slots, T = ctx["slots"], ctx["max_len"]
+    nvalid, active = decode_lengths(T, slots)
+    rows = {"axqmm": [], "axqmm_gated": [], "axqmm_experts": [], "axqmm_gated_experts": [],
+            "flash_decode": [], "flash_attention": []}
+    for c, S in ((cfg, ctx["prefill_m"]), (moe_cfg, ctx["moe_prefill_len"])):
+        d, D, pd = c.d_model, c.head_dim, c.padded(TP)
+        H, KVr = pd.n_heads // TP, pd.n_kv_rep // TP
+        shapes = [(H * D, d), (KVr * D, d), (d, H * D)]
+        if c.moe is None:
+            shapes.append((d, pd.d_ff // TP))
+            rows["axqmm_gated"].append(check_gated(ctx, slots, pd.d_ff // TP, d, deg))
+        shapes.append((pd.vocab // TP, d))
+        for N, K in shapes:
+            rows["axqmm"].append(check_axqmm(ctx, slots, N, K, False, deg))
+        rows["flash_decode"].append(check_decode(ctx, slots, KVr, H // KVr, D, T, nvalid,
+                                                 active))
+        rows["flash_attention"].append(check_prefill(ctx, H, S, D, H, KVr))
+    E, f, d = moe_cfg.padded(TP).n_experts // TP, moe_cfg.moe.d_expert, moe_cfg.d_model
+    for C in (capacity(moe_cfg, slots, TP), capacity(moe_cfg, ctx["moe_prefill_len"], TP)):
+        rows["axqmm_gated_experts"].append(check_experts(ctx, E, C, f, d, deg, True))
+        rows["axqmm_experts"].append(check_experts(ctx, E, C, d, f, deg, False))
+    report_rows(rows, f"tp={TP} shard: ")
+    return rows
+
+
+def _rank_ctx(torch, dev, on_card: bool, slots: int) -> dict:
+    """The ``ctx`` keys a rank's helpers read (``drive``, ``check_launches``)."""
+    return {"torch": torch, "dev": dev, "on_card": on_card, "slots": slots,
+            "sync": torch.cuda.synchronize if on_card else (lambda: None)}
+
+
+def _tp_policy(job):
+    from repro_torch.core.approx import ApproxMode, ApproxPolicy, ApproxSpec, uniform
+
+    if job["approx"] == "exact":
+        return ApproxPolicy()
+    return uniform(ApproxSpec(mode=ApproxMode.AXQ, ebits=8, block=job["block"], dynamic=True))
+
+
+def _tp_rank(rank: int, world: int, job: dict) -> dict:
+    """One rank of a 3s / 3t job, in its own process (``spawn_ranks``): the
+    rank's mesh over the gloo group on the card (or the CPU in the
+    rehearsal), then ``job["kind"]``: ``serve`` or ``logits``."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist import meshctx
+    from repro_torch.kernels import _build
+    from repro_torch.models import moe as moe_mod
+
+    on_card = job["on_card"]
+    mesh = meshctx.set_mesh(meshctx.make_mesh((1, world), ("data", "model"),
+                                              device="cuda" if on_card else "cpu",
+                                              backend="gloo"))
+    if on_card:
+        torch.cuda.set_device(mesh.device)
+        _build.build_all()                   # loads the parent's build (content-keyed)
+    ctx = _rank_ctx(torch, mesh.device, on_card, job["slots"])
+    cfg = get_config(job["arch"])
+    if job.get("n_layers"):
+        cfg = dataclasses.replace(cfg, n_layers=job["n_layers"])
+    if job.get("dtype"):
+        cfg = dataclasses.replace(cfg, dtype=job["dtype"])
+    if job["kind"] == "serve":
+        moe_mod._MOE_RING = bool(job.get("moe_ring"))
+        return _tp_serve(ctx, mesh, cfg, job)
+    return _tp_logits(ctx, mesh, cfg, job)
+
+
+def _tp_serve(ctx, mesh, cfg, job) -> dict:
+    """Serve ``job["prompts"]`` through a ShardedServeEngine (eager), with
+    the launch counts and the collective counts set to 0 just before and
+    read just after; the ranks' streams compared at the end."""
+    torch, dev = ctx["torch"], ctx["dev"]
+    from repro_torch.core.dynamic import QoSController
+    from repro_torch.dist import collectives
+    from repro_torch.models import build_model
+    from repro_torch.serve.sharded import ShardedServeEngine
+
+    model = build_model(cfg, _tp_policy(job), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = model.init(generator=gen, tp=TP)      # the global tree, equal on every rank
+    qos = QoSController(ladder=[{"ebits": e} for e in (8, 7, 6, 5)], low_water=0.25,
+                        high_water=0.75, cooldown_steps=8) if job["qos"] else None
+    eng = ShardedServeEngine(model, params, mesh=mesh, ring=job["ring"], slots=job["slots"],
+                             max_len=job["max_len"], qos=qos, seed=0)
+    del params                                     # each rank keeps its shards, packed
+    if ctx["on_card"]:
+        torch.cuda.empty_cache()
+    prompts, new_tokens = job["prompts"], job["new_tokens"]
+    eng.submit(prompts[0][:16], 2)                 # library loads, allocator
+    eng.run_until_drained()
+    steps0, prefills0 = eng.stats.decode_steps, eng.stats.prefill_calls
+    collectives.counter.reset()
+    reqs, seen = drive(ctx, eng, prompts, new_tokens)
+    coll = collectives.counter.snapshot()
+    eng.check_streams()
+    from repro_torch.serve.metrics import summarize
+
+    s = summarize(reqs, eng.stats, wall_s=seen["wall_s"])
+    dts = seen["decode_ticks"]
+    return {"rank": mesh.coord("model"), "transport": mesh.transport, "ring": eng.ring,
+            "streams": [list(r.out_tokens) for r in reqs],
+            "statuses": sorted({r.status for r in reqs}),
+            "steps": eng.stats.decode_steps - steps0,
+            "prefills": eng.stats.prefill_calls - prefills0,
+            "ticks": seen["ticks"], "wall_s": seen["wall_s"],
+            "decode_tick_ms_mean": 1e3 * sum(dts) / max(len(dts), 1),
+            "decode_ticks_timed": len(dts), "gen_tok_per_s": s["generated_tokens"] /
+            seen["wall_s"], "ttft_p50_ms": s["ttft_p50_ms"], "ttft_p95_ms": s["ttft_p95_ms"],
+            "tpot_p50_ms": s["tpot_p50_ms"],
+            "rungs": sorted({e for _, e in eng.stats.degree_history}),
+            "launches": seen["launches"], "plain": seen["plain"],
+            "max_memory_allocated": seen["max_memory_allocated"],
+            "packed_weight_bytes": packed_bytes(eng.params),
+            "collectives": coll}
+
+
+def _tp_logits(ctx, mesh, cfg, job) -> dict:
+    """The first decode step's whole-row logits of the cut model at tp=2
+    after prefilling ``job["prompt"]`` into slot 1 of 2 (a cache in the
+    model's dtype), and
+    the collective bytes of that decode step (the reference's probe: the
+    model's own collectives, not the sampling gather); with ``ring`` the
+    same under the int8 ring.  Rank 0 adds tp=1 on the same tp-padded
+    weights (kernels), and the model's noise floor: the plain tp=1 logits
+    against the plain ones with the projections' f32 outputs perturbed by
+    NOISE_EPS (phase 4's measure)."""
+    torch, dev = ctx["torch"], ctx["dev"]
+    from repro_torch.dist import collectives, meshctx, sharding
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import gather_vocab
+
+    model = build_model(cfg, _tp_policy(job), device=dev)
+    params = model.init(seed=1, tp=TP)
+    prompt = torch.as_tensor(job["prompt"], device=dev)
+    deg = torch.tensor(8, dtype=torch.int32, device=dev)
+
+    def step(p, tp, ring=False, backend=None):
+        with kops.ring_tp(ring), (_backend(backend) if backend else contextlib.nullcontext()):
+            cache = model.init_cache(tp, 2, prompt.shape[0] + 8, quant=False,
+                                     dtype=torch.float32 if cfg.dtype == "float32"
+                                     else torch.bfloat16)
+            model.prefill(p, cache, prompt, 1, tp=tp, degree=deg)
+            toks = torch.zeros((2, 1), dtype=torch.int64, device=dev)
+            toks[1, 0] = int(prompt[-1])
+            collectives.counter.reset()
+            lg, _ = model.decode_step(p, cache, toks, tp=tp, degree=deg,
+                                      active=torch.tensor([False, True], device=dev))
+            nbytes = collectives.counter.snapshot()
+            return gather_vocab(lg)[1, 0].float(), nbytes
+
+    local = model.prepack(sharding.shard_params(params, mesh=mesh))
+    out = {}
+    lg, out["bytes"] = step(local, TP)
+    out["logits"] = lg.cpu()
+    if job.get("ring") or job.get("moe_ring"):
+        from repro_torch.models import moe as moe_mod
+
+        prev = moe_mod._MOE_RING
+        moe_mod._MOE_RING = bool(job.get("moe_ring"))
+        lr, out["ring_bytes"] = step(local, TP, ring=bool(job.get("ring")))
+        moe_mod._MOE_RING = prev
+        out["ring_logits"] = lr.cpu()
+    if mesh.coord("model") == 0 and job.get("single", True):
+        with meshctx.use_mesh(meshctx.make_mesh((1, 1), ("data", "model"))):
+            full = model.prepack(params)
+            lk = step(full, TP)[0]
+            out["single_logits"] = lk.cpu()
+            if job["approx"] != "exact":
+                lp = step(full, TP, backend="torch")[0]
+                with _perturbed_projections(ctx, NOISE_EPS):
+                    ln = step(full, TP, backend="torch")[0]
+                out["noise_floor"] = float((ln - lp).abs().max())
+                out["single_kernel_vs_plain"] = float((lk - lp).abs().max())
+    return out
+
+
+def _tp_job(ctx, tag, job, timeout_s) -> list:
+    """Run ``job`` on TP ranks (gloo on the one card); every rank's result."""
+    from repro_torch.dist import meshctx
+
+    job = dict(job, on_card=ctx["on_card"], slots=ctx["slots"])
+    t0 = time.time()
+    out = meshctx.spawn_ranks(_tp_rank, TP, timeout_s=timeout_s, backend="gloo",
+                              device="cuda" if ctx["on_card"] else "cpu", args=(job,),
+                              threads=0 if ctx["on_card"] else 1)
+    say(f"phase {tag}: {TP} ranks ran {job['kind']} ({job['arch']}"
+        f"{', ring' if job.get('ring') else ''}{', ring combine' if job.get('moe_ring') else ''})"
+        f" in {time.time() - t0:.1f} s")
+    return out
+
+
+def tp_prompts(ctx, cfg) -> list:
+    """Phase 3's prompts (its seed and lengths), for ``--tp-only``."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    lo, hi = ctx["prompt_range"]
+    rng.integers(0, cfg.vocab, lo)                 # phase 3's warm-up prompt
+    return [rng.integers(0, cfg.vocab, int(rng.integers(lo, hi + 1)))
+            for _ in range(ctx["requests"])]
+
+
+def tp_launches(path) -> dict:
+    """A 3s / 3t record's kernel launches, summed over its runs and ranks."""
+    total: dict = {}
+    runs = [path] if "ranks" in path else [v for v in path.values()
+                                            if isinstance(v, dict) and "ranks" in v]
+    for run in runs:
+        for r in run["ranks"]:
+            for k, v in r["launches"].items():
+                total[k] = total.get(k, 0) + v
+    return {"launches": total}
+
+
+def _tp_serve_gates(ctx, label, cfg, ranks, expect, per_tick) -> dict:
+    """3s / 3t gates on the ranks' results: every request ok with equal
+    streams on every rank, each rank's launches as predicted with no plain
+    version on the card, and the collectives a call as predicted
+    (``per_tick``: {kind: calls a decode step and a prefill}); prints a
+    line a rank and one for the collectives."""
+    r0 = ranks[0]
+    require(all(r["statuses"] == ["ok"] for r in ranks), f"{label}: a request not ok")
+    require(all(r["streams"] == r0["streams"] for r in ranks),
+            f"{label}: the ranks' token streams differ")
+    for r in ranks:
+        check_launches(ctx, f"{label} rank {r['rank']}", r, expect(r))
+        say(f"{label} rank {r['rank']}: {r['ticks']} ticks, decode tick "
+            f"{r['decode_tick_ms_mean']:.3f} ms over {r['decode_ticks_timed']} ticks, "
+            f"{r['gen_tok_per_s']:.1f} tok/s, TTFT p50 {r['ttft_p50_ms']} ms p95 "
+            f"{r['ttft_p95_ms']} ms, peak memory {r['max_memory_allocated']}, rungs "
+            f"{r['rungs']}, launches {r['launches']}")
+        calls, nbytes = r["collectives"]["calls"], r["collectives"]["bytes"]
+        want = {k: v(r["steps"], r["prefills"]) for k, v in per_tick.items()}
+        require({k: calls.get(k, 0) for k in want} == want and set(calls) <= set(want),
+                f"{label} rank {r['rank']}: collectives {calls}, expected {want}")
+    n = max(r0["steps"], 1)
+    coll = r0["collectives"]
+    per = {"host_ms_per_tick": coll["host_ms"] / n, "wait_ms_per_tick": coll["wait_ms"] / n,
+           "bytes_per_tick": {k: v / n for k, v in coll["bytes"].items()},
+           "calls_per_tick": {k: v / n for k, v in coll["calls"].items()}}
+    say(f"{label} collectives per decode step (prefills included, over {n} steps): host "
+        f"{per['host_ms_per_tick']:.3f} ms in the collectives after "
+        f"{per['wait_ms_per_tick']:.3f} ms waiting for the queued kernels, bytes {per['bytes_per_tick']}, calls "
+        f"{per['calls_per_tick']}; transport {r0['transport']}")
+    return {"ranks": [{k: v for k, v in r.items() if k != "streams"} for r in ranks],
+            "collectives_per_tick": per, "transport": r0["transport"]}
+
+
+def _tp_logit_gates(ctx, label, ranks, ring_kind, combine_only=False) -> dict:
+    """The cut model's gates: the ranks' whole rows equal; tp=2 against tp=1
+    within 4x the noise floor (AXQ) or 1e-4 of the largest logit (EXACT,
+    f32); the ring's rows within rel 0.05 of the exact ones, moving at most
+    half the bytes of the reductions it replaces: the decode step's, or
+    with ``combine_only`` (the MoE combine under AXQ, where wo keeps its
+    exact all-reduce) the combine's."""
+    r0 = ranks[0]
+    require(all(bool((r["logits"] == r0["logits"]).all()) for r in ranks),
+            f"{label}: the ranks' gathered logits differ")
+    diff = float((r0["logits"] - r0["single_logits"]).abs().max())
+    out = {"tp2_vs_tp1_max_abs_diff": diff, "bytes": r0["bytes"]}
+    if "noise_floor" in r0:
+        tol = 4 * max(r0["noise_floor"], 1e-3)
+        out.update(noise_floor=r0["noise_floor"], tolerance=tol,
+                   tp1_kernel_vs_plain=r0["single_kernel_vs_plain"])
+    else:
+        tol = 1e-4 * max(float(r0["single_logits"].abs().max()), 1.0)
+        out["tolerance"] = tol
+    say(f"{label}: first decode step's logits tp={TP} vs tp=1 on the same weights max |diff| "
+        f"{diff:.4g} (tolerance {tol:.4g}{', 4x the noise floor' if 'noise_floor' in r0 else ''})"
+        f"; decode step collective bytes {r0['bytes']['bytes']}")
+    require(diff <= tol, f"{label}: tp={TP} logits differ from tp=1 by {diff} (tol {tol})")
+    if "ring_logits" in r0:
+        ex, rg = r0["logits"], r0["ring_logits"]
+        rel = float((rg - ex).abs().mean() / (ex.abs().mean() + 1e-9))
+        eb, rb = r0["bytes"]["total"], r0["ring_bytes"]["total"]
+        if combine_only:
+            # the combine's all-reduce bytes, against the ring's hops
+            eb = r0["bytes"]["bytes"]["all-reduce"] - r0["ring_bytes"]["bytes"]["all-reduce"]
+            rb = r0["ring_bytes"]["bytes"]["collective-permute"]
+        out.update(ring_rel=rel, ring_bytes=r0["ring_bytes"], ring_over_exact_bytes=rb / eb)
+        say(f"{label}: {ring_kind} logits rel {rel:.4g} of the exact ones (envelope 0.05); "
+            f"decode step bytes {rb} vs {eb} exact ({rb / eb:.3f}x): {r0['ring_bytes']['bytes']}")
+        require(0 < rel < 0.05, f"{label}: {ring_kind} logits outside the envelope: {rel}")
+        require(rb <= 0.5 * eb, f"{label}: {ring_kind} moves {rb} bytes, more than half of "
+                                f"the exact {eb}")
+    return out
+
+
+def phase_tp_dense(ctx, cfg, prompts) -> dict:
+    """Phase 3s: tinyllama-1.1b at full width and depth, tp=2 as two ranks
+    on the one card through an explicit gloo group (host-staged
+    collectives), axq8 with the ladder 8 -> 5, packs built per shard, the
+    bf16 cache, phase 3's traffic, eager.  Then the model cut to 2 layers:
+    the first decode step's logits at tp=2 against tp=1 on the same
+    tp-padded weights (4x the noise floor), and under EXACT with the int8
+    ring (rel 0.05 of exact tp=2, at most half the bytes).  Then
+    ``launch.serve --tp 2 --dist-backend gloo`` for the wall numbers."""
+    label = "phase 3s"
+    L = cfg.n_layers
+    serve = {"kind": "serve", "arch": cfg.name, "approx": "axq8", "block": ctx["tp_block"],
+             "ring": False, "qos": True, "max_len": ctx["max_len"], "prompts": prompts,
+             "new_tokens": ctx["new_tokens"]}
+    ranks = _tp_job(ctx, "3s", serve, ctx["tp_timeout_s"])
+    expect = lambda r: {
+        "axqmm": (5 * L + 1) * (r["steps"] + r["prefills"]),
+        "axqmm_gated": L * (r["steps"] + r["prefills"]), "flash_decode": L * r["steps"],
+        "flash_decode_quant": 0, "flash_attention": L * r["prefills"], "pr_multiply": 0,
+        "pr_fir": 0, "pr_conv2d": 0}
+    # a decode step: the embedding's all-reduce, wo's and down's a layer,
+    # the logits' all-gather; a prefill: the same but the gather
+    per_tick = {"all-reduce": lambda st, pf: (2 * L + 1) * (st + pf),
+                "all-gather": lambda st, pf: st}
+    out = _tp_serve_gates(ctx, label, cfg, ranks, expect, per_tick)
+    # the rehearsal's few ticks stay inside the controller's cooldown
+    require(len(ranks[0]["rungs"]) > 1 or not ctx["on_card"],
+            f"{label}: the QoS degree never moved: {ranks[0]['rungs']}")
+    cut = {"kind": "logits", "arch": cfg.name, "n_layers": 2, "prompt": prompts[0],
+           "block": ctx["tp_block"]}
+    ranks = _tp_job(ctx, "3s", dict(cut, approx="axq8"), ctx["tp_timeout_s"])
+    out["model_2layer_axq8"] = _tp_logit_gates(ctx, f"{label} 2-layer axq8", ranks, "")
+    out["model_2layer_exact_ring"] = _tp_logit_gates(
+        ctx, f"{label} 2-layer EXACT f32", _tp_job(
+            ctx, "3s", dict(cut, approx="exact", ring=True, dtype="float32"),
+            ctx["tp_timeout_s"]), "int8 ring")
+    argv = ["--arch", cfg.name, "--tp", str(TP), "--dist-backend", "gloo", "--approx",
+            ctx["tp_launch_approx"], "--qos", "--metrics", "--slots", str(ctx["slots"]),
+            "--requests", str(ctx["requests"]), "--new-tokens", str(ctx["new_tokens"])]
+    if not ctx["on_card"]:
+        argv += ["--device", "cpu"]
+    s, _, seen = _launch(ctx, argv)
+    require(s["statuses"] == {"ok": ctx["requests"]} and s["streams_equal"],
+            f"{label}: launch.serve --tp {TP}: {s['statuses']}")
+    out["launcher"] = {k: s.get(k) for k in (
+        "requests", "generated_tokens", "gen_tok_per_s", "ttft_p50_ms", "ttft_p95_ms",
+        "tpot_p50_ms", "transport", "collective_bytes_per_tick", "collective_calls_per_tick",
+        "collective_host_ms_per_tick", "collective_wait_ms_per_tick")}
+    out["launcher"]["wall_s"] = seen["wall_s"]
+    say(f"{label} launch.serve --tp {TP} --dist-backend gloo: {out['launcher']}")
+    return out
+
+
+def phase_tp_moe(ctx, cfg, prompts) -> dict:
+    """Phase 3t: granite-moe-3b-a800m at full width and depth, tp=2, 20 of
+    its 40 experts a rank (the expert-batched launches on the local
+    experts), axq8 with the ladder 8 -> 5, eager, on phase 3's prompts:
+    the exact combine (an f32 all-reduce a layer) and the int8-ring
+    combine (``REPRO_RING_TP``).  Then the model cut to 2 layers, EXACT in
+    f32: tp=2 against tp=1 within 1e-4 of the largest logit, the ring
+    combine's logits within rel 0.05 of the exact combine's with at most
+    half the bytes."""
+    label = "phase 3t"
+    L = cfg.n_layers
+    out = {}
+    for ring in (False, True):
+        job = {"kind": "serve", "arch": cfg.name, "approx": "axq8", "block": ctx["tp_block"],
+               "ring": False, "moe_ring": ring, "qos": True, "max_len": ctx["max_len"],
+               "prompts": prompts, "new_tokens": ctx["tp_moe_new_tokens"]}
+        ranks = _tp_job(ctx, "3t", job, ctx["tp_timeout_s"])
+        expect = lambda r: moe_launches(cfg, r["steps"], r["prefills"], False)
+        if ring:
+            # wo's all-reduce and the embedding's; the combine as 2 (n-1) hops a layer
+            per_tick = {"all-reduce": lambda st, pf: (L + 1) * (st + pf),
+                        "collective-permute": lambda st, pf: 2 * (TP - 1) * L * (st + pf),
+                        "all-gather": lambda st, pf: st}
+        else:
+            per_tick = {"all-reduce": lambda st, pf: (2 * L + 1) * (st + pf),
+                        "all-gather": lambda st, pf: st}
+        key = "ring_combine" if ring else "exact_combine"
+        out[key] = _tp_serve_gates(ctx, f"{label} ({key.replace('_', ' ')})", cfg, ranks,
+                                   expect, per_tick)
+    # EXACT in f32, as 3s's ring cut: the router then sees inputs a few
+    # f32 roundings apart at tp=1 and tp=2, so no routing flip inflates
+    # the bar, which is 1e-4 of the largest logit
+    cut = {"kind": "logits", "arch": cfg.name, "n_layers": 2, "prompt": prompts[0],
+           "block": ctx["tp_block"], "approx": "exact", "dtype": "float32", "moe_ring": True}
+    out["model_2layer_exact"] = _tp_logit_gates(
+        ctx, f"{label} 2-layer EXACT f32", _tp_job(ctx, "3t", cut, ctx["tp_timeout_s"]),
+        "int8-ring combine", combine_only=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 4: kernel-vs-plain on the whole model
 # ---------------------------------------------------------------------------
 
@@ -4418,6 +4852,9 @@ def main(argv=None) -> int:
                          "no result line)")
     ap.add_argument("--train-only", action="store_true",
                     help="build, then only phase 5 (training; prints no result line)")
+    ap.add_argument("--tp-only", action="store_true",
+                    help="build, then only the tensor-parallel phases (2's shard rows, "
+                         "3s, 3t; prints no result line)")
     args = ap.parse_args(argv)
     if not (HERE / "src" / "repro_torch").is_dir():
         say("FAIL: src/repro_torch not found next to this script (run it from "
@@ -4476,6 +4913,8 @@ def main(argv=None) -> int:
                "vlm_train_shape": (4, 2048), "audio_train_shape": (8, 1024),
                "audio_train_remat": "none", "vlm_fam_shape": (1, 2048),
                "fleet_replicas": 3, "fleet_loss": 0.05, "fleet_seed": 3,
+               "tp_block": 256, "tp_timeout_s": 600.0, "tp_moe_new_tokens": 16,
+               "tp_launch_approx": "axq8",
                "calib_shape": (2, 64), "plan_grid": (8, 5),
                "resil_prompts": 8, "resil_deadline_ms": 5000.0, "resil_shed": 8,
                "resil_storm": "seu_state=0.05,seu_param=0.03,nan=0.08,spike=0.05,drop=0.05",
@@ -4543,6 +4982,9 @@ def main(argv=None) -> int:
                "vlm_train_shape": (2, 24), "audio_train_shape": (2, 32),
                "audio_train_remat": "none", "vlm_fam_shape": (1, 24),
                "fleet_replicas": 3, "fleet_loss": 0.2, "fleet_seed": 3,
+               # block 32 divides the smoke's row-parallel K shards (64 / 2)
+               "tp_block": 32, "tp_timeout_s": 300.0, "tp_moe_new_tokens": 4,
+               "tp_launch_approx": "exact",
                "calib_shape": (2, 16), "plan_grid": (8, 6, 4),
                "resil_prompts": 4, "resil_deadline_ms": 5000.0, "resil_shed": 4,
                "resil_storm": "seu_state=0.2,seu_param=0.1,nan=0.3,spike=0.1,drop=0.1",
@@ -4587,12 +5029,22 @@ def main(argv=None) -> int:
         write_record(args.record, record)
         say("training phases done (--train-only): no result line")
         return 0
+    if args.tp_only:
+        record["kernels_tp"] = phase_kernels_tp(ctx, cfg, moe_cfg)
+        prompts = tp_prompts(ctx, cfg)
+        record["tp_dense_path"] = phase_tp_dense(ctx, cfg, prompts)
+        record["tp_moe_path"] = phase_tp_moe(ctx, moe_cfg, prompts)
+        record["phase_seconds"] = dict(record.times)
+        write_record(args.record, record)
+        say("tensor-parallel phases done (--tp-only): no result line")
+        return 0
     record["kernels"] = phase_kernels(ctx, cfg)
     record["kernels_swa"] = phase_kernels_swa(ctx, swa_cfg)
     record["kernels_h128"] = phase_kernels_head128(ctx, qwen_cfg, nemo_cfg)
     record["kernels_moe"] = phase_kernels_moe(ctx, moe_cfg, qmoe_cfg)
     record["kernels_rec"] = phase_kernels_recurrent(ctx, ssm_cfg, rg_cfg)
     record["kernels_fe"] = phase_kernels_frontends(ctx, vlm_cfg, audio_cfg)
+    record["kernels_tp"] = phase_kernels_tp(ctx, cfg, moe_cfg)
     if args.kernels_only:
         write_record(args.record, record)
         say("kernel checks done (--kernels-only): no result line")
@@ -4606,6 +5058,8 @@ def main(argv=None) -> int:
     del model, params
     if on_card:
         torch.cuda.empty_cache()
+    record["tp_dense_path"] = phase_tp_dense(ctx, cfg, prompts_3)
+    record["tp_moe_path"] = phase_tp_moe(ctx, moe_cfg, prompts_3)
     record["emul_path"] = phase_emul(ctx, cfg)
     record["stream_path"] = phase_stream(ctx)
     record["plan_path"] = phase_plan_lm(ctx, cfg)
@@ -4672,9 +5126,12 @@ def main(argv=None) -> int:
              "3i": record["plan_path"], "3j": record["stream_plan_path"],
              "3k": record["emul_path"], "3l": record["resil_path"],
              "3m": record["moe_path"], "3n": record["moe_int8_path"],
-             "3o": record["ssm_path"], "3p": record["rg_path"]}
+             "3o": record["ssm_path"], "3p": record["rg_path"],
+             "3s": tp_launches(record["tp_dense_path"]),
+             "3t": tp_launches(record["tp_moe_path"])}
     summary = []
     moe_rows = record["kernels_moe"]
+    tp_rows = record["kernels_tp"]
     for name in list(record["kernels"]) + ["axqmm_experts", "axqmm_gated_experts"]:
         src, replaces = SOURCES[name]
         rows = record["kernels"].get(name) or moe_rows[name]
@@ -4684,6 +5141,7 @@ def main(argv=None) -> int:
         fe_rows = record["kernels_fe"].get(name, [])
         if name in record["kernels"]:
             h128_rows = h128_rows + moe_rows.get(name, []) + rec_rows + fe_rows
+        h128_rows = h128_rows + tp_rows.get(name, [])
         # the summary row: the unembedding GEMM (the largest decode GEMM)
         # for axqmm, the decode-shaped row for the others
         lead = rows[-1] if name == "axqmm" else rows[0]

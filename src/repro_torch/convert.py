@@ -13,7 +13,11 @@ package.  A training state (fields ``params``, ``opt`` with ``step``/``mu``/
 with leading (n_layers, n_experts) axes (packed per slice, or float), the
 shared experts, and each one's packs; a hybrid tree with its ``tail`` list of
 recurrent blocks.  The caller does the array-to-numpy step (for example
-``jax.tree.map(np.asarray, tree)``).
+``jax.tree.map(np.asarray, tree)``).  A float tree built by the reference
+with ``model.init(key, tp=tp)`` becomes one rank's local shards through
+:func:`shard_from_numpy` (``params_from_numpy``, then
+``dist.sharding.shard_params``); the packs are built on the shards
+afterwards.
 """
 
 from __future__ import annotations
@@ -93,3 +97,14 @@ def train_state_to_numpy(state):
     from repro_torch.tree import tree_map
 
     return tree_map(lambda x: x.detach().cpu().numpy(), state)
+
+
+def shard_from_numpy(tree, mesh=None, device="cpu"):
+    """This rank's local shards of a global float parameter tree given as
+    numpy arrays (the reference's ``model.init(key, tp=tp)`` for the
+    mesh's ``model`` axis ``tp``): :func:`params_from_numpy`, then
+    :func:`~repro_torch.dist.sharding.shard_params` on ``mesh`` (default:
+    the active one)."""
+    from repro_torch.dist.sharding import shard_params
+
+    return shard_params(params_from_numpy(tree, device), mesh=mesh)

@@ -1,6 +1,8 @@
-"""repro_torch.dist — the one-device part of ``repro.dist``: the
-compressed-gradient emulation of the data-parallel all-reduce
-(``launch.train --compress-grads``), elastic rescale planning
-(``elastic``) and the replica fleet (``fleet``: every replica on one
-device).  The ring all-reduce, the mesh and tensor parallelism are not
-ported yet."""
+"""repro_torch.dist — the port of ``repro.dist``: the mesh over
+``torch.distributed`` and the rank spawner (``meshctx``), the name-rule
+partition specs and the slicing of trees to a rank's shards
+(``sharding``), the compressed-gradient emulation, the int8 ring
+all-reduce and the exact collectives of tensor parallelism
+(``collectives``), elastic rescale planning (``elastic``) and the replica
+fleet (``fleet``: every replica on one device).  The HLO analysis has no
+torch counterpart yet (ROADMAP §A)."""

@@ -1,18 +1,40 @@
-"""Approximation-compressed collectives, single-device part (the port of
-``repro.dist.collectives``' quantization primitives).
+"""Approximation-compressed collectives (the port of
+``repro.dist.collectives``) and the exact collectives tensor parallelism
+needs.
 
 The dissertation trades arithmetic exactness for energy and area with a
-runtime degree; the same trade on the interconnect moves gradients as int8
-on the wire, with error feedback keeping optimization unbiased.  On one
-device the data-parallel all-reduce is the identity, so
-:func:`dp_allreduce_compressed` is the quantize-dequantize of the local
-contribution — what the reference's pjit path does before the partitioner's
-all-reduce.  The int8 ring all-reduce (shard_map) is not ported.
+runtime degree; the same trade on the interconnect moves gradients and
+tensor-parallel partial sums as int8 on the wire.  Two parts:
+
+  one device   :func:`dp_allreduce_compressed` is the quantize-dequantize
+               of the local contribution — what the reference's pjit path
+               does before the partitioner's all-reduce (the data-parallel
+               all-reduce is the identity on one device);
+  a group      :func:`ring_allreduce_int8`, the reference's two-phase ring
+               (``ring_allreduce_int8_local``) over a ``torch.distributed``
+               group: n-1 reduce-scatter hops that re-quantize the running
+               partial, n-1 all-gather hops, each hop one int8 chunk plus
+               its f32 scale through ``batch_isend_irecv``; and the exact
+               :func:`all_reduce` / :func:`all_gather` the sharded model
+               calls.
+
+Transport: on a gloo group, :func:`all_reduce` hands CUDA tensors to gloo,
+which reduces them through its own host copies; the all-gather and the
+ring's send/recv, which gloo moves only on CPU tensors, stage CUDA tensors
+through host buffers explicitly.  So two ranks that share one card still
+run every kernel on it.  An NCCL group takes CUDA tensors directly.  Every
+collective counts the bytes it sends into :data:`counter`, by kind, the way
+the reference's HLO analyzer reads a compiled step: an all-reduce or
+all-gather by its operand bytes, a ring hop (``collective-permute``) by its
+int8 payload plus its f32 scale.
 """
 
 from __future__ import annotations
 
+import time
+
 import torch
+import torch.distributed as dist
 
 from repro_torch.tree import tree_map
 
@@ -50,3 +72,178 @@ def compress_tree_for_allreduce(grads, bits: int = 8):
     leaves (norm scales, biases) pass exactly."""
     return tree_map(lambda g: dp_allreduce_compressed(g, bits) if g.dim() >= 2 else g,
                     grads)
+
+
+# ---------------------------------------------------------------------------
+# collectives over a group, with byte counters
+# ---------------------------------------------------------------------------
+
+
+class CollectiveCounter:
+    """Bytes and calls of this process's collectives, by kind
+    (``all-reduce``, ``all-gather``, ``collective-permute``: the ring's
+    hops), and their host milliseconds: ``host_ms`` the collectives
+    themselves (staging included), ``wait_ms`` the wait, before a gloo
+    collective on a card, for the kernels already queued on the device."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.bytes: dict = {}
+        self.calls: dict = {}
+        self.host_ms = 0.0
+        self.wait_ms = 0.0
+
+    def add(self, kind: str, nbytes: int, calls: int = 1) -> None:
+        self.bytes[kind] = self.bytes.get(kind, 0) + int(nbytes)
+        self.calls[kind] = self.calls.get(kind, 0) + calls
+
+    def snapshot(self) -> dict:
+        return {"bytes": dict(self.bytes), "calls": dict(self.calls),
+                "total": sum(self.bytes.values()), "host_ms": self.host_ms,
+                "wait_ms": self.wait_ms}
+
+
+#: this process's counts (one process a rank)
+counter = CollectiveCounter()
+
+
+def _staged(x: Tensor, group) -> bool:
+    """A CUDA tensor on a gloo group (the all-gather and send/recv take it
+    only through host copies)."""
+    return x.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def _start(x: Tensor, group) -> float:
+    """The start of a collective on the counter's clock.  On a gloo group
+    a CUDA tensor is first waited for (the host copy would wait for it
+    anyway): that wait, the kernels queued before the collective, goes to
+    ``wait_ms``, so ``host_ms`` holds the collective alone."""
+    t0 = time.perf_counter()
+    if _staged(x, group):
+        torch.cuda.synchronize(x.device)
+        t1 = time.perf_counter()
+        counter.wait_ms += (t1 - t0) * 1e3
+        return t1
+    return t0
+
+
+def all_reduce(x: Tensor, group) -> Tensor:
+    """The exact sum of ``x`` over ``group`` (a new tensor on x's device;
+    ``x`` itself when ``group`` is None).  A CUDA tensor goes to the group
+    as it is, gloo's included."""
+    if group is None:
+        return x
+    t0 = _start(x, group)
+    counter.add("all-reduce", x.numel() * x.element_size())
+    out = x.detach().clone()
+    dist.all_reduce(out, group=group)
+    counter.host_ms += (time.perf_counter() - t0) * 1e3
+    return out
+
+
+def all_gather(x: Tensor, group, dim: int = -1) -> Tensor:
+    """The ranks' ``x`` concatenated along ``dim`` in group-rank order."""
+    if group is None:
+        return x
+    t0 = _start(x, group)
+    n = dist.get_world_size(group)
+    counter.add("all-gather", x.numel() * x.element_size())
+    staged = _staged(x, group)
+    src = x.detach().to("cpu") if staged else x.detach()
+    src = src.contiguous()
+    parts = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(parts, src, group=group)
+    out = torch.cat(parts, dim=dim)
+    if staged:
+        out = out.to(x.device)
+    counter.host_ms += (time.perf_counter() - t0) * 1e3
+    return out
+
+
+def broadcast_value(value: float, group, device) -> float:
+    """Group rank 0's ``value`` on every rank of ``group`` (a host
+    decision made once and shared; not counted as a model collective)."""
+    if group is None:
+        return value
+    dev = device if dist.get_backend(group) == "nccl" else "cpu"
+    t = torch.tensor([value], dtype=torch.float64, device=dev)
+    dist.broadcast(t, src=dist.get_global_rank(group, 0), group=group)
+    return float(t.item())
+
+
+def _q8_chunk(x: Tensor):
+    """Per-chunk symmetric int8 quantization: (int8 codes, f32 scale (1,))."""
+    amax = torch.clamp(torch.max(torch.abs(x)), min=1e-30)
+    scale = (amax / 127.0).reshape(1)
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def _deq(q: Tensor, scale: Tensor) -> Tensor:
+    return q.to(torch.float32) * scale
+
+
+def _hop(q: Tensor, scale: Tensor, group, nxt: int, prv: int):
+    """One ring hop: send (q, scale) to ``nxt``, receive the same shapes
+    from ``prv`` — one message: the scale's 4 bytes, then the int8 payload."""
+    counter.add("collective-permute", q.numel() + 4)
+    payload = torch.cat([scale.view(torch.uint8), q.view(torch.uint8)])
+    dev = payload.device
+    if _staged(payload, group):
+        payload = payload.cpu()
+    buf = torch.empty_like(payload)
+    reqs = dist.batch_isend_irecv([dist.P2POp(dist.isend, payload, nxt, group),
+                                   dist.P2POp(dist.irecv, buf, prv, group)])
+    for r in reqs:
+        r.wait()
+    buf = buf.to(dev)
+    return buf[4:].view(torch.int8), buf[:4].view(torch.float32)
+
+
+def ring_allreduce_int8(x: Tensor, group) -> Tensor:
+    """Ring all-reduce of ``x`` over ``group`` with an int8 wire format:
+    the reference's ``ring_allreduce_int8_local``, op for op.
+
+    The flat f32 value is padded with zeros to ``n`` equal chunks.
+    Reduce-scatter: n-1 hops, each re-quantizing the running partial
+    against its own range before it is sent, after which rank i owns
+    chunk (i+1) % n.  All-gather: n-1 hops forwarding each owner's chunk,
+    quantized once.  The owner keeps its own chunk as the exact f32
+    partial.  Wire cost a rank: ``2 (n-1) (chunk + 4)`` bytes against
+    ``4 |x|`` for an f32 all-reduce's operand.  Returns x's shape and
+    dtype.  Equal bit for bit to the reference's ring run op by op; its
+    compiled form contracts a hop's dequantize-and-add into one fused
+    multiply-add, a rounding apart (ROADMAP §C)."""
+    if group is None:
+        return x
+    n = dist.get_world_size(group)
+    if n == 1:
+        return x
+    t0 = _start(x, group)
+    me = dist.get_rank(group)
+    nxt = dist.get_global_rank(group, (me + 1) % n)
+    prv = dist.get_global_rank(group, (me - 1) % n)
+    flat = x.detach().to(torch.float32).reshape(-1)
+    size = flat.shape[0]
+    chunk = -(-size // n)
+    pad = chunk * n - size
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    chunks = flat.reshape(n, chunk)
+    # reduce-scatter: after n-1 hops rank i owns chunk (i+1) % n
+    part = chunks[me]
+    for s in range(n - 1):
+        q, scale = _hop(*_q8_chunk(part), group, nxt, prv)
+        part = _deq(q, scale) + chunks[(me - s - 1) % n]
+    own = (me + 1) % n
+    # all-gather: forward each owner's chunk around the ring
+    out = torch.empty((n, chunk), dtype=torch.float32, device=x.device)
+    cq, cs = _q8_chunk(part)
+    for s in range(n - 1):
+        cq, cs = _hop(cq, cs, group, nxt, prv)
+        out[(me - s) % n] = _deq(cq, cs)
+    out[own] = part
+    counter.host_ms += (time.perf_counter() - t0) * 1e3
+    return out.reshape(-1)[:size].reshape(x.shape).to(x.dtype)

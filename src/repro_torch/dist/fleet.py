@@ -36,8 +36,9 @@ run whole fleets on one host device).  Here a replica's place is one
 device (:func:`fleet_devices`): on one card every replica gets ``cuda:0``
 (or the CPU when asked).  Replicas of one model share one packed weight
 set — the caller's ``build_engine`` closes over it — and each holds only
-its own cache, graphs and graph pool.  Tensor parallelism inside a
-replica is not ported: ``tp`` above 1 raises.
+its own cache, graphs and graph pool.  A replica spans one device:
+``tp`` above 1 raises (sharded replicas, the reference's ``fleet_meshes``,
+are ROADMAP §A; a single sharded engine is ``repro_torch.serve.sharded``).
 """
 
 from __future__ import annotations
@@ -62,8 +63,8 @@ def fleet_devices(replicas: int, tp: int = 1, device="cuda") -> list:
     a replica spans one device."""
     if tp != 1:
         raise NotImplementedError(
-            f"tp={tp}: tensor parallelism inside a replica is not ported (one device "
-            "a replica)")
+            f"tp={tp}: tensor parallelism inside a fleet replica (sharded replicas, the "
+            "reference's fleet_meshes) is ROADMAP §A; a replica spans one device here")
     dev = resolve_device(device)
     return [dev] * replicas
 

@@ -1,0 +1,335 @@
+"""The process-global mesh over ``torch.distributed`` (the port of
+``repro.dist.meshctx``), and the helpers that start its ranks.
+
+The reference builds one ``jax.sharding.Mesh`` of local devices and lets
+GSPMD partition each jitted step.  The port runs one process a rank, the
+Megatron way: every rank holds its local shards and the model code calls
+explicit collectives over one process group a mesh axis.  A :class:`Mesh`
+holds this rank's coordinate and group on each axis; ranks are laid out
+row-major over ``shape``, so on a ``(data, model)`` mesh the ``model``
+groups are runs of consecutive ranks.
+
+Axis convention (DESIGN.md §5.1): the mesh has a ``"model"`` axis (tensor
+and expert parallelism); every other axis shards the batch.  With no mesh
+set, :func:`get_mesh` returns the trivial ``(1, 1)`` ``("data", "model")``
+mesh, which needs no process group: every single-device call site works
+unchanged.
+
+Devices and transport: rank ``r`` runs on ``cuda:(r % device_count)``.
+When every rank has its own card the groups use NCCL.  Ranks that share a
+card (two ranks on the one H100) cannot use NCCL, which refuses two ranks
+on one GPU: the caller must ask for gloo explicitly (``backend="gloo"``,
+``launch.serve --dist-backend gloo``), and the all-gather and the ring's
+send/recv then stage CUDA tensors through host buffers
+(``dist/collectives.py``).  Nothing
+switches transport quietly.  On the CPU the groups use gloo.
+
+:func:`spawn_ranks` starts ``world`` rank processes (the ``spawn`` start
+method) that meet through a ``FileStore`` in a fresh directory, so tests
+running in parallel never race for a TCP port; it joins with a timeout,
+and a rank that raises, dies or hangs fails the call.  Under ``torchrun``
+(``RANK`` / ``WORLD_SIZE`` set) :func:`init_from_env` joins the group the
+launcher made instead.
+"""
+
+from __future__ import annotations
+
+import math
+import multiprocessing as mp
+import os
+import pickle
+import queue
+import shutil
+import sys
+import tempfile
+import time
+import traceback
+from contextlib import contextmanager
+from datetime import timedelta
+from typing import Callable, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+
+BACKENDS = ("nccl", "gloo")
+
+
+class Mesh:
+    """One rank's view of a device mesh: the axis sizes, this rank's
+    coordinate on each axis, and its process group on each axis wider
+    than 1 (None on a 1-wide axis, where no collective is needed)."""
+
+    def __init__(self, shape: Sequence[int], axes: Sequence[str], *, rank: int = 0,
+                 groups: Optional[dict] = None, device="cpu",
+                 backend: Optional[str] = None):
+        self.shape = tuple(int(s) for s in shape)
+        self.axis_names = tuple(axes)
+        self.rank = int(rank)
+        coords, r = [], self.rank
+        for s in reversed(self.shape):
+            coords.append(r % s)
+            r //= s
+        self._coords = dict(zip(self.axis_names, reversed(coords)))
+        self._groups = dict(groups or {})
+        self.device = torch.device(device)
+        self.backend = backend
+
+    def size(self, axis: str) -> int:
+        return self.shape[self.axis_names.index(axis)]
+
+    def coord(self, axis: str) -> int:
+        """This rank's index along ``axis``."""
+        return self._coords[axis]
+
+    def group(self, axis: str):
+        """This rank's process group along ``axis`` (None if 1-wide)."""
+        return self._groups.get(axis)
+
+    @property
+    def transport(self) -> str:
+        """The backend, and on gloo with a card which collectives stage
+        CUDA tensors through the host (``dist/collectives.py``)."""
+        if self.backend is None:
+            return "none"
+        if self.backend == "gloo" and self.device.type == "cuda":
+            return "gloo (all_reduce on CUDA tensors; all_gather and send/recv host-staged)"
+        return self.backend
+
+    def __repr__(self) -> str:
+        dims = ", ".join(f"{a}={s}" for a, s in zip(self.axis_names, self.shape))
+        return f"Mesh({dims}; rank {self.rank}, {self.device}, {self.transport})"
+
+
+def rank_device(rank: int, device="cuda") -> torch.device:
+    """Rank ``rank``'s device: ``cuda:(rank % device_count)`` for a CUDA
+    mesh, the CPU for a CPU one."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return torch.device("cpu")
+    n = torch.cuda.device_count()
+    if n == 0:
+        raise RuntimeError("no CUDA device is available; pass device='cpu' to run "
+                           "the ranks on the host")
+    return torch.device("cuda", rank % n)
+
+
+def resolve_backend(device, world: int, backend: Optional[str] = None) -> str:
+    """The process-group backend for ``world`` ranks on ``device``: NCCL
+    when every rank has its own card, gloo on the CPU.  Ranks that share a
+    card need ``backend="gloo"`` asked for explicitly; anything else
+    raises (NCCL refuses two ranks on one GPU)."""
+    dev = torch.device(device)
+    if backend is not None and backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    if dev.type != "cuda":
+        if backend == "nccl":
+            raise ValueError("the nccl backend needs CUDA devices; the CPU runs gloo")
+        return "gloo"
+    cards = torch.cuda.device_count()
+    if world > cards and backend != "gloo":
+        raise ValueError(
+            f"{world} ranks share {cards} card(s): NCCL cannot hold two ranks on one "
+            "GPU; ask for gloo explicitly (backend='gloo', launch.serve "
+            "--dist-backend gloo), whose collectives stage CUDA tensors through the host")
+    return backend or "nccl"
+
+
+def make_mesh(shape: Sequence[int], axes: Sequence[str], *, device="cpu",
+              backend: Optional[str] = None) -> Mesh:
+    """This rank's :class:`Mesh` of the first ``prod(shape)`` ranks of the
+    initialised process group (row-major).  ``axes`` must contain
+    ``"model"``; a mesh of one rank needs no process group.  Every rank of
+    the group must call it (creating groups is collective); ``backend``
+    defaults to the default group's."""
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh shape {tuple(shape)} / axes {tuple(axes)} rank mismatch")
+    if "model" not in axes:
+        raise ValueError(f"mesh axes {tuple(axes)} must include 'model'")
+    n = math.prod(shape)
+    if n == 1:
+        return Mesh(shape, axes, device=device)
+    if not dist.is_initialized():
+        raise ValueError(f"mesh {tuple(shape)} needs {n} ranks and no process group is "
+                         "initialised (spawn_ranks, init_from_env or torchrun)")
+    world = dist.get_world_size()
+    if n > world:
+        raise ValueError(f"mesh {tuple(shape)} needs {n} ranks, the process group has "
+                         f"{world}")
+    rank = dist.get_rank()
+    backend = backend or dist.get_backend()
+    groups = {}
+    for ai, axis in enumerate(axes):
+        if shape[ai] == 1:
+            continue
+        # one group per line of the mesh along ``axis``: every rank takes
+        # part in creating each one, in the same order
+        others = [range(s) for j, s in enumerate(shape) if j != ai]
+        for rest in _product(others):
+            ranks = []
+            for c in range(shape[ai]):
+                idx = list(rest)
+                idx.insert(ai, c)
+                ranks.append(_ravel(idx, shape))
+            g = dist.new_group(ranks, backend=backend)
+            if rank in ranks:
+                groups[axis] = g
+    if rank >= n:
+        raise ValueError(f"rank {rank} lies outside the mesh {tuple(shape)}")
+    return Mesh(shape, axes, rank=rank, groups=groups, device=rank_device(rank, device),
+                backend=backend)
+
+
+def _product(ranges):
+    out = [()]
+    for r in ranges:
+        out = [p + (i,) for p in out for i in r]
+    return out
+
+
+def _ravel(idx, shape) -> int:
+    r = 0
+    for i, s in zip(idx, shape):
+        r = r * s + i
+    return r
+
+
+_MESH: Optional[Mesh] = None
+
+
+def set_mesh(mesh: Mesh) -> Mesh:
+    """Install ``mesh`` as the process-global mesh; returns it."""
+    global _MESH
+    _MESH = mesh
+    return mesh
+
+
+def get_mesh() -> Mesh:
+    """The active mesh; the trivial single-device mesh if none was set."""
+    global _MESH
+    if _MESH is None:
+        _MESH = make_mesh((1, 1), ("data", "model"))
+    return _MESH
+
+
+@contextmanager
+def use_mesh(mesh: Mesh):
+    """Scoped :func:`set_mesh`."""
+    global _MESH
+    prev = _MESH
+    _MESH = mesh
+    try:
+        yield mesh
+    finally:
+        _MESH = prev
+
+
+def batch_axes(mesh: Optional[Mesh] = None) -> tuple:
+    """Every mesh axis that shards the batch dim (all but ``"model"``)."""
+    mesh = mesh or get_mesh()
+    return tuple(a for a in mesh.axis_names if a != "model")
+
+
+def model_size() -> int:
+    """The active mesh's ``model`` axis size (1: the one-device path)."""
+    return get_mesh().size("model")
+
+
+# ---------------------------------------------------------------------------
+# starting ranks
+# ---------------------------------------------------------------------------
+
+
+def init_from_env(*, device="cuda", backend: Optional[str] = None,
+                  timeout_s: float = 600.0) -> tuple:
+    """Join the process group ``torchrun`` describes (``RANK``,
+    ``WORLD_SIZE``, ``MASTER_ADDR`` / ``MASTER_PORT``).  Returns (rank,
+    world)."""
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    backend = resolve_backend(device, world, backend)
+    if not dist.is_initialized():
+        dist.init_process_group(backend, init_method="env://", rank=rank,
+                                world_size=world, timeout=timedelta(seconds=timeout_s))
+    return rank, world
+
+
+def under_torchrun() -> bool:
+    return "RANK" in os.environ and "WORLD_SIZE" in os.environ
+
+
+def _rank_entry(fn, rank, world, store_path, backend, timeout_s, threads, args, out):
+    try:
+        if threads:
+            torch.set_num_threads(threads)
+        store = dist.FileStore(store_path, world)
+        dist.init_process_group(backend, store=store, rank=rank, world_size=world,
+                                timeout=timedelta(seconds=timeout_s))
+        try:
+            result = fn(rank, world, *args)
+        finally:
+            dist.destroy_process_group()
+        # plain pickle: tensors travel by value (the queue's own pickler
+        # would pass shared-memory handles that die with this process)
+        out.put((rank, True, pickle.dumps(result)))
+    except BaseException:
+        out.put((rank, False, traceback.format_exc()))
+        sys.stdout.flush()
+        sys.exit(1)
+
+
+def spawn_ranks(fn: Callable, world: int, *, store_dir: Optional[str] = None,
+                timeout_s: float = 60.0, backend: str = "gloo", device="cpu",
+                args: tuple = (), threads: int = 1) -> list:
+    """Run ``fn(rank, world, *args)`` in ``world`` fresh processes joined
+    by one process group; returns the ranks' results in rank order.
+
+    ``fn`` must be importable (module level: it is pickled by name).  The
+    ranks meet through a ``FileStore`` in a new directory under
+    ``store_dir`` (the system's temporary directory by default), with
+    ``timeout_s`` on every collective; the whole call is bounded by
+    ``timeout_s`` too.  A rank that raises, exits or outlives the bound
+    fails the call with its traceback, and every rank still running is
+    killed.  ``threads`` sets each rank's ``torch.set_num_threads`` (0:
+    leave it)."""
+    backend = resolve_backend(device, world, backend)
+    ctx = mp.get_context("spawn")
+    tmp = tempfile.mkdtemp(prefix="repro_ranks_", dir=store_dir)
+    store_path = os.path.join(tmp, "store")
+    out = ctx.Queue()
+    procs = [ctx.Process(target=_rank_entry, daemon=True,
+                         args=(fn, r, world, store_path, backend, timeout_s, threads,
+                               args, out))
+             for r in range(world)]
+    results: dict = {}
+    failure = None
+    try:
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + timeout_s
+        while len(results) < world and failure is None:
+            try:
+                rank, ok, payload = out.get(timeout=0.2)
+            except queue.Empty:
+                for r, p in enumerate(procs):
+                    if r not in results and p.exitcode not in (None, 0):
+                        failure = f"rank {r} exited with code {p.exitcode}"
+                        break
+                if failure is None and time.monotonic() > deadline:
+                    missing = sorted(set(range(world)) - set(results))
+                    failure = f"ranks {missing} did not finish within {timeout_s:g} s"
+                continue
+            if ok:
+                results[rank] = pickle.loads(payload)
+            else:
+                failure = f"rank {rank} failed:\n{payload}"
+        for p in procs:
+            p.join(timeout=5.0 if failure is None else 0.5)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=5.0)
+        out.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    if failure is not None:
+        raise RuntimeError(failure)
+    return [results[r] for r in range(world)]

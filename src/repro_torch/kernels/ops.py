@@ -21,12 +21,26 @@ the reference's product is an integer ``jnp.matmul``).
 
 ``REPRO_BWD_BF16=1`` (read at import, as in the reference) routes the EXACT
 products through :class:`_MatmulBf16Bwd`: bf16 partials forward and bf16
-activation gradients, the weight gradient accumulated in f32.  The int8
-ring tensor-parallel route is not ported yet (one device).
+activation gradients, the weight gradient accumulated in f32.
+
+Tensor parallelism (a mesh whose ``model`` axis is wider than 1,
+``dist/meshctx.py``): ``approx_matmul`` returns the global value, as the
+reference's does under GSPMD.  A row-parallel projection (a path ending in
+``/wo``, ``/down`` or ``/out_proj``: its weight is this rank's rows of K)
+computes its f32 partial and all-reduces it over the ``model`` group; an
+AXQ bias and residual are then added in f32 once, after the reduction, and
+the sum is cast (on one device they ride the kernel's epilogue in the same
+order: f32 accumulate, + bias, + residual, cast).  Under :func:`ring_tp`
+(or ``REPRO_RING_TP=1``) an EXACT row-parallel partial goes through the
+int8 ring all-reduce instead (``_ring_tp_matmul``, forward only); under AXQ
+the partials keep the exact all-reduce.  The *_EMUL modes quantize per
+tensor, and a shard's scale is not the whole tensor's: they raise on a
+mesh.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Optional
 
@@ -34,6 +48,8 @@ import torch
 
 from repro_torch.core import encodings as enc
 from repro_torch.core.approx import ApproxMode, ApproxSpec
+from repro_torch.dist import collectives, meshctx
+from repro_torch.dist.sharding import is_row_parallel
 from repro_torch.kernels import qstore
 
 Tensor = torch.Tensor
@@ -68,6 +84,42 @@ class _MatmulBf16Bwd(torch.autograd.Function):
         dw = torch.matmul(x2.to(torch.bfloat16).t().to(torch.float32),
                           g16.to(torch.float32)).to(w.dtype)
         return dx, dw
+
+
+# the int8-ring lever: route the tensor-parallel output reductions (the
+# row-parallel projections' partials) through the int8 ring all-reduce
+_RING_TP = os.environ.get("REPRO_RING_TP", "0") == "1"
+
+
+@contextlib.contextmanager
+def ring_tp(enabled: bool = True):
+    """Scoped ``REPRO_RING_TP``: route the EXACT tensor-parallel output
+    reductions through the int8 ring while the context is open (the
+    sharded serve engine opens it around each tick when ``ring=True``)."""
+    global _RING_TP
+    prev = _RING_TP
+    _RING_TP = bool(enabled)
+    try:
+        yield
+    finally:
+        _RING_TP = prev
+
+
+def _ring_tp_matmul(x2: Tensor, w: Tensor) -> Tensor:
+    """A row-parallel EXACT product reduced through the int8 ring: the
+    local f32 partial ``x2 @ w`` (this rank's K rows), then
+    :func:`~repro_torch.dist.collectives.ring_allreduce_int8` over the
+    ``model`` group (the plain product on a 1-wide axis).  Forward only:
+    the backward collectives (``_ring_dx_matmul``) come with training on
+    a mesh."""
+    acc = torch.matmul(x2.to(torch.float32), w.to(x2.dtype).to(torch.float32))
+    mesh = meshctx.get_mesh()
+    if mesh.size("model") == 1:
+        return acc
+    if torch.is_grad_enabled() and (x2.requires_grad or w.requires_grad):
+        raise NotImplementedError("the int8 ring has no backward yet: training on a "
+                                  "mesh is ROADMAP §A")
+    return collectives.ring_allreduce_int8(acc, mesh.group("model"))
 
 
 def _degree_for(spec: ApproxSpec, degree):
@@ -139,7 +191,9 @@ def approx_matmul(x: Tensor, w, spec: ApproxSpec | None = None, *,
     :class:`~repro_torch.kernels.qstore.PackedEmulWeight` (*_EMUL).  ``degree`` is the
     runtime DyFXU knob (device int32) used by dynamic AXQ specs.  ``bias``
     (N,) and ``residual`` (..., N) are AXQ-only epilogue operands, added in
-    f32 before the output cast (in the kernel on the card)."""
+    f32 before the output cast (in the kernel on the card).  On a mesh a
+    row-parallel ``path`` returns the reduced global value (module
+    docstring)."""
     from repro_torch.kernels import dispatch as kdispatch  # lazy: import cycle
 
     spec = spec or ApproxSpec()
@@ -151,12 +205,21 @@ def approx_matmul(x: Tensor, w, spec: ApproxSpec | None = None, *,
     N = w.n if packed else w.shape[-1]
     if spec.mode != ApproxMode.AXQ and (bias is not None or residual is not None):
         raise ValueError("bias/residual epilogues are AXQ-only (fused path)")
+    mesh = meshctx.get_mesh()
+    row = mesh.size("model") > 1 and is_row_parallel(path)
+    if mesh.size("model") > 1 and spec.mode in qstore._EMUL_MODES:
+        raise NotImplementedError(
+            f"{spec.mode.value} at {path!r} on a mesh: a shard's per-tensor scale is not "
+            "the whole tensor's")
     if spec.mode == ApproxMode.EXACT:
         if packed:
             raise ValueError(
                 f"prepacked weight reached an EXACT spec at {path!r} — the "
                 "prepack policy and the apply policy disagree")
-        if _BWD_BF16:
+        if _RING_TP and is_row_parallel(path):
+            y = _ring_tp_matmul(x2, w)
+            row = False                      # reduced by the ring
+        elif _BWD_BF16:
             y = _MatmulBf16Bwd.apply(x2, w)
         else:
             # operands in the working dtype, products accumulated in f32
@@ -165,9 +228,21 @@ def approx_matmul(x: Tensor, w, spec: ApproxSpec | None = None, *,
         if packed and not isinstance(w, qstore.PackedQWeight):
             raise ValueError(f"AXQ spec at {path!r} got {type(w).__name__}")
         res2 = None if residual is None else residual.reshape(-1, N)
-        y = kdispatch.axq_matmul(x2, w, block=spec.block,
-                                 ebits=_degree_for(spec, degree),
-                                 bias=bias, residual=res2)
+        if row:
+            # the partial carries no epilogue: bias and residual are added
+            # once, after the reduction
+            y = kdispatch.axq_matmul(x2, w, block=spec.block,
+                                     ebits=_degree_for(spec, degree))
+            y = collectives.all_reduce(y, mesh.group("model"))
+            if bias is not None:
+                y = y + bias.to(torch.float32)[None, :]
+            if res2 is not None:
+                y = y + res2.to(torch.float32)
+            row = False
+        else:
+            y = kdispatch.axq_matmul(x2, w, block=spec.block,
+                                     ebits=_degree_for(spec, degree),
+                                     bias=bias, residual=res2)
     elif spec.mode in qstore._EMUL_MODES:
         if packed and not isinstance(w, qstore.PackedEmulWeight):
             raise ValueError(f"emul spec at {path!r} got {type(w).__name__}")
@@ -179,6 +254,8 @@ def approx_matmul(x: Tensor, w, spec: ApproxSpec | None = None, *,
         y = torch.matmul(x2.to(torch.float32), w2.to(torch.float32))
     else:
         raise ValueError(spec.mode)
+    if row:
+        y = collectives.all_reduce(y.to(torch.float32), mesh.group("model"))
     return y.reshape(*lead, N).to(out_dtype)
 
 

@@ -17,8 +17,18 @@ in ``convert``, never per call).
 :func:`prepack_params` walks the dense and MoE transformers' parameter
 tree (``_pack_transformer``), including the separate ``unembed`` dense,
 the tied-embedding ``unembed_q`` pack, and an MoE layer's experts (packed
-per (layer, expert) slice when they route AXQ) and shared experts.  The
-other model families are not ported yet.
+per (layer, expert) slice when they route AXQ) and shared experts, and
+the SSM and hybrid trees.
+
+On a mesh (tensor parallelism) the packs are built on this rank's shards,
+after slicing (``dist/sharding.py``).  A column-parallel or expert shard
+packs as the matching slice of the global pack would.  A row-parallel
+shard (``wo``, ``down``, ``out_proj``: rows of the contraction dim) takes
+the block resolved from the *global* K (``resolve_block(K_local * tp,
+block)``), and a shard that is not a whole number of those blocks raises,
+naming the leaf: quantizing other blocks than one device's would change
+the arithmetic.  The *_EMUL modes raise on a mesh: their per-tensor scale
+is the whole tensor's.
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ import torch
 from repro_torch.core import encodings as enc
 from repro_torch.core.approx import ApproxMode, ApproxPolicy, ApproxSpec
 from repro_torch.core.quantization import quantize_block
+from repro_torch.dist.sharding import is_row_parallel
 
 Tensor = torch.Tensor
 
@@ -149,51 +160,73 @@ def prepack_emul_weight(w: Tensor, spec: ApproxSpec) -> PackedEmulWeight:
     return PackedEmulWeight(emul_layout(qw.to(torch.int8)), scale)
 
 
-def pack_for_spec(w, spec):
+def row_block(name: str, k_local: int, k_shards: int, block: int) -> int:
+    """The AXQ block of a row-parallel shard of ``k_local`` rows out of
+    ``k_local * k_shards``: resolved from the global K; raises, naming the
+    leaf, when the shard is not a whole number of those blocks."""
+    b = resolve_block(k_local * k_shards, block)
+    if k_local % b:
+        raise ValueError(
+            f"{name}: the row-parallel shard of K {k_local} (global K "
+            f"{k_local * k_shards} over tp={k_shards}) is not a whole number of AXQ "
+            f"blocks ({b}); quantizing other blocks than one device's would change "
+            "the arithmetic")
+    return b
+
+
+def pack_for_spec(w, spec, *, k_shards: int = 1, tp: int = 1, name: str = ""):
     """Pack one (..., K, N) weight for ``spec``; returns ``w`` unchanged for
     specs with no static operand encoding (EXACT / POW2_W) and for weights
-    already packed."""
+    already packed.  ``k_shards`` > 1: ``w`` is a row-parallel shard (its
+    block from the global K, :func:`row_block`); ``tp`` > 1: ``w`` is some
+    shard of a mesh, which the *_EMUL packs refuse."""
     if is_packed(w):
         return w
     if spec.mode == ApproxMode.AXQ:
-        return prepack_weight(w, resolve_block(w.shape[-2], spec.block))
+        return prepack_weight(w, row_block(name, w.shape[-2], k_shards, spec.block))
     if spec.mode in _EMUL_MODES:
+        if tp > 1:
+            raise NotImplementedError(
+                f"{name}: {spec.mode.value} packs on a mesh (tp={tp}): a shard's "
+                "per-tensor scale is not the whole tensor's")
         return prepack_emul_weight(w, spec)
     return w
 
 
-def _pack_dense(p: dict, path: str, policy: ApproxPolicy) -> dict:
+def _pack_dense(p: dict, path: str, policy: ApproxPolicy, tp: int = 1) -> dict:
     """Pack one init_dense param dict ({"w": tensor[, "b": tensor]})."""
-    packed = pack_for_spec(p["w"], policy.spec_for(path))
+    k_shards = tp if is_row_parallel(path) else 1
+    packed = pack_for_spec(p["w"], policy.spec_for(path), k_shards=k_shards, tp=tp,
+                           name=f"{path}/w")
     if packed is p["w"]:
         return p
     return {**p, "w": packed}
 
 
-def _pack_gated_mlp(p: dict, path: str, policy: ApproxPolicy) -> dict:
-    return {k: _pack_dense(v, f"{path}/{k}", policy) for k, v in p.items()}
+def _pack_gated_mlp(p: dict, path: str, policy: ApproxPolicy, tp: int = 1) -> dict:
+    return {k: _pack_dense(v, f"{path}/{k}", policy, tp) for k, v in p.items()}
 
 
-def _pack_embed(p: dict, policy: ApproxPolicy) -> dict:
+def _pack_embed(p: dict, policy: ApproxPolicy, tp: int = 1) -> dict:
     """Tied unembedding: logits = x @ emb.T, so the K-major pack of
     ``emb.T`` quantizes ``emb`` itself.  The pack rides the embed dict as
     ``unembed_q``; the token-lookup ``emb`` stays float."""
     spec = policy.spec_for("unembed")
     if spec.mode == ApproxMode.EXACT or "unembed_q" in p:
         return p
-    packed = pack_for_spec(p["emb"].transpose(-1, -2), spec)
+    packed = pack_for_spec(p["emb"].transpose(-1, -2), spec, tp=tp, name="embed/emb")
     if not is_packed(packed):
         return p
     return {**p, "unembed_q": packed}
 
 
-def _pack_transformer(params: dict, cfg, policy: ApproxPolicy) -> dict:
+def _pack_transformer(params: dict, cfg, policy: ApproxPolicy, tp: int = 1) -> dict:
     out = dict(params)
     layers = dict(params["layers"])
     for key in ("wq", "wk", "wv", "wo"):
-        layers[key] = _pack_dense(layers[key], f"layer/{key}", policy)
+        layers[key] = _pack_dense(layers[key], f"layer/{key}", policy, tp)
     if "mlp" in layers:
-        layers["mlp"] = _pack_gated_mlp(layers["mlp"], "layer/mlp", policy)
+        layers["mlp"] = _pack_gated_mlp(layers["mlp"], "layer/mlp", policy, tp)
     if "moe" in layers:
         from repro_torch.models.moe import expert_spec  # lazy: layering
 
@@ -202,19 +235,23 @@ def _pack_transformer(params: dict, cfg, policy: ApproxPolicy) -> dict:
         # the experts will route AXQ
         espec = expert_spec(policy, "layer/moe")
         if espec.mode == ApproxMode.AXQ:
-            moe["experts"] = {k: pack_for_spec(w, espec) for k, w in moe["experts"].items()}
+            moe["experts"] = {k: pack_for_spec(w, espec, tp=tp, name=f"layer/moe/experts/{k}")
+                              for k, w in moe["experts"].items()}
         if "shared" in moe:
-            moe["shared"] = {k: pack_for_spec(w, policy.spec_for(f"layer/moe/shared/{k}"))
-                             for k, w in moe["shared"].items()}
+            moe["shared"] = {
+                k: pack_for_spec(w, policy.spec_for(f"layer/moe/shared/{k}"),
+                                 k_shards=tp if k == "down" else 1, tp=tp,
+                                 name=f"layer/moe/shared/{k}")
+                for k, w in moe["shared"].items()}
         layers["moe"] = moe
     out["layers"] = layers
     for fe, fcs in (("v_proj", ("fc1", "fc2")), ("a_proj", ("fc1",))):
         if fe in params:
-            out[fe] = {k: _pack_dense(params[fe][k], f"{fe}/{k}", policy) for k in fcs}
+            out[fe] = {k: _pack_dense(params[fe][k], f"{fe}/{k}", policy, tp) for k in fcs}
     if "unembed" in params:
-        out["unembed"] = _pack_dense(params["unembed"], "unembed", policy)
+        out["unembed"] = _pack_dense(params["unembed"], "unembed", policy, tp)
     elif cfg.tie_embeddings:
-        out["embed"] = _pack_embed(params["embed"], policy)
+        out["embed"] = _pack_embed(params["embed"], policy, tp)
     return out
 
 
@@ -259,19 +296,24 @@ def _pack_hybrid(params: dict, cfg, policy: ApproxPolicy) -> dict:
     return out
 
 
-def prepack_params(params: dict, cfg, policy: ApproxPolicy) -> dict:
+def prepack_params(params: dict, cfg, policy: ApproxPolicy, tp: int | None = None) -> dict:
     """Quantize-once pass over a model's param tree (dense, MoE, SSM,
     hybrid, or a frontend arch, its ``v_proj`` / ``a_proj`` projections
     included): every dense weight whose policy spec is AXQ becomes a
     :class:`PackedQWeight`, every one whose spec is *_EMUL a
     :class:`PackedEmulWeight` (per stacked-layer slice).
     Idempotent; EXACT-only policies return every tensor untouched.  The
-    result is inference-only (int8 leaves carry no gradients)."""
-    from repro_torch.models.transformer import check_supported  # lazy: layering
+    result is inference-only (int8 leaves carry no gradients).  ``tp``:
+    the tensor-parallel degree the tree is a rank's shards of (default:
+    the active mesh's ``model`` axis; module docstring)."""
+    from repro_torch.dist import meshctx  # lazy: layering
+    from repro_torch.models.transformer import check_supported, check_tp_supported
 
     check_supported(cfg)
+    tp = meshctx.model_size() if tp is None else tp
+    check_tp_supported(cfg, tp)
     if cfg.family == "ssm":
         return _pack_ssm(params, cfg, policy)
     if cfg.family == "hybrid":
         return _pack_hybrid(params, cfg, policy)
-    return _pack_transformer(params, cfg, policy)
+    return _pack_transformer(params, cfg, policy, tp)

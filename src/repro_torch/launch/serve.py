@@ -39,6 +39,11 @@
   # losses (queue migration, in-flight rewind, survivor replanning):
   python -m repro_torch.launch.serve --arch tinyllama-1.1b --approx axq8 --replicas 3 \
       --faults replica_loss=0.02 --metrics
+  # tensor parallelism: 2 ranks (here both on the one card, so gloo must be
+  # asked for), each with its shards of the weights and its heads of the
+  # cache; --ring moves the EXACT row-parallel reductions as int8:
+  python -m repro_torch.launch.serve --arch tinyllama-1.1b --approx axq8 --qos \
+      --tp 2 --dist-backend gloo --metrics
 
 Weights are random-init from ``--seed``.  ``--qos`` walks the AXQ degree
 ladder ebits 8 -> 5 with load, at a fixed set of kernels (the stream
@@ -62,10 +67,22 @@ kinds become one plan a replica, seeded ``--fault-seed + rid``), queue
 migration and in-flight rewind when a replica dies, and the survivor plan
 with its modeled latency (``--rescale-ms``).  LM replicas share one packed
 weight set (each has its own cache and graphs; a storm with ``seu_param``
-gives each replica its own copy, since flips land in place).  Tensor
-parallelism (``--tp`` above 1, ``--ring``, ``--mesh`` other than 1x1) is
-not ported and raises.  An encoder-only arch (hubert-xlarge) has no decode
-step and raises, as in the reference.
+gives each replica its own copy, since flips land in place).  An
+encoder-only arch (hubert-xlarge) has no decode step and raises, as in the
+reference.
+
+``--tp M`` (or ``--mesh 1xM``; ``--tp`` wins) serves the LM workload with
+tensor parallelism over M ranks (``repro_torch.serve.sharded``): the
+launcher spawns its ranks itself (``dist.meshctx.spawn_ranks``) unless it
+runs under ``torchrun`` (``RANK`` / ``WORLD_SIZE`` set), every rank builds
+the same seeded weights, keeps its shards and serves the same requests,
+and rank 0 prints the report.  Rank r runs on ``cuda:(r % cards)``; ranks
+that share a card need ``--dist-backend gloo`` (NCCL refuses two ranks on
+one GPU; without the flag the launcher raises).  ``--ring`` routes the
+EXACT row-parallel reductions through the int8 ring.  The sharded step
+runs eagerly.  A mesh data axis above 1 (``--mesh 2xM``), tensor-parallel
+fleet replicas, the stream workload and the SSM / hybrid families under
+``--tp`` raise (ROADMAP §A).
 """
 
 from __future__ import annotations
@@ -97,17 +114,22 @@ def build_parser() -> argparse.ArgumentParser:
                     help="frames per clip (stream workload)")
     ap.add_argument("--arch", default="tinyllama-1.1b-smoke")
     ap.add_argument("--mesh", default="1x1",
-                    help="device mesh; only 1x1 is ported (one device)")
+                    help="device mesh DxM: M tensor-parallel ranks (--tp); a data "
+                         "axis D above 1 is not served yet")
     # -- the replica fleet (repro_torch.dist.fleet) -----------------------
     ap.add_argument("--replicas", type=int, default=1, metavar="N",
                     help="serve through a FleetSupervisor over N replica engines "
                          "(N > 1), all on the one device")
     ap.add_argument("--tp", type=int, default=0, metavar="M",
-                    help="tensor-parallel degree per replica: not ported, "
-                         "above 1 raises")
+                    help="tensor-parallel ranks (default: the model axis of --mesh); "
+                         "above 1 the launcher spawns M ranks")
     ap.add_argument("--ring", action="store_true",
-                    help="the int8 ring reductions of tensor-parallel decode: "
-                         "not ported, raises")
+                    help="route the EXACT row-parallel reductions of tensor-"
+                         "parallel serving through the int8 ring all-reduce")
+    ap.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
+                    help="process-group backend of the ranks (default: nccl when "
+                         "every rank has its own card, gloo on the CPU; ranks that "
+                         "share a card need gloo)")
     ap.add_argument("--rescale-ms", type=float, default=5.0,
                     help="modeled survivor re-shard latency charged per rescale "
                          "(repro_rescale_seconds histogram)")
@@ -326,10 +348,11 @@ def serve_stream(args):
     return s, eng
 
 
-def lm_model(args):
+def lm_model(args, device=None, tp: int = 1, prepack: bool = True):
     """(cfg, plan, model, params) of ``--workload lm``: the arch under the
-    plan's or ``--approx``'s policy, seeded weights, prepacked unless
-    ``--no-prepack``.  An encoder-only arch raises before any weight is
+    plan's or ``--approx``'s policy on ``device`` (default ``--device``),
+    seeded weights padded for ``tp``, prepacked unless ``--no-prepack`` or
+    ``prepack=False``.  An encoder-only arch raises before any weight is
     made: it has no decode step."""
     cfg = get_config(args.arch)
     if cfg.encoder_only:
@@ -344,9 +367,9 @@ def lm_model(args):
             policy = policy_from_flag(args.approx, dynamic=args.qos)
         except ValueError as e:
             raise SystemExit(str(e))
-    model = build_model(cfg, policy, device=args.device)
-    params = model.init(seed=args.seed)
-    if not args.no_prepack:
+    model = build_model(cfg, policy, device=args.device if device is None else device)
+    params = model.init(seed=args.seed, tp=tp)
+    if prepack and not args.no_prepack:
         # rebind: the f32 copies of packed weights are dropped here
         params = model.prepack(params)
     return cfg, plan, model, params
@@ -529,29 +552,119 @@ def serve_fleet(args):
     return s, sup
 
 
-def check_one_device(args) -> None:
-    """Tensor parallelism is not ported: ``--tp`` above 1, ``--ring`` and a
-    mesh other than 1x1 raise (never a silent one-device run)."""
+def mesh_dims(args) -> tuple:
+    """(data, model) ranks of ``--mesh`` / ``--tp``.  A data axis above 1,
+    tensor-parallel fleet replicas and the stream workload under
+    ``--tp`` raise (never a silent one-device run)."""
     d, m = (int(x) for x in args.mesh.split("x")[:2])
-    if (d, m) != (1, 1):
-        raise SystemExit(f"--mesh {args.mesh}: the port serves on one device (1x1); "
-                         "the mesh is not ported yet")
-    if args.tp > 1:
-        raise SystemExit(f"--tp {args.tp}: tensor parallelism is not ported yet "
-                         "(one device a replica)")
-    if args.ring:
-        raise SystemExit("--ring: the int8 ring reductions of tensor-parallel decode "
-                         "are not ported yet")
+    if args.tp:
+        m = args.tp
+    if d > 1:
+        raise SystemExit(f"--mesh {args.mesh}: a serving data axis above 1 (replicas of "
+                         "the sharded engine) is not served yet (ROADMAP §A)")
+    if args.replicas > 1 and (m > 1 or args.ring):
+        raise SystemExit("--tp / --ring with --replicas: tensor-parallel fleet replicas "
+                         "are not served yet (ROADMAP §A); a replica is one device")
+    if m > 1 and args.workload != "lm":
+        raise SystemExit(f"--tp {m}: tensor parallelism serves the lm workload")
+    return d, m
+
+
+#: seconds a rank may wait in a collective, and the bound on a run of
+#: spawned ranks (their start, weights, packs and serving)
+DIST_TIMEOUT_S = 900.0
+
+
+def _serve_rank(rank: int, world: int, args):
+    """One rank of ``--tp``: the sharded engine over this rank's shards of
+    the seeded weights, serving the launcher's requests.  Returns (summary,
+    engine); rank 0 prints the report."""
+    from repro_torch.dist import collectives, meshctx
+    from repro_torch.serve.sharded import ShardedServeEngine
+
+    mesh = meshctx.set_mesh(meshctx.make_mesh((1, world), ("data", "model"),
+                                              device=args.device,
+                                              backend=args.dist_backend))
+    if mesh.device.type == "cuda":
+        torch.cuda.set_device(mesh.device)
+    kdispatch.set_backend(args.kernels)
+    if args.trace_out and rank == 0:
+        obs_trace.enable()
+    cfg, plan, model, params = lm_model(args, device=mesh.device, tp=world, prepack=False)
+    qos = lm_qos(args)
+    registry = obs_metrics.get_registry() if args.metrics_out else None
+    kw = lm_engine_kwargs(args)
+    kw["prepack"] = not args.no_prepack
+    eng = ShardedServeEngine(model, params, mesh=mesh, ring=args.ring, slots=args.slots,
+                             qos=qos, plan=plan, registry=registry, **kw,
+                             **resil_kwargs(args))
+    del params                       # the global float tree: each rank keeps its shards
+    collectives.counter.reset()
+    t0 = time.time()
+    for p in lm_prompts(args, cfg):
+        eng.submit(p, args.new_tokens)
+    done = eng.run_until_drained()   # raises unless the ranks' streams are equal
+    dt = time.time() - t0
+    s = summarize(done, eng.stats, wall_s=dt)
+    coll = collectives.counter.snapshot()
+    ticks = max(int(eng.stats.c_steps.value), 1)
+    s.update(tp=world, transport=mesh.transport, streams_equal=True,
+             statuses={k: sum(r.status == k for r in done) for k in {r.status for r in done}},
+             collective_bytes_per_tick={k: v / ticks for k, v in coll["bytes"].items()},
+             collective_calls_per_tick={k: v / ticks for k, v in coll["calls"].items()},
+             collective_host_ms_per_tick=coll["host_ms"] / ticks,
+             collective_wait_ms_per_tick=coll["wait_ms"] / ticks)
+    if rank == 0:
+        print(f"[launch.serve] tp={world} ({mesh.transport}{', ring' if eng.ring else ''}): "
+              f"{s['requests']} reqs, {s['generated_tokens']} generated tokens, {dt:.2f}s "
+              f"({s.get('gen_tok_per_s', 0.0):.1f} gen tok/s), streams equal on every rank "
+              f"[device={mesh.device} kernels={kdispatch.resolved_backend(mesh.device)} "
+              f"cache={type(eng.cache).__name__}]")
+        if args.metrics:
+            for k, v in s.items():
+                print(f"[launch.serve]   {k:24s} {v}")
+            print_resil(eng)
+        write_obs(args)
+    return s, eng
+
+
+def _serve_rank_entry(rank: int, world: int, argd: dict) -> dict:
+    return _serve_rank(rank, world, argparse.Namespace(**argd))[0]
+
+
+def serve_tp(args, m: int):
+    """``--tp M``: M ranks of the sharded engine — spawned here, or this
+    process's rank under ``torchrun``.  Returns (rank 0's summary, this
+    process's engine or None)."""
+    from repro_torch.dist import meshctx
+    from repro_torch.models.transformer import check_tp_supported
+
+    check_tp_supported(get_config(args.arch), m)
+    args.dist_backend = meshctx.resolve_backend(args.device, m, args.dist_backend)
+    if meshctx.under_torchrun():
+        rank, world = meshctx.init_from_env(device=args.device, backend=args.dist_backend,
+                                            timeout_s=DIST_TIMEOUT_S)
+        if world != m:
+            raise SystemExit(f"--tp {m} under torchrun with {world} ranks")
+        return _serve_rank(rank, world, args)
+    threads = 1 if torch.device(args.device).type == "cpu" else 0
+    results = meshctx.spawn_ranks(_serve_rank_entry, m, timeout_s=DIST_TIMEOUT_S,
+                                  backend=args.dist_backend, device=args.device,
+                                  args=(vars(args),), threads=threads)
+    return results[0], None
 
 
 def run(argv=None):
     """Parse ``argv`` and serve; returns (summary dict, engine), so a caller
     can inspect the engine after the run — with ``--replicas`` above 1,
-    (summary, the FleetSupervisor).  ``--trace-out`` enables the
+    (summary, the FleetSupervisor); with ``--tp`` above 1, (rank 0's
+    summary, None) when the ranks were spawned.  ``--trace-out`` enables the
     process-global tracer; ``--metrics-out`` exports the process-global
     registry, which the engine and the kernel dispatch share."""
     args = build_parser().parse_args(argv)
-    check_one_device(args)
+    _, m = mesh_dims(args)
+    if m > 1:
+        return serve_tp(args, m)
     kdispatch.set_backend(args.kernels)
     if args.trace_out:
         obs_trace.enable()

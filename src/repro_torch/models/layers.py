@@ -4,6 +4,14 @@ Parameters are nested dicts of tensors; ``init_*`` builds them from an
 explicit ``torch.Generator``, ``*_apply`` consumes them.  Every matmul goes
 through :func:`repro_torch.kernels.ops.approx_matmul` with the ApproxSpec
 resolved from the model's ApproxPolicy by parameter path (DESIGN.md §2.3).
+
+On a mesh whose ``model`` axis is wider than 1 (``dist/meshctx.py``) the
+parameters are this rank's shards (``dist/sharding.py``): a projection's
+output is the global value (``approx_matmul`` reduces the row-parallel
+ones), the embedding is vocab-parallel (:func:`embed_apply`: a masked
+local lookup, then an all-reduce) and the unembedding column-parallel
+(local logits; :func:`gather_vocab` all-gathers them where whole rows are
+needed).
 """
 
 from __future__ import annotations
@@ -15,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.approx import ApproxMode, ApproxPolicy
+from repro_torch.dist import collectives, meshctx
 from repro_torch.kernels.axqmm import ACTS
 from repro_torch.kernels.ops import approx_gated_matmul, approx_matmul
 
@@ -90,7 +99,28 @@ def init_embedding(gen, vocab: int, d: int, device="cpu"):
 
 
 def embed_apply(p, tokens: Tensor, dtype=torch.bfloat16) -> Tensor:
-    return F.embedding(tokens, p["emb"]).to(dtype)
+    """The token rows of the table, cast to ``dtype``.  On a mesh the table
+    is this rank's vocab rows: the ids outside them look up zeros, and the
+    all-reduce over ``model`` sums one row and zeros (exact)."""
+    mesh = meshctx.get_mesh()
+    if mesh.size("model") == 1:
+        return F.embedding(tokens, p["emb"]).to(dtype)
+    emb = p["emb"]
+    n = emb.shape[0]
+    local = tokens - mesh.coord("model") * n
+    hit = (local >= 0) & (local < n)
+    x = F.embedding(torch.where(hit, local, 0), emb)
+    x = torch.where(hit[..., None], x, torch.zeros((), dtype=x.dtype, device=x.device))
+    return collectives.all_reduce(x, mesh.group("model")).to(dtype)
+
+
+def gather_vocab(logits: Tensor) -> Tensor:
+    """Vocab-sharded logits (..., V / tp) gathered into whole rows (...,
+    V) over the ``model`` group; unchanged on one device."""
+    mesh = meshctx.get_mesh()
+    if mesh.size("model") == 1:
+        return logits
+    return collectives.all_gather(logits, mesh.group("model"), dim=-1)
 
 
 def unembed_apply(p, x: Tensor, policy: ApproxPolicy, path: str,

@@ -1,9 +1,20 @@
-"""Mixture-of-Experts block, in PyTorch on one device.
+"""Mixture-of-Experts block, in PyTorch, on one device or expert-parallel.
 
 Port of ``repro.models.moe``.  The reference runs the block inside a
-shard_map over the ``model`` mesh axis (experts sharded, a psum combining
-the shards); the port runs on one device (``tp = 1``): every expert is
-local and the combine needs no collective.
+shard_map over the ``model`` mesh axis: the router replicated, the experts
+sharded, a psum combining the shards.  The port does the same on a mesh
+whose ``model`` axis is wider than 1 (``dist/meshctx.py``): rank r holds
+experts ``[r E/tp, (r+1) E/tp)`` (``dist/sharding.py``), routes every token
+with the replicated router, dispatches only the assignments to its own
+experts (the reference's ``is_local`` and rank-by-cumsum, at the global
+capacity), runs the expert-batched launches on its E/tp experts, and the
+ranks' partial outputs are summed by an exact all-reduce in f32 — or, under
+``REPRO_RING_TP=1``, by the int8 ring (the reference's
+``_ring_psum_model``).  The aux loss needs no collective there: every rank
+routes the same tokens with the same router, so the reference's mean over
+``model`` is each rank's own value.  Shared experts follow the column / row
+rules of the dense MLP.  On one device (tp = 1) every expert is local and
+the combine needs no collective.
 
 Routing (sort-free, all shapes static, nothing read on the host, so the
 decode step stays one CUDA graph): an f32 router product, softmax, top-k
@@ -28,13 +39,14 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.approx import ApproxMode, ApproxPolicy, ApproxSpec
+from repro_torch.dist import collectives, meshctx
 from repro_torch.models.layers import act_fn, gated_mlp_apply, truncated_normal
 
 Tensor = torch.Tensor
 
 # the pre-dispatch int8 expert lever: promotes an EXACT expert spec to AXQ-8
 _MOE_INT8 = os.environ.get("REPRO_MOE_INT8", "0") == "1"
-# the reference's int8-ring combine; the port has one device and no ring
+# the combine through the int8 ring all-reduce (on a mesh; no-op on one device)
 _MOE_RING = os.environ.get("REPRO_RING_TP", "0") == "1"
 
 
@@ -133,21 +145,22 @@ def dispatch_plan(ids: Tensor, C: int, E: int):
 def moe_apply(params, x: Tensor, cfg: ArchConfig, policy: ApproxPolicy, path: str,
               degree=None) -> tuple[Tensor, Tensor]:
     """x (B, S, d) -> (y (B, S, d) in x.dtype, aux load-balance loss (f32
-    scalar))."""
-    if _MOE_RING:
-        raise NotImplementedError(
-            "REPRO_RING_TP: the int8-ring combine is not ported (the port's MoE "
-            "runs on one device)")
+    scalar)).  On a mesh ``params`` holds this rank's experts (module
+    docstring)."""
+    mesh = meshctx.get_mesh()
+    tp = mesh.size("model")
     m = cfg.moe
-    E, topk = cfg.padded(1).n_experts, m.top_k
+    E, topk = cfg.padded(tp).n_experts, m.top_k
+    E_loc = E // tp
+    e0 = mesh.coord("model") * E_loc
     B, S, d = x.shape
     t = B * S
-    C = capacity(cfg, t)
+    C = capacity(cfg, t, tp)
     espec = expert_spec(policy, path)
     e_run = degree if (espec.dynamic and degree is not None) else espec.ebits
 
     xt = x.reshape(t, d)
-    gate_vals, ids, probs = route(params["router"]["w"], xt, cfg)
+    gate_vals, ids, probs = route(params["router"]["w"], xt, cfg, tp)
 
     # aux load-balance loss (Switch-style): E * sum_e f_e * p_e; the counts
     # are whole numbers, exact in f32 in any order
@@ -157,17 +170,22 @@ def moe_apply(params, x: Tensor, cfg: ArchConfig, policy: ApproxPolicy, path: st
     aux = E * torch.sum(me * (counts / (t * topk)))
 
     flat, slot, keep = dispatch_plan(ids, C, E)
+    if tp > 1:
+        # this rank's experts only; the ranks within an expert are the
+        # global ones (a cumsum per expert), so capacity drops the same rows
+        keep = keep & (flat >= e0) & (flat < e0 + E_loc)
+        flat = flat - e0
     tok = torch.arange(t * topk, device=x.device) // topk
     # kept rows to their (expert, rank) row of the buffer; dropped rows to
     # one spare row past it, which is cut off (a plain copy: no row is
     # summed onto another)
-    dst = torch.where(keep, flat * C + slot, E * C)
-    buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device)
+    dst = torch.where(keep, flat * C + slot, E_loc * C)
+    buf = torch.zeros((E_loc * C + 1, d), dtype=x.dtype, device=x.device)
     buf.index_copy_(0, dst, xt[tok])
-    y_buf = _local_expert_ffn(params["experts"], buf[:E * C].view(E, C, d), cfg.act,
-                              espec, e_run).to(x.dtype)
+    y_buf = _local_expert_ffn(params["experts"], buf[:E_loc * C].view(E_loc, C, d),
+                              cfg.act, espec, e_run).to(x.dtype)
 
-    rows = y_buf.reshape(E * C, d)[torch.where(keep, flat * C + slot, 0)]
+    rows = y_buf.reshape(E_loc * C, d)[torch.where(keep, flat * C + slot, 0)]
     rows = torch.where(keep[:, None], rows, 0) * gate_vals.reshape(-1)[:, None].to(x.dtype)
     # each token's k rows summed in k order, in x.dtype (the reference's
     # scatter-add order; no atomics)
@@ -175,6 +193,12 @@ def moe_apply(params, x: Tensor, cfg: ArchConfig, policy: ApproxPolicy, path: st
     yt = torch.zeros((t, d), dtype=x.dtype, device=x.device)
     for j in range(topk):
         yt = yt + rows[:, j]
+    if tp > 1:
+        g = mesh.group("model")
+        if _MOE_RING:
+            yt = collectives.ring_allreduce_int8(yt, g)
+        else:
+            yt = collectives.all_reduce(yt.to(torch.float32), g).to(x.dtype)
     y = yt.view(B, S, d)
 
     if "shared" in params:

@@ -17,7 +17,9 @@ SSM and hybrid families keep a cache of per-slot state (their recurrent
 state and conv tails, the hybrid also its attention rings), whatever
 ``quant`` or ``REPRO_KV_INT8`` say: neither has an int8 cache.  The VLM
 serves text-only prompts (its prefill and decode embed tokens alone, as the
-reference's do); the audio arch is encoder-only and has no cache.
+reference's do); the audio arch is encoder-only and has no cache.  On a
+mesh (tensor parallelism, ``dist/meshctx.py``) the serving entry points
+take a rank's shards; the SSM and hybrid families raise there.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.approx import ApproxPolicy
 from repro_torch.device import resolve_device
+from repro_torch.dist import meshctx
 from repro_torch.models import rglru, ssm, transformer
 
 
@@ -87,6 +90,7 @@ class Model:
         when ``quant``, or when ``quant`` is None and ``REPRO_KV_INT8=1``.
         An encoder-only arch (the audio family) has no decode step: it
         raises, as the reference does."""
+        transformer.check_tp_supported(self.cfg, meshctx.model_size())
         if self.cfg.encoder_only:
             raise ValueError("encoder-only arch has no decode step")
         if self.cfg.family == "hybrid":
@@ -102,6 +106,7 @@ class Model:
                     active=None):
         """``active`` (B,) bool: the attention kernel's free-slot mask (the
         SSM has no attention and ignores it)."""
+        transformer.check_tp_supported(self.cfg, meshctx.model_size())
         if self.cfg.family == "hybrid":
             return rglru.hybrid_decode_step(params, self.cfg, self.policy, cache, tokens,
                                             tp, degree, active)
@@ -114,6 +119,7 @@ class Model:
     def prefill(self, params, cache, tokens, slot, tp: int = 1, degree=None):
         """Fused prefill of prompt ``tokens`` (P,) into ``slot``'s region.
         Returns (last-position logits (1, V) f32, cache)."""
+        transformer.check_tp_supported(self.cfg, meshctx.model_size())
         if self.cfg.family == "hybrid":
             return rglru.hybrid_prefill(params, self.cfg, self.policy, cache, tokens, slot,
                                         tp, degree)

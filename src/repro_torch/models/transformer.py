@@ -28,6 +28,21 @@ Prefill entry points: :func:`lm_prefill` (one prompt at its exact length),
 decode; bf16/f32 cache only).  MoE configs take :func:`lm_prefill` only:
 capacity routing couples the rows of one call, so a padded or packed
 prefill would not equal the exact-length one (the reference's rule).
+
+Tensor parallelism (serving): on a mesh whose ``model`` axis is ``tp`` > 1
+(``dist/meshctx.py``) every entry point takes this rank's shards
+(``dist/sharding.py``) and its local cache, the reference's shard points
+made explicit.  wq/wk/wv, up and gate are column-parallel: H/tp query heads
+and KVr/tp repeated kv heads a rank (when tp does not divide the kv heads,
+the wk/wv columns are all-gathered and each rank takes its repeated
+heads).  wo and down are row-parallel (``approx_matmul`` all-reduces their
+f32 partials, then adds bias and residual once).  The embedding is
+vocab-parallel, and the logits the entry points return are this rank's
+vocab columns, as the reference's are sharded over ``model``: callers that
+need whole rows gather them (``layers.gather_vocab``).  tp = 1 keeps the
+one-device route unchanged.  The SSM and hybrid families and the audio
+encoder raise on such a mesh (:func:`check_tp_supported`), and so does
+the training forward: training on a mesh is ROADMAP §A.
 """
 
 from __future__ import annotations
@@ -40,6 +55,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.approx import ApproxPolicy
+from repro_torch.dist import collectives, meshctx
 from repro_torch.kernels import dispatch as kdispatch
 from repro_torch.kernels.qstore import PackedEmulWeight, PackedQWeight
 from repro_torch.models import attention as attn
@@ -68,6 +84,39 @@ def check_supported(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name!r} ({cfg.family}, frontend {cfg.frontend}) is not ported; the "
             "dense, MoE, SSM, hybrid, VLM (vision) and audio families are")
+
+
+def check_tp_supported(cfg: ArchConfig, tp: int) -> None:
+    """Tensor-parallel serving covers the dense and MoE families and the
+    VLM's text backbone; tp above 1 raises for the others."""
+    if tp <= 1:
+        return
+    if cfg.family in ("ssm", "hybrid"):
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}) at tp={tp}: its in_proj splits into "
+            "concatenated parts that the column rule would cut across; tensor "
+            "parallelism for the SSM and hybrid families is ROADMAP §A")
+    if cfg.encoder_only:
+        raise NotImplementedError(
+            f"{cfg.name} at tp={tp}: the audio encoder has no decode step to serve; "
+            "tensor parallelism for it is ROADMAP §A")
+
+
+def tp_heads(cfg: ArchConfig, tp: int) -> tuple:
+    """(query heads, repeated kv heads) this rank computes: the padded
+    counts, over the active mesh's ``model`` axis (which must be ``tp``
+    when it is wider than 1)."""
+    pd = cfg.padded(tp)
+    m = meshctx.model_size()
+    if m == 1:
+        return pd.n_heads, pd.n_kv_rep
+    if tp != m:
+        raise ValueError(f"tp={tp} on a mesh whose model axis is {m}")
+    check_tp_supported(cfg, m)
+    if pd.n_heads % m or pd.n_kv_rep % m:
+        raise ValueError(f"{cfg.name}: {pd.n_heads} heads / {pd.n_kv_rep} kv heads do "
+                         f"not split over tp={m}")
+    return pd.n_heads // m, pd.n_kv_rep // m
 
 
 def attn_window(cfg: ArchConfig):
@@ -152,17 +201,31 @@ def layer_params(layers, i: int):
 # ---------------------------------------------------------------------------
 
 
-def _qkv(bp, x, cfg: ArchConfig, pd, policy, path, positions, degree):
+def _qkv(bp, x, cfg: ArchConfig, tp: int, policy, path, positions, degree):
+    """(q, k, v) of this rank's heads: (B, S, H, D) and (B, S, KVr, D)."""
     B, S, _ = x.shape
-    H, KVr, D = pd.n_heads, pd.n_kv_rep, cfg.head_dim
+    (H, KVr), D = tp_heads(cfg, tp), cfg.head_dim
     q = L.dense_apply(bp["wq"], x, policy, path + "/wq", degree).reshape(B, S, H, D)
-    k = L.dense_apply(bp["wk"], x, policy, path + "/wk", degree).reshape(
-        B, S, cfg.n_kv_heads, D)
-    v = L.dense_apply(bp["wv"], x, policy, path + "/wv", degree).reshape(
-        B, S, cfg.n_kv_heads, D)
+    k = L.dense_apply(bp["wk"], x, policy, path + "/wk", degree)
+    v = L.dense_apply(bp["wv"], x, policy, path + "/wv", degree)
+    mesh = meshctx.get_mesh()
+    m = mesh.size("model")
+    # tp does not divide the kv heads: a rank's wk/wv columns cut a head,
+    # so gather every kv head and take this rank's repeated ones
+    split = m > 1 and cfg.n_kv_heads % m != 0
+    if split:
+        k = collectives.all_gather(k, mesh.group("model"), dim=-1)
+        v = collectives.all_gather(v, mesh.group("model"), dim=-1)
+    kvh = cfg.n_kv_heads // m if m > 1 and not split else cfg.n_kv_heads
+    k = k.reshape(B, S, kvh, D)
+    v = v.reshape(B, S, kvh, D)
     if cfg.rope_theta and cfg.causal:
         q = L.rope(q, positions, cfg.rope_theta)
         k = L.rope(k, positions, cfg.rope_theta)
+    if split:
+        first = mesh.coord("model") * KVr
+        return (q, attn.repeat_kv(k, KVr * m).narrow(2, first, KVr),
+                attn.repeat_kv(v, KVr * m).narrow(2, first, KVr))
     return q, attn.repeat_kv(k, KVr), attn.repeat_kv(v, KVr)
 
 
@@ -184,12 +247,11 @@ def block_apply(bp, x: Tensor, cfg: ArchConfig, tp: int, policy: ApproxPolicy,
     """One block's forward; with ``return_kv`` also the post-rope (k, v)
     that prefill writes into a slot's cache region; with ``return_aux``
     (out, the MoE aux load-balance loss, None for a dense block) instead."""
-    pd = cfg.padded(tp)
     h = L.rmsnorm_apply(bp["ln1"], x, cfg.norm_eps)
-    q, k, v = _qkv(bp, h, cfg, pd, policy, path, positions, degree)
+    q, k, v = _qkv(bp, h, cfg, tp, policy, path, positions, degree)
     o = kdispatch.prefill_attention(q, k, v, causal=cfg.causal,
                                     window=cfg.swa_window)
-    o = o.reshape(x.shape[0], x.shape[1], pd.n_heads * cfg.head_dim)
+    o = o.reshape(x.shape[0], x.shape[1], q.shape[2] * cfg.head_dim)
     # residual adds ride the projection epilogues (fused in-kernel on AXQ)
     x = L.dense_apply(bp["wo"], o, policy, path + "/wo", degree, residual=x)
     h = L.rmsnorm_apply(bp["ln2"], x, cfg.norm_eps)
@@ -276,7 +338,11 @@ def lm_forward(params, cfg: ArchConfig, policy: ApproxPolicy, batch: dict,
     """Returns (logits (B, S, vocab_padded) f32, the layers' summed aux
     load-balance loss (0 for a dense model)); S counts a VLM's image
     tokens.  ``remat`` is the layers' activation policy under autograd
-    (:func:`remat_call`)."""
+    (:func:`remat_call`).  Runs on one device: training on a mesh is
+    ROADMAP §A."""
+    if meshctx.model_size() > 1:
+        raise NotImplementedError("the training forward on a mesh (model axis > 1) is "
+                                  "ROADMAP §A; tensor parallelism serves only")
     dev = next(iter(batch.values())).device
     ldeg, hdeg = split_degree(degree, cfg.n_layers, dev)
     x, positions = embed_inputs(params, cfg, batch, _dtype(cfg), policy, hdeg)
@@ -343,9 +409,9 @@ class LMCacheQ(NamedTuple):
 
 def init_lm_cache(cfg: ArchConfig, tp: int, batch: int, max_len: int,
                   dtype=torch.bfloat16, device="cpu", quant: bool = False):
-    pd = cfg.padded(tp)
+    """A zeroed cache of this rank's kv heads (all of them on one device)."""
     T = min(max_len, cfg.swa_window) if cfg.swa_window else max_len
-    shape = (cfg.n_layers, batch, T, pd.n_kv_rep, cfg.head_dim)
+    shape = (cfg.n_layers, batch, T, tp_heads(cfg, tp)[1], cfg.head_dim)
     length = torch.zeros((batch,), dtype=torch.int32, device=device)
     if quant:
         return LMCacheQ(torch.zeros(shape, dtype=torch.int8, device=device),
@@ -595,7 +661,6 @@ def lm_prefill_chunk(params, cfg: ArchConfig, policy: ApproxPolicy,
     cache."""
     _no_moe(cfg, "chunked prefill")
     ldeg, _ = split_degree(degree, cfg.n_layers, tokens.device)
-    pd = cfg.padded(tp)
     C = tokens.shape[0]
     B, T, kvh = cache.k.shape[1], cache.k.shape[2], cache.k.shape[3]
     if C > T:
@@ -616,7 +681,7 @@ def lm_prefill_chunk(params, cfg: ArchConfig, policy: ApproxPolicy,
         lp = layer_params(params["layers"], i)
         dg = None if ldeg is None else ldeg[i]
         hn = L.rmsnorm_apply(lp["ln1"], x, cfg.norm_eps)
-        q, k, v = _qkv(lp, hn, cfg, pd, policy, "layer", positions, dg)
+        q, k, v = _qkv(lp, hn, cfg, tp, policy, "layer", positions, dg)
         _chunk_rows(cache.k[i], rows, write, k[0])
         _chunk_rows(cache.v[i], rows, write, v[0])
         keys = cache.k[i].index_select(0, sc)[0]                      # (T, KVr, D)
@@ -627,7 +692,7 @@ def lm_prefill_chunk(params, cfg: ArchConfig, policy: ApproxPolicy,
         s = torch.where(qmask[None, None, None], s, attn.NEG_INF)
         p = torch.softmax(s, dim=-1)
         o = torch.einsum("bkgqt,tkd->bqkgd", p, vals.to(torch.float32))
-        o = o.reshape(1, C, pd.n_heads * cfg.head_dim).to(x.dtype)
+        o = o.reshape(1, C, q.shape[2] * cfg.head_dim).to(x.dtype)
         x = L.dense_apply(lp["wo"], o, policy, "layer/wo", dg, residual=x)
         hn = L.rmsnorm_apply(lp["ln2"], x, cfg.norm_eps)
         x = L.gated_mlp_apply(lp["mlp"], hn, policy, "layer/mlp", cfg.act,
@@ -643,7 +708,8 @@ def lm_decode_step(params, cfg: ArchConfig, policy: ApproxPolicy, cache,
     (its int8 codes and scales for an :class:`LMCacheQ`) is written into the
     cache in place.  Returns (logits (B, 1, V) f32, the cache with
     ``length + 1``).  ``active`` (B,) bool: free-slot mask for the attention
-    kernel."""
+    kernel.  On a mesh the logits are this rank's vocab columns (module
+    docstring)."""
     ldeg, hdeg = split_degree(degree, cfg.n_layers, tokens.device)
     x = L.embed_apply(params["embed"], tokens, _dtype(cfg))
     for i in range(cfg.n_layers):
@@ -659,13 +725,12 @@ def decode_block(bp, x: Tensor, layer_cache, cfg: ArchConfig, tp: int,
     written into ``layer_cache`` (one layer's KV cache, at the positions
     its ``length`` gives) in place, attention over ``cfg.swa_window``.
     Returns the block's output."""
-    pd = cfg.padded(tp)
     B = x.shape[0]
     hn = L.rmsnorm_apply(bp["ln1"], x, cfg.norm_eps)
-    q, k, v = _qkv(bp, hn, cfg, pd, policy, path, layer_cache.length[:, None], degree)
+    q, k, v = _qkv(bp, hn, cfg, tp, policy, path, layer_cache.length[:, None], degree)
     o, _ = kdispatch.decode_attention(q, k, v, layer_cache, window=cfg.swa_window,
                                       degree=degree, active=active)
-    o = o.reshape(B, 1, pd.n_heads * cfg.head_dim)
+    o = o.reshape(B, 1, q.shape[2] * cfg.head_dim)
     x = L.dense_apply(bp["wo"], o, policy, path + "/wo", degree, residual=x)
     hn = L.rmsnorm_apply(bp["ln2"], x, cfg.norm_eps)
     return _ffn(bp, hn, x, cfg, policy, path, degree)[0]

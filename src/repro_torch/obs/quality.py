@@ -59,8 +59,11 @@ def lm_logit_rms_probe(model, tp: int = 1):
     """The LM probe: live-degree and exact-rung decode logits on identical
     inputs, normalized RMS deviation over the active slots.  What both
     forwards write is saved first and restored after: each slot's token
-    row of the K/V fields, and the recurrent families' state fields whole."""
+    row of the K/V fields, and the recurrent families' state fields whole.
+    On a mesh both are whole logit rows (gathered over ``model``), so every
+    rank computes the same value."""
     from repro_torch.models.attention import token_rows
+    from repro_torch.models.layers import gather_vocab
     from repro_torch.models.transformer import attn_window
 
     cfg = model.cfg
@@ -79,6 +82,7 @@ def lm_logit_rms_probe(model, tp: int = 1):
                                       degree=deg, active=active)
         exact, _ = model.decode_step(params, cache, tokens, tp=tp,
                                      degree=exact_deg, active=active)
+        approx, exact = gather_vocab(approx), gather_vocab(exact)
         for f, old in zip(fields, saved):
             getattr(cache, f)[:, bidx, rows] = old
         for f, old in zip(states, saved_states):

@@ -41,6 +41,7 @@ import torch
 
 from repro_torch.kernels import dispatch as kdispatch
 from repro_torch.models.cache_ops import cache_mask_update, cache_reset_slot
+from repro_torch.models.layers import gather_vocab
 from repro_torch.models.registry import Model
 from repro_torch.models.transformer import attn_window
 from repro_torch.resil import guards
@@ -341,14 +342,15 @@ class LMAdapter(ServableModel):
     def _logits(self, params, cache, feed, active, degree):
         """The fused decode: one token a slot, the cache advanced in place
         (free slots' lengths frozen); returns the last position's (slots,
-        vocab) logits and the cache."""
+        vocab) logits — whole rows, gathered over the ``model`` group on a
+        mesh — and the cache."""
         self._note("step", (tuple(feed.shape),
                             None if degree is None else tuple(getattr(degree, "shape", ()))))
         logits, new_cache = self.model.decode_step(params, cache, feed,
                                                    tp=self.tp, degree=degree,
                                                    active=active)
         cache = cache_mask_update(cache, new_cache, active, into=cache)
-        return logits[:, 0, :self.cfg.vocab], cache
+        return gather_vocab(logits)[:, 0, :self.cfg.vocab], cache
 
     def _sample(self, logits, generator):
         return sample_tokens(logits, generator, greedy=self.greedy,

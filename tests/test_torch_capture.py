@@ -197,7 +197,7 @@ def _host_chunk(params, cfg, policy, cache, tokens, slot, offset, clen):
     for i in range(cfg.n_layers):
         lp = TT.layer_params(params["layers"], i)
         hn = TL.rmsnorm_apply(lp["ln1"], x, cfg.norm_eps)
-        q, k, v = TT._qkv(lp, hn, cfg, pd, policy, "layer", positions, None)
+        q, k, v = TT._qkv(lp, hn, cfg, 1, policy, "layer", positions, None)
         if live:
             keys, vals = cache.k[i, slot], cache.v[i, slot]
         else:

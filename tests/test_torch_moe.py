@@ -212,8 +212,9 @@ def test_capacity_copies_the_reference_formula():
 
 def test_moe_int8_lever_and_ring_lever(monkeypatch):
     """REPRO_MOE_INT8 promotes an EXACT expert spec to AXQ-8 on both sides
-    (and the prepack then packs the experts); REPRO_RING_TP raises in the
-    port, which runs on one device."""
+    (and the prepack then packs the experts); REPRO_RING_TP's ring combine
+    is the identity on one device, as the reference's ring is on a 1-wide
+    model axis (tests/test_torch_tp_moe.py holds it on a mesh)."""
     monkeypatch.setattr(jmoe, "_MOE_INT8", True)
     monkeypatch.setattr(tmoe, "_MOE_INT8", True)
     js, ts = jmoe.expert_spec(JPolicy(), "layer/moe"), tmoe.expert_spec(ApproxPolicy(),
@@ -225,11 +226,12 @@ def test_moe_int8_lever_and_ring_lever(monkeypatch):
     packed = prepack_params(params, tcfg, ApproxPolicy())
     assert isinstance(packed["layers"]["moe"]["experts"]["down"], PackedQWeight)
     assert isinstance(packed["layers"]["wq"]["w"], torch.Tensor)
+    x = torch.randn((1, 4, tcfg.d_model), generator=torch.Generator().manual_seed(1))
+    lp = TT.layer_params(params["layers"], 0)["moe"]
+    want = tmoe.moe_apply(lp, x, tcfg, ApproxPolicy(), "layer/moe")
     monkeypatch.setattr(tmoe, "_MOE_RING", True)
-    x = torch.zeros((1, 4, tcfg.d_model))
-    with pytest.raises(NotImplementedError, match="REPRO_RING_TP"):
-        tmoe.moe_apply(TT.layer_params(params["layers"], 0)["moe"], x, tcfg, ApproxPolicy(),
-                       "layer/moe")
+    got = tmoe.moe_apply(lp, x, tcfg, ApproxPolicy(), "layer/moe")
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 # ---------------------------------------------------------------------------

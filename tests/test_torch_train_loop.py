@@ -91,21 +91,28 @@ def test_straggler_watchdog_flags_outliers():
     assert w.flagged and w.flagged[0][0] == 20
 
 
-def test_straggler_event_and_counter(tmp_path):
+def test_straggler_event_and_counter(tmp_path, monkeypatch):
     """A step slower than twice the median after 10 steps is flagged: the
-    history, the straggler event and the counter."""
+    history, the straggler event and the counter.  The trainer's clock is a
+    fake one that each step advances by 0.1 s and step 11 by 0.5 s (5x), so
+    no load on the host can make another step slow."""
+    import types
+
+    from repro_torch.train import trainer as ttrainer
+
+    clock = types.SimpleNamespace(t=0.0)
+    monkeypatch.setattr(ttrainer, "time", types.SimpleNamespace(time=lambda: clock.t))
     tracer = ttrace.Tracer(enabled=True)
     t = _mk(tmp_path, total=12, ckpt_every=100, tracer=tracer)
     inner = t._step_fn
 
     def slow_at_11(state, batch, degree):
-        if len(t.history) == 11:
-            import time
-            time.sleep(max(0.5, 5 * float(np.median([h["time_s"] for h in t.history]))))
+        clock.t += 0.5 if len(t.history) == 11 else 0.1
         return inner(state, batch, degree)
 
     t._step_fn = slow_at_11
     out = t.run()
+    assert [h["time_s"] for h in t.history] == pytest.approx([0.1] * 11 + [0.5])
     assert [s for s, _, _ in out["stragglers"]] == [11]
     assert t.history[11]["straggler"]
     assert [e["args"]["step"] for e in tracer.events if e["name"] == "straggler"] == [11]
