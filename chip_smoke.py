@@ -61,8 +61,9 @@ Phases (any failure exits non-zero):
      per-layer approximation plans (repro_torch.tune), served through
      ``launch.serve --plan --qos`` with ``--trace-out``, ``--metrics-out``
      and ``--quality-every 8`` —
-       3i  tinyllama-1.1b: a plan built on the card by ``build_plan``
-           (measured greedy over 23 sites, grid (8, 5), a (2, 64)-token
+       3i  tinyllama-1.1b (full width, cut to 8 of its 22 layers: the
+           time limit): a plan built on the card by ``build_plan``
+           (measured greedy over L + 1 sites, grid (8, 5), a (2, 64)-token
            calibration batch on the launcher's seeded weights), checked
            (validate_for, Pareto order, save/load), served on the bf16 cache
            (the trace's decode_tick spans, qos_rung events with 23 degrees,
@@ -76,7 +77,8 @@ Phases (any failure exits non-zero):
            a plain run;
      the EMUL / POW2_W arithmetic and the resilience layer on tinyllama —
        3k  PR_EMUL (p=1, r=2), RAD_EMUL (k=4), ROUP_EMUL (k=4, p=1, r=1) and
-           POW2_W, each uniform, prepacked and captured, 8 prompts of
+           POW2_W, each uniform, prepacked and captured (cut to 8 of the
+           22 layers: the time limit), 8 prompts of
            64-512 tokens: at one decode tick every integer product's int32
            accumulator equal to an exact CPU product of the same int8
            operands (POW2_W: every snapped weight to a CPU snap), no GEMM
@@ -96,12 +98,14 @@ Phases (any failure exits non-zero):
      h2o-danube-1.8b (sliding window 4096, head_dim 80) —
        3e  prompts past the window (``band``) on the bf16 ring cache;
        3f  the same on the int8 ring with bucketed admission;
-     qwen2.5-3b (head_dim 128, QKV bias, GQA 16/2, vocab 151936) —
+     qwen2.5-3b (head_dim 128, QKV bias, GQA 16/2, vocab 151936; served at
+     12 of its 36 layers: the time limit) —
        3g  prompts of a few thousand tokens among short ones, exact-length
            admission on the bf16 cache (``tri`` at D = 128);
        3h  the same on the int8 cache with bucketed, packed admission;
-     granite-moe-3b-a800m (32 layers, 40 experts of 512, top-8, GQA 24/8,
-     vocab 49155) on phase 3's traffic, exact-length admission (MoE's only
+     granite-moe-3b-a800m (40 experts of 512, top-8, GQA 24/8, vocab 49155;
+     served at 8 of its 32 layers: the time limit) on phase 3's traffic,
+     exact-length admission (MoE's only
      one: capacity couples the rows of a call) —
        3m  the bf16 cache, the experts on one expert-batched gated and one
            down launch a layer;
@@ -109,13 +113,15 @@ Phases (any failure exits non-zero):
      the recurrent families, bucketed packed admission (buckets 64-512,
      pack 4; the long prompts past the ladder at their exact length) on
      their state caches, whose bytes must not depend on the prompts —
-       3o  mamba2-370m (48 layers, d_inner 2048, 32 SSD heads of 64, state
-           128, chunk 256): 16 prompts of 64-512 tokens and 2 of 4096-8192;
+       3o  mamba2-370m (16 of its 48 layers: the time limit; d_inner 2048, 32
+           SSD heads of 64, state 128, chunk 256): 16 prompts of 64-512
+           tokens and 2 of 4096-8192;
        3p  recurrentgemma-2b (8 groups of (rec, rec, attn) and 2 tail
            blocks, MQA 10/1 at head_dim 256, window 2048: a ring): 3
            prompts of 4096-8192 tokens (band) among 9 of 64-512;
      the VLM's backbone, text-only as the reference serves it —
-       3q  internvl2-1b (24 layers, GQA 14/2, QKV bias, vocab 151655) on
+       3q  internvl2-1b (8 of its 24 layers: the time limit; GQA 14/2, QKV bias,
+           vocab 151655) on
            phase 3's traffic: exact-length admission on the bf16 cache
            (captured, its eager twin, a traced tick) and bucketed, packed
            admission;
@@ -133,20 +139,23 @@ Phases (any failure exits non-zero):
      and the ring's hops are staged through host memory, ``"transport"``
      in the record), each with its shards of the weights (packed on the shard)
      and its heads of the cache, eager —
-       3s  tinyllama-1.1b at full width and depth, tp=2, on phase 3's
-           traffic: every request ok, the ranks' streams equal, each rank's
-           launches as the layer count predicts (111 ``axqmm``, 22 gated,
-           22 decode a tick, at the shard shapes), the collectives as
+       3s  tinyllama-1.1b at full width (the served model 8 of its 22
+           layers: the time limit; the launcher below the whole model), tp=2, on
+           phase 3's traffic: every request ok, the ranks' streams equal,
+           each rank's launches as the layer count predicts (5 L + 1
+           ``axqmm``, L gated, L decode a tick, at the shard shapes), the
+           collectives as
            predicted (the embedding's all-reduce and two a layer, the
            logits' all-gather a tick); cut to 2 layers, the first decode
            step's logits at tp=2 against tp=1 on the same weights (4x the
            noise floor), and under EXACT (f32) the int8 ring within rel
            0.05 of exact tp=2 at most half its bytes; then ``launch.serve
            --tp 2 --dist-backend gloo`` for the wall numbers;
-       3t  granite-moe-3b-a800m at full width and depth, tp=2, 20 experts
-           a rank, with the exact combine and with the int8-ring combine
-           (the same gates), and its 2-layer cut under EXACT (f32): tp=2
-           against tp=1 within 1e-4 of the largest logit, the ring combine
+       3t  granite-moe-3b-a800m at full width, cut to 8 of its 32 layers
+           (the script's time limit), tp=2, 20 experts a rank, with
+           the exact combine and with the int8-ring combine (the same
+           gates), and its 2-layer cut under EXACT (f32): tp=2 against tp=1
+           within 1e-4 of the largest logit, the ring combine
            within rel 0.05 at most half the combine's bytes;
      every request must finish and every kernel of the path must have
      launched exactly as the layer (or stage) count predicts, while no
@@ -189,16 +198,48 @@ Phases (any failure exits non-zero):
            ``band`` at head_dim 256), internvl2-1b (2 layers, 1024 image +
            1024 text tokens) and hubert-xlarge (2 layers, non-causal
            ``dense``), kernels against plain;
-       5e  internvl2-1b at full width and depth (24 layers), axq8, batch 4
-           x seq 2048 (1024 image + 1024 text tokens), 8 steps: 5a's gates
-           and numbers, launches 123 / 24 / 24 (tri) a step;
-       5f  hubert-xlarge at full width and depth (48 layers), axq8, batch 8
-           x 1024 frames, remat none, 8 steps: launches 242 / 48 / 48
-           (dense) a step;
+       5e  internvl2-1b at full width, cut to 12 of its 24 layers (the
+           script's time limit), axq8, batch 4 x seq 2048 (1024 image
+           + 1024 text tokens), 8 steps: 5a's gates and numbers, launches 63
+           / 12 / 12 (tri) a step (123 / 24 / 24 at full depth);
+       5f  hubert-xlarge at full width, cut to 24 of its 48 layers (the time limit),
+           axq8, batch 8 x 1024 frames, remat none, 8 steps: launches 122 /
+           24 / 24 (dense) a step (242 / 48 / 48 at full depth);
+     training on a mesh, tinyllama-1.1b at full width, ranks on the one
+     card joined by an explicit gloo group as in 3s (each rank its shards
+     and its data coordinate's rows; the collectives carry the gradients),
+     first phase 2's rows at the training shard shapes (M = 8192: wq N
+     1024, wk / wv N 128, wo K 1024 and down K 2816 as f32 partials, the
+     vocab shard N 16000, the gated half N 2816, ``tri`` 16/2 over 8 x
+     1024; M = 4096 on the full weights: N 2048 / 256 / 32000, K 5632,
+     gated N 5632, ``tri`` 32/4 over 4 x 1024) —
+       5g  1x2, full depth, axq8 with the ladder 8 -> 5 moving, global batch
+           8 x 1024, 4 steps: finite losses equal bit for bit on both ranks,
+           the replicated parameters' fingerprints equal, 111 / 22 / 22
+           launches a step a rank at the shard shapes, 4 L + 6 all-reduces a
+           step, no plain version on the card; step time, tokens/s, each
+           rank's peak memory, the collectives' host and wait ms and bytes,
+           the oracles' share;
+       5h  2x1, full width and depth, 4 x 1024 a rank: 5g's gates, both ranks'
+           parameters equal after every step, the gradient all-reduce 4 x
+           the parameter count in bytes a step;
+       5i  2 layers, one step at 1x2, 2x1 and 2x2 (four ranks) against the
+           one-rank step on the same weights and batch (in each rank's
+           process): EXACT f32 within 1e-4 of each leaf's largest entry,
+           axq8 within 4x the noise floor (5b's measure), the int8 ring under
+           EXACT f32 at 1x2 within rel 0.25 of the exact mesh step's gradient
+           (the reference's own ring: 0.165 at this shape) at most half its
+           bytes, --compress-grads at 2x1;
+       5j  ``launch.train --mesh 1x2 --dist-backend gloo`` at 2 layers:
+           uninterrupted, SIGTERM'd (the launcher passes the signal to its
+           ranks, which checkpoint at one step), resumed (restored shards
+           equal to the saved state, losses within tolerance); then the 1x2
+           checkpoint restored at 1x1 bit for bit;
   6. one {"kernels": [...]} line and, last, the result line.
 
 ``--tp-only`` builds, then runs only phase 2's tp=2 shard rows, 3s and 3t
-(no result line).
+(no result line); ``--train-mesh-only`` builds, then runs only phase 2's
+training shard rows and 5g-5j (no result line).
 
 With ``--record PATH`` every number also goes to a JSON file.
 """
@@ -208,6 +249,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import hashlib
 import json
 import math
 import re
@@ -3273,7 +3315,8 @@ def phase_emul(ctx, cfg):
 
     for mode, kw in EMUL_MODES:
         t0 = time.time()
-        model, params = _emul_model(ctx, cfg, mode, kw)
+        mcfg = depth_cut(ctx, "3k", cfg)
+        model, params = _emul_model(ctx, mcfg, mode, kw)
         wbytes = weight_bytes(params)
         eng = ServeEngine(model, params, slots=ctx["slots"], max_len=ctx["max_len"],
                           prepack=False, seed=0)
@@ -3281,7 +3324,7 @@ def phase_emul(ctx, cfg):
         reqs, seen = drive(ctx, eng, prompts, ctx["new_tokens"])
         require(eng.graphs is None or len(eng.graphs.graphs) == graphs,
                 f"phase 3k {mode}: a graph was captured after warmup")
-        steps, prefills, L = eng.stats.decode_steps, eng.stats.prefill_calls, cfg.n_layers
+        steps, prefills, L = eng.stats.decode_steps, eng.stats.prefill_calls, mcfg.n_layers
         label = f"phase 3k ({mode} {kw})"
         check_launches(ctx, label, seen, {
             "axqmm": 0, "axqmm_gated": 0, "flash_decode": L * steps,
@@ -3663,10 +3706,11 @@ def _tp_policy(job):
     return uniform(ApproxSpec(mode=ApproxMode.AXQ, ebits=8, block=job["block"], dynamic=True))
 
 
-def _tp_rank(rank: int, world: int, job: dict) -> dict:
-    """One rank of a 3s / 3t job, in its own process (``spawn_ranks``): the
-    rank's mesh over the gloo group on the card (or the CPU in the
-    rehearsal), then ``job["kind"]``: ``serve`` or ``logits``."""
+def _tp_rank(rank: int, world: int, jobs: list) -> list:
+    """One rank of 3s / 3t, in its own process (``spawn_ranks``): the rank's
+    mesh over the gloo group on the card (or the CPU in the rehearsal),
+    then each job of ``jobs`` in turn, ``kind`` ``serve`` or ``logits``;
+    one result a job.  The jobs share the processes' start and warm-up."""
     import torch
 
     from repro_torch.configs import get_config
@@ -3674,23 +3718,30 @@ def _tp_rank(rank: int, world: int, job: dict) -> dict:
     from repro_torch.kernels import _build
     from repro_torch.models import moe as moe_mod
 
-    on_card = job["on_card"]
+    on_card = jobs[0]["on_card"]
     mesh = meshctx.set_mesh(meshctx.make_mesh((1, world), ("data", "model"),
                                               device="cuda" if on_card else "cpu",
                                               backend="gloo"))
     if on_card:
         torch.cuda.set_device(mesh.device)
         _build.build_all()                   # loads the parent's build (content-keyed)
-    ctx = _rank_ctx(torch, mesh.device, on_card, job["slots"])
-    cfg = get_config(job["arch"])
-    if job.get("n_layers"):
-        cfg = dataclasses.replace(cfg, n_layers=job["n_layers"])
-    if job.get("dtype"):
-        cfg = dataclasses.replace(cfg, dtype=job["dtype"])
-    if job["kind"] == "serve":
-        moe_mod._MOE_RING = bool(job.get("moe_ring"))
-        return _tp_serve(ctx, mesh, cfg, job)
-    return _tp_logits(ctx, mesh, cfg, job)
+    out = []
+    for job in jobs:
+        ctx = _rank_ctx(torch, mesh.device, on_card, job["slots"])
+        cfg = get_config(job["arch"])
+        if job.get("n_layers"):
+            cfg = dataclasses.replace(cfg, n_layers=job["n_layers"])
+        if job.get("dtype"):
+            cfg = dataclasses.replace(cfg, dtype=job["dtype"])
+        # the combine a serving run asks for; a logits run sets its own
+        moe_mod._MOE_RING = job["kind"] == "serve" and bool(job.get("moe_ring"))
+        if job["kind"] == "serve":
+            out.append(_tp_serve(ctx, mesh, cfg, job))
+        else:
+            out.append(_tp_logits(ctx, mesh, cfg, job))
+        if on_card:
+            torch.cuda.empty_cache()
+    return out
 
 
 def _tp_serve(ctx, mesh, cfg, job) -> dict:
@@ -3803,19 +3854,21 @@ def _tp_logits(ctx, mesh, cfg, job) -> dict:
     return out
 
 
-def _tp_job(ctx, tag, job, timeout_s) -> list:
-    """Run ``job`` on TP ranks (gloo on the one card); every rank's result."""
+def _tp_jobs(ctx, tag, jobs, timeout_s) -> list:
+    """Run ``jobs`` in turn on one spawn of TP ranks (gloo on the one
+    card); [every rank's result] a job."""
     from repro_torch.dist import meshctx
 
-    job = dict(job, on_card=ctx["on_card"], slots=ctx["slots"])
+    jobs = [dict(job, on_card=ctx["on_card"], slots=ctx["slots"]) for job in jobs]
     t0 = time.time()
     out = meshctx.spawn_ranks(_tp_rank, TP, timeout_s=timeout_s, backend="gloo",
-                              device="cuda" if ctx["on_card"] else "cpu", args=(job,),
+                              device="cuda" if ctx["on_card"] else "cpu", args=(jobs,),
                               threads=0 if ctx["on_card"] else 1)
-    say(f"phase {tag}: {TP} ranks ran {job['kind']} ({job['arch']}"
-        f"{', ring' if job.get('ring') else ''}{', ring combine' if job.get('moe_ring') else ''})"
-        f" in {time.time() - t0:.1f} s")
-    return out
+    names = ", ".join(f"{job['kind']}{', ring' if job.get('ring') else ''}"
+                      f"{', ring combine' if job.get('moe_ring') else ''}" for job in jobs)
+    say(f"phase {tag}: {TP} ranks ran {names} ({jobs[0]['arch']}) in "
+        f"{time.time() - t0:.1f} s")
+    return [[rank[i] for rank in out] for i in range(len(jobs))]
 
 
 def tp_prompts(ctx, cfg) -> list:
@@ -3925,11 +3978,19 @@ def phase_tp_dense(ctx, cfg, prompts) -> dict:
     ring (rel 0.05 of exact tp=2, at most half the bytes).  Then
     ``launch.serve --tp 2 --dist-backend gloo`` for the wall numbers."""
     label = "phase 3s"
-    L = cfg.n_layers
-    serve = {"kind": "serve", "arch": cfg.name, "approx": "axq8", "block": ctx["tp_block"],
-             "ring": False, "qos": True, "max_len": ctx["max_len"], "prompts": prompts,
+    # the served model's depth (cut on the card: the time limit); the
+    # launcher below serves the whole model
+    L = depth_cut(ctx, "3s", cfg).n_layers
+    serve = {"kind": "serve", "arch": cfg.name, "n_layers": L, "approx": "axq8",
+             "block": ctx["tp_block"], "ring": False, "qos": True, "max_len": ctx["max_len"], "prompts": prompts,
              "new_tokens": ctx["new_tokens"]}
-    ranks = _tp_job(ctx, "3s", serve, ctx["tp_timeout_s"])
+    cut = {"kind": "logits", "arch": cfg.name, "n_layers": 2, "prompt": prompts[0],
+           "block": ctx["tp_block"]}
+    # one spawn of the two ranks: the serving run, then the two cuts
+    ranks, cut_axq8, cut_ring = _tp_jobs(
+        ctx, "3s", [serve, dict(cut, approx="axq8"),
+                    dict(cut, approx="exact", ring=True, dtype="float32")],
+        ctx["tp_timeout_s"])
     expect = lambda r: {
         "axqmm": (5 * L + 1) * (r["steps"] + r["prefills"]),
         "axqmm_gated": L * (r["steps"] + r["prefills"]), "flash_decode": L * r["steps"],
@@ -3943,14 +4004,9 @@ def phase_tp_dense(ctx, cfg, prompts) -> dict:
     # the rehearsal's few ticks stay inside the controller's cooldown
     require(len(ranks[0]["rungs"]) > 1 or not ctx["on_card"],
             f"{label}: the QoS degree never moved: {ranks[0]['rungs']}")
-    cut = {"kind": "logits", "arch": cfg.name, "n_layers": 2, "prompt": prompts[0],
-           "block": ctx["tp_block"]}
-    ranks = _tp_job(ctx, "3s", dict(cut, approx="axq8"), ctx["tp_timeout_s"])
-    out["model_2layer_axq8"] = _tp_logit_gates(ctx, f"{label} 2-layer axq8", ranks, "")
-    out["model_2layer_exact_ring"] = _tp_logit_gates(
-        ctx, f"{label} 2-layer EXACT f32", _tp_job(
-            ctx, "3s", dict(cut, approx="exact", ring=True, dtype="float32"),
-            ctx["tp_timeout_s"]), "int8 ring")
+    out["model_2layer_axq8"] = _tp_logit_gates(ctx, f"{label} 2-layer axq8", cut_axq8, "")
+    out["model_2layer_exact_ring"] = _tp_logit_gates(ctx, f"{label} 2-layer EXACT f32",
+                                                     cut_ring, "int8 ring")
     argv = ["--arch", cfg.name, "--tp", str(TP), "--dist-backend", "gloo", "--approx",
             ctx["tp_launch_approx"], "--qos", "--metrics", "--slots", str(ctx["slots"]),
             "--requests", str(ctx["requests"]), "--new-tokens", str(ctx["new_tokens"])]
@@ -3969,7 +4025,8 @@ def phase_tp_dense(ctx, cfg, prompts) -> dict:
 
 
 def phase_tp_moe(ctx, cfg, prompts) -> dict:
-    """Phase 3t: granite-moe-3b-a800m at full width and depth, tp=2, 20 of
+    """Phase 3t: granite-moe-3b-a800m at full width (on the card cut to
+    ``depth_cuts["3t"]`` of its 32 layers: the script's time limit), tp=2, 20 of
     its 40 experts a rank (the expert-batched launches on the local
     experts), axq8 with the ladder 8 -> 5, eager, on phase 3's prompts:
     the exact combine (an f32 all-reduce a layer) and the int8-ring
@@ -3980,11 +4037,19 @@ def phase_tp_moe(ctx, cfg, prompts) -> dict:
     label = "phase 3t"
     L = cfg.n_layers
     out = {}
-    for ring in (False, True):
-        job = {"kind": "serve", "arch": cfg.name, "approx": "axq8", "block": ctx["tp_block"],
-               "ring": False, "moe_ring": ring, "qos": True, "max_len": ctx["max_len"],
-               "prompts": prompts, "new_tokens": ctx["tp_moe_new_tokens"]}
-        ranks = _tp_job(ctx, "3t", job, ctx["tp_timeout_s"])
+    serve = {"kind": "serve", "arch": cfg.name, "approx": "axq8", "block": ctx["tp_block"],
+             "ring": False, "qos": True, "max_len": ctx["max_len"], "prompts": prompts,
+             "new_tokens": ctx["tp_moe_new_tokens"], "n_layers": L}
+    # EXACT in f32, as 3s's ring cut: the router then sees inputs a few
+    # f32 roundings apart at tp=1 and tp=2, so no routing flip inflates
+    # the bar, which is 1e-4 of the largest logit
+    cut = {"kind": "logits", "arch": cfg.name, "n_layers": 2, "prompt": prompts[0],
+           "block": ctx["tp_block"], "approx": "exact", "dtype": "float32", "moe_ring": True}
+    # one spawn of the two ranks: the exact combine, the ring combine, the cut
+    *served, cut_ranks = _tp_jobs(ctx, "3t", [dict(serve, moe_ring=False),
+                                               dict(serve, moe_ring=True), cut],
+                                  ctx["tp_timeout_s"])
+    for ring, ranks in zip((False, True), served):
         expect = lambda r: moe_launches(cfg, r["steps"], r["prefills"], False)
         if ring:
             # wo's all-reduce and the embedding's; the combine as 2 (n-1) hops a layer
@@ -3997,14 +4062,8 @@ def phase_tp_moe(ctx, cfg, prompts) -> dict:
         key = "ring_combine" if ring else "exact_combine"
         out[key] = _tp_serve_gates(ctx, f"{label} ({key.replace('_', ' ')})", cfg, ranks,
                                    expect, per_tick)
-    # EXACT in f32, as 3s's ring cut: the router then sees inputs a few
-    # f32 roundings apart at tp=1 and tp=2, so no routing flip inflates
-    # the bar, which is 1e-4 of the largest logit
-    cut = {"kind": "logits", "arch": cfg.name, "n_layers": 2, "prompt": prompts[0],
-           "block": ctx["tp_block"], "approx": "exact", "dtype": "float32", "moe_ring": True}
-    out["model_2layer_exact"] = _tp_logit_gates(
-        ctx, f"{label} 2-layer EXACT f32", _tp_job(ctx, "3t", cut, ctx["tp_timeout_s"]),
-        "int8-ring combine", combine_only=True)
+    out["model_2layer_exact"] = _tp_logit_gates(ctx, f"{label} 2-layer EXACT f32", cut_ranks,
+                                                "int8-ring combine", combine_only=True)
     return out
 
 
@@ -4658,15 +4717,16 @@ print("TRAIN_RESULT " + json.dumps({"final_step": out["final_step"],
 """
 
 
-def _train_launcher(ctx, arch, argv, preempt_after=None):
-    """``python -m repro_torch.launch.train`` (through TRAIN_WRAPPER) in a
-    child process; with ``preempt_after`` a SIGTERM once the child has
-    logged that step."""
+def _train_launcher(ctx, arch, argv, preempt_after=None, script=None):
+    """``python -m repro_torch.launch.train`` (through TRAIN_WRAPPER, or the
+    wrapper file ``script``) in a child process; with ``preempt_after`` a
+    SIGTERM to it once its output has logged that step."""
     import os
     import signal
 
-    env = dict(os.environ, PYTHONPATH=str(HERE / "src"))
-    proc = subprocess.Popen([sys.executable, "-u", "-c", TRAIN_WRAPPER, arch, *argv],
+    env = dict(os.environ, PYTHONPATH=str(HERE / "src"), PYTHONUNBUFFERED="1")
+    cmd = [str(script)] if script is not None else ["-c", TRAIN_WRAPPER]
+    proc = subprocess.Popen([sys.executable, "-u", *cmd, arch, *argv],
                             cwd=HERE, env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     lines, result, sent = [], None, False
@@ -4686,7 +4746,7 @@ def _train_launcher(ctx, arch, argv, preempt_after=None):
             proc.kill()
             proc.wait()
     require(rc == 0 and result is not None,
-            f"phase 5c: launch.train {argv} exited {rc}: " + " | ".join(lines[-15:]))
+            f"launch.train {argv} exited {rc}: " + " | ".join(lines[-15:]))
     result["wall_s"] = time.time() - t
     result["log"] = [ln for ln in lines if ln.startswith(("[trainer]", "[launch.train]"))]
     return result
@@ -4768,6 +4828,22 @@ def phase_train_launch(ctx, cfg):
 TRAIN_RESUME_ATOL = 2e-2
 
 
+def depth_cut(ctx, tag, cfg, register=False):
+    """``cfg`` cut to the depth ``ctx["depth_cuts"]`` gives phase ``tag``
+    (none: its own depth): the script's time limit cuts the depth of some
+    earlier paths, never their width.  ``register``: the cut under a name
+    of its own, registered in this process, for a phase that serves
+    through the in-process launcher (which finds its arch by name)."""
+    n = ctx["depth_cuts"].get(tag)
+    if n is None:
+        return cfg
+    if not register:
+        return dataclasses.replace(cfg, n_layers=n)
+    from repro_torch.configs import base
+
+    return base.register(dataclasses.replace(cfg, name=f"{cfg.name}-{n}l", n_layers=n))
+
+
 def train_phases(ctx, record, cfg, moe_cfg, ssm_cfg, rg_cfg, vlm_cfg, audio_cfg) -> None:
     """Phase 5, in order, each sub-phase's result set in ``record`` (which
     times it); each sub-phase frees the card's cache after it."""
@@ -4778,11 +4854,24 @@ def train_phases(ctx, record, cfg, moe_cfg, ssm_cfg, rg_cfg, vlm_cfg, audio_cfg)
                           ("train_families", phase_train_families,
                            (moe_cfg, ssm_cfg, rg_cfg, vlm_cfg, audio_cfg)),
                           ("train_vlm", phase_train,
-                           (vlm_cfg, "phase 5e", ctx["vlm_train_shape"])),
+                           (depth_cut(ctx, "5e", vlm_cfg), "phase 5e",
+                            ctx["vlm_train_shape"])),
                           ("train_audio", phase_train,
-                           (audio_cfg, "phase 5f", ctx["audio_train_shape"],
-                            ctx["audio_train_remat"]))):
+                           (depth_cut(ctx, "5f", audio_cfg), "phase 5f",
+                            ctx["audio_train_shape"], ctx["audio_train_remat"]))):
         record[key] = fn(ctx, *args)
+        if ctx["on_card"]:
+            ctx["torch"].cuda.empty_cache()
+
+
+def train_mesh_phases(ctx, record, cfg) -> None:
+    """The mesh-training phases, in order: phase 2's rows at 5g's and 5h's
+    shard shapes, 5g / 5h, 5i, 5j; each sets its result in ``record``."""
+    for key, fn in (("kernels_train_mesh", phase_kernels_train_mesh),
+                    ("train_mesh", phase_train_mesh),
+                    ("train_mesh_cut", phase_train_mesh_cut),
+                    ("train_mesh_launch", phase_train_mesh_launch)):
+        record[key] = fn(ctx, cfg)
         if ctx["on_card"]:
             ctx["torch"].cuda.empty_cache()
 
@@ -4810,6 +4899,717 @@ def phase_train_families(ctx, moe_cfg, ssm_cfg, rg_cfg, vlm_cfg, audio_cfg):
                                      expect_schedule={"rg": "band", "audio": "dense"}.get(tag))
         if ctx["on_card"]:
             torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# training on a mesh: two (or four) ranks on the one card through gloo
+# ---------------------------------------------------------------------------
+
+
+def phase_kernels_train_mesh(ctx, cfg):
+    """Phase 2's rows at the training shard shapes of 5g and 5h.  5g (1x2,
+    the global batch's M rows on every rank): wq (N 1024), wk / wv (N 128),
+    wo (K 1024 -> N 2048, an f32 partial: no residual in the epilogue),
+    down (K 2816), the vocab shard (N 16000) and the gated half (N 2816),
+    tri at 16 heads over 2 kv heads a rank.  5h (2x1, a data rank's M / 2
+    rows on the full weights): wq / wo (N 2048, K 2048), wk / wv (N 256),
+    down (K 5632), the unembedding (N 32000), the gated half (N 5632), tri
+    at 32 / 4 heads."""
+    torch = ctx["torch"]
+    T = ctx["train_seq"]
+    deg = torch.tensor(8, dtype=torch.int32, device=ctx["dev"])
+    d, D, pd = cfg.d_model, cfg.head_dim, cfg.padded(TP)
+    H, KVr, F, V = pd.n_heads // TP, pd.n_kv_rep // TP, pd.d_ff // TP, pd.vocab // TP
+    rows = {"axqmm": [], "axqmm_gated": [], "flash_attention": []}
+    for M, B, shapes, f, h, kv in (
+            (ctx["mesh_train_batch"] * T, ctx["mesh_train_batch"],
+             [(H * D, d), (KVr * D, d), (d, H * D), (d, F), (V, d)], F, H, KVr),
+            (ctx["mesh_dp_rows"] * T, ctx["mesh_dp_rows"],
+             [(pd.n_heads * D, d), (pd.n_kv_rep * D, d), (d, pd.d_ff), (pd.vocab, d)],
+             pd.d_ff, pd.n_heads, pd.n_kv_rep)):
+        for N, K in shapes:
+            rows["axqmm"].append(check_axqmm(ctx, M, N, K, False, deg))
+        rows["axqmm_gated"].append(check_gated(ctx, M, f, d, deg))
+        rows["flash_attention"].append(check_prefill(ctx, B * h, T, D, h, kv,
+                                                     dtype=torch.bfloat16))
+    report_rows(rows, "phase 2 (training shards, 5g / 5h): ")
+    return rows
+
+
+def _fingerprint(ctx, tree) -> list:
+    """One int a leaf: a position-weighted sum of the leaf's 32-bit words,
+    on the device (equal leaves give equal sums; a changed bit changes
+    it), read to the host."""
+    torch = ctx["torch"]
+    from repro_torch.tree import tree_leaves
+
+    chunk = 1 << 22
+    wts = torch.arange(chunk, dtype=torch.int64, device=ctx["dev"]) % 65521 + 1
+    out = []
+    for t in tree_leaves(tree):
+        v = t.detach().reshape(-1)
+        v = v.view(torch.int32) if v.element_size() == 4 else v.view(torch.int16)
+        acc = torch.zeros((), dtype=torch.int64, device=v.device)
+        for i, part in enumerate(v.split(chunk)):
+            acc = acc + torch.sum(part.to(torch.int64) * wts[:part.numel()]) * (i + 1)
+        out.append(acc)
+    return [int(x) for x in torch.stack(out).cpu()] if out else []
+
+
+def _mesh_rank(rank: int, world: int, runs: list) -> list:
+    """One rank of 5g / 5h / 5i in its own process (``spawn_ranks``): each
+    run of ``runs`` on its (data, model) mesh of all the ranks, over a gloo
+    group on the card (the CPU in the rehearsal), ``kind`` ``path`` or
+    ``cut``; one result a run.  The ranks' processes and the card's
+    warm-up are shared by the runs; each run frees what it held."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist import meshctx
+    from repro_torch.kernels import _build
+
+    on_card = runs[0]["on_card"]
+    if on_card:
+        torch.cuda.set_device(meshctx.rank_device(rank))
+        _build.build_all()                   # loads the parent's build (content-keyed)
+    out, noise = [], None
+    for job in runs:
+        mesh = meshctx.set_mesh(meshctx.make_mesh(tuple(job["mesh"]), ("data", "model"),
+                                                  device="cuda" if on_card else "cpu",
+                                                  backend="gloo"))
+        ctx = _rank_ctx(torch, mesh.device, on_card, 0)
+        cfg = get_config(job["arch"])
+        if job.get("n_layers"):
+            cfg = dataclasses.replace(cfg, n_layers=job["n_layers"])
+        if job["kind"] == "path":
+            out.append(_mesh_path(ctx, mesh, cfg, job))
+        else:
+            # the one-rank noise floor: measured once, by rank 0's first run
+            out.append(_mesh_cut(ctx, mesh, cfg, dict(job, noise=noise)))
+            noise = noise or out[-1]["jobs"].get("axq8", {}).get("noise")
+        if on_card:
+            torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_path(ctx, mesh, cfg, job) -> dict:
+    """``job["steps"]`` train steps of the full model on this rank's shards
+    and rows (the synthetic pipeline's global batch), axq8 with the QoS
+    ladder 8 -> 5 stepping down each step: every step's loss, grad norm,
+    degree, time and collectives, the launches of the whole run (counts
+    set to 0 just before the first step), the backward oracles timed by
+    CUDA events in the last step, the peak memory, and the parameters'
+    fingerprints (every step with ``job["every_step"]``, else the last)."""
+    torch, dev = ctx["torch"], ctx["dev"]
+    from repro_torch.core.dynamic import QoSController, degree_operand, entry_degree
+    from repro_torch.data.pipeline import make_pipeline
+    from repro_torch.dist import collectives, sharding
+    from repro_torch.kernels import _build
+    from repro_torch.models import build_model
+    from repro_torch.train import step as S
+
+    M = mesh.size("model")
+    model = build_model(cfg, _tp_policy(job), device=dev)
+    pipe = make_pipeline(cfg, seq_len=job["seq"], global_batch=job["batch"])
+    if ctx["on_card"]:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    state = S.init_state(model, seed=0, tp=M, mesh=mesh)
+    scfg = S.StepConfig(remat="none", total_steps=4 * job["steps"], warmup=2)
+    qos = QoSController(ladder=[{"ebits": e} for e in (8, 7, 6, 5)], low_water=1e9,
+                        high_water=2e9, cooldown_steps=0)
+    entry = qos.ladder[0]
+    degree = degree_operand(entry, dev)
+    n = job["steps"]
+    hist, prints = [], []
+    ctx["sync"]()
+    _build.reset_counts()
+    for step in range(n):
+        host = {k: torch.from_numpy(v).to(torch.int64) for k, v in pipe.batch_at(step).items()}
+        batch = {k: v.to(dev) for k, v in sharding.shard_batch(host, mesh).items()}
+        _build.time_backwards = step == n - 1
+        ctx["sync"]()
+        collectives.counter.reset()
+        t = time.time()
+        state, met = S.train_step(model, scfg, state, batch, tp=M, degree=degree)
+        loss, gn = float(met["loss"]), float(met["grad_norm"])
+        ctx["sync"]()
+        dt = time.time() - t
+        hist.append({"step": step, "loss": loss, "grad_norm": gn, "s": dt,
+                     "degree": entry_degree(entry), "ntokens": float(met["ntokens"]),
+                     "collectives": collectives.counter.snapshot()})
+        if job.get("every_step") or step == n - 1:
+            prints.append(_fingerprint(ctx, state.params))
+        if step < n - 1:                    # the trainer's QoS check, every step
+            entry = qos.update(step, 1.0)
+            degree = degree_operand(entry, dev)
+    _build.time_backwards = False
+    out = {"rank": mesh.rank, "coord": {a: mesh.coord(a) for a in mesh.axis_names},
+           "transport": mesh.transport, "history": hist,
+           "launches": dict(_build.launches), "plain": dict(_build.plain_cuda_calls),
+           "flash_schedules": dict(_build.flash_schedules),
+           "backward_calls": dict(_build.backward_calls), "oracle_ms": _build.backward_ms(),
+           "fingerprints": prints, "sharded": sharding.model_sharded(state.params, mesh),
+           "param_count": sum(t.numel() for t in _leaves(state.params)),
+           "n_leaves": len(_leaves(state.params))}
+    if ctx["on_card"]:
+        out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def _leaves(tree) -> list:
+    from repro_torch.tree import tree_leaves
+
+    return tree_leaves(tree)
+
+
+def _state_stats(new, ref, start, sharded, ill_lr) -> list:
+    """Per leaf of params / mu / nu of this rank's ``new`` state against
+    the matching shard of the one-rank ``ref`` state: [max |diff| over the
+    well-conditioned entries, max |ref|, sum of squared diffs, sum of
+    squared refs, the largest move of an ill-conditioned entry from
+    ``start`` on either side, sharded] (an entry is ill-conditioned where
+    the one-rank clipped gradient, mu / (1 - b1), is below ILL_GRAD)."""
+    out = []
+    ill = [(m.abs() / 0.1 < ILL_GRAD) for m in _leaves(ref.opt.mu)] if ill_lr else None
+    for field in ("params", "mu", "nu"):
+        a_l = _leaves(getattr(new, field) if field == "params" else getattr(new.opt, field))
+        b_l = _leaves(getattr(ref, field) if field == "params" else getattr(ref.opt, field))
+        for i, (a, b) in enumerate(zip(a_l, b_l)):
+            a, b = a.float(), b.float()
+            d = (a - b).abs()
+            move = 0.0
+            if field == "params" and ill is not None:
+                p0 = _leaves(start.params)[i].float()
+                m = ill[i]
+                if bool(m.any()):
+                    move = max(float(((a - p0).abs() * m).max()), float(((b - p0).abs() * m).max()))
+                d = d * ~m
+            out.append([field, float(d.max()), float(b.abs().max()), float((a - b).square().sum()),
+                        float(b.square().sum()), move, bool(sharded[i])])
+    return out
+
+
+def _shard_of(ref, mesh):
+    """The one-rank state cut to this rank's part."""
+    from repro_torch.dist import sharding
+
+    return sharding.shard_train_state(ref, mesh)
+
+
+def _mesh_cut(ctx, mesh, cfg, job) -> dict:
+    """5i on this rank: for each sub-job one ``train_step`` on the mesh from
+    the seeded state and the global batch's rows, and the same step on one
+    rank (a trivial mesh, in this process, the whole batch), then this
+    rank's shards of the new state against the matching shards of the
+    one-rank step (``_state_stats``), the losses, grad norms and the mesh
+    step's collectives.  A ``ring`` sub-job is also held to the exact mesh
+    step before it; rank 0 adds, under axq8, the noise floor of the
+    one-rank gradients (plain vs plain with phase 4's noise, per leaf)."""
+    torch, dev = ctx["torch"], ctx["dev"]
+    from repro_torch.dist import collectives, meshctx, sharding
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import build_model
+    from repro_torch.train import step as S
+
+    M = mesh.size("model")
+    one = meshctx.make_mesh((1, 1), ("data", "model"))
+    host = {k: torch.from_numpy(v) for k, v in job["batch"].items()}
+    full_batch = {k: v.to(dev, torch.int64) for k, v in host.items()}
+    batch = {k: v.to(dev, torch.int64) for k, v in sharding.shard_batch(host, mesh).items()}
+    deg = torch.tensor(8, dtype=torch.int32, device=dev)
+    out = {"rank": mesh.rank, "coord": {a: mesh.coord(a) for a in mesh.axis_names},
+           "jobs": {}}
+    exact_mesh = None
+    for sub in job["subs"]:
+        c = dataclasses.replace(cfg, dtype=sub.get("dtype", cfg.dtype))
+        model = build_model(c, _tp_policy({**job, "approx": sub["approx"]}), device=dev)
+        scfg = S.StepConfig(remat="none", total_steps=10, warmup=2,
+                            compress_grads=sub.get("compress", False))
+        d = None if sub["approx"] == "exact" else deg
+        with kops.ring_tp(sub.get("ring", False)):
+            state = S.init_state(model, seed=0, tp=M, mesh=mesh)
+            collectives.counter.reset()
+            new, met = S.train_step(model, scfg, state, batch, tp=M, degree=d)
+            coll = collectives.counter.snapshot()
+        with meshctx.use_mesh(one):
+            start = S.init_state(model, seed=0, tp=M)
+            ref, rmet = S.train_step(model, scfg, start, full_batch, tp=M, degree=d)
+            ref_s, start_s = _shard_of(ref, mesh), _shard_of(start, mesh)
+            del ref, start
+        sharded = sharding.model_sharded(new.params, mesh)
+        res = {"loss": float(met["loss"]), "grad_norm": float(met["grad_norm"]),
+               "ref_loss": float(rmet["loss"]), "ref_grad_norm": float(rmet["grad_norm"]),
+               "collectives": coll,
+               "stats": _state_stats(new, ref_s, start_s, sharded, ill_lr=True),
+               "fingerprint": _fingerprint(ctx, new)}
+        if sub.get("ring"):
+            res["vs_exact_mesh"] = _state_stats(new, exact_mesh, state, sharded, ill_lr=False)
+        if sub["approx"] == "exact" and not sub.get("ring") and not sub.get("compress"):
+            exact_mesh = new
+        if sub["approx"] != "exact" and mesh.rank == 0 and job.get("noise") is None:
+            res["noise"] = _noise_floor(ctx, model, M, one, full_batch, d)
+        out["jobs"][sub["name"]] = res
+        del new, ref_s, start_s
+    return out
+
+
+def _noise_floor(ctx, model, tp, one, batch, degree) -> list:
+    """Each gradient leaf's relative change (Frobenius) when the one-rank
+    plain step's projections and attention are perturbed (``_train_noise``,
+    5b's measure)."""
+    from repro_torch.dist import meshctx
+    from repro_torch.train import step as S
+
+    grads = {}
+    for route, patch in (("plain", contextlib.nullcontext()), ("noise", _train_noise(ctx))):
+        with meshctx.use_mesh(one), _backend("torch"), patch:
+            st = S.init_state(model, seed=0, tp=tp)
+            (_, _), g = S.value_and_grad(model, st.params, batch, tp=tp, degree=degree,
+                                         remat="none")
+            grads[route] = [t.float() for t in _leaves(g)]
+            del st, g
+    return [_leaf_rel(a, b) for a, b in zip(grads["noise"], grads["plain"])]
+
+
+def _mesh_job(ctx, tag, runs, timeout_s) -> list:
+    """``runs`` (each with its ``mesh`` shape, all of one world size) on one
+    spawn of ranks (gloo on the one card); [every rank's result] a run."""
+    from repro_torch.dist import meshctx
+
+    world = math.prod(runs[0]["mesh"])
+    runs = [dict(r, on_card=ctx["on_card"], block=ctx["tp_block"]) for r in runs]
+    t0 = time.time()
+    out = meshctx.spawn_ranks(_mesh_rank, world, timeout_s=timeout_s, backend="gloo",
+                              device="cuda" if ctx["on_card"] else "cpu", args=(runs,),
+                              threads=0 if ctx["on_card"] else 1)
+    meshes = ", ".join(f"{r['mesh'][0]}x{r['mesh'][1]} {r['kind']}" for r in runs)
+    say(f"phase {tag}: {world} ranks ran {meshes} ({runs[0]['arch']}) in "
+        f"{time.time() - t0:.1f} s")
+    return [[rank[i] for rank in out] for i in range(len(runs))]
+
+
+def mesh_collective_calls(cfg, shape, n_leaves) -> int:
+    """All-reduces of one mesh train step a rank: on the model axis the
+    embedding's and two a layer forward, the loss's max, sum of
+    exponentials and target logit, two a layer and the head's backward, the
+    gradient norm; on the data axis the token count, every gradient leaf
+    and the loss with ce."""
+    D, M = shape
+    L = cfg.n_layers
+    calls = (4 * L + 6) if M > 1 else 0
+    return calls + ((n_leaves + 2) if D > 1 else 0)
+
+
+def _mesh_path_gates(ctx, label, cfg, shape, ranks) -> dict:
+    """5g / 5h gates on the ranks' results: finite losses equal bit for bit
+    on every rank, the degree moving, the replicated leaves' fingerprints
+    equal on every rank (5h: every leaf, every step), launches a step a
+    rank as 5a's at the shard shapes with no plain version on the card, the
+    backward oracles as many, the collectives of every step as predicted;
+    prints a line a rank and the step's numbers."""
+    D, M = shape
+    r0 = ranks[0]
+    n = len(r0["history"])
+    losses = [h["loss"] for h in r0["history"]]
+    require(all(math.isfinite(v) for v in losses), f"{label}: losses {losses}")
+    require(all([h["loss"] for h in r["history"]] == losses for r in ranks),
+            f"{label}: the ranks' losses differ")
+    degrees = [h["degree"] for h in r0["history"]]
+    require(len(set(degrees)) > 1 or not ctx["on_card"],
+            f"{label}: the QoS degree never moved: {degrees}")
+    for i, fp in enumerate(r0["fingerprints"]):
+        for r in ranks:
+            same = [a == b for a, b in zip(r["fingerprints"][i], fp)]
+            want = [True] * len(fp) if (D > 1 and r["coord"]["model"] == 0) else \
+                [not s for s in r0["sharded"]]
+            require(all(s for s, w in zip(same, want) if w),
+                    f"{label}: rank {r['rank']}'s parameters differ from rank 0's after "
+                    f"step {i if len(r0['fingerprints']) == n else n - 1}")
+    once = train_launches(cfg, "none")
+    want = {k: v * n for k, v in once.items()}
+    bwd_want = {"flash_attention_bwd": cfg.n_layers * n, "axqmm_bwd": once["axqmm"] * n,
+                "axqmm_gated_bwd": cfg.n_layers * n, "axqmm_experts_bwd": 0}
+    calls = mesh_collective_calls(cfg, shape, r0["n_leaves"])
+    for r in ranks:
+        check_launches(ctx, f"{label} rank {r['rank']}", r, want)
+        require(not ctx["on_card"] or r["flash_schedules"]["tri"] == want["flash_attention"],
+                f"{label}: flash schedules {r['flash_schedules']}")
+        require(r["backward_calls"] == bwd_want,
+                f"{label}: backward oracles {r['backward_calls']}, expected {bwd_want}")
+        for h in r["history"]:
+            got = h["collectives"]["calls"]
+            require(got.get("all-reduce", 0) == calls and set(got) <= {"all-reduce"},
+                    f"{label} rank {r['rank']} step {h['step']}: collectives {got}, "
+                    f"expected {calls} all-reduces")
+    steady = [h["s"] for h in r0["history"][1:]] or [r0["history"][0]["s"]]
+    step_s = sum(steady) / len(steady)
+    tokens = r0["history"][0]["ntokens"]
+    coll = [h["collectives"] for h in r0["history"][1:]] or [r0["history"][0]["collectives"]]
+    per = {"host_ms": sum(c["host_ms"] for c in coll) / len(coll),
+           "wait_ms": sum(c["wait_ms"] for c in coll) / len(coll),
+           "bytes": {k: sum(c["bytes"].get(k, 0) for c in coll) / len(coll)
+                     for k in coll[0]["bytes"]},
+           "calls": coll[0]["calls"]}
+    out = {"mesh": list(shape), "steps": n, "history": r0["history"], "step_s_mean": step_s,
+           "tokens_per_s": tokens / step_s, "collectives_per_step": per,
+           "gloo_gb_per_s": per["bytes"].get("all-reduce", 0) / (per["host_ms"] * 1e-3) / 1e9
+           if per["host_ms"] else None,
+           "peak_memory_bytes": [r.get("peak_memory_bytes") for r in ranks],
+           "oracle_ms_last_step": r0["oracle_ms"],
+           "oracle_share_last_step": sum(r0["oracle_ms"].values()) / 1e3 / r0["history"][-1]["s"]
+           if r0["oracle_ms"] else None,
+           "launches_per_step": {k: v / n for k, v in r0["launches"].items() if v},
+           "param_count": r0["param_count"], "transport": r0["transport"],
+           "launches": {k: sum(r["launches"][k] for r in ranks) for k in r0["launches"]}}
+    say(f"{label} ({cfg.name}, {cfg.n_layers} layers, mesh {shape[0]}x{shape[1]}, "
+        f"{int(tokens)} tokens a step, axq8): losses {[round(v, 4) for v in losses]}, grad norms "
+        f"{[round(h['grad_norm'], 4) for h in r0['history']]}, degrees {degrees}")
+    say(f"{label}: step {step_s:.4f} s mean over steps 1-{n - 1}, {out['tokens_per_s']:.1f} "
+        f"tokens/s, peak memory a rank {out['peak_memory_bytes']} B; collectives a step "
+        f"(rank 0): host {per['host_ms']:.1f} ms in them after {per['wait_ms']:.1f} ms "
+        f"waiting for the queued kernels, bytes {per['bytes']}, calls {per['calls']}, "
+        f"{out['gloo_gb_per_s']} GB/s all-reduce operand bytes over host time; backward "
+        f"oracles in the last step {out['oracle_ms_last_step']} ms = "
+        f"{out['oracle_share_last_step']} of it; launches a step a rank "
+        f"{out['launches_per_step']}; transport {r0['transport']}")
+    return out
+
+
+def phase_train_mesh(ctx, cfg) -> dict:
+    """5g: tinyllama-1.1b at full width and depth at 1x2 (two ranks on the
+    one card through gloo, each 16 of the 32 heads and half the MLP and
+    vocab), axq8 with the ladder 8 -> 5 stepping each step, the global
+    batch of 8 x 1024 on both ranks, 4 steps.  5h: the same at 2x1 (each
+    rank the full weights and 4 x 1024 of the rows), the parameters of both
+    ranks compared after every step and the gradient all-reduce bytes equal
+    to 4 x the parameter count."""
+    T, n = ctx["train_seq"], ctx["mesh_train_steps"]
+    common = {"kind": "path", "arch": cfg.name, "approx": "axq8", "seq": T, "steps": n}
+    cases = (("5g", (1, TP), ctx["mesh_train_batch"]), ("5h", (TP, 1), TP * ctx["mesh_dp_rows"]))
+    results = _mesh_job(ctx, "5g / 5h", [dict(common, mesh=shape, batch=batch,
+                                              every_step=shape[0] > 1)
+                                         for _, shape, batch in cases],
+                        ctx["mesh_timeout_s"])
+    out = {}
+    for (tag, shape, _), ranks in zip(cases, results):
+        res = _mesh_path_gates(ctx, f"phase {tag}", cfg, shape, ranks)
+        if shape[0] > 1:
+            grad = res["collectives_per_step"]["bytes"]["all-reduce"] - 12
+            require(grad == 4 * res["param_count"],
+                    f"phase {tag}: gradient all-reduce bytes {grad} a step, expected 4 x "
+                    f"{res['param_count']} parameters")
+        res["seen"] = {"launches": res["launches"]}
+        out[tag] = res
+    return out
+
+
+#: 5i: a mesh step against the one-rank step under EXACT f32 (params, mu
+#: and nu within MESH_EXACT_REL of each leaf's largest entry, the loss and
+#: the gradient norm relative); a compressed step's mu and nu within one
+#: int8 quantum of the leaf's largest entry (a gradient summed in another
+#: order can round to the next code) plus MESH_EXACT_REL, its parameters
+#: within Adam's step bound, 2 lr (a moved code moves the update by up to
+#: lr: 1.5e-4 against a leaf's largest entry of 0.0268); the ring's gradient
+#: (mu, all leaves as one vector) within MESH_RING_REL (Frobenius) of the
+#: exact mesh step's.  The ring quantizes each column projection's dx
+#: partial (2 x 1024 rows x 2048, heavy-tailed) against one amax a chunk,
+#: as the reference's ``_ring_dx_matmul`` does: the reference's own ring
+#: step sits 0.1653 from its exact step at this shape
+#: (``tools/ring_grad_ref.py``, JAX on the CPU), so the bound is that
+#: envelope with room, not the 0.05 of 3s's forward logits (ROADMAP §C)
+MESH_EXACT_REL = 1e-4
+MESH_RING_REL = 0.25
+#: a clipped gradient entry below this (1000 x AdamW's eps) is
+#: ill-conditioned for a parity check of Adam's first update, lr * g /
+#: (|g| + eps): held within 2 lr of the start on both sides instead
+#: (tests/test_torch_frontends.py's rule, ROADMAP §C)
+ILL_GRAD = 1e-5
+
+
+def _combine(ranks, name, key="stats") -> list:
+    """Per leaf of params / mu / nu: (field, max |diff| / max |ref|,
+    Frobenius |diff| / |ref|, the ill-conditioned entries' largest move,
+    max |diff|), a sharded leaf's numbers combined over the model ranks of
+    data coordinate 0."""
+    first = [r for r in ranks if r["coord"]["data"] == 0]
+    rows = []
+    for i, st in enumerate(first[0]["jobs"][name][key]):
+        field, sharded = st[0], st[6]
+        parts = [r["jobs"][name][key][i] for r in first] if sharded else [st]
+        md, mr = max(p[1] for p in parts), max(p[2] for p in parts)
+        sd, sr = sum(p[3] for p in parts), sum(p[4] for p in parts)
+        rows.append((field, 0.0 if md == 0 else md / max(mr, 1e-30),
+                     0.0 if sd == 0 else math.sqrt(sd / max(sr, 1e-30)),
+                     max(p[5] for p in parts), md))
+    return rows
+
+
+def _combine_sums(ranks, name, key, field) -> tuple:
+    """(sum of squared diffs, sum of squared refs) of every ``field`` leaf,
+    each sharded leaf's over the model ranks of data coordinate 0."""
+    first = [r for r in ranks if r["coord"]["data"] == 0]
+    sd = sr = 0.0
+    for i, st in enumerate(first[0]["jobs"][name][key]):
+        if st[0] != field:
+            continue
+        parts = [r["jobs"][name][key][i] for r in first] if st[6] else [st]
+        sd += sum(p[3] for p in parts)
+        sr += sum(p[4] for p in parts)
+    return sd, sr
+
+
+def _mesh_cut_gates(ctx, label, shape, ranks, names, noise=None) -> dict:
+    """5i's gates on one mesh's sub-jobs (module constants above); the
+    data ranks' states bit-identical; prints a line a sub-job.  ``noise``:
+    the one-rank noise floor, where the ranks did not measure it."""
+    r0 = ranks[0]
+    out = {}
+    lr = 2 * 3e-4
+    for r in ranks:
+        for name in names:
+            peers = [q for q in ranks if q["coord"]["model"] == r["coord"]["model"]]
+            require(all(q["jobs"][name]["fingerprint"] == r["jobs"][name]["fingerprint"]
+                        for q in peers), f"{label} {name}: the data ranks' states differ")
+            require(r["jobs"][name]["loss"] == r0["jobs"][name]["loss"],
+                    f"{label} {name}: the ranks' losses differ")
+    for name in names:
+        j = r0["jobs"][name]
+        rows = _combine(ranks, name)
+        dl = abs(j["loss"] - j["ref_loss"])
+        dg = abs(j["grad_norm"] - j["ref_grad_norm"]) / max(j["ref_grad_norm"], 1e-30)
+        move = max(row[3] for row in rows)
+        res = {"loss": j["loss"], "ref_loss": j["ref_loss"], "loss_diff": dl,
+               "grad_norm_rel": dg, "ill_move_max": move,
+               "collective_bytes": j["collectives"]["bytes"]}
+        require(move <= lr or name == "ring",
+                f"{label} {name}: an ill-conditioned entry moved {move} (> 2 lr)")
+        if name == "axq8":
+            floor = j.get("noise") or noise
+            mu = [row for row in rows if row[0] == "mu"]
+            tols = [TRAIN_NOISE_MULT * f + TRAIN_NOISE_SLACK for f in floor]
+            worst = max(range(len(mu)), key=lambda i: mu[i][2] / tols[i])
+            pdiff = max(row[1] for row in rows if row[0] == "params")
+            pabs = max(row[4] for row in rows if row[0] == "params")
+            res.update(grad_rel_worst=mu[worst][2], grad_tol_worst=tols[worst],
+                       noise_floor_worst=floor[worst], params_rel_max=pdiff,
+                       params_max_abs_diff=pabs)
+            require(pabs <= lr, f"{label} {name}: params differ by {pabs} (> 2 lr, 5b's bound)")
+            require(dl <= TRAIN_LOSS_ATOL, f"{label} {name}: loss {j['loss']} vs one rank "
+                                           f"{j['ref_loss']}")
+            require(mu[worst][2] <= tols[worst],
+                    f"{label} {name}: gradient leaf {worst} {mu[worst][2]} relative to the "
+                    f"one-rank step's (tolerance {tols[worst]}, noise floor {floor[worst]})")
+            say(f"{label} {name}: loss {j['loss']:.6f} vs one rank {j['ref_loss']:.6f}; "
+                f"gradient nearest its tolerance {mu[worst][2]:.3g} (<= {tols[worst]:.3g}, "
+                f"noise floor {floor[worst]:.3g}); params within {pdiff:.3g} of each leaf's "
+                f"largest entry; ill-conditioned entries moved <= {move:.3g}")
+        elif name != "ring":                 # the ring is held to the exact mesh step
+            tol = MESH_EXACT_REL + (1 / 127 if name == "compress" else 0.0)
+            worst = max(rows, key=lambda row: row[1] / (tol if row[0] == "mu" else
+                                                        MESH_EXACT_REL))
+            res.update(rel_max_worst=worst[1], rel_max_worst_field=worst[0],
+                       rel_max_by_field={f: max(row[1] for row in rows if row[0] == f)
+                                         for f in ("params", "mu", "nu")})
+            require(dl <= MESH_EXACT_REL * max(abs(j["ref_loss"]), 1.0) and dg <= MESH_EXACT_REL,
+                    f"{label} {name}: loss {j['loss']} / grad norm {j['grad_norm']} vs one "
+                    f"rank {j['ref_loss']} / {j['ref_grad_norm']}")
+            for field in ("params", "mu", "nu"):
+                if field == "params" and name == "compress":
+                    # a gradient code that moves by one moves Adam's first
+                    # update by up to lr: the step bound, as 5b holds it
+                    m = max(row[4] for row in rows if row[0] == "params")
+                    res["params_max_abs_diff"] = m
+                    require(m <= lr, f"{label} {name}: params differ by {m} (> 2 lr)")
+                    continue
+                # nu is g^2: a moved code moves it by up to 2 quanta of amax
+                t = ((2 if field == "nu" else 1) * (tol - MESH_EXACT_REL) + MESH_EXACT_REL
+                     if name == "compress" else MESH_EXACT_REL)
+                m = res["rel_max_by_field"][field]
+                require(m <= t, f"{label} {name}: {field} within {m} of a leaf's largest "
+                                f"entry (> {t})")
+            say(f"{label} {name}: loss {j['loss']:.7f} vs one rank {j['ref_loss']:.7f}, grad "
+                f"norm rel {dg:.3g}; largest difference over each leaf's largest entry "
+                f"{res['rel_max_by_field']}; ill-conditioned entries moved <= {move:.3g}; "
+                f"collective bytes {j['collectives']['bytes']}")
+        if name == "ring":
+            # the gradient (mu) as one vector: its relative Frobenius distance
+            # from the exact mesh step's; the worst leaf and the loss (the
+            # forward's row-parallel partials ride the ring too) beside it
+            ring = [row for row in _combine(ranks, name, "vs_exact_mesh") if row[0] == "mu"]
+            sq = _combine_sums(ranks, name, "vs_exact_mesh", "mu")
+            rel = math.sqrt(sq[0] / max(sq[1], 1e-30))
+            eb = r0["jobs"]["exact"]["collectives"]["total"]
+            rb = j["collectives"]["total"]
+            res.update(ring_grad_rel=rel, ring_grad_rel_worst_leaf=max(r[2] for r in ring),
+                       ring_bytes=rb, exact_bytes=eb, ring_over_exact_bytes=rb / eb,
+                       ring_loss_diff=abs(j["loss"] - r0["jobs"]["exact"]["loss"]))
+            say(f"{label} ring: the gradient within rel {rel:.4g} of the exact mesh step's "
+                f"(<= {MESH_RING_REL}; worst leaf {res['ring_grad_rel_worst_leaf']:.4g}); loss "
+                f"{j['loss']:.6f} vs {r0['jobs']['exact']['loss']:.6f} exact; step bytes {rb} "
+                f"vs {eb} exact ({rb / eb:.3f}x)")
+            require(math.isfinite(j["loss"]), f"{label} ring: loss {j['loss']}")
+            require(0 < rel <= MESH_RING_REL, f"{label} ring: gradients rel {rel}")
+            require(rb <= 0.5 * eb, f"{label} ring: {rb} bytes, more than half of {eb}")
+        out[name] = res
+    return out
+
+
+def phase_train_mesh_cut(ctx, cfg) -> dict:
+    """5i: tinyllama-1.1b cut to 2 layers at full width, one train step at
+    1x2, 2x1 and 2x2 (four ranks) from the seeded state on one batch,
+    each rank's shards held to the same step on one rank (computed in each
+    rank's process): EXACT in f32 and axq8 everywhere, the int8-ring lever
+    under EXACT f32 at 1x2 (held to the exact mesh step) and
+    --compress-grads (EXACT f32) at 2x1."""
+    import numpy as np
+
+    B, T = ctx["mesh_cut_shape"]
+    toks = np.random.default_rng(5).integers(0, cfg.vocab, (B, T + 1))
+    batch = {"tokens": toks[:, :-1].copy(), "labels": toks[:, 1:].copy()}
+    f32 = {"dtype": "float32"}
+    subs = {(1, 2): [dict(name="exact", approx="exact", **f32), dict(name="axq8", approx="axq8"),
+                     dict(name="ring", approx="exact", ring=True, **f32)],
+            (2, 1): [dict(name="exact", approx="exact", **f32), dict(name="axq8", approx="axq8"),
+                     dict(name="compress", approx="exact", compress=True, **f32)],
+            (2, 2): [dict(name="exact", approx="exact", **f32), dict(name="axq8", approx="axq8")]}
+    common = {"kind": "cut", "arch": cfg.name, "n_layers": 2, "batch": batch}
+    # two ranks run 1x2 then 2x1, four ranks 2x2; the noise floor is the
+    # one-rank model's, measured by rank 0 of the first run
+    groups = [[(1, 2), (2, 1)], [(2, 2)]]
+    out, noise = {}, None
+    for shapes in groups:
+        results = _mesh_job(ctx, "5i", [dict(common, mesh=sh, subs=subs[sh], noise=noise)
+                                        for sh in shapes], ctx["mesh_timeout_s"])
+        for shape, ranks in zip(shapes, results):
+            noise = noise or ranks[0]["jobs"]["axq8"]["noise"]
+            tag = f"{shape[0]}x{shape[1]}"
+            out[tag] = _mesh_cut_gates(ctx, f"phase 5i {tag}", shape, ranks,
+                                       [s["name"] for s in subs[shape]], noise)
+    return out
+
+
+#: the launcher run by phase 5j (written to a file: the spawned ranks run
+#: it as their main module, so each registers the 2-layer arch and the
+#: restore check: each rank's restored shards equal to its slices of the
+#: saved arrays, which the restore verified against the manifest's
+#: digests); prints rank 0's result as JSON
+MESH_TRAIN_WRAPPER = r"""
+import dataclasses, hashlib, json, sys
+from repro_torch.configs import base, get_config
+arch = sys.argv[1]
+base.register(dataclasses.replace(get_config(arch), name=arch + "-2l", n_layers=2))
+import numpy as np
+import torch
+from repro_torch.dist import sharding
+from repro_torch.train import trainer as T
+from repro_torch.tree import named_leaves, tree_leaves, tree_unflatten
+orig_init, orig_run = T.Trainer.init_or_restore, T.Trainer.run
+def init_or_restore(self, seed=0):
+    # each rank's restored shards against its slices of the saved arrays
+    state, start = orig_init(self, seed)
+    if start:
+        d = self.ckpt.dir / f"step_{start:010d}"
+        man = json.loads((d / "manifest.json").read_text())
+        saved = tree_unflatten(state, [torch.from_numpy(np.load(d / man["arrays"][n]["file"]))
+                                       for n, _ in named_leaves(state)])
+        if self.mesh:
+            saved = sharding.shard_train_state(saved, self.mesh)
+        self._check = {"restored_step": start, "restored_equal": all(
+            torch.equal(a.cpu(), b) for a, b in zip(tree_leaves(state), tree_leaves(saved)))}
+    return state, start
+def run(self, seed=0):
+    out = orig_run(self, seed)
+    out.update(getattr(self, "_check", {}))
+    return out
+T.Trainer.init_or_restore, T.Trainer.run = init_or_restore, run
+if __name__ == "__main__":
+    from repro_torch.launch import train as L
+    out = L.main(["--arch", arch + "-2l"] + sys.argv[2:])
+    print("TRAIN_RESULT " + json.dumps({k: out.get(k) for k in (
+        "final_step", "preempted", "restored_step", "restored_equal",
+        "collective_bytes_per_step", "collective_host_ms_per_step")} | {
+        "losses": [h["loss"] for h in out["history"]],
+        "steps": [h["step"] for h in out["history"]]}), flush=True)
+"""
+
+
+def phase_train_mesh_launch(ctx, cfg) -> dict:
+    """5j: ``launch.train --mesh 1x2 --dist-backend gloo`` at full width and
+    2 layers, axq8 (EXACT in the rehearsal, whose block would cut the
+    smoke's shards) --compress-grads: uninterrupted; SIGTERM'd (the launcher
+    passes the signal to its ranks, which checkpoint at one step: gathered,
+    rank 0 writes); resumed (every rank's restored shards gathered equal to
+    the manifest's digests), the losses within TRAIN_RESUME_ATOL of the
+    uninterrupted run's.  Then the 1x2 checkpoint restored at 1x1 by the
+    one-device trainer, its device state's bytes equal to the digests of
+    the gathered state rank 0 wrote."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import checkpointer as C
+    from repro_torch.train import step as S
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.tree import named_leaves
+
+    B, T, n = ctx["mesh_launch_shape"]
+    tmp = Path(tempfile.mkdtemp(prefix="smoke_mesh_train_", dir=HERE / "build"
+                                if (HERE / "build").is_dir() else None))
+    wrapper = tmp / "mesh_train.py"
+    wrapper.write_text(MESH_TRAIN_WRAPPER)
+    dev = ["--device", "cuda" if ctx["on_card"] else "cpu"]
+    common = ["--steps", str(n), "--seq", str(T), "--batch", str(B), "--mesh", f"1x{TP}",
+              "--dist-backend", "gloo", "--approx", ctx["tp_launch_approx"], "--compress-grads",
+              *dev]
+    run = lambda argv, **kw: _train_launcher(ctx, cfg.name, argv, script=wrapper, **kw)
+    try:
+        ref = run(common + ["--ckpt-dir", str(tmp / "ref")])
+        cut = run(common + ["--ckpt-dir", str(tmp / "run")], preempt_after=0)
+        p = cut["final_step"]
+        require(cut["preempted"] and 0 < p < n,
+                f"phase 5j: the SIGTERM did not preempt the run ({p}, {cut['preempted']}): "
+                f"{cut['log']}")
+        res = run(common + ["--ckpt-dir", str(tmp / "run")])
+        require(res.get("restored_step") == p and res.get("restored_equal"),
+                f"phase 5j: the restored shards are not the saved state "
+                f"({res.get('restored_step')}, {res.get('restored_equal')})")
+        require(res["steps"][0] == p and res["final_step"] == n,
+                f"phase 5j: resumed at {res['steps'][:1]} to {res['final_step']}")
+        losses = cut["losses"] + res["losses"]
+        require(len(losses) == len(ref["losses"]) == n, f"phase 5j: {len(losses)} losses")
+        dl = max(abs(a - b) for a, b in zip(losses, ref["losses"]))
+        require(dl <= TRAIN_RESUME_ATOL,
+                f"phase 5j: resumed losses {losses} vs uninterrupted {ref['losses']}")
+        # the final checkpoint of the uninterrupted 1x2 run, at 1x1
+        c2 = dataclasses.replace(cfg, n_layers=2)
+        model = _train_model(ctx, c2, ctx["tp_launch_approx"])
+        t = Trainer(model, S.StepConfig(remat="none"),
+                    TrainerConfig(total_steps=n, ckpt_dir=str(tmp / "ref")), pipeline=None)
+        state, start = t.init_or_restore()
+        man = json.loads((tmp / "ref" / f"step_{n:010d}" / "manifest.json").read_text())
+        equal = all(hashlib.sha1(C._host(v).tobytes()).hexdigest()[:16]
+                    == man["arrays"][name]["digest"] for name, v in named_leaves(state))
+        require(start == n and equal, f"phase 5j: the 1x2 checkpoint restored at 1x1: step "
+                                      f"{start}, bytes equal {equal}")
+        del state
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = {"shape": ctx["mesh_launch_shape"], "mesh": f"1x{TP}", "preempted_at": p,
+           "losses_uninterrupted": ref["losses"], "losses_resumed": losses,
+           "max_loss_diff": dl, "restored_at_1x1": True,
+           "collective_bytes_per_step": ref.get("collective_bytes_per_step"),
+           "collective_host_ms_per_step": ref.get("collective_host_ms_per_step"),
+           "wall_s": {"ref": ref["wall_s"], "preempted": cut["wall_s"],
+                      "resumed": res["wall_s"]},
+           "logs": {"ref": ref["log"], "preempted": cut["log"], "resumed": res["log"]}}
+    say(f"phase 5j (launch.train --mesh 1x{TP} --dist-backend gloo, {cfg.name} at 2 layers, "
+        f"batch {B} x seq {T}, {n} steps, {ctx['tp_launch_approx']} --compress-grads): "
+        f"preempted at step {p}, "
+        f"every rank's restored shards equal to the saved state, resumed to {n}; losses "
+        f"within {dl:.3g} of the uninterrupted run (<= {TRAIN_RESUME_ATOL}); the 1x{TP} "
+        f"checkpoint restored at 1x1 bit for bit; wall {ref['wall_s']:.1f} / "
+        f"{cut['wall_s']:.1f} / {res['wall_s']:.1f} s")
     return out
 
 
@@ -4855,6 +5655,9 @@ def main(argv=None) -> int:
     ap.add_argument("--tp-only", action="store_true",
                     help="build, then only the tensor-parallel phases (2's shard rows, "
                          "3s, 3t; prints no result line)")
+    ap.add_argument("--train-mesh-only", action="store_true",
+                    help="build, then only the mesh-training phases (2's training shard "
+                         "rows, 5g-5j; prints no result line)")
     args = ap.parse_args(argv)
     if not (HERE / "src" / "repro_torch").is_dir():
         say("FAIL: src/repro_torch not found next to this script (run it from "
@@ -4914,6 +5717,13 @@ def main(argv=None) -> int:
                "audio_train_remat": "none", "vlm_fam_shape": (1, 2048),
                "fleet_replicas": 3, "fleet_loss": 0.05, "fleet_seed": 3,
                "tp_block": 256, "tp_timeout_s": 600.0, "tp_moe_new_tokens": 16,
+               # depth cuts of earlier paths that keep the script in its limit
+               # (PERF.md §7 names the run that forced each)
+               "depth_cuts": {"3t": 8, "5e": 12, "5f": 24, "3i": 8, "3k": 8, "3g": 12,
+                              "3m": 8, "3o": 16, "3q": 8, "3s": 8},
+               "mesh_train_batch": 8, "mesh_dp_rows": 4, "mesh_train_steps": 4,
+               "mesh_cut_shape": (2, 1024), "mesh_launch_shape": (2, 256, 6),
+               "mesh_timeout_s": 900.0,
                "tp_launch_approx": "axq8",
                "calib_shape": (2, 64), "plan_grid": (8, 5),
                "resil_prompts": 8, "resil_deadline_ms": 5000.0, "resil_shed": 8,
@@ -4984,6 +5794,10 @@ def main(argv=None) -> int:
                "fleet_replicas": 3, "fleet_loss": 0.2, "fleet_seed": 3,
                # block 32 divides the smoke's row-parallel K shards (64 / 2)
                "tp_block": 32, "tp_timeout_s": 300.0, "tp_moe_new_tokens": 4,
+               "depth_cuts": {},
+               "mesh_train_batch": 4, "mesh_dp_rows": 2, "mesh_train_steps": 3,
+               "mesh_cut_shape": (2, 32), "mesh_launch_shape": (2, 16, 30),
+               "mesh_timeout_s": 300.0,
                "tp_launch_approx": "exact",
                "calib_shape": (2, 16), "plan_grid": (8, 6, 4),
                "resil_prompts": 4, "resil_deadline_ms": 5000.0, "resil_shed": 4,
@@ -5029,11 +5843,18 @@ def main(argv=None) -> int:
         write_record(args.record, record)
         say("training phases done (--train-only): no result line")
         return 0
+    if args.train_mesh_only:
+        train_mesh_phases(ctx, record, cfg)
+        record["phase_seconds"] = dict(record.times)
+        write_record(args.record, record)
+        say("mesh-training phases done (--train-mesh-only): no result line")
+        return 0
     if args.tp_only:
         record["kernels_tp"] = phase_kernels_tp(ctx, cfg, moe_cfg)
         prompts = tp_prompts(ctx, cfg)
         record["tp_dense_path"] = phase_tp_dense(ctx, cfg, prompts)
-        record["tp_moe_path"] = phase_tp_moe(ctx, moe_cfg, prompts)
+        record["tp_moe_path"] = phase_tp_moe(ctx, depth_cut(ctx, "3t", moe_cfg),
+                                             prompts)
         record["phase_seconds"] = dict(record.times)
         write_record(args.record, record)
         say("tensor-parallel phases done (--tp-only): no result line")
@@ -5059,10 +5880,11 @@ def main(argv=None) -> int:
     if on_card:
         torch.cuda.empty_cache()
     record["tp_dense_path"] = phase_tp_dense(ctx, cfg, prompts_3)
-    record["tp_moe_path"] = phase_tp_moe(ctx, moe_cfg, prompts_3)
+    record["tp_moe_path"] = phase_tp_moe(ctx, depth_cut(ctx, "3t", moe_cfg),
+                                         prompts_3)
     record["emul_path"] = phase_emul(ctx, cfg)
     record["stream_path"] = phase_stream(ctx)
-    record["plan_path"] = phase_plan_lm(ctx, cfg)
+    record["plan_path"] = phase_plan_lm(ctx, depth_cut(ctx, "3i", cfg, register=True))
     record["stream_plan_path"] = phase_plan_stream(ctx)
     record["model_2layer"] = phase_model(ctx, cfg, ctx["prefill_m"])
     model, params = serving_model(ctx, swa_cfg)
@@ -5077,36 +5899,41 @@ def main(argv=None) -> int:
     if on_card:
         torch.cuda.empty_cache()
     record["swa_model_2layer"] = phase_model(ctx, swa_cfg, ctx["swa_model_prompt"])
-    model, params = serving_model(ctx, qwen_cfg)
+    qwen_serve_cfg = depth_cut(ctx, "3g", qwen_cfg)
+    model, params = serving_model(ctx, qwen_serve_cfg)
     prompts, kinds = qwen_prompts(ctx, qwen_cfg)
     long_path = dict(max_len=ctx["qwen_max_len"], new_tokens=ctx["new_tokens"], n_band=0)
-    record["qwen_path"] = phase_serve_long(ctx, "3g", qwen_cfg, model, params, prompts, kinds,
-                                           **long_path)
-    record["qwen_int8_path"] = phase_serve_long_int8(ctx, "3h", qwen_cfg, model, params,
+    record["qwen_path"] = phase_serve_long(ctx, "3g", qwen_serve_cfg, model, params, prompts,
+                                           kinds, **long_path)
+    record["qwen_int8_path"] = phase_serve_long_int8(ctx, "3h", qwen_serve_cfg, model, params,
                                                      prompts, kinds, **long_path)
     del model, params
     if on_card:
         torch.cuda.empty_cache()
     record["qwen_model_2layer"] = phase_model(ctx, qwen_cfg, ctx["qwen_model_prompt"])
-    model, params = serving_model(ctx, moe_cfg)
-    record["moe_path"] = phase_serve_moe(ctx, "3m", moe_cfg, model, params, prompts_3,
+    moe_serve_cfg = depth_cut(ctx, "3m", moe_cfg)
+    model, params = serving_model(ctx, moe_serve_cfg)
+    record["moe_path"] = phase_serve_moe(ctx, "3m", moe_serve_cfg, model, params, prompts_3,
                                          quant=False)
-    record["moe_int8_path"] = phase_serve_moe(ctx, "3n", moe_cfg, model, params, prompts_3,
+    record["moe_int8_path"] = phase_serve_moe(ctx, "3n", moe_serve_cfg, model, params, prompts_3,
                                               quant=True)
     del model, params
     if on_card:
         torch.cuda.empty_cache()
     record["moe_model_2layer"] = phase_model(ctx, moe_cfg, ctx["prefill_m"])
-    model, params = serving_model(ctx, vlm_cfg)
-    record["vlm_path"] = phase_serve_vlm(ctx, "3q", vlm_cfg, model, params, prompts_3)
+    vlm_serve_cfg = depth_cut(ctx, "3q", vlm_cfg)
+    model, params = serving_model(ctx, vlm_serve_cfg)
+    record["vlm_path"] = phase_serve_vlm(ctx, "3q", vlm_serve_cfg, model, params, prompts_3)
     del model, params
     if on_card:
         torch.cuda.empty_cache()
     for tag, c in (("ssm", ssm_cfg), ("rg", rg_cfg)):
-        model, params = serving_model(ctx, c)
+        ptag = "3o" if tag == "ssm" else "3p"
+        c_serve = depth_cut(ctx, ptag, c)
+        model, params = serving_model(ctx, c_serve)
         prompts, kinds = recurrent_prompts(ctx, c, tag)
         record[f"{tag}_path"] = phase_serve_recurrent(
-            ctx, "3o" if tag == "ssm" else "3p", c, model, params, prompts, kinds,
+            ctx, ptag, c_serve, model, params, prompts, kinds,
             max_len=ctx[f"{tag}_max_len"])
         del model, params
         if on_card:
@@ -5115,8 +5942,11 @@ def main(argv=None) -> int:
                                              n_layers=2 if tag == "ssm" else 4)
 
     train_phases(ctx, record, cfg, moe_cfg, ssm_cfg, rg_cfg, vlm_cfg, audio_cfg)
+    train_mesh_phases(ctx, record, cfg)
 
     paths = {"5a": record["train_path"]["seen"],
+             "5g": record["train_mesh"]["5g"]["seen"],
+             "5h": record["train_mesh"]["5h"]["seen"],
              "5e": record["train_vlm"]["seen"], "5f": record["train_audio"]["seen"],
              "3q": record["vlm_path"], "3r": record["fleet_path"],
              "3": record["main_path"], "3b": record["int8_cache_path"],
@@ -5141,7 +5971,8 @@ def main(argv=None) -> int:
         fe_rows = record["kernels_fe"].get(name, [])
         if name in record["kernels"]:
             h128_rows = h128_rows + moe_rows.get(name, []) + rec_rows + fe_rows
-        h128_rows = h128_rows + tp_rows.get(name, [])
+        h128_rows = (h128_rows + tp_rows.get(name, [])
+                     + record["kernels_train_mesh"].get(name, []))
         # the summary row: the unembedding GEMM (the largest decode GEMM)
         # for axqmm, the decode-shaped row for the others
         lead = rows[-1] if name == "axqmm" else rows[0]

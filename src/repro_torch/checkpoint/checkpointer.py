@@ -11,13 +11,20 @@ into the other's state):
   * arrays are saved whole under their tree paths (``params/layers/wq/w``,
     ``opt/mu/...``, ``step``: dict keys, NamedTuple field names, list
     indices), so a restore works onto any layout;
-  * the pipeline cursor and the degree live in the manifest's ``extra``.
+  * the pipeline cursor and the degree live in the manifest's ``extra``;
+  * on a mesh (``mesh=``, training a ``TrainState`` of this rank's shards)
+    every rank gathers each leaf to its global shape
+    (``dist.sharding.gather_train_state``) and rank 0 alone writes, in the
+    one-device format, so a mesh checkpoint restores at 1x1 and in the
+    reference; every rank then waits at a barrier.  A restore reads the
+    global leaves and slices them for this rank.
 """
 
 from __future__ import annotations
 
 import hashlib
 import json
+import math
 import os
 import shutil
 import threading
@@ -28,7 +35,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch.tree import named_leaves, tree_unflatten
+from repro_torch.tree import named_leaves, tree_leaves, tree_unflatten
 
 
 def _host(x) -> np.ndarray:
@@ -58,10 +65,19 @@ def _check_array(name: str, arr: np.ndarray, meta: dict) -> None:
                          f"{digest} != manifest {meta['digest']} (corrupt)")
 
 
+def _wide(mesh) -> bool:
+    return mesh is not None and math.prod(mesh.shape) > 1
+
+
 class Checkpointer:
-    def __init__(self, directory: str | Path, keep: int = 3):
+    """``mesh``: the :class:`~repro_torch.dist.meshctx.Mesh` of a sharded
+    ``TrainState`` (None or one rank: the one-device checkpointer)."""
+
+    def __init__(self, directory: str | Path, keep: int = 3, mesh=None):
         self.dir = Path(directory)
-        self.dir.mkdir(parents=True, exist_ok=True)
+        self.mesh = mesh if _wide(mesh) else None
+        if self.mesh is None or self.mesh.rank == 0:
+            self.dir.mkdir(parents=True, exist_ok=True)
         self.keep = keep
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
@@ -71,7 +87,22 @@ class Checkpointer:
     def save(self, step: int, tree: Any, extra: Optional[dict] = None,
              blocking: bool = True) -> None:
         """Snapshot `tree` (host copy taken synchronously), write async
-        unless blocking."""
+        unless blocking.  On a mesh: gathered, written by rank 0, then a
+        barrier of every rank (collective)."""
+        if self.mesh is not None:
+            import torch.distributed as dist
+
+            from repro_torch.dist.sharding import gather_train_state
+
+            tree = gather_train_state(tree, self.mesh)
+            if self.mesh.rank == 0:
+                self._save(step, tree, extra, blocking)
+            del tree
+            dist.barrier()
+            return
+        self._save(step, tree, extra, blocking)
+
+    def _save(self, step: int, tree: Any, extra: Optional[dict], blocking: bool) -> None:
         arrays = _flatten_with_paths(tree)
         extra = dict(extra or {})
         self.wait()  # one in-flight save at a time
@@ -161,7 +192,8 @@ class Checkpointer:
 
     def restore(self, step: int, like: Any) -> tuple[Any, dict]:
         """Restore into the structure of `like` (tensors, meta tensors or
-        arrays) as numpy arrays.  Returns (tree, extra).  Every loaded array is verified against its
+        arrays; on a mesh this rank's shards) as numpy arrays.  Returns
+        (tree, extra).  Every loaded array is verified against its
         manifest digest — a truncated or bit-corrupted checkpoint raises
         instead of loading silently (``restore_latest`` skips it)."""
         d = self.dir / f"step_{step:010d}"
@@ -173,15 +205,29 @@ class Checkpointer:
                 raise KeyError(f"checkpoint missing array {name!r}")
             arr = np.load(d / meta["file"])
             _check_array(name, arr, meta)
+            leaves.append(arr)
+        tree = tree_unflatten(like, leaves)
+        if self.mesh is not None:
+            from repro_torch.dist.sharding import shard_train_state
+            from repro_torch.tree import tree_map
+
+            tree = tree_map(lambda a: a.numpy(), shard_train_state(
+                tree_map(torch.from_numpy, tree), self.mesh))
+        for (name, ref), arr in zip(named_leaves(like), tree_leaves(tree)):
             if hasattr(ref, "shape") and tuple(arr.shape) != tuple(ref.shape):
                 raise ValueError(
                     f"shape mismatch for {name}: ckpt {arr.shape} vs {ref.shape}")
-            leaves.append(arr)
-        return tree_unflatten(like, leaves), manifest.get("extra", {})
+        return tree, manifest.get("extra", {})
 
     def restore_latest(self, like: Any) -> Optional[tuple[int, Any, dict]]:
-        s = self.latest_valid_step()
-        if s is None:
-            return None
-        tree, extra = self.restore(s, like)
-        return s, tree, extra
+        """The newest step that restores into ``like`` with every digest
+        verified, as (step, tree, extra); a torn, corrupt or mismatched
+        step falls back to the one before (each array is read and verified
+        once); None when no step restores."""
+        for s in reversed(self.all_steps()):
+            try:
+                tree, extra = self.restore(s, like)
+            except (OSError, ValueError, KeyError):
+                continue
+            return s, tree, extra
+        return None

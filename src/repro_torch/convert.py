@@ -8,8 +8,8 @@ as NamedTuples with fields ``k``/``v``/``length`` (the int8 cache also
 ``ks``/``vs``).  These walkers recognise
 them by duck typing — this module imports neither JAX nor the reference
 package.  A training state (fields ``params``, ``opt`` with ``step``/``mu``/
-``nu``, and ``step``) goes both ways: :func:`train_state_from_numpy`,
-:func:`train_state_to_numpy`.  An MoE tree comes across the same way: the router, the experts
+``nu``, and ``step``) goes both ways: :func:`train_state_from_numpy`
+(this rank's shards of it on a mesh), :func:`train_state_to_numpy`.  An MoE tree comes across the same way: the router, the experts
 with leading (n_layers, n_experts) axes (packed per slice, or float), the
 shared experts, and each one's packs; a hybrid tree with its ``tail`` list of
 recurrent blocks.  The caller does the array-to-numpy step (for example
@@ -76,18 +76,26 @@ def cache_from_numpy(cache, device="cpu"):
     return LMCache(t(cache.k), t(cache.v), length)
 
 
-def train_state_from_numpy(state, device="cpu"):
+def train_state_from_numpy(state, device="cpu", mesh=None):
     """A training state with fields ``params``, ``opt`` (``step``, ``mu``,
     ``nu``) and ``step``, given as arrays -> the port's
-    :class:`~repro_torch.train.step.TrainState` of tensors."""
+    :class:`~repro_torch.train.step.TrainState` of tensors; with ``mesh``
+    (a :class:`~repro_torch.dist.meshctx.Mesh`) this rank's shards of it
+    (``dist.sharding.shard_train_state``; the global state as the
+    reference's ``init_state(model, key, tp)`` builds it)."""
     from repro_torch.optim.adamw import AdamWState
     from repro_torch.train.step import TrainState
 
     t = lambda tree: params_from_numpy(tree, device)
-    return TrainState(t(state.params),
-                      AdamWState(tensor_from_numpy(state.opt.step, device), t(state.opt.mu),
-                                 t(state.opt.nu)),
-                      tensor_from_numpy(state.step, device))
+    out = TrainState(t(state.params),
+                     AdamWState(tensor_from_numpy(state.opt.step, device), t(state.opt.mu),
+                                t(state.opt.nu)),
+                     tensor_from_numpy(state.step, device))
+    if mesh is None:
+        return out
+    from repro_torch.dist.sharding import shard_train_state
+
+    return shard_train_state(out, mesh)
 
 
 def train_state_to_numpy(state):

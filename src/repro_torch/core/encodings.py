@@ -211,12 +211,24 @@ def mult_dlsb_sophisticated(a: Tensor, ap: Tensor, b: Tensor, bp: Tensor,
 # ---------------------------------------------------------------------------
 
 
+#: the largest f32 below 2^-1/2: a mantissa m in [1/2, 1) lies nearer 1 than
+#: 1/2 in the log domain exactly when m > this (no f32 equals 2^-1/2)
+_RSQRT2_BELOW = 0.70710677
+
+
 def pow2_snap(x: Tensor) -> Tensor:
-    """Snap every element to the nearest signed power of two (or 0), f32."""
+    """Snap every element to the nearest signed power of two (or 0), f32.
+
+    The exponent comes from ``frexp`` and one exact comparison of the
+    mantissa with 2^-1/2, so the snap is the same bits on every device: a
+    rounded ``log2`` puts an input within an ulp of 2^(k+1/2) on either
+    side depending on the device's ``log2``.  Elsewhere it is the
+    reference's ``round(log2 |x|)``."""
     x = torch.as_tensor(x)
     ax = torch.abs(x).to(torch.float32)
-    e = torch.round(torch.log2(torch.clamp(ax, min=1e-30)))
-    out = torch.sign(x).to(torch.float32) * torch.exp2(e)
+    m, e = torch.frexp(torch.clamp(ax, min=1e-30))
+    e = torch.where(m > _RSQRT2_BELOW, e, e - 1)
+    out = torch.sign(x).to(torch.float32) * torch.exp2(e.to(torch.float64)).to(torch.float32)
     return torch.where(ax == 0, torch.zeros_like(out), out)
 
 

@@ -18,6 +18,22 @@ tensor-parallel partial sums as int8 on the wire.  Two parts:
                :func:`all_reduce` / :func:`all_gather` the sharded model
                calls.
 
+Training on a mesh differentiates through the model's collectives, the
+Megatron pair and the kv-head gather made ``torch.autograd.Function``
+classes over the counted :func:`all_reduce` / :func:`all_gather`:
+
+  :func:`reduce_from_model`  forward an all-reduce sum over ``model``,
+                             backward the identity (every consumer of the
+                             sum is replicated across the ranks);
+  :func:`copy_to_model`      forward the identity, backward an all-reduce
+                             sum of the cotangent (the input of
+                             column-parallel projections);
+  :func:`gather_kv_heads`    forward an all-gather along the last dim,
+                             backward an all-reduce sum then this rank's
+                             slice (each rank narrows the gathered heads to
+                             other repeated heads, so the cotangents differ
+                             across ranks and must be summed).
+
 Transport: on a gloo group, :func:`all_reduce` hands CUDA tensors to gloo,
 which reduces them through its own host copies; the all-gather and the
 ring's send/recv, which gloo moves only on CPU tensors, stage CUDA tensors
@@ -36,17 +52,19 @@ import time
 import torch
 import torch.distributed as dist
 
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_unflatten
 
 Tensor = torch.Tensor
 
 
-def quantize_dequantize(x: Tensor, bits: int = 8) -> Tensor:
+def quantize_dequantize(x: Tensor, bits: int = 8, amax=None) -> Tensor:
     """Symmetric per-tensor fake-quantization to ``bits`` (round to
-    nearest, ties to even): error at most ``amax / qmax / 2``."""
+    nearest, ties to even): error at most ``amax / qmax / 2``.  ``amax``
+    (a device scalar) replaces ``max |x|``: the whole tensor's, for a
+    shard of it."""
     qmax = float((1 << (bits - 1)) - 1)
     x32 = x.to(torch.float32)
-    amax = torch.clamp(torch.max(torch.abs(x32)), min=1e-30)
+    amax = torch.clamp(torch.max(torch.abs(x32)) if amax is None else amax, min=1e-30)
     scale = amax / qmax
     q = torch.clamp(torch.round(x32 / scale), -qmax, qmax)
     return (q * scale).to(x.dtype)
@@ -67,11 +85,22 @@ def dp_allreduce_compressed(x: Tensor, bits: int = 8) -> Tensor:
     return quantize_dequantize(x, bits)
 
 
-def compress_tree_for_allreduce(grads, bits: int = 8):
+def compress_tree_for_allreduce(grads, bits: int = 8, group=None):
     """:func:`dp_allreduce_compressed` on every matrix-shaped gradient; 1-d
-    leaves (norm scales, biases) pass exactly."""
-    return tree_map(lambda g: dp_allreduce_compressed(g, bits) if g.dim() >= 2 else g,
-                    grads)
+    leaves (norm scales, biases) pass exactly.  On a mesh ``grads`` are
+    this rank's shards of the global gradient and ``group`` the ``model``
+    group: each leaf is quantized against the whole leaf's ``amax``, the
+    maximum of the shards' (one MAX all-reduce of every leaf's local amax;
+    a replicated leaf's is equal on every rank; with no group the local
+    amax is the leaf's own)."""
+    leaves = tree_leaves(grads)
+    mats = [g for g in leaves if g.dim() >= 2]
+    if not mats:
+        return grads
+    local = torch.stack([torch.max(torch.abs(g.to(torch.float32))) for g in mats])
+    amax = iter(all_reduce(local, group, op="max").unbind(0))
+    return tree_unflatten(grads, [quantize_dequantize(g, bits, next(amax))
+                                  if g.dim() >= 2 else g for g in leaves])
 
 
 # ---------------------------------------------------------------------------
@@ -129,16 +158,23 @@ def _start(x: Tensor, group) -> float:
     return t0
 
 
-def all_reduce(x: Tensor, group) -> Tensor:
-    """The exact sum of ``x`` over ``group`` (a new tensor on x's device;
-    ``x`` itself when ``group`` is None).  A CUDA tensor goes to the group
-    as it is, gloo's included."""
+def all_reduce(x: Tensor, group, op: str = "sum") -> Tensor:
+    """The exact sum (``op="max"``: the maximum) of ``x`` over ``group`` (a
+    new tensor on x's device; ``x`` itself when ``group`` is None).  A
+    CUDA tensor goes to a gloo group as it is for a sum; a maximum, which
+    only the small reductions take, is staged through the host."""
     if group is None:
         return x
+    if op not in ("sum", "max"):
+        raise ValueError(f"op must be 'sum' or 'max', got {op!r}")
     t0 = _start(x, group)
     counter.add("all-reduce", x.numel() * x.element_size())
-    out = x.detach().clone()
-    dist.all_reduce(out, group=group)
+    staged = op == "max" and _staged(x, group)
+    out = x.detach().to("cpu") if staged else x.detach().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX,
+                    group=group)
+    if staged:
+        out = out.to(x.device)
     counter.host_ms += (time.perf_counter() - t0) * 1e3
     return out
 
@@ -160,6 +196,77 @@ def all_gather(x: Tensor, group, dim: int = -1) -> Tensor:
         out = out.to(x.device)
     counter.host_ms += (time.perf_counter() - t0) * 1e3
     return out
+
+
+# ---------------------------------------------------------------------------
+# collectives under autograd (training on a mesh)
+# ---------------------------------------------------------------------------
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, wire_dtype):
+        ctx.group, ctx.wire_dtype = group, wire_dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.wire_dtype is None or ctx.wire_dtype == g.dtype:
+            return all_reduce(g.contiguous(), ctx.group), None, None
+        return all_reduce(g.to(ctx.wire_dtype), ctx.group).to(g.dtype), None, None
+
+
+class _GatherKvHeads(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group, ctx.width = group, x.shape[-1]
+        ctx.first = dist.get_rank(group) * x.shape[-1]
+        return all_gather(x, group, dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        full = all_reduce(g.contiguous(), ctx.group)
+        return full.narrow(-1, ctx.first, ctx.width).contiguous(), None
+
+
+def reduce_from_model(x: Tensor, group) -> Tensor:
+    """The sum of ``x`` over ``group`` (the row-parallel partials, the
+    vocab-parallel embedding, the sharded loss's sums); its backward passes
+    the cotangent through unchanged, which is right because every consumer
+    of the sum is replicated across the group.  ``x`` itself when
+    ``group`` is None."""
+    if group is None:
+        return x
+    return _ReduceFromModel.apply(x, group)
+
+
+def copy_to_model(x: Tensor, group, wire_dtype=None) -> Tensor:
+    """``x`` unchanged; its backward sums the cotangent over ``group`` (the
+    input of column-parallel projections, whose ranks each contribute the
+    partial dx of their columns).  ``wire_dtype`` (bf16 under
+    ``REPRO_BWD_BF16``) is the dtype the cotangent crosses the wire in."""
+    if group is None:
+        return x
+    return _CopyToModel.apply(x, group, wire_dtype)
+
+
+def gather_kv_heads(x: Tensor, group) -> Tensor:
+    """The ranks' ``x`` concatenated along the last dim (a rank's wk / wv
+    columns when the group does not divide the kv heads); its backward
+    sums the cotangent over ``group`` and returns this rank's columns."""
+    if group is None:
+        return x
+    return _GatherKvHeads.apply(x, group)
 
 
 def broadcast_value(value: float, group, device) -> float:

@@ -229,6 +229,16 @@ def batch_axes(mesh: Optional[Mesh] = None) -> tuple:
     return tuple(a for a in mesh.axis_names if a != "model")
 
 
+def data_group(mesh: Optional[Mesh] = None):
+    """The process group over the batch-sharding axes (None when they are
+    all 1-wide); more than one wide batch axis raises."""
+    mesh = mesh or get_mesh()
+    wide = [a for a in batch_axes(mesh) if mesh.size(a) > 1]
+    if len(wide) > 1:
+        raise NotImplementedError(f"batch sharded over {wide}: one data axis is supported")
+    return mesh.group(wide[0]) if wide else None
+
+
 def model_size() -> int:
     """The active mesh's ``model`` axis size (1: the one-device path)."""
     return get_mesh().size("model")
@@ -276,6 +286,31 @@ def _rank_entry(fn, rank, world, store_path, backend, timeout_s, threads, args, 
         sys.exit(1)
 
 
+@contextmanager
+def _forwarding_signals(procs):
+    """SIGTERM / SIGINT to this process passed on to every live process of
+    ``procs`` while the context is open (a launcher's ranks see the
+    scheduler's preemption); a no-op off the main thread."""
+    import signal
+
+    def forward(signum, frame):
+        for p in procs:
+            if p.is_alive():
+                os.kill(p.pid, signum)
+
+    prev = {}
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        try:
+            prev[sig] = signal.signal(sig, forward)
+        except ValueError:
+            pass
+    try:
+        yield
+    finally:
+        for sig, h in prev.items():
+            signal.signal(sig, h)
+
+
 def spawn_ranks(fn: Callable, world: int, *, store_dir: Optional[str] = None,
                 timeout_s: float = 60.0, backend: str = "gloo", device="cpu",
                 args: tuple = (), threads: int = 1) -> list:
@@ -289,7 +324,8 @@ def spawn_ranks(fn: Callable, world: int, *, store_dir: Optional[str] = None,
     ``timeout_s`` too.  A rank that raises, exits or outlives the bound
     fails the call with its traceback, and every rank still running is
     killed.  ``threads`` sets each rank's ``torch.set_num_threads`` (0:
-    leave it)."""
+    leave it).  A SIGTERM or SIGINT to this process while the ranks run
+    is passed on to them (a launcher's preemption reaches its ranks)."""
     backend = resolve_backend(device, world, backend)
     ctx = mp.get_context("spawn")
     tmp = tempfile.mkdtemp(prefix="repro_ranks_", dir=store_dir)
@@ -302,27 +338,28 @@ def spawn_ranks(fn: Callable, world: int, *, store_dir: Optional[str] = None,
     results: dict = {}
     failure = None
     try:
-        for p in procs:
-            p.start()
-        deadline = time.monotonic() + timeout_s
-        while len(results) < world and failure is None:
-            try:
-                rank, ok, payload = out.get(timeout=0.2)
-            except queue.Empty:
-                for r, p in enumerate(procs):
-                    if r not in results and p.exitcode not in (None, 0):
-                        failure = f"rank {r} exited with code {p.exitcode}"
-                        break
-                if failure is None and time.monotonic() > deadline:
-                    missing = sorted(set(range(world)) - set(results))
-                    failure = f"ranks {missing} did not finish within {timeout_s:g} s"
-                continue
-            if ok:
-                results[rank] = pickle.loads(payload)
-            else:
-                failure = f"rank {rank} failed:\n{payload}"
-        for p in procs:
-            p.join(timeout=5.0 if failure is None else 0.5)
+        with _forwarding_signals(procs):
+            for p in procs:
+                p.start()
+            deadline = time.monotonic() + timeout_s
+            while len(results) < world and failure is None:
+                try:
+                    rank, ok, payload = out.get(timeout=0.2)
+                except queue.Empty:
+                    for r, p in enumerate(procs):
+                        if r not in results and p.exitcode not in (None, 0):
+                            failure = f"rank {r} exited with code {p.exitcode}"
+                            break
+                    if failure is None and time.monotonic() > deadline:
+                        missing = sorted(set(range(world)) - set(results))
+                        failure = f"ranks {missing} did not finish within {timeout_s:g} s"
+                    continue
+                if ok:
+                    results[rank] = pickle.loads(payload)
+                else:
+                    failure = f"rank {rank} failed:\n{payload}"
+            for p in procs:
+                p.join(timeout=5.0 if failure is None else 0.5)
     finally:
         for p in procs:
             if p.is_alive():

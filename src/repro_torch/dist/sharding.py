@@ -30,6 +30,14 @@ the reference leaves it to the partitioner.  Weights are sliced before
 they are packed: the packs are built on each shard
 (``kernels/qstore.py``, with the quantization block resolved from the
 global contraction dim).
+
+Training on a mesh shards a whole ``TrainState`` (:func:`shard_train_state`:
+the parameters and AdamW's ``mu`` / ``nu`` by the same rules, the step
+replicated), gathers a local tree back to its global leaves
+(:func:`gather_params`, :func:`gather_train_state`: the checkpoint's
+form), cuts a batch to this rank's rows (:func:`shard_batch`) and marks the
+leaves split over ``model`` (:func:`model_sharded`: the gradient norm
+counts a replicated leaf once).
 """
 
 from __future__ import annotations
@@ -38,7 +46,9 @@ from typing import Any, Optional
 
 import torch
 
+from repro_torch.dist import collectives
 from repro_torch.dist.meshctx import Mesh, batch_axes, get_mesh
+from repro_torch.tree import tree_leaves
 
 #: module names whose dense ``w`` contracts over the sharded dim (output
 #: reduction): the row-parallel projections
@@ -190,31 +200,114 @@ def _column_bias(p: dict, specs: dict) -> bool:
             and w[-1] == "model")
 
 
-def shard_params(params: Any, specs: Any = None, mesh: Optional[Mesh] = None) -> Any:
-    """``params`` (a global float tree) cut to this rank's local shards by
-    ``specs`` (default :func:`partition_params`), the bias of each
-    column-parallel projection sliced with its columns.  Packed leaves
-    cannot be sliced by these specs: pack after sharding."""
-    mesh = mesh or get_mesh()
+def _leaf_specs(params: Any, specs: Any = None) -> Any:
+    """The spec of every leaf as :func:`shard_params` cuts it: ``specs``
+    (default :func:`partition_params`) with the bias of each
+    column-parallel projection split with its columns.  Packed leaves
+    raise: pack after sharding."""
     specs = partition_params(params) if specs is None else specs
 
     def walk(p, s, path):
         if isinstance(p, dict):
             out = {k: walk(v, s[k], f"{path}/{k}" if path else k) for k, v in p.items()}
             if _column_bias(p, s):
-                bspec = (None,) * (p["b"].dim() - 1) + ("model",)
-                out["b"] = shard_leaf(p["b"], bspec, mesh, f"{path}/b")
+                out["b"] = (None,) * (p["b"].dim() - 1) + ("model",)
             return out
         if isinstance(p, tuple) and hasattr(p, "_fields"):
             raise ValueError(f"{path}: a packed weight ({type(p).__name__}) cannot be "
                              "sharded; shard the float tree, then pack")
         if isinstance(p, (list, tuple)):
             return type(p)(walk(v, sv, f"{path}/{i}") for i, (v, sv) in enumerate(zip(p, s)))
-        if p is None:
-            return None
-        return shard_leaf(p, s, mesh, path)
+        return None if p is None else s
 
     return walk(params, specs, "")
+
+
+def _map_specs(fn, tree, specs, path: str = ""):
+    """``fn(leaf, spec, path)`` over a tree and its spec tree."""
+    if isinstance(tree, dict):
+        return {k: _map_specs(fn, v, specs[k], f"{path}/{k}" if path else k)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not hasattr(tree, "_fields"):
+        return type(tree)(_map_specs(fn, v, sv, f"{path}/{i}")
+                          for i, (v, sv) in enumerate(zip(tree, specs)))
+    return None if tree is None else fn(tree, specs, path)
+
+
+def shard_params(params: Any, specs: Any = None, mesh: Optional[Mesh] = None) -> Any:
+    """``params`` (a global float tree) cut to this rank's local shards by
+    ``specs`` (default :func:`partition_params`), the bias of each
+    column-parallel projection sliced with its columns.  Packed leaves
+    cannot be sliced by these specs: pack after sharding."""
+    mesh = mesh or get_mesh()
+    return _map_specs(lambda x, s, path: shard_leaf(x, s, mesh, path), params,
+                      _leaf_specs(params, specs))
+
+
+def gather_leaf(x: torch.Tensor, spec: tuple, mesh: Mesh, name: str = "") -> torch.Tensor:
+    """The global leaf of this rank's piece ``x`` under ``spec``: each dim
+    split over a mesh axis all-gathered over that axis's group (the
+    inverse of :func:`shard_leaf`; collective: every rank of the group
+    calls it)."""
+    out = x
+    for d, entry in enumerate(spec):
+        if _axis_parts(entry, mesh)[0] == 1:
+            continue
+        if isinstance(entry, tuple):
+            raise NotImplementedError(f"{name}: gathering dim {d} over {entry}")
+        out = collectives.all_gather(out, mesh.group(entry), dim=d)
+    return out
+
+
+def gather_params(local: Any, mesh: Optional[Mesh] = None) -> Any:
+    """A tree of this rank's shards (:func:`shard_params`) gathered back to
+    the global leaves (collective over ``model``)."""
+    mesh = mesh or get_mesh()
+    return _map_specs(lambda x, s, path: gather_leaf(x, s, mesh, path), local,
+                      _leaf_specs(local))
+
+
+def model_sharded(params: Any, mesh: Optional[Mesh] = None) -> list:
+    """One bool a leaf, in ``tree_leaves`` order: whether the leaf is split
+    over a mesh axis wider than 1 (False for every leaf on one device)."""
+    mesh = mesh or get_mesh()
+    specs = _map_specs(lambda x, s, path: any(_axis_parts(e, mesh)[0] > 1 for e in s),
+                       params, _leaf_specs(params))
+    return tree_leaves(specs)
+
+
+def shard_train_state(state: Any, mesh: Optional[Mesh] = None) -> Any:
+    """A global ``TrainState`` cut to this rank's part: the parameters by
+    :func:`partition_params`, AdamW's ``mu`` / ``nu`` by
+    :func:`partition_opt_state`, the step counters replicated."""
+    mesh = mesh or get_mesh()
+    pspecs = partition_params(state.params)
+    ospecs = partition_opt_state(state.opt, pspecs)
+    opt = state.opt
+    return type(state)(shard_params(state.params, pspecs, mesh),
+                       type(opt)(opt.step, shard_params(opt.mu, ospecs.mu, mesh),
+                                 shard_params(opt.nu, ospecs.nu, mesh)),
+                       state.step)
+
+
+def gather_train_state(state: Any, mesh: Optional[Mesh] = None) -> Any:
+    """The inverse of :func:`shard_train_state` (collective over
+    ``model``)."""
+    mesh = mesh or get_mesh()
+    opt = state.opt
+    return type(state)(gather_params(state.params, mesh),
+                       type(opt)(opt.step, gather_params(opt.mu, mesh),
+                                 gather_params(opt.nu, mesh)),
+                       state.step)
+
+
+def shard_batch(batch: dict, mesh: Optional[Mesh] = None) -> dict:
+    """This rank's rows of a global batch (dim 0 split over the data axes
+    by :func:`partition_batch`; a global batch that does not split
+    raises)."""
+    mesh = mesh or get_mesh()
+    specs = partition_batch(batch, mesh)
+    return {k: shard_leaf(v, specs[k], mesh, k) for k, v in batch.items()}
 
 
 def shard_cache(cache: Any, specs: Any = None, mesh: Optional[Mesh] = None) -> Any:

@@ -27,15 +27,22 @@ Tensor parallelism (a mesh whose ``model`` axis is wider than 1,
 ``dist/meshctx.py``): ``approx_matmul`` returns the global value, as the
 reference's does under GSPMD.  A row-parallel projection (a path ending in
 ``/wo``, ``/down`` or ``/out_proj``: its weight is this rank's rows of K)
-computes its f32 partial and all-reduces it over the ``model`` group; an
-AXQ bias and residual are then added in f32 once, after the reduction, and
-the sum is cast (on one device they ride the kernel's epilogue in the same
-order: f32 accumulate, + bias, + residual, cast).  Under :func:`ring_tp`
-(or ``REPRO_RING_TP=1``) an EXACT row-parallel partial goes through the
-int8 ring all-reduce instead (``_ring_tp_matmul``, forward only); under AXQ
-the partials keep the exact all-reduce.  The *_EMUL modes quantize per
-tensor, and a shard's scale is not the whole tensor's: they raise on a
-mesh.
+computes its f32 partial and sums it over the ``model`` group through
+``collectives.reduce_from_model`` (whose backward is the identity, so the
+same code trains); an AXQ bias and residual are then added in f32 once,
+after the reduction, and the sum is cast (on one device they ride the
+kernel's epilogue in the same order: f32 accumulate, + bias, + residual,
+cast).  A float AXQ shard is quantized in the blocks of the global K
+(``qstore.row_block``; a shard that is not a whole number of them raises).
+Under :func:`ring_tp` (or ``REPRO_RING_TP=1``) the EXACT projections take
+the reference's int8-ring forms: a row-parallel partial is reduced through
+the int8 ring all-reduce (``_RingTpMatmul``; its backward is local), and a
+column-parallel projection (``/wq``, ``/wk``, ``/wv``, ``/up``, ``/gate``,
+``unembed``) is the plain product whose backward sends its dx partial
+through the ring, one projection at a time (``_RingDxMatmul``; the model
+then skips the exact dx all-reduce of that input, ``layers.column_input``).
+Under AXQ the ring stays off.  The *_EMUL modes quantize per tensor, and a
+shard's scale is not the whole tensor's: they raise on a mesh.
 """
 
 from __future__ import annotations
@@ -105,21 +112,70 @@ def ring_tp(enabled: bool = True):
         _RING_TP = prev
 
 
-def _ring_tp_matmul(x2: Tensor, w: Tensor) -> Tensor:
+class _RingTpMatmul(torch.autograd.Function):
     """A row-parallel EXACT product reduced through the int8 ring: the
     local f32 partial ``x2 @ w`` (this rank's K rows), then
     :func:`~repro_torch.dist.collectives.ring_allreduce_int8` over the
-    ``model`` group (the plain product on a 1-wide axis).  Forward only:
-    the backward collectives (``_ring_dx_matmul``) come with training on
-    a mesh."""
-    acc = torch.matmul(x2.to(torch.float32), w.to(x2.dtype).to(torch.float32))
+    ``model`` group.  Backward (the reference's ``_ring_bwd``): the local
+    dx and dw, no collective (dx is this rank's K columns; the cotangent
+    is replicated)."""
+
+    @staticmethod
+    def forward(ctx, x2, w, group):
+        ctx.save_for_backward(x2, w)
+        acc = torch.matmul(x2.to(torch.float32), w.to(x2.dtype).to(torch.float32))
+        return collectives.ring_allreduce_int8(acc, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        g32 = g.to(torch.float32)
+        dx = torch.matmul(g32, w.to(torch.float32).t()).to(x2.dtype)
+        dw = torch.matmul(x2.to(torch.float32).t(), g32).to(w.dtype)
+        return dx, dw, None
+
+
+class _RingDxMatmul(torch.autograd.Function):
+    """A column-parallel EXACT product (x replicated, w this rank's
+    columns): the plain product forward; backward (the reference's
+    ``_ring_dx_bwd``): dw local, the dx partial ``g @ w.T`` summed over
+    the ``model`` group through the int8 ring."""
+
+    @staticmethod
+    def forward(ctx, x2, w, group):
+        ctx.save_for_backward(x2, w)
+        ctx.group = group
+        return torch.matmul(x2.to(torch.float32), w.to(x2.dtype).to(torch.float32))
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        g32 = g.to(torch.float32)
+        dw = torch.matmul(x2.to(torch.float32).t(), g32).to(w.dtype)
+        part = torch.matmul(g32, w.to(torch.float32).t())
+        dx = collectives.ring_allreduce_int8(part, ctx.group).to(x2.dtype)
+        return dx, dw, None
+
+
+#: the column-parallel paths whose dx goes through the ring under ring_tp
+RING_DX_PATHS = ("/wq", "/wk", "/wv", "/up", "/gate", "unembed")
+
+
+def ring_dx_path(path: str, spec: Optional[ApproxSpec]) -> bool:
+    """Whether the column-parallel projection at ``path`` sends its dx
+    through the int8 ring (:func:`ring_tp` open, EXACT, a mesh whose
+    ``model`` axis is wider than 1)."""
+    return (_RING_TP and (spec is None or spec.mode == ApproxMode.EXACT)
+            and path.endswith(RING_DX_PATHS) and meshctx.model_size() > 1)
+
+
+def _ring_tp_matmul(x2: Tensor, w: Tensor) -> Tensor:
+    """:class:`_RingTpMatmul` over the ``model`` group (the plain product
+    on a 1-wide axis)."""
     mesh = meshctx.get_mesh()
     if mesh.size("model") == 1:
-        return acc
-    if torch.is_grad_enabled() and (x2.requires_grad or w.requires_grad):
-        raise NotImplementedError("the int8 ring has no backward yet: training on a "
-                                  "mesh is ROADMAP §A")
-    return collectives.ring_allreduce_int8(acc, mesh.group("model"))
+        return torch.matmul(x2.to(torch.float32), w.to(x2.dtype).to(torch.float32))
+    return _RingTpMatmul.apply(x2, w, mesh.group("model"))
 
 
 def _degree_for(spec: ApproxSpec, degree):
@@ -219,6 +275,8 @@ def approx_matmul(x: Tensor, w, spec: ApproxSpec | None = None, *,
         if _RING_TP and is_row_parallel(path):
             y = _ring_tp_matmul(x2, w)
             row = False                      # reduced by the ring
+        elif ring_dx_path(path, spec):
+            y = _RingDxMatmul.apply(x2, w, mesh.group("model"))
         elif _BWD_BF16:
             y = _MatmulBf16Bwd.apply(x2, w)
         else:
@@ -230,10 +288,12 @@ def approx_matmul(x: Tensor, w, spec: ApproxSpec | None = None, *,
         res2 = None if residual is None else residual.reshape(-1, N)
         if row:
             # the partial carries no epilogue: bias and residual are added
-            # once, after the reduction
-            y = kdispatch.axq_matmul(x2, w, block=spec.block,
-                                     ebits=_degree_for(spec, degree))
-            y = collectives.all_reduce(y, mesh.group("model"))
+            # once, after the reduction; a float shard takes the global K's
+            # blocks (a pack already has them)
+            block = spec.block if packed else qstore.row_block(
+                f"{path}/w", K, mesh.size("model"), spec.block)
+            y = kdispatch.axq_matmul(x2, w, block=block, ebits=_degree_for(spec, degree))
+            y = collectives.reduce_from_model(y, mesh.group("model"))
             if bias is not None:
                 y = y + bias.to(torch.float32)[None, :]
             if res2 is not None:
@@ -255,7 +315,9 @@ def approx_matmul(x: Tensor, w, spec: ApproxSpec | None = None, *,
     else:
         raise ValueError(spec.mode)
     if row:
-        y = collectives.all_reduce(y.to(torch.float32), mesh.group("model"))
+        # REPRO_BWD_BF16's bf16 partials cross the wire as bf16
+        y = collectives.reduce_from_model(y if _BWD_BF16 else y.to(torch.float32),
+                                          mesh.group("model"))
     return y.reshape(*lead, N).to(out_dtype)
 
 

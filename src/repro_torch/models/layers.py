@@ -11,7 +11,11 @@ output is the global value (``approx_matmul`` reduces the row-parallel
 ones), the embedding is vocab-parallel (:func:`embed_apply`: a masked
 local lookup, then an all-reduce) and the unembedding column-parallel
 (local logits; :func:`gather_vocab` all-gathers them where whole rows are
-needed).
+needed).  The same code trains: the reductions are
+``collectives.reduce_from_model`` (backward the identity), each normed
+input of column-parallel projections passes :func:`column_input` (backward
+an all-reduce of its dx), and :func:`vocab_parallel_ce` takes the loss of
+the sharded logits without gathering them.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.approx import ApproxMode, ApproxPolicy
 from repro_torch.dist import collectives, meshctx
+from repro_torch.kernels import ops as kops
 from repro_torch.kernels.axqmm import ACTS
 from repro_torch.kernels.ops import approx_gated_matmul, approx_matmul
 
@@ -111,7 +116,59 @@ def embed_apply(p, tokens: Tensor, dtype=torch.bfloat16) -> Tensor:
     hit = (local >= 0) & (local < n)
     x = F.embedding(torch.where(hit, local, 0), emb)
     x = torch.where(hit[..., None], x, torch.zeros((), dtype=x.dtype, device=x.device))
-    return collectives.all_reduce(x, mesh.group("model")).to(dtype)
+    return collectives.reduce_from_model(x, mesh.group("model")).to(dtype)
+
+
+def column_input(x: Tensor, policy: ApproxPolicy, paths) -> Tensor:
+    """``x``, the normed input of the column-parallel projections at
+    ``paths``, made ready for them on a mesh: its backward sums the ranks'
+    dx partials over ``model`` (``collectives.copy_to_model``; in bf16
+    under ``REPRO_BWD_BF16``).  Under the int8-ring lever every EXACT
+    projection sends its own dx through the ring (``ops.ring_dx_path``),
+    so ``x`` passes unchanged; a mix of ring and exact projections on one
+    input raises.  Unchanged on one device and without autograd
+    (serving)."""
+    mesh = meshctx.get_mesh()
+    if mesh.size("model") == 1 or not torch.is_grad_enabled():
+        return x
+    ring = [kops.ring_dx_path(p, policy.spec_for(p)) for p in paths]
+    if all(ring):
+        return x
+    if any(ring):
+        raise NotImplementedError(
+            f"the int8 ring reduces the dx of {[p for p, r in zip(paths, ring) if r]} but "
+            f"not of the other projections of the same input {list(paths)}")
+    return collectives.copy_to_model(x, mesh.group("model"),
+                                     torch.bfloat16 if kops._BWD_BF16 else None)
+
+
+def vocab_parallel_ce(logits: Tensor, labels: Tensor) -> tuple[Tensor, Tensor]:
+    """(sum of the log-likelihoods of ``labels`` over the entries with
+    ``labels >= 0``, their count as f32) of this rank's vocab columns
+    ``logits`` (..., V / tp) on a mesh, as the reference's partitioner
+    reduces its sharded logits: the row max over the vocab by a MAX
+    all-reduce (detached: the log-sum-exp's gradient does not depend on
+    it), the sum of exponentials and the target logit through
+    ``reduce_from_model``.  The logits are never gathered.  With a 1-wide
+    ``model`` axis the plain ``log_softmax``."""
+    mask = (labels >= 0).to(torch.float32)
+    labels_c = torch.clamp(labels, min=0).to(torch.int64)
+    mesh = meshctx.get_mesh()
+    if mesh.size("model") == 1:
+        logp = torch.log_softmax(logits, dim=-1)
+        ll = torch.gather(logp, -1, labels_c[..., None])[..., 0]
+        return torch.sum(ll * mask), torch.sum(mask)
+    g = mesh.group("model")
+    n = logits.shape[-1]
+    m = collectives.all_reduce(logits.detach().amax(dim=-1), g, op="max")
+    z = logits - m[..., None]
+    se = collectives.reduce_from_model(torch.sum(torch.exp(z), dim=-1), g)
+    local = labels_c - mesh.coord("model") * n
+    hit = (local >= 0) & (local < n)
+    tz = torch.gather(z, -1, torch.where(hit, local, 0)[..., None])[..., 0]
+    tz = collectives.reduce_from_model(torch.where(hit, tz, torch.zeros_like(tz)), g)
+    ll = tz - torch.log(se)
+    return torch.sum(ll * mask), torch.sum(mask)
 
 
 def gather_vocab(logits: Tensor) -> Tensor:
@@ -131,7 +188,7 @@ def unembed_apply(p, x: Tensor, policy: ApproxPolicy, path: str,
     w = p.get("unembed_q")
     if w is None:
         w = p["emb"].t()
-    return approx_matmul(x, w, spec, degree=degree, out_dtype=torch.float32)
+    return approx_matmul(x, w, spec, degree=degree, out_dtype=torch.float32, path=path)
 
 
 # ---------------------------------------------------------------------------

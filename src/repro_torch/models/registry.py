@@ -64,7 +64,10 @@ class Model:
 
     def forward(self, params, batch, tp: int = 1, degree=None, remat="dots"):
         """(logits f32, aux loss); ``remat`` is the layers' activation
-        policy under autograd (``transformer.remat_call``)."""
+        policy under autograd (``transformer.remat_call``).  On a mesh of
+        more than one rank (training): this rank's shards and rows, the
+        dense family only (``transformer.check_train_mesh_supported``)."""
+        transformer.check_train_mesh_supported(self.cfg)
         if self.cfg.family == "hybrid":
             return rglru.hybrid_forward(params, self.cfg, self.policy, batch, tp, degree,
                                         remat)
@@ -76,7 +79,8 @@ class Model:
     def loss(self, params, batch, tp: int = 1, degree=None, remat="dots"):
         """(loss, {"ce", "aux", "ntokens"}): the masked cross-entropy over
         ``labels >= 0``; the dense and MoE families add 0.01 x the aux
-        load-balance loss, the SSM and hybrid families do not."""
+        load-balance loss, the SSM and hybrid families do not.  On a mesh
+        the loss is this rank's share (``transformer.lm_loss``)."""
         if self.cfg.family in ("hybrid", "ssm"):
             logits, aux = self.forward(params, batch, tp, degree, remat)
             ce, ntok = transformer.masked_ce(logits, batch["labels"])

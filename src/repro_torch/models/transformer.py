@@ -41,8 +41,19 @@ vocab-parallel, and the logits the entry points return are this rank's
 vocab columns, as the reference's are sharded over ``model``: callers that
 need whole rows gather them (``layers.gather_vocab``).  tp = 1 keeps the
 one-device route unchanged.  The SSM and hybrid families and the audio
-encoder raise on such a mesh (:func:`check_tp_supported`), and so does
-the training forward: training on a mesh is ROADMAP §A.
+encoder raise on such a mesh (:func:`check_tp_supported`).
+
+Training on a mesh (``(data, model)``, one process a rank): the dense
+family's :func:`lm_forward` / :func:`lm_loss` run on this rank's shards
+and rows, with the collectives that carry gradients
+(``collectives.reduce_from_model`` for the embedding and the row-parallel
+partials, ``layers.column_input`` on the three normed inputs of
+column-parallel projections, ``collectives.gather_kv_heads`` for the
+kv-split path) and the vocab-parallel cross-entropy
+(``layers.vocab_parallel_ce``): the loss is this rank's masked
+log-likelihood sum over the global token count, so the data ranks' losses
+and gradients sum to the reference's masked mean.  The other families and
+the frontends raise there (:func:`check_train_mesh_supported`).
 """
 
 from __future__ import annotations
@@ -100,6 +111,18 @@ def check_tp_supported(cfg: ArchConfig, tp: int) -> None:
         raise NotImplementedError(
             f"{cfg.name} at tp={tp}: the audio encoder has no decode step to serve; "
             "tensor parallelism for it is ROADMAP §A")
+
+
+def check_train_mesh_supported(cfg: ArchConfig) -> None:
+    """Training on a mesh of more than one rank covers the dense family;
+    the others raise (ROADMAP §A)."""
+    mesh = meshctx.get_mesh()
+    if math.prod(mesh.shape) == 1 or (cfg.family == "dense" and cfg.frontend is None):
+        return
+    what = f"the {cfg.frontend} frontend" if cfg.frontend else f"the {cfg.family} family"
+    raise NotImplementedError(
+        f"{cfg.name}: training on a mesh {dict(zip(mesh.axis_names, mesh.shape))} covers the "
+        f"dense family; {what} on a mesh is ROADMAP §A")
 
 
 def tp_heads(cfg: ArchConfig, tp: int) -> tuple:
@@ -214,8 +237,8 @@ def _qkv(bp, x, cfg: ArchConfig, tp: int, policy, path, positions, degree):
     # so gather every kv head and take this rank's repeated ones
     split = m > 1 and cfg.n_kv_heads % m != 0
     if split:
-        k = collectives.all_gather(k, mesh.group("model"), dim=-1)
-        v = collectives.all_gather(v, mesh.group("model"), dim=-1)
+        k = collectives.gather_kv_heads(k, mesh.group("model"))
+        v = collectives.gather_kv_heads(v, mesh.group("model"))
     kvh = cfg.n_kv_heads // m if m > 1 and not split else cfg.n_kv_heads
     k = k.reshape(B, S, kvh, D)
     v = v.reshape(B, S, kvh, D)
@@ -237,6 +260,7 @@ def _ffn(bp, h: Tensor, x: Tensor, cfg: ArchConfig, policy: ApproxPolicy, path: 
     if cfg.moe:
         f, aux = moe_mod.moe_apply(bp["moe"], h, cfg, policy, path + "/moe", degree)
         return x + f, aux
+    h = L.column_input(h, policy, (path + "/mlp/up", path + "/mlp/gate"))
     return L.gated_mlp_apply(bp["mlp"], h, policy, path + "/mlp", cfg.act, degree,
                              residual=x), None
 
@@ -248,6 +272,7 @@ def block_apply(bp, x: Tensor, cfg: ArchConfig, tp: int, policy: ApproxPolicy,
     that prefill writes into a slot's cache region; with ``return_aux``
     (out, the MoE aux load-balance loss, None for a dense block) instead."""
     h = L.rmsnorm_apply(bp["ln1"], x, cfg.norm_eps)
+    h = L.column_input(h, policy, (path + "/wq", path + "/wk", path + "/wv"))
     q, k, v = _qkv(bp, h, cfg, tp, policy, path, positions, degree)
     o = kdispatch.prefill_attention(q, k, v, causal=cfg.causal,
                                     window=cfg.swa_window)
@@ -263,6 +288,7 @@ def block_apply(bp, x: Tensor, cfg: ArchConfig, tp: int, policy: ApproxPolicy,
 
 def _head(params, cfg, policy, x, hdeg) -> Tensor:
     x = L.rmsnorm_apply(params["ln_f"], x, cfg.norm_eps)
+    x = L.column_input(x, policy, ("unembed",))
     if cfg.tie_embeddings:
         return L.unembed_apply(params["embed"], x, policy, "unembed", hdeg)
     return L.dense_apply(params["unembed"], x, policy, "unembed", hdeg).to(torch.float32)
@@ -338,11 +364,9 @@ def lm_forward(params, cfg: ArchConfig, policy: ApproxPolicy, batch: dict,
     """Returns (logits (B, S, vocab_padded) f32, the layers' summed aux
     load-balance loss (0 for a dense model)); S counts a VLM's image
     tokens.  ``remat`` is the layers' activation policy under autograd
-    (:func:`remat_call`).  Runs on one device: training on a mesh is
-    ROADMAP §A."""
-    if meshctx.model_size() > 1:
-        raise NotImplementedError("the training forward on a mesh (model axis > 1) is "
-                                  "ROADMAP §A; tensor parallelism serves only")
+    (:func:`remat_call`).  On a mesh: this rank's rows and vocab columns
+    (the dense family only, :func:`check_train_mesh_supported`)."""
+    check_train_mesh_supported(cfg)
     dev = next(iter(batch.values())).device
     ldeg, hdeg = split_degree(degree, cfg.n_layers, dev)
     x, positions = embed_inputs(params, cfg, batch, _dtype(cfg), policy, hdeg)
@@ -363,13 +387,18 @@ def lm_loss(params, cfg: ArchConfig, policy: ApproxPolicy, batch: dict,
             tp: int = 1, degree=None, remat: str = "dots") -> tuple[Tensor, dict]:
     """Masked next-token cross-entropy over ``labels >= 0`` (a VLM's text
     positions only) plus 0.01 x the aux load-balance loss.  Returns (loss,
-    {"ce", "aux", "ntokens"}), all device scalars."""
+    {"ce", "aux", "ntokens"}), all device scalars.  On a mesh the loss and
+    ``ce`` are this rank's share: its rows' log-likelihood sum over the
+    token count of every data rank (``ntokens``, all-reduced over
+    ``data``), so the data ranks' shares sum to the masked mean."""
     logits, aux = lm_forward(params, cfg, policy, batch, tp, degree, remat)
     labels = batch["labels"]
     if cfg.frontend == "vision":
         # the logits cover [image tokens | text tokens]: the loss is the text's
         logits = logits[:, -labels.shape[1]:]
-    ce, ntok = masked_ce(logits, labels)
+    llsum, ntok = L.vocab_parallel_ce(logits, labels)
+    ntok = collectives.all_reduce(ntok, meshctx.data_group())
+    ce = -llsum / torch.clamp(ntok, min=1.0)
     loss = ce + 0.01 * aux
     return loss, {"ce": ce, "aux": aux, "ntokens": ntok}
 
@@ -377,13 +406,8 @@ def lm_loss(params, cfg: ArchConfig, policy: ApproxPolicy, batch: dict,
 def masked_ce(logits: Tensor, labels: Tensor) -> tuple[Tensor, Tensor]:
     """(mean negative log-likelihood of ``labels`` over the entries with
     ``labels >= 0``, their count as f32)."""
-    mask = (labels >= 0).to(torch.float32)
-    labels_c = torch.clamp(labels, min=0).to(torch.int64)
-    logp = torch.log_softmax(logits, dim=-1)
-    ll = torch.gather(logp, -1, labels_c[..., None])[..., 0]
-    ntok = torch.sum(mask)
-    ce = -torch.sum(ll * mask) / torch.clamp(ntok, min=1.0)
-    return ce, ntok
+    llsum, ntok = L.vocab_parallel_ce(logits, labels)
+    return -llsum / torch.clamp(ntok, min=1.0), ntok
 
 
 # ---------------------------------------------------------------------------

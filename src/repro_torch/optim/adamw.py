@@ -5,6 +5,8 @@ Parameters, gradients and the moments are nested dicts of tensors; every
 tree walk takes the reference's leaf order (dict keys sorted), so the f32
 sums of :func:`global_norm` add the leaves in the same order.  The update
 is functional: it returns new tensors and leaves its inputs untouched.
+On a mesh every tree holds this rank's shards: the update is elementwise
+on them, and only :func:`global_norm` reduces over the ``model`` group.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.dist import collectives, meshctx, sharding
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 Tensor = torch.Tensor
@@ -46,10 +49,21 @@ def init(params) -> AdamWState:
 
 def global_norm(tree) -> Tensor:
     """sqrt of the sum of every leaf's f32 sum of squares, leaves added in
-    tree order from 0."""
+    tree order from 0.  On a mesh ``tree`` holds this rank's shards: the
+    sums of squares of the leaves split over ``model`` are summed over the
+    ``model`` group (one all-reduce of them all), a replicated leaf's
+    counted once, so every rank holds the global norm."""
+    sq = [torch.sum(torch.square(x.to(torch.float32))) for x in tree_leaves(tree)]
+    mesh = meshctx.get_mesh()
+    if mesh.size("model") > 1 and sq:
+        split = sharding.model_sharded(tree, mesh)
+        if any(split):
+            local = torch.stack([s if m else torch.zeros_like(s) for s, m in zip(sq, split)])
+            summed = collectives.all_reduce(local, mesh.group("model")).unbind(0)
+            sq = [t if m else s for s, t, m in zip(sq, summed, split)]
     total = 0
-    for x in tree_leaves(tree):
-        total = total + torch.sum(torch.square(x.to(torch.float32)))
+    for s in sq:
+        total = total + s
     return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
 
 

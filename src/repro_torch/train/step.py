@@ -7,6 +7,17 @@ step becomes one autograd pass over the state's parameter leaves (the
 kernels' forwards, their backward oracles), then the functional update.
 The step counter and the degree stay device tensors: nothing here reads
 the device.
+
+On a mesh (``dist/meshctx.py``: one process a rank, the state this rank's
+shards, ``dist.sharding.shard_train_state``; the batch this rank's rows)
+the step computes the reference's one-device step on the global state:
+the model's collectives carry the gradients inside the backward, then
+every gradient leaf is summed over the ``data`` group (each data rank's
+loss is its share of the global masked mean), ``compress_grads``
+quantizes the global gradient (a sharded leaf against the whole leaf's
+amax), the norm is the global one (``adamw.global_norm``), and the
+reported ``loss`` / ``ce`` are the global ones, the same bits on every
+rank.
 """
 
 from __future__ import annotations
@@ -16,6 +27,7 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
+from repro_torch.dist import collectives, meshctx, sharding
 from repro_torch.models.registry import Model
 from repro_torch.optim import adamw
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
@@ -40,8 +52,13 @@ class StepConfig:
 
 
 def init_state(model: Model, seed: int = 0, tp: int = 1,
-               generator: Optional[torch.Generator] = None) -> TrainState:
+               generator: Optional[torch.Generator] = None, mesh=None) -> TrainState:
+    """The seeded state; with ``mesh`` this rank's part of it: the global
+    parameters built from the seed, then cut to the rank's shards, and
+    AdamW's state made on the shards."""
     params = model.init(seed, tp, generator=generator)
+    if mesh is not None:
+        params = sharding.shard_params(params, mesh=mesh)
     return TrainState(params, adamw.init(params),
                       torch.zeros((), dtype=torch.int32, device=model.device))
 
@@ -85,10 +102,13 @@ def train_step(model: Model, cfg: StepConfig, state: TrainState, batch: dict,
         (loss, metrics), grads = value_and_grad(model, state.params, batch, tp, degree,
                                                 cfg.remat)
 
+    mesh = meshctx.get_mesh()
+    dgroup = meshctx.data_group(mesh)
+    if dgroup is not None:
+        grads = tree_map(lambda g: collectives.all_reduce(g, dgroup), grads)
+        loss, metrics = _global_metrics(loss, metrics, dgroup)
     if cfg.compress_grads:
-        from repro_torch.dist.collectives import compress_tree_for_allreduce
-
-        grads = compress_tree_for_allreduce(grads)
+        grads = collectives.compress_tree_for_allreduce(grads, group=mesh.group("model"))
 
     lr_scale = adamw.cosine_warmup(state.step, warmup=cfg.warmup, total=cfg.total_steps)
     new_params, new_opt, opt_metrics = adamw.update(
@@ -97,9 +117,19 @@ def train_step(model: Model, cfg: StepConfig, state: TrainState, batch: dict,
     return TrainState(new_params, new_opt, state.step + 1), metrics
 
 
+def _global_metrics(loss, metrics: dict, group):
+    """The data ranks' shares of the loss and ``ce`` summed over ``group``
+    (one all-reduce of both; ``ntokens`` is already global)."""
+    both = collectives.all_reduce(torch.stack([loss, metrics["ce"]]), group)
+    return both[0], {**metrics, "ce": both[1]}
+
+
 def eval_step(model: Model, state: TrainState, batch: dict, tp: int = 1, degree=None):
     with torch.no_grad():
         loss, metrics = model.loss(state.params, batch, tp=tp, degree=degree, remat="none")
+    dgroup = meshctx.data_group()
+    if dgroup is not None:
+        loss, metrics = _global_metrics(loss, metrics, dgroup)
     return {**metrics, "loss": loss}
 
 

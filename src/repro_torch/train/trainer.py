@@ -14,10 +14,20 @@ and runtime approximation (QoS) control (the port of
 The reference jits its step; here the step runs eagerly (the kernels under
 autograd, ``train/step.py``).  Capturing it in a CUDA graph is left for
 later.
+
+On a mesh (``mesh=``, or the active one; one process a rank) every rank
+builds the global parameters from the seed and keeps its shards
+(``dist.sharding.shard_train_state``), takes its data coordinate's rows of
+each batch, checkpoints through the mesh checkpointer (gathered, rank 0
+writes, a barrier), and MAX-reduces the preemption flag over the world once
+a step, so every rank checkpoints at the same step and exits.  The loss the
+QoS controller reads is the global one, so every rank moves the degree at
+the same step; the degree stays a device operand.  Rank 0 alone prints.
 """
 
 from __future__ import annotations
 
+import math
 import signal
 import time
 from dataclasses import dataclass, field
@@ -29,6 +39,7 @@ import torch
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.core.dynamic import QoSController, degree_operand, entry_degree
 from repro_torch.data.pipeline import SyntheticPipeline
+from repro_torch.dist import collectives, meshctx, sharding
 from repro_torch.models.registry import Model
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
@@ -80,17 +91,23 @@ class Trainer:
     """``registry`` / ``tracer``: step and checkpoint spans and QoS ladder
     events go to the process-global tracer by default (free when disabled);
     counters and gauges land in a fresh per-trainer registry unless a shared
-    one is passed (``launch.train --metrics-out`` exports it)."""
+    one is passed (``launch.train --metrics-out`` exports it).  After
+    :meth:`run`, ``state`` is the last state (this rank's on a mesh)."""
 
     def __init__(self, model: Model, scfg: step_mod.StepConfig,
                  tcfg: TrainerConfig, pipeline: SyntheticPipeline,
-                 tp: int = 1, registry=None, tracer=None):
+                 tp: int = 1, registry=None, tracer=None, mesh=None):
         self.model = model
         self.scfg = scfg
         self.tcfg = tcfg
         self.pipeline = pipeline
         self.tp = tp
-        self.ckpt = Checkpointer(tcfg.ckpt_dir, keep=tcfg.keep)
+        mesh = mesh if mesh is not None else meshctx.get_mesh()
+        self.mesh = mesh if math.prod(mesh.shape) > 1 else None
+        if self.mesh is not None and self.mesh.size("model") != tp:
+            raise ValueError(f"tp={tp} on a mesh whose model axis is "
+                             f"{self.mesh.size('model')}")
+        self.ckpt = Checkpointer(tcfg.ckpt_dir, keep=tcfg.keep, mesh=self.mesh)
         self.watchdog = StragglerWatchdog()
         self._preempted = False
         self._step_fn = lambda state, batch, degree: step_mod.train_step(
@@ -139,14 +156,21 @@ class Trainer:
             self._g_degree.labels(site="global").set(rec[0])
         return rec
 
+    def _print(self, msg: str) -> None:
+        if self.mesh is None or self.mesh.rank == 0:
+            print(msg)
+
     def _batch(self, step: int) -> dict:
         dev = self.model.device
-        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(
-                    dev, torch.int64 if v.dtype.kind == "i" else None)
-                for k, v in self.pipeline.batch_at(step).items()}
+        batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(
+                     torch.int64 if v.dtype.kind == "i" else None)
+                 for k, v in self.pipeline.batch_at(step).items()}
+        if self.mesh is not None:
+            batch = sharding.shard_batch(batch, self.mesh)
+        return {k: v.to(dev) for k, v in batch.items()}
 
     def init_or_restore(self, seed: int = 0) -> tuple[step_mod.TrainState, int]:
-        state = step_mod.init_state(self.model, seed, tp=self.tp)
+        state = step_mod.init_state(self.model, seed, tp=self.tp, mesh=self.mesh)
         got = None
         try:
             got = self.ckpt.restore_latest(state)
@@ -157,8 +181,23 @@ class Trainer:
         step, tree, extra = got
         dev = self.model.device
         tree = tree_map(lambda a: torch.from_numpy(np.array(a)).to(dev), tree)
-        print(f"[trainer] restored checkpoint at step {step}")
+        self._print(f"[trainer] restored checkpoint at step {step}")
         return step_mod.TrainState(*tree), step
+
+    def _preempted_anywhere(self) -> bool:
+        """Whether to stop now: this rank's preemption flag, on a mesh
+        MAX-reduced over the world, so every rank takes the same decision
+        at the same step (a signal that lands during the reduction counts
+        at the next step)."""
+        if self.mesh is None:
+            return self._preempted
+        import torch.distributed as dist
+
+        dev = self.mesh.device if self.mesh.backend == "nccl" else "cpu"
+        flag = torch.tensor([1.0 if self._preempted else 0.0], device=dev)
+        stop = bool(collectives.all_reduce(flag, dist.group.WORLD, op="max").item() > 0)
+        self._preempted = self._preempted or stop
+        return stop
 
     def run(self, seed: int = 0) -> dict:
         self._install_signal_handlers()
@@ -173,7 +212,7 @@ class Trainer:
         degree = degree_operand(entry, dev)
         self._record_degree(entry)
         t_last_loss = None
-        step = start
+        step, stop = start, False
         while step < self.tcfg.total_steps:
             with self._tracer.span("data_batch", track="train", step=step):
                 batch = self._batch(step)
@@ -195,8 +234,8 @@ class Trainer:
                    "degree": entry_degree(entry), "straggler": slow}
             self.history.append(rec)
             if step % self.tcfg.log_every == 0:
-                print(f"[trainer] step {step} loss {loss:.4f} "
-                      f"({dt*1e3:.0f} ms){' STRAGGLER' if slow else ''}")
+                self._print(f"[trainer] step {step} loss {loss:.4f} "
+                            f"({dt*1e3:.0f} ms){' STRAGGLER' if slow else ''}")
             # QoS: quality signal = loss improvement rate (negative delta)
             if self.tcfg.qos and step % self.tcfg.qos_every == 0 and step > start:
                 signal_q = (t_last_loss - loss) if t_last_loss is not None else 0.0
@@ -215,22 +254,24 @@ class Trainer:
             elif t_last_loss is None:
                 t_last_loss = loss
             step += 1
-            if step % self.tcfg.ckpt_every == 0 or self._preempted:
+            stop = self._preempted_anywhere()
+            if stop or step % self.tcfg.ckpt_every == 0:
                 with self._tracer.span("checkpoint", track="train", step=step):
                     self.ckpt.save(
                         step, state,
                         extra={"data_step": step, "degree": entry_degree(entry)},
-                        blocking=self._preempted or not self.tcfg.async_ckpt)
+                        blocking=stop or not self.tcfg.async_ckpt)
                 self._c_ckpts.inc()
-                if self._preempted:
-                    print(f"[trainer] preempted: checkpointed at {step}, exiting")
+                if stop:
+                    self._print(f"[trainer] preempted: checkpointed at {step}, exiting")
                     break
         self.ckpt.wait()
-        if not self._preempted and (step % self.tcfg.ckpt_every):
+        self.state = state
+        if not stop and (step % self.tcfg.ckpt_every):
             self.ckpt.save(step, state,
                            extra={"data_step": step, "degree": entry_degree(entry)},
                            blocking=True)
             self._c_ckpts.inc()
         return {"final_step": step, "history": self.history,
-                "preempted": self._preempted,
+                "preempted": stop,
                 "stragglers": self.watchdog.flagged}

@@ -133,6 +133,25 @@ def test_pow2_snap_matches_reference():
     _eq(tenc.pow2_snap(torch.from_numpy(x)), jenc.pow2_snap(jnp.asarray(x)))
 
 
+def test_pow2_snap_exact_at_the_half_exponents():
+    """Every f32 within 3000 ulps of 2^(k+1/2), k in -30..7, both signs:
+    the snap is the nearest power of two in the log domain, decided in f64
+    (a rounded f32 ``log2`` lands on either side within an ulp of the
+    boundary, differently on each device).  The reference's
+    ``round(log2 |x|)`` exponent agrees farther than 16 ulps from it."""
+    off = np.arange(-3000, 3000, dtype=np.int32)
+    for k in range(-30, 8):
+        x = (np.float32(2.0 ** (k + 0.5)).view(np.int32) + off).view(np.float32)
+        x = np.concatenate([x, -x])
+        got = tenc.pow2_snap(torch.from_numpy(x)).numpy()
+        m, e = np.frexp(np.abs(x).astype(np.float64))
+        want = np.sign(x) * np.exp2(np.where(m > 2 ** -0.5, e, e - 1))
+        np.testing.assert_array_equal(got, want.astype(np.float32))
+        ref_e = np.asarray(jnp.round(jnp.log2(jnp.abs(jnp.asarray(x)))))
+        far = np.abs(np.concatenate([off, off])) > 16
+        np.testing.assert_array_equal(np.log2(np.abs(got[far]).astype(np.float64)), ref_e[far])
+
+
 @pytest.mark.parametrize("p,r", [(0, 0), (1, 2), (2, 6), (4, 8), (8, 16)])
 def test_fixed_and_dynamic_pr_multipliers_match_reference(p, r):
     a, b = _ops(60 + p + r)

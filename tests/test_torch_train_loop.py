@@ -210,7 +210,8 @@ def test_launch_train_cpu_end_to_end(tmp_path, capsys):
     """``launch.train --device cpu`` with --qos, --compress-grads,
     --trace-out and --metrics-out: the run, its checkpoints, the trace's
     spans and the metrics file; a second run resumes from the last
-    checkpoint; --mesh other than 1x1 raises."""
+    checkpoint; --mesh on a family that does not train on a mesh raises
+    before any rank starts."""
     ttrace.get_tracer().clear()
     tr_path, m_path = tmp_path / "trace.json", tmp_path / "metrics.prom"
     argv = ["--arch", ARCH, "--steps", "12", "--seq", "16", "--batch", "2", "--approx",
@@ -233,6 +234,21 @@ def test_launch_train_cpu_end_to_end(tmp_path, capsys):
     assert "done at step 12" in capsys.readouterr().out
     out2 = tlaunch.main(argv[:3] + ["14"] + argv[4:])
     assert out2["history"][0]["step"] == 12 and out2["final_step"] == 14
-    with pytest.raises(SystemExit):
-        tlaunch.main(["--mesh", "2x4", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="ROADMAP"):
+        tlaunch.main(["--mesh", "1x2", "--arch", "mamba2-370m-smoke", "--device", "cpu"])
     tlaunch.kdispatch.set_backend(None)
+
+
+def test_launch_train_mesh_cpu(tmp_path, capfd):
+    """``launch.train --mesh 1x2 --device cpu``: two spawned gloo ranks
+    train the smoke to the end and checkpoint (rank 0 writes the gathered
+    state); rank 0 prints the summary with the mesh's transport."""
+    argv = ["--arch", ARCH, "--steps", "4", "--seq", "16", "--batch", "2", "--mesh", "1x2",
+            "--device", "cpu", "--ckpt-dir", str(tmp_path / "ck")]
+    out = tlaunch.main(argv)
+    assert out["final_step"] == 4 and not out["preempted"]
+    assert [h["step"] for h in out["history"]] == [0, 1, 2, 3]
+    assert all(np.isfinite(h["loss"]) for h in out["history"])
+    assert out["collective_bytes_per_step"]["all-reduce"] > 0
+    assert (tmp_path / "ck" / "step_0000000004" / "manifest.json").exists()
+    assert "mesh 1x2 (gloo)" in capfd.readouterr().out

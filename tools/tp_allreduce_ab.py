@@ -61,7 +61,7 @@ def rank_main(rank: int, world: int, job: dict, mode: str) -> dict:
 
     if mode == "staged":
         collectives.all_reduce = staged_all_reduce
-    return chip_smoke._tp_rank(rank, world, job)
+    return chip_smoke._tp_rank(rank, world, [job])[0]
 
 
 def main(argv=None) -> int:
