@@ -61,12 +61,12 @@ Phases (any failure exits non-zero):
      per-layer approximation plans (repro_torch.tune), served through
      ``launch.serve --plan --qos`` with ``--trace-out``, ``--metrics-out``
      and ``--quality-every 8`` —
-       3i  tinyllama-1.1b (full width, cut to 8 of its 22 layers: the
+       3i  tinyllama-1.1b (full width, cut to 4 of its 22 layers: the
            time limit): a plan built on the card by ``build_plan``
            (measured greedy over L + 1 sites, grid (8, 5), a (2, 64)-token
            calibration batch on the launcher's seeded weights), checked
            (validate_for, Pareto order, save/load), served on the bf16 cache
-           (the trace's decode_tick spans, qos_rung events with 23 degrees,
+           (the trace's decode_tick spans, qos_rung events with L + 1 degrees,
            the degree gauges, route counters and quality histogram of the
            metrics file held to the engine), a rung pinned through the plan
            against its vector by hand, and the decode tick with the tracer
@@ -77,7 +77,7 @@ Phases (any failure exits non-zero):
            a plain run;
      the EMUL / POW2_W arithmetic and the resilience layer on tinyllama —
        3k  PR_EMUL (p=1, r=2), RAD_EMUL (k=4), ROUP_EMUL (k=4, p=1, r=1) and
-           POW2_W, each uniform, prepacked and captured (cut to 8 of the
+           POW2_W, each uniform, prepacked and captured (cut to 4 of the
            22 layers: the time limit), 8 prompts of
            64-512 tokens: at one decode tick every integer product's int32
            accumulator equal to an exact CPU product of the same int8
@@ -99,12 +99,12 @@ Phases (any failure exits non-zero):
        3e  prompts past the window (``band``) on the bf16 ring cache;
        3f  the same on the int8 ring with bucketed admission;
      qwen2.5-3b (head_dim 128, QKV bias, GQA 16/2, vocab 151936; served at
-     12 of its 36 layers: the time limit) —
+     6 of its 36 layers: the time limit) —
        3g  prompts of a few thousand tokens among short ones, exact-length
            admission on the bf16 cache (``tri`` at D = 128);
        3h  the same on the int8 cache with bucketed, packed admission;
      granite-moe-3b-a800m (40 experts of 512, top-8, GQA 24/8, vocab 49155;
-     served at 8 of its 32 layers: the time limit) on phase 3's traffic,
+     served at 4 of its 32 layers: the time limit) on phase 3's traffic,
      exact-length admission (MoE's only
      one: capacity couples the rows of a call) —
        3m  the bf16 cache, the experts on one expert-batched gated and one
@@ -113,14 +113,14 @@ Phases (any failure exits non-zero):
      the recurrent families, bucketed packed admission (buckets 64-512,
      pack 4; the long prompts past the ladder at their exact length) on
      their state caches, whose bytes must not depend on the prompts —
-       3o  mamba2-370m (16 of its 48 layers: the time limit; d_inner 2048, 32
+       3o  mamba2-370m (8 of its 48 layers: the time limit; d_inner 2048, 32
            SSD heads of 64, state 128, chunk 256): 16 prompts of 64-512
            tokens and 2 of 4096-8192;
        3p  recurrentgemma-2b (8 groups of (rec, rec, attn) and 2 tail
            blocks, MQA 10/1 at head_dim 256, window 2048: a ring): 3
            prompts of 4096-8192 tokens (band) among 9 of 64-512;
      the VLM's backbone, text-only as the reference serves it —
-       3q  internvl2-1b (8 of its 24 layers: the time limit; GQA 14/2, QKV bias,
+       3q  internvl2-1b (4 of its 24 layers: the time limit; GQA 14/2, QKV bias,
            vocab 151655) on
            phase 3's traffic: exact-length admission on the bf16 cache
            (captured, its eager twin, a traced tick) and bucketed, packed
@@ -139,7 +139,7 @@ Phases (any failure exits non-zero):
      and the ring's hops are staged through host memory, ``"transport"``
      in the record), each with its shards of the weights (packed on the shard)
      and its heads of the cache, eager —
-       3s  tinyllama-1.1b at full width (the served model 8 of its 22
+       3s  tinyllama-1.1b at full width (the served model 4 of its 22
            layers: the time limit; the launcher below the whole model), tp=2, on
            phase 3's traffic: every request ok, the ranks' streams equal,
            each rank's launches as the layer count predicts (5 L + 1
@@ -151,7 +151,7 @@ Phases (any failure exits non-zero):
            noise floor), and under EXACT (f32) the int8 ring within rel
            0.05 of exact tp=2 at most half its bytes; then ``launch.serve
            --tp 2 --dist-backend gloo`` for the wall numbers;
-       3t  granite-moe-3b-a800m at full width, cut to 8 of its 32 layers
+       3t  granite-moe-3b-a800m at full width, cut to 4 of its 32 layers
            (the script's time limit), tp=2, 20 experts a rank, with
            the exact combine and with the int8-ring combine (the same
            gates), and its 2-layer cut under EXACT (f32): tp=2 against tp=1
@@ -198,13 +198,13 @@ Phases (any failure exits non-zero):
            ``band`` at head_dim 256), internvl2-1b (2 layers, 1024 image +
            1024 text tokens) and hubert-xlarge (2 layers, non-causal
            ``dense``), kernels against plain;
-       5e  internvl2-1b at full width, cut to 12 of its 24 layers (the
+       5e  internvl2-1b at full width, cut to 6 of its 24 layers (the
            script's time limit), axq8, batch 4 x seq 2048 (1024 image
-           + 1024 text tokens), 8 steps: 5a's gates and numbers, launches 63
-           / 12 / 12 (tri) a step (123 / 24 / 24 at full depth);
-       5f  hubert-xlarge at full width, cut to 24 of its 48 layers (the time limit),
-           axq8, batch 8 x 1024 frames, remat none, 8 steps: launches 122 /
-           24 / 24 (dense) a step (242 / 48 / 48 at full depth);
+           + 1024 text tokens), 8 steps: 5a's gates and numbers, launches 33
+           / 6 / 6 (tri) a step (123 / 24 / 24 at full depth);
+       5f  hubert-xlarge at full width, cut to 12 of its 48 layers (the time limit),
+           axq8, batch 8 x 1024 frames, remat none, 8 steps: launches 62 /
+           12 / 12 (dense) a step (242 / 48 / 48 at full depth);
      training on a mesh, tinyllama-1.1b at full width, ranks on the one
      card joined by an explicit gloo group as in 3s (each rank its shards
      and its data coordinate's rows; the collectives carry the gradients),
@@ -212,7 +212,10 @@ Phases (any failure exits non-zero):
      1024, wk / wv N 128, wo K 1024 and down K 2816 as f32 partials, the
      vocab shard N 16000, the gated half N 2816, ``tri`` 16/2 over 8 x
      1024; M = 4096 on the full weights: N 2048 / 256 / 32000, K 5632,
-     gated N 5632, ``tri`` 32/4 over 4 x 1024) —
+     gated N 5632, ``tri`` 32/4 over 4 x 1024; 5k's granite-moe-3b-a800m
+     shards at M = 4096: the expert-batched halves at E 20, C 1024, K 1536
+     -> N 512 and K 512 -> N 1536, wq N 768, the vocab shard N 24578,
+     ``tri`` 12/4 over 4 x 1024) —
        5g  1x2, full depth, axq8 with the ladder 8 -> 5 moving, global batch
            8 x 1024, 4 steps: finite losses equal bit for bit on both ranks,
            the replicated parameters' fingerprints equal, 111 / 22 / 22
@@ -223,18 +226,31 @@ Phases (any failure exits non-zero):
        5h  2x1, full width and depth, 4 x 1024 a rank: 5g's gates, both ranks'
            parameters equal after every step, the gradient all-reduce 4 x
            the parameter count in bytes a step;
+       5k  granite-moe-3b-a800m at full width at 1x2 (20 experts and 12 / 4
+           heads a rank, the router replicated), remat full, cut to 18 of its
+           32 layers (the functional AdamW update holds ~32 B a parameter),
+           axq8 with the ladder moving, 4 x 1024 from the pipeline, 3 steps:
+           5g's gates with 8 L + 1 / 0 / 2 L / 2 L / 2 L launches a step a
+           rank (axqmm / gated / experts' down / experts' gated / tri) and 6 L
+           + 6 all-reduces (the dispatched rows' and gates' cotangents, wo's
+           reduction recomputed);
        5i  2 layers, one step at 1x2, 2x1 and 2x2 (four ranks) against the
            one-rank step on the same weights and batch (in each rank's
            process): EXACT f32 within 1e-4 of each leaf's largest entry,
            axq8 within 4x the noise floor (5b's measure), the int8 ring under
            EXACT f32 at 1x2 within rel 0.25 of the exact mesh step's gradient
            (the reference's own ring: 0.165 at this shape) at most half its
-           bytes, --compress-grads at 2x1;
+           bytes, --compress-grads at 2x1; granite-moe-3b-a800m the same at
+           1x2 (axq8: kernels on the mesh vs the plain one-rank step), 2x1
+           and 2x2 (against the reference's mesh semantics on one rank:
+           capacity and aux per data shard), internvl2-1b and hubert-xlarge
+           at 1x2 under EXACT f32;
        5j  ``launch.train --mesh 1x2 --dist-backend gloo`` at 2 layers:
            uninterrupted, SIGTERM'd (the launcher passes the signal to its
            ranks, which checkpoint at one step), resumed (restored shards
            equal to the saved state, losses within tolerance); then the 1x2
-           checkpoint restored at 1x1 bit for bit;
+           checkpoint restored at 1x1 bit for bit; the same preempted and
+           resumed run for granite-moe-3b-a800m at 2 layers;
   6. one {"kernels": [...]} line and, last, the result line.
 
 ``--tp-only`` builds, then runs only phase 2's tp=2 shard rows, 3s and 3t
@@ -4390,13 +4406,29 @@ def train_launches(cfg, remat: str) -> dict:
     wo and down on ``axqmm``, its up/gate half on ``axqmm_gated``, its
     attention on ``flash_attention`` (``tri``; ``dense`` for a non-causal
     encoder), the unembedding and the frontend projections (the VLM's
-    fc1 and fc2, the audio encoder's fc1); remat ``dots`` / ``full`` run
-    each layer's forward twice."""
+    fc1 and fc2, the audio encoder's fc1); an MoE layer runs its experts'
+    halves on ``axqmm_gated_experts`` and ``axqmm_experts`` instead of the
+    MLP's; remat ``dots`` / ``full`` run each layer's forward twice."""
     r = 1 if remat == "none" else 2
     L = cfg.n_layers
-    return {"axqmm": 5 * L * r + (0 if cfg.tie_embeddings else 1)
-            + FRONTEND_GEMMS[cfg.frontend],
-            "axqmm_gated": L * r, "flash_attention": L * r}
+    out = {"axqmm": (4 if cfg.moe else 5) * L * r + (0 if cfg.tie_embeddings else 1)
+           + FRONTEND_GEMMS[cfg.frontend],
+           "axqmm_gated": 0 if cfg.moe else L * r, "flash_attention": L * r}
+    if cfg.moe:
+        out.update(axqmm_gated_experts=L * r, axqmm_experts=L * r)
+    return out
+
+
+def train_backwards(cfg) -> dict:
+    """Backward oracles of one train step (whatever the remat policy: the
+    backward runs once a layer): ``flash_attention_bwd`` a layer, one
+    ``axqmm_bwd`` a forward ``axqmm`` projection, ``axqmm_gated_bwd`` a
+    dense layer, ``axqmm_experts_bwd`` twice an MoE layer (the experts'
+    halves)."""
+    L = cfg.n_layers
+    return {"flash_attention_bwd": L, "axqmm_bwd": train_launches(cfg, "none")["axqmm"],
+            "axqmm_gated_bwd": 0 if cfg.moe else L,
+            "axqmm_experts_bwd": 2 * L if cfg.moe else 0}
 
 
 def train_kernel_rows(ctx, cfg):
@@ -4845,12 +4877,12 @@ def depth_cut(ctx, tag, cfg, register=False):
 
 
 def train_phases(ctx, record, cfg, moe_cfg, ssm_cfg, rg_cfg, vlm_cfg, audio_cfg) -> None:
-    """Phase 5, in order, each sub-phase's result set in ``record`` (which
-    times it); each sub-phase frees the card's cache after it."""
+    """Phase 5 but the launchers (5c, 5j: :func:`launcher_phases`), in
+    order, each sub-phase's result set in ``record`` (which times it); each
+    sub-phase frees the card's cache after it."""
     for key, fn, args in (("train_kernels", train_kernel_rows, (cfg,)),
                           ("train_path", phase_train, (cfg,)),
                           ("train_cut", phase_train_cut, (cfg,)),
-                          ("train_launch", phase_train_launch, (cfg,)),
                           ("train_families", phase_train_families,
                            (moe_cfg, ssm_cfg, rg_cfg, vlm_cfg, audio_cfg)),
                           ("train_vlm", phase_train,
@@ -4864,16 +4896,43 @@ def train_phases(ctx, record, cfg, moe_cfg, ssm_cfg, rg_cfg, vlm_cfg, audio_cfg)
             ctx["torch"].cuda.empty_cache()
 
 
-def train_mesh_phases(ctx, record, cfg) -> None:
-    """The mesh-training phases, in order: phase 2's rows at 5g's and 5h's
-    shard shapes, 5g / 5h, 5i, 5j; each sets its result in ``record``."""
-    for key, fn in (("kernels_train_mesh", phase_kernels_train_mesh),
-                    ("train_mesh", phase_train_mesh),
-                    ("train_mesh_cut", phase_train_mesh_cut),
-                    ("train_mesh_launch", phase_train_mesh_launch)):
-        record[key] = fn(ctx, cfg)
+def train_mesh_phases(ctx, record, cfg, moe_cfg, vlm_cfg, audio_cfg) -> None:
+    """The mesh-training phases but the launchers (5j:
+    :func:`launcher_phases`), in order: phase 2's rows at 5g's, 5h's and
+    5k's shard shapes, 5g / 5h / 5k, 5i; each sets its result in
+    ``record``."""
+    for key, fn, args in (("kernels_train_mesh", phase_kernels_train_mesh, (cfg, moe_cfg)),
+                          ("train_mesh", phase_train_mesh,
+                           (cfg, depth_cut(ctx, "5k", moe_cfg))),
+                          ("train_mesh_cut", phase_train_mesh_cut,
+                           (cfg, moe_cfg, vlm_cfg, audio_cfg))):
+        record[key] = fn(ctx, *args)
         if ctx["on_card"]:
             ctx["torch"].cuda.empty_cache()
+
+
+def launcher_phases(ctx, record, cfg, moe_cfg, single=True, mesh=True) -> None:
+    """The launcher phases at once: 5c (``single``: ``launch.train`` on one
+    device), 5j and 5j's MoE run (``mesh``: ``launch.train --mesh 1x2``).
+    Each runs its launcher in child processes and only waits on them here;
+    their time is mostly process start, warm-up and checkpoints, so they
+    overlap on the card and the host's cores.  Each result is set in
+    ``record`` when the phase ends (its time: since the entry before)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    jobs = {}
+    if single:
+        jobs["train_launch"] = (phase_train_launch, (cfg,))
+    if mesh:
+        jobs["train_mesh_launch"] = (phase_train_mesh_launch, (cfg,))
+        jobs["train_mesh_launch_moe"] = (phase_train_mesh_launch,
+                                         (moe_cfg, "phase 5j (MoE)", False))
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        futures = {k: pool.submit(fn, ctx, *args) for k, (fn, args) in jobs.items()}
+        for k, fut in futures.items():
+            record[k] = fut.result()
+    if ctx["on_card"]:
+        ctx["torch"].cuda.empty_cache()
 
 
 def phase_train_families(ctx, moe_cfg, ssm_cfg, rg_cfg, vlm_cfg, audio_cfg):
@@ -4907,15 +4966,18 @@ def phase_train_families(ctx, moe_cfg, ssm_cfg, rg_cfg, vlm_cfg, audio_cfg):
 # ---------------------------------------------------------------------------
 
 
-def phase_kernels_train_mesh(ctx, cfg):
-    """Phase 2's rows at the training shard shapes of 5g and 5h.  5g (1x2,
+def phase_kernels_train_mesh(ctx, cfg, moe_cfg):
+    """Phase 2's rows at the training shard shapes of 5g, 5h and 5k.  5g (1x2,
     the global batch's M rows on every rank): wq (N 1024), wk / wv (N 128),
     wo (K 1024 -> N 2048, an f32 partial: no residual in the epilogue),
     down (K 2816), the vocab shard (N 16000) and the gated half (N 2816),
     tri at 16 heads over 2 kv heads a rank.  5h (2x1, a data rank's M / 2
     rows on the full weights): wq / wo (N 2048, K 2048), wk / wv (N 256),
     down (K 5632), the unembedding (N 32000), the gated half (N 5632), tri
-    at 32 / 4 heads."""
+    at 32 / 4 heads.  5k (granite-moe-3b-a800m at 1x2, 4 x 1024 rows on
+    every rank): the expert-batched halves at E 20 a rank and the capacity
+    C = ceil(4096 x 8 / 40 x 1.25), wq (N 768) and the vocab shard (N
+    24578), tri at 12 / 4 heads."""
     torch = ctx["torch"]
     T = ctx["train_seq"]
     deg = torch.tensor(8, dtype=torch.int32, device=ctx["dev"])
@@ -4933,7 +4995,20 @@ def phase_kernels_train_mesh(ctx, cfg):
         rows["axqmm_gated"].append(check_gated(ctx, M, f, d, deg))
         rows["flash_attention"].append(check_prefill(ctx, B * h, T, D, h, kv,
                                                      dtype=torch.bfloat16))
-    report_rows(rows, "phase 2 (training shards, 5g / 5h): ")
+    B, T = ctx["moe_mesh_shape"][:2]
+    from repro_torch.models.moe import capacity
+
+    md, mD, mp = moe_cfg.d_model, moe_cfg.head_dim, moe_cfg.padded(TP)
+    E, f = mp.n_experts // TP, moe_cfg.moe.d_expert
+    C = capacity(moe_cfg, B * T, TP)
+    rows["axqmm_gated_experts"] = [check_experts(ctx, E, C, f, md, deg, gated=True)]
+    rows["axqmm_experts"] = [check_experts(ctx, E, C, md, f, deg, gated=False)]
+    for N in (mp.n_heads // TP * mD, mp.vocab // TP):
+        rows["axqmm"].append(check_axqmm(ctx, B * T, N, md, False, deg))
+    h = mp.n_heads // TP
+    rows["flash_attention"].append(check_prefill(ctx, B * h, T, mD, h, mp.n_kv_rep // TP,
+                                                 dtype=torch.bfloat16))
+    report_rows(rows, "phase 2 (training shards, 5g / 5h / 5k): ")
     return rows
 
 
@@ -4973,7 +5048,7 @@ def _mesh_rank(rank: int, world: int, runs: list) -> list:
     if on_card:
         torch.cuda.set_device(meshctx.rank_device(rank))
         _build.build_all()                   # loads the parent's build (content-keyed)
-    out, noise = [], None
+    out, noise = [], {}
     for job in runs:
         mesh = meshctx.set_mesh(meshctx.make_mesh(tuple(job["mesh"]), ("data", "model"),
                                                   device="cuda" if on_card else "cpu",
@@ -4985,9 +5060,13 @@ def _mesh_rank(rank: int, world: int, runs: list) -> list:
         if job["kind"] == "path":
             out.append(_mesh_path(ctx, mesh, cfg, job))
         else:
-            # the one-rank noise floor: measured once, by rank 0's first run
-            out.append(_mesh_cut(ctx, mesh, cfg, dict(job, noise=noise)))
-            noise = noise or out[-1]["jobs"].get("axq8", {}).get("noise")
+            # the one-rank noise floor: measured once an arch, by rank 0's
+            # first run of it
+            arch = job["arch"]
+            out.append(_mesh_cut(ctx, mesh, cfg, dict(job, noise=job["noise"].get(arch)
+                                                      or noise.get(arch))))
+            if noise.get(arch) is None:
+                noise[arch] = out[-1]["jobs"].get("axq8", {}).get("noise")
         if on_card:
             torch.cuda.empty_cache()
     return out
@@ -5016,7 +5095,9 @@ def _mesh_path(ctx, mesh, cfg, job) -> dict:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
     state = S.init_state(model, seed=0, tp=M, mesh=mesh)
-    scfg = S.StepConfig(remat="none", total_steps=4 * job["steps"], warmup=2)
+    init_peak = torch.cuda.max_memory_allocated() if ctx["on_card"] else None
+    remat = job.get("remat", "none")
+    scfg = S.StepConfig(remat=remat, total_steps=4 * job["steps"], warmup=2)
     qos = QoSController(ladder=[{"ebits": e} for e in (8, 7, 6, 5)], low_water=1e9,
                         high_water=2e9, cooldown_steps=0)
     entry = qos.ladder[0]
@@ -5046,7 +5127,8 @@ def _mesh_path(ctx, mesh, cfg, job) -> dict:
             degree = degree_operand(entry, dev)
     _build.time_backwards = False
     out = {"rank": mesh.rank, "coord": {a: mesh.coord(a) for a in mesh.axis_names},
-           "transport": mesh.transport, "history": hist,
+           "transport": mesh.transport, "history": hist, "remat": remat,
+           "peak_after_init_bytes": init_peak,
            "launches": dict(_build.launches), "plain": dict(_build.plain_cuda_calls),
            "flash_schedules": dict(_build.flash_schedules),
            "backward_calls": dict(_build.backward_calls), "oracle_ms": _build.backward_ms(),
@@ -5113,11 +5195,13 @@ def _mesh_cut(ctx, mesh, cfg, job) -> dict:
     from repro_torch.models import build_model
     from repro_torch.train import step as S
 
-    M = mesh.size("model")
+    D, M = mesh.size("data"), mesh.size("model")
     one = meshctx.make_mesh((1, 1), ("data", "model"))
     host = {k: torch.from_numpy(v) for k, v in job["batch"].items()}
-    full_batch = {k: v.to(dev, torch.int64) for k, v in host.items()}
-    batch = {k: v.to(dev, torch.int64) for k, v in sharding.shard_batch(host, mesh).items()}
+    to_dev = lambda b: {k: v.to(dev, v.dtype if v.is_floating_point() else torch.int64)
+                        for k, v in b.items()}
+    full_batch = to_dev(host)
+    batch = to_dev(sharding.shard_batch(host, mesh))
     deg = torch.tensor(8, dtype=torch.int32, device=dev)
     out = {"rank": mesh.rank, "coord": {a: mesh.coord(a) for a in mesh.axis_names},
            "jobs": {}}
@@ -5128,16 +5212,24 @@ def _mesh_cut(ctx, mesh, cfg, job) -> dict:
         scfg = S.StepConfig(remat="none", total_steps=10, warmup=2,
                             compress_grads=sub.get("compress", False))
         d = None if sub["approx"] == "exact" else deg
+        # the one-rank step first, cut to this rank's shards and the whole
+        # state freed before the mesh step (four ranks share the card)
+        ref_route = _backend("torch") if sub.get("ref_plain") else contextlib.nullcontext()
+        with meshctx.use_mesh(one), ref_route:
+            start = S.init_state(model, seed=0, tp=M)
+            if c.moe and D > 1:
+                ref, rmet = _data_shard_step(model, scfg, start, full_batch, D, M, d)
+            else:
+                ref, rmet = S.train_step(model, scfg, start, full_batch, tp=M, degree=d)
+            ref_s, start_s = _shard_of(ref, mesh), _shard_of(start, mesh)
+            del ref, start
+        if ctx["on_card"]:
+            torch.cuda.empty_cache()
         with kops.ring_tp(sub.get("ring", False)):
             state = S.init_state(model, seed=0, tp=M, mesh=mesh)
             collectives.counter.reset()
             new, met = S.train_step(model, scfg, state, batch, tp=M, degree=d)
             coll = collectives.counter.snapshot()
-        with meshctx.use_mesh(one):
-            start = S.init_state(model, seed=0, tp=M)
-            ref, rmet = S.train_step(model, scfg, start, full_batch, tp=M, degree=d)
-            ref_s, start_s = _shard_of(ref, mesh), _shard_of(start, mesh)
-            del ref, start
         sharded = sharding.model_sharded(new.params, mesh)
         res = {"loss": float(met["loss"]), "grad_norm": float(met["grad_norm"]),
                "ref_loss": float(rmet["loss"]), "ref_grad_norm": float(rmet["grad_norm"]),
@@ -5152,7 +5244,46 @@ def _mesh_cut(ctx, mesh, cfg, job) -> dict:
             res["noise"] = _noise_floor(ctx, model, M, one, full_batch, d)
         out["jobs"][sub["name"]] = res
         del new, ref_s, start_s
+        if ctx["on_card"]:
+            torch.cuda.empty_cache()
     return out
+
+
+def _data_shard_step(model, scfg, start, batch, D, M, degree):
+    """The reference's MoE mesh step at D data shards, on one rank: each
+    shard's rows (at its own capacity) give the gradient of ``llsum_r /
+    ntok_global + 0.01 aux_r / D``, the shards' gradients are summed, and
+    ``train_step``'s update follows (the one-rank step on the whole batch
+    is not it: capacity and the aux loss are per data shard)."""
+    import torch
+
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as S
+    from repro_torch.tree import tree_leaves, tree_unflatten
+
+    rows = next(iter(batch.values())).shape[0] // D
+    shards = [{k: v[r * rows:(r + 1) * rows] for k, v in batch.items()} for r in range(D)]
+    ntok = sum((b["labels"] >= 0).sum() for b in shards).to(torch.float32)
+    total, loss = None, 0.0
+    for b in shards:
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(start.params)]
+        with torch.enable_grad():
+            lv, met = model.loss(tree_unflatten(start.params, leaves), b, tp=M, degree=degree,
+                                 remat="none")
+            obj = (lv - 0.01 * met["aux"]) * (met["ntokens"] / ntok) + 0.01 * met["aux"] / D
+            g = torch.autograd.grad(obj, leaves, allow_unused=True)
+        loss += float(obj.detach())
+        if total is None:
+            total = [torch.zeros_like(p) if x is None else x for x, p in zip(g, leaves)]
+        else:
+            for a, x in zip(total, g):
+                if x is not None:
+                    a.add_(x)
+        del g, leaves, obj
+    lr_scale = adamw.cosine_warmup(start.step, warmup=scfg.warmup, total=scfg.total_steps)
+    params, opt, met = adamw.update(scfg.optimizer, start.opt, start.params,
+                                    tree_unflatten(start.params, total), lr_scale)
+    return S.TrainState(params, opt, start.step + 1), {"loss": loss, **met}
 
 
 def _noise_floor(ctx, model, tp, one, batch, degree) -> list:
@@ -5176,10 +5307,15 @@ def _noise_floor(ctx, model, tp, one, batch, degree) -> list:
 def _mesh_job(ctx, tag, runs, timeout_s) -> list:
     """``runs`` (each with its ``mesh`` shape, all of one world size) on one
     spawn of ranks (gloo on the one card); [every rank's result] a run."""
+    import os
+
     from repro_torch.dist import meshctx
 
     world = math.prod(runs[0]["mesh"])
     runs = [dict(r, on_card=ctx["on_card"], block=ctx["tp_block"]) for r in runs]
+    # the ranks share the card: let each rank's allocator return what it
+    # frees between phases instead of holding fragments of it
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     t0 = time.time()
     out = meshctx.spawn_ranks(_mesh_rank, world, timeout_s=timeout_s, backend="gloo",
                               device="cuda" if ctx["on_card"] else "cpu", args=(runs,),
@@ -5190,15 +5326,20 @@ def _mesh_job(ctx, tag, runs, timeout_s) -> list:
     return [[rank[i] for rank in out] for i in range(len(runs))]
 
 
-def mesh_collective_calls(cfg, shape, n_leaves) -> int:
+def mesh_collective_calls(cfg, shape, n_leaves, remat="none") -> int:
     """All-reduces of one mesh train step a rank: on the model axis the
-    embedding's and two a layer forward, the loss's max, sum of
-    exponentials and target logit, two a layer and the head's backward, the
-    gradient norm; on the data axis the token count, every gradient leaf
-    and the loss with ce."""
+    embedding's and two a layer forward (wo's partials; down's, or the
+    experts' combine), the loss's max, sum of exponentials and target
+    logit, backward two a dense layer (three an MoE layer: the dispatched
+    rows' and the gates' cotangents) and the head's, the gradient norm, and
+    under remat ``dots`` / ``full`` each layer's wo reduction again (the
+    recomputation stops at the last tensor the backward needs, before the
+    layer's closing reduction: PyTorch's non-reentrant checkpoint stops
+    early); on the data axis the token count, every gradient leaf and the
+    loss with ce and aux."""
     D, M = shape
     L = cfg.n_layers
-    calls = (4 * L + 6) if M > 1 else 0
+    calls = ((4 + bool(cfg.moe)) * L + 6 + (0 if remat == "none" else L)) if M > 1 else 0
     return calls + ((n_leaves + 2) if D > 1 else 0)
 
 
@@ -5227,11 +5368,10 @@ def _mesh_path_gates(ctx, label, cfg, shape, ranks) -> dict:
             require(all(s for s, w in zip(same, want) if w),
                     f"{label}: rank {r['rank']}'s parameters differ from rank 0's after "
                     f"step {i if len(r0['fingerprints']) == n else n - 1}")
-    once = train_launches(cfg, "none")
-    want = {k: v * n for k, v in once.items()}
-    bwd_want = {"flash_attention_bwd": cfg.n_layers * n, "axqmm_bwd": once["axqmm"] * n,
-                "axqmm_gated_bwd": cfg.n_layers * n, "axqmm_experts_bwd": 0}
-    calls = mesh_collective_calls(cfg, shape, r0["n_leaves"])
+    remat = r0["remat"]
+    want = {k: v * n for k, v in train_launches(cfg, remat).items()}
+    bwd_want = {k: v * n for k, v in train_backwards(cfg).items()}
+    calls = mesh_collective_calls(cfg, shape, r0["n_leaves"], remat)
     for r in ranks:
         check_launches(ctx, f"{label} rank {r['rank']}", r, want)
         require(not ctx["on_card"] or r["flash_schedules"]["tri"] == want["flash_attention"],
@@ -5252,7 +5392,9 @@ def _mesh_path_gates(ctx, label, cfg, shape, ranks) -> dict:
            "bytes": {k: sum(c["bytes"].get(k, 0) for c in coll) / len(coll)
                      for k in coll[0]["bytes"]},
            "calls": coll[0]["calls"]}
-    out = {"mesh": list(shape), "steps": n, "history": r0["history"], "step_s_mean": step_s,
+    out = {"mesh": list(shape), "steps": n, "remat": remat, "history": r0["history"],
+           "step_s_mean": step_s, "peak_after_init_bytes": [r.get("peak_after_init_bytes")
+                                                            for r in ranks],
            "tokens_per_s": tokens / step_s, "collectives_per_step": per,
            "gloo_gb_per_s": per["bytes"].get("all-reduce", 0) / (per["host_ms"] * 1e-3) / 1e9
            if per["host_ms"] else None,
@@ -5264,39 +5406,54 @@ def _mesh_path_gates(ctx, label, cfg, shape, ranks) -> dict:
            "param_count": r0["param_count"], "transport": r0["transport"],
            "launches": {k: sum(r["launches"][k] for r in ranks) for k in r0["launches"]}}
     say(f"{label} ({cfg.name}, {cfg.n_layers} layers, mesh {shape[0]}x{shape[1]}, "
-        f"{int(tokens)} tokens a step, axq8): losses {[round(v, 4) for v in losses]}, grad norms "
+        f"{int(tokens)} tokens a step, axq8, remat {remat}): losses {[round(v, 4) for v in losses]}, grad norms "
         f"{[round(h['grad_norm'], 4) for h in r0['history']]}, degrees {degrees}")
     say(f"{label}: step {step_s:.4f} s mean over steps 1-{n - 1}, {out['tokens_per_s']:.1f} "
-        f"tokens/s, peak memory a rank {out['peak_memory_bytes']} B; collectives a step "
+        f"tokens/s, peak memory a rank {out['peak_memory_bytes']} B (after the state's "
+        f"init {out['peak_after_init_bytes']} B); collectives a step "
         f"(rank 0): host {per['host_ms']:.1f} ms in them after {per['wait_ms']:.1f} ms "
         f"waiting for the queued kernels, bytes {per['bytes']}, calls {per['calls']}, "
         f"{out['gloo_gb_per_s']} GB/s all-reduce operand bytes over host time; backward "
         f"oracles in the last step {out['oracle_ms_last_step']} ms = "
         f"{out['oracle_share_last_step']} of it; launches a step a rank "
-        f"{out['launches_per_step']}; transport {r0['transport']}")
+        f"{out['launches_per_step']} (predicted {train_launches(cfg, remat)}); collectives "
+        f"{calls} all-reduces a step predicted; transport {r0['transport']}")
     return out
 
 
-def phase_train_mesh(ctx, cfg) -> dict:
+def phase_train_mesh(ctx, cfg, moe_cfg) -> dict:
     """5g: tinyllama-1.1b at full width and depth at 1x2 (two ranks on the
     one card through gloo, each 16 of the 32 heads and half the MLP and
     vocab), axq8 with the ladder 8 -> 5 stepping each step, the global
     batch of 8 x 1024 on both ranks, 4 steps.  5h: the same at 2x1 (each
     rank the full weights and 4 x 1024 of the rows), the parameters of both
     ranks compared after every step and the gradient all-reduce bytes equal
-    to 4 x the parameter count."""
+    to 4 x the parameter count.  5k: granite-moe-3b-a800m (``moe_cfg``) at
+    full width at 1x2 (20 of the 40 experts and 12 / 4 of the 24 / 8 heads
+    a rank, the router replicated), axq8 with the ladder, the pipeline's
+    global batch on both ranks, remat full (the state alone of the full
+    depth, p / g / mu / nu in f32, is ~27 GB a rank),
+    ``ctx["moe_mesh_shape"]``'s steps: 5g's gates with the MoE's launches
+    (the expert-batched kernels a layer a rank) and collectives.  The three
+    run in one spawn of two ranks, one after another."""
     T, n = ctx["train_seq"], ctx["mesh_train_steps"]
     common = {"kind": "path", "arch": cfg.name, "approx": "axq8", "seq": T, "steps": n}
-    cases = (("5g", (1, TP), ctx["mesh_train_batch"]), ("5h", (TP, 1), TP * ctx["mesh_dp_rows"]))
-    results = _mesh_job(ctx, "5g / 5h", [dict(common, mesh=shape, batch=batch,
-                                              every_step=shape[0] > 1)
-                                         for _, shape, batch in cases],
+    B, Tk, nk = ctx["moe_mesh_shape"]
+    cases = (("5g", cfg, dict(common, mesh=(1, TP), batch=ctx["mesh_train_batch"])),
+             ("5h", cfg, dict(common, mesh=(TP, 1), batch=TP * ctx["mesh_dp_rows"],
+                              every_step=True)),
+             ("5k", moe_cfg, {"kind": "path", "arch": moe_cfg.name, "approx": "axq8",
+                              "n_layers": moe_cfg.n_layers, "seq": Tk, "steps": nk,
+                              "mesh": (1, TP), "batch": B, "remat": ctx["moe_mesh_remat"]}))
+    results = _mesh_job(ctx, "5g / 5h / 5k", [job for _, _, job in cases],
                         ctx["mesh_timeout_s"])
     out = {}
-    for (tag, shape, _), ranks in zip(cases, results):
-        res = _mesh_path_gates(ctx, f"phase {tag}", cfg, shape, ranks)
+    for (tag, c, job), ranks in zip(cases, results):
+        shape = job["mesh"]
+        res = _mesh_path_gates(ctx, f"phase {tag}", c, shape, ranks)
         if shape[0] > 1:
-            grad = res["collectives_per_step"]["bytes"]["all-reduce"] - 12
+            # less the token count's 4 bytes and the loss / ce / aux's 12
+            grad = res["collectives_per_step"]["bytes"]["all-reduce"] - 16
             require(grad == 4 * res["param_count"],
                     f"phase {tag}: gradient all-reduce bytes {grad} a step, expected 4 x "
                     f"{res['param_count']} parameters")
@@ -5456,37 +5613,60 @@ def _mesh_cut_gates(ctx, label, shape, ranks, names, noise=None) -> dict:
     return out
 
 
-def phase_train_mesh_cut(ctx, cfg) -> dict:
+def phase_train_mesh_cut(ctx, cfg, moe_cfg, vlm_cfg, audio_cfg) -> dict:
     """5i: tinyllama-1.1b cut to 2 layers at full width, one train step at
     1x2, 2x1 and 2x2 (four ranks) from the seeded state on one batch,
     each rank's shards held to the same step on one rank (computed in each
     rank's process): EXACT in f32 and axq8 everywhere, the int8-ring lever
     under EXACT f32 at 1x2 (held to the exact mesh step) and
-    --compress-grads (EXACT f32) at 2x1."""
+    --compress-grads (EXACT f32) at 2x1.  granite-moe-3b-a800m at 2 layers
+    the same at 1x2, 2x1 and 2x2 (EXACT f32 and axq8; at 1x2 its axq8 one
+    rank on the plain versions: the kernel route's step against the plain
+    route's, at the noise floor), held at 2x1 / 2x2 to the reference's mesh
+    semantics computed on one rank (``_data_shard_step``); internvl2-1b
+    and hubert-xlarge at 2 layers at 1x2 under EXACT f32."""
     import numpy as np
+
+    from repro_torch.data.pipeline import make_pipeline
 
     B, T = ctx["mesh_cut_shape"]
     toks = np.random.default_rng(5).integers(0, cfg.vocab, (B, T + 1))
     batch = {"tokens": toks[:, :-1].copy(), "labels": toks[:, 1:].copy()}
     f32 = {"dtype": "float32"}
-    subs = {(1, 2): [dict(name="exact", approx="exact", **f32), dict(name="axq8", approx="axq8"),
-                     dict(name="ring", approx="exact", ring=True, **f32)],
-            (2, 1): [dict(name="exact", approx="exact", **f32), dict(name="axq8", approx="axq8"),
-                     dict(name="compress", approx="exact", compress=True, **f32)],
-            (2, 2): [dict(name="exact", approx="exact", **f32), dict(name="axq8", approx="axq8")]}
-    common = {"kind": "cut", "arch": cfg.name, "n_layers": 2, "batch": batch}
-    # two ranks run 1x2 then 2x1, four ranks 2x2; the noise floor is the
-    # one-rank model's, measured by rank 0 of the first run
-    groups = [[(1, 2), (2, 1)], [(2, 2)]]
-    out, noise = {}, None
-    for shapes in groups:
-        results = _mesh_job(ctx, "5i", [dict(common, mesh=sh, subs=subs[sh], noise=noise)
-                                        for sh in shapes], ctx["mesh_timeout_s"])
-        for shape, ranks in zip(shapes, results):
-            noise = noise or ranks[0]["jobs"]["axq8"]["noise"]
+    exact, axq8 = dict(name="exact", approx="exact", **f32), dict(name="axq8", approx="axq8")
+    subs = {(1, 2): [exact, axq8, dict(name="ring", approx="exact", ring=True, **f32)],
+            (2, 1): [exact, axq8, dict(name="compress", approx="exact", compress=True, **f32)],
+            (2, 2): [exact, axq8]}
+    moe_subs = {(1, 2): [exact, dict(axq8, ref_plain=True)], (2, 1): [exact, axq8],
+                (2, 2): [exact, axq8]}
+
+    def run(c, shape, subs_, b):
+        return {"kind": "cut", "arch": c.name, "n_layers": 2, "batch": b, "mesh": shape,
+                "subs": subs_}
+
+    fe = {c.name: make_pipeline(c, seq_len=s, global_batch=B).batch_at(0)
+          for c, s in ((vlm_cfg, ctx["mesh_cut_vlm_seq"]), (audio_cfg, T))}
+    # two ranks run 1x2 then 2x1 of each arch, four ranks 2x2; the noise
+    # floor is each arch's one-rank model's, measured by rank 0 of its
+    # first run
+    groups = [[run(cfg, (1, 2), subs[(1, 2)], batch), run(cfg, (2, 1), subs[(2, 1)], batch),
+               run(moe_cfg, (1, 2), moe_subs[(1, 2)], batch),
+               run(moe_cfg, (2, 1), moe_subs[(2, 1)], batch),
+               run(vlm_cfg, (1, 2), [exact], fe[vlm_cfg.name]),
+               run(audio_cfg, (1, 2), [exact], fe[audio_cfg.name])],
+              [run(cfg, (2, 2), subs[(2, 2)], batch), run(moe_cfg, (2, 2), moe_subs[(2, 2)], batch)]]
+    out, noise = {}, {}
+    for runs in groups:
+        results = _mesh_job(ctx, "5i", [dict(r, noise=dict(noise)) for r in runs],
+                            ctx["mesh_timeout_s"])
+        for r, ranks in zip(runs, results):
+            arch, shape = r["arch"], r["mesh"]
+            if "axq8" in ranks[0]["jobs"] and noise.get(arch) is None:
+                noise[arch] = ranks[0]["jobs"]["axq8"]["noise"]
             tag = f"{shape[0]}x{shape[1]}"
-            out[tag] = _mesh_cut_gates(ctx, f"phase 5i {tag}", shape, ranks,
-                                       [s["name"] for s in subs[shape]], noise)
+            key = tag if arch == cfg.name else f"{arch} {tag}"
+            out[key] = _mesh_cut_gates(ctx, f"phase 5i {key}", shape, ranks,
+                                       [s["name"] for s in r["subs"]], noise.get(arch))
     return out
 
 
@@ -5535,7 +5715,7 @@ if __name__ == "__main__":
 """
 
 
-def phase_train_mesh_launch(ctx, cfg) -> dict:
+def phase_train_mesh_launch(ctx, cfg, label="phase 5j", restore_1x1=True) -> dict:
     """5j: ``launch.train --mesh 1x2 --dist-backend gloo`` at full width and
     2 layers, axq8 (EXACT in the rehearsal, whose block would cut the
     smoke's shards) --compress-grads: uninterrupted; SIGTERM'd (the launcher
@@ -5568,47 +5748,48 @@ def phase_train_mesh_launch(ctx, cfg) -> dict:
         cut = run(common + ["--ckpt-dir", str(tmp / "run")], preempt_after=0)
         p = cut["final_step"]
         require(cut["preempted"] and 0 < p < n,
-                f"phase 5j: the SIGTERM did not preempt the run ({p}, {cut['preempted']}): "
+                f"{label}: the SIGTERM did not preempt the run ({p}, {cut['preempted']}): "
                 f"{cut['log']}")
         res = run(common + ["--ckpt-dir", str(tmp / "run")])
         require(res.get("restored_step") == p and res.get("restored_equal"),
-                f"phase 5j: the restored shards are not the saved state "
+                f"{label}: the restored shards are not the saved state "
                 f"({res.get('restored_step')}, {res.get('restored_equal')})")
         require(res["steps"][0] == p and res["final_step"] == n,
-                f"phase 5j: resumed at {res['steps'][:1]} to {res['final_step']}")
+                f"{label}: resumed at {res['steps'][:1]} to {res['final_step']}")
         losses = cut["losses"] + res["losses"]
-        require(len(losses) == len(ref["losses"]) == n, f"phase 5j: {len(losses)} losses")
+        require(len(losses) == len(ref["losses"]) == n, f"{label}: {len(losses)} losses")
         dl = max(abs(a - b) for a, b in zip(losses, ref["losses"]))
         require(dl <= TRAIN_RESUME_ATOL,
-                f"phase 5j: resumed losses {losses} vs uninterrupted {ref['losses']}")
-        # the final checkpoint of the uninterrupted 1x2 run, at 1x1
-        c2 = dataclasses.replace(cfg, n_layers=2)
-        model = _train_model(ctx, c2, ctx["tp_launch_approx"])
-        t = Trainer(model, S.StepConfig(remat="none"),
-                    TrainerConfig(total_steps=n, ckpt_dir=str(tmp / "ref")), pipeline=None)
-        state, start = t.init_or_restore()
-        man = json.loads((tmp / "ref" / f"step_{n:010d}" / "manifest.json").read_text())
-        equal = all(hashlib.sha1(C._host(v).tobytes()).hexdigest()[:16]
-                    == man["arrays"][name]["digest"] for name, v in named_leaves(state))
-        require(start == n and equal, f"phase 5j: the 1x2 checkpoint restored at 1x1: step "
-                                      f"{start}, bytes equal {equal}")
-        del state
+                f"{label}: resumed losses {losses} vs uninterrupted {ref['losses']}")
+        if restore_1x1:
+            # the final checkpoint of the uninterrupted 1x2 run, at 1x1
+            c2 = dataclasses.replace(cfg, n_layers=2)
+            model = _train_model(ctx, c2, ctx["tp_launch_approx"])
+            t = Trainer(model, S.StepConfig(remat="none"),
+                        TrainerConfig(total_steps=n, ckpt_dir=str(tmp / "ref")), pipeline=None)
+            state, start = t.init_or_restore()
+            man = json.loads((tmp / "ref" / f"step_{n:010d}" / "manifest.json").read_text())
+            equal = all(hashlib.sha1(C._host(v).tobytes()).hexdigest()[:16]
+                        == man["arrays"][name]["digest"] for name, v in named_leaves(state))
+            require(start == n and equal, f"{label}: the 1x2 checkpoint restored at 1x1: step "
+                                          f"{start}, bytes equal {equal}")
+            del state
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     out = {"shape": ctx["mesh_launch_shape"], "mesh": f"1x{TP}", "preempted_at": p,
            "losses_uninterrupted": ref["losses"], "losses_resumed": losses,
-           "max_loss_diff": dl, "restored_at_1x1": True,
+           "max_loss_diff": dl, "restored_at_1x1": restore_1x1,
            "collective_bytes_per_step": ref.get("collective_bytes_per_step"),
            "collective_host_ms_per_step": ref.get("collective_host_ms_per_step"),
            "wall_s": {"ref": ref["wall_s"], "preempted": cut["wall_s"],
                       "resumed": res["wall_s"]},
            "logs": {"ref": ref["log"], "preempted": cut["log"], "resumed": res["log"]}}
-    say(f"phase 5j (launch.train --mesh 1x{TP} --dist-backend gloo, {cfg.name} at 2 layers, "
+    say(f"{label} (launch.train --mesh 1x{TP} --dist-backend gloo, {cfg.name} at 2 layers, "
         f"batch {B} x seq {T}, {n} steps, {ctx['tp_launch_approx']} --compress-grads): "
         f"preempted at step {p}, "
         f"every rank's restored shards equal to the saved state, resumed to {n}; losses "
         f"within {dl:.3g} of the uninterrupted run (<= {TRAIN_RESUME_ATOL}); the 1x{TP} "
-        f"checkpoint restored at 1x1 bit for bit; wall {ref['wall_s']:.1f} / "
+        f"checkpoint restored at 1x1 bit for bit: {restore_1x1}; wall {ref['wall_s']:.1f} / "
         f"{cut['wall_s']:.1f} / {res['wall_s']:.1f} s")
     return out
 
@@ -5719,11 +5900,12 @@ def main(argv=None) -> int:
                "tp_block": 256, "tp_timeout_s": 600.0, "tp_moe_new_tokens": 16,
                # depth cuts of earlier paths that keep the script in its limit
                # (PERF.md §7 names the run that forced each)
-               "depth_cuts": {"3t": 8, "5e": 12, "5f": 24, "3i": 8, "3k": 8, "3g": 12,
-                              "3m": 8, "3o": 16, "3q": 8, "3s": 8},
+               "depth_cuts": {"3t": 4, "5e": 6, "5f": 12, "3i": 4, "3k": 4, "3g": 6,
+                              "3m": 4, "3o": 8, "3q": 4, "3s": 4, "5k": 18},
                "mesh_train_batch": 8, "mesh_dp_rows": 4, "mesh_train_steps": 4,
                "mesh_cut_shape": (2, 1024), "mesh_launch_shape": (2, 256, 6),
-               "mesh_timeout_s": 900.0,
+               "mesh_timeout_s": 900.0, "mesh_cut_vlm_seq": 2048,
+               "moe_mesh_shape": (4, 1024, 3), "moe_mesh_remat": "full",
                "tp_launch_approx": "axq8",
                "calib_shape": (2, 64), "plan_grid": (8, 5),
                "resil_prompts": 8, "resil_deadline_ms": 5000.0, "resil_shed": 8,
@@ -5797,7 +5979,8 @@ def main(argv=None) -> int:
                "depth_cuts": {},
                "mesh_train_batch": 4, "mesh_dp_rows": 2, "mesh_train_steps": 3,
                "mesh_cut_shape": (2, 32), "mesh_launch_shape": (2, 16, 30),
-               "mesh_timeout_s": 300.0,
+               "mesh_timeout_s": 300.0, "mesh_cut_vlm_seq": 24,
+               "moe_mesh_shape": (4, 32, 2), "moe_mesh_remat": "full",
                "tp_launch_approx": "exact",
                "calib_shape": (2, 16), "plan_grid": (8, 6, 4),
                "resil_prompts": 4, "resil_deadline_ms": 5000.0, "resil_shed": 4,
@@ -5840,11 +6023,13 @@ def main(argv=None) -> int:
         record["pr_resources"] = pr_resources(ctx)
     if args.train_only:
         train_phases(ctx, record, cfg, moe_cfg, ssm_cfg, rg_cfg, vlm_cfg, audio_cfg)
+        launcher_phases(ctx, record, cfg, moe_cfg, mesh=False)
         write_record(args.record, record)
         say("training phases done (--train-only): no result line")
         return 0
     if args.train_mesh_only:
-        train_mesh_phases(ctx, record, cfg)
+        train_mesh_phases(ctx, record, cfg, moe_cfg, vlm_cfg, audio_cfg)
+        launcher_phases(ctx, record, cfg, moe_cfg, single=False)
         record["phase_seconds"] = dict(record.times)
         write_record(args.record, record)
         say("mesh-training phases done (--train-mesh-only): no result line")
@@ -5942,11 +6127,13 @@ def main(argv=None) -> int:
                                              n_layers=2 if tag == "ssm" else 4)
 
     train_phases(ctx, record, cfg, moe_cfg, ssm_cfg, rg_cfg, vlm_cfg, audio_cfg)
-    train_mesh_phases(ctx, record, cfg)
+    train_mesh_phases(ctx, record, cfg, moe_cfg, vlm_cfg, audio_cfg)
+    launcher_phases(ctx, record, cfg, moe_cfg)
 
     paths = {"5a": record["train_path"]["seen"],
              "5g": record["train_mesh"]["5g"]["seen"],
              "5h": record["train_mesh"]["5h"]["seen"],
+             "5k": record["train_mesh"]["5k"]["seen"],
              "5e": record["train_vlm"]["seen"], "5f": record["train_audio"]["seen"],
              "3q": record["vlm_path"], "3r": record["fleet_path"],
              "3": record["main_path"], "3b": record["int8_cache_path"],

@@ -32,7 +32,17 @@ classes over the counted :func:`all_reduce` / :func:`all_gather`:
                              backward an all-reduce sum then this rank's
                              slice (each rank narrows the gathered heads to
                              other repeated heads, so the cotangents differ
-                             across ranks and must be summed).
+                             across ranks and must be summed);
+  :func:`gather_from_model`  forward an all-gather along a dim, backward
+                             this rank's slice of the cotangent, no
+                             collective (the gathered tensor's consumers are
+                             replicated, so every rank holds the same
+                             cotangent: a frontend's column-parallel weight,
+                             gathered whole before its product);
+  :func:`ring_reduce_from_model`  forward the int8 ring all-reduce,
+                             backward the identity (the straight-through
+                             backward of the reference's ``_ring_psum_model``,
+                             the MoE combine under ``REPRO_RING_TP``).
 
 Transport: on a gloo group, :func:`all_reduce` hands CUDA tensors to gloo,
 which reduces them through its own host copies; the all-gather and the
@@ -239,6 +249,28 @@ class _GatherKvHeads(torch.autograd.Function):
         return full.narrow(-1, ctx.first, ctx.width).contiguous(), None
 
 
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.dim, ctx.width = dim, x.shape[dim]
+        ctx.first = dist.get_rank(group) * x.shape[dim]
+        return all_gather(x, group, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.first, ctx.width).contiguous(), None, None
+
+
+class _RingReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return ring_allreduce_int8(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
 def reduce_from_model(x: Tensor, group) -> Tensor:
     """The sum of ``x`` over ``group`` (the row-parallel partials, the
     vocab-parallel embedding, the sharded loss's sums); its backward passes
@@ -267,6 +299,25 @@ def gather_kv_heads(x: Tensor, group) -> Tensor:
     if group is None:
         return x
     return _GatherKvHeads.apply(x, group)
+
+
+def gather_from_model(x: Tensor, group, dim: int = -1) -> Tensor:
+    """The ranks' ``x`` concatenated along ``dim``; its backward returns
+    this rank's slice of the cotangent, which every rank holds whole
+    because every consumer of the gathered tensor is replicated across
+    the group."""
+    if group is None:
+        return x
+    return _GatherFromModel.apply(x, group, dim % x.dim())
+
+
+def ring_reduce_from_model(x: Tensor, group) -> Tensor:
+    """:func:`ring_allreduce_int8` of ``x`` over ``group`` with the
+    straight-through backward of :func:`reduce_from_model`: the cotangent
+    unchanged."""
+    if group is None:
+        return x
+    return _RingReduceFromModel.apply(x, group)
 
 
 def broadcast_value(value: float, group, device) -> float:

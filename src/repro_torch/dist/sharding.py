@@ -26,7 +26,9 @@ mesh-coordinate order (a dim that does not divide raises, naming the
 leaf), so concatenating the ranks' pieces gives back the global leaf bit
 for bit.  One rule goes beyond the spec table: the bias of a
 column-parallel projection (a QKV bias) is sliced with its columns, where
-the reference leaves it to the partitioner.  Weights are sliced before
+the reference leaves it to the partitioner; a frontend's biases
+(``v_proj``, ``a_proj``, whose weights are gathered whole before their
+product) stay replicated.  Weights are sliced before
 they are packed: the packs are built on each shard
 (``kernels/qstore.py``, with the quantization block resolved from the
 global contraction dim).
@@ -61,6 +63,10 @@ _COL_LEAVES = {"up", "gate"}
 _ROW_LEAVES = {"down"}
 # modules that stay replicated although they hold a ``w``
 _REPLICATED_MODULES = {"router", "conv"}
+#: the frontends, whose column-parallel weights are gathered whole before
+#: their product (``transformer.embed_inputs``): their biases stay
+#: replicated, as the reference's rules leave every bias
+_GATHERED_MODULES = ("v_proj", "a_proj")
 
 
 def is_row_parallel(path: str) -> bool:
@@ -210,7 +216,7 @@ def _leaf_specs(params: Any, specs: Any = None) -> Any:
     def walk(p, s, path):
         if isinstance(p, dict):
             out = {k: walk(v, s[k], f"{path}/{k}" if path else k) for k, v in p.items()}
-            if _column_bias(p, s):
+            if _column_bias(p, s) and path.split("/")[0] not in _GATHERED_MODULES:
                 out["b"] = (None,) * (p["b"].dim() - 1) + ("model",)
             return out
         if isinstance(p, tuple) and hasattr(p, "_fields"):

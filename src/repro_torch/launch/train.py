@@ -9,9 +9,10 @@
 It runs on the card unless ``--device cpu`` is given (the smoke archs, e.g.
 ``--arch tinyllama-1.1b-smoke``, fit the CPU).  ``--mesh DxM`` trains on
 D x M ranks, one process a rank (the batch split over ``data``, the
-weights over ``model``; the dense family only, the others raise before
-any rank starts): spawned here, or this process's rank under
-``torchrun``, as ``launch.serve --tp`` starts its ranks.  Ranks that share
+weights over ``model``; the dense and MoE families and the VLM and audio
+frontends, while the SSM and hybrid families raise before any rank
+starts): spawned here, or this process's rank under ``torchrun``, as
+``launch.serve --tp`` starts its ranks.  Ranks that share
 a card need ``--dist-backend gloo``.  Rank 0 prints the summary; a SIGTERM
 to the launcher reaches every rank, which checkpoint at one step and exit.
 """

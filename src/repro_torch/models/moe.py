@@ -8,13 +8,28 @@ experts ``[r E/tp, (r+1) E/tp)`` (``dist/sharding.py``), routes every token
 with the replicated router, dispatches only the assignments to its own
 experts (the reference's ``is_local`` and rank-by-cumsum, at the global
 capacity), runs the expert-batched launches on its E/tp experts, and the
-ranks' partial outputs are summed by an exact all-reduce in f32 — or, under
-``REPRO_RING_TP=1``, by the int8 ring (the reference's
-``_ring_psum_model``).  The aux loss needs no collective there: every rank
-routes the same tokens with the same router, so the reference's mean over
-``model`` is each rank's own value.  Shared experts follow the column / row
-rules of the dense MLP.  On one device (tp = 1) every expert is local and
-the combine needs no collective.
+ranks' partial outputs are summed by an exact all-reduce in f32
+(``collectives.reduce_from_model``) — or, under ``REPRO_RING_TP=1``, by
+the int8 ring (the reference's ``_ring_psum_model``,
+``collectives.ring_reduce_from_model``); both pass the cotangent back
+unchanged, as the reference's psum with a replicated output does.  When
+serving, the aux loss needs no collective: every rank routes the same
+tokens with the same router, so the reference's mean over ``model`` is
+each rank's own value.  Shared experts follow the column / row rules of
+the dense MLP.  On one device (tp = 1) every expert is local and the
+combine needs no collective.
+
+Training on a mesh (the reference's shard_map transposed): the dispatched
+rows and the gates carry a gradient only for this rank's experts, so both
+cross ``collectives.copy_to_model``, whose backward sums their cotangents
+over ``model`` (the transpose of the reference's replicated ``in_specs``).
+The router, its softmax and the aux loss then see the whole cotangent on
+every rank and compute the whole router gradient there, the same bits on
+every rank, with no further collective; the aux loss is every rank's
+whole value, counted once.  On the data axis capacity is per data shard:
+``t`` is this rank's rows, the reference's ``T_local = (B // dp) * S``,
+and the aux loss is this shard's (``transformer.lm_loss`` averages it over
+``data``, as the reference's ``pmean`` does).
 
 Routing (sort-free, all shapes static, nothing read on the host, so the
 decode step stays one CUDA graph): an f32 router product, softmax, top-k
@@ -40,7 +55,8 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.approx import ApproxMode, ApproxPolicy, ApproxSpec
 from repro_torch.dist import collectives, meshctx
-from repro_torch.models.layers import act_fn, gated_mlp_apply, truncated_normal
+from repro_torch.models.layers import (act_fn, column_input, gated_mlp_apply,
+                                       truncated_normal)
 
 Tensor = torch.Tensor
 
@@ -109,7 +125,8 @@ def _local_expert_ffn(w, x: Tensor, act: str, spec=None, ebits=None) -> Tensor:
 
 def capacity(cfg: ArchConfig, tokens: int, tp: int = 1) -> int:
     """Rows each expert takes in a call of ``tokens`` rows (every row of the
-    call, free decode slots included), at least 4."""
+    call, free decode slots included; on a mesh this rank's rows, the
+    reference's per-data-shard ``T_local``), at least 4."""
     m = cfg.moe
     E = cfg.padded(tp).n_experts
     return max(int(math.ceil(tokens * m.top_k / E * m.capacity_factor)), 4)
@@ -170,6 +187,12 @@ def moe_apply(params, x: Tensor, cfg: ArchConfig, policy: ApproxPolicy, path: st
     aux = E * torch.sum(me * (counts / (t * topk)))
 
     flat, slot, keep = dispatch_plan(ids, C, E)
+    group = mesh.group("model") if tp > 1 else None
+    if group is not None and torch.is_grad_enabled():
+        # this rank's experts' share of the rows' and the gates' cotangents
+        # (module docstring)
+        gate_vals = collectives.copy_to_model(gate_vals, group)
+        xt = collectives.copy_to_model(xt, group)
     if tp > 1:
         # this rank's experts only; the ranks within an expert are the
         # global ones (a cumsum per expert), so capacity drops the same rows
@@ -194,17 +217,17 @@ def moe_apply(params, x: Tensor, cfg: ArchConfig, policy: ApproxPolicy, path: st
     for j in range(topk):
         yt = yt + rows[:, j]
     if tp > 1:
-        g = mesh.group("model")
         if _MOE_RING:
-            yt = collectives.ring_allreduce_int8(yt, g)
+            yt = collectives.ring_reduce_from_model(yt, group)
         else:
-            yt = collectives.all_reduce(yt.to(torch.float32), g).to(x.dtype)
+            yt = collectives.reduce_from_model(yt.to(torch.float32), group).to(x.dtype)
     y = yt.view(B, S, d)
 
     if "shared" in params:
         sh = params["shared"]
+        xs = column_input(x, policy, (path + "/shared/up", path + "/shared/gate"))
         shared = gated_mlp_apply({"up": {"w": sh["up"]}, "gate": {"w": sh["gate"]},
                                   "down": {"w": sh["down"]}},
-                                 x, policy, path + "/shared", act=cfg.act, degree=degree)
+                                 xs, policy, path + "/shared", act=cfg.act, degree=degree)
         y = y + shared
     return y, aux

@@ -41,7 +41,8 @@ vocab-parallel, and the logits the entry points return are this rank's
 vocab columns, as the reference's are sharded over ``model``: callers that
 need whole rows gather them (``layers.gather_vocab``).  tp = 1 keeps the
 one-device route unchanged.  The SSM and hybrid families and the audio
-encoder raise on such a mesh (:func:`check_tp_supported`).
+encoder raise on such a mesh when served (:func:`check_tp_supported`, at
+the serving entry points).
 
 Training on a mesh (``(data, model)``, one process a rank): the dense
 family's :func:`lm_forward` / :func:`lm_loss` run on this rank's shards
@@ -52,8 +53,12 @@ column-parallel projections, ``collectives.gather_kv_heads`` for the
 kv-split path) and the vocab-parallel cross-entropy
 (``layers.vocab_parallel_ce``): the loss is this rank's masked
 log-likelihood sum over the global token count, so the data ranks' losses
-and gradients sum to the reference's masked mean.  The other families and
-the frontends raise there (:func:`check_train_mesh_supported`).
+and gradients sum to the reference's masked mean.  The MoE family trains
+there through ``moe.moe_apply``'s expert-parallel block (capacity and the
+aux loss per data shard, as the reference's shard_map computes them), and
+the frontends gather their column-parallel weights whole
+(:func:`embed_inputs`).  The SSM and hybrid families raise there
+(:func:`check_train_mesh_supported`).
 """
 
 from __future__ import annotations
@@ -113,16 +118,22 @@ def check_tp_supported(cfg: ArchConfig, tp: int) -> None:
             "tensor parallelism for it is ROADMAP §A")
 
 
+#: the families that train on a mesh of more than one rank
+TRAIN_MESH_FAMILIES = ("dense", "moe", "vlm", "audio")
+
+
 def check_train_mesh_supported(cfg: ArchConfig) -> None:
-    """Training on a mesh of more than one rank covers the dense family;
-    the others raise (ROADMAP §A)."""
+    """Training on a mesh of more than one rank covers the dense and MoE
+    families and the VLM and audio frontends; the SSM and hybrid families
+    raise (ROADMAP §A)."""
     mesh = meshctx.get_mesh()
-    if math.prod(mesh.shape) == 1 or (cfg.family == "dense" and cfg.frontend is None):
+    if math.prod(mesh.shape) == 1 or cfg.family in TRAIN_MESH_FAMILIES:
         return
-    what = f"the {cfg.frontend} frontend" if cfg.frontend else f"the {cfg.family} family"
     raise NotImplementedError(
         f"{cfg.name}: training on a mesh {dict(zip(mesh.axis_names, mesh.shape))} covers the "
-        f"dense family; {what} on a mesh is ROADMAP §A")
+        f"dense, MoE, VLM and audio families; the {cfg.family} family on a mesh (its "
+        "in_proj split into concatenated parts that the column rule cuts across) is "
+        "ROADMAP §A")
 
 
 def tp_heads(cfg: ArchConfig, tp: int) -> tuple:
@@ -135,7 +146,6 @@ def tp_heads(cfg: ArchConfig, tp: int) -> tuple:
         return pd.n_heads, pd.n_kv_rep
     if tp != m:
         raise ValueError(f"tp={tp} on a mesh whose model axis is {m}")
-    check_tp_supported(cfg, m)
     if pd.n_heads % m or pd.n_kv_rep % m:
         raise ValueError(f"{cfg.name}: {pd.n_heads} heads / {pd.n_kv_rep} kv heads do "
                          f"not split over tp={m}")
@@ -332,25 +342,43 @@ def _sinusoidal(S: int, d: int, device=None) -> Tensor:
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
+def _frontend_layer(p: dict) -> dict:
+    """A frontend projection with its weight whole: this rank's columns
+    gathered over ``model`` on a mesh (:func:`embed_inputs`), else ``p``."""
+    mesh = meshctx.get_mesh()
+    if mesh.size("model") == 1:
+        return p
+    return {**p, "w": collectives.gather_from_model(p["w"], mesh.group("model"), dim=-1)}
+
+
 def embed_inputs(params, cfg: ArchConfig, batch: dict, dtype, policy: ApproxPolicy,
                  degree) -> tuple[Tensor, Tensor]:
     """The token embeddings, with the frontend stubs: audio frames through
     ``a_proj/fc1`` plus sinusoidal positions (computed in f32, cast to
     ``dtype``); image patches through ``v_proj`` (fc1, gelu, fc2) prepended
     to the tokens.  ``degree`` is the head site's (the frontends share
-    it).  Returns (x (B, S, d), positions (B, S) int32)."""
+    it).  Returns (x (B, S, d), positions (B, S) int32).
+
+    On a ``model`` axis wider than 1 (training) the frontends' weights are
+    this rank's columns (column-parallel by the name rules; their biases
+    replicated): each weight is gathered whole first
+    (``collectives.gather_from_model``, whose backward keeps this rank's
+    slice of the cotangent, the same on every rank), so the frontend's
+    output is whole and replicated before the blocks."""
     if cfg.frontend == "audio":
         fe = batch["frame_feats"].to(dtype)                       # (B, S, frontend_dim)
-        x = L.dense_apply(params["a_proj"]["fc1"], fe, policy, "a_proj/fc1", degree)
+        x = L.dense_apply(_frontend_layer(params["a_proj"]["fc1"]), fe, policy, "a_proj/fc1",
+                          degree)
         x = x + _sinusoidal(x.shape[1], x.shape[2], x.device).to(dtype)[None]
     else:
         x = L.embed_apply(params["embed"], batch["tokens"], dtype)
         if cfg.frontend == "vision":
+            vp = params["v_proj"]
             pe = batch["patch_embeds"].to(dtype)                  # (B, S_img, frontend_dim)
-            h = L.dense_apply(params["v_proj"]["fc1"], pe, policy, "v_proj/fc1", degree)
+            h = L.dense_apply(_frontend_layer(vp["fc1"]), pe, policy, "v_proj/fc1", degree)
             # jax.nn.gelu's tanh form, each op rounded as the reference's
             h = L.act_rounded("gelu")(h)
-            h = L.dense_apply(params["v_proj"]["fc2"], h, policy, "v_proj/fc2", degree)
+            h = L.dense_apply(_frontend_layer(vp["fc2"]), h, policy, "v_proj/fc2", degree)
             x = torch.cat([h, x], dim=1)
     B, S = x.shape[:2]
     positions = batch.get("positions")
@@ -364,8 +392,9 @@ def lm_forward(params, cfg: ArchConfig, policy: ApproxPolicy, batch: dict,
     """Returns (logits (B, S, vocab_padded) f32, the layers' summed aux
     load-balance loss (0 for a dense model)); S counts a VLM's image
     tokens.  ``remat`` is the layers' activation policy under autograd
-    (:func:`remat_call`).  On a mesh: this rank's rows and vocab columns
-    (the dense family only, :func:`check_train_mesh_supported`)."""
+    (:func:`remat_call`).  On a mesh: this rank's rows and vocab columns,
+    and the aux loss of this rank's rows (:func:`check_train_mesh_supported`
+    names the families)."""
     check_train_mesh_supported(cfg)
     dev = next(iter(batch.values())).device
     ldeg, hdeg = split_degree(degree, cfg.n_layers, dev)
@@ -390,16 +419,22 @@ def lm_loss(params, cfg: ArchConfig, policy: ApproxPolicy, batch: dict,
     {"ce", "aux", "ntokens"}), all device scalars.  On a mesh the loss and
     ``ce`` are this rank's share: its rows' log-likelihood sum over the
     token count of every data rank (``ntokens``, all-reduced over
-    ``data``), so the data ranks' shares sum to the masked mean."""
+    ``data``), so the data ranks' shares sum to the masked mean; the loss
+    carries ``0.01 x aux / dp`` of this rank's rows' aux loss, so the
+    shares sum to the reference's mean of the data shards' aux (its
+    ``pmean``).  ``aux`` is this rank's (``train.step`` averages it over
+    ``data``)."""
     logits, aux = lm_forward(params, cfg, policy, batch, tp, degree, remat)
     labels = batch["labels"]
     if cfg.frontend == "vision":
         # the logits cover [image tokens | text tokens]: the loss is the text's
         logits = logits[:, -labels.shape[1]:]
     llsum, ntok = L.vocab_parallel_ce(logits, labels)
-    ntok = collectives.all_reduce(ntok, meshctx.data_group())
+    mesh = meshctx.get_mesh()
+    ntok = collectives.all_reduce(ntok, meshctx.data_group(mesh))
     ce = -llsum / torch.clamp(ntok, min=1.0)
-    loss = ce + 0.01 * aux
+    dp = math.prod(mesh.size(a) for a in meshctx.batch_axes(mesh))
+    loss = ce + 0.01 * aux / dp
     return loss, {"ce": ce, "aux": aux, "ntokens": ntok}
 
 

@@ -13,11 +13,12 @@ shards, ``dist.sharding.shard_train_state``; the batch this rank's rows)
 the step computes the reference's one-device step on the global state:
 the model's collectives carry the gradients inside the backward, then
 every gradient leaf is summed over the ``data`` group (each data rank's
-loss is its share of the global masked mean), ``compress_grads``
+loss is its share of the global masked mean plus its share of the data
+shards' mean aux loss), ``compress_grads``
 quantizes the global gradient (a sharded leaf against the whole leaf's
 amax), the norm is the global one (``adamw.global_norm``), and the
 reported ``loss`` / ``ce`` are the global ones, the same bits on every
-rank.
+rank, and the reported ``aux`` the data ranks' mean.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from dataclasses import dataclass, field
 from typing import Any, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.dist import collectives, meshctx, sharding
 from repro_torch.models.registry import Model
@@ -119,9 +121,11 @@ def train_step(model: Model, cfg: StepConfig, state: TrainState, batch: dict,
 
 def _global_metrics(loss, metrics: dict, group):
     """The data ranks' shares of the loss and ``ce`` summed over ``group``
-    (one all-reduce of both; ``ntokens`` is already global)."""
-    both = collectives.all_reduce(torch.stack([loss, metrics["ce"]]), group)
-    return both[0], {**metrics, "ce": both[1]}
+    and their ``aux`` averaged (the reference's ``pmean``), in one
+    all-reduce; ``ntokens`` is already global."""
+    out = collectives.all_reduce(torch.stack([loss, metrics["ce"], metrics["aux"]]), group)
+    aux = out[2] / dist.get_world_size(group)
+    return out[0], {**metrics, "ce": out[1], "aux": aux}
 
 
 def eval_step(model: Model, state: TrainState, batch: dict, tp: int = 1, degree=None):

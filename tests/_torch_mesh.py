@@ -8,6 +8,7 @@ test process, and return numpy results.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import os
@@ -24,6 +25,7 @@ from repro_torch.data.pipeline import make_pipeline
 from repro_torch.dist import collectives, meshctx, sharding
 from repro_torch.kernels import ops as kops
 from repro_torch.models import build_model
+from repro_torch.models import moe as moe_mod
 from repro_torch.tree import named_leaves, tree_map
 from repro_torch.train import step as tstep
 from repro_torch.train.trainer import Trainer, TrainerConfig
@@ -52,7 +54,25 @@ def digest(tree) -> dict:
 
 
 def torch_batch(batch: dict) -> dict:
-    return {k: torch.from_numpy(np.asarray(v)).long() for k, v in batch.items()}
+    """Integer leaves as int64, the frontends' float features as they are."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(np.asarray(v))
+        out[k] = t if t.is_floating_point() else t.long()
+    return out
+
+
+@contextlib.contextmanager
+def ring_lever(on: bool):
+    """``REPRO_RING_TP`` for the span: the EXACT projections' ring forms and
+    the MoE combine through the int8 ring."""
+    prev = moe_mod._MOE_RING
+    moe_mod._MOE_RING = bool(on)
+    try:
+        with kops.ring_tp(on):
+            yield
+    finally:
+        moe_mod._MOE_RING = prev
 
 
 def step_rank(rank, world, shape, jobs):
@@ -62,11 +82,12 @@ def step_rank(rank, world, shape, jobs):
     and its digest; rank 0 adds the gathered state, and with
     ``job["grads"]`` the gathered gradients of one ``value_and_grad`` and
     its collectives; a job with ``expect_raise`` returns the message of the
-    ``ValueError`` its step raises.""" 
+    ``ValueError`` its step raises; ``job["arch"]`` (default ``ARCH``) names
+    the smoke arch and ``job["ring"]`` opens the int8-ring lever."""
     mesh = mesh_for(shape)
     out = []
     for job in jobs:
-        model = model_for(job["policy"])
+        model = model_for(job["policy"], job.get("arch", ARCH))
         state = train_state_from_numpy(job["state"], mesh=mesh)
         batch = sharding.shard_batch(torch_batch(job["batch"]), mesh)
         scfg = tstep.StepConfig(remat="none", total_steps=job.get("total", 10), warmup=2,
@@ -81,7 +102,7 @@ def step_rank(rank, world, shape, jobs):
                 out.append({"raised": str(e)})
                 continue
             raise AssertionError("the step did not raise")
-        with kops.ring_tp(job.get("ring", False)):
+        with ring_lever(job.get("ring", False)):
             if job.get("grads"):
                 collectives.counter.reset()
                 (loss, _), grads = tstep.value_and_grad(model, state.params, batch,
@@ -135,6 +156,25 @@ def autograd_rank(rank, world, xs, ws, seeds):
     return out
 
 
+def gather_rank(rank, world, xs, ws):
+    """``gather_from_model`` and ``ring_reduce_from_model`` on a (1, world)
+    mesh: the gradient of each rank's input when every rank's loss is the
+    same replicated function of the gathered (reduced) tensor (see
+    tests/test_torch_mesh_frontends.py::test_gather_and_ring_backward)."""
+    mesh = mesh_for((1, world))
+    g = mesh.group("model")
+    out = {}
+    x = torch.from_numpy(xs[rank]).requires_grad_()
+    full = collectives.gather_from_model(x, g, dim=-1)
+    loss = (torch.tanh(full) * torch.from_numpy(ws)).sum()
+    out["gather"] = torch.autograd.grad(loss, x)[0].numpy()
+    x = torch.from_numpy(xs[rank]).requires_grad_()
+    y = collectives.ring_reduce_from_model(x, g)
+    out["ring"] = torch.autograd.grad((y * torch.from_numpy(ws[:, :y.shape[-1]])).sum(),
+                                      x)[0].numpy()
+    return out
+
+
 class _SigtermAt:
     """A pipeline that sends this process SIGTERM when ``at`` is asked for
     (a scheduler's preemption of one rank)."""
@@ -154,10 +194,11 @@ def trainer_rank(rank, world, shape, opts):
     step, preemption and the checkpoint steps it sees, the digest of its
     last state (rank 0 adds the gathered state); with
     ``opts["sigterm_rank"]`` that rank signals itself at ``opts["sigterm_at"]``;
-    ``opts["qos"]``: a ladder 8 -> 7 -> 6 under AXQ checked every 2 steps."""
+    ``opts["qos"]``: a ladder 8 -> 7 -> 6 under AXQ checked every 2 steps;
+    ``opts["arch"]`` (default ``ARCH``) the smoke arch."""
     mesh = mesh_for(shape)
     policy = opts.get("policy", "exact")
-    model = model_for(policy)
+    model = model_for(policy, opts.get("arch", ARCH))
     pipe = make_pipeline(model.cfg, seq_len=16, global_batch=4)
     if opts.get("sigterm_rank") == rank:
         pipe = _SigtermAt(pipe, opts["sigterm_at"])

@@ -23,7 +23,7 @@ lever (convergence at 2x2 as the reference's test_ring_tp_training_subprocess
 asks; its gradients within rel 0.05 of the exact mesh step's), the
 collectives of a step as the layer count predicts, the autograd
 collectives' backward against a one-process autograd run, and the
-families that do not train on a mesh raising."""
+SSM and hybrid families, which do not train on a mesh, raising."""
 import dataclasses
 
 import jax
@@ -305,15 +305,15 @@ def test_autograd_collectives_backward():
         np.testing.assert_allclose(ranks[r]["copy"], g.numpy(), rtol=1e-6)
 
 
-REFUSED = ["granite-moe-3b-a800m-smoke", "mamba2-370m-smoke", "recurrentgemma-2b-smoke",
-           "hubert-xlarge-smoke", "internvl2-1b-smoke"]
+REFUSED = ["mamba2-370m-smoke", "recurrentgemma-2b-smoke"]
 
 
 @pytest.mark.parametrize("arch", REFUSED, ids=[a.split("-")[0] for a in REFUSED])
 def test_other_families_refuse_a_mesh(arch):
-    """The MoE, SSM, hybrid and audio families and the vision frontend raise
-    NotImplementedError naming ROADMAP §A when their loss runs on a mesh
-    (checked before any collective: no process group needed)."""
+    """The SSM and hybrid families raise NotImplementedError naming ROADMAP
+    §A when their loss runs on a mesh (checked before any collective: no
+    process group needed); the MoE family and the frontends train there
+    (tests/test_torch_mesh_moe.py, tests/test_torch_mesh_frontends.py)."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model, concrete_batch
 

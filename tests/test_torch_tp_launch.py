@@ -87,11 +87,12 @@ def test_engine_refusals():
 
 
 def test_training_forward_refuses_a_mesh():
-    """The dense family trains on a mesh; the MoE family's training forward
-    still refuses one (tests/test_torch_mesh_train.py covers the others)."""
+    """The dense and MoE families and the frontends train on a mesh; the SSM
+    family's training forward still refuses one
+    (tests/test_torch_mesh_train.py covers the hybrid)."""
     from repro_torch.models.registry import concrete_batch
 
-    cfg = get_config("granite-moe-3b-a800m-smoke")
+    cfg = get_config("mamba2-370m-smoke")
     model = build_model(cfg, device="cpu")
     params = model.init(seed=0, tp=2)
     with meshctx.use_mesh(_mesh((1, 2))), pytest.raises(NotImplementedError,
