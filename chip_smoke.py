@@ -38,7 +38,12 @@ Phases (any failure exits non-zero):
      kernels at G = 7; the tp=2 shard shapes of 3s and 3t: tinyllama's and
      granite's q/kv/wo/down GEMMs, vocab shards and gated half per rank,
      both decode at the kv heads a rank, tri at 16/2 and 12/4, granite's
-     expert-batched launches at 20 experts a rank), with the stated tolerance (the GEMMs
+     expert-batched launches at 20 experts a rank; those of 3u and 3v:
+     mamba2-370m's in_proj ``[z_r | x_r | B | C | dt_r]`` at N 2320, out_proj's
+     rows K 1024, the vocab shard N 25140; recurrentgemma-2b's N 1280
+     projections, wo's rows K 1280, the kv-split wk N 128, down's rows K
+     3840, the gated half N 3840, the vocab shard N 128000, decode at G 5 on
+     the 2048-row ring, band at 5/1 heads), with the stated tolerance (the GEMMs
      also bit-identical, and at decode at least one block an SM), timed
      with CUDA events beside its bound and, where one PyTorch call computes
      the same function, that call (the decode kernels, the GEMMs, SDPA and
@@ -116,8 +121,9 @@ Phases (any failure exits non-zero):
        3o  mamba2-370m (8 of its 48 layers: the time limit; d_inner 2048, 32
            SSD heads of 64, state 128, chunk 256): 16 prompts of 64-512
            tokens and 2 of 4096-8192;
-       3p  recurrentgemma-2b (8 groups of (rec, rec, attn) and 2 tail
-           blocks, MQA 10/1 at head_dim 256, window 2048: a ring): 3
+       3p  recurrentgemma-2b (8 of its 26 layers, two (rec, rec, attn)
+           groups and 2 tail blocks: the time limit; MQA 10/1 at head_dim
+           256, window 2048: a ring): 3
            prompts of 4096-8192 tokens (band) among 9 of 64-512;
      the VLM's backbone, text-only as the reference serves it —
        3q  internvl2-1b (4 of its 24 layers: the time limit; GQA 14/2, QKV bias,
@@ -157,6 +163,21 @@ Phases (any failure exits non-zero):
            gates), and its 2-layer cut under EXACT (f32): tp=2 against tp=1
            within 1e-4 of the largest logit, the ring combine
            within rel 0.05 at most half the combine's bytes;
+       3u  mamba2-370m at full width (2 of its 48 layers: the time limit),
+           tp=2 in 3s's spawn of ranks (each rank 16 of the 32 SSD heads:
+           in_proj cut by its parts, gnorm's sum of squares all-reduced),
+           axq8 with the ladder, bucketed packed admission (buckets 64-512,
+           pack 4) of phase 3's prompts and one past the ladder: 3s's gates
+           with the family's launches, 2 L + 1 all-reduces a decode step and
+           a prefill, each rank's bucketed state equal to the exact-length
+           one bit for bit; cut to 2 layers, tp=2 against tp=1 (4x the noise
+           floor under axq8, 1e-4 under EXACT f32);
+       3v  recurrentgemma-2b at full width (one (rec, rec, attn) group of
+           its 26 layers: the time limit), tp=2 in the same spawn (half the RG-LRU channels,
+           5 query heads over MQA's one kv head: the kv-split path), a prompt
+           past the 2048 window (``band``, the ring) among phase 3's: 3u's
+           gates, the k and v gathers an attention block, the prefills by
+           schedule; its one-group cut as 3u's;
      every request must finish and every kernel of the path must have
      launched exactly as the layer (or stage) count predicts, while no
      plain version ran on the card.  Every path serves from CUDA graphs,
@@ -217,7 +238,7 @@ Phases (any failure exits non-zero):
      -> N 512 and K 512 -> N 1536, wq N 768, the vocab shard N 24578,
      ``tri`` 12/4 over 4 x 1024) —
        5g  1x2, full depth, axq8 with the ladder 8 -> 5 moving, global batch
-           8 x 1024, 4 steps: finite losses equal bit for bit on both ranks,
+           8 x 1024, 3 steps: finite losses equal bit for bit on both ranks,
            the replicated parameters' fingerprints equal, 111 / 22 / 22
            launches a step a rank at the shard shapes, 4 L + 6 all-reduces a
            step, no plain version on the card; step time, tokens/s, each
@@ -227,13 +248,25 @@ Phases (any failure exits non-zero):
            parameters equal after every step, the gradient all-reduce 4 x
            the parameter count in bytes a step;
        5k  granite-moe-3b-a800m at full width at 1x2 (20 experts and 12 / 4
-           heads a rank, the router replicated), remat full, cut to 18 of its
-           32 layers (the functional AdamW update holds ~32 B a parameter),
+           heads a rank, the router replicated), remat full, cut to 12 of its
+           32 layers (the time limit; the functional AdamW update holds ~32 B
+           a parameter),
            axq8 with the ladder moving, 4 x 1024 from the pipeline, 3 steps:
            5g's gates with 8 L + 1 / 0 / 2 L / 2 L / 2 L launches a step a
            rank (axqmm / gated / experts' down / experts' gated / tri) and 6 L
            + 6 all-reduces (the dispatched rows' and gates' cotangents, wo's
            reduction recomputed);
+       5l  mamba2-370m at full width at 1x2 (16 SSD heads a rank, in_proj
+           cut by its parts), 6 of its 48 layers, axq8 with the ladder, 4 x
+           1024 from the pipeline, 3 steps, remat none: 5g's gates with 2 L +
+           1 launches a step a rank and 7 L + 6 all-reduces (backward: the
+           normed input's dx, gnorm's sum of squares and the B / C columns'
+           gradients of in_proj and the conv a layer);
+       5m  recurrentgemma-2b at full width at 1x2, cut to 5 of its 26 layers
+           (one group and 2 tail blocks: the time limit; its two 655 M-parameter
+           embeddings alone hold ~21 GB a rank under the functional AdamW
+           update), 5l's settings: 5g's gates with the hybrid's launches, 4 L +
+           2 n_attn + 6 all-reduces and 2 n_attn all-gathers a step;
        5i  2 layers, one step at 1x2, 2x1 and 2x2 (four ranks) against the
            one-rank step on the same weights and batch (in each rank's
            process): EXACT f32 within 1e-4 of each leaf's largest entry,
@@ -244,7 +277,9 @@ Phases (any failure exits non-zero):
            1x2 (axq8: kernels on the mesh vs the plain one-rank step), 2x1
            and 2x2 (against the reference's mesh semantics on one rank:
            capacity and aux per data shard), internvl2-1b and hubert-xlarge
-           at 1x2 under EXACT f32;
+           at 1x2 under EXACT f32, mamba2-370m at 1x2 and 2x1 (EXACT f32 and
+           axq8), recurrentgemma-2b's one group at 1x2, its gradients alone
+           (its one-rank state does not fit twice on the card);
        5j  ``launch.train --mesh 1x2 --dist-backend gloo`` at 2 layers:
            uninterrupted, SIGTERM'd (the launcher passes the signal to its
            ranks, which checkpoint at one step), resumed (restored shards
@@ -253,9 +288,9 @@ Phases (any failure exits non-zero):
            resumed run for granite-moe-3b-a800m at 2 layers;
   6. one {"kernels": [...]} line and, last, the result line.
 
-``--tp-only`` builds, then runs only phase 2's tp=2 shard rows, 3s and 3t
-(no result line); ``--train-mesh-only`` builds, then runs only phase 2's
-training shard rows and 5g-5j (no result line).
+``--tp-only`` builds, then runs only phase 2's tp=2 shard rows, 3s, 3t, 3u
+and 3v (no result line); ``--train-mesh-only`` builds, then runs only phase
+2's training shard rows and 5g-5m (no result line).
 
 With ``--record PATH`` every number also goes to a JSON file.
 """
@@ -3708,6 +3743,43 @@ def phase_kernels_tp(ctx, cfg, moe_cfg):
     return rows
 
 
+def phase_kernels_tp_recurrent(ctx, ssm_cfg, rg_cfg):
+    """Phase 2's rows at the tp=2 shard shapes that 3u and 3v launch at
+    decode (M = the slots), each held to its plain version.  mamba2-370m:
+    in_proj's ``[z_r | x_r | B | C | dt_r]`` (N = d_in + 2 N + H / 2 = 2320),
+    out_proj's rows (K 1024, an f32 partial: no residual in the epilogue),
+    the tied vocab shard (N 25140).  recurrentgemma-2b: the rec block's
+    column projections and wq (N 1280, K 2560), wo's rows (K 1280), wk / wv
+    (N 128: the kv-split path's half of MQA's one head), down's rows (K
+    3840), the gelu gated half (N 3840), the vocab shard (N 128000); decode
+    at G 5 over the rank's one repeated kv head at D 256 on the 2048-row
+    ring (lengths at the split edges); ``band`` at 5 / 1 heads over a
+    prompt past the window."""
+    torch = ctx["torch"]
+    deg = torch.tensor(6, dtype=torch.int32, device=ctx["dev"])
+    slots = ctx["slots"]
+    rows = {"axqmm": [], "axqmm_gated": [], "flash_decode": [], "flash_attention": []}
+    s, d = ssm_cfg.ssm, ssm_cfg.d_model
+    d_in = s.expand * d
+    for N, K in ((d_in + 2 * s.d_state + d_in // s.headdim // TP, d), (d, d_in // TP),
+                 (ssm_cfg.padded(TP).vocab // TP, d)):
+        rows["axqmm"].append(check_axqmm(ctx, slots, N, K, False, deg))
+    d, D, pd = rg_cfg.d_model, rg_cfg.head_dim, rg_cfg.padded(TP)
+    H, KVr, F = pd.n_heads // TP, pd.n_kv_rep // TP, pd.d_ff // TP
+    for N, K in ((d // TP, d), (d, d // TP), (rg_cfg.n_kv_heads * D // TP, d), (d, F),
+                 (pd.vocab // TP, d)):
+        rows["axqmm"].append(check_axqmm(ctx, slots, N, K, False, deg))
+    rows["axqmm_gated"].append(check_gated(ctx, slots, F, d, deg, act=rg_cfg.act))
+    W = rg_cfg.local_window
+    T = min(W, ctx["rg_max_len"])
+    edge, edge_active = split_edge_lengths(decode_split_width(ctx, D), T, slots)
+    rows["flash_decode"].append(check_decode(ctx, slots, KVr, H // KVr, D, T, edge,
+                                             edge_active))
+    rows["flash_attention"].append(check_band(ctx, 1, H, KVr, D, ctx["rg_band_len"], W))
+    report_rows(rows, f"tp={TP} shard (3u / 3v): ")
+    return rows
+
+
 def _rank_ctx(torch, dev, on_card: bool, slots: int) -> dict:
     """The ``ctx`` keys a rank's helpers read (``drive``, ``check_launches``)."""
     return {"torch": torch, "dev": dev, "on_card": on_card, "slots": slots,
@@ -3751,10 +3823,12 @@ def _tp_rank(rank: int, world: int, jobs: list) -> list:
             cfg = dataclasses.replace(cfg, dtype=job["dtype"])
         # the combine a serving run asks for; a logits run sets its own
         moe_mod._MOE_RING = job["kind"] == "serve" and bool(job.get("moe_ring"))
+        t = time.time()
         if job["kind"] == "serve":
             out.append(_tp_serve(ctx, mesh, cfg, job))
         else:
             out.append(_tp_logits(ctx, mesh, cfg, job))
+        out[-1]["job_s"] = time.time() - t
         if on_card:
             torch.cuda.empty_cache()
     return out
@@ -3775,19 +3849,40 @@ def _tp_serve(ctx, mesh, cfg, job) -> dict:
     params = model.init(generator=gen, tp=TP)      # the global tree, equal on every rank
     qos = QoSController(ladder=[{"ebits": e} for e in (8, 7, 6, 5)], low_water=0.25,
                         high_water=0.75, cooldown_steps=8) if job["qos"] else None
+    adm = None
+    if job.get("buckets"):
+        from repro_torch.serve.admission import AdmissionConfig
+
+        adm = AdmissionConfig(buckets=tuple(job["buckets"]), pack=job["pack"])
     eng = ShardedServeEngine(model, params, mesh=mesh, ring=job["ring"], slots=job["slots"],
-                             max_len=job["max_len"], qos=qos, seed=0)
+                             max_len=job["max_len"], qos=qos, seed=0, admission=adm)
     del params                                     # each rank keeps its shards, packed
     if ctx["on_card"]:
         torch.cuda.empty_cache()
     prompts, new_tokens = job["prompts"], job["new_tokens"]
     eng.submit(prompts[0][:16], 2)                 # library loads, allocator
     eng.run_until_drained()
-    steps0, prefills0 = eng.stats.decode_steps, eng.stats.prefill_calls
+    st = eng.stats
+    steps0, prefills0 = st.decode_steps, st.prefill_calls
+    # the model's prefill calls by kind (an admission call may make an
+    # exact-length prefill and a bucketed one)
+    forwards = {"prefill": 0, "prefill_batch": 0}
+    for name in forwards:
+        def counted(*a, _f=getattr(model, name), _n=name, **kw):
+            forwards[_n] += 1
+            return _f(*a, **kw)
+        setattr(model, name, counted)
     collectives.counter.reset()
     reqs, seen = drive(ctx, eng, prompts, new_tokens)
     coll = collectives.counter.snapshot()
+    fwd = dict(forwards)
     eng.check_streams()
+    state = None
+    if job.get("state_check"):
+        # one bucketed, packed call against exact-length prefills, after
+        # the counts are read
+        state = _bucketed_state_equal(ctx, model, eng.params, job["state_check"],
+                                      job["buckets"], job["max_len"])
     from repro_torch.serve.metrics import summarize
 
     s = summarize(reqs, eng.stats, wall_s=seen["wall_s"])
@@ -3795,8 +3890,10 @@ def _tp_serve(ctx, mesh, cfg, job) -> dict:
     return {"rank": mesh.coord("model"), "transport": mesh.transport, "ring": eng.ring,
             "streams": [list(r.out_tokens) for r in reqs],
             "statuses": sorted({r.status for r in reqs}),
-            "steps": eng.stats.decode_steps - steps0,
-            "prefills": eng.stats.prefill_calls - prefills0,
+            "steps": st.decode_steps - steps0,
+            "prefills": st.prefill_calls - prefills0, "exact": fwd["prefill"],
+            "bucketed": fwd["prefill_batch"],
+            "state_equal": state, "flash_schedules": seen["flash_schedules"],
             "ticks": seen["ticks"], "wall_s": seen["wall_s"],
             "decode_tick_ms_mean": 1e3 * sum(dts) / max(len(dts), 1),
             "decode_ticks_timed": len(dts), "gen_tok_per_s": s["generated_tokens"] /
@@ -3807,6 +3904,26 @@ def _tp_serve(ctx, mesh, cfg, job) -> dict:
             "max_memory_allocated": seen["max_memory_allocated"],
             "packed_weight_bytes": packed_bytes(eng.params),
             "collectives": coll}
+
+
+def _bucketed_state_equal(ctx, model, params, prompts, buckets, max_len) -> dict:
+    """{field: bool}: this rank's cache after one bucketed, packed prefill
+    of ``prompts`` (rows padded to the least bucket that holds them)
+    against the same prompts prefilled one by one at their exact lengths,
+    bit for bit (the model's cache dtype)."""
+    torch, dev = ctx["torch"], ctx["dev"]
+    B = len(prompts)
+    Pb = min(b for b in buckets if b >= max(len(p) for p in prompts))
+    rows = torch.zeros((B, Pb), dtype=torch.int64, device=dev)
+    for i, p in enumerate(prompts):
+        rows[i, :len(p)] = torch.as_tensor(p, device=dev)
+    exact = model.init_cache(TP, B, max_len)
+    packed = model.init_cache(TP, B, max_len)
+    for i, p in enumerate(prompts):
+        model.prefill(params, exact, torch.as_tensor(p, device=dev), i, tp=TP)
+    model.prefill_batch(params, packed, rows, list(range(B)), [len(p) for p in prompts],
+                        tp=TP)
+    return {k: bool(torch.equal(a, b)) for k, a, b in zip(exact._fields, exact, packed)}
 
 
 def _tp_logits(ctx, mesh, cfg, job) -> dict:
@@ -3880,10 +3997,11 @@ def _tp_jobs(ctx, tag, jobs, timeout_s) -> list:
     out = meshctx.spawn_ranks(_tp_rank, TP, timeout_s=timeout_s, backend="gloo",
                               device="cuda" if ctx["on_card"] else "cpu", args=(jobs,),
                               threads=0 if ctx["on_card"] else 1)
-    names = ", ".join(f"{job['kind']}{', ring' if job.get('ring') else ''}"
-                      f"{', ring combine' if job.get('moe_ring') else ''}" for job in jobs)
-    say(f"phase {tag}: {TP} ranks ran {names} ({jobs[0]['arch']}) in "
-        f"{time.time() - t0:.1f} s")
+    names = ", ".join(f"{job.get('tag', tag)} {job['kind']}{', ring' if job.get('ring') else ''}"
+                      f"{', ring combine' if job.get('moe_ring') else ''} "
+                      f"({job['arch']}, {out[0][i]['job_s']:.1f} s)"
+                      for i, job in enumerate(jobs))
+    say(f"phase {tag}: {TP} ranks ran {names} in {time.time() - t0:.1f} s")
     return [[rank[i] for rank in out] for i in range(len(jobs))]
 
 
@@ -3930,7 +4048,8 @@ def _tp_serve_gates(ctx, label, cfg, ranks, expect, per_tick) -> dict:
         calls, nbytes = r["collectives"]["calls"], r["collectives"]["bytes"]
         want = {k: v(r["steps"], r["prefills"]) for k, v in per_tick.items()}
         require({k: calls.get(k, 0) for k in want} == want and set(calls) <= set(want),
-                f"{label} rank {r['rank']}: collectives {calls}, expected {want}")
+                f"{label} rank {r['rank']}: collectives {calls}, expected {want} ({r['steps']} "
+                f"decode steps, {r['prefills']} prefill calls)")
     n = max(r0["steps"], 1)
     coll = r0["collectives"]
     per = {"host_ms_per_tick": coll["host_ms"] / n, "wait_ms_per_tick": coll["wait_ms"] / n,
@@ -3984,7 +4103,7 @@ def _tp_logit_gates(ctx, label, ranks, ring_kind, combine_only=False) -> dict:
     return out
 
 
-def phase_tp_dense(ctx, cfg, prompts) -> dict:
+def phase_tp_dense(ctx, cfg, prompts, extra_jobs=()) -> tuple:
     """Phase 3s: tinyllama-1.1b at full width and depth, tp=2 as two ranks
     on the one card through an explicit gloo group (host-staged
     collectives), axq8 with the ladder 8 -> 5, packs built per shard, the
@@ -3992,20 +4111,23 @@ def phase_tp_dense(ctx, cfg, prompts) -> dict:
     the first decode step's logits at tp=2 against tp=1 on the same
     tp-padded weights (4x the noise floor), and under EXACT with the int8
     ring (rel 0.05 of exact tp=2, at most half the bytes).  Then
-    ``launch.serve --tp 2 --dist-backend gloo`` for the wall numbers."""
+    ``launch.serve --tp 2 --dist-backend gloo`` for the wall numbers.
+    ``extra_jobs`` (3u / 3v's) run in the same spawn of ranks after 3s's;
+    returns (3s's result, their results)."""
     label = "phase 3s"
     # the served model's depth (cut on the card: the time limit); the
     # launcher below serves the whole model
     L = depth_cut(ctx, "3s", cfg).n_layers
-    serve = {"kind": "serve", "arch": cfg.name, "n_layers": L, "approx": "axq8",
+    serve = {"kind": "serve", "tag": "3s", "arch": cfg.name, "n_layers": L, "approx": "axq8",
              "block": ctx["tp_block"], "ring": False, "qos": True, "max_len": ctx["max_len"], "prompts": prompts,
              "new_tokens": ctx["new_tokens"]}
-    cut = {"kind": "logits", "arch": cfg.name, "n_layers": 2, "prompt": prompts[0],
+    cut = {"kind": "logits", "tag": "3s", "arch": cfg.name, "n_layers": 2, "prompt": prompts[0],
            "block": ctx["tp_block"]}
     # one spawn of the two ranks: the serving run, then the two cuts
-    ranks, cut_axq8, cut_ring = _tp_jobs(
-        ctx, "3s", [serve, dict(cut, approx="axq8"),
-                    dict(cut, approx="exact", ring=True, dtype="float32")],
+    ranks, cut_axq8, cut_ring, *extra = _tp_jobs(
+        ctx, "3s / 3u / 3v" if extra_jobs else "3s",
+        [serve, dict(cut, approx="axq8"),
+         dict(cut, approx="exact", ring=True, dtype="float32")] + list(extra_jobs),
         ctx["tp_timeout_s"])
     expect = lambda r: {
         "axqmm": (5 * L + 1) * (r["steps"] + r["prefills"]),
@@ -4037,6 +4159,90 @@ def phase_tp_dense(ctx, cfg, prompts) -> dict:
         "collective_host_ms_per_tick", "collective_wait_ms_per_tick")}
     out["launcher"]["wall_s"] = seen["wall_s"]
     say(f"{label} launch.serve --tp {TP} --dist-backend gloo: {out['launcher']}")
+    return out, extra
+
+
+def tp_recurrent_jobs(ctx, ssm_cfg, rg_cfg, prompts) -> list:
+    """3u's and 3v's jobs for 3s's spawn: each family's serving run at full
+    width (depth ``depth_cuts``), axq8 with the ladder 8 -> 5, bucketed
+    and packed admission (``rec_buckets``, pack 4), phase 3's prompts and
+    one past the ladder (on the hybrid past its window: ``band`` and the
+    ring), the bucketed state checked on each rank after it; then the cut
+    model (2 layers; the hybrid one group) under axq8 and under EXACT in
+    f32."""
+    import numpy as np
+
+    rng = np.random.default_rng(26)
+    lo, hi = ctx["rec_long_range"]
+    out = []
+    for tag, c, n_cut in (("3u", ssm_cfg, 2), ("3v", rg_cfg, len(rg_cfg.block_pattern))):
+        long = rng.integers(0, c.vocab, int(rng.integers(lo, hi + 1)))
+        ps = list(prompts) + [long]
+        serve = {"kind": "serve", "tag": tag, "arch": c.name,
+                 "n_layers": depth_cut(ctx, tag, c).n_layers, "approx": "axq8",
+                 "block": ctx["tp_block"], "ring": False, "qos": True,
+                 "max_len": ctx["ssm_max_len" if tag == "3u" else "rg_max_len"],
+                 "prompts": ps, "new_tokens": ctx["tp_moe_new_tokens"],
+                 "buckets": ctx["rec_buckets"], "pack": 4,
+                 "state_check": [list(map(int, p)) for p in prompts[:4]]}
+        cut = {"kind": "logits", "tag": tag, "arch": c.name, "n_layers": n_cut,
+               "prompt": prompts[0], "block": ctx["tp_block"]}
+        out += [serve, dict(cut, approx="axq8"), dict(cut, approx="exact", dtype="float32")]
+    return out
+
+
+def phase_tp_recurrent(ctx, ssm_cfg, rg_cfg, results) -> dict:
+    """Phases 3u (mamba2-370m) and 3v (recurrentgemma-2b) at tp=2 on 3s's
+    spawn of ranks (``tp_recurrent_jobs``): every request ok with equal
+    streams on every rank; each rank's launches as the family's serving
+    predicts (``recurrent_launches``: the same GEMMs on the rank's shards,
+    the hybrid's flash_decode and flash_attention on its 5 / 1 heads), the
+    hybrid's prefills by schedule (``tri`` a bucketed call, ``band`` the
+    long prompt's); the collectives a call: the embedding's all-reduce and
+    two a layer (a Mamba-2 layer's gnorm sum of squares and out_proj's
+    partials; a hybrid block's wo and down) on a decode step and on a
+    prefill, the hybrid's k and v gathered on each attention block (the
+    kv-split path), the logits gathered on a decode step; each rank's
+    bucketed state equal to the exact-length one bit for bit; the cut
+    models' tp=2 logits against tp=1 (4x the noise floor under axq8, 1e-4
+    of the largest logit under EXACT f32)."""
+    out = {}
+    for (serve, cut_axq8, cut_exact), c in zip((results[:3], results[3:6]), (ssm_cfg, rg_cfg)):
+        tag = "3u" if c.family == "ssm" else "3v"
+        label = f"phase {tag}"
+        cfg = depth_cut(ctx, tag, c)
+        L = cfg.n_layers
+        n_attn = (L // len(cfg.block_pattern) * cfg.block_pattern.count("attn")
+                  if cfg.family == "hybrid" else 0)
+        for r in serve:
+            # the gates' per-call count: the model's forwards, exact and bucketed
+            r["prefills"] = r["exact"] + r["bucketed"]
+        expect = lambda r, cfg=cfg: dict(
+            {"axqmm_gated": 0, "flash_decode": 0, "flash_decode_quant": 0, "flash_attention": 0,
+             "pr_multiply": 0, "pr_fir": 0, "pr_conv2d": 0},
+            **recurrent_launches(cfg, r["steps"], r["exact"], r["bucketed"]))
+        per_tick = {"all-reduce": lambda st, pf, L=L: (2 * L + 1) * (st + pf),
+                    "all-gather": lambda st, pf, n=n_attn: st + 2 * n * (st + pf)}
+        res = _tp_serve_gates(ctx, f"{label} ({c.name}, {L} layers)", cfg, serve, expect,
+                              per_tick)
+        for r in serve:
+            require(r["bucketed"] > 0 and r["exact"] > 0,
+                    f"{label} rank {r['rank']}: {r['bucketed']} bucketed and {r['exact']} "
+                    "exact-length prefills: both paths should run")
+            require(all(r["state_equal"].values()),
+                    f"{label} rank {r['rank']}: bucketed state differs from exact-length "
+                    f"{r['state_equal']}")
+            if ctx["on_card"] and n_attn:
+                want = {"dense": 0, "tri": n_attn * r["bucketed"], "band": n_attn * r["exact"]}
+                require(r["flash_schedules"] == want,
+                        f"{label}: flash_attention by schedule {r['flash_schedules']}, "
+                        f"expected {want}")
+        say(f"{label}: each rank's bucketed state equal to exact-length bit for bit "
+            f"({serve[0]['state_equal']}); {serve[0]['bucketed']} bucketed calls and "
+            f"{serve[0]['exact']} exact-length prefills")
+        res["model_cut_axq8"] = _tp_logit_gates(ctx, f"{label} cut axq8", cut_axq8, "")
+        res["model_cut_exact"] = _tp_logit_gates(ctx, f"{label} cut EXACT f32", cut_exact, "")
+        out[tag] = res
     return out
 
 
@@ -4408,9 +4614,22 @@ def train_launches(cfg, remat: str) -> dict:
     encoder), the unembedding and the frontend projections (the VLM's
     fc1 and fc2, the audio encoder's fc1); an MoE layer runs its experts'
     halves on ``axqmm_gated_experts`` and ``axqmm_experts`` instead of the
-    MLP's; remat ``dots`` / ``full`` run each layer's forward twice."""
+    MLP's; remat ``dots`` / ``full`` run each layer's forward twice.  A
+    Mamba-2 layer runs in_proj and out_proj (the tied unembedding besides);
+    a hybrid's recurrent block wx, wg, wa, wi, wo and down, its attention
+    block wq, wk, wv, wo and down, each its gated half (remat: the groups
+    twice, the tail blocks once)."""
     r = 1 if remat == "none" else 2
     L = cfg.n_layers
+    if cfg.family == "ssm":
+        return {"axqmm": 2 * L * r + 1, "axqmm_gated": 0, "flash_attention": 0}
+    if cfg.family == "hybrid":
+        pat = cfg.block_pattern
+        n_groups, tail = divmod(L, len(pat))
+        n_attn = n_groups * pat.count("attn")
+        grouped = n_groups * len(pat)
+        return {"axqmm": (6 * (grouped - n_attn) + 5 * n_attn) * r + 6 * tail + 1,
+                "axqmm_gated": grouped * r + tail, "flash_attention": n_attn * r}
     out = {"axqmm": (4 if cfg.moe else 5) * L * r + (0 if cfg.tie_embeddings else 1)
            + FRONTEND_GEMMS[cfg.frontend],
            "axqmm_gated": 0 if cfg.moe else L * r, "flash_attention": L * r}
@@ -4424,10 +4643,12 @@ def train_backwards(cfg) -> dict:
     backward runs once a layer): ``flash_attention_bwd`` a layer, one
     ``axqmm_bwd`` a forward ``axqmm`` projection, ``axqmm_gated_bwd`` a
     dense layer, ``axqmm_experts_bwd`` twice an MoE layer (the experts'
-    halves)."""
+    halves; a Mamba-2 layer none but its projections', a hybrid's
+    attention blocks one each)."""
     L = cfg.n_layers
-    return {"flash_attention_bwd": L, "axqmm_bwd": train_launches(cfg, "none")["axqmm"],
-            "axqmm_gated_bwd": 0 if cfg.moe else L,
+    fwd = train_launches(cfg, "none")
+    return {"flash_attention_bwd": fwd["flash_attention"], "axqmm_bwd": fwd["axqmm"],
+            "axqmm_gated_bwd": fwd["axqmm_gated"],
             "axqmm_experts_bwd": 2 * L if cfg.moe else 0}
 
 
@@ -4896,16 +5117,20 @@ def train_phases(ctx, record, cfg, moe_cfg, ssm_cfg, rg_cfg, vlm_cfg, audio_cfg)
             ctx["torch"].cuda.empty_cache()
 
 
-def train_mesh_phases(ctx, record, cfg, moe_cfg, vlm_cfg, audio_cfg) -> None:
+def train_mesh_phases(ctx, record, cfg, moe_cfg, vlm_cfg, audio_cfg, ssm_cfg,
+                      rg_cfg) -> None:
     """The mesh-training phases but the launchers (5j:
-    :func:`launcher_phases`), in order: phase 2's rows at 5g's, 5h's and
-    5k's shard shapes, 5g / 5h / 5k, 5i; each sets its result in
-    ``record``."""
+    :func:`launcher_phases`), in order: phase 2's rows at 5g's, 5h's, 5k's,
+    5l's and 5m's shard shapes, 5g / 5h / 5k / 5l / 5m, 5i; each sets its
+    result in ``record``."""
     for key, fn, args in (("kernels_train_mesh", phase_kernels_train_mesh, (cfg, moe_cfg)),
+                          ("kernels_train_mesh_rec", phase_kernels_train_mesh_recurrent,
+                           (ssm_cfg, rg_cfg)),
                           ("train_mesh", phase_train_mesh,
-                           (cfg, depth_cut(ctx, "5k", moe_cfg))),
+                           (cfg, depth_cut(ctx, "5k", moe_cfg), depth_cut(ctx, "5l", ssm_cfg),
+                            depth_cut(ctx, "5m", rg_cfg))),
                           ("train_mesh_cut", phase_train_mesh_cut,
-                           (cfg, moe_cfg, vlm_cfg, audio_cfg))):
+                           (cfg, moe_cfg, vlm_cfg, audio_cfg, ssm_cfg, rg_cfg))):
         record[key] = fn(ctx, *args)
         if ctx["on_card"]:
             ctx["torch"].cuda.empty_cache()
@@ -5012,6 +5237,35 @@ def phase_kernels_train_mesh(ctx, cfg, moe_cfg):
     return rows
 
 
+def phase_kernels_train_mesh_recurrent(ctx, ssm_cfg, rg_cfg):
+    """Phase 2's rows at 5l's and 5m's training shard shapes (1x2, the
+    global batch's ``rec_mesh_shape`` rows on every rank, float weights
+    quantized per call): mamba2-370m's in_proj (N 2320), out_proj's rows
+    (K 1024) and the tied vocab shard (N 25140); recurrentgemma-2b's column
+    projections (N 1280), wo's rows (K 1280), down's rows (K 3840), the
+    gelu gated half (N 3840), the vocab shard (N 128000) and ``tri`` at 5
+    heads over 1 kv head a rank."""
+    torch = ctx["torch"]
+    B, T = ctx["rec_mesh_shape"][:2]
+    M = B * T
+    deg = torch.tensor(8, dtype=torch.int32, device=ctx["dev"])
+    rows = {"axqmm": [], "axqmm_gated": [], "flash_attention": []}
+    s, d = ssm_cfg.ssm, ssm_cfg.d_model
+    d_in = s.expand * d
+    for N, K in ((d_in + 2 * s.d_state + d_in // s.headdim // TP, d), (d, d_in // TP),
+                 (ssm_cfg.padded(TP).vocab // TP, d)):
+        rows["axqmm"].append(check_axqmm(ctx, M, N, K, False, deg))
+    d, D, pd = rg_cfg.d_model, rg_cfg.head_dim, rg_cfg.padded(TP)
+    H, KVr, F = pd.n_heads // TP, pd.n_kv_rep // TP, pd.d_ff // TP
+    for N, K in ((d // TP, d), (d, d // TP), (d, F), (pd.vocab // TP, d)):
+        rows["axqmm"].append(check_axqmm(ctx, M, N, K, False, deg))
+    rows["axqmm_gated"].append(check_gated(ctx, M, F, d, deg, act=rg_cfg.act))
+    rows["flash_attention"].append(check_prefill(ctx, B * H, T, D, H, KVr,
+                                                 dtype=torch.bfloat16))
+    report_rows(rows, "phase 2 (training shards, 5l / 5m): ")
+    return rows
+
+
 def _fingerprint(ctx, tree) -> list:
     """One int a leaf: a position-weighted sum of the leaf's 32-bit words,
     on the device (equal leaves give equal sums; a changed bit changes
@@ -5057,6 +5311,7 @@ def _mesh_rank(rank: int, world: int, runs: list) -> list:
         cfg = get_config(job["arch"])
         if job.get("n_layers"):
             cfg = dataclasses.replace(cfg, n_layers=job["n_layers"])
+        t = time.time()
         if job["kind"] == "path":
             out.append(_mesh_path(ctx, mesh, cfg, job))
         else:
@@ -5067,6 +5322,7 @@ def _mesh_rank(rank: int, world: int, runs: list) -> list:
                                                       or noise.get(arch))))
             if noise.get(arch) is None:
                 noise[arch] = out[-1]["jobs"].get("axq8", {}).get("noise")
+        out[-1]["job_s"] = time.time() - t
         if on_card:
             torch.cuda.empty_cache()
     return out
@@ -5209,6 +5465,13 @@ def _mesh_cut(ctx, mesh, cfg, job) -> dict:
     for sub in job["subs"]:
         c = dataclasses.replace(cfg, dtype=sub.get("dtype", cfg.dtype))
         model = build_model(c, _tp_policy({**job, "approx": sub["approx"]}), device=dev)
+        if sub.get("grads_only"):
+            d = None if sub["approx"] == "exact" else deg
+            out["jobs"][sub["name"]] = _mesh_grads(ctx, mesh, one, model, M, full_batch, batch,
+                                                   d, job.get("noise") is None)
+            if ctx["on_card"]:
+                torch.cuda.empty_cache()
+            continue
         scfg = S.StepConfig(remat="none", total_steps=10, warmup=2,
                             compress_grads=sub.get("compress", False))
         d = None if sub["approx"] == "exact" else deg
@@ -5246,6 +5509,101 @@ def _mesh_cut(ctx, mesh, cfg, job) -> dict:
         del new, ref_s, start_s
         if ctx["on_card"]:
             torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_grads(ctx, mesh, one, model, M, full_batch, batch, degree, noise) -> dict:
+    """5i's gradient-only sub-job (a state too large to hold twice a rank
+    and twice on the card: recurrentgemma-2b's two 655 M-parameter
+    embeddings): the one-rank ``value_and_grad`` on the whole batch, cut to
+    this rank's shards and freed, then the mesh's on this rank's shards
+    and rows; per leaf ["grads", max |diff|, max |ref|, sum of squared
+    diffs, sum of squared refs, 0, sharded] (``_state_stats``' columns),
+    the losses and both global gradient norms (``adamw.global_norm``: the
+    mesh's sums the split columns over ``model`` and counts in_proj's B / C
+    columns once); under axq8, with ``noise``, rank 0 adds the one-rank
+    noise floor."""
+    torch = ctx["torch"]
+    from repro_torch.dist import collectives, meshctx, sharding
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as S
+
+    with meshctx.use_mesh(one):
+        params = model.init(seed=0, tp=M)
+        (rloss, _), g = S.value_and_grad(model, params, full_batch, tp=M, degree=degree,
+                                         remat="none")
+        rgn = float(adamw.global_norm(g))
+        del params
+        ref = sharding.shard_params(g, mesh=mesh)
+        del g
+    if ctx["on_card"]:
+        torch.cuda.empty_cache()
+    params = sharding.shard_params(model.init(seed=0, tp=M), mesh=mesh)
+    collectives.counter.reset()
+    (loss, _), g = S.value_and_grad(model, params, batch, tp=M, degree=degree, remat="none")
+    coll = collectives.counter.snapshot()
+    gn = float(adamw.global_norm(g))
+    sharded = sharding.model_sharded(g, mesh)
+    stats = []
+    for a, b, sh in zip(_leaves(g), _leaves(ref), sharded):
+        a, b = a.float(), b.float()
+        stats.append(["grads", float((a - b).abs().max()), float(b.abs().max()),
+                      float((a - b).square().sum()), float(b.square().sum()), 0.0, bool(sh)])
+    res = {"loss": float(loss), "grad_norm": gn, "ref_loss": float(rloss), "ref_grad_norm": rgn,
+           "collectives": coll, "stats": stats, "fingerprint": _fingerprint(ctx, g)}
+    del params, g, ref
+    if degree is not None and noise and mesh.rank == 0:
+        res["noise"] = _noise_floor(ctx, model, M, one, full_batch, degree)
+    return res
+
+
+def _mesh_grad_gates(ctx, label, ranks, names, noise=None) -> dict:
+    """5i's gates on gradient-only sub-jobs (``_mesh_grads``): the ranks'
+    losses equal; under EXACT f32 the loss and the global gradient norm
+    within MESH_EXACT_REL relative and every gradient leaf within
+    MESH_EXACT_REL of its largest entry; under axq8 the loss within
+    TRAIN_LOSS_ATOL and each leaf (relative Frobenius) within
+    TRAIN_NOISE_MULT x the one-rank noise floor plus TRAIN_NOISE_SLACK."""
+    r0 = ranks[0]
+    out = {}
+    for name in names:
+        require(all(r["jobs"][name]["loss"] == r0["jobs"][name]["loss"] for r in ranks),
+                f"{label} {name}: the ranks' losses differ")
+        j = r0["jobs"][name]
+        rows = _combine(ranks, name)
+        dl = abs(j["loss"] - j["ref_loss"])
+        dg = abs(j["grad_norm"] - j["ref_grad_norm"]) / max(j["ref_grad_norm"], 1e-30)
+        res = {"loss": j["loss"], "ref_loss": j["ref_loss"], "loss_diff": dl,
+               "grad_norm": j["grad_norm"], "ref_grad_norm": j["ref_grad_norm"],
+               "grad_norm_rel": dg, "collective_bytes": j["collectives"]["bytes"],
+               "collective_calls": j["collectives"]["calls"]}
+        if name == "exact":
+            worst = max(row[1] for row in rows)
+            res["grads_rel_max_worst"] = worst
+            require(dl <= MESH_EXACT_REL * max(abs(j["ref_loss"]), 1.0) and dg <= MESH_EXACT_REL,
+                    f"{label} {name}: loss {j['loss']} / grad norm {j['grad_norm']} vs one "
+                    f"rank {j['ref_loss']} / {j['ref_grad_norm']}")
+            require(worst <= MESH_EXACT_REL, f"{label} {name}: a gradient leaf within {worst} "
+                                             f"of its largest entry (> {MESH_EXACT_REL})")
+            say(f"{label} {name}: loss {j['loss']:.7f} vs one rank {j['ref_loss']:.7f}, grad "
+                f"norm {j['grad_norm']:.6f} vs {j['ref_grad_norm']:.6f} (rel {dg:.3g}); every "
+                f"gradient leaf within {worst:.3g} of its largest entry; collectives "
+                f"{j['collectives']['calls']}")
+        else:
+            floor = j.get("noise") or noise
+            tols = [TRAIN_NOISE_MULT * f + TRAIN_NOISE_SLACK for f in floor]
+            worst = max(range(len(rows)), key=lambda i: rows[i][2] / tols[i])
+            res.update(grad_rel_worst=rows[worst][2], grad_tol_worst=tols[worst],
+                       noise_floor_worst=floor[worst])
+            require(dl <= TRAIN_LOSS_ATOL, f"{label} {name}: loss {j['loss']} vs one rank "
+                                           f"{j['ref_loss']}")
+            require(rows[worst][2] <= tols[worst],
+                    f"{label} {name}: gradient leaf {worst} {rows[worst][2]} relative to the "
+                    f"one-rank one (tolerance {tols[worst]}, noise floor {floor[worst]})")
+            say(f"{label} {name}: loss {j['loss']:.6f} vs one rank {j['ref_loss']:.6f}; "
+                f"gradient nearest its tolerance {rows[worst][2]:.3g} (<= {tols[worst]:.3g}, "
+                f"noise floor {floor[worst]:.3g})")
+        out[name] = res
     return out
 
 
@@ -5320,27 +5678,43 @@ def _mesh_job(ctx, tag, runs, timeout_s) -> list:
     out = meshctx.spawn_ranks(_mesh_rank, world, timeout_s=timeout_s, backend="gloo",
                               device="cuda" if ctx["on_card"] else "cpu", args=(runs,),
                               threads=0 if ctx["on_card"] else 1)
-    meshes = ", ".join(f"{r['mesh'][0]}x{r['mesh'][1]} {r['kind']}" for r in runs)
-    say(f"phase {tag}: {world} ranks ran {meshes} ({runs[0]['arch']}) in "
-        f"{time.time() - t0:.1f} s")
+    meshes = ", ".join(f"{r['mesh'][0]}x{r['mesh'][1]} {r['kind']} ({r['arch']}, "
+                       f"{out[0][i]['job_s']:.1f} s)" for i, r in enumerate(runs))
+    say(f"phase {tag}: {world} ranks ran {meshes} in {time.time() - t0:.1f} s")
     return [[rank[i] for rank in out] for i in range(len(runs))]
 
 
-def mesh_collective_calls(cfg, shape, n_leaves, remat="none") -> int:
-    """All-reduces of one mesh train step a rank: on the model axis the
-    embedding's and two a layer forward (wo's partials; down's, or the
-    experts' combine), the loss's max, sum of exponentials and target
-    logit, backward two a dense layer (three an MoE layer: the dispatched
-    rows' and the gates' cotangents) and the head's, the gradient norm, and
-    under remat ``dots`` / ``full`` each layer's wo reduction again (the
-    recomputation stops at the last tensor the backward needs, before the
-    layer's closing reduction: PyTorch's non-reentrant checkpoint stops
-    early); on the data axis the token count, every gradient leaf and the
-    loss with ce and aux."""
+def mesh_collective_calls(cfg, shape, n_leaves, remat="none") -> dict:
+    """Collectives of one mesh train step a rank, by kind.  All-reduces: on
+    the model axis the embedding's and two a layer forward (wo's partials;
+    down's, or the experts' combine; a Mamba-2 layer's gnorm sum of squares
+    and out_proj's), the loss's max, sum of exponentials and target logit,
+    backward two a dense or hybrid layer (three an MoE layer: the
+    dispatched rows' and the gates' cotangents; five a Mamba-2 layer: the
+    normed input's dx, gnorm's sum of squares, and the B / C columns'
+    gradients of in_proj, the conv taps and the conv bias) and the head's,
+    the gradient norm, each hybrid attention block's two kv-head gathers'
+    backward, and under remat ``dots`` / ``full`` each dense layer's wo
+    reduction again (the recomputation stops at the last tensor the
+    backward needs, before the layer's closing reduction: PyTorch's
+    non-reentrant checkpoint stops early); on the data axis the token
+    count, every gradient leaf and the loss with ce and aux.  All-gathers:
+    the hybrid's k and v on each attention block (the kv-split path)."""
     D, M = shape
     L = cfg.n_layers
-    calls = ((4 + bool(cfg.moe)) * L + 6 + (0 if remat == "none" else L)) if M > 1 else 0
-    return calls + ((n_leaves + 2) if D > 1 else 0)
+    out = {}
+    if M > 1:
+        if cfg.family == "ssm":
+            out["all-reduce"] = 7 * L + 6
+        elif cfg.family == "hybrid":
+            n_attn = L // len(cfg.block_pattern) * cfg.block_pattern.count("attn")
+            out["all-reduce"] = 4 * L + 2 * n_attn + 6
+            out["all-gather"] = 2 * n_attn
+        else:
+            out["all-reduce"] = (4 + bool(cfg.moe)) * L + 6 + (0 if remat == "none" else L)
+    if D > 1:
+        out["all-reduce"] = out.get("all-reduce", 0) + n_leaves + 2
+    return out
 
 
 def _mesh_path_gates(ctx, label, cfg, shape, ranks) -> dict:
@@ -5380,9 +5754,9 @@ def _mesh_path_gates(ctx, label, cfg, shape, ranks) -> dict:
                 f"{label}: backward oracles {r['backward_calls']}, expected {bwd_want}")
         for h in r["history"]:
             got = h["collectives"]["calls"]
-            require(got.get("all-reduce", 0) == calls and set(got) <= {"all-reduce"},
+            require({k: got.get(k, 0) for k in calls} == calls and set(got) <= set(calls),
                     f"{label} rank {r['rank']} step {h['step']}: collectives {got}, "
-                    f"expected {calls} all-reduces")
+                    f"expected {calls}")
     steady = [h["s"] for h in r0["history"][1:]] or [r0["history"][0]["s"]]
     step_s = sum(steady) / len(steady)
     tokens = r0["history"][0]["ntokens"]
@@ -5417,15 +5791,15 @@ def _mesh_path_gates(ctx, label, cfg, shape, ranks) -> dict:
         f"oracles in the last step {out['oracle_ms_last_step']} ms = "
         f"{out['oracle_share_last_step']} of it; launches a step a rank "
         f"{out['launches_per_step']} (predicted {train_launches(cfg, remat)}); collectives "
-        f"{calls} all-reduces a step predicted; transport {r0['transport']}")
+        f"{calls} a step predicted; transport {r0['transport']}")
     return out
 
 
-def phase_train_mesh(ctx, cfg, moe_cfg) -> dict:
+def phase_train_mesh(ctx, cfg, moe_cfg, ssm_cfg, rg_cfg) -> dict:
     """5g: tinyllama-1.1b at full width and depth at 1x2 (two ranks on the
     one card through gloo, each 16 of the 32 heads and half the MLP and
     vocab), axq8 with the ladder 8 -> 5 stepping each step, the global
-    batch of 8 x 1024 on both ranks, 4 steps.  5h: the same at 2x1 (each
+    batch of 8 x 1024 on both ranks, 3 steps.  5h: the same at 2x1 (each
     rank the full weights and 4 x 1024 of the rows), the parameters of both
     ranks compared after every step and the gradient all-reduce bytes equal
     to 4 x the parameter count.  5k: granite-moe-3b-a800m (``moe_cfg``) at
@@ -5434,18 +5808,31 @@ def phase_train_mesh(ctx, cfg, moe_cfg) -> dict:
     global batch on both ranks, remat full (the state alone of the full
     depth, p / g / mu / nu in f32, is ~27 GB a rank),
     ``ctx["moe_mesh_shape"]``'s steps: 5g's gates with the MoE's launches
-    (the expert-batched kernels a layer a rank) and collectives.  The three
-    run in one spawn of two ranks, one after another."""
+    (the expert-batched kernels a layer a rank) and collectives.  5l:
+    mamba2-370m (``ssm_cfg``, its depth cut) and 5m: recurrentgemma-2b
+    (``rg_cfg``, cut for memory: AdamW's functional update holds ~32 B a
+    parameter, and its two 655 M-parameter embeddings alone ~21 GB a rank)
+    at full width at 1x2 (16 of the 32 SSD heads, or half the RG-LRU
+    channels and 5 of the 10 query heads over MQA's one kv head, a rank),
+    axq8 with the ladder, the pipeline's global batch of
+    ``ctx["rec_mesh_shape"]`` on both ranks, remat none: 5g's gates with
+    the families' launches and collectives (``train_launches``,
+    ``mesh_collective_calls``).  The five run in one spawn of two ranks,
+    one after another."""
     T, n = ctx["train_seq"], ctx["mesh_train_steps"]
     common = {"kind": "path", "arch": cfg.name, "approx": "axq8", "seq": T, "steps": n}
     B, Tk, nk = ctx["moe_mesh_shape"]
+    Br, Tr, nr = ctx["rec_mesh_shape"]
+    rec = lambda c: {"kind": "path", "arch": c.name, "approx": "axq8", "n_layers": c.n_layers,
+                     "seq": Tr, "steps": nr, "mesh": (1, TP), "batch": Br}
     cases = (("5g", cfg, dict(common, mesh=(1, TP), batch=ctx["mesh_train_batch"])),
              ("5h", cfg, dict(common, mesh=(TP, 1), batch=TP * ctx["mesh_dp_rows"],
                               every_step=True)),
              ("5k", moe_cfg, {"kind": "path", "arch": moe_cfg.name, "approx": "axq8",
                               "n_layers": moe_cfg.n_layers, "seq": Tk, "steps": nk,
-                              "mesh": (1, TP), "batch": B, "remat": ctx["moe_mesh_remat"]}))
-    results = _mesh_job(ctx, "5g / 5h / 5k", [job for _, _, job in cases],
+                              "mesh": (1, TP), "batch": B, "remat": ctx["moe_mesh_remat"]}),
+             ("5l", ssm_cfg, rec(ssm_cfg)), ("5m", rg_cfg, rec(rg_cfg)))
+    results = _mesh_job(ctx, "5g / 5h / 5k / 5l / 5m", [job for _, _, job in cases],
                         ctx["mesh_timeout_s"])
     out = {}
     for (tag, c, job), ranks in zip(cases, results):
@@ -5613,7 +6000,7 @@ def _mesh_cut_gates(ctx, label, shape, ranks, names, noise=None) -> dict:
     return out
 
 
-def phase_train_mesh_cut(ctx, cfg, moe_cfg, vlm_cfg, audio_cfg) -> dict:
+def phase_train_mesh_cut(ctx, cfg, moe_cfg, vlm_cfg, audio_cfg, ssm_cfg, rg_cfg) -> dict:
     """5i: tinyllama-1.1b cut to 2 layers at full width, one train step at
     1x2, 2x1 and 2x2 (four ranks) from the seeded state on one batch,
     each rank's shards held to the same step on one rank (computed in each
@@ -5624,7 +6011,12 @@ def phase_train_mesh_cut(ctx, cfg, moe_cfg, vlm_cfg, audio_cfg) -> dict:
     rank on the plain versions: the kernel route's step against the plain
     route's, at the noise floor), held at 2x1 / 2x2 to the reference's mesh
     semantics computed on one rank (``_data_shard_step``); internvl2-1b
-    and hubert-xlarge at 2 layers at 1x2 under EXACT f32."""
+    and hubert-xlarge at 2 layers at 1x2 under EXACT f32; mamba2-370m at 2
+    layers at 1x2 and 2x1 (EXACT f32 and axq8, whole steps); and
+    recurrentgemma-2b at one (rec, rec, attn) group at 1x2, its gradients
+    alone (``_mesh_grads``: its one-rank state does not fit twice a rank
+    beside the other rank's on the card, and at 2x1 each rank would hold
+    one)."""
     import numpy as np
 
     from repro_torch.data.pipeline import make_pipeline
@@ -5640,9 +6032,11 @@ def phase_train_mesh_cut(ctx, cfg, moe_cfg, vlm_cfg, audio_cfg) -> dict:
     moe_subs = {(1, 2): [exact, dict(axq8, ref_plain=True)], (2, 1): [exact, axq8],
                 (2, 2): [exact, axq8]}
 
-    def run(c, shape, subs_, b):
-        return {"kind": "cut", "arch": c.name, "n_layers": 2, "batch": b, "mesh": shape,
-                "subs": subs_}
+    def run(c, shape, subs_, b, n_layers=2):
+        return {"kind": "cut", "arch": c.name, "n_layers": n_layers, "batch": b,
+                "mesh": shape, "subs": subs_}
+
+    grads = [dict(exact, grads_only=True), dict(axq8, grads_only=True)]
 
     fe = {c.name: make_pipeline(c, seq_len=s, global_batch=B).batch_at(0)
           for c, s in ((vlm_cfg, ctx["mesh_cut_vlm_seq"]), (audio_cfg, T))}
@@ -5653,7 +6047,9 @@ def phase_train_mesh_cut(ctx, cfg, moe_cfg, vlm_cfg, audio_cfg) -> dict:
                run(moe_cfg, (1, 2), moe_subs[(1, 2)], batch),
                run(moe_cfg, (2, 1), moe_subs[(2, 1)], batch),
                run(vlm_cfg, (1, 2), [exact], fe[vlm_cfg.name]),
-               run(audio_cfg, (1, 2), [exact], fe[audio_cfg.name])],
+               run(audio_cfg, (1, 2), [exact], fe[audio_cfg.name]),
+               run(ssm_cfg, (1, 2), [exact, axq8], batch), run(ssm_cfg, (2, 1), [exact, axq8], batch),
+               run(rg_cfg, (1, 2), grads, batch, len(rg_cfg.block_pattern))],
               [run(cfg, (2, 2), subs[(2, 2)], batch), run(moe_cfg, (2, 2), moe_subs[(2, 2)], batch)]]
     out, noise = {}, {}
     for runs in groups:
@@ -5665,8 +6061,13 @@ def phase_train_mesh_cut(ctx, cfg, moe_cfg, vlm_cfg, audio_cfg) -> dict:
                 noise[arch] = ranks[0]["jobs"]["axq8"]["noise"]
             tag = f"{shape[0]}x{shape[1]}"
             key = tag if arch == cfg.name else f"{arch} {tag}"
-            out[key] = _mesh_cut_gates(ctx, f"phase 5i {key}", shape, ranks,
-                                       [s["name"] for s in r["subs"]], noise.get(arch))
+            names = [sub["name"] for sub in r["subs"]]
+            if r["subs"][0].get("grads_only"):
+                out[key] = _mesh_grad_gates(ctx, f"phase 5i {key}", ranks, names,
+                                            noise.get(arch))
+            else:
+                out[key] = _mesh_cut_gates(ctx, f"phase 5i {key}", shape, ranks, names,
+                                           noise.get(arch))
     return out
 
 
@@ -5835,10 +6236,10 @@ def main(argv=None) -> int:
                     help="build, then only phase 5 (training; prints no result line)")
     ap.add_argument("--tp-only", action="store_true",
                     help="build, then only the tensor-parallel phases (2's shard rows, "
-                         "3s, 3t; prints no result line)")
+                         "3s, 3t, 3u, 3v; prints no result line)")
     ap.add_argument("--train-mesh-only", action="store_true",
                     help="build, then only the mesh-training phases (2's training shard "
-                         "rows, 5g-5j; prints no result line)")
+                         "rows, 5g-5m; prints no result line)")
     args = ap.parse_args(argv)
     if not (HERE / "src" / "repro_torch").is_dir():
         say("FAIL: src/repro_torch not found next to this script (run it from "
@@ -5901,11 +6302,13 @@ def main(argv=None) -> int:
                # depth cuts of earlier paths that keep the script in its limit
                # (PERF.md §7 names the run that forced each)
                "depth_cuts": {"3t": 4, "5e": 6, "5f": 12, "3i": 4, "3k": 4, "3g": 6,
-                              "3m": 4, "3o": 8, "3q": 4, "3s": 4, "5k": 18},
-               "mesh_train_batch": 8, "mesh_dp_rows": 4, "mesh_train_steps": 4,
+                              "3m": 4, "3o": 8, "3q": 4, "3s": 4, "5k": 12, "3p": 8,
+                              "3u": 2, "3v": 3, "5l": 6, "5m": 5},
+               "mesh_train_batch": 8, "mesh_dp_rows": 4, "mesh_train_steps": 3,
                "mesh_cut_shape": (2, 1024), "mesh_launch_shape": (2, 256, 6),
                "mesh_timeout_s": 900.0, "mesh_cut_vlm_seq": 2048,
                "moe_mesh_shape": (4, 1024, 3), "moe_mesh_remat": "full",
+               "rec_mesh_shape": (4, 1024, 3),
                "tp_launch_approx": "axq8",
                "calib_shape": (2, 64), "plan_grid": (8, 5),
                "resil_prompts": 8, "resil_deadline_ms": 5000.0, "resil_shed": 8,
@@ -5981,6 +6384,7 @@ def main(argv=None) -> int:
                "mesh_cut_shape": (2, 32), "mesh_launch_shape": (2, 16, 30),
                "mesh_timeout_s": 300.0, "mesh_cut_vlm_seq": 24,
                "moe_mesh_shape": (4, 32, 2), "moe_mesh_remat": "full",
+               "rec_mesh_shape": (4, 32, 2),
                "tp_launch_approx": "exact",
                "calib_shape": (2, 16), "plan_grid": (8, 6, 4),
                "resil_prompts": 4, "resil_deadline_ms": 5000.0, "resil_shed": 4,
@@ -6028,7 +6432,7 @@ def main(argv=None) -> int:
         say("training phases done (--train-only): no result line")
         return 0
     if args.train_mesh_only:
-        train_mesh_phases(ctx, record, cfg, moe_cfg, vlm_cfg, audio_cfg)
+        train_mesh_phases(ctx, record, cfg, moe_cfg, vlm_cfg, audio_cfg, ssm_cfg, rg_cfg)
         launcher_phases(ctx, record, cfg, moe_cfg, single=False)
         record["phase_seconds"] = dict(record.times)
         write_record(args.record, record)
@@ -6036,8 +6440,11 @@ def main(argv=None) -> int:
         return 0
     if args.tp_only:
         record["kernels_tp"] = phase_kernels_tp(ctx, cfg, moe_cfg)
+        record["kernels_tp_rec"] = phase_kernels_tp_recurrent(ctx, ssm_cfg, rg_cfg)
         prompts = tp_prompts(ctx, cfg)
-        record["tp_dense_path"] = phase_tp_dense(ctx, cfg, prompts)
+        record["tp_dense_path"], rec = phase_tp_dense(
+            ctx, cfg, prompts, tp_recurrent_jobs(ctx, ssm_cfg, rg_cfg, prompts))
+        record["tp_rec_path"] = phase_tp_recurrent(ctx, ssm_cfg, rg_cfg, rec)
         record["tp_moe_path"] = phase_tp_moe(ctx, depth_cut(ctx, "3t", moe_cfg),
                                              prompts)
         record["phase_seconds"] = dict(record.times)
@@ -6051,6 +6458,7 @@ def main(argv=None) -> int:
     record["kernels_rec"] = phase_kernels_recurrent(ctx, ssm_cfg, rg_cfg)
     record["kernels_fe"] = phase_kernels_frontends(ctx, vlm_cfg, audio_cfg)
     record["kernels_tp"] = phase_kernels_tp(ctx, cfg, moe_cfg)
+    record["kernels_tp_rec"] = phase_kernels_tp_recurrent(ctx, ssm_cfg, rg_cfg)
     if args.kernels_only:
         write_record(args.record, record)
         say("kernel checks done (--kernels-only): no result line")
@@ -6064,7 +6472,9 @@ def main(argv=None) -> int:
     del model, params
     if on_card:
         torch.cuda.empty_cache()
-    record["tp_dense_path"] = phase_tp_dense(ctx, cfg, prompts_3)
+    record["tp_dense_path"], rec = phase_tp_dense(
+        ctx, cfg, prompts_3, tp_recurrent_jobs(ctx, ssm_cfg, rg_cfg, prompts_3))
+    record["tp_rec_path"] = phase_tp_recurrent(ctx, ssm_cfg, rg_cfg, rec)
     record["tp_moe_path"] = phase_tp_moe(ctx, depth_cut(ctx, "3t", moe_cfg),
                                          prompts_3)
     record["emul_path"] = phase_emul(ctx, cfg)
@@ -6127,13 +6537,15 @@ def main(argv=None) -> int:
                                              n_layers=2 if tag == "ssm" else 4)
 
     train_phases(ctx, record, cfg, moe_cfg, ssm_cfg, rg_cfg, vlm_cfg, audio_cfg)
-    train_mesh_phases(ctx, record, cfg, moe_cfg, vlm_cfg, audio_cfg)
+    train_mesh_phases(ctx, record, cfg, moe_cfg, vlm_cfg, audio_cfg, ssm_cfg, rg_cfg)
     launcher_phases(ctx, record, cfg, moe_cfg)
 
     paths = {"5a": record["train_path"]["seen"],
              "5g": record["train_mesh"]["5g"]["seen"],
              "5h": record["train_mesh"]["5h"]["seen"],
              "5k": record["train_mesh"]["5k"]["seen"],
+             "5l": record["train_mesh"]["5l"]["seen"],
+             "5m": record["train_mesh"]["5m"]["seen"],
              "5e": record["train_vlm"]["seen"], "5f": record["train_audio"]["seen"],
              "3q": record["vlm_path"], "3r": record["fleet_path"],
              "3": record["main_path"], "3b": record["int8_cache_path"],
@@ -6145,10 +6557,13 @@ def main(argv=None) -> int:
              "3m": record["moe_path"], "3n": record["moe_int8_path"],
              "3o": record["ssm_path"], "3p": record["rg_path"],
              "3s": tp_launches(record["tp_dense_path"]),
-             "3t": tp_launches(record["tp_moe_path"])}
+             "3t": tp_launches(record["tp_moe_path"]),
+             "3u": tp_launches(record["tp_rec_path"]["3u"]),
+             "3v": tp_launches(record["tp_rec_path"]["3v"])}
     summary = []
     moe_rows = record["kernels_moe"]
-    tp_rows = record["kernels_tp"]
+    tp_rows = {k: v + record["kernels_tp_rec"].get(k, []) + record["kernels_train_mesh_rec"].get(
+        k, []) for k, v in record["kernels_tp"].items()}
     for name in list(record["kernels"]) + ["axqmm_experts", "axqmm_gated_experts"]:
         src, replaces = SOURCES[name]
         rows = record["kernels"].get(name) or moe_rows[name]

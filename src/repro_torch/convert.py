@@ -16,8 +16,9 @@ recurrent blocks.  The caller does the array-to-numpy step (for example
 ``jax.tree.map(np.asarray, tree)``).  A float tree built by the reference
 with ``model.init(key, tp=tp)`` becomes one rank's local shards through
 :func:`shard_from_numpy` (``params_from_numpy``, then
-``dist.sharding.shard_params``); the packs are built on the shards
-afterwards.
+``dist.sharding.shard_params``: the recurrent blocks cut by heads and
+channels, a Mamba-2 ``in_proj`` part by part); the packs are built on the
+shards afterwards.
 """
 
 from __future__ import annotations

@@ -42,7 +42,17 @@ classes over the counted :func:`all_reduce` / :func:`all_gather`:
   :func:`ring_reduce_from_model`  forward the int8 ring all-reduce,
                              backward the identity (the straight-through
                              backward of the reference's ``_ring_psum_model``,
-                             the MoE combine under ``REPRO_RING_TP``).
+                             the MoE combine under ``REPRO_RING_TP``);
+  :func:`sum_over_model`     forward and backward both an all-reduce sum
+                             (a sum that rank-local values consume: the
+                             sum of squares of a norm over a width split on
+                             ``model``, whose cotangents differ across the
+                             ranks);
+  :func:`sum_grad_columns`   forward the identity, backward an all-reduce
+                             sum of a range of the cotangent's last-dim
+                             columns (the replicated columns of a weight
+                             that rank-local heads consume: each rank's
+                             gradient there is its heads' part).
 
 Transport: on a gloo group, :func:`all_reduce` hands CUDA tensors to gloo,
 which reduces them through its own host copies; the all-gather and the
@@ -271,6 +281,30 @@ class _RingReduceFromModel(torch.autograd.Function):
         return g, None
 
 
+class _SumOverModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous(), ctx.group), None
+
+
+class _SumGradColumns(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w, group, lo, hi):
+        ctx.group, ctx.lo, ctx.hi = group, lo, hi
+        return w.view_as(w)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        g[..., ctx.lo:ctx.hi] = all_reduce(g[..., ctx.lo:ctx.hi].contiguous(), ctx.group)
+        return g, None, None, None
+
+
 def reduce_from_model(x: Tensor, group) -> Tensor:
     """The sum of ``x`` over ``group`` (the row-parallel partials, the
     vocab-parallel embedding, the sharded loss's sums); its backward passes
@@ -318,6 +352,27 @@ def ring_reduce_from_model(x: Tensor, group) -> Tensor:
     if group is None:
         return x
     return _RingReduceFromModel.apply(x, group)
+
+
+def sum_over_model(x: Tensor, group) -> Tensor:
+    """The exact sum of ``x`` over ``group``, whose backward sums the
+    cotangent over ``group`` too: right where rank-local values consume
+    the sum (every rank's cotangent is its own consumers' part).  Exact
+    under the int8-ring lever.  ``x`` itself when ``group`` is None."""
+    if group is None:
+        return x
+    return _SumOverModel.apply(x, group)
+
+
+def sum_grad_columns(w: Tensor, group, lo: int, hi: int) -> Tensor:
+    """``w`` unchanged; its backward sums the cotangent's last-dim columns
+    ``[lo, hi)`` over ``group`` and leaves the others as they are: the
+    columns of a weight replicated over the ranks whose outputs each rank
+    consumes only for its own heads, so each rank's gradient there is a
+    part of the whole.  ``w`` itself when ``group`` is None."""
+    if group is None:
+        return w
+    return _SumGradColumns.apply(w, group, lo, hi)
 
 
 def broadcast_value(value: float, group, device) -> float:

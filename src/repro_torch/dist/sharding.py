@@ -24,11 +24,24 @@ rank, as the reference's do.
 rank's part: each sharded dim is split into equal contiguous pieces in
 mesh-coordinate order (a dim that does not divide raises, naming the
 leaf), so concatenating the ranks' pieces gives back the global leaf bit
-for bit.  One rule goes beyond the spec table: the bias of a
-column-parallel projection (a QKV bias) is sliced with its columns, where
-the reference leaves it to the partitioner; a frontend's biases
-(``v_proj``, ``a_proj``, whose weights are gathered whole before their
-product) stay replicated.  Weights are sliced before
+for bit.  Two rules go beyond the spec table, where the reference
+leaves the data to the partitioner and the port computes on local
+shards:
+
+  * the bias of a column-parallel projection (a QKV bias) is sliced with
+    its columns; a frontend's biases (``v_proj``, ``a_proj``, whose weights
+    are gathered whole before their product) stay replicated;
+  * the recurrent blocks are cut by heads and channels (:func:`_recurrent_cuts`).
+    A Mamba-2 block's fused ``in_proj`` columns ``[z | x | B | C | dt]``
+    are cut part by part (:class:`Parts`): rank r holds ``[z_r | x_r | B |
+    C | dt_r]``, z, x and dt cut by heads, B and C whole; its conv
+    channels ``[x_r | B | C]`` the same way; ``dt_bias``, ``a_log``, ``D``
+    and ``gnorm`` the rank's heads and channels.  An RG-LRU block's conv
+    and ``lam`` take the rank's channels.  Their caches follow
+    (:func:`cache_leaf_specs`): the SSM's conv tail ``[x_r | B | C]``, the
+    RG-LRU's state and conv tail the rank's channels.
+
+Weights are sliced before
 they are packed: the packs are built on each shard
 (``kernels/qstore.py``, with the quantization block resolved from the
 global contraction dim).
@@ -38,12 +51,14 @@ the parameters and AdamW's ``mu`` / ``nu`` by the same rules, the step
 replicated), gathers a local tree back to its global leaves
 (:func:`gather_params`, :func:`gather_train_state`: the checkpoint's
 form), cuts a batch to this rank's rows (:func:`shard_batch`) and marks the
-leaves split over ``model`` (:func:`model_sharded`: the gradient norm
-counts a replicated leaf once).
+leaves split over ``model`` (:func:`model_sharded`; :func:`split_columns`
+tells the gradient norm which entries are split, so a replicated leaf or
+part counts once).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Optional
 
 import torch
@@ -171,10 +186,23 @@ def partition_cache(cache: Any, family: str = "", mesh: Optional[Mesh] = None) -
     return _map_with_path(spec, cache)
 
 
+@dataclasses.dataclass(frozen=True)
+class Parts:
+    """The spec entry of a dim that is the concatenation of parts of
+    ``widths`` (in the leaf's own terms: a global leaf's global widths, a
+    rank's its local ones), each part flagged in ``split`` cut into equal
+    contiguous pieces over ``model``, the others whole on every rank."""
+
+    widths: tuple
+    split: tuple
+
+
 def _axis_parts(entry, mesh: Mesh) -> tuple:
     """(number of pieces, this rank's piece) of one spec entry."""
     if entry is None:
         return 1, 0
+    if isinstance(entry, Parts):
+        return mesh.size("model"), mesh.coord("model")
     axes = entry if isinstance(entry, tuple) else (entry,)
     n, idx = 1, 0
     for a in axes:
@@ -192,12 +220,35 @@ def shard_leaf(x: torch.Tensor, spec: tuple, mesh: Mesh, name: str = "") -> torc
         n, idx = _axis_parts(entry, mesh)
         if n == 1:
             continue
+        if isinstance(entry, Parts):
+            out = _cut_parts(out, d, entry, n, idx, name)
+            continue
         if x.shape[d] % n:
             raise ValueError(f"{name}: dim {d} of size {x.shape[d]} does not split "
                              f"into {n} shards")
         step = x.shape[d] // n
         out = out.narrow(d, idx * step, step)
     return out if out is x else out.clone()
+
+
+def _cut_parts(x: torch.Tensor, d: int, parts: Parts, n: int, idx: int,
+               name: str) -> torch.Tensor:
+    """Dim ``d`` of ``x`` cut part by part: piece ``idx`` of ``n`` of each
+    split part, each other part whole, concatenated in order."""
+    if sum(parts.widths) != x.shape[d]:
+        raise ValueError(f"{name}: parts {parts.widths} do not make dim {d} of size "
+                         f"{x.shape[d]}")
+    pieces, off = [], 0
+    for w, split in zip(parts.widths, parts.split):
+        seg = x.narrow(d, off, w)
+        off += w
+        if split:
+            if w % n:
+                raise ValueError(f"{name}: a part of width {w} of dim {d} does not split "
+                                 f"into {n} shards")
+            seg = seg.narrow(d, idx * (w // n), w // n)
+        pieces.append(seg)
+    return torch.cat(pieces, dim=d)
 
 
 def _column_bias(p: dict, specs: dict) -> bool:
@@ -218,6 +269,7 @@ def _leaf_specs(params: Any, specs: Any = None) -> Any:
             out = {k: walk(v, s[k], f"{path}/{k}" if path else k) for k, v in p.items()}
             if _column_bias(p, s) and path.split("/")[0] not in _GATHERED_MODULES:
                 out["b"] = (None,) * (p["b"].dim() - 1) + ("model",)
+            _recurrent_cuts(p, out)
             return out
         if isinstance(p, tuple) and hasattr(p, "_fields"):
             raise ValueError(f"{path}: a packed weight ({type(p).__name__}) cannot be "
@@ -227,6 +279,37 @@ def _leaf_specs(params: Any, specs: Any = None) -> Any:
         return None if p is None else s
 
     return walk(params, specs, "")
+
+
+def _last(t: torch.Tensor, entry) -> tuple:
+    """A spec that cuts the last dim of ``t`` by ``entry``."""
+    return (None,) * (t.dim() - 1) + (entry,)
+
+
+def _recurrent_cuts(p: dict, out: dict) -> None:
+    """The recurrent blocks' cut by heads and channels (module docstring),
+    set into ``out`` (the spec dict of ``p``).  A Mamba-2 block is the dict
+    with ``in_proj``, ``conv``, ``dt_bias`` and ``gnorm``: its widths come
+    from its own leaves (H from ``dt_bias``, d_in from ``gnorm``, N from
+    what ``in_proj`` has left), so a global tree and a rank's local one each
+    give their own.  An RG-LRU block is the dict with ``wx``, ``conv`` and
+    ``lam``."""
+    keys = p.keys()
+    if {"in_proj", "conv", "dt_bias", "gnorm"} <= keys:
+        H, d_in = p["dt_bias"].shape[-1], p["gnorm"]["scale"].shape[-1]
+        w = p["in_proj"]["w"]
+        N = (w.shape[-1] - 2 * d_in - H) // 2
+        out["in_proj"]["w"] = _last(w, Parts((d_in, d_in, N, N, H),
+                                             (True, True, False, False, True)))
+        for k in ("w", "b"):
+            out["conv"][k] = _last(p["conv"][k], Parts((d_in, 2 * N), (True, False)))
+        for k in ("dt_bias", "a_log", "D"):
+            out[k] = _last(p[k], "model")
+        out["gnorm"]["scale"] = _last(p["gnorm"]["scale"], "model")
+    elif {"wx", "conv", "lam"} <= keys:
+        for k in ("w", "b"):
+            out["conv"][k] = _last(p["conv"][k], "model")
+        out["lam"] = _last(p["lam"], "model")
 
 
 def _map_specs(fn, tree, specs, path: str = ""):
@@ -257,10 +340,21 @@ def gather_leaf(x: torch.Tensor, spec: tuple, mesh: Mesh, name: str = "") -> tor
     calls it)."""
     out = x
     for d, entry in enumerate(spec):
-        if _axis_parts(entry, mesh)[0] == 1:
+        n = _axis_parts(entry, mesh)[0]
+        if n == 1:
             continue
         if isinstance(entry, tuple):
             raise NotImplementedError(f"{name}: gathering dim {d} over {entry}")
+        if isinstance(entry, Parts):
+            # every rank's piece in one gather, then each split part's n
+            # pieces in order and each whole part once (rank 0's)
+            ranks = collectives.all_gather(out, mesh.group("model"), dim=d).chunk(n, d)
+            pieces, off = [], 0
+            for w, split in zip(entry.widths, entry.split):
+                pieces += [r.narrow(d, off, w) for r in (ranks if split else ranks[:1])]
+                off += w
+            out = torch.cat(pieces, dim=d)
+            continue
         out = collectives.all_gather(out, mesh.group(entry), dim=d)
     return out
 
@@ -274,12 +368,32 @@ def gather_params(local: Any, mesh: Optional[Mesh] = None) -> Any:
 
 
 def model_sharded(params: Any, mesh: Optional[Mesh] = None) -> list:
-    """One bool a leaf, in ``tree_leaves`` order: whether the leaf is split
-    over a mesh axis wider than 1 (False for every leaf on one device)."""
+    """One bool a leaf, in ``tree_leaves`` order: whether the leaf is split,
+    whole or in part, over a mesh axis wider than 1 (False for every leaf
+    on one device)."""
     mesh = mesh or get_mesh()
     specs = _map_specs(lambda x, s, path: any(_axis_parts(e, mesh)[0] > 1 for e in s),
                        params, _leaf_specs(params))
     return tree_leaves(specs)
+
+
+def split_columns(params: Any, mesh: Optional[Mesh] = None) -> list:
+    """One entry a leaf of a rank's local tree, in ``tree_leaves`` order:
+    False for a leaf replicated over the mesh, True for a leaf split whole,
+    and for a leaf cut part by part (:class:`Parts`, on its last dim) a
+    bool tensor over its last dim, True on the columns of the split parts
+    (the gradient norm sums those over ``model`` and counts the rest
+    once)."""
+    mesh = mesh or get_mesh()
+
+    def entry(x, spec, path):
+        last = spec[-1] if spec else None
+        if isinstance(last, Parts) and _axis_parts(last, mesh)[0] > 1:
+            return torch.cat([torch.full((w,), s, dtype=torch.bool, device=x.device)
+                              for w, s in zip(last.widths, last.split)])
+        return any(_axis_parts(e, mesh)[0] > 1 for e in spec)
+
+    return tree_leaves(_map_specs(entry, params, _leaf_specs(params)))
 
 
 def shard_train_state(state: Any, mesh: Optional[Mesh] = None) -> Any:
@@ -316,13 +430,38 @@ def shard_batch(batch: dict, mesh: Optional[Mesh] = None) -> dict:
     return {k: shard_leaf(v, specs[k], mesh, k) for k, v in batch.items()}
 
 
+def cache_leaf_specs(cache: Any, mesh: Optional[Mesh] = None) -> Any:
+    """The spec of every cache leaf as :func:`shard_cache` cuts it:
+    :func:`partition_cache`'s, with the recurrent states cut by heads and
+    channels (module docstring).  An SSM cache is the one whose ``h`` is
+    (L, B, H, P, N): its conv tail's channels are ``[x | B | C]``, d_in = H
+    P of them and N each of B and C.  A hybrid cache is the one whose ``h``
+    is (n_rec, B, d): its state and conv tail are cut by channel."""
+    specs = partition_cache(cache, mesh=mesh)
+    if not (hasattr(cache, "_fields") and {"h", "conv"} <= set(cache._fields)):
+        return specs
+    h = cache.h
+    if h.dim() == 5:
+        conv = Parts((h.shape[2] * h.shape[3], 2 * h.shape[4]), (True, False))
+        return specs._replace(conv=specs.conv[:-1] + (conv,))
+    return specs._replace(h=specs.h[:-1] + ("model",), conv=specs.conv[:-1] + ("model",))
+
+
 def shard_cache(cache: Any, specs: Any = None, mesh: Optional[Mesh] = None) -> Any:
     """A global cache cut to this rank's part by ``specs`` (default
-    :func:`partition_cache`)."""
+    :func:`cache_leaf_specs`)."""
     mesh = mesh or get_mesh()
-    specs = partition_cache(cache, mesh=mesh) if specs is None else specs
+    specs = cache_leaf_specs(cache, mesh) if specs is None else specs
     return _map_with_path(
         lambda path, leaf: shard_leaf(leaf, _spec_at(specs, path), mesh, path), cache)
+
+
+def gather_cache(local: Any, mesh: Optional[Mesh] = None) -> Any:
+    """The inverse of :func:`shard_cache` (collective over ``model``)."""
+    mesh = mesh or get_mesh()
+    specs = cache_leaf_specs(local, mesh)
+    return _map_with_path(
+        lambda path, leaf: gather_leaf(leaf, _spec_at(specs, path), mesh, path), local)
 
 
 def _spec_at(specs, path: str):

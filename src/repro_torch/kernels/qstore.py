@@ -23,7 +23,7 @@ the SSM and hybrid trees.
 On a mesh (tensor parallelism) the packs are built on this rank's shards,
 after slicing (``dist/sharding.py``).  A column-parallel or expert shard
 packs as the matching slice of the global pack would.  A row-parallel
-shard (``wo``, ``down``, ``out_proj``: rows of the contraction dim) takes
+shard (``wo``, ``down``, ``out_proj``, in every family: rows of the contraction dim) takes
 the block resolved from the *global* K (``resolve_block(K_local * tp,
 block)``), and a shard that is not a whole number of those blocks raises,
 naming the leaf: quantizing other blocks than one device's would change
@@ -255,44 +255,44 @@ def _pack_transformer(params: dict, cfg, policy: ApproxPolicy, tp: int = 1) -> d
     return out
 
 
-def _pack_ssm(params: dict, cfg, policy: ApproxPolicy) -> dict:
+def _pack_ssm(params: dict, cfg, policy: ApproxPolicy, tp: int = 1) -> dict:
     out = dict(params)
     layers = dict(params["layers"])
     for key in ("in_proj", "out_proj"):
-        layers[key] = _pack_dense(layers[key], f"layer/{key}", policy)
+        layers[key] = _pack_dense(layers[key], f"layer/{key}", policy, tp)
     out["layers"] = layers
-    out["embed"] = _pack_embed(params["embed"], policy)
+    out["embed"] = _pack_embed(params["embed"], policy, tp)
     return out
 
 
-def _pack_rec_block(bp: dict, path: str, policy: ApproxPolicy) -> dict:
+def _pack_rec_block(bp: dict, path: str, policy: ApproxPolicy, tp: int = 1) -> dict:
     out = dict(bp)
     for key in ("wx", "wg", "wa", "wi", "wo"):
-        out[key] = _pack_dense(bp[key], f"{path}/{key}", policy)
-    out["mlp"] = _pack_gated_mlp(bp["mlp"], f"{path}/mlp", policy)
+        out[key] = _pack_dense(bp[key], f"{path}/{key}", policy, tp)
+    out["mlp"] = _pack_gated_mlp(bp["mlp"], f"{path}/mlp", policy, tp)
     return out
 
 
-def _pack_attn_block(bp: dict, path: str, policy: ApproxPolicy) -> dict:
+def _pack_attn_block(bp: dict, path: str, policy: ApproxPolicy, tp: int = 1) -> dict:
     out = dict(bp)
     for key in ("wq", "wk", "wv", "wo"):
-        out[key] = _pack_dense(bp[key], f"{path}/{key}", policy)
+        out[key] = _pack_dense(bp[key], f"{path}/{key}", policy, tp)
     if "mlp" in bp:
-        out["mlp"] = _pack_gated_mlp(bp["mlp"], f"{path}/mlp", policy)
+        out["mlp"] = _pack_gated_mlp(bp["mlp"], f"{path}/mlp", policy, tp)
     return out
 
 
-def _pack_hybrid(params: dict, cfg, policy: ApproxPolicy) -> dict:
+def _pack_hybrid(params: dict, cfg, policy: ApproxPolicy, tp: int = 1) -> dict:
     # packs resolve against the serve-time paths ("g/...", "tail/..."): the
     # ones prefill and decode dispatch through (models/rglru.py)
     out = dict(params)
     groups = dict(params["groups"])
     for gkey, gp in groups.items():
         pack = _pack_rec_block if gkey.startswith("rec") else _pack_attn_block
-        groups[gkey] = pack(gp, "g", policy)
+        groups[gkey] = pack(gp, "g", policy, tp)
     out["groups"] = groups
-    out["tail"] = [_pack_rec_block(bp, "tail", policy) for bp in params["tail"]]
-    out["unembed"] = _pack_dense(params["unembed"], "unembed", policy)
+    out["tail"] = [_pack_rec_block(bp, "tail", policy, tp) for bp in params["tail"]]
+    out["unembed"] = _pack_dense(params["unembed"], "unembed", policy, tp)
     return out
 
 
@@ -313,7 +313,7 @@ def prepack_params(params: dict, cfg, policy: ApproxPolicy, tp: int | None = Non
     tp = meshctx.model_size() if tp is None else tp
     check_tp_supported(cfg, tp)
     if cfg.family == "ssm":
-        return _pack_ssm(params, cfg, policy)
+        return _pack_ssm(params, cfg, policy, tp)
     if cfg.family == "hybrid":
-        return _pack_hybrid(params, cfg, policy)
+        return _pack_hybrid(params, cfg, policy, tp)
     return _pack_transformer(params, cfg, policy, tp)

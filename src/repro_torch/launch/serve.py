@@ -44,6 +44,10 @@
   # cache; --ring moves the EXACT row-parallel reductions as int8:
   python -m repro_torch.launch.serve --arch tinyllama-1.1b --approx axq8 --qos \
       --tp 2 --dist-backend gloo --metrics
+  # the recurrent families at tp=2 (each rank its SSM heads / RG-LRU
+  # channels and its kv head of recurrentgemma's MQA):
+  python -m repro_torch.launch.serve --arch mamba2-370m --approx axq8 --qos \
+      --tp 2 --dist-backend gloo --prefill-buckets auto --pack 4 --metrics
 
 Weights are random-init from ``--seed``.  ``--qos`` walks the AXQ degree
 ladder ebits 8 -> 5 with load, at a fixed set of kernels (the stream
@@ -81,8 +85,8 @@ that share a card need ``--dist-backend gloo`` (NCCL refuses two ranks on
 one GPU; without the flag the launcher raises).  ``--ring`` routes the
 EXACT row-parallel reductions through the int8 ring.  The sharded step
 runs eagerly.  A mesh data axis above 1 (``--mesh 2xM``), tensor-parallel
-fleet replicas, the stream workload and the SSM / hybrid families under
-``--tp`` raise (ROADMAP §A).
+fleet replicas, the stream workload and the audio encoder under ``--tp``
+raise (ROADMAP §A).
 """
 
 from __future__ import annotations

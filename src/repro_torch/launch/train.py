@@ -9,9 +9,8 @@
 It runs on the card unless ``--device cpu`` is given (the smoke archs, e.g.
 ``--arch tinyllama-1.1b-smoke``, fit the CPU).  ``--mesh DxM`` trains on
 D x M ranks, one process a rank (the batch split over ``data``, the
-weights over ``model``; the dense and MoE families and the VLM and audio
-frontends, while the SSM and hybrid families raise before any rank
-starts): spawned here, or this process's rank under ``torchrun``, as
+weights over ``model``; every family): spawned here, or this process's
+rank under ``torchrun``, as
 ``launch.serve --tp`` starts its ranks.  Ranks that share
 a card need ``--dist-backend gloo``.  Rank 0 prints the summary; a SIGTERM
 to the launcher reaches every rank, which checkpoint at one step and exit.
@@ -30,7 +29,6 @@ from repro_torch.data.pipeline import make_pipeline
 from repro_torch.dist import collectives, meshctx
 from repro_torch.kernels import dispatch as kdispatch
 from repro_torch.models import build_model
-from repro_torch.models.transformer import check_train_mesh_supported
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.train import step as step_mod
@@ -97,19 +95,12 @@ def _train_rank(rank: int, world: int, argd: dict) -> dict:
 
 
 def mesh_dims(args) -> tuple:
-    """(data, model) ranks of ``--mesh``; a family the mesh does not train
-    raises ``SystemExit`` before any rank starts."""
+    """(data, model) ranks of ``--mesh``; a batch that does not split over
+    the data ranks raises ``SystemExit`` before any rank starts."""
     d, m = (int(x) for x in args.mesh.split("x")[:2])
-    if d * m > 1:
-        cfg = get_config(args.arch)
-        with meshctx.use_mesh(meshctx.Mesh((d, m), ("data", "model"))):
-            try:
-                check_train_mesh_supported(cfg)
-            except NotImplementedError as e:
-                raise SystemExit(f"--mesh {args.mesh}: {e}")
-        if args.batch % d:
-            raise SystemExit(f"--mesh {args.mesh}: --batch {args.batch} does not split "
-                             f"over {d} data ranks")
+    if d * m > 1 and args.batch % d:
+        raise SystemExit(f"--mesh {args.mesh}: --batch {args.batch} does not split "
+                         f"over {d} data ranks")
     return d, m
 
 

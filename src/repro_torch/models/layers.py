@@ -14,8 +14,9 @@ local lookup, then an all-reduce) and the unembedding column-parallel
 needed).  The same code trains: the reductions are
 ``collectives.reduce_from_model`` (backward the identity), each normed
 input of column-parallel projections passes :func:`column_input` (backward
-an all-reduce of its dx), and :func:`vocab_parallel_ce` takes the loss of
-the sharded logits without gathering them.
+an all-reduce of its dx), :func:`vocab_parallel_ce` takes the loss of
+the sharded logits without gathering them, and :func:`rmsnorm_split_apply`
+normalizes over a width split on ``model`` (a Mamba-2 block's ``gnorm``).
 """
 
 from __future__ import annotations
@@ -90,6 +91,25 @@ def rmsnorm_apply(p, x: Tensor, eps: float = 1e-6) -> Tensor:
     x32 = x.to(torch.float32)
     var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
+    return (y * p["scale"]).to(dt)
+
+
+def rmsnorm_split_apply(p, x: Tensor, eps: float = 1e-6) -> Tensor:
+    """:func:`rmsnorm_apply` over a last dim that is this rank's channels
+    of a width split on ``model`` (``p`` this rank's scales): the sum of
+    squares of the rank's channels is summed over ``model``
+    (``collectives.sum_over_model``: rank-local values consume it, so its
+    backward sums too) and divided by the global width.  On a 1-wide
+    ``model`` axis it is :func:`rmsnorm_apply`."""
+    mesh = meshctx.get_mesh()
+    m = mesh.size("model")
+    if m == 1:
+        return rmsnorm_apply(p, x, eps)
+    dt = x.dtype
+    x32 = x.to(torch.float32)
+    ss = collectives.sum_over_model(torch.sum(torch.square(x32), dim=-1, keepdim=True),
+                                    mesh.group("model"))
+    y = x32 * torch.rsqrt(ss / (x.shape[-1] * m) + eps)
     return (y * p["scale"]).to(dt)
 
 

@@ -18,8 +18,9 @@ state and conv tails, the hybrid also its attention rings), whatever
 ``quant`` or ``REPRO_KV_INT8`` say: neither has an int8 cache.  The VLM
 serves text-only prompts (its prefill and decode embed tokens alone, as the
 reference's do); the audio arch is encoder-only and has no cache.  On a
-mesh (tensor parallelism, ``dist/meshctx.py``) the serving entry points
-take a rank's shards; the SSM and hybrid families raise there.
+mesh (``dist/meshctx.py``) every entry point takes a rank's shards, its
+rows of a training batch and its part of the cache, in every family (the
+audio arch trains there and, having no decode step, does not serve).
 """
 
 from __future__ import annotations
@@ -62,30 +63,24 @@ class Model:
             return ssm.init_ssm_lm(gen, self.cfg, tp, self.device)
         return transformer.init_lm(gen, self.cfg, tp, self.device)
 
+    def _forward_fn(self):
+        return {"hybrid": rglru.hybrid_forward,
+                "ssm": ssm.ssm_forward}.get(self.cfg.family, transformer.lm_forward)
+
     def forward(self, params, batch, tp: int = 1, degree=None, remat="dots"):
         """(logits f32, aux loss); ``remat`` is the layers' activation
         policy under autograd (``transformer.remat_call``).  On a mesh of
-        more than one rank (training): this rank's shards and rows, the
-        dense family only (``transformer.check_train_mesh_supported``)."""
-        transformer.check_train_mesh_supported(self.cfg)
-        if self.cfg.family == "hybrid":
-            return rglru.hybrid_forward(params, self.cfg, self.policy, batch, tp, degree,
-                                        remat)
-        if self.cfg.family == "ssm":
-            return ssm.ssm_forward(params, self.cfg, self.policy, batch, tp, degree, remat)
-        return transformer.lm_forward(params, self.cfg, self.policy, batch,
-                                      tp, degree, remat)
+        more than one rank (training): this rank's shards, rows and vocab
+        columns."""
+        return self._forward_fn()(params, self.cfg, self.policy, batch, tp, degree, remat)
 
     def loss(self, params, batch, tp: int = 1, degree=None, remat="dots"):
         """(loss, {"ce", "aux", "ntokens"}): the masked cross-entropy over
         ``labels >= 0``; the dense and MoE families add 0.01 x the aux
-        load-balance loss, the SSM and hybrid families do not.  On a mesh
-        the loss is this rank's share (``transformer.lm_loss``)."""
-        if self.cfg.family in ("hybrid", "ssm"):
-            logits, aux = self.forward(params, batch, tp, degree, remat)
-            ce, ntok = transformer.masked_ce(logits, batch["labels"])
-            return ce, {"ce": ce, "aux": aux, "ntokens": ntok}
-        return transformer.lm_loss(params, self.cfg, self.policy, batch, tp, degree, remat)
+        load-balance loss, the SSM and hybrid families have none.  On a
+        mesh the loss is this rank's share (``transformer.lm_loss``)."""
+        return transformer.lm_loss(params, self.cfg, self.policy, batch, tp, degree, remat,
+                                   forward=self._forward_fn())
 
     def init_cache(self, tp: int, batch: int, max_len: int,
                    dtype=torch.bfloat16, quant: Optional[bool] = None):

@@ -26,6 +26,16 @@ tail blocks last: the group-major order of the per-site degree vector.
 The cache (:class:`HybridCache`) is updated in place: the recurrent states
 ``h`` and conv tails of every recurrent block, and each group's attention
 K/V ring of ``min(local_window, max_len)`` positions.
+
+Tensor parallelism (a mesh whose ``model`` axis is wider than 1, serving
+and training alike): the RG-LRU is channel-wise, so a rank holds its
+channels of everything in the recurrent block (``dist/sharding.py``):
+``wx`` / ``wg`` / ``wa`` / ``wi`` column-parallel, the conv taps and
+``lam``, the state and the conv tail; ``wo`` and the MLP's ``down`` are
+row-parallel (their partials all-reduced).  The normed inputs of the
+column-parallel projections pass ``layers.column_input``; no other
+collective is needed.  The attention blocks are the dense family's
+(``transformer.block_apply``): MQA at tp=2 takes its kv-split path.
 """
 
 from __future__ import annotations
@@ -39,6 +49,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.approx import ApproxPolicy
+from repro_torch.dist import meshctx
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -130,6 +141,7 @@ def rec_block_apply(bp, x: Tensor, cfg: ArchConfig, policy: ApproxPolicy, path: 
     instead of the last position (the bucketed prefill; a row of length 0
     gets a zero state)."""
     h_in = L.rmsnorm_apply(bp["ln1"], x, cfg.norm_eps)
+    h_in = L.column_input(h_in, policy, tuple(f"{path}/{k}" for k in ("wx", "wg", "wa", "wi")))
     xb = L.dense_apply(bp["wx"], h_in, policy, path + "/wx", degree)
     gb = L.dense_apply(bp["wg"], h_in, policy, path + "/wg", degree)
     conv_in = xb
@@ -157,6 +169,7 @@ def rec_block_apply(bp, x: Tensor, cfg: ArchConfig, policy: ApproxPolicy, path: 
     # the residual adds ride the projections' epilogues (in-kernel on AXQ)
     x = L.dense_apply(bp["wo"], y, policy, path + "/wo", degree, residual=x)
     h2 = L.rmsnorm_apply(bp["ln2"], x, cfg.norm_eps)
+    h2 = L.column_input(h2, policy, (path + "/mlp/up", path + "/mlp/gate"))
     out = L.gated_mlp_apply(bp["mlp"], h2, policy, path + "/mlp", cfg.act, degree,
                             residual=x)
     return out, (new_h, new_conv)
@@ -239,15 +252,21 @@ class HybridCache(NamedTuple):
 
 def init_hybrid_cache(cfg: ArchConfig, tp: int, batch: int, max_len: int,
                       dtype=torch.bfloat16, device="cpu") -> HybridCache:
+    """The cache of this rank's kv heads and channels (all of them on one
+    device)."""
     _, n_groups, tail, rec = _counts(cfg)
     n_rec = n_groups * rec + tail
     W = min(cfg.local_window or max_len, max_len)
-    kv = (n_groups, batch, W, cfg.padded(tp).n_kv_rep, cfg.head_dim)
+    kv = (n_groups, batch, W, T.tp_heads(cfg, tp)[1], cfg.head_dim)
+    m = meshctx.model_size()
+    if cfg.d_model % m:
+        raise ValueError(f"{cfg.name}: d_model {cfg.d_model} does not split over tp={m}")
+    d = cfg.d_model // m
     return HybridCache(
         k=torch.zeros(kv, dtype=dtype, device=device),
         v=torch.zeros(kv, dtype=dtype, device=device),
-        h=torch.zeros((n_rec, batch, cfg.d_model), dtype=torch.float32, device=device),
-        conv=init_conv_tail((n_rec, batch, 3, cfg.d_model), cfg, dtype, device),
+        h=torch.zeros((n_rec, batch, d), dtype=torch.float32, device=device),
+        conv=init_conv_tail((n_rec, batch, 3, d), cfg, dtype, device),
         length=torch.zeros((batch,), dtype=torch.int32, device=device))
 
 

@@ -26,6 +26,21 @@ checks on the card.
 Decode is the O(1) recurrent update; the state cache (:class:`SSMCache`:
 h, the conv tail, length) is updated in place, so a step captured in a
 CUDA graph advances the engine's tensors.
+
+Tensor parallelism (a mesh whose ``model`` axis is wider than 1, serving
+and training alike): the parameters are this rank's heads
+(``dist/sharding.py``): ``in_proj``'s columns ``[z_r | x_r | B | C | dt_r]``
+(one launch), the conv's channels ``[x_r | B | C]``, the heads' ``dt_bias``
+/ ``a_log`` / ``D`` and ``gnorm`` scales, ``out_proj``'s rows.  Every rank
+computes B and C whole and runs the SSD on its heads; ``gnorm`` sums its
+channels' squares over ``model`` (``layers.rmsnorm_split_apply``) and
+``out_proj``'s partials are all-reduced (``ops.approx_matmul``), so a
+decode tick makes 2L + 1 all-reduces (and the embedding's).  B and C are
+replicated values that rank-local heads consume: under autograd each
+rank's cotangent of them is its heads' part, so the gradient of their
+weights (``in_proj``'s B / C columns, the conv's B / C channels) is summed
+over ``model`` (``collectives.sum_grad_columns``), while the normed input's
+dx takes each rank's part once, in ``layers.column_input``'s sum.
 """
 
 from __future__ import annotations
@@ -38,6 +53,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.approx import ApproxPolicy
+from repro_torch.dist import collectives, meshctx
 from repro_torch.models import layers as L
 from repro_torch.models.cache_ops import cache_reset_slot
 from repro_torch.models.degrees import split_degree
@@ -47,11 +63,20 @@ from repro_torch.models.transformer import (_dtype, _head, layer_params, remat_c
 Tensor = torch.Tensor
 
 
-def _dims(cfg: ArchConfig):
+def _dims(cfg: ArchConfig, m: int = 1):
+    """(d_in, H, P, N) of one of ``m`` ranks: d_in and H its heads' (the
+    global ones for ``m`` = 1)."""
     s = cfg.ssm
     d_in = s.expand * cfg.d_model
     H = d_in // s.headdim
-    return d_in, H, s.headdim, s.d_state
+    if H % m:
+        raise ValueError(f"{cfg.name}: {H} SSM heads do not split over tp={m}")
+    return d_in // m, H // m, s.headdim, s.d_state
+
+
+def _local_dims(cfg: ArchConfig):
+    """:func:`_dims` of this rank on the active mesh's ``model`` axis."""
+    return _dims(cfg, meshctx.model_size())
 
 
 def init_ssm_block(gen: torch.Generator, cfg: ArchConfig, stack: tuple = (), device="cpu"):
@@ -76,9 +101,28 @@ def init_ssm_block(gen: torch.Generator, cfg: ArchConfig, stack: tuple = (), dev
     }
 
 
-def _split_proj(proj: Tensor, cfg: ArchConfig):
-    d_in, H, P, N = _dims(cfg)
+def _split_proj(proj: Tensor, d_in: int, N: int):
     return proj[..., :d_in], proj[..., d_in:2 * d_in + 2 * N], proj[..., 2 * d_in + 2 * N:]
+
+
+def _grad_whole_bc(bp, d_in: int, N: int):
+    """``bp`` with the gradients of B and C's weights summed over
+    ``model`` under autograd on a mesh (module docstring): ``in_proj``'s
+    columns ``[2 d_in, 2 d_in + 2N)`` and the conv's channels ``[d_in,
+    d_in + 2N)`` (local widths).  ``bp`` itself otherwise (serving: packed
+    weights, or none that requires a gradient)."""
+    mesh = meshctx.get_mesh()
+    w = bp["in_proj"]["w"]
+    if (mesh.size("model") == 1 or not torch.is_grad_enabled()
+            or not isinstance(w, Tensor) or not w.requires_grad):
+        return bp
+    g = mesh.group("model")
+    lo = 2 * d_in
+    return {**bp,
+            "in_proj": {**bp["in_proj"], "w": collectives.sum_grad_columns(
+                bp["in_proj"]["w"], g, lo, lo + 2 * N)},
+            "conv": {k: collectives.sum_grad_columns(v, g, d_in, d_in + 2 * N)
+                     for k, v in bp["conv"].items()}}
 
 
 def _segsum_decay(dtA: Tensor) -> tuple[Tensor, Tensor]:
@@ -147,13 +191,16 @@ def ssm_block_apply(bp, x_res: Tensor, cfg: ArchConfig, policy: ApproxPolicy, pa
     The chunked path pads the tail to the configured chunk length with
     zero-dt steps (exp(0) = 1 decay, zero input: an identity update); with
     ``lengths`` (B,) the same dt masking applies per row and the state is
-    the row's at its true length."""
-    d_in, H, P, N = _dims(cfg)
+    the row's at its true length.  On a mesh: this rank's heads (module
+    docstring); ``state`` and the returned one are the rank's."""
+    d_in, H, P, N = _local_dims(cfg)
     s = cfg.ssm
     B_, S, _ = x_res.shape
+    bp = _grad_whole_bc(bp, d_in, N)
     xln = L.rmsnorm_apply(bp["ln"], x_res, cfg.norm_eps)
+    xln = L.column_input(xln, policy, (path + "/in_proj",))
     proj = L.dense_apply(bp["in_proj"], xln, policy, path + "/in_proj", degree)
-    z, xBC, dt_raw = _split_proj(proj, cfg)
+    z, xBC, dt_raw = _split_proj(proj, d_in, N)
     ci = L.act_rounded("silu")(xBC)
     xBC, new_conv = L.conv1d_apply(bp["conv"], ci, None if state is None else state[1])
     Xf = xBC[..., :d_in].reshape(B_, S, H, P).to(torch.float32)
@@ -191,7 +238,7 @@ def ssm_block_apply(bp, x_res: Tensor, cfg: ArchConfig, policy: ApproxPolicy, pa
             new_state = (h_last, new_conv)
 
     y = y.to(x_res.dtype) * L.act_rounded("silu")(z)
-    y = L.rmsnorm_apply(bp["gnorm"], y, cfg.norm_eps)
+    y = L.rmsnorm_split_apply(bp["gnorm"], y, cfg.norm_eps)
     # the residual rides the out-projection's epilogue (in-kernel on AXQ)
     y = L.dense_apply(bp["out_proj"], y, policy, path + "/out_proj", degree,
                       residual=x_res)
@@ -267,8 +314,12 @@ class SSMCache(NamedTuple):
 
 def init_ssm_cache(cfg: ArchConfig, tp: int, batch: int, max_len: int,
                    dtype=torch.bfloat16, device="cpu") -> SSMCache:
-    """The state cache: its bytes do not depend on ``max_len``."""
-    d_in, H, P, N = _dims(cfg)
+    """The state cache of this rank's heads (all of them on one device):
+    its bytes do not depend on ``max_len``."""
+    m = meshctx.model_size()
+    if m > 1 and tp != m:
+        raise ValueError(f"tp={tp} on a mesh whose model axis is {m}")
+    d_in, H, P, N = _dims(cfg, m)
     w = cfg.ssm.conv_width
     return SSMCache(
         h=torch.zeros((cfg.n_layers, batch, H, P, N), dtype=torch.float32, device=device),

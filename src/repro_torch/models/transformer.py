@@ -40,9 +40,10 @@ f32 partials, then adds bias and residual once).  The embedding is
 vocab-parallel, and the logits the entry points return are this rank's
 vocab columns, as the reference's are sharded over ``model``: callers that
 need whole rows gather them (``layers.gather_vocab``).  tp = 1 keeps the
-one-device route unchanged.  The SSM and hybrid families and the audio
-encoder raise on such a mesh when served (:func:`check_tp_supported`, at
-the serving entry points).
+one-device route unchanged.  The SSM and hybrid families serve there too
+(``models/ssm.py``, ``models/rglru.py``); the audio encoder, which has no
+decode step, raises (:func:`check_tp_supported`, at the serving entry
+points).
 
 Training on a mesh (``(data, model)``, one process a rank): the dense
 family's :func:`lm_forward` / :func:`lm_loss` run on this rank's shards
@@ -57,8 +58,8 @@ and gradients sum to the reference's masked mean.  The MoE family trains
 there through ``moe.moe_apply``'s expert-parallel block (capacity and the
 aux loss per data shard, as the reference's shard_map computes them), and
 the frontends gather their column-parallel weights whole
-(:func:`embed_inputs`).  The SSM and hybrid families raise there
-(:func:`check_train_mesh_supported`).
+(:func:`embed_inputs`).  The SSM and hybrid families train there through
+their own forwards and the same loss (:func:`lm_loss`'s ``forward``).
 """
 
 from __future__ import annotations
@@ -103,37 +104,12 @@ def check_supported(cfg: ArchConfig) -> None:
 
 
 def check_tp_supported(cfg: ArchConfig, tp: int) -> None:
-    """Tensor-parallel serving covers the dense and MoE families and the
-    VLM's text backbone; tp above 1 raises for the others."""
-    if tp <= 1:
-        return
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) at tp={tp}: its in_proj splits into "
-            "concatenated parts that the column rule would cut across; tensor "
-            "parallelism for the SSM and hybrid families is ROADMAP §A")
-    if cfg.encoder_only:
+    """Tensor-parallel serving covers every family with a decode step; tp
+    above 1 raises for the audio encoder, which has none."""
+    if tp > 1 and cfg.encoder_only:
         raise NotImplementedError(
             f"{cfg.name} at tp={tp}: the audio encoder has no decode step to serve; "
             "tensor parallelism for it is ROADMAP §A")
-
-
-#: the families that train on a mesh of more than one rank
-TRAIN_MESH_FAMILIES = ("dense", "moe", "vlm", "audio")
-
-
-def check_train_mesh_supported(cfg: ArchConfig) -> None:
-    """Training on a mesh of more than one rank covers the dense and MoE
-    families and the VLM and audio frontends; the SSM and hybrid families
-    raise (ROADMAP §A)."""
-    mesh = meshctx.get_mesh()
-    if math.prod(mesh.shape) == 1 or cfg.family in TRAIN_MESH_FAMILIES:
-        return
-    raise NotImplementedError(
-        f"{cfg.name}: training on a mesh {dict(zip(mesh.axis_names, mesh.shape))} covers the "
-        f"dense, MoE, VLM and audio families; the {cfg.family} family on a mesh (its "
-        "in_proj split into concatenated parts that the column rule cuts across) is "
-        "ROADMAP §A")
 
 
 def tp_heads(cfg: ArchConfig, tp: int) -> tuple:
@@ -393,9 +369,7 @@ def lm_forward(params, cfg: ArchConfig, policy: ApproxPolicy, batch: dict,
     load-balance loss (0 for a dense model)); S counts a VLM's image
     tokens.  ``remat`` is the layers' activation policy under autograd
     (:func:`remat_call`).  On a mesh: this rank's rows and vocab columns,
-    and the aux loss of this rank's rows (:func:`check_train_mesh_supported`
-    names the families)."""
-    check_train_mesh_supported(cfg)
+    and the aux loss of this rank's rows."""
     dev = next(iter(batch.values())).device
     ldeg, hdeg = split_degree(degree, cfg.n_layers, dev)
     x, positions = embed_inputs(params, cfg, batch, _dtype(cfg), policy, hdeg)
@@ -413,9 +387,12 @@ def lm_forward(params, cfg: ArchConfig, policy: ApproxPolicy, batch: dict,
 
 
 def lm_loss(params, cfg: ArchConfig, policy: ApproxPolicy, batch: dict,
-            tp: int = 1, degree=None, remat: str = "dots") -> tuple[Tensor, dict]:
+            tp: int = 1, degree=None, remat: str = "dots",
+            forward=None) -> tuple[Tensor, dict]:
     """Masked next-token cross-entropy over ``labels >= 0`` (a VLM's text
-    positions only) plus 0.01 x the aux load-balance loss.  Returns (loss,
+    positions only) plus 0.01 x the aux load-balance loss of ``forward``
+    (default :func:`lm_forward`; the SSM and hybrid families pass theirs,
+    whose aux loss is a zero, so their loss is the cross-entropy).  Returns (loss,
     {"ce", "aux", "ntokens"}), all device scalars.  On a mesh the loss and
     ``ce`` are this rank's share: its rows' log-likelihood sum over the
     token count of every data rank (``ntokens``, all-reduced over
@@ -424,7 +401,7 @@ def lm_loss(params, cfg: ArchConfig, policy: ApproxPolicy, batch: dict,
     shares sum to the reference's mean of the data shards' aux (its
     ``pmean``).  ``aux`` is this rank's (``train.step`` averages it over
     ``data``)."""
-    logits, aux = lm_forward(params, cfg, policy, batch, tp, degree, remat)
+    logits, aux = (forward or lm_forward)(params, cfg, policy, batch, tp, degree, remat)
     labels = batch["labels"]
     if cfg.frontend == "vision":
         # the logits cover [image tokens | text tokens]: the loss is the text's
@@ -436,13 +413,6 @@ def lm_loss(params, cfg: ArchConfig, policy: ApproxPolicy, batch: dict,
     dp = math.prod(mesh.size(a) for a in meshctx.batch_axes(mesh))
     loss = ce + 0.01 * aux / dp
     return loss, {"ce": ce, "aux": aux, "ntokens": ntok}
-
-
-def masked_ce(logits: Tensor, labels: Tensor) -> tuple[Tensor, Tensor]:
-    """(mean negative log-likelihood of ``labels`` over the entries with
-    ``labels >= 0``, their count as f32)."""
-    llsum, ntok = L.vocab_parallel_ce(logits, labels)
-    return -llsum / torch.clamp(ntok, min=1.0), ntok
 
 
 # ---------------------------------------------------------------------------

@@ -52,15 +52,27 @@ def global_norm(tree) -> Tensor:
     tree order from 0.  On a mesh ``tree`` holds this rank's shards: the
     sums of squares of the leaves split over ``model`` are summed over the
     ``model`` group (one all-reduce of them all), a replicated leaf's
-    counted once, so every rank holds the global norm."""
-    sq = [torch.sum(torch.square(x.to(torch.float32))) for x in tree_leaves(tree)]
+    counted once, so every rank holds the global norm.  A leaf cut part by
+    part (``sharding.split_columns``: a Mamba-2 block's ``in_proj`` and
+    conv, whose B / C columns every rank holds whole) adds the summed sum
+    of squares of its split columns to its replicated columns' once."""
+    leaves = [x.to(torch.float32) for x in tree_leaves(tree)]
+    sq = [torch.sum(torch.square(x)) for x in leaves]
     mesh = meshctx.get_mesh()
     if mesh.size("model") > 1 and sq:
-        split = sharding.model_sharded(tree, mesh)
-        if any(split):
-            local = torch.stack([s if m else torch.zeros_like(s) for s, m in zip(sq, split)])
-            summed = collectives.all_reduce(local, mesh.group("model")).unbind(0)
-            sq = [t if m else s for s, t, m in zip(sq, summed, split)]
+        split = sharding.split_columns(tree, mesh)
+        if any(m is not False for m in split):
+            local, whole = [], []
+            for x, s, m in zip(leaves, sq, split):
+                if isinstance(m, Tensor):
+                    local.append(torch.sum(torch.square(x[..., m])))
+                    whole.append(torch.sum(torch.square(x[..., ~m])))
+                else:
+                    local.append(s if m else torch.zeros_like(s))
+                    whole.append(None)
+            summed = collectives.all_reduce(torch.stack(local), mesh.group("model")).unbind(0)
+            sq = [s if m is False else (t if w is None else t + w)
+                  for s, t, w, m in zip(sq, summed, whole, split)]
     total = 0
     for s in sq:
         total = total + s

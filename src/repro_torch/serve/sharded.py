@@ -8,9 +8,14 @@ process a rank (``dist/meshctx.py``): every rank builds the same
 (``dist/sharding.py``; the packs built on each shard) and its heads of the
 KV cache, and runs the same :class:`~repro_torch.serve.engine.ServeCore`
 host logic (SPMD).  The model's explicit collectives keep the ranks in step
-inside a tick: the embedding's all-reduce, two row-parallel all-reduces a
-layer, and the all-gather of the logits before sampling, so every rank
-samples the same tokens from the same rows.
+inside a tick: the embedding's all-reduce, two all-reduces a layer (the
+row-parallel partials; a Mamba-2 layer's ``gnorm`` sum of squares and
+``out_proj``), the kv heads' all-gathers of an MQA attention block that tp
+does not divide, and the all-gather of the logits before sampling, so
+every rank samples the same tokens from the same rows.  Every family with a
+decode step serves: the recurrent families on their state caches, cut to
+the rank's heads and channels (``dist/sharding.py``), with bucketed,
+packed admission as on one device.
 
 Host decisions must be identical on every rank, or the ranks diverge and
 a collective hangs or mixes two steps.  Everything the core decides from
@@ -177,7 +182,8 @@ class ShardedServeEngine(ShardedServeCore):
 
 def lm_decode_collective_bytes(arch: str = "tinyllama-1.1b-smoke", *, batch: int = 2,
                                max_len: int = 32, ring: bool = False, policy=None) -> dict:
-    """The collective bytes of one sharded LM decode step on the active
+    """The collective bytes of one sharded decode step of ``arch`` (any
+    family with a decode step: its cache is the rank's) on the active
     mesh's ``model`` axis, by kind (``all-reduce``, ``all-gather``,
     ``collective-permute`` for the ring's hops) plus ``"total"``, from
     :data:`repro_torch.dist.collectives.counter`.  Every rank of the group

@@ -221,3 +221,65 @@ def trainer_rank(rank, world, shape, opts):
     if rank == 0:
         out["global"] = to_numpy(full)
     return out
+
+
+def one_rank_grads(job) -> dict:
+    """The port's one-process gradients of ``job``'s loss on the whole
+    state and batch (a 1x1 mesh in this process), as numpy."""
+    with meshctx.use_mesh(meshctx.make_mesh((1, 1), ("data", "model"))):
+        model = model_for(job["policy"], job.get("arch", ARCH))
+        state = train_state_from_numpy(job["state"])
+        (_, _), grads = tstep.value_and_grad(model, state.params, torch_batch(job["batch"]),
+                                             tp=job["tp"], remat="none")
+    return to_numpy(grads)
+
+
+def split_collectives_rank(rank, world, xs, ws, w0):
+    """``sum_over_model`` and ``sum_grad_columns`` on a (1, world) mesh
+    with rank-local consumers: each rank's gradient of its input (see
+    tests/test_torch_mesh_recurrent.py::test_split_collectives_backward)."""
+    mesh = mesh_for((1, world))
+    g = mesh.group("model")
+    out = {}
+    x = torch.from_numpy(xs[rank]).requires_grad_()
+    y = collectives.sum_over_model(torch.square(x).sum(-1, keepdim=True), g)
+    loss = (torch.rsqrt(y + 1.0) * x * torch.from_numpy(ws[rank])).sum()
+    out["sum"] = torch.autograd.grad(loss, x)[0].numpy()
+    w = torch.from_numpy(w0).requires_grad_()
+    wc = collectives.sum_grad_columns(w, g, 2, 4)
+    loss = (torch.tanh(torch.from_numpy(xs[rank]) @ wc) * torch.from_numpy(ws[rank])).sum()
+    out["columns"] = torch.autograd.grad(loss, w)[0].numpy()
+    return out
+
+
+def recurrent_mesh_rank(rank, world, shape, jobs, extra):
+    """:func:`step_rank`'s jobs on this rank of ``shape``, then with
+    ``extra["trainer"]`` a :func:`trainer_rank` run (its options) and with
+    ``extra["one_rank_grads"]`` rank 0's one-process gradients of each
+    grads job (``one_rank_grads``)."""
+    out = {"steps": step_rank(rank, world, shape, jobs)}
+    if rank == 0 and extra.get("one_rank_grads"):
+        out["one_rank_grads"] = [one_rank_grads(dict(j, tp=shape[1])) if j.get("grads")
+                                 else None for j in jobs]
+    for name, opts in extra.get("trainers", {}).items():
+        out[name] = trainer_rank(rank, world, shape, opts)
+    return out
+
+
+def roundtrip_rank(rank, world, trees, caches):
+    """Each global tree and cache (numpy) cut to this rank's part of a (1,
+    world) mesh and gathered back: (the gathered trees and caches as
+    numpy, this rank's local shapes)."""
+    from repro_torch.convert import cache_from_numpy, params_from_numpy
+
+    mesh = mesh_for((1, world))
+    out = {"trees": [], "caches": [], "shapes": []}
+    for tree in trees:
+        local = sharding.shard_params(params_from_numpy(tree), mesh=mesh)
+        out["shapes"].append({n: tuple(v.shape) for n, v in named_leaves(local)})
+        out["trees"].append(to_numpy(sharding.gather_params(local, mesh)))
+    for cache in caches:
+        local = sharding.shard_cache(cache_from_numpy(cache), mesh=mesh)
+        out["shapes"].append({n: tuple(v.shape) for n, v in named_leaves(local)})
+        out["caches"].append(to_numpy(sharding.gather_cache(local, mesh)))
+    return out

@@ -221,3 +221,95 @@ def moe_rank(rank, world, arch, policy, tree, x):
                                       model.policy, "layer/moe")
         out["y_single"], out["aux_single"] = y1.numpy(), float(aux1)
     return out
+
+
+def _state_fields(cache) -> dict:
+    """The per-slot fields of a cache (every field but ``length``)."""
+    return {k: getattr(cache, k) for k in cache._fields if k != "length"}
+
+
+def bucketed_state_equal(model, params, tp: int, prompts, bucket: int) -> dict:
+    """{field: max |difference|}: this rank's state of a bucketed, packed
+    prefill of ``prompts`` (one call, rows padded to ``bucket``) against
+    the same prompts prefilled one by one at their exact lengths (f32
+    cache); the lengths too."""
+    B = len(prompts)
+    rows = np.zeros((B, bucket), np.int64)
+    for i, p in enumerate(prompts):
+        rows[i, :len(p)] = p
+    lengths = [len(p) for p in prompts]
+    exact = model.init_cache(tp=tp, batch=B, max_len=32, dtype=torch.float32, quant=False)
+    packed = model.init_cache(tp=tp, batch=B, max_len=32, dtype=torch.float32, quant=False)
+    for s, p in enumerate(prompts):
+        model.prefill(params, exact, torch.as_tensor(np.asarray(p, np.int64)), s, tp=tp)
+    model.prefill_batch(params, packed, torch.from_numpy(rows), list(range(B)), lengths, tp=tp)
+    out = {k: float((v.float() - _state_fields(packed)[k].float()).abs().max())
+           for k, v in _state_fields(exact).items()}
+    out["length"] = float((exact.length - packed.length).abs().max())
+    return out
+
+
+def recurrent_serve_rank(rank, world, jobs):
+    """Each job of ``jobs`` on one rank of a sharded engine over
+    ``job["tree"]`` (the global numpy params, the model in f32): the
+    streams of the plain engine and of bucketed, packed admission
+    (``job["buckets"]``, pack 2), the whole-row decode logits (exact and,
+    with ``ring``, under the int8 ring, with the ring step's collectives),
+    the collectives of one steady decode tick on 2 slots, the bucketed
+    prefill's state against exact-length prefills; rank 0 adds the
+    one-process engine's streams, margins and logits."""
+    from repro_torch.serve.admission import AdmissionConfig
+
+    mesh = mesh_for(world)
+    out = []
+    for job in jobs:
+        cfg = dataclasses.replace(get_config(job["arch"]), dtype="float32")
+        model = build_model(cfg, policy_for(job["policy"]), device="cpu")
+        kw = engine_opts(job)
+        prompts, n_new = job["prompts"], job["new"]
+        res = {}
+        eng = ShardedServeEngine(model, params_from_numpy(job["tree"]), mesh=mesh, slots=2,
+                                 max_len=32, **kw)
+        reqs = [eng.submit(p, n_new) for p in prompts]
+        eng.run_until_drained()
+        res["streams"] = [list(r.out) for r in reqs]
+        res["status"] = [r.status for r in reqs]
+        adm = AdmissionConfig(buckets=tuple(job["buckets"]), pack=2)
+        beng = ShardedServeEngine(model, params_from_numpy(job["tree"]), mesh=mesh, slots=2,
+                                  max_len=32, admission=adm, **kw)
+        breqs = [beng.submit(p, n_new) for p in prompts]
+        beng.run_until_drained()
+        res["bucketed_streams"] = [list(r.out) for r in breqs]
+        res["bucketed_calls"] = beng.workload.trace_counts["prefill_batch"]
+        packed = eng.params
+        toks = np.ones((2, 1), np.int64)
+        prompt = np.asarray(prompts[0], np.int64)
+        res["logits"] = decode_logits(model, packed, world, toks, prompt)
+        res["state_equal"] = bucketed_state_equal(model, packed, world, prompts[:3],
+                                                  job["buckets"][-1])
+        if job.get("ring"):
+            res["ring_logits"] = decode_logits(model, packed, world, toks, prompt, ring=True)
+        if job.get("counts"):
+            ceng = ShardedServeEngine(model, params_from_numpy(job["tree"]), mesh=mesh,
+                                      slots=2, max_len=32)
+            for s in range(2):
+                ceng.submit([1 + s, 2 + s, 3], 4)
+            ceng.tick()
+            collectives.counter.reset()
+            ceng.tick()
+            res["tick"] = collectives.counter.snapshot()
+            with kops.ring_tp(True):
+                collectives.counter.reset()
+                ceng.tick()
+            res["ring_tick"] = collectives.counter.snapshot()
+        if rank == 0:
+            with meshctx.use_mesh(meshctx.make_mesh((1, 1), ("data", "model"))):
+                ref = ServeEngine(model, params_from_numpy(job["tree"]), slots=2, max_len=32,
+                                  tp=world, **kw)
+                res["single_margins"] = record_margins(ref)
+                rr = [ref.submit(p, n_new) for p in prompts]
+                ref.run_until_drained()
+                res["single_streams"] = [list(r.out) for r in rr]
+                res["single_logits"] = decode_logits(model, ref.params, world, toks, prompt)
+        out.append(res)
+    return out

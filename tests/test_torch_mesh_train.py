@@ -22,8 +22,10 @@ different token counts, --compress-grads at 2x1 and 1x2, the int8-ring
 lever (convergence at 2x2 as the reference's test_ring_tp_training_subprocess
 asks; its gradients within rel 0.05 of the exact mesh step's), the
 collectives of a step as the layer count predicts, the autograd
-collectives' backward against a one-process autograd run, and the
-SSM and hybrid families, which do not train on a mesh, raising."""
+collectives' backward against a one-process autograd run.  The MoE family,
+the frontends and the SSM and hybrid families train on a mesh in their own
+files (tests/test_torch_mesh_moe.py, tests/test_torch_mesh_frontends.py,
+tests/test_torch_mesh_recurrent.py)."""
 import dataclasses
 
 import jax
@@ -303,25 +305,3 @@ def test_autograd_collectives_backward():
     g = torch.autograd.grad(sum((torch.cos(x) * torch.from_numpy(w)).sum() for w in ws), x)[0]
     for r in range(world):
         np.testing.assert_allclose(ranks[r]["copy"], g.numpy(), rtol=1e-6)
-
-
-REFUSED = ["mamba2-370m-smoke", "recurrentgemma-2b-smoke"]
-
-
-@pytest.mark.parametrize("arch", REFUSED, ids=[a.split("-")[0] for a in REFUSED])
-def test_other_families_refuse_a_mesh(arch):
-    """The SSM and hybrid families raise NotImplementedError naming ROADMAP
-    §A when their loss runs on a mesh (checked before any collective: no
-    process group needed); the MoE family and the frontends train there
-    (tests/test_torch_mesh_moe.py, tests/test_torch_mesh_frontends.py)."""
-    from repro_torch.configs import get_config
-    from repro_torch.models import build_model, concrete_batch
-
-    cfg = get_config(arch)
-    model = build_model(cfg, device="cpu")
-    params = model.init(seed=0)
-    batch = concrete_batch(cfg, seq=16, batch=2)
-    for shape in ((1, 2), (2, 1)):
-        with meshctx.use_mesh(meshctx.Mesh(shape, ("data", "model"))):
-            with pytest.raises(NotImplementedError, match="ROADMAP §A"):
-                model.loss(params, batch, remat="none")

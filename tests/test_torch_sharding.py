@@ -253,3 +253,81 @@ def test_cache_shards_are_a_ranks_cache(quant):
     with meshctx.use_mesh(_rank_mesh(2, 1)):
         own = transformer.init_lm_cache(cfg, 2, 3, 16, quant=quant)
     assert [t.shape for t in own] == [t.shape for t in parts[1]]
+
+
+def test_in_proj_is_cut_by_its_parts():
+    """mamba2-370m-smoke at tp=2 (the reference's tree, through numpy):
+    rank r's in_proj is the reference's columns ``[z_r | x_r | B | C |
+    dt_r]`` (z, x and dt cut by heads, B and C whole), its conv channels
+    ``[x_r | B | C]``, its dt_bias / a_log / D the heads' and gnorm the
+    channels'; out_proj the heads' rows."""
+    import numpy as np
+
+    from repro_torch.convert import params_from_numpy
+
+    arch, tp = "mamba2-370m-smoke", 2
+    jm = jbuild_model(jget_config(arch))
+    tree = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(0), tp=tp))
+    cfg = get_config(arch)
+    d_in, N = cfg.ssm.expand * cfg.d_model, cfg.ssm.d_state
+    H = d_in // cfg.ssm.headdim
+    L = tree["layers"]
+    for r in range(tp):
+        local = sharding.shard_params(params_from_numpy(tree), mesh=_rank_mesh(tp, r))["layers"]
+        heads = lambda a, n: a[..., r * n // tp:(r + 1) * n // tp]
+        w = L["in_proj"]["w"]
+        z, x, bc, dt = (w[..., :d_in], w[..., d_in:2 * d_in],
+                        w[..., 2 * d_in:2 * d_in + 2 * N], w[..., 2 * d_in + 2 * N:])
+        want = np.concatenate([heads(z, d_in), heads(x, d_in), bc, heads(dt, H)], -1)
+        assert np.array_equal(local["in_proj"]["w"].numpy(), want)
+        for k in ("w", "b"):
+            c = L["conv"][k]
+            want = np.concatenate([heads(c[..., :d_in], d_in), c[..., d_in:]], -1)
+            assert np.array_equal(local["conv"][k].numpy(), want)
+        for k in ("dt_bias", "a_log", "D"):
+            assert np.array_equal(local[k].numpy(), heads(L[k], H))
+        assert np.array_equal(local["gnorm"]["scale"].numpy(), heads(L["gnorm"]["scale"], d_in))
+        assert np.array_equal(local["out_proj"]["w"].numpy(),
+                              L["out_proj"]["w"][:, r * d_in // tp:(r + 1) * d_in // tp])
+
+
+def _random_like(tree, seed):
+    import numpy as np
+
+    from repro_torch.tree import tree_map
+
+    rng = np.random.default_rng(seed)
+    return tree_map(lambda t: rng.standard_normal(t.shape).astype(np.float32)
+                    if t.is_floating_point() else t.numpy(), tree)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_shard_then_gather_is_the_identity_on_recurrent_trees(tp, tmp_path):
+    """Both recurrent families' parameter trees and caches (random contents,
+    the shapes of the tp-padded trees) cut to each rank of a (1, tp) mesh
+    and gathered back bit for bit (spawned gloo ranks); each rank's cache
+    part has the shape of the cache it builds itself."""
+    import numpy as np
+
+    import _torch_mesh as M
+    from repro_torch.tree import tree_leaves
+
+    trees, caches, own = [], [], []
+    for arch in ("mamba2-370m-smoke", "recurrentgemma-2b-smoke"):
+        cfg = get_config(arch)
+        init = rglru.init_hybrid if cfg.family == "hybrid" else ssm.init_ssm_lm
+        make = rglru.init_hybrid_cache if cfg.family == "hybrid" else ssm.init_ssm_cache
+        trees.append(_random_like(init(torch.Generator().manual_seed(0), cfg, tp), 1))
+        glob = make(cfg, tp, 3, 16, dtype=torch.float32)
+        caches.append(type(glob)(*(_random_like(glob, 2))))
+        with meshctx.use_mesh(_rank_mesh(tp, 1)):
+            own.append({n: tuple(v.shape) for n, v in named_leaves(make(cfg, tp, 3, 16))})
+    ranks = meshctx.spawn_ranks(M.roundtrip_rank, tp, store_dir=str(tmp_path),
+                                timeout_s=M.TIMEOUT_S, args=(trees, caches))
+    for r in ranks:
+        for got, want in zip(r["trees"] + r["caches"], trees + caches):
+            for a, b in zip(tree_leaves(got), tree_leaves(want)):
+                assert np.array_equal(a, b)
+    assert ranks[1]["shapes"][2:] == own
+    in_proj = ranks[0]["shapes"][0]["layers/in_proj/w"]
+    assert in_proj[-1] == (296 - 32) // tp + 32           # [z_r | x_r | B | C | dt_r]

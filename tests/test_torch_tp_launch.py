@@ -1,9 +1,9 @@
 """``launch.serve --tp`` on the CPU (2 spawned gloo ranks of the smoke
 arch), and the refusals of tensor-parallel serving: a mesh data axis above
-1, a family tensor parallelism does not cover (the SSM, the hybrid, the
-audio encoder), ranks that share a card without gloo asked for,
-``capture=True`` under gloo, tensor-parallel fleet replicas.  Nothing runs
-silently on one device or falls back."""
+1, the audio encoder (no decode step), ranks that share a card without
+gloo asked for, ``capture=True`` under gloo, tensor-parallel fleet
+replicas.  Nothing runs silently on one device or falls back.  The
+recurrent families serve at tp (tests/test_torch_tp_recurrent.py)."""
 import pytest
 import torch
 
@@ -43,8 +43,6 @@ def test_launch_serve_tp2_on_gloo(ring, capfd):
 def test_launch_serve_tp_refusals():
     with pytest.raises(SystemExit, match="data axis above 1"):
         launch_serve.run(ARGV + ["--mesh", "2x2"])
-    with pytest.raises(NotImplementedError, match="ROADMAP §A"):
-        launch_serve.run(ARGV + ["--arch", "mamba2-370m-smoke"])
     with pytest.raises(SystemExit, match="fleet replicas"):
         launch_serve.run(ARGV + ["--replicas", "3"])
     with pytest.raises(SystemExit, match="lm workload"):
@@ -57,16 +55,6 @@ def test_launch_serve_tp_refusals():
 
 def _mesh(shape, backend="gloo"):
     return meshctx.Mesh(shape, ("data", "model"), rank=0, backend=backend)
-
-
-@pytest.mark.parametrize("arch", ["mamba2-370m-smoke", "recurrentgemma-2b-smoke"])
-def test_recurrent_families_refuse_tp(arch):
-    model = build_model(get_config(arch), device="cpu")
-    with pytest.raises(NotImplementedError, match="in_proj.*ROADMAP §A"):
-        ShardedServeEngine(model, {}, mesh=_mesh((1, 2)))
-    with meshctx.use_mesh(_mesh((1, 2))), pytest.raises(NotImplementedError,
-                                                         match="ROADMAP §A"):
-        model.init_cache(tp=2, batch=1, max_len=8)
 
 
 def test_engine_refusals():
@@ -84,17 +72,3 @@ def test_engine_refusals():
         check_tp_supported(get_config("hubert-xlarge"), 2)
     with pytest.raises(NotImplementedError, match="tensor parallelism inside a fleet replica"):
         tfleet.fleet_devices(2, tp=2, device="cpu")
-
-
-def test_training_forward_refuses_a_mesh():
-    """The dense and MoE families and the frontends train on a mesh; the SSM
-    family's training forward still refuses one
-    (tests/test_torch_mesh_train.py covers the hybrid)."""
-    from repro_torch.models.registry import concrete_batch
-
-    cfg = get_config("mamba2-370m-smoke")
-    model = build_model(cfg, device="cpu")
-    params = model.init(seed=0, tp=2)
-    with meshctx.use_mesh(_mesh((1, 2))), pytest.raises(NotImplementedError,
-                                                         match="training on a mesh"):
-        model.loss(params, concrete_batch(cfg, 8, 2), tp=2)

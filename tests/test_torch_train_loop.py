@@ -210,8 +210,8 @@ def test_launch_train_cpu_end_to_end(tmp_path, capsys):
     """``launch.train --device cpu`` with --qos, --compress-grads,
     --trace-out and --metrics-out: the run, its checkpoints, the trace's
     spans and the metrics file; a second run resumes from the last
-    checkpoint; --mesh on a family that does not train on a mesh raises
-    before any rank starts."""
+    checkpoint; --mesh with a batch that does not split over its data ranks
+    raises before any rank starts."""
     ttrace.get_tracer().clear()
     tr_path, m_path = tmp_path / "trace.json", tmp_path / "metrics.prom"
     argv = ["--arch", ARCH, "--steps", "12", "--seq", "16", "--batch", "2", "--approx",
@@ -234,8 +234,9 @@ def test_launch_train_cpu_end_to_end(tmp_path, capsys):
     assert "done at step 12" in capsys.readouterr().out
     out2 = tlaunch.main(argv[:3] + ["14"] + argv[4:])
     assert out2["history"][0]["step"] == 12 and out2["final_step"] == 14
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        tlaunch.main(["--mesh", "1x2", "--arch", "mamba2-370m-smoke", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="does not split over 2 data ranks"):
+        tlaunch.main(["--mesh", "2x1", "--batch", "3", "--arch", "mamba2-370m-smoke",
+                      "--device", "cpu"])
     tlaunch.kdispatch.set_backend(None)
 
 
