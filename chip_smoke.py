@@ -43,7 +43,9 @@ Phases (any failure exits non-zero):
      rows K 1024, the vocab shard N 25140; recurrentgemma-2b's N 1280
      projections, wo's rows K 1280, the kv-split wk N 128, down's rows K
      3840, the gated half N 3840, the vocab shard N 128000, decode at G 5 on
-     the 2048-row ring, band at 5/1 heads), with the stated tolerance (the GEMMs
+     the 2048-row ring, band at 5/1 heads; those of 3w: one data
+     coordinate's 4 rows of tinyllama's tp=2 GEMMs and gated half, both
+     decode kernels at B 4), with the stated tolerance (the GEMMs
      also bit-identical, and at decode at least one block an SM), timed
      with CUDA events beside its bound and, where one PyTorch call computes
      the same function, that call (the decode kernels, the GEMMs, SDPA and
@@ -178,6 +180,19 @@ Phases (any failure exits non-zero):
            past the 2048 window (``band``, the ring) among phase 3's: 3u's
            gates, the k and v gathers an attention block, the prefills by
            schedule; its one-group cut as 3u's;
+       3w  tinyllama-1.1b at full width (4 of its 22 layers: the time
+           limit) at 2x2 in 5i's spawn of four ranks (each 4 of the 8 slots
+           and 16 of the 32 heads), axq8 with the ladder, phase 3's prompts
+           on the bf16 cache, then bucketed packed on the int8 cache: every
+           request ok, the four ranks' streams equal, each rank's launches
+           and collectives as its rows predict (a prefill only on its rows'
+           data coordinate; the tokens' all-gather over ``data``), tokens
+           equal one rank's up to measured near-ties;
+       3x  2 tinyllama-1.1b replicas x tp=2 (4 layers) on the same four
+           ranks, disjoint slices, seeded replica_loss on a VirtualClock,
+           twice: every request once and ok, tokens equal a clean engine's,
+           one recovery trace, the last rescale data=1, model=2, each rank's
+           launches as its replicas' steps predict;
      every request must finish and every kernel of the path must have
      launched exactly as the layer (or stage) count predicts, while no
      plain version ran on the card.  Every path serves from CUDA graphs,
@@ -278,8 +293,10 @@ Phases (any failure exits non-zero):
            and 2x2 (against the reference's mesh semantics on one rank:
            capacity and aux per data shard), internvl2-1b and hubert-xlarge
            at 1x2 under EXACT f32, mamba2-370m at 1x2 and 2x1 (EXACT f32 and
-           axq8), recurrentgemma-2b's one group at 1x2, its gradients alone
-           (its one-rank state does not fit twice on the card);
+           axq8; at 2x1 where its step parts from one rank's, beside the
+           one-rank step with its rows swapped), recurrentgemma-2b's one
+           group at 1x2, its gradients alone (its one-rank state does not
+           fit twice on the card);
        5j  ``launch.train --mesh 1x2 --dist-backend gloo`` at 2 layers:
            uninterrupted, SIGTERM'd (the launcher passes the signal to its
            ranks, which checkpoint at one step), resumed (restored shards
@@ -290,7 +307,9 @@ Phases (any failure exits non-zero):
 
 ``--tp-only`` builds, then runs only phase 2's tp=2 shard rows, 3s, 3t, 3u
 and 3v (no result line); ``--train-mesh-only`` builds, then runs only phase
-2's training shard rows and 5g-5m (no result line).
+2's training and 2x2 shard rows, 5g-5m, 3w and 3x (no result line);
+``--dp-only`` builds, then runs only phase 2's 2x2 shard rows, 3w, 3x and
+5i's mamba2-370m 2x1 step (no result line).
 
 With ``--record PATH`` every number also goes to a JSON file.
 """
@@ -3780,6 +3799,37 @@ def phase_kernels_tp_recurrent(ctx, ssm_cfg, rg_cfg):
     return rows
 
 
+#: the serving data axis's mesh (3w): 2 data coordinates of TP model ranks
+DP = (2, TP)
+
+
+def phase_kernels_dp(ctx, cfg):
+    """Phase 2's rows at the shard shapes 3w launches: one data
+    coordinate's rows at decode (M = the slots over the data axis, 4 of 8)
+    at tp=2 — wq (N 1024), wk/wv (N 128), wo (K 1024) and down (K 2816) as
+    row-parallel partials, the vocab shard (N 16000), the gated half (N
+    2816) — and decode on the bf16 and int8 caches at B 4, 2 kv heads of G
+    8 a rank.  Prefill attention runs at 3s's shapes (one prompt, 16 / 2
+    heads a rank)."""
+    torch = ctx["torch"]
+    deg = torch.tensor(6, dtype=torch.int32, device=ctx["dev"])
+    D_, M_ = DP
+    B, T = ctx["slots"] // D_, ctx["max_len"]
+    nvalid, active = decode_lengths(T, B)
+    d, hd, pd = cfg.d_model, cfg.head_dim, cfg.padded(M_)
+    H, KVr = pd.n_heads // M_, pd.n_kv_rep // M_
+    rows = {"axqmm": [], "axqmm_gated": [], "flash_decode": [], "flash_decode_quant": []}
+    for N, K in ((H * hd, d), (KVr * hd, d), (d, H * hd), (d, pd.d_ff // M_),
+                 (pd.vocab // M_, d)):
+        rows["axqmm"].append(check_axqmm(ctx, B, N, K, False, deg))
+    rows["axqmm_gated"].append(check_gated(ctx, B, pd.d_ff // M_, d, deg))
+    rows["flash_decode"].append(check_decode(ctx, B, KVr, H // KVr, hd, T, nvalid, active))
+    rows["flash_decode_quant"].append(check_decode_quant(ctx, B, KVr, H // KVr, hd, T, nvalid,
+                                                         active, 8))
+    report_rows(rows, f"{D_}x{M_} shard: ")
+    return rows
+
+
 def _rank_ctx(torch, dev, on_card: bool, slots: int) -> dict:
     """The ``ctx`` keys a rank's helpers read (``drive``, ``check_launches``)."""
     return {"torch": torch, "dev": dev, "on_card": on_card, "slots": slots,
@@ -5121,19 +5171,25 @@ def train_mesh_phases(ctx, record, cfg, moe_cfg, vlm_cfg, audio_cfg, ssm_cfg,
                       rg_cfg) -> None:
     """The mesh-training phases but the launchers (5j:
     :func:`launcher_phases`), in order: phase 2's rows at 5g's, 5h's, 5k's,
-    5l's and 5m's shard shapes, 5g / 5h / 5k / 5l / 5m, 5i; each sets its
-    result in ``record``."""
+    5l's and 5m's shard shapes, 5g / 5h / 5k / 5l / 5m, 5i with the serving
+    data axis's 3w and 3x in its four-rank spawn; each sets its result in
+    ``record``."""
     for key, fn, args in (("kernels_train_mesh", phase_kernels_train_mesh, (cfg, moe_cfg)),
                           ("kernels_train_mesh_rec", phase_kernels_train_mesh_recurrent,
                            (ssm_cfg, rg_cfg)),
                           ("train_mesh", phase_train_mesh,
                            (cfg, depth_cut(ctx, "5k", moe_cfg), depth_cut(ctx, "5l", ssm_cfg),
                             depth_cut(ctx, "5m", rg_cfg))),
-                          ("train_mesh_cut", phase_train_mesh_cut,
-                           (cfg, moe_cfg, vlm_cfg, audio_cfg, ssm_cfg, rg_cfg))):
+                          ):
         record[key] = fn(ctx, *args)
         if ctx["on_card"]:
             ctx["torch"].cuda.empty_cache()
+    record["train_mesh_cut"], (w_ranks, x_ranks) = phase_train_mesh_cut(
+        ctx, cfg, moe_cfg, vlm_cfg, audio_cfg, ssm_cfg, rg_cfg,
+        serve_runs=dp_serve_runs(ctx, cfg, tp_prompts(ctx, cfg)))
+    record["dp_path"], record["fleet_mesh_path"] = phase_dp_serve(ctx, cfg, w_ranks, x_ranks)
+    if ctx["on_card"]:
+        ctx["torch"].cuda.empty_cache()
 
 
 def launcher_phases(ctx, record, cfg, moe_cfg, single=True, mesh=True) -> None:
@@ -5287,10 +5343,12 @@ def _fingerprint(ctx, tree) -> list:
 
 
 def _mesh_rank(rank: int, world: int, runs: list) -> list:
-    """One rank of 5g / 5h / 5i in its own process (``spawn_ranks``): each
-    run of ``runs`` on its (data, model) mesh of all the ranks, over a gloo
-    group on the card (the CPU in the rehearsal), ``kind`` ``path`` or
-    ``cut``; one result a run.  The ranks' processes and the card's
+    """One rank of 5g / 5h / 5i (and 3w / 3x in 5i's four-rank spawn) in
+    its own process (``spawn_ranks``): each run of ``runs`` on its (data,
+    model) mesh of all the ranks, over a gloo group on the card (the CPU in
+    the rehearsal), ``kind`` ``path``, ``cut``, ``dp_serve`` (3w) or
+    ``fleet`` (3x, whose replicas' meshes ``fleet_meshes`` builds); one
+    result a run.  The ranks' processes and the card's
     warm-up are shared by the runs; each run frees what it held."""
     import torch
 
@@ -5304,15 +5362,26 @@ def _mesh_rank(rank: int, world: int, runs: list) -> list:
         _build.build_all()                   # loads the parent's build (content-keyed)
     out, noise = [], {}
     for job in runs:
-        mesh = meshctx.set_mesh(meshctx.make_mesh(tuple(job["mesh"]), ("data", "model"),
-                                                  device="cuda" if on_card else "cpu",
-                                                  backend="gloo"))
-        ctx = _rank_ctx(torch, mesh.device, on_card, 0)
         cfg = get_config(job["arch"])
         if job.get("n_layers"):
             cfg = dataclasses.replace(cfg, n_layers=job["n_layers"])
         t = time.time()
-        if job["kind"] == "path":
+        if job["kind"] == "fleet":
+            # 3x builds its replicas' meshes itself (fleet_meshes)
+            dev = meshctx.rank_device(rank, "cuda" if on_card else "cpu")
+            out.append(_fleet_serve(_rank_ctx(torch, dev, on_card, job["slots"]), rank, cfg,
+                                    job))
+            out[-1]["job_s"] = time.time() - t
+            if on_card:
+                torch.cuda.empty_cache()
+            continue
+        mesh = meshctx.set_mesh(meshctx.make_mesh(tuple(job["mesh"]), ("data", "model"),
+                                                  device="cuda" if on_card else "cpu",
+                                                  backend="gloo"))
+        ctx = _rank_ctx(torch, mesh.device, on_card, job.get("slots", 0))
+        if job["kind"] == "dp_serve":
+            out.append(_dp_serve(ctx, mesh, cfg, job))
+        elif job["kind"] == "path":
             out.append(_mesh_path(ctx, mesh, cfg, job))
         else:
             # the one-rank noise floor: measured once an arch, by rank 0's
@@ -5393,6 +5462,224 @@ def _mesh_path(ctx, mesh, cfg, job) -> dict:
            "n_leaves": len(_leaves(state.params))}
     if ctx["on_card"]:
         out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+@contextlib.contextmanager
+def _kv_int8(on: bool):
+    """``REPRO_KV_INT8`` while an engine is built (its cache reads it)."""
+    import os
+
+    prev = os.environ.get("REPRO_KV_INT8")
+    os.environ["REPRO_KV_INT8"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if prev is None:
+            del os.environ["REPRO_KV_INT8"]
+        else:
+            os.environ["REPRO_KV_INT8"] = prev
+
+
+def _record_tops(eng, against=None) -> dict:
+    """{(rid, token index): (the step's largest logit, [the logit of
+    ``against[rid][index]``])} of every token of this rank's rows that
+    ``eng`` harvests, from its adapter's whole-row logits (a data axis'
+    rank holds its slots' rows).  ``against``: {rid: another run's
+    tokens}, whose logits this run's step is read at."""
+    tops, last = {}, {}
+    wl = eng.workload
+    shard = getattr(wl, "shard", None)
+    logits_fn, harvest = wl._logits, wl.harvest
+
+    def logits_and_note(*a, **kw):
+        logits, cache = logits_fn(*a, **kw)
+        last["l"] = logits.float()
+        return logits, cache
+
+    def harvest_and_note(req, feed, slot, emission):
+        row = slot if shard is None else shard.local(slot)
+        if row is not None:
+            lg, t = last["l"][row], len(req.out)
+            other = (against or {}).get(req.rid, ())
+            tops[(req.rid, t)] = (float(lg.max()),
+                                  float(lg[other[t]]) if t < len(other) else None)
+        return harvest(req, feed, slot, emission)
+
+    wl._logits, wl.harvest = logits_and_note, harvest_and_note
+    return tops
+
+
+def _dp_serve(ctx, mesh, cfg, job) -> dict:
+    """3w on this rank: ``job["runs"]`` (the bf16 cache with exact-length
+    admission; the int8 cache with bucketed, packed admission) of the
+    2x2 engine over phase 3's prompts, axq8 with the ladder 8 -> 5, eager:
+    each run's streams, the model's prefill calls on this rank (its data
+    coordinate's rows only), the launch and collective counts (set to 0
+    just before and read just after), tick, tokens/s, TTFT and peak memory.
+    Each rank records the largest logit of its rows' every step.  Rank 0
+    then serves each run on one rank (a trivial mesh, the same weights,
+    warm-up and QoS ladder), recording its largest logit and its logit of
+    the 2x2 run's token at every step (:func:`_one_rank_gate`)."""
+    torch, dev = ctx["torch"], ctx["dev"]
+    from repro_torch.core.dynamic import QoSController
+    from repro_torch.dist import collectives, meshctx
+    from repro_torch.models import build_model
+    from repro_torch.serve.admission import AdmissionConfig
+    from repro_torch.serve.lm import ServeEngine
+    from repro_torch.serve.metrics import summarize
+    from repro_torch.serve.sharded import ShardedServeEngine
+
+    M = mesh.size("model")
+    model = build_model(cfg, _tp_policy(job), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = model.init(generator=gen, tp=M)       # the global tree, equal on every rank
+    forwards = {"prefill": 0, "prefill_batch": 0}
+    for name in forwards:
+        def counted(*a, _f=getattr(model, name), _n=name, **kw):
+            forwards[_n] += 1
+            return _f(*a, **kw)
+        setattr(model, name, counted)
+    prompts, new_tokens = job["prompts"], job["new_tokens"]
+    ladder = lambda: QoSController(ladder=[{"ebits": e} for e in (8, 7, 6, 5)], low_water=0.25,
+                                   high_water=0.75, cooldown_steps=8)
+    warm = prompts[0][:16]
+    out = {"rank": mesh.rank, "coord": {a: mesh.coord(a) for a in mesh.axis_names},
+           "transport": mesh.transport, "runs": {}}
+    for run in job["runs"]:
+        adm = (AdmissionConfig(buckets=tuple(run["buckets"]), pack=run["pack"])
+               if run.get("buckets") else None)
+        with _kv_int8(run["quant"]):
+            eng = ShardedServeEngine(model, params, mesh=mesh, slots=job["slots"],
+                                     max_len=job["max_len"], qos=ladder(), seed=0,
+                                     admission=adm)
+        eng.submit(warm, 2)                            # library loads, allocator
+        eng.run_until_drained()
+        st = eng.stats
+        steps0, f0 = st.decode_steps, dict(forwards)
+        collectives.counter.reset()
+        tops = _record_tops(eng)
+        reqs, seen = drive(ctx, eng, prompts, new_tokens)
+        coll = collectives.counter.snapshot()
+        eng.check_streams()
+        fwd = {k: forwards[k] - f0[k] for k in forwards}
+        s = summarize(reqs, eng.stats, wall_s=seen["wall_s"])
+        dts = seen["decode_ticks"]
+        res = {"streams": [list(r.out_tokens) for r in reqs],
+               "statuses": sorted({r.status for r in reqs}), "steps": st.decode_steps - steps0,
+               "prefills": fwd["prefill"] + fwd["prefill_batch"], "forwards": fwd,
+               "rows": int(eng.cache.length.shape[0]), "cache": type(eng.cache).__name__,
+               "ticks": seen["ticks"], "wall_s": seen["wall_s"],
+               "decode_tick_ms_mean": 1e3 * sum(dts) / max(len(dts), 1),
+               "decode_ticks_timed": len(dts),
+               "gen_tok_per_s": s["generated_tokens"] / seen["wall_s"],
+               "ttft_p50_ms": s["ttft_p50_ms"], "ttft_p95_ms": s["ttft_p95_ms"],
+               "tpot_p50_ms": s["tpot_p50_ms"],
+               "rungs": sorted({e for _, e in eng.stats.degree_history}),
+               "launches": seen["launches"], "plain": seen["plain"],
+               "flash_schedules": seen["flash_schedules"],
+               "max_memory_allocated": seen["max_memory_allocated"], "collectives": coll,
+               "tops": tops}
+        del eng
+        if ctx["on_card"]:
+            torch.cuda.empty_cache()
+        if mesh.rank == 0:
+            with meshctx.use_mesh(meshctx.make_mesh((1, 1), ("data", "model"))), \
+                    _kv_int8(run["quant"]):
+                ref = ServeEngine(model, params, slots=job["slots"], max_len=job["max_len"],
+                                  tp=M, qos=ladder(), seed=0, admission=adm, capture=False)
+                ref.submit(warm, 2)
+                ref.run_until_drained()
+                # the 2x2 run's requests had these rids too (one warm-up before)
+                one = _record_tops(ref, against={r.rid: r.out_tokens for r in reqs})
+                rr = [ref.submit(p, new_tokens) for p in prompts]
+                ref.run_until_drained()
+            res["one_rank"] = {"streams": {r.rid: list(r.out_tokens) for r in rr},
+                               "tops": one, "statuses": sorted({r.status for r in rr})}
+            del ref
+            if ctx["on_card"]:
+                torch.cuda.empty_cache()
+        out["runs"][run["name"]] = res
+    return out
+
+
+def _fleet_serve(ctx, rank, cfg, job) -> dict:
+    """3x on this rank: a FleetSupervisor of ``job["replicas"]`` replicas x
+    tp=2 over the world (``fleet_meshes``: disjoint slices), every replica
+    a ShardedServeEngine at a fixed degree (axq8 at 8, the bf16 cache,
+    exact-length admission) on the one weight tree, under seeded
+    ``replica_loss`` on a VirtualClock, twice; then a clean engine on
+    replica 0's ranks (the others shadow it).  Each fleet run: the recovery
+    trace, every request's (status, tokens), the last rescale, the launch
+    and collective counts of the run (set to 0 just before and read just
+    after) beside the decode steps and prefills of the replicas this rank
+    computes, wall time, TTFT, peak memory."""
+    torch, dev = ctx["torch"], ctx["dev"]
+    from repro_torch.dist import collectives, meshctx
+    from repro_torch.dist.fleet import FleetSupervisor
+    from repro_torch.kernels import _build
+    from repro_torch.models import build_model
+    from repro_torch.resil import FaultPlan, FaultSpec, VirtualClock
+    from repro_torch.serve.metrics import summarize
+    from repro_torch.serve.sharded import ShardedServeEngine
+
+    model = build_model(cfg, _tp_policy(job), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = model.init(generator=gen, tp=TP)       # the global tree, equal on every rank
+    prompts, new_tokens = job["prompts"], job["new_tokens"]
+    deg = torch.tensor(8, dtype=torch.int32, device=dev)
+
+    def engine(mesh, clock, policy):
+        return ShardedServeEngine(model, params, mesh=mesh, slots=job["slots"],
+                                  max_len=job["max_len"], seed=0, degree=deg, clock=clock,
+                                  policy=policy)
+
+    out = {"rank": rank, "runs": []}
+    for _ in range(2):
+        clock, policy = VirtualClock(), _fleet_policy()
+        plan = FaultPlan(FaultSpec(replica_loss=job["loss"]), seed=job["seed"])
+        sup = FleetSupervisor(lambda mesh, rid: engine(mesh, clock, policy), job["replicas"],
+                              tp=TP, clock=clock, faults=plan, policy=policy,
+                              device="cuda" if ctx["on_card"] else "cpu", backend="gloo")
+        ctx["sync"]()
+        _build.reset_counts()
+        collectives.counter.reset()
+        if ctx["on_card"]:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        reqs = [sup.submit(p, new_tokens) for p in prompts]
+        done = sup.run_until_drained(max_ticks=8 * len(prompts) * new_tokens)
+        ctx["sync"]()
+        wall = time.time() - t0
+        s = summarize(done, None, wall_s=wall)
+        mine = [r for r in sup.replicas if r.mesh.member]
+        out["runs"].append({
+            "resil_log": list(sup.resil_log),
+            "done": sorted((r.rid, r.status, tuple(r.out)) for r in done),
+            "submitted": [r.rid for r in reqs], "ticks": sup._ticks,
+            "rescale": ({"data": sup.rescales[-1].data, "model": sup.rescales[-1].model,
+                         "idle": sup.rescales[-1].idle_devices} if sup.rescales else None),
+            "alive": [r.alive for r in sup.replicas],
+            "ranks": [list(r.mesh.ranks) for r in sup.replicas],
+            "members": [r.rid for r in mine],
+            "steps": sum(r.engine.stats.decode_steps for r in mine),
+            "prefills": sum(r.engine.stats.prefill_calls for r in mine),
+            "launches": dict(_build.launches), "plain": dict(_build.plain_cuda_calls),
+            "collectives": collectives.counter.snapshot(), "wall_s": wall,
+            "gen_tok_per_s": s["generated_tokens"] / wall, "ttft_p50_ms": s["ttft_p50_ms"],
+            "ttft_p95_ms": s["ttft_p95_ms"],
+            "max_memory_allocated": (torch.cuda.max_memory_allocated() if ctx["on_card"]
+                                     else None)})
+        del sup, mine
+        if ctx["on_card"]:
+            torch.cuda.empty_cache()
+    clock, policy = VirtualClock(), _fleet_policy()
+    mesh0 = meshctx.make_mesh((1, TP), ("data", "model"), device=dev, backend="gloo",
+                              ranks=range(TP))
+    clean = engine(mesh0, clock, policy)
+    creqs = [clean.submit(p, new_tokens) for p in prompts]
+    clean.run_until_drained()                       # the ranks' streams compared
+    out["clean"] = {r.rid: tuple(r.out) for r in creqs}
     return out
 
 
@@ -5501,6 +5788,9 @@ def _mesh_cut(ctx, mesh, cfg, job) -> dict:
                "fingerprint": _fingerprint(ctx, new)}
         if sub.get("ring"):
             res["vs_exact_mesh"] = _state_stats(new, exact_mesh, state, sharded, ill_lr=False)
+        if sub.get("diagnose"):
+            res["diagnosis"] = _diagnose(ctx, mesh, one, model, state, new, ref_s, batch,
+                                         full_batch)
         if sub["approx"] == "exact" and not sub.get("ring") and not sub.get("compress"):
             exact_mesh = new
         if sub["approx"] != "exact" and mesh.rank == 0 and job.get("noise") is None:
@@ -5510,6 +5800,76 @@ def _mesh_cut(ctx, mesh, cfg, job) -> dict:
         if ctx["on_card"]:
             torch.cuda.empty_cache()
     return out
+
+
+def _diagnose(ctx, mesh, one, model, start, new, ref, batch, full_batch) -> dict:
+    """Where a data-axis mesh step parts from one rank's (ROADMAP §C): for
+    mu and nu the leaf and entry of the largest difference over the leaf's
+    largest entry, both values there; at mu's entry this rank's share of
+    the gradient (its rows' log-likelihood over the global token count, not
+    yet summed), the data ranks' sum of the shares (the step's
+    all-reduce), the one-rank gradient on the whole batch, and the leaf's
+    and the share's largest entries; the five gradient leaves farthest from
+    the one-rank gradient, each beside the one-rank gradient's distance
+    from itself with the batch's rows in the other order (the same sums in
+    another order: the size of a rounding)."""
+    from repro_torch.dist import collectives, meshctx
+    from repro_torch.train import step as S
+    from repro_torch.tree import named_leaves
+
+    out = {}
+    for field in ("mu", "nu"):
+        worst = None
+        for (name, a), (_, b) in zip(named_leaves(getattr(new.opt, field)),
+                                     named_leaves(getattr(ref.opt, field))):
+            a, b = a.float().reshape(-1), b.float().reshape(-1)
+            d, big = (a - b).abs(), float(b.abs().max())
+            j = int(d.argmax())
+            rel = float(d[j]) / big if big else 0.0
+            if worst is None or rel > worst["rel"]:
+                worst = {"rel": rel, "leaf": name, "entry": j, "mesh": float(a[j]),
+                         "one_rank": float(b[j]), "leaf_max": big}
+        out[field] = worst
+    group = meshctx.data_group(mesh)
+    _, share = S.value_and_grad(model, start.params, batch, tp=1, remat="none")
+    with meshctx.use_mesh(one):
+        _, whole = S.value_and_grad(model, start.params, full_batch, tp=1, remat="none")
+        flip = {k: v.flip(0) for k, v in full_batch.items()}
+        _, swapped = S.value_and_grad(model, start.params, flip, tp=1, remat="none")
+    leaves = []
+    for (name, g), (_, w), (_, v) in zip(named_leaves(share), named_leaves(whole),
+                                         named_leaves(swapped)):
+        total = collectives.all_reduce(g, group)
+        big = float(w.abs().max()) or 1.0
+        leaves.append((float((total - w).abs().max()) / big,
+                       float((v - w).abs().max()) / big, name))
+        if name == out["mu"]["leaf"]:
+            j = out["mu"]["entry"]
+            out["grad"] = {"leaf": name, "entry": j, "share": float(g.reshape(-1)[j]),
+                           "sum": float(total.reshape(-1)[j]),
+                           "one_rank": float(w.reshape(-1)[j]), "leaf_max": big,
+                           "share_max": float(g.abs().max())}
+    out["grad_leaves"] = sorted(leaves, reverse=True)[:5]
+    return out
+
+
+def _diagnosis_lines(label, ranks) -> dict:
+    """Print 5i's diagnosis of a data-axis exact step (``_diagnose``) from
+    every rank; returns it with the ranks' shares."""
+    d0 = ranks[0]["jobs"]["exact"]["diagnosis"]
+    shares = [r["jobs"]["exact"]["diagnosis"]["grad"]["share"] for r in ranks]
+    g = d0["grad"]
+    for field in ("mu", "nu"):
+        w = d0[field]
+        say(f"{label} exact diagnosis: {field} {w['rel']:.4g} of its leaf's largest entry at "
+            f"{w['leaf']}[{w['entry']}] (mesh {w['mesh']!r}, one rank {w['one_rank']!r}, "
+            f"leaf's largest {w['leaf_max']!r})")
+    say(f"{label} exact diagnosis: gradient of {g['leaf']}[{g['entry']}]: the data ranks' "
+        f"shares {shares} sum to {g['sum']!r}, one rank {g['one_rank']!r}; the leaf's "
+        f"largest entry {g['leaf_max']!r}, a share's largest {g['share_max']!r}; the "
+        f"farthest gradient leaves (mesh, one rank with its rows swapped, leaf): "
+        f"{d0['grad_leaves']}")
+    return dict(d0, shares=shares)
 
 
 def _mesh_grads(ctx, mesh, one, model, M, full_batch, batch, degree, noise) -> dict:
@@ -5849,6 +6209,181 @@ def phase_train_mesh(ctx, cfg, moe_cfg, ssm_cfg, rg_cfg) -> dict:
     return out
 
 
+def dp_serve_runs(ctx, cfg, prompts) -> list:
+    """3w's and 3x's runs for 5i's four-rank spawn: tinyllama-1.1b at full
+    width, ``depth_cuts`` of its layers, axq8 (block ``tp_block``), phase
+    3's slots and new tokens; 3w phase 3's prompts, 3x half of them."""
+    common = {"arch": cfg.name, "approx": "axq8", "block": ctx["tp_block"],
+              "slots": ctx["slots"], "max_len": ctx["max_len"], "prompts": prompts,
+              "new_tokens": ctx["new_tokens"]}
+    w = dict(common, kind="dp_serve", mesh=DP, n_layers=depth_cut(ctx, "3w", cfg).n_layers,
+             runs=[{"name": "bf16", "quant": False},
+                   {"name": "int8", "quant": True, "buckets": ctx["rec_buckets"], "pack": 4}])
+    # 3x serves its traffic three times: half of 3w's prompts (the time limit)
+    x = dict(common, kind="fleet", mesh=(2, TP), n_layers=depth_cut(ctx, "3x", cfg).n_layers,
+             replicas=2, loss=ctx["fleet_loss"], seed=ctx["fleet_seed"],
+             prompts=prompts[:len(prompts) // 2])
+    return [w, x]
+
+
+def _one_rank_gate(label, ranks, name) -> dict:
+    """3w against one rank: a request's tokens equal until its first
+    differing token, which must be a near-tie: the one-rank engine's
+    margin of its token over the 2x2 run's, on the same inputs (the
+    history is equal up to it), at most twice the largest distance of the
+    two runs' largest logits over every step compared before (tp = 2 sums
+    the row-parallel partials in another f32 order than one rank, and AXQ
+    moves an int8 code with a rounding: the distance is measured, not
+    assumed; ROADMAP §C).  The request's comparison ends there."""
+    mine: dict = {}
+    for r in ranks:
+        if r["coord"]["model"] == 0:
+            mine.update(r["runs"][name]["tops"])
+    r0 = ranks[0]["runs"][name]
+    one = r0["one_rank"]
+    rids = sorted(one["streams"])
+    compared, differ, delta = 0, [], 0.0
+    for rid, a in zip(rids, r0["streams"]):
+        for t, (x, y) in enumerate(zip(a, one["streams"][rid])):
+            top, at_mine = one["tops"][(rid, t)]
+            if x != y:
+                differ.append((rid, t, top - at_mine))
+                break
+            delta = max(delta, abs(mine[(rid, t)][0] - top))
+            compared += 1
+    for rid, t, margin in differ:
+        require(margin <= 2 * delta, f"{label}: request {rid} token {t} differs from one "
+                                     f"rank's at a margin {margin} (> twice the largest-logit "
+                                     f"distance {delta} on equal inputs): not a near-tie")
+    return {"compared": compared, "tokens": sum(len(a) for a in r0["streams"]),
+            "differ_at": differ, "delta": delta}
+
+
+def phase_dp_serve(ctx, cfg, w_ranks, x_ranks) -> tuple:
+    """3w / 3x gates on the ranks' results (:func:`dp_serve_runs`).
+
+    3w, tinyllama-1.1b at 2x2 (four ranks on the card through gloo, each 4
+    of the 8 slots and half the heads): every request ok; the four ranks'
+    streams equal; each rank's launches as the layer count predicts on its
+    rows — a decode step's (5L + 1) GEMMs, L gated GEMMs and L decode
+    kernels on every rank, a prefill's on the ranks of its rows' data
+    coordinate (5L + 1 GEMMs exact, 5L bucketed) — and its collectives: the model group's all-reduces (2L +
+    1 a step or prefill), the logits' all-gather over ``model`` and the
+    tokens' over ``data`` (two a step); no plain version on the card; the
+    tokens equal one rank's on the same weights up to near-ties
+    (:func:`_one_rank_gate`), which end a request's comparison.
+
+    3x, 2 replicas x tp=2 on the four ranks (disjoint slices), seeded
+    ``replica_loss`` on a VirtualClock, twice: every request ends once and
+    ok; the ok streams equal a clean engine's on replica 0's ranks; the two
+    runs give one recovery trace; the last rescale reads data=1, model=2;
+    each rank's launches as its member replicas' decode steps and
+    prefills predict."""
+    L_w = depth_cut(ctx, "3w", cfg).n_layers
+    out_w = {"runs": {}}
+    for name in ("bf16", "int8"):
+        label = f"phase 3w {name}"
+        rs = [r["runs"][name] for r in w_ranks]
+        r0 = rs[0]
+        require(all(r["statuses"] == ["ok"] for r in rs), f"{label}: a request not ok")
+        require(all(r["streams"] == r0["streams"] for r in rs),
+                f"{label}: the ranks' token streams differ")
+        require(all(r["rows"] == ctx["slots"] // DP[0] for r in rs),
+                f"{label}: a rank's cache rows {[r['rows'] for r in rs]}")
+        quant = name == "int8"
+        for rank, r in zip(w_ranks, rs):
+            st, pf, pb = r["steps"], r["prefills"], r["forwards"]["prefill_batch"]
+            # a bucketed call computes no logits (5 L GEMMs), an exact one
+            # its last token's (5 L + 1)
+            expect = {"axqmm": (5 * L_w + 1) * (st + pf) - pb, "axqmm_gated": L_w * (st + pf),
+                      "flash_decode": 0 if quant else L_w * st,
+                      "flash_decode_quant": L_w * st if quant else 0,
+                      "flash_attention": L_w * pf, "pr_multiply": 0, "pr_fir": 0,
+                      "pr_conv2d": 0}
+            check_launches(ctx, f"{label} rank {rank['rank']} {rank['coord']}", r, expect)
+            want = {"all-reduce": (2 * L_w + 1) * (st + pf), "all-gather": 2 * st}
+            calls = r["collectives"]["calls"]
+            require(calls == want, f"{label} rank {rank['rank']}: collectives {calls}, "
+                                   f"expected {want} ({st} steps, {pf} prefills)")
+            say(f"{label} rank {rank['rank']} {rank['coord']}: {r['ticks']} ticks, decode "
+                f"tick {r['decode_tick_ms_mean']:.3f} ms over {r['decode_ticks_timed']} ticks, "
+                f"{r['gen_tok_per_s']:.1f} tok/s, TTFT p50 {r['ttft_p50_ms']} ms p95 "
+                f"{r['ttft_p95_ms']} ms, peak memory {r['max_memory_allocated']}, "
+                f"{r['prefills']} prefills here ({r['forwards']}), rungs {r['rungs']}")
+        one = _one_rank_gate(label, w_ranks, name)
+        require(r0["one_rank"]["statuses"] == ["ok"], f"{label}: one rank: a request not ok")
+        n = max(r0["steps"], 1)
+        coll = r0["collectives"]
+        per = {"host_ms_per_tick": coll["host_ms"] / n, "wait_ms_per_tick": coll["wait_ms"] / n,
+               "bytes_per_tick": {k: v / n for k, v in coll["bytes"].items()},
+               "calls_per_tick": {k: v / n for k, v in coll["calls"].items()}}
+        say(f"{label}: {one['compared']} of {one['tokens']} tokens equal one rank's before "
+            f"a near-tie ended a request's comparison ({len(one['differ_at'])} near-ties: "
+            f"{one['differ_at']}; the largest logit {one['delta']:.4g} apart at most on equal "
+            f"inputs); collectives per decode step (prefills included) on rank 0: "
+            f"host {per['host_ms_per_tick']:.3f} ms after {per['wait_ms_per_tick']:.3f} ms "
+            f"waiting, bytes {per['bytes_per_tick']}, calls {per['calls_per_tick']}; "
+            f"transport {w_ranks[0]['transport']}")
+        out_w["runs"][name] = {"ranks": [{k: v for k, v in r.items()
+                                          if k not in ("streams", "tops", "one_rank")}
+                                         for r in rs], "collectives_per_tick": per,
+                               "one_rank": one}
+    out_w["seen"] = {"launches": sum_launches([r["launches"] for w in w_ranks
+                                               for r in w["runs"].values()])}
+
+    L_x = depth_cut(ctx, "3x", cfg).n_layers
+    label = "phase 3x"
+    x0 = x_ranks[0]
+    first, again = x0["runs"]
+    n_req = len(first["submitted"])
+    require(first["ranks"] == [[0, 1], [2, 3]], f"{label}: replica slices {first['ranks']}")
+    for xr in x_ranks:
+        for run in xr["runs"]:
+            require(run["resil_log"] == first["resil_log"] and run["done"] == first["done"],
+                    f"{label} rank {xr['rank']}: a recovery trace or a stream differs")
+    require(sorted(r[0] for r in first["done"]) == sorted(first["submitted"]),
+            f"{label}: requests did not end exactly once")
+    require(all(st == "ok" for _, st, _ in first["done"]), f"{label}: a request not ok")
+    for rid, _, toks in first["done"]:
+        require(toks == x0["clean"][rid], f"{label}: request {rid}'s tokens differ from a "
+                                          "clean engine's")
+    require(any(n == "replica_lost" for _, n, _ in first["resil_log"]),
+            f"{label}: no replica was lost")
+    require(first["rescale"] is not None and (first["rescale"]["data"],
+                                              first["rescale"]["model"]) == (1, TP),
+            f"{label}: last rescale {first['rescale']}")
+    runs = []
+    for xr in x_ranks:
+        for i, run in enumerate(xr["runs"]):
+            st, pf = run["steps"], run["prefills"]
+            expect = {"axqmm": (5 * L_x + 1) * (st + pf), "axqmm_gated": L_x * (st + pf),
+                      "flash_decode": L_x * st, "flash_decode_quant": 0,
+                      "flash_attention": L_x * pf, "pr_multiply": 0, "pr_fir": 0,
+                      "pr_conv2d": 0}
+            check_launches(ctx, f"{label} run {i + 1} rank {xr['rank']} (replicas "
+                                f"{run['members']})", run, expect)
+            n = max(run["ticks"], 1)
+            coll = run["collectives"]
+            say(f"{label} run {i + 1} rank {xr['rank']}: {run['ticks']} fleet ticks in "
+                f"{run['wall_s']:.3f} s ({1e3 * run['wall_s'] / n:.3f} ms a tick), "
+                f"{run['gen_tok_per_s']:.1f} tok/s, TTFT p50 {run['ttft_p50_ms']} ms p95 "
+                f"{run['ttft_p95_ms']} ms, peak memory {run['max_memory_allocated']}; "
+                f"collectives a fleet tick: calls "
+                f"{ {k: v / n for k, v in coll['calls'].items()} } bytes "
+                f"{ {k: v / n for k, v in coll['bytes'].items()} } host "
+                f"{coll['host_ms'] / n:.3f} ms")
+            runs.append({k: v for k, v in run.items() if k not in ("done", "resil_log")})
+    events: dict = {}
+    for _, name, _ in first["resil_log"]:
+        events[name] = events.get(name, 0) + 1
+    say(f"{label}: {n_req} requests ended once, all ok, tokens == a clean engine's; one "
+        f"recovery trace in both runs ({events}); last rescale {first['rescale']}")
+    out_x = {"runs": runs, "events": events, "rescale": first["rescale"],
+             "seen": {"launches": sum_launches([r["launches"] for xr in x_ranks
+                                                for r in xr["runs"]])}}
+    return out_w, out_x
+
+
 #: 5i: a mesh step against the one-rank step under EXACT f32 (params, mu
 #: and nu within MESH_EXACT_REL of each leaf's largest entry, the loss and
 #: the gradient norm relative); a compressed step's mu and nu within one
@@ -6000,7 +6535,8 @@ def _mesh_cut_gates(ctx, label, shape, ranks, names, noise=None) -> dict:
     return out
 
 
-def phase_train_mesh_cut(ctx, cfg, moe_cfg, vlm_cfg, audio_cfg, ssm_cfg, rg_cfg) -> dict:
+def phase_train_mesh_cut(ctx, cfg, moe_cfg, vlm_cfg, audio_cfg, ssm_cfg, rg_cfg,
+                         serve_runs=(), diagnosis_only=False) -> tuple:
     """5i: tinyllama-1.1b cut to 2 layers at full width, one train step at
     1x2, 2x1 and 2x2 (four ranks) from the seeded state on one batch,
     each rank's shards held to the same step on one rank (computed in each
@@ -6016,7 +6552,10 @@ def phase_train_mesh_cut(ctx, cfg, moe_cfg, vlm_cfg, audio_cfg, ssm_cfg, rg_cfg)
     recurrentgemma-2b at one (rec, rec, attn) group at 1x2, its gradients
     alone (``_mesh_grads``: its one-rank state does not fit twice a rank
     beside the other rank's on the card, and at 2x1 each rank would hold
-    one)."""
+    one).  mamba2-370m's exact 2x1 step also reports where it parts from
+    one rank (``_diagnose``; ``diagnosis_only``: that run alone).
+    ``serve_runs`` (3w / 3x) join the four-rank spawn after 5i's runs;
+    returns (5i's gates, their results)."""
     import numpy as np
 
     from repro_torch.data.pipeline import make_pipeline
@@ -6048,14 +6587,22 @@ def phase_train_mesh_cut(ctx, cfg, moe_cfg, vlm_cfg, audio_cfg, ssm_cfg, rg_cfg)
                run(moe_cfg, (2, 1), moe_subs[(2, 1)], batch),
                run(vlm_cfg, (1, 2), [exact], fe[vlm_cfg.name]),
                run(audio_cfg, (1, 2), [exact], fe[audio_cfg.name]),
-               run(ssm_cfg, (1, 2), [exact, axq8], batch), run(ssm_cfg, (2, 1), [exact, axq8], batch),
+               run(ssm_cfg, (1, 2), [exact, axq8], batch),
+               run(ssm_cfg, (2, 1), [dict(exact, diagnose=True), axq8], batch),
                run(rg_cfg, (1, 2), grads, batch, len(rg_cfg.block_pattern))],
-              [run(cfg, (2, 2), subs[(2, 2)], batch), run(moe_cfg, (2, 2), moe_subs[(2, 2)], batch)]]
-    out, noise = {}, {}
+              [run(cfg, (2, 2), subs[(2, 2)], batch), run(moe_cfg, (2, 2), moe_subs[(2, 2)], batch)]
+              + list(serve_runs)]
+    if diagnosis_only:
+        groups = [[run(ssm_cfg, (2, 1), [dict(exact, diagnose=True)], batch)]]
+    out, noise, extra = {}, {}, []
     for runs in groups:
-        results = _mesh_job(ctx, "5i", [dict(r, noise=dict(noise)) for r in runs],
-                            ctx["mesh_timeout_s"])
+        results = _mesh_job(ctx, "5i / 3w / 3x" if any(r["kind"] != "cut" for r in runs)
+                            else "5i",
+                            [dict(r, noise=dict(noise)) for r in runs], ctx["mesh_timeout_s"])
         for r, ranks in zip(runs, results):
+            if r["kind"] != "cut":
+                extra.append(ranks)
+                continue
             arch, shape = r["arch"], r["mesh"]
             if "axq8" in ranks[0]["jobs"] and noise.get(arch) is None:
                 noise[arch] = ranks[0]["jobs"]["axq8"]["noise"]
@@ -6068,7 +6615,9 @@ def phase_train_mesh_cut(ctx, cfg, moe_cfg, vlm_cfg, audio_cfg, ssm_cfg, rg_cfg)
             else:
                 out[key] = _mesh_cut_gates(ctx, f"phase 5i {key}", shape, ranks, names,
                                            noise.get(arch))
-    return out
+            if "diagnosis" in ranks[0]["jobs"].get("exact", {}):
+                out[key]["diagnosis"] = _diagnosis_lines(f"phase 5i {key}", ranks)
+    return out, extra
 
 
 #: the launcher run by phase 5j (written to a file: the spawned ranks run
@@ -6237,6 +6786,9 @@ def main(argv=None) -> int:
     ap.add_argument("--tp-only", action="store_true",
                     help="build, then only the tensor-parallel phases (2's shard rows, "
                          "3s, 3t, 3u, 3v; prints no result line)")
+    ap.add_argument("--dp-only", action="store_true",
+                    help="build, then only the serving data axis (2's 2x2 shard rows, 3w, "
+                         "3x) and 5i's mamba2-370m 2x1 diagnosis (prints no result line)")
     ap.add_argument("--train-mesh-only", action="store_true",
                     help="build, then only the mesh-training phases (2's training shard "
                          "rows, 5g-5m; prints no result line)")
@@ -6303,7 +6855,7 @@ def main(argv=None) -> int:
                # (PERF.md §7 names the run that forced each)
                "depth_cuts": {"3t": 4, "5e": 6, "5f": 12, "3i": 4, "3k": 4, "3g": 6,
                               "3m": 4, "3o": 8, "3q": 4, "3s": 4, "5k": 12, "3p": 8,
-                              "3u": 2, "3v": 3, "5l": 6, "5m": 5},
+                              "3u": 2, "3v": 3, "5l": 6, "5m": 5, "3w": 4, "3x": 4},
                "mesh_train_batch": 8, "mesh_dp_rows": 4, "mesh_train_steps": 3,
                "mesh_cut_shape": (2, 1024), "mesh_launch_shape": (2, 256, 6),
                "mesh_timeout_s": 900.0, "mesh_cut_vlm_seq": 2048,
@@ -6431,7 +6983,19 @@ def main(argv=None) -> int:
         write_record(args.record, record)
         say("training phases done (--train-only): no result line")
         return 0
+    if args.dp_only:
+        record["kernels_dp"] = phase_kernels_dp(ctx, cfg)
+        w, x = _mesh_job(ctx, "3w / 3x", dp_serve_runs(ctx, cfg, tp_prompts(ctx, cfg)),
+                         ctx["mesh_timeout_s"])
+        record["dp_path"], record["fleet_mesh_path"] = phase_dp_serve(ctx, cfg, w, x)
+        record["train_mesh_diagnosis"], _ = phase_train_mesh_cut(
+            ctx, cfg, moe_cfg, vlm_cfg, audio_cfg, ssm_cfg, rg_cfg, diagnosis_only=True)
+        record["phase_seconds"] = dict(record.times)
+        write_record(args.record, record)
+        say("serving data-axis phases done (--dp-only): no result line")
+        return 0
     if args.train_mesh_only:
+        record["kernels_dp"] = phase_kernels_dp(ctx, cfg)
         train_mesh_phases(ctx, record, cfg, moe_cfg, vlm_cfg, audio_cfg, ssm_cfg, rg_cfg)
         launcher_phases(ctx, record, cfg, moe_cfg, single=False)
         record["phase_seconds"] = dict(record.times)
@@ -6459,6 +7023,7 @@ def main(argv=None) -> int:
     record["kernels_fe"] = phase_kernels_frontends(ctx, vlm_cfg, audio_cfg)
     record["kernels_tp"] = phase_kernels_tp(ctx, cfg, moe_cfg)
     record["kernels_tp_rec"] = phase_kernels_tp_recurrent(ctx, ssm_cfg, rg_cfg)
+    record["kernels_dp"] = phase_kernels_dp(ctx, cfg)
     if args.kernels_only:
         write_record(args.record, record)
         say("kernel checks done (--kernels-only): no result line")
@@ -6559,11 +7124,14 @@ def main(argv=None) -> int:
              "3s": tp_launches(record["tp_dense_path"]),
              "3t": tp_launches(record["tp_moe_path"]),
              "3u": tp_launches(record["tp_rec_path"]["3u"]),
-             "3v": tp_launches(record["tp_rec_path"]["3v"])}
+             "3v": tp_launches(record["tp_rec_path"]["3v"]),
+             "3w": record["dp_path"]["seen"], "3x": record["fleet_mesh_path"]["seen"]}
     summary = []
     moe_rows = record["kernels_moe"]
     tp_rows = {k: v + record["kernels_tp_rec"].get(k, []) + record["kernels_train_mesh_rec"].get(
-        k, []) for k, v in record["kernels_tp"].items()}
+        k, []) + record["kernels_dp"].get(k, []) for k, v in record["kernels_tp"].items()}
+    for k, v in record["kernels_dp"].items():
+        tp_rows.setdefault(k, v)
     for name in list(record["kernels"]) + ["axqmm_experts", "axqmm_gated_experts"]:
         src, replaces = SOURCES[name]
         rows = record["kernels"].get(name) or moe_rows[name]

@@ -62,7 +62,9 @@ run every kernel on it.  An NCCL group takes CUDA tensors directly.  Every
 collective counts the bytes it sends into :data:`counter`, by kind, the way
 the reference's HLO analyzer reads a compiled step: an all-reduce or
 all-gather by its operand bytes, a ring hop (``collective-permute``) by its
-int8 payload plus its f32 scale.
+int8 payload plus its f32 scale, a :func:`broadcast_rows` (a fleet
+replica's tick emission, sent from its first rank to the world) by its
+payload.
 """
 
 from __future__ import annotations
@@ -384,6 +386,31 @@ def broadcast_value(value: float, group, device) -> float:
     t = torch.tensor([value], dtype=torch.float64, device=dev)
     dist.broadcast(t, src=dist.get_global_rank(group, 0), group=group)
     return float(t.item())
+
+
+def broadcast_rows(x: Tensor, rows: int, src: int, group) -> Tensor:
+    """World rank ``src``'s ``(rows, ...)`` tensor on every rank of
+    ``group``: ``x`` is that whole tensor on ``src`` and, on every other
+    rank, any tensor of its trailing shape and dtype (a rank outside a
+    fleet replica holds none of its rows).  The result lies on ``x``'s
+    device.  gloo moves host copies; NCCL moves CUDA buffers.  ``x``
+    itself when ``group`` is None."""
+    if group is None:
+        return x
+    t0 = _start(x, group)
+    nccl = dist.get_backend(group) == "nccl"
+    wire = torch.device("cuda", torch.cuda.current_device()) if nccl else torch.device("cpu")
+    if dist.get_rank() == src:
+        if x.shape[0] != rows:
+            raise ValueError(f"the source holds {x.shape[0]} rows, the broadcast moves {rows}")
+        buf = x.detach().to(wire).contiguous()
+    else:
+        buf = torch.empty((rows,) + tuple(x.shape[1:]), dtype=x.dtype, device=wire)
+    counter.add("broadcast", buf.numel() * buf.element_size())
+    dist.broadcast(buf, src=src, group=group)
+    out = buf.to(x.device)
+    counter.host_ms += (time.perf_counter() - t0) * 1e3
+    return out
 
 
 def _q8_chunk(x: Tensor):

@@ -1,5 +1,5 @@
 """Replica fleet supervision: serve through replica loss (the port of
-``repro.dist.fleet``, on one device).
+``repro.dist.fleet``).
 
 :class:`FleetSupervisor` fronts N data-parallel replica engines and owns
 what a single engine cannot survive: a whole replica dying mid-decode.
@@ -30,15 +30,24 @@ Every transition goes to the fleet ``resil_log`` (``(tick, name,
 sorted-args)`` tuples, equal across runs of one seed) and onto the
 ``fleet`` trace track.
 
-Devices: the reference gives each replica a ``(1, tp)`` mesh slice and,
-with too few devices, lets every replica share the first ones (its tests
-run whole fleets on one host device).  Here a replica's place is one
-device (:func:`fleet_devices`): on one card every replica gets ``cuda:0``
-(or the CPU when asked).  Replicas of one model share one packed weight
-set — the caller's ``build_engine`` closes over it — and each holds only
-its own cache, graphs and graph pool.  A replica spans one device:
-``tp`` above 1 raises (sharded replicas, the reference's ``fleet_meshes``,
-are ROADMAP §A; a single sharded engine is ``repro_torch.serve.sharded``).
+Meshes (:func:`fleet_meshes`, the reference's): replica ``r`` is a
+``(1, tp)`` mesh of world ranks ``[r tp, r tp + tp)`` when they exist,
+else of the first ``tp`` ranks, so replicas may share ranks, as the
+reference's share devices.  In a world of one rank every replica is a
+``(1, 1)`` mesh on ``cuda:0`` (or the CPU when asked): LM replicas of one
+model share one packed weight set — the caller's ``build_engine`` closes
+over it — and each holds only its own cache, graphs and graph pool.
+
+On several ranks the supervisor runs SPMD: every rank builds every
+replica's engine (``build_engine(mesh, rid)``, the mesh's ``member`` False
+where the rank lies outside it) and runs the same routing, kills,
+rewinds, rescale plans and ``resil_log``.  A replica's device work runs
+on its members only; each tick its first rank broadcasts the emission
+(the packed tokens and ok bits, the tick's one read) over the world, and
+every other rank's shadow of the engine advances the replica's host state
+from it (``serve/sharded.py``).  The clock is world rank 0's, broadcast,
+unless a deterministic one is passed.  At drain the ranks' streams are
+all-gathered and must be equal.
 """
 
 from __future__ import annotations
@@ -48,45 +57,64 @@ import time
 from dataclasses import dataclass
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.dist import meshctx
 from repro_torch.dist.elastic import RescalePlan, plan_rescale
 from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.metrics import Registry
 
 
-def fleet_devices(replicas: int, tp: int = 1, device="cuda") -> list:
-    """One device per replica: ``device`` (the card by default, the CPU
-    when asked) for every replica — one card holds the whole fleet, as the
-    reference's degenerate meshes share device 0.  ``tp`` above 1 raises:
-    a replica spans one device."""
-    if tp != 1:
-        raise NotImplementedError(
-            f"tp={tp}: tensor parallelism inside a fleet replica (sharded replicas, the "
-            "reference's fleet_meshes) is ROADMAP §A; a replica spans one device here")
+def fleet_meshes(replicas: int, tp: int = 1, device="cuda",
+                 backend: Optional[str] = None) -> list:
+    """One ``(1, tp)`` ``("data", "model")`` mesh a replica (the
+    reference's contract): replica ``r`` on world ranks ``[r tp, r tp +
+    tp)`` when they exist, else on the first ``tp`` ranks (replicas then
+    share ranks).  Every rank must call it (each mesh's groups are made
+    collectively); a rank outside a replica's ranks gets its mesh with
+    ``member`` False.  A replica wider than the world raises."""
+    if replicas < 1:
+        raise ValueError("a fleet needs at least one replica")
+    world = meshctx.world_size()
+    if tp < 1 or tp > world:
+        raise ValueError(f"a replica of tp={tp} ranks does not fit a world of {world} "
+                         "rank(s) (spawn replicas x tp ranks: launch.serve --replicas N "
+                         "--tp M)")
     dev = resolve_device(device)
-    return [dev] * replicas
+    meshes = []
+    for r in range(replicas):
+        lo = r * tp
+        ranks = range(lo, lo + tp) if lo + tp <= world else range(tp)
+        meshes.append(meshctx.make_mesh((1, tp), ("data", "model"), device=dev,
+                                        backend=backend, ranks=ranks))
+    return meshes
 
 
 @dataclass
 class Replica:
-    """One replica: its device, its engine, and liveness."""
+    """One replica: its mesh slice, its engine, and liveness."""
 
     rid: int
-    device: torch.device
+    mesh: meshctx.Mesh
     engine: object
     alive: bool = True
     #: fleet tick the replica died on (None while alive)
     died_at: Optional[int] = None
 
+    @property
+    def device(self) -> torch.device:
+        return self.mesh.device
+
 
 class FleetSupervisor:
     """Route requests across replica engines and survive losing one.
 
-    ``build_engine(device, rid)`` constructs one replica's engine; the
-    caller closes over the shared pieces (model, packed params, engine
-    fault plans, the clock).  Engine-level fault plans must not carry
+    ``build_engine(mesh, rid)`` constructs one replica's engine on its
+    mesh (:func:`fleet_meshes`; ``mesh.device`` its device); the caller
+    closes over the shared pieces (model, params, engine fault plans, the
+    clock).  Engine-level fault plans must not carry
     ``replica_loss`` (a single engine ignores the kind; ``launch.serve``
     zeroes it there): the fleet-level ``faults`` plan is where replica
     deaths are drawn.  ``policy`` governs the fleet-level rewind (retry
@@ -98,13 +126,18 @@ class FleetSupervisor:
                  registry: Optional[Registry] = None, tracer=None,
                  rescale_ms: float = 5.0,
                  target_global_batch: Optional[int] = None,
-                 route_by: str = "slots", device="cuda"):
+                 route_by: str = "slots", device="cuda", backend: Optional[str] = None):
         if replicas < 1:
             raise ValueError("a fleet needs at least one replica")
         if route_by not in ("slots", "backlog"):
             raise ValueError("route_by must be 'slots' or 'backlog'")
         self.route_by = route_by
         self.tp = int(tp)
+        meshes = fleet_meshes(replicas, self.tp, device, backend)
+        if clock is None and meshctx.world_size() > 1:
+            from repro_torch.serve.sharded import SharedClock
+
+            clock = SharedClock(meshes[0])
         self._clock = clock if clock is not None else time.time
         self._tracer = tracer if tracer is not None else obs_trace.get_tracer()
         self.faults = faults
@@ -126,10 +159,10 @@ class FleetSupervisor:
         # one fleet-wide request-id counter: per-engine counters would
         # collide across replicas and leave the recovery trace ambiguous
         shared_rid = itertools.count()
-        for rid, dev in enumerate(fleet_devices(replicas, tp, device)):
-            eng = build_engine(dev, rid)
+        for rid, mesh in enumerate(meshes):
+            eng = build_engine(mesh, rid)
             eng._rid = shared_rid
-            self.replicas.append(Replica(rid, dev, eng))
+            self.replicas.append(Replica(rid, mesh, eng))
             self._g_up.labels(replica=str(rid)).set(1)
         # the fleet's batch target for rescale planning: its slots
         self._tgb = (int(target_global_batch) if target_global_batch
@@ -322,7 +355,21 @@ class FleetSupervisor:
         for r in self.live:
             if getattr(r.engine, "emitter", None) is not None:
                 r.engine.emitter.flush()
+        self.check_streams()
         return self.done
+
+    def streams(self) -> list:
+        """(rid, status, tokens) of every terminated request, by rid."""
+        return [(q.rid, q.status, tuple(np.asarray(x).tobytes() for x in q.out))
+                for q in sorted(self.done, key=lambda q: q.rid)]
+
+    def check_streams(self) -> None:
+        """On several ranks: all-gather every rank's streams over the world;
+        raises unless they are equal."""
+        if meshctx.world_size() > 1:
+            from repro_torch.serve.sharded import check_equal_streams
+
+            check_equal_streams(self.streams())
 
     # -- accounting -------------------------------------------------------
 

@@ -57,19 +57,28 @@ BACKENDS = ("nccl", "gloo")
 class Mesh:
     """One rank's view of a device mesh: the axis sizes, this rank's
     coordinate on each axis, and its process group on each axis wider
-    than 1 (None on a 1-wide axis, where no collective is needed)."""
+    than 1 (None on a 1-wide axis, where no collective is needed).
+
+    ``ranks`` are the world ranks the mesh lays out row-major (the first
+    ``prod(shape)`` by default); ``rank`` is this rank's position among
+    them.  A rank outside ``ranks`` holds a mesh with ``member`` False: it
+    has no coordinate and no group, and its ``device`` is its own (a fleet
+    builds every replica's mesh on every rank)."""
 
     def __init__(self, shape: Sequence[int], axes: Sequence[str], *, rank: int = 0,
                  groups: Optional[dict] = None, device="cpu",
-                 backend: Optional[str] = None):
+                 backend: Optional[str] = None, ranks: Optional[Sequence[int]] = None,
+                 member: bool = True):
         self.shape = tuple(int(s) for s in shape)
         self.axis_names = tuple(axes)
+        self.ranks = tuple(range(math.prod(self.shape)) if ranks is None else ranks)
+        self.member = bool(member)
         self.rank = int(rank)
         coords, r = [], self.rank
         for s in reversed(self.shape):
             coords.append(r % s)
             r //= s
-        self._coords = dict(zip(self.axis_names, reversed(coords)))
+        self._coords = dict(zip(self.axis_names, reversed(coords))) if member else {}
         self._groups = dict(groups or {})
         self.device = torch.device(device)
         self.backend = backend
@@ -79,6 +88,8 @@ class Mesh:
 
     def coord(self, axis: str) -> int:
         """This rank's index along ``axis``."""
+        if not self.member:
+            raise ValueError(f"this rank lies outside the mesh of ranks {self.ranks}")
         return self._coords[axis]
 
     def group(self, axis: str):
@@ -97,7 +108,8 @@ class Mesh:
 
     def __repr__(self) -> str:
         dims = ", ".join(f"{a}={s}" for a, s in zip(self.axis_names, self.shape))
-        return f"Mesh({dims}; rank {self.rank}, {self.device}, {self.transport})"
+        where = f"rank {self.rank}" if self.member else "not a member"
+        return f"Mesh({dims}; ranks {self.ranks}, {where}, {self.device}, {self.transport})"
 
 
 def rank_device(rank: int, device="cuda") -> torch.device:
@@ -135,27 +147,42 @@ def resolve_backend(device, world: int, backend: Optional[str] = None) -> str:
 
 
 def make_mesh(shape: Sequence[int], axes: Sequence[str], *, device="cpu",
-              backend: Optional[str] = None) -> Mesh:
-    """This rank's :class:`Mesh` of the first ``prod(shape)`` ranks of the
-    initialised process group (row-major).  ``axes`` must contain
-    ``"model"``; a mesh of one rank needs no process group.  Every rank of
-    the group must call it (creating groups is collective); ``backend``
+              backend: Optional[str] = None,
+              ranks: Optional[Sequence[int]] = None) -> Mesh:
+    """This rank's :class:`Mesh` of ``ranks`` (default: the first
+    ``prod(shape)`` ranks) of the initialised process group, row-major.
+    ``axes`` must contain ``"model"``; a mesh of one rank needs no process
+    group.  Every rank of the world must call it, with the same
+    arguments, in the same order (creating groups is collective); a rank
+    outside ``ranks`` gets a mesh with ``member`` False.  ``backend``
     defaults to the default group's."""
     if len(shape) != len(axes):
         raise ValueError(f"mesh shape {tuple(shape)} / axes {tuple(axes)} rank mismatch")
     if "model" not in axes:
         raise ValueError(f"mesh axes {tuple(axes)} must include 'model'")
     n = math.prod(shape)
-    if n == 1:
+    if n == 1 and ranks is None:
+        # the trivial mesh: this rank alone, on every rank that asks
         return Mesh(shape, axes, device=device)
+    ranks = tuple(range(n) if ranks is None else ranks)
+    if len(ranks) != n or len(set(ranks)) != n:
+        raise ValueError(f"mesh {tuple(shape)} needs {n} distinct ranks, got {ranks}")
     if not dist.is_initialized():
+        if ranks == (0,):
+            return Mesh(shape, axes, device=device)
         raise ValueError(f"mesh {tuple(shape)} needs {n} ranks and no process group is "
                          "initialised (spawn_ranks, init_from_env or torchrun)")
     world = dist.get_world_size()
-    if n > world:
+    if max(ranks) >= world:
         raise ValueError(f"mesh {tuple(shape)} needs {n} ranks, the process group has "
-                         f"{world}")
-    rank = dist.get_rank()
+                         f"{world} (ranks {ranks})")
+    me = dist.get_rank()
+    if n == 1:
+        # one rank of several: no group; the others hold it as outsiders
+        if world == 1:
+            return Mesh(shape, axes, device=device)
+        return Mesh(shape, axes, ranks=ranks, member=me == ranks[0],
+                    device=rank_device(me, device))
     backend = backend or dist.get_backend()
     groups = {}
     for ai, axis in enumerate(axes):
@@ -165,18 +192,32 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], *, device="cpu",
         # part in creating each one, in the same order
         others = [range(s) for j, s in enumerate(shape) if j != ai]
         for rest in _product(others):
-            ranks = []
+            line = []
             for c in range(shape[ai]):
                 idx = list(rest)
                 idx.insert(ai, c)
-                ranks.append(_ravel(idx, shape))
-            g = dist.new_group(ranks, backend=backend)
-            if rank in ranks:
+                line.append(ranks[_ravel(idx, shape)])
+            g = dist.new_group(line, backend=backend)
+            if me in line:
                 groups[axis] = g
-    if rank >= n:
-        raise ValueError(f"rank {rank} lies outside the mesh {tuple(shape)}")
-    return Mesh(shape, axes, rank=rank, groups=groups, device=rank_device(rank, device),
-                backend=backend)
+    if me not in ranks:
+        return Mesh(shape, axes, ranks=ranks, member=False, device=rank_device(me, device),
+                    backend=backend)
+    return Mesh(shape, axes, rank=ranks.index(me), groups=groups, ranks=ranks,
+                device=rank_device(me, device), backend=backend)
+
+
+def world_size() -> int:
+    """The process group's size (1 with none)."""
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def world_group():
+    """The group of every rank of the world (None with one rank or none):
+    the group of the decisions every rank must share — a fleet's or a data
+    axis's clock, the emission of a replica to the ranks outside it, the
+    check of the ranks' streams."""
+    return dist.group.WORLD if world_size() > 1 else None
 
 
 def _product(ranges):

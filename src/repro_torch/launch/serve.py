@@ -65,28 +65,47 @@ serving policy (``repro_torch.resil``).  A single engine ignores
 
 ``--replicas N`` (N > 1) serves either workload through a
 :class:`repro_torch.dist.fleet.FleetSupervisor` over N replica engines on
-the one device: least-loaded routing (``--route-by slots|backlog``), a
-fleet-level ``replica_loss`` plan drawn from ``--faults`` (the engine
-kinds become one plan a replica, seeded ``--fault-seed + rid``), queue
-migration and in-flight rewind when a replica dies, and the survivor plan
-with its modeled latency (``--rescale-ms``).  LM replicas share one packed
+the one device (with ``--tp M``, on ranks: below): least-loaded routing
+(``--route-by slots|backlog``), a fleet-level ``replica_loss`` plan drawn
+from ``--faults`` (the engine kinds become one plan a replica, seeded
+``--fault-seed + rid``), queue migration and in-flight rewind when a
+replica dies, and the survivor plan with its modeled latency
+(``--rescale-ms``).  LM replicas share one packed
 weight set (each has its own cache and graphs; a storm with ``seu_param``
 gives each replica its own copy, since flips land in place).  An
 encoder-only arch (hubert-xlarge) has no decode step and raises, as in the
 reference.
 
 ``--tp M`` (or ``--mesh 1xM``; ``--tp`` wins) serves the LM workload with
-tensor parallelism over M ranks (``repro_torch.serve.sharded``): the
-launcher spawns its ranks itself (``dist.meshctx.spawn_ranks``) unless it
-runs under ``torchrun`` (``RANK`` / ``WORLD_SIZE`` set), every rank builds
-the same seeded weights, keeps its shards and serves the same requests,
-and rank 0 prints the report.  Rank r runs on ``cuda:(r % cards)``; ranks
-that share a card need ``--dist-backend gloo`` (NCCL refuses two ranks on
-one GPU; without the flag the launcher raises).  ``--ring`` routes the
-EXACT row-parallel reductions through the int8 ring.  The sharded step
-runs eagerly.  A mesh data axis above 1 (``--mesh 2xM``), tensor-parallel
-fleet replicas, the stream workload and the audio encoder under ``--tp``
-raise (ROADMAP §A).
+tensor parallelism over M ranks (``repro_torch.serve.sharded``), and
+``--mesh DxM`` one engine over D x M ranks whose slots split over the D
+data coordinates (``--slots`` must divide by D): the launcher spawns its
+ranks itself (``dist.meshctx.spawn_ranks``) unless it runs under
+``torchrun`` (``RANK`` / ``WORLD_SIZE`` set), every rank builds the same
+seeded weights, keeps its shards and its slots' part of the cache and
+runs the same host logic over every request, and rank 0 prints the
+report.  Rank r runs on ``cuda:(r % cards)``; ranks that share a card
+need ``--dist-backend gloo`` (NCCL refuses two ranks on one GPU; without
+the flag the launcher raises).  ``--ring`` routes the EXACT row-parallel
+reductions through the int8 ring.  The sharded step runs eagerly.
+
+``--replicas N --tp M [--ring]`` serves a fleet of N sharded replicas on
+N x M ranks (``dist.fleet.fleet_meshes``: replica r on ranks r M .. r M +
+M - 1; under ``torchrun`` with fewer ranks the replicas that do not fit
+share the first M, as the reference's share devices); every rank runs the
+supervisor, rank 0 prints the reference's fleet report.  The stream
+workload and the audio encoder under ``--tp`` raise, as do the MoE family
+on a data axis (the reference cannot serve it: ROADMAP §C), a data axis
+with ``--replicas`` (a replica is a (1, M) mesh) and capture of the
+sharded step (ROADMAP §A).
+
+  # one engine's 8 slots over 2 data coordinates of 2 model ranks each,
+  # the four ranks on the one card:
+  python -m repro_torch.launch.serve --arch tinyllama-1.1b --approx axq8 --qos \
+      --mesh 2x2 --slots 8 --dist-backend gloo --metrics
+  # 2 replicas x tp=2 on four ranks, surviving seeded replica losses:
+  python -m repro_torch.launch.serve --arch tinyllama-1.1b --approx axq8 --replicas 2 \
+      --tp 2 --ring --dist-backend gloo --faults replica_loss=0.05 --fault-seed 3 --metrics
 """
 
 from __future__ import annotations
@@ -118,12 +137,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="frames per clip (stream workload)")
     ap.add_argument("--arch", default="tinyllama-1.1b-smoke")
     ap.add_argument("--mesh", default="1x1",
-                    help="device mesh DxM: M tensor-parallel ranks (--tp); a data "
-                         "axis D above 1 is not served yet")
+                    help="device mesh DxM: M tensor-parallel ranks (--tp) for each of "
+                         "D data coordinates, which split the slots")
     # -- the replica fleet (repro_torch.dist.fleet) -----------------------
     ap.add_argument("--replicas", type=int, default=1, metavar="N",
                     help="serve through a FleetSupervisor over N replica engines "
-                         "(N > 1), all on the one device")
+                         "(N > 1): all on the one device, or with --tp M on N x M ranks")
     ap.add_argument("--tp", type=int, default=0, metavar="M",
                     help="tensor-parallel ranks (default: the model axis of --mesh); "
                          "above 1 the launcher spawns M ranks")
@@ -488,7 +507,7 @@ def serve_fleet(args):
         ladder = [{"degrees": [e] * (scfg.n_layers + 1)} for e in (8, 7, 6, 5)]
         plan = load_plan(args)
 
-        def build(device, rid):
+        def build(mesh, rid):
             # QoS controllers are stateful: one a replica, never shared
             qos = QoSController(ladder=ladder, low_water=0.25, high_water=0.75,
                                 cooldown_steps=8) if args.qos else None
@@ -506,7 +525,7 @@ def serve_fleet(args):
         own = args.faults is not None and any(
             p is not None and p.spec.seu_param for p in engine_plans)
 
-        def build(device, rid):
+        def build(mesh, rid):
             p = params
             if own:
                 from repro_torch.tree import tree_map
@@ -526,51 +545,67 @@ def serve_fleet(args):
         sup.submit(p, budget)
     done = sup.run_until_drained()
     dt = time.time() - t0
-    units = sum(len(r.out) for r in done)
     counts = sup.status_counts()
-    status = " ".join(f"{k}={v}" for k, v in sorted(counts.items()))
-    print(f"[launch.serve] fleet: {len(done)} reqs on {args.replicas} replica(s), "
+    _fleet_report(sup, done, dt, f"{args.replicas} replica(s)", unit, device)
+    s = summarize(done, None, wall_s=dt)
+    s.update(replicas=args.replicas, live=len(sup.live), statuses=counts,
+             rescales=len(sup.rescales))
+    if args.metrics:
+        _fleet_metrics(s, sup)
+    write_obs(args)
+    return s, sup
+
+
+def _fleet_report(sup, done, dt: float, what: str, unit: str, device) -> None:
+    """The fleet's report line and its last rescale (the reference's)."""
+    units = sum(len(r.out) for r in done)
+    status = " ".join(f"{k}={v}" for k, v in sorted(sup.status_counts().items()))
+    print(f"[launch.serve] fleet: {len(done)} reqs on {what}, "
           f"{len(sup.live)} up at exit, {units} {unit}, {dt:.2f}s [{status}] "
           f"[device={device} kernels={kdispatch.resolved_backend(device)}]")
     if sup.rescales:
         last = sup.rescales[-1]
         print(f"[launch.serve]   last rescale: data={last.data} model={last.model} "
               f"idle={last.idle_devices} ({len(sup.rescales)} rescale(s))")
-    s = summarize(done, None, wall_s=dt)
-    s.update(replicas=args.replicas, live=len(sup.live), statuses=counts,
-             rescales=len(sup.rescales))
-    if args.metrics:
-        for k, v in s.items():
-            print(f"[launch.serve]   {k:24s} {v}")
-        events: dict = {}
-        for _, name, _ in sup.resil_log:
-            events[name] = events.get(name, 0) + 1
-        if events:
-            line = " ".join(f"{k}={v}" for k, v in sorted(events.items()))
-            print(f"[launch.serve]   fleet events: {line}")
-        for r in sup.replicas:
-            state = "up" if r.alive else f"dead@tick{r.died_at}"
-            print(f"[launch.serve]   replica {r.rid}: {state}, "
-                  f"{len(r.engine.done)} reqs finished")
-    write_obs(args)
-    return s, sup
+
+
+def _fleet_metrics(s: dict, sup) -> None:
+    """``--metrics``: the summary, the fleet's events and each replica."""
+    for k, v in s.items():
+        print(f"[launch.serve]   {k:24s} {v}")
+    events: dict = {}
+    for _, name, _ in sup.resil_log:
+        events[name] = events.get(name, 0) + 1
+    if events:
+        line = " ".join(f"{k}={v}" for k, v in sorted(events.items()))
+        print(f"[launch.serve]   fleet events: {line}")
+    for r in sup.replicas:
+        state = "up" if r.alive else f"dead@tick{r.died_at}"
+        print(f"[launch.serve]   replica {r.rid}: {state}, "
+              f"{len(r.engine.done)} reqs finished")
 
 
 def mesh_dims(args) -> tuple:
-    """(data, model) ranks of ``--mesh`` / ``--tp``.  A data axis above 1,
-    tensor-parallel fleet replicas and the stream workload under
-    ``--tp`` raise (never a silent one-device run)."""
+    """(data, model) ranks of ``--mesh`` / ``--tp``.  The stream workload
+    under ``--tp``, a data axis with ``--replicas`` (a fleet replica is a
+    ``(1, M)`` mesh) and ``--ring`` on a fleet of 1-wide replicas raise
+    (never a silent one-device run)."""
     d, m = (int(x) for x in args.mesh.split("x")[:2])
     if args.tp:
         m = args.tp
-    if d > 1:
-        raise SystemExit(f"--mesh {args.mesh}: a serving data axis above 1 (replicas of "
-                         "the sharded engine) is not served yet (ROADMAP §A)")
-    if args.replicas > 1 and (m > 1 or args.ring):
-        raise SystemExit("--tp / --ring with --replicas: tensor-parallel fleet replicas "
-                         "are not served yet (ROADMAP §A); a replica is one device")
     if m > 1 and args.workload != "lm":
         raise SystemExit(f"--tp {m}: tensor parallelism serves the lm workload")
+    if d > 1 and args.workload != "lm":
+        raise SystemExit(f"--mesh {args.mesh}: a serving data axis serves the lm workload")
+    if d > 1 and args.slots % d:
+        raise SystemExit(f"--mesh {args.mesh}: --slots {args.slots} does not divide over the "
+                         f"{d} data coordinates")
+    if args.replicas > 1 and d > 1:
+        raise SystemExit(f"--mesh {args.mesh} with --replicas: a fleet replica is a (1, M) "
+                         "mesh; give its model axis with --tp M")
+    if args.replicas > 1 and args.ring and m == 1:
+        raise SystemExit("--ring with --replicas needs --tp above 1: a 1-wide model axis "
+                         "has no reduction to ring")
     return d, m
 
 
@@ -580,13 +615,17 @@ DIST_TIMEOUT_S = 900.0
 
 
 def _serve_rank(rank: int, world: int, args):
-    """One rank of ``--tp``: the sharded engine over this rank's shards of
-    the seeded weights, serving the launcher's requests.  Returns (summary,
-    engine); rank 0 prints the report."""
+    """One rank of ``--mesh DxM`` / ``--tp M``: the sharded engine over this
+    rank's shards of the seeded weights and its slots' part of the cache,
+    serving the launcher's requests.  Returns (summary, engine); rank 0
+    prints the report."""
     from repro_torch.dist import collectives, meshctx
     from repro_torch.serve.sharded import ShardedServeEngine
 
-    mesh = meshctx.set_mesh(meshctx.make_mesh((1, world), ("data", "model"),
+    d, m = mesh_dims(args)
+    if d * m != world:
+        raise SystemExit(f"--mesh {d}x{m} needs {d * m} ranks, the world has {world}")
+    mesh = meshctx.set_mesh(meshctx.make_mesh((d, m), ("data", "model"),
                                               device=args.device,
                                               backend=args.dist_backend))
     if mesh.device.type == "cuda":
@@ -594,7 +633,7 @@ def _serve_rank(rank: int, world: int, args):
     kdispatch.set_backend(args.kernels)
     if args.trace_out and rank == 0:
         obs_trace.enable()
-    cfg, plan, model, params = lm_model(args, device=mesh.device, tp=world, prepack=False)
+    cfg, plan, model, params = lm_model(args, device=mesh.device, tp=m, prepack=False)
     qos = lm_qos(args)
     registry = obs_metrics.get_registry() if args.metrics_out else None
     kw = lm_engine_kwargs(args)
@@ -612,14 +651,12 @@ def _serve_rank(rank: int, world: int, args):
     s = summarize(done, eng.stats, wall_s=dt)
     coll = collectives.counter.snapshot()
     ticks = max(int(eng.stats.c_steps.value), 1)
-    s.update(tp=world, transport=mesh.transport, streams_equal=True,
+    s.update(tp=m, data=d, transport=mesh.transport, streams_equal=True,
              statuses={k: sum(r.status == k for r in done) for k in {r.status for r in done}},
-             collective_bytes_per_tick={k: v / ticks for k, v in coll["bytes"].items()},
-             collective_calls_per_tick={k: v / ticks for k, v in coll["calls"].items()},
-             collective_host_ms_per_tick=coll["host_ms"] / ticks,
-             collective_wait_ms_per_tick=coll["wait_ms"] / ticks)
+             **_collectives_per_tick(coll, ticks))
     if rank == 0:
-        print(f"[launch.serve] tp={world} ({mesh.transport}{', ring' if eng.ring else ''}): "
+        shape = f"mesh {d}x{m}" if d > 1 else f"tp={m}"
+        print(f"[launch.serve] {shape} ({mesh.transport}{', ring' if eng.ring else ''}): "
               f"{s['requests']} reqs, {s['generated_tokens']} generated tokens, {dt:.2f}s "
               f"({s.get('gen_tok_per_s', 0.0):.1f} gen tok/s), streams equal on every rank "
               f"[device={mesh.device} kernels={kdispatch.resolved_backend(mesh.device)} "
@@ -632,43 +669,137 @@ def _serve_rank(rank: int, world: int, args):
     return s, eng
 
 
-def _serve_rank_entry(rank: int, world: int, argd: dict) -> dict:
-    return _serve_rank(rank, world, argparse.Namespace(**argd))[0]
+def _collectives_per_tick(coll: dict, ticks: int) -> dict:
+    return dict(collective_bytes_per_tick={k: v / ticks for k, v in coll["bytes"].items()},
+                collective_calls_per_tick={k: v / ticks for k, v in coll["calls"].items()},
+                collective_host_ms_per_tick=coll["host_ms"] / ticks,
+                collective_wait_ms_per_tick=coll["wait_ms"] / ticks)
 
 
-def serve_tp(args, m: int):
-    """``--tp M``: M ranks of the sharded engine — spawned here, or this
-    process's rank under ``torchrun``.  Returns (rank 0's summary, this
-    process's engine or None)."""
+def _rank_entry(rank: int, world: int, kind: str, argd: dict) -> dict:
+    """A spawned rank: ``_RANKS[kind]`` on the launcher's arguments; its
+    summary goes back to the launcher."""
+    return _RANKS[kind](rank, world, argparse.Namespace(**argd))[0]
+
+
+def _spawn_or_join(args, world: int, kind: str):
+    """Run ``_RANKS[kind]`` on ``world`` ranks: spawned here, or this
+    process's rank under ``torchrun`` (whose world one engine's mesh must
+    fill; a fleet takes the world it is given).  Returns (rank 0's
+    summary, None) when spawned, else this rank's (summary, engine or
+    supervisor)."""
     from repro_torch.dist import meshctx
+
+    args.dist_backend = meshctx.resolve_backend(args.device, world, args.dist_backend)
+    if meshctx.under_torchrun():
+        rank, got = meshctx.init_from_env(device=args.device, backend=args.dist_backend,
+                                          timeout_s=DIST_TIMEOUT_S)
+        if kind == "serve" and got != world:
+            raise SystemExit(f"{world} ranks asked for under torchrun with {got}")
+        return _RANKS[kind](rank, got, args)
+    threads = 1 if torch.device(args.device).type == "cpu" else 0
+    results = meshctx.spawn_ranks(_rank_entry, world, timeout_s=DIST_TIMEOUT_S,
+                                  backend=args.dist_backend, device=args.device,
+                                  args=(kind, vars(args)), threads=threads)
+    return results[0], None
+
+
+def serve_tp(args, d: int, m: int):
+    """``--mesh DxM`` / ``--tp M``: D x M ranks of one sharded engine.
+    Returns (rank 0's summary, this process's engine or None)."""
     from repro_torch.models.transformer import check_tp_supported
 
     check_tp_supported(get_config(args.arch), m)
-    args.dist_backend = meshctx.resolve_backend(args.device, m, args.dist_backend)
-    if meshctx.under_torchrun():
-        rank, world = meshctx.init_from_env(device=args.device, backend=args.dist_backend,
-                                            timeout_s=DIST_TIMEOUT_S)
-        if world != m:
-            raise SystemExit(f"--tp {m} under torchrun with {world} ranks")
-        return _serve_rank(rank, world, args)
-    threads = 1 if torch.device(args.device).type == "cpu" else 0
-    results = meshctx.spawn_ranks(_serve_rank_entry, m, timeout_s=DIST_TIMEOUT_S,
-                                  backend=args.dist_backend, device=args.device,
-                                  args=(vars(args),), threads=threads)
-    return results[0], None
+    return _spawn_or_join(args, d * m, "serve")
+
+
+def _fleet_rank(rank: int, world: int, args):
+    """One rank of ``--replicas N --tp M``: the FleetSupervisor over every
+    replica (SPMD: this rank computes the replicas whose ranks hold it and
+    shadows the others).  Returns (summary, supervisor); rank 0 prints the
+    reference's fleet report."""
+    from repro_torch.dist import collectives, meshctx
+    from repro_torch.dist.fleet import FleetSupervisor
+    from repro_torch.resil import GuardConfig
+    from repro_torch.serve.sharded import ShardedServeEngine
+
+    _, m = mesh_dims(args)
+    dev = meshctx.rank_device(rank, args.device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    kdispatch.set_backend(args.kernels)
+    if args.trace_out and rank == 0:
+        obs_trace.enable()
+    cfg, plan, model, params = lm_model(args, device=dev, tp=m, prepack=False)
+    fleet_plan, engine_plans = fleet_fault_plans(args, args.replicas)
+    policy = policy_from_args(args)
+    registry = obs_metrics.get_registry() if args.metrics_out else None
+    kw = lm_engine_kwargs(args)
+    kw["prepack"] = not args.no_prepack
+
+    def build(mesh, rid):
+        ekw: dict = {}
+        if engine_plans[rid] is not None:
+            ekw.update(faults=engine_plans[rid], guards=GuardConfig())
+        if policy is not None:
+            ekw["policy"] = policy
+        return ShardedServeEngine(model, params, mesh=mesh, ring=args.ring, slots=args.slots,
+                                  qos=lm_qos(args), plan=plan, registry=registry, **kw, **ekw)
+
+    sup = FleetSupervisor(build, args.replicas, tp=m, faults=fleet_plan, policy=policy,
+                          registry=registry, rescale_ms=args.rescale_ms,
+                          route_by=args.route_by, device=args.device,
+                          backend=args.dist_backend)
+    del params                       # the global float tree: each member keeps its shards
+    collectives.counter.reset()
+    t0 = time.time()
+    for p in lm_prompts(args, cfg):
+        sup.submit(p, args.new_tokens)
+    done = sup.run_until_drained()   # raises unless the ranks' streams are equal
+    dt = time.time() - t0
+    s = summarize(done, None, wall_s=dt)
+    ticks = max(sup._ticks, 1)
+    s.update(replicas=args.replicas, tp=m, live=len(sup.live), statuses=sup.status_counts(),
+             rescales=len(sup.rescales), streams_equal=True,
+             members=[r.rid for r in sup.replicas if r.mesh.member],
+             **_collectives_per_tick(collectives.counter.snapshot(), ticks))
+    if rank == 0:
+        _fleet_report(sup, done, dt, f"{args.replicas} replica(s) x tp={m}", "tokens", dev)
+        if args.metrics:
+            _fleet_metrics(s, sup)
+        write_obs(args)
+    return s, sup
+
+
+def serve_fleet_tp(args, m: int):
+    """``--replicas N --tp M``: N x M ranks (spawned here, or this
+    process's under ``torchrun``, whose world may be smaller: replicas then
+    share ranks, as ``fleet_meshes`` falls back).  Returns (rank 0's
+    summary, this process's supervisor or None)."""
+    from repro_torch.models.transformer import check_tp_supported
+
+    check_tp_supported(get_config(args.arch), m)
+    return _spawn_or_join(args, args.replicas * m, "fleet")
+
+
+#: the rank functions the launcher spawns, by kind
+_RANKS = {"serve": _serve_rank, "fleet": _fleet_rank}
 
 
 def run(argv=None):
     """Parse ``argv`` and serve; returns (summary dict, engine), so a caller
     can inspect the engine after the run — with ``--replicas`` above 1,
-    (summary, the FleetSupervisor); with ``--tp`` above 1, (rank 0's
-    summary, None) when the ranks were spawned.  ``--trace-out`` enables the
+    (summary, the FleetSupervisor); on several ranks (``--tp``, ``--mesh``,
+    ``--replicas N --tp M``), (rank 0's summary, None) when the ranks were
+    spawned.  ``--trace-out`` enables the
     process-global tracer; ``--metrics-out`` exports the process-global
     registry, which the engine and the kernel dispatch share."""
     args = build_parser().parse_args(argv)
-    _, m = mesh_dims(args)
-    if m > 1:
-        return serve_tp(args, m)
+    d, m = mesh_dims(args)
+    if args.replicas > 1 and m > 1:
+        return serve_fleet_tp(args, m)
+    if d * m > 1:
+        return serve_tp(args, d, m)
     kdispatch.set_backend(args.kernels)
     if args.trace_out:
         obs_trace.enable()

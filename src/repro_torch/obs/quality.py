@@ -55,13 +55,16 @@ def rung_label(degree) -> str:
 _STATE_FIELDS = ("h", "conv")
 
 
-def lm_logit_rms_probe(model, tp: int = 1):
+def lm_logit_rms_probe(model, tp: int = 1, reduce=None):
     """The LM probe: live-degree and exact-rung decode logits on identical
     inputs, normalized RMS deviation over the active slots.  What both
     forwards write is saved first and restored after: each slot's token
     row of the K/V fields, and the recurrent families' state fields whole.
     On a mesh both are whole logit rows (gathered over ``model``), so every
-    rank computes the same value."""
+    rank computes the same value.  ``reduce`` sums the probe's three sums
+    (squared deviation, squared exact logits, active slots) over the ranks
+    that hold the other slots (a serving data axis): every rank then
+    computes the value over all the slots."""
     from repro_torch.models.attention import token_rows
     from repro_torch.models.layers import gather_vocab
     from repro_torch.models.transformer import attn_window
@@ -88,9 +91,13 @@ def lm_logit_rms_probe(model, tp: int = 1):
         for f, old in zip(states, saved_states):
             getattr(cache, f).copy_(old)
         w = active.to(torch.float32)[:, None, None]
-        n = torch.clamp(w.sum() * approx.shape[-2] * approx.shape[-1], min=1.0)
-        dev = torch.sqrt((((approx - exact) ** 2) * w).sum() / n)
-        ref = torch.sqrt(((exact ** 2) * w).sum() / n)
+        sq_dev = (((approx - exact) ** 2) * w).sum()
+        sq_ref, slots = ((exact ** 2) * w).sum(), w.sum()
+        if reduce is not None:
+            sq_dev, sq_ref, slots = reduce(torch.stack([sq_dev, sq_ref, slots]))
+        n = torch.clamp(slots * approx.shape[-2] * approx.shape[-1], min=1.0)
+        dev = torch.sqrt(sq_dev / n)
+        ref = torch.sqrt(sq_ref / n)
         return dev / torch.clamp(ref, min=1e-9)
 
     return probe

@@ -710,6 +710,11 @@ class ServeCore:
         else:
             time.sleep(seconds)
 
+    def _flip_state(self, ev) -> None:
+        """A ``seu_state`` fault: its bit flipped in place in the live
+        state."""
+        self.state = self.faults.apply_state(self.state, ev)
+
     def _apply_faults(self) -> bool:
         """Apply this tick's scheduled faults; True = the step is dropped.
         State and parameter flips land in place in the live tensors (the
@@ -720,7 +725,7 @@ class ServeCore:
             self.stats.c_faults.labels(kind=ev.kind).inc()
             self._resil_event("fault_injected", **ev.args())
             if ev.kind == "seu_state":
-                self.state = self.faults.apply_state(self.state, ev)
+                self._flip_state(ev)
             elif ev.kind == "seu_param":
                 self.params = self.faults.apply_params(self.params, ev)
                 self._dirty.add(ev.leaf)

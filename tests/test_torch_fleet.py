@@ -58,8 +58,8 @@ def _tfleet(replicas=3, *, slots=2, faults=None, policy=None, clock=None, rescal
     clock = clock if clock is not None else tresil.VirtualClock()
     policy = policy if policy is not None else _policy(tresil)
 
-    def build(device, rid):
-        assert device == torch.device("cpu")
+    def build(mesh, rid):
+        assert mesh.device == torch.device("cpu") and mesh.shape == (1, 1)
         return tstream.StreamServeEngine(tstream.StreamAdapter(device="cpu"), slots=slots,
                                          clock=clock, policy=policy,
                                          guards=tresil.GuardConfig() if guards else None)
@@ -279,12 +279,31 @@ def test_same_seed_gives_one_recovery_trace():
     assert run() == run()
 
 
-def test_fleet_devices_and_tensor_parallelism_refused():
-    assert tfleet.fleet_devices(3, device="cpu") == [torch.device("cpu")] * 3
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        tfleet.fleet_devices(2, tp=2, device="cpu")
+def test_fleet_devices_and_tensor_parallelism_refused(tmp_path):
+    """``fleet_meshes``' slices and fallback, the reference's contract: in a
+    world of one rank every replica is a (1, 1) mesh on the one device and
+    a replica wider than the world raises; on four gloo ranks 3 replicas x
+    tp=2 take ranks 0-1, 2-3 and (not fitting) 0-1 again, each rank a
+    member of its slices only, with a model group there; 2 x 2 are
+    disjoint; tp=8 raises on every rank."""
+    import _torch_dp as H
+    from repro_torch.dist import meshctx
+
+    ms = tfleet.fleet_meshes(3, device="cpu")
+    assert [(m.shape, m.device, m.member) for m in ms] == [((1, 1), torch.device("cpu"),
+                                                            True)] * 3
+    with pytest.raises(ValueError, match="tp=2 ranks does not fit a world of 1"):
+        tfleet.fleet_meshes(2, tp=2, device="cpu")
     with pytest.raises(ValueError, match="at least one replica"):
         _tfleet(0)
+    got = meshctx.spawn_ranks(H.meshes_rank, 4, store_dir=str(tmp_path), timeout_s=H.TIMEOUT_S,
+                              args=([(3, 2), (2, 2), (1, 8)],))
+    for rank, out in enumerate(got):
+        slices = [(0, 1), (2, 3), (0, 1)]
+        assert out[(3, 2)] == [(s, rank in s, s.index(rank) if rank in s else None,
+                                rank in s) for s in slices]
+        assert [m[0] for m in out[(2, 2)]] == slices[:2]
+        assert "does not fit a world of 4" in out[(1, 8)]
 
 
 # ---------------------------------------------------------------------------
@@ -340,8 +359,9 @@ def test_lm_replicas_share_one_packed_weight_set(capsys):
     axq8 with seeded replica losses: every request ends once, ok; every
     replica serves the same packed tensors (no copy) with its own cache;
     greedy tokens equal a single engine's run of the same prompts; the
-    fleet lines are printed.  ``--tp 2``, ``--ring`` and ``--mesh 2x1``
-    raise."""
+    fleet lines are printed.  ``--ring`` (a 1-wide model axis) and
+    ``--mesh 2x1`` (a replica is a (1, M) mesh) raise; ``--tp 2`` serves
+    sharded replicas (tests/test_torch_fleet_mesh.py)."""
     from repro_torch.kernels.qstore import PackedQWeight
     from repro_torch.launch import serve as launch_serve
 
@@ -367,7 +387,7 @@ def test_lm_replicas_share_one_packed_weight_set(capsys):
     leaves = [r.engine.params["layers"]["wq"]["w"].qw for r in storm.replicas]
     assert len({t.data_ptr() for t in leaves}) == 3
     assert sorted(r.rid for r in storm.done) == list(range(8))
-    for bad in (["--tp", "2"], ["--ring"], ["--mesh", "2x1"]):
+    for bad in (["--ring"], ["--mesh", "2x1"]):
         with pytest.raises(SystemExit):
             launch_serve.run(argv + ["--replicas", "3"] + bad)
 

@@ -1,9 +1,12 @@
 """``launch.serve --tp`` on the CPU (2 spawned gloo ranks of the smoke
-arch), and the refusals of tensor-parallel serving: a mesh data axis above
-1, the audio encoder (no decode step), ranks that share a card without
-gloo asked for, ``capture=True`` under gloo, tensor-parallel fleet
-replicas.  Nothing runs silently on one device or falls back.  The
-recurrent families serve at tp (tests/test_torch_tp_recurrent.py)."""
+arch), and the refusals of sharded serving: the audio encoder (no decode
+step), ranks that share a card without gloo asked for, ``capture=True``
+under gloo, a data axis that does not divide the slots, a data axis with
+``--replicas``, the MoE family on a data axis, a fleet replica wider than
+the world.  Nothing runs silently on one device or falls back.  The data
+axis (``--mesh 2x1``) serves; the recurrent families serve at tp
+(tests/test_torch_tp_recurrent.py), the data axis and sharded fleets in
+tests/test_torch_dp_serve.py and tests/test_torch_fleet_mesh.py."""
 import pytest
 import torch
 
@@ -41,10 +44,14 @@ def test_launch_serve_tp2_on_gloo(ring, capfd):
 
 
 def test_launch_serve_tp_refusals():
-    with pytest.raises(SystemExit, match="data axis above 1"):
-        launch_serve.run(ARGV + ["--mesh", "2x2"])
-    with pytest.raises(SystemExit, match="fleet replicas"):
-        launch_serve.run(ARGV + ["--replicas", "3"])
+    """The paths this slice opened run (``--mesh 2x1``: one engine's slots
+    over two data ranks); the refusals that stay true raise."""
+    s, eng = launch_serve.run(ARGV[2:] + ["--mesh", "2x1"])
+    assert eng is None and s["data"] == 2 and s["tp"] == 1 and s["statuses"] == {"ok": 5}
+    with pytest.raises(SystemExit, match="does not divide"):
+        launch_serve.run(ARGV[2:] + ["--mesh", "2x1", "--slots", "3"])
+    with pytest.raises(SystemExit, match=r"a fleet replica is a \(1, M\) mesh"):
+        launch_serve.run(ARGV + ["--replicas", "3", "--mesh", "2x2"])
     with pytest.raises(SystemExit, match="lm workload"):
         launch_serve.run(ARGV + ["--workload", "stream"])
     if torch.cuda.device_count() < 2:
@@ -58,17 +65,23 @@ def _mesh(shape, backend="gloo"):
 
 
 def test_engine_refusals():
-    """capture=True under gloo; a data axis above 1; the audio encoder."""
+    """capture=True under gloo; a (2, 1) mesh's data axis that does not
+    divide the slots, and the MoE family on it; the audio encoder; a fleet
+    replica wider than the world.  (A (2, 1) mesh serves: the data-axis
+    tests.)"""
     model = build_model(get_config("tinyllama-1.1b-smoke"), device="cpu")
     with pytest.raises(ValueError, match="gloo collective cannot be captured"):
         ShardedServeEngine(model, {}, mesh=_mesh((1, 2)), capture=True)
     with pytest.raises(NotImplementedError, match="capture of the sharded step under NCCL"):
         ShardedServeEngine(model, {}, mesh=_mesh((1, 2), "nccl"), capture=True)
-    with pytest.raises(NotImplementedError, match="serving data axis above 1"):
-        ShardedServeEngine(model, {}, mesh=_mesh((2, 1)))
+    with pytest.raises(ValueError, match="slots=3 do not divide over the data axis"):
+        ShardedServeEngine(model, {}, mesh=_mesh((2, 1)), slots=3)
+    moe = build_model(get_config("granite-moe-3b-a800m-smoke"), device="cpu")
+    with pytest.raises(NotImplementedError, match="MoE family on a serving data axis"):
+        ShardedServeEngine(moe, {}, mesh=_mesh((2, 1)))
     from repro_torch.models.transformer import check_tp_supported
 
     with pytest.raises(NotImplementedError, match="audio encoder.*ROADMAP §A"):
         check_tp_supported(get_config("hubert-xlarge"), 2)
-    with pytest.raises(NotImplementedError, match="tensor parallelism inside a fleet replica"):
-        tfleet.fleet_devices(2, tp=2, device="cpu")
+    with pytest.raises(ValueError, match="tp=2 ranks does not fit a world of 1"):
+        tfleet.fleet_meshes(2, tp=2, device="cpu")
