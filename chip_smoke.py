@@ -157,7 +157,9 @@ Phases (any failure exits non-zero):
            logits' all-gather a tick); cut to 2 layers, the first decode
            step's logits at tp=2 against tp=1 on the same weights (4x the
            noise floor), and under EXACT (f32) the int8 ring within rel
-           0.05 of exact tp=2 at most half its bytes; then ``launch.serve
+           0.05 of exact tp=2 at most half its bytes; one decode tick's
+           collective calls and bytes by kind on each rank equal to the
+           dry run's of the same tick on its meta mesh; then ``launch.serve
            --tp 2 --dist-backend gloo`` for the wall numbers;
        3t  granite-moe-3b-a800m at full width, cut to 4 of its 32 layers
            (the script's time limit), tp=2, 20 experts a rank, with
@@ -220,7 +222,14 @@ Phases (any failure exits non-zero):
            version on the card; step time, tokens/s, peak memory and the
            backward oracles' share of the last step (CUDA events); first the
            kernels at the step's shapes (GEMMs at M = 8192, tri at BH = 256,
-           S = 1024) against their plain versions;
+           S = 1024) against their plain versions; then the same step
+           counted on the meta device (dist/hlo_analysis.py): its
+           argument_bytes equal to the live step's arguments' bytes, its
+           dot FLOPs by dtype, their rate over the measured step beside the
+           card's dense peak for each dtype (DOT_PEAKS, the datasheet's),
+           again with the forward attention's products (counted f32 by the
+           reference's extents) under the dtype the card runs them in, and
+           the counted eager peak beside max_memory_allocated;
        5b  the same cut to 2 layers: one step with the kernels against one
            with the plain versions (loss, every gradient, the updated
            parameters; the attention projections' gradients nonzero), and
@@ -258,7 +267,9 @@ Phases (any failure exits non-zero):
            launches a step a rank at the shard shapes, 4 L + 6 all-reduces a
            step, no plain version on the card; step time, tokens/s, each
            rank's peak memory, the collectives' host and wait ms and bytes,
-           the oracles' share;
+           the oracles' share; the last step's collective calls and bytes by
+           kind on each rank equal to the dry run's of the step on its meta
+           mesh;
        5h  2x1, full width and depth, 4 x 1024 a rank: 5g's gates, both ranks'
            parameters equal after every step, the gradient all-reduce 4 x
            the parameter count in bytes a step;
@@ -336,6 +347,13 @@ HBM_BPS = 3.35e12
 INT8_OPS = 1979e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
+
+#: the dense peak rate of each dot dtype of the analysis (dist/hlo_analysis.py's
+#: names: s32 the int8 products), from NVIDIA's H100 Tensor Core GPU datasheet
+#: (SXM5, without sparsity); f32 is the CUDA cores' FP32 rate (TF32 stays off)
+DOT_PEAKS = {"s32": (INT8_OPS, "INT8 Tensor Core 1979 TOPS, H100 SXM5 datasheet, dense"),
+             "bf16": (BF16_FLOPS, "BF16 Tensor Core 989 TFLOPS, H100 SXM5 datasheet, dense"),
+             "f32": (F32_FLOPS, "FP32 67 TFLOPS, H100 SXM5 datasheet")}
 
 #: bytes each timed loop cycles through, to keep repeated inputs out of the
 #: 50 MB L2 cache (the serving path meets its weights and caches cold)
@@ -3933,6 +3951,7 @@ def _tp_serve(ctx, mesh, cfg, job) -> dict:
         # the counts are read
         state = _bucketed_state_equal(ctx, model, eng.params, job["state_check"],
                                       job["buckets"], job["max_len"])
+    dry = _tick_dryrun(ctx, mesh, cfg, model, eng, job) if job.get("dryrun") else None
     from repro_torch.serve.metrics import summarize
 
     s = summarize(reqs, eng.stats, wall_s=seen["wall_s"])
@@ -3953,7 +3972,43 @@ def _tp_serve(ctx, mesh, cfg, job) -> dict:
             "launches": seen["launches"], "plain": seen["plain"],
             "max_memory_allocated": seen["max_memory_allocated"],
             "packed_weight_bytes": packed_bytes(eng.params),
-            "collectives": coll}
+            "collectives": coll, "dryrun": dry}
+
+
+def _tick_dryrun(ctx, mesh, cfg, model, eng, job) -> dict:
+    """One decode tick of ``slots`` rows (the step, then the logits' vocab
+    columns gathered as the engine gathers them) on the engine's shards:
+    its collectives by ``collectives.counter`` on the card (after the
+    serving run's counts are read), and the same tick's by the dry run on
+    this rank's meta mesh (``dist/hlo_analysis.py``)."""
+    torch, dev = ctx["torch"], ctx["dev"]
+    from repro_torch.dist import collectives, meshctx
+    from repro_torch.dist.hlo_analysis import analyze_step
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import gather_vocab
+    from repro_torch.train import step as S
+
+    def tick(m, params, cache, tokens):
+        logits, cache = S.serve_step(m, params, cache, tokens, tp=TP)
+        return gather_vocab(logits), cache
+
+    B = ctx["slots"]
+    with kops.ring_tp(eng.ring):
+        cache = model.init_cache(TP, B, job["max_len"])
+        tokens = torch.zeros((B, 1), dtype=torch.int64, device=dev)
+        collectives.counter.reset()
+        tick(model, eng.params, cache, tokens)
+        snap = collectives.counter.snapshot()
+        del cache
+        with meshctx.use_mesh(meshctx.make_meta_mesh(mesh.shape, mesh.axis_names,
+                                                     rank=mesh.rank)):
+            mm = build_model(cfg, model.policy, device="meta")
+            rep = analyze_step(tick, mm, _meta_like(eng.params),
+                               mm.init_cache(TP, B, job["max_len"]), _meta_like(tokens))
+    return {"what": f"one decode tick of {B} slots", "live": {"bytes": snap["bytes"],
+                                                               "calls": snap["calls"]},
+            "meta": _dryrun_counts(rep), "trace_s": rep.trace_s}
 
 
 def _bucketed_state_equal(ctx, model, params, prompts, buckets, max_len) -> dict:
@@ -4109,7 +4164,8 @@ def _tp_serve_gates(ctx, label, cfg, ranks, expect, per_tick) -> dict:
         f"{per['host_ms_per_tick']:.3f} ms in the collectives after "
         f"{per['wait_ms_per_tick']:.3f} ms waiting for the queued kernels, bytes {per['bytes_per_tick']}, calls "
         f"{per['calls_per_tick']}; transport {r0['transport']}")
-    return {"ranks": [{k: v for k, v in r.items() if k != "streams"} for r in ranks],
+    return {"ranks": [{k: v for k, v in r.items() if k not in ("streams", "dryrun")}
+                      for r in ranks],
             "collectives_per_tick": per, "transport": r0["transport"]}
 
 
@@ -4170,7 +4226,7 @@ def phase_tp_dense(ctx, cfg, prompts, extra_jobs=()) -> tuple:
     L = depth_cut(ctx, "3s", cfg).n_layers
     serve = {"kind": "serve", "tag": "3s", "arch": cfg.name, "n_layers": L, "approx": "axq8",
              "block": ctx["tp_block"], "ring": False, "qos": True, "max_len": ctx["max_len"], "prompts": prompts,
-             "new_tokens": ctx["new_tokens"]}
+             "new_tokens": ctx["new_tokens"], "dryrun": True}
     cut = {"kind": "logits", "tag": "3s", "arch": cfg.name, "n_layers": 2, "prompt": prompts[0],
            "block": ctx["tp_block"]}
     # one spawn of the two ranks: the serving run, then the two cuts
@@ -4189,6 +4245,7 @@ def phase_tp_dense(ctx, cfg, prompts, extra_jobs=()) -> tuple:
     per_tick = {"all-reduce": lambda st, pf: (2 * L + 1) * (st + pf),
                 "all-gather": lambda st, pf: st}
     out = _tp_serve_gates(ctx, label, cfg, ranks, expect, per_tick)
+    out["dryrun"] = _dryrun_gate(label, ranks)
     # the rehearsal's few ticks stay inside the controller's cooldown
     require(len(ranks[0]["rungs"]) > 1 or not ctx["on_card"],
             f"{label}: the QoS degree never moved: {ranks[0]['rungs']}")
@@ -4760,6 +4817,7 @@ def phase_train(ctx, cfg, label="phase 5a", shape=None, remat=None):
     for step in range(n):
         batch = device_batch(ctx, pipe.batch_at(step))
         _build.time_backwards = step == n - 1
+        args = (state, batch, degree)
         ctx["sync"]()
         t = time.time()
         state, met = S.train_step(model, scfg, state, batch, degree=degree)
@@ -4804,6 +4862,10 @@ def phase_train(ctx, cfg, label="phase 5a", shape=None, remat=None):
            if oracle_ms else None}
     if ctx["on_card"]:
         out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    if label == "phase 5a":
+        out["analysis"] = _train_analysis(ctx, label, cfg, scfg, args, step_s,
+                                          out.get("peak_memory_bytes"))
+    del args
     say(f"{label} ({cfg.name}, {cfg.n_layers} layers, batch {B} x seq {T}, axq8, remat "
         f"{remat}): losses {[round(h['loss'], 4) for h in hist]}, grad norms "
         f"{[round(h['grad_norm'], 4) for h in hist]}, degrees {degrees}")
@@ -4815,6 +4877,100 @@ def phase_train(ctx, cfg, label="phase 5a", shape=None, remat=None):
         f"{ {k: v for k, v in seen['launches'].items() if v} }")
     del state
     return out
+
+
+def _meta_like(tree):
+    """``tree`` with every tensor an empty one of its shape and dtype on the
+    meta device."""
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda t: t.to("meta"), tree)
+
+
+def _train_analysis(ctx, label, cfg, scfg, args, step_s, peak_bytes) -> dict:
+    """5a's train step counted on the meta device (``dist/hlo_analysis.py``,
+    at (1, 1)): the state built there from the seed as on the card, a meta
+    batch and degree of the live ones' shapes.  Gate: its
+    ``argument_bytes`` equal the bytes of the live step's arguments (the
+    state, the batch, the degree) exactly.  Prints the dot FLOPs by dtype,
+    the achieved rate of each over 5a's measured step time beside the
+    card's dense peak for that dtype (``DOT_PEAKS``); the same again with
+    the forward attention's products, which the analysis counts f32 as the
+    reference's dots cover them (the whole S x S, ``tri`` included), under
+    the dtype the attention kernel runs them in on the tensor cores (the
+    model's); and the counted eager peak beside
+    ``torch.cuda.max_memory_allocated()`` (a reading: the caching allocator
+    is not modelled)."""
+    from repro_torch.core.approx import policy_from_flag
+    from repro_torch.dist.hlo_analysis import analyze_step, hlo_dtype, tree_bytes
+    from repro_torch.models import build_model
+    from repro_torch.train import step as S
+
+    state, batch, degree = args
+    model = build_model(cfg, policy_from_flag("axq8", dynamic=True), device="meta")
+    rep = analyze_step(S.train_step, model, scfg, S.init_state(model, seed=0),
+                       _meta_like(batch), degree=_meta_like(degree))
+    live = tree_bytes(args)
+    require(rep.memory.argument_bytes == live,
+            f"{label} analysis: meta argument_bytes {rep.memory.argument_bytes} != the live "
+            f"step's {live}")
+    by = dict(rep.dot_flops_by_dtype)
+    by_what: dict = {}
+    for what, dt, f in rep.dots:
+        by_what[f"{what} ({dt})"] = by_what.get(f"{what} ({dt})", 0.0) + f
+    rate = {dt: f / step_s for dt, f in by.items()}
+    share = {dt: rate[dt] / DOT_PEAKS[dt][0] for dt in by if dt in DOT_PEAKS}
+    attn_dt = hlo_dtype(getattr(ctx["torch"], cfg.dtype))
+    attn = {dt: 0.0 for dt in by}
+    for what, dt, f in rep.dots:
+        if what.startswith("repro_torch.flash_attention"):
+            attn[dt] += f
+    card_by = {dt: f - attn[dt] for dt, f in by.items()}
+    card_by[attn_dt] = card_by.get(attn_dt, 0.0) + sum(attn.values())
+    card_share = {dt: f / step_s / DOT_PEAKS[dt][0] for dt, f in card_by.items()
+                  if dt in DOT_PEAKS}
+    out = {"dot_flops": rep.dot_flops, "dot_flops_by_dtype": by, "by_what": by_what,
+           "rate_per_s": rate,
+           "share_of_peak": share, "peaks": {dt: DOT_PEAKS[dt] for dt in DOT_PEAKS},
+           "forward_attention_flops": sum(attn.values()), "attention_dtype": attn_dt,
+           "card_dtype_flops": card_by, "card_dtype_share_of_peak": card_share,
+           "step_s": step_s, "argument_bytes": rep.memory.argument_bytes,
+           "live_argument_bytes": live, "peak_bytes": rep.memory.peak_bytes,
+           "max_memory_allocated": peak_bytes, "trace_s": rep.trace_s, "card": ctx["card"]}
+    say(f"{label} analysis (meta, {rep.trace_s:.1f} s): dot FLOPs a step {rep.dot_flops:.6g} "
+        f"by dtype { {k: f'{v:.6g}' for k, v in by.items()} }; over the {step_s:.4f} s step "
+        f"{ {k: f'{v / 1e12:.4g} T/s' for k, v in rate.items()} }, of the dense peak "
+        f"{ {k: f'{v:.4g}' for k, v in share.items()} } (peaks: "
+        f"{ {dt: DOT_PEAKS[dt][1] for dt in share} }) on {'; '.join(ctx['card'])}")
+    say(f"{label} analysis: the forward attention's {sum(attn.values()):.6g} FLOPs, counted "
+        f"f32 by the reference's extents (tri's whole S x S), run by the attention kernel in "
+        f"{attn_dt} on the tensor cores: by the dtype the card runs "
+        f"{ {k: f'{v:.6g}' for k, v in card_by.items()} }, of the dense peak "
+        f"{ {k: f'{v:.4g}' for k, v in card_share.items()} }")
+    say(f"{label} analysis: dot FLOPs by what runs them "
+        f"{ {k: f'{v:.6g}' for k, v in by_what.items()} }")
+    say(f"{label} analysis: argument_bytes {rep.memory.argument_bytes} == live {live}; "
+        f"counted eager peak {rep.memory.peak_bytes} B beside max_memory_allocated "
+        f"{peak_bytes} B (not gated)")
+    return out
+
+
+def _dryrun_counts(rep) -> dict:
+    return {"bytes": {k: int(v) for k, v in rep.collectives.bytes_by_kind.items()},
+            "calls": dict(rep.collectives.calls_by_kind)}
+
+
+def _dryrun_gate(label, ranks) -> dict:
+    """Each rank's dry-run collectives (calls and bytes by kind) equal its
+    live counter's; prints rank 0's."""
+    for r in ranks:
+        d = r["dryrun"]
+        require(d["meta"] == d["live"], f"{label} rank {r['rank']}: dry-run collectives "
+                                        f"{d['meta']} != live {d['live']}")
+    d = ranks[0]["dryrun"]
+    say(f"{label} dry run (meta mesh, {d['trace_s']:.1f} s) == live counter on every rank: "
+        f"{d['what']}: calls {d['live']['calls']}, bytes {d['live']['bytes']}")
+    return d
 
 
 def _leaf_rel(a, b) -> float:
@@ -5408,7 +5564,8 @@ def _mesh_path(ctx, mesh, cfg, job) -> dict:
     torch, dev = ctx["torch"], ctx["dev"]
     from repro_torch.core.dynamic import QoSController, degree_operand, entry_degree
     from repro_torch.data.pipeline import make_pipeline
-    from repro_torch.dist import collectives, sharding
+    from repro_torch.dist import collectives, meshctx, sharding
+    from repro_torch.dist.hlo_analysis import analyze_step
     from repro_torch.kernels import _build
     from repro_torch.models import build_model
     from repro_torch.train import step as S
@@ -5451,6 +5608,20 @@ def _mesh_path(ctx, mesh, cfg, job) -> dict:
             entry = qos.update(step, 1.0)
             degree = degree_operand(entry, dev)
     _build.time_backwards = False
+    dry = None
+    if job.get("dryrun"):
+        # the last step's collectives against the dry run of the same step on
+        # this rank's meta mesh: the state made there from the seed and cut
+        with meshctx.use_mesh(meshctx.make_meta_mesh(mesh.shape, mesh.axis_names,
+                                                     rank=mesh.rank)) as mm_mesh:
+            mm = build_model(cfg, _tp_policy(job), device="meta")
+            rep = analyze_step(S.train_step, mm, scfg, S.init_state(mm, seed=0, tp=M,
+                                                                    mesh=mm_mesh),
+                               _meta_like(batch), tp=M, degree=_meta_like(degree))
+        live = hist[-1]["collectives"]
+        dry = {"what": f"train step {n - 1}", "trace_s": rep.trace_s,
+               "live": {"bytes": live["bytes"], "calls": live["calls"]},
+               "meta": _dryrun_counts(rep)}
     out = {"rank": mesh.rank, "coord": {a: mesh.coord(a) for a in mesh.axis_names},
            "transport": mesh.transport, "history": hist, "remat": remat,
            "peak_after_init_bytes": init_peak,
@@ -5459,7 +5630,7 @@ def _mesh_path(ctx, mesh, cfg, job) -> dict:
            "backward_calls": dict(_build.backward_calls), "oracle_ms": _build.backward_ms(),
            "fingerprints": prints, "sharded": sharding.model_sharded(state.params, mesh),
            "param_count": sum(t.numel() for t in _leaves(state.params)),
-           "n_leaves": len(_leaves(state.params))}
+           "n_leaves": len(_leaves(state.params)), "dryrun": dry}
     if ctx["on_card"]:
         out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
     return out
@@ -6185,7 +6356,8 @@ def phase_train_mesh(ctx, cfg, moe_cfg, ssm_cfg, rg_cfg) -> dict:
     Br, Tr, nr = ctx["rec_mesh_shape"]
     rec = lambda c: {"kind": "path", "arch": c.name, "approx": "axq8", "n_layers": c.n_layers,
                      "seq": Tr, "steps": nr, "mesh": (1, TP), "batch": Br}
-    cases = (("5g", cfg, dict(common, mesh=(1, TP), batch=ctx["mesh_train_batch"])),
+    cases = (("5g", cfg, dict(common, mesh=(1, TP), batch=ctx["mesh_train_batch"],
+                              dryrun=True)),
              ("5h", cfg, dict(common, mesh=(TP, 1), batch=TP * ctx["mesh_dp_rows"],
                               every_step=True)),
              ("5k", moe_cfg, {"kind": "path", "arch": moe_cfg.name, "approx": "axq8",
@@ -6198,6 +6370,8 @@ def phase_train_mesh(ctx, cfg, moe_cfg, ssm_cfg, rg_cfg) -> dict:
     for (tag, c, job), ranks in zip(cases, results):
         shape = job["mesh"]
         res = _mesh_path_gates(ctx, f"phase {tag}", c, shape, ranks)
+        if job.get("dryrun"):
+            res["dryrun"] = _dryrun_gate(f"phase {tag}", ranks)
         if shape[0] > 1:
             # less the token count's 4 bytes and the loss / ce / aux's 12
             grad = res["collectives_per_step"]["bytes"]["all-reduce"] - 16
@@ -6822,7 +6996,7 @@ def main(argv=None) -> int:
         for name, lines in _build.ptxas_log.items():
             for ln in lines:
                 say(f"ptxas[{name}] {ln.strip()}")
-        ctx = {"torch": torch, "dev": torch.device("cuda", 0), "on_card": True,
+        ctx = {"torch": torch, "dev": torch.device("cuda", 0), "on_card": True, "card": smi,
                "sync": torch.cuda.synchronize, "dtype": torch.bfloat16,
                "slots": 8, "prefill_m": 255, "max_len": 1024, "requests": 16,
                "new_tokens": 32, "prompt_range": (64, 512),
@@ -6897,7 +7071,7 @@ def main(argv=None) -> int:
     else:
         torch.set_num_threads(4)
         smi, kind, count = ["cpu rehearsal"], "cpu", 0
-        ctx = {"torch": torch, "dev": torch.device("cpu"), "on_card": False,
+        ctx = {"torch": torch, "dev": torch.device("cpu"), "on_card": False, "card": smi,
                "sync": lambda: None, "dtype": torch.float32,
                "slots": 4, "prefill_m": 37, "max_len": 64, "requests": 6,
                "new_tokens": 4, "prompt_range": (8, 40),

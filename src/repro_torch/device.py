@@ -3,6 +3,8 @@
 Entry points take ``device="cuda"`` by default and run on the card.  The CPU
 is used only when the caller asks for it (the tests do); with no card and no
 explicit CPU request they raise instead of quietly running on the host.
+``device="meta"`` (shapes and dtypes, nothing computed) is the dry run's
+explicit request (``launch/dryrun.py``).
 """
 
 from __future__ import annotations
@@ -22,6 +24,6 @@ def resolve_device(device="cuda") -> torch.device:
                 "plain PyTorch versions on the host")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {device!r} (cuda or cpu)")
+    elif dev.type not in ("cpu", "meta"):
+        raise ValueError(f"unsupported device {device!r} (cuda, cpu or meta)")
     return dev

@@ -65,6 +65,14 @@ all-gather by its operand bytes, a ring hop (``collective-permute``) by its
 int8 payload plus its f32 scale, a :func:`broadcast_rows` (a fleet
 replica's tick emission, sent from its first rank to the world) by its
 payload.
+
+On a meta mesh (``meshctx.make_meta_mesh``: a
+:class:`~repro_torch.dist.meshctx.MetaGroup` on each axis, no process
+group) every collective counts the calls and bytes it would send, the
+same :data:`counter` entries, and returns an empty meta tensor of its
+result's shape: the shape-only dry run of one rank's step
+(``dist/hlo_analysis.py``).  A tensor that is not on the meta device
+raises there.
 """
 
 from __future__ import annotations
@@ -74,6 +82,7 @@ import time
 import torch
 import torch.distributed as dist
 
+from repro_torch.dist.meshctx import MetaGroup
 from repro_torch.tree import tree_leaves, tree_unflatten
 
 Tensor = torch.Tensor
@@ -160,6 +169,33 @@ class CollectiveCounter:
 counter = CollectiveCounter()
 
 
+def group_size(group) -> int:
+    """The number of ranks of ``group`` (1 for None)."""
+    if group is None:
+        return 1
+    if isinstance(group, MetaGroup):
+        return group.size
+    return dist.get_world_size(group)
+
+
+def group_rank(group) -> int:
+    """This rank's index in ``group``."""
+    if isinstance(group, MetaGroup):
+        return group.rank
+    return dist.get_rank(group)
+
+
+def _on_meta(x: Tensor, group) -> bool:
+    """Whether ``group`` is a meta mesh's axis (the collective then counts
+    and returns shapes); a tensor with data on one raises."""
+    if not isinstance(group, MetaGroup):
+        return False
+    if x.device.type != "meta":
+        raise ValueError(f"a collective over {group} takes meta tensors, got one on "
+                         f"{x.device}")
+    return True
+
+
 def _staged(x: Tensor, group) -> bool:
     """A CUDA tensor on a gloo group (the all-gather and send/recv take it
     only through host copies)."""
@@ -189,6 +225,9 @@ def all_reduce(x: Tensor, group, op: str = "sum") -> Tensor:
         return x
     if op not in ("sum", "max"):
         raise ValueError(f"op must be 'sum' or 'max', got {op!r}")
+    if _on_meta(x, group):
+        counter.add("all-reduce", x.numel() * x.element_size())
+        return torch.empty_like(x)
     t0 = _start(x, group)
     counter.add("all-reduce", x.numel() * x.element_size())
     staged = op == "max" and _staged(x, group)
@@ -205,6 +244,11 @@ def all_gather(x: Tensor, group, dim: int = -1) -> Tensor:
     """The ranks' ``x`` concatenated along ``dim`` in group-rank order."""
     if group is None:
         return x
+    if _on_meta(x, group):
+        counter.add("all-gather", x.numel() * x.element_size())
+        shape = list(x.shape)
+        shape[dim] *= group.size
+        return x.new_empty(shape)
     t0 = _start(x, group)
     n = dist.get_world_size(group)
     counter.add("all-gather", x.numel() * x.element_size())
@@ -252,7 +296,7 @@ class _GatherKvHeads(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         ctx.group, ctx.width = group, x.shape[-1]
-        ctx.first = dist.get_rank(group) * x.shape[-1]
+        ctx.first = group_rank(group) * x.shape[-1]
         return all_gather(x, group, dim=-1)
 
     @staticmethod
@@ -265,7 +309,7 @@ class _GatherFromModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, dim):
         ctx.dim, ctx.width = dim, x.shape[dim]
-        ctx.first = dist.get_rank(group) * x.shape[dim]
+        ctx.first = group_rank(group) * x.shape[dim]
         return all_gather(x, group, dim=dim)
 
     @staticmethod
@@ -380,7 +424,7 @@ def sum_grad_columns(w: Tensor, group, lo: int, hi: int) -> Tensor:
 def broadcast_value(value: float, group, device) -> float:
     """Group rank 0's ``value`` on every rank of ``group`` (a host
     decision made once and shared; not counted as a model collective)."""
-    if group is None:
+    if group is None or isinstance(group, MetaGroup):
         return value
     dev = device if dist.get_backend(group) == "nccl" else "cpu"
     t = torch.tensor([value], dtype=torch.float64, device=dev)
@@ -397,6 +441,10 @@ def broadcast_rows(x: Tensor, rows: int, src: int, group) -> Tensor:
     itself when ``group`` is None."""
     if group is None:
         return x
+    if _on_meta(x, group):
+        out = x.new_empty((rows,) + tuple(x.shape[1:]))
+        counter.add("broadcast", out.numel() * out.element_size())
+        return out
     t0 = _start(x, group)
     nccl = dist.get_backend(group) == "nccl"
     wire = torch.device("cuda", torch.cuda.current_device()) if nccl else torch.device("cpu")
@@ -458,9 +506,13 @@ def ring_allreduce_int8(x: Tensor, group) -> Tensor:
     multiply-add, a rounding apart (ROADMAP §C)."""
     if group is None:
         return x
-    n = dist.get_world_size(group)
+    n = group_size(group)
     if n == 1:
         return x
+    if _on_meta(x, group):
+        chunk = -(-x.numel() // n)
+        counter.add("collective-permute", 2 * (n - 1) * (chunk + 4), calls=2 * (n - 1))
+        return torch.empty_like(x)
     t0 = _start(x, group)
     me = dist.get_rank(group)
     nxt = dist.get_global_rank(group, (me + 1) % n)

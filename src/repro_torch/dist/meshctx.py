@@ -15,6 +15,11 @@ set, :func:`get_mesh` returns the trivial ``(1, 1)`` ``("data", "model")``
 mesh, which needs no process group: every single-device call site works
 unchanged.
 
+:func:`make_meta_mesh` builds one rank's mesh with no process group, on
+the meta device: each axis holds a :class:`MetaGroup`, on which the
+collectives count and return shapes (the dry run of the production
+meshes, ``launch/dryrun.py``).
+
 Devices and transport: rank ``r`` runs on ``cuda:(r % device_count)``.
 When every rank has its own card the groups use NCCL.  Ranks that share a
 card (two ranks on the one H100) cannot use NCCL, which refuses two ranks
@@ -110,6 +115,36 @@ class Mesh:
         dims = ", ".join(f"{a}={s}" for a, s in zip(self.axis_names, self.shape))
         where = f"rank {self.rank}" if self.member else "not a member"
         return f"Mesh({dims}; ranks {self.ranks}, {where}, {self.device}, {self.transport})"
+
+
+class MetaGroup:
+    """A mesh axis of a meta mesh (:func:`make_meta_mesh`): its ``size``
+    and this rank's ``rank`` on it, and no process group.  A collective
+    handed one counts what it would move and returns a meta result of the
+    right shape (``dist/collectives.py``); it never passes its input
+    through."""
+
+    def __init__(self, size: int, rank: int):
+        self.size, self.rank = int(size), int(rank)
+
+    def __repr__(self) -> str:
+        return f"MetaGroup(size={self.size}, rank={self.rank})"
+
+
+def make_meta_mesh(shape: Sequence[int], axes: Sequence[str], rank: int = 0) -> Mesh:
+    """World rank ``rank``'s :class:`Mesh` of ``shape`` on the meta device,
+    built with no process group: each axis wider than 1 holds a
+    :class:`MetaGroup` (the shape-only dry run of one rank's step,
+    ``launch/dryrun.py``)."""
+    if "model" not in axes:
+        raise ValueError(f"mesh axes {tuple(axes)} must include 'model'")
+    n = math.prod(shape)
+    if not 0 <= rank < n:
+        raise ValueError(f"rank {rank} lies outside a mesh of {n} ranks")
+    mesh = Mesh(shape, axes, rank=rank, device="meta")
+    mesh._groups = {a: MetaGroup(s, mesh.coord(a))
+                    for a, s in zip(mesh.axis_names, mesh.shape) if s > 1}
+    return mesh
 
 
 def rank_device(rank: int, device="cuda") -> torch.device:

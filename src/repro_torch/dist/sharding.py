@@ -377,20 +377,36 @@ def model_sharded(params: Any, mesh: Optional[Mesh] = None) -> list:
     return tree_leaves(specs)
 
 
+@dataclasses.dataclass(frozen=True)
+class ColumnSplit:
+    """The last-dim columns of a leaf cut part by part: the indices of its
+    split parts' columns and of the others (index tensors, not a boolean
+    mask: selecting them depends on no data, so a meta run can too)."""
+
+    split: torch.Tensor
+    whole: torch.Tensor
+
+
 def split_columns(params: Any, mesh: Optional[Mesh] = None) -> list:
     """One entry a leaf of a rank's local tree, in ``tree_leaves`` order:
     False for a leaf replicated over the mesh, True for a leaf split whole,
     and for a leaf cut part by part (:class:`Parts`, on its last dim) a
-    bool tensor over its last dim, True on the columns of the split parts
-    (the gradient norm sums those over ``model`` and counts the rest
+    :class:`ColumnSplit` of its last dim, made from the parts' widths (the
+    gradient norm sums the split columns over ``model`` and counts the rest
     once)."""
     mesh = mesh or get_mesh()
 
     def entry(x, spec, path):
         last = spec[-1] if spec else None
         if isinstance(last, Parts) and _axis_parts(last, mesh)[0] > 1:
-            return torch.cat([torch.full((w,), s, dtype=torch.bool, device=x.device)
-                              for w, s in zip(last.widths, last.split)])
+            cols: dict = {True: [], False: []}
+            off = 0
+            for w, s in zip(last.widths, last.split):
+                cols[bool(s)].append(torch.arange(off, off + w, device=x.device))
+                off += w
+            return ColumnSplit(*(torch.cat(cols[s]) if cols[s] else
+                                 torch.zeros((0,), dtype=torch.int64, device=x.device)
+                                 for s in (True, False)))
         return any(_axis_parts(e, mesh)[0] > 1 for e in spec)
 
     return tree_leaves(_map_specs(entry, params, _leaf_specs(params)))

@@ -108,12 +108,14 @@ def reset_counts() -> None:
 
 
 class backward_oracle:
-    """Context of one backward oracle ``name``: counts it and, with
+    """Context of one backward oracle ``name``: counts it (unless ``t`` is
+    a meta tensor: the dry run executes nothing) and, with
     ``time_backwards`` set and ``t`` on the card, brackets it with CUDA
     events (recorded on the current stream: no host sync)."""
 
     def __init__(self, name: str, t: torch.Tensor):
-        backward_calls[name] += 1
+        if not t.is_meta:
+            backward_calls[name] += 1
         self.name = name
         self.ev = None
         if time_backwards and t.is_cuda:

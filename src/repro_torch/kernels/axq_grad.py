@@ -30,8 +30,9 @@ Tensor = torch.Tensor
 
 def _block_product(vx: Tensor, vw: Tensor) -> Tensor:
     """Exact integer product of int8 codes vx (M, blk) and vw (N, blk) as an
-    (M, N) f32 (every entry is an integer below 127^2 * blk)."""
-    if vx.is_cuda and vw.shape[0] % 8 == 0 and vx.shape[1] % 8 == 0:
+    (M, N) f32 (every entry is an integer below 127^2 * blk); on meta
+    tensors (the dry run) the card's form."""
+    if (vx.is_cuda or vx.is_meta) and vw.shape[0] % 8 == 0 and vx.shape[1] % 8 == 0:
         from repro_torch.kernels.ops import int_product
 
         return int_product(vx.contiguous(), vw.contiguous().t()).to(torch.float32)

@@ -41,7 +41,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.quantization import (qmm_gated_packed_ref,
                                            qmm_packed_ref, quantize_block)
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, meta_ops
 from repro_torch.kernels.qstore import PackedQWeight, prepack_weight, resolve_block
 
 Tensor = torch.Tensor
@@ -225,9 +225,12 @@ def axqmm_packed(x: Tensor, pw: PackedQWeight, ebits=8, *,
     """float x (M, K) @ prepacked weight -> (M, N) f32, with optional
     ``bias`` (N,) and ``residual`` (M, N) added in the kernel's f32
     epilogue.  CUDA tensors launch the kernel; CPU tensors take the plain
-    version."""
+    version; meta tensors take the kernel's op (``kernels/meta_ops.py``:
+    its output's shape, no data)."""
     if x.device.type == "cpu":
         return axqmm_packed_plain(x, pw, ebits, bias=bias, residual=residual)
+    if x.device.type == "meta":
+        return meta_ops.axqmm(x, pw.qw)
     qx, sx = quantize_for_axqmm(x, pw.block)
     return axqmm_quantized(qx, sx, pw, ebits, bias=bias, residual=residual)
 
@@ -270,13 +273,16 @@ def axqmm_gated_packed(x: Tensor, pw_up: PackedQWeight, pw_gate: PackedQWeight,
                        ebits=8, *, act: str = "silu") -> Tensor:
     """``act(x @ w_gate) * (x @ w_up)`` -> (M, N) f32 in one launch: both
     GEMMs read one staged x tile, and the up/gate sums meet in the
-    epilogue.  CPU tensors take the plain version."""
+    epilogue.  CPU tensors take the plain version; meta tensors the kernel's
+    op."""
     if act not in _ACT_CODES:
         raise ValueError(f"act must be one of {sorted(_ACT_CODES)}, got {act!r}")
     if pw_up.n != pw_gate.n or pw_up.block != pw_gate.block:
         raise ValueError("up/gate packs must agree in N and block")
     if x.device.type == "cpu":
         return axqmm_gated_plain(x, pw_up, pw_gate, ebits, act=act)
+    if x.device.type == "meta":
+        return meta_ops.axqmm_gated(x, pw_up.qw, pw_gate.qw)
     qx, sx = quantize_for_axqmm(x, pw_up.block)
     return axqmm_gated_quantized(qx, sx, pw_up, pw_gate, ebits, act=act)
 
@@ -369,10 +375,12 @@ def _check_experts(x: Tensor, packs, name: str) -> None:
 def axqmm_experts_packed(x: Tensor, pw: PackedQWeight, ebits=8) -> Tensor:
     """float x (E, C, K) @ each expert's packed weight -> (E, C, N) f32: E
     products in one launch.  CUDA tensors launch the kernel; CPU tensors
-    take the plain version."""
+    take the plain version; meta tensors the kernel's op."""
     _check_experts(x, (pw,), "axqmm_experts")
     if x.device.type == "cpu":
         return axqmm_experts_plain(x, pw, ebits)
+    if x.device.type == "meta":
+        return meta_ops.axqmm_experts(x, pw.qw)
     qx, sx = quantize_for_axqmm(x, pw.block)
     return axqmm_experts_quantized(qx, sx, pw, ebits)
 
@@ -412,12 +420,15 @@ def axqmm_experts_quantized(qx: Tensor, sx: Tensor, pw: PackedQWeight, ebits=8) 
 def axqmm_gated_experts_packed(x: Tensor, pw_up: PackedQWeight, pw_gate: PackedQWeight,
                                ebits=8, *, act: str = "silu") -> Tensor:
     """``act(x @ w_gate) * (x @ w_up)`` for each of E experts -> (E, C, N)
-    f32 in one launch.  CPU tensors take the plain version."""
+    f32 in one launch.  CPU tensors take the plain version; meta tensors
+    the kernel's op."""
     if act not in _ACT_CODES:
         raise ValueError(f"act must be one of {sorted(_ACT_CODES)}, got {act!r}")
     _check_experts(x, (pw_up, pw_gate), "axqmm_gated_experts")
     if x.device.type == "cpu":
         return axqmm_gated_experts_plain(x, pw_up, pw_gate, ebits, act=act)
+    if x.device.type == "meta":
+        return meta_ops.axqmm_gated_experts(x, pw_up.qw, pw_gate.qw)
     qx, sx = quantize_for_axqmm(x, pw_up.block)
     return axqmm_gated_experts_quantized(qx, sx, pw_up, pw_gate, ebits, act=act)
 

@@ -12,7 +12,14 @@ Backend selection — ``REPRO_TORCH_KERNELS``, overridable per process with
 
 On a CUDA tensor, ``auto`` and ``cuda`` launch the kernel or raise: there
 is no silent fallback, and a card other than sm_90 raises in the kernel
-wrapper.
+wrapper.  A ``meta`` tensor (shape and dtype, no data: the dry run of
+``dist/hlo_analysis.py``) takes the meta route under any setting: where a
+CUDA tensor would launch a kernel it calls the kernel's op of
+``kernels/meta_ops.py``, which returns the output's shape and dtype (the
+routers hold that call for ``fir`` and ``conv2d``; the packed GEMM
+wrappers, the attention Function and ``decode_attn_flash`` for the
+others); the backward oracles run op by op on meta.  Nothing else
+reaches it.
 
 Routers: :func:`prefill_attention` (full-sequence GQA attention, model
 layout), :func:`decode_attention` (one-token decode against a KVCache or a
@@ -40,7 +47,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build, axq_grad
+from repro_torch.kernels import _build, axq_grad, meta_ops
 from repro_torch.kernels import axqmm as _axq
 from repro_torch.kernels.flash_attention import flash_attention_vjp
 from repro_torch.kernels.flash_decode import decode_attn_flash
@@ -100,10 +107,13 @@ def backend_setting() -> str:
 
 
 def resolved_backend(device=None) -> str:
-    """'cuda' or 'torch' for tensors on ``device`` after resolving 'auto'.
-    ``cuda`` with a CPU device raises."""
+    """'cuda' or 'torch' for tensors on ``device`` after resolving 'auto';
+    'meta' for the meta device, under any setting.  ``cuda`` with a CPU
+    device raises."""
     setting = backend_setting()
     dev = torch.device(device) if device is not None else None
+    if dev is not None and dev.type == "meta":
+        return "meta"
     if setting == "auto":
         return "cuda" if dev is not None and dev.type == "cuda" else "torch"
     if setting == "cuda" and dev is not None and dev.type != "cuda":
@@ -261,7 +271,7 @@ def axq_matmul(x2: Tensor, w, *, block: int = 256, ebits=8,
     _record_route("gemm", backend)
     x2 = x2.to(torch.float32)
     if isinstance(w, PackedQWeight):
-        if backend == "cuda":
+        if backend != "torch":
             return _axq.axqmm_packed(x2, w, ebits, bias=bias, residual=residual)
         return _axq.axqmm_packed_plain(x2, w, ebits, bias=bias, residual=residual)
     blk = resolve_block(x2.shape[-1], block)
@@ -282,7 +292,7 @@ def axq_gated(x2: Tensor, w_up, w_gate, *, act: str = "silu",
     _record_route("gated", backend)
     x2 = x2.to(torch.float32)
     if isinstance(w_up, PackedQWeight):
-        if backend == "cuda":
+        if backend != "torch":
             return _axq.axqmm_gated_packed(x2, w_up, w_gate, ebits, act=act)
         return _axq.axqmm_gated_plain(x2, w_up, w_gate, ebits, act=act)
     blk = resolve_block(x2.shape[-1], block)
@@ -332,7 +342,7 @@ def axq_matmul_experts(x3: Tensor, w, *, block: int = 256, ebits=8,
     _record_route("gemm", backend)
     x3 = x3.to(torch.float32)
     if isinstance(w, PackedQWeight):
-        if backend == "cuda":
+        if backend != "torch":
             return _axq.axqmm_experts_packed(x3, w, ebits)
         return _axq.axqmm_experts_plain(x3, w, ebits)
     blk = resolve_block(x3.shape[-1], block)
@@ -349,7 +359,7 @@ def axq_gated_experts(x3: Tensor, w_up, w_gate, *, act: str = "silu",
     _record_route("gated", backend)
     x3 = x3.to(torch.float32)
     if isinstance(w_up, PackedQWeight):
-        if backend == "cuda":
+        if backend != "torch":
             return _axq.axqmm_gated_experts_packed(x3, w_up, w_gate, ebits, act=act)
         return _axq.axqmm_gated_experts_plain(x3, w_up, w_gate, ebits, act=act)
     blk = resolve_block(x3.shape[-1], block)
@@ -401,6 +411,9 @@ def fir(x, taps, *, tail=None, degree=None, p=None, r=None, n: int = 16,
     backend = resolved_backend(x.device)
     _record_route("fir", backend)
     pr, degree = _pr_knobs(degree, p, r)
+    if backend == "meta":
+        return (meta_ops.fir_valid(x, taps) if tail is None else
+                meta_ops.pr_fir(x, taps, tail))
     plain = backend == "torch"
     if tail is None:
         if pr is None:
@@ -421,6 +434,8 @@ def conv2d(img, kern, *, degree=None, p=None, r=None, n: int = 16,
     backend = resolved_backend(img.device)
     _record_route("conv2d", backend)
     pr, degree = _pr_knobs(degree, p, r)
+    if backend == "meta":
+        return meta_ops.pr_conv2d(img, kern)
     return _dsp.conv2d_pr(img, kern, pr, degree=degree, n=n, shift=shift, pad=pad,
                           plain=backend == "torch")
 

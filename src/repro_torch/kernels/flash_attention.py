@@ -35,7 +35,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, meta_ops
 
 Tensor = torch.Tensor
 
@@ -302,7 +302,8 @@ def flash_attention_ref(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
 
 class _FlashAttentionVJP(torch.autograd.Function):
     """Forward: :func:`flash_attention_grouped` (the kernel on the card; with
-    ``plain``, or on the CPU, its plain version).  Backward: autograd
+    ``plain``, or on the CPU, its plain version; on meta tensors the
+    kernel's op, ``kernels/meta_ops.py``).  Backward: autograd
     through :func:`flash_attention_ref` on the saved q, k, v, counted as
     ``flash_attention_bwd`` (``_build.backward_calls``)."""
 
@@ -310,6 +311,8 @@ class _FlashAttentionVJP(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, window, plain):
         ctx.save_for_backward(q, k, v)
         ctx.causal, ctx.window = causal, window
+        if q.device.type == "meta":
+            return meta_ops.flash_attention(q, k, v, window)
         if plain:
             return flash_attention_grouped_plain(q, k, v, causal=causal, window=window)
         return flash_attention_grouped(q, k, v, causal=causal, window=window)
@@ -328,7 +331,8 @@ def flash_attention_vjp(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
                         window: Optional[int] = None, plain: bool = False) -> Tensor:
     """Differentiable grouped prefill attention, model layout: q (B, S, H,
     D), k/v (B, S, KVr, D) -> (B, S, H, D).  The forward is the kernel (or,
-    with ``plain`` or on the CPU, its plain version); the gradients come
+    with ``plain`` or on the CPU, its plain version; on meta tensors its
+    op, ``kernels/meta_ops.py``); the gradients come
     from the materialized oracle, as the reference's custom VJP takes them
     (O(S^2) memory in the backward)."""
     return _FlashAttentionVJP.apply(q, k, v, causal, window, plain)

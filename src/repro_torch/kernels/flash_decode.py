@@ -39,7 +39,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.quantization import degrade
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, meta_ops
 
 Tensor = torch.Tensor
 
@@ -187,7 +187,8 @@ def decode_attn_flash(q1: Tensor, knew: Tensor, vnew: Tensor, cache, *,
                       plain: bool = False):
     """Drop-in for ``models.attention.decode_attn`` / ``decode_attn_quant``
     through the fused kernels (or, with ``plain=True``, their plain
-    versions).
+    versions; on meta tensors, after the cache write, the kernel's op of
+    ``kernels/meta_ops.py``).
 
     q1: (B, 1, H, D); knew/vnew: (B, 1, KVr, D); cache: KVCache or
     QuantKVCache, updated in place.  ``active`` (B,) bool masks freed slots
@@ -206,7 +207,9 @@ def decode_attn_flash(q1: Tensor, knew: Tensor, vnew: Tensor, cache, *,
     nvalid = torch.clamp(pos + 1, max=T).to(torch.int32)
     act = (torch.ones((B,), dtype=torch.int32, device=q1.device) if active is None
            else active.to(torch.int32))
-    if isinstance(cache, QuantKVCache):
+    if q1.is_meta:
+        out = meta_ops.flash_decode(qg, cache.k)
+    elif isinstance(cache, QuantKVCache):
         f = flash_decode_quant_plain if plain else flash_decode_quant
         out = f(qg, cache.k, cache.ks, cache.v, cache.vs, nvalid, act,
                 8 if degree is None else degree)

@@ -205,8 +205,9 @@ def int_product(qx: Tensor, qw: Tensor) -> Tensor:
     integer matmul on the CPU, ``torch._int_mm`` on the card (``qw``
     column-major, as :func:`~repro_torch.kernels.qstore.emul_layout` stores
     it; a decode-sized ``qx`` padded by :func:`pad_for_int_mm`).  No host
-    read: it runs inside a captured step."""
-    if qx.device.type != "cuda":
+    read: it runs inside a captured step.  On meta tensors (the dry run)
+    it takes the card's form, so the analysis counts what the card runs."""
+    if qx.device.type not in ("cuda", "meta"):
         return torch.matmul(qx.to(torch.int32), qw.to(torch.int32))
     K, N = qw.shape
     if K % 8 or N % 8:

@@ -56,7 +56,9 @@ class Model:
         (or a fresh one seeded with ``seed``)."""
         gen = generator
         if gen is None:
-            gen = torch.Generator(device=self.device).manual_seed(seed)
+            # the meta device draws nothing: a host generator stands in
+            where = "cpu" if self.device.type == "meta" else self.device
+            gen = torch.Generator(device=where).manual_seed(seed)
         if self.cfg.family == "hybrid":
             return rglru.init_hybrid(gen, self.cfg, tp, self.device)
         if self.cfg.family == "ssm":

@@ -64,9 +64,9 @@ def global_norm(tree) -> Tensor:
         if any(m is not False for m in split):
             local, whole = [], []
             for x, s, m in zip(leaves, sq, split):
-                if isinstance(m, Tensor):
-                    local.append(torch.sum(torch.square(x[..., m])))
-                    whole.append(torch.sum(torch.square(x[..., ~m])))
+                if isinstance(m, sharding.ColumnSplit):
+                    local.append(torch.sum(torch.square(x.index_select(-1, m.split))))
+                    whole.append(torch.sum(torch.square(x.index_select(-1, m.whole))))
                 else:
                     local.append(s if m else torch.zeros_like(s))
                     whole.append(None)

@@ -27,7 +27,6 @@ from dataclasses import dataclass, field
 from typing import Any, NamedTuple, Optional
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.dist import collectives, meshctx, sharding
 from repro_torch.models.registry import Model
@@ -124,7 +123,7 @@ def _global_metrics(loss, metrics: dict, group):
     and their ``aux`` averaged (the reference's ``pmean``), in one
     all-reduce; ``ntokens`` is already global."""
     out = collectives.all_reduce(torch.stack([loss, metrics["ce"], metrics["aux"]]), group)
-    aux = out[2] / dist.get_world_size(group)
+    aux = out[2] / collectives.group_size(group)
     return out[0], {**metrics, "ce": out[1], "aux": aux}
 
 

@@ -1,0 +1,16 @@
+"""An f32 engine on a bf16 state cache against the reference's streams:
+recurrentgemma-2b-smoke (cut to 4 layers) with bucketed packed admission
+(its exact-length case is in ``test_torch_conv_tail_hybrid.py``,
+mamba2-370m-smoke's in ``test_torch_conv_tail.py``).
+
+The shared setup and the test's body are in ``_torch_conv_tail.py``."""
+
+from _torch_conv_tail import *  # noqa: F401,F403
+
+
+@pytest.mark.parametrize("admission", [True], ids=["buckets-pack2"])
+@pytest.mark.parametrize("arch,over", CASES[1:], ids=["recurrentgemma"])
+def test_f32_engine_on_bf16_state_cache_matches_reference(arch, over, admission):
+    """:func:`f32_engine_on_bf16_state_cache_matches_reference` for
+    recurrentgemma-2b-smoke, bucketed packed admission."""
+    f32_engine_on_bf16_state_cache_matches_reference(arch, over, admission)

@@ -7,197 +7,11 @@ inputs; and the expert-batched GEMM launches (``axqmm_experts`` /
 reference's ``vmap`` of ``axq_matmul`` / ``axq_gated``, and their launch
 path on ``meta`` tensors (no card here).
 
-Tolerances.  Routing is compared for equality: the top-k expert ids, the
-capacity and the dispatched ``(E, C, d)`` buffer (the same rows in the same
-slots: the same keep mask), bit for bit.  ``moe_apply``'s output within
-1e-5 abs (f32: the router and expert products sum in another order than
-XLA's), the models' logits and cache rows within 1e-4 in f32
-(tests/test_torch_models.py) and at the bf16 tolerances of
-tests/test_torch_models_bf16.py, the engines' greedy streams equal up to
-near-ties below LOGIT_TOL (tests/test_torch_serve.py).  The batched plain
-GEMMs are bit-identical to the reference's xla route where no activation
-runs (``down``; the gated product under ``relu``); under ``silu`` / ``gelu``
-the two frameworks' activations differ in the last f32 ulp, and the
-reference's Pallas kernels in interpret mode fold their f32 sums in
-another contraction, so those are held to GEMM_ATOL (the 2-D gap of
-tests/test_torch_kernels.py, at the scale of these outputs)."""
-import dataclasses
-import functools
+Here: ``test_capacity_copies_the_reference_formula``, ``test_moe_int8_lever_and_ring_lever``, ``test_batched_routers_float_weights_and_backward``, ``test_expert_batched_launch_hands_the_kernel_e_and_its_plan``, ``test_plan_counts_every_experts_tiles``, ``test_bad_expert_pack_raises_without_fallback``, ``test_lm_forward_aux_matches_reference``, ``test_engine_streams_match_reference``, ``test_adapter_and_registry_keep_moe_exact_length``, ``test_check_supported_admits_frontend_families``, ``test_moe_archs_build_with_their_full_widths`` (the rest in ``test_torch_moe_2.py``).
 
-import jax
-import jax.numpy as jnp
-import numpy as np
-import pytest
-import torch
+The shared setup and helpers are in ``_torch_moe.py``."""
 
-import _torch_parity as P
-from repro.configs import get_config as jget_config
-from repro.core.approx import ApproxMode as JMode
-from repro.core.approx import ApproxPolicy as JPolicy
-from repro.core.approx import ApproxSpec as JSpec
-from repro.core.dynamic import QoSController as JQoS
-from repro.kernels import dispatch as jdispatch
-from repro.kernels.qstore import prepack_params as jprepack_params
-from repro.kernels.qstore import prepack_weight as jprepack
-from repro.models import moe as jmoe
-from repro.serve.engine import ServeEngine as JServeEngine
-from repro_torch.configs import get_config as tget_config
-from repro_torch.convert import params_from_numpy
-from repro_torch.core.approx import ApproxMode, ApproxPolicy, ApproxSpec
-from repro_torch.core.dynamic import QoSController as TQoS
-from repro_torch.kernels import _build
-from repro_torch.kernels import axqmm as taxq
-from repro_torch.kernels import dispatch as tdispatch
-from repro_torch.kernels.qstore import PackedQWeight, prepack_params
-from repro_torch.models import build_model
-from repro_torch.models import moe as tmoe
-from repro_torch.models import transformer as TT
-from repro_torch.models.transformer import LMCacheQ
-from repro_torch.serve.admission import AdmissionConfig
-from repro_torch.serve.lm import LMAdapter, ServeEngine
-
-torch.set_num_threads(2)
-
-ATOL_MOE = 1e-5
-ATOL_LOGITS = 1e-4
-LOGIT_ATOL_BF16, CACHE_REL_BF16 = 0.25, 3e-2
-GEMM_ATOL = 1e-5
-LOGIT_TOL = 1e-2
-SMS = 132
-GRANITE, QWEN = "granite-moe-3b-a800m-smoke", "qwen2-moe-a2.7b-smoke"
-ARCHS = (GRANITE, QWEN)
-
-
-def _cfgs(arch, **moe_kw):
-    """(jax cfg, port cfg) in f32, MoE fields ``moe_kw`` replaced."""
-    out = []
-    for get in (jget_config, tget_config):
-        c = dataclasses.replace(get(arch), dtype="float32")
-        if moe_kw:
-            c = dataclasses.replace(c, moe=dataclasses.replace(c.moe, **moe_kw))
-        out.append(c)
-    return out
-
-
-def _policies(kind):
-    """(jax policy, port policy): exact, or AXQ-8 with a dynamic degree on
-    the experts and the shared experts."""
-    if kind == "exact":
-        return JPolicy(), ApproxPolicy()
-    return (JPolicy(default=JSpec(mode=JMode.AXQ, ebits=8, block=64, dynamic=True)),
-            ApproxPolicy(default=ApproxSpec(mode=ApproxMode.AXQ, ebits=8, block=64,
-                                            dynamic=True)))
-
-
-@functools.lru_cache(maxsize=None)
-def _moe_params(arch):
-    """One MoE layer's reference params (numpy) from a fixed key."""
-    jcfg, _ = _cfgs(arch)
-    return jax.tree.map(np.asarray, jmoe.init_moe(jax.random.PRNGKey(3), jcfg, 1))
-
-
-class _Recorder:
-    """Routing seen inside the reference's ``moe_apply`` (under jit and
-    shard_map, through ``jax.debug.callback``): top-k ids and the
-    dispatched ``(E, C, d)`` buffer."""
-
-    def __init__(self, monkeypatch):
-        self.ids, self.bufs = [], []
-        top_k, ffn = jax.lax.top_k, jmoe._local_expert_ffn
-
-        def rec_top_k(x, k):
-            v, i = top_k(x, k)
-            jax.debug.callback(lambda a: self.ids.append(np.asarray(a)), i)
-            return v, i
-
-        def rec_ffn(w, buf, *a, **kw):
-            jax.debug.callback(lambda b: self.bufs.append(np.asarray(b)), buf)
-            return ffn(w, buf, *a, **kw)
-
-        monkeypatch.setattr(jax.lax, "top_k", rec_top_k)
-        monkeypatch.setattr(jmoe, "_local_expert_ffn", rec_ffn)
-
-
-def _port_routing(monkeypatch):
-    bufs = []
-    ffn = tmoe._local_expert_ffn
-
-    def rec(w, buf, *a, **kw):
-        bufs.append(buf.clone())
-        return ffn(w, buf, *a, **kw)
-
-    monkeypatch.setattr(tmoe, "_local_expert_ffn", rec)
-    return bufs
-
-
-MOE_CASES = [
-    # (arch, spec, degree, shape (B, S), packed, capacity_factor)
-    (GRANITE, "exact", None, (2, 12), False, None),
-    (GRANITE, "axq", None, (2, 12), True, None),
-    (GRANITE, "axq", 6, (2, 12), True, None),
-    (GRANITE, "axq", "vector", (2, 12), True, None),
-    (GRANITE, "axq", 5, (2, 12), False, None),          # float experts: on-the-fly packs
-    (GRANITE, "axq", 6, (1, 64), True, 0.05),           # drops: C at its floor of 4
-    (GRANITE, "exact", None, (8, 1), False, None),      # a decode tick, free slots counted
-    (QWEN, "exact", None, (2, 12), False, None),
-    (QWEN, "axq", 6, (2, 12), True, None),
-    (QWEN, "axq", "vector", (1, 64), True, 0.05),
-    (QWEN, "axq", 7, (8, 1), True, None),
-]
-
-
-@pytest.mark.parametrize("arch,spec,degree,shape,packed,cf", MOE_CASES)
-def test_moe_apply_routing_and_output_match_reference(monkeypatch, arch, spec, degree, shape,
-                                                      packed, cf):
-    """``moe_apply`` on the same h: the top-k ids, the capacity and the
-    dispatched buffer (so the keep mask) equal the reference's, the output
-    within 1e-5 and the aux loss within 1e-6.  ``vector`` passes one entry
-    of a per-site (n_layers + 1,) degree vector, as the layer loop does; a
-    decode-shaped call (8 slots, one token each) counts every slot in the
-    capacity."""
-    jcfg, tcfg = _cfgs(arch, **({} if cf is None else {"capacity_factor": cf}))
-    jpol, tpol = _policies(spec)
-    jp = _moe_params(arch)
-    if packed:
-        espec = jmoe.expert_spec(jpol, "layer/moe")
-        jp = {**jp, "experts": {k: jprepack(jnp.asarray(w), espec.block)
-                                for k, w in jp["experts"].items()}}
-        jp = jax.tree.map(np.asarray, jp)
-    tp = params_from_numpy(jp)
-    assert isinstance(tp["experts"]["up"], PackedQWeight) == packed
-    rng = np.random.default_rng(sum(shape) + (degree if isinstance(degree, int) else 0))
-    x = rng.standard_normal((*shape, jcfg.d_model)).astype(np.float32)
-    if degree == "vector":
-        jdeg, tdeg = jnp.asarray([8, 6, 5], jnp.int32)[1], torch.tensor([8, 6, 5],
-                                                                         dtype=torch.int32)[1]
-    elif degree is None:
-        jdeg, tdeg = None, None
-    else:
-        jdeg, tdeg = jnp.int32(degree), torch.tensor(degree, dtype=torch.int32)
-
-    rec = _Recorder(monkeypatch)
-    with P.jax_backend("xla"):
-        fn = jax.jit(lambda p, h, d: jmoe.moe_apply(p, h, jcfg, jpol, "layer/moe", d))
-        yj, aj = fn(jax.tree.map(jnp.asarray, jp), jnp.asarray(x), jdeg)
-        jax.effects_barrier()
-    bufs = _port_routing(monkeypatch)
-    yt, at = tmoe.moe_apply(tp, torch.from_numpy(x), tcfg, tpol, "layer/moe", tdeg)
-
-    B, S = shape
-    t = B * S
-    C = tmoe.capacity(tcfg, t)
-    _, ids, _ = tmoe.route(tp["router"]["w"], torch.from_numpy(x).reshape(t, -1), tcfg)
-    (jids,), (jbuf,), (tbuf,) = rec.ids, rec.bufs, bufs
-    np.testing.assert_array_equal(ids.numpy(), jids)
-    assert jbuf.shape == tuple(tbuf.shape) == (tcfg.moe.n_experts, C, tcfg.d_model)
-    np.testing.assert_array_equal(tbuf.numpy(), jbuf)
-    _, _, keep = tmoe.dispatch_plan(ids, C, tcfg.moe.n_experts)
-    kept = np.bincount(ids.reshape(-1)[keep].numpy(), minlength=tcfg.moe.n_experts)
-    np.testing.assert_array_equal(kept, (np.abs(jbuf).sum(-1) > 0).sum(-1))
-    if cf is not None:
-        assert C == 4 and not bool(keep.all())
-    np.testing.assert_allclose(yt.numpy(), np.asarray(yj), rtol=0, atol=ATOL_MOE)
-    np.testing.assert_allclose(float(at), float(aj), rtol=0, atol=1e-6)
+from _torch_moe import *  # noqa: F401,F403
 
 
 def test_capacity_copies_the_reference_formula():
@@ -234,55 +48,6 @@ def test_moe_int8_lever_and_ring_lever(monkeypatch):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-# ---------------------------------------------------------------------------
-# the expert-batched GEMMs' plain versions
-# ---------------------------------------------------------------------------
-
-
-def _expert_weights(E, K, N, block, seed):
-    rng = np.random.default_rng(seed)
-    ws = [rng.standard_normal((E, K, N)).astype(np.float32) / np.sqrt(K) for _ in range(2)]
-    jps = [jprepack(jnp.asarray(w), block) for w in ws]
-    return jps, [params_from_numpy(jax.tree.map(np.asarray, {"w": p}))["w"] for p in jps]
-
-
-@pytest.mark.parametrize("route", ["xla", "pallas"])
-@pytest.mark.parametrize("act", ["relu", "silu", "gelu"])
-def test_batched_plain_gemms_match_vmapped_reference(route, act):
-    """``axqmm_gated_experts_plain`` / ``axqmm_experts_plain`` against the
-    reference's ``vmap`` of ``axq_gated`` / ``axq_matmul`` over packed
-    experts (E 5, C 6 with two all-zero capacity rows, ragged N 72), at
-    ebits 8, 5 and 1; the xla route without an activation bit for bit,
-    the others within GEMM_ATOL; each expert's slice bit for bit the 2-D
-    plain version on it."""
-    E, C, K, N, bk = 5, 6, 128, 72, 64
-    (ju, jg), (tu, tg) = _expert_weights(E, K, N, bk, 11)
-    x = np.random.default_rng(12).standard_normal((E, C, K)).astype(np.float32)
-    x[:, -2:] = 0.0
-    worst = 0.0
-    for e in (8, 5, 1):
-        with P.jax_backend(route):
-            gj = jax.vmap(lambda xe, u, g: jdispatch.axq_gated(
-                xe, u, g, act=act, block=bk, ebits=e, ste=True))(jnp.asarray(x), ju, jg)
-            dj = jax.vmap(lambda xe, w: jdispatch.axq_matmul(
-                xe, w, block=bk, ebits=e, ste=True))(jnp.asarray(x[..., :K]), ju)
-        gt = taxq.axqmm_gated_experts_plain(torch.from_numpy(x), tu, tg, e, act=act)
-        dt = taxq.axqmm_experts_plain(torch.from_numpy(x), tu, e)
-        for ref, port, exact in ((gj, gt, route == "xla" and act == "relu"),
-                                 (dj, dt, route == "xla")):
-            if exact:
-                np.testing.assert_array_equal(port.numpy(), np.asarray(ref))
-            np.testing.assert_allclose(port.numpy(), np.asarray(ref), rtol=0, atol=GEMM_ATOL)
-            worst = max(worst, float(np.abs(port.numpy() - np.asarray(ref)).max()))
-        assert (gt[:, -2:] == 0).all() and (dt[:, -2:] == 0).all()
-        for i in range(E):
-            xi = torch.from_numpy(x[i])
-            assert torch.equal(gt[i], taxq.axqmm_gated_plain(
-                xi, taxq.expert_pack(tu, i), taxq.expert_pack(tg, i), e, act=act))
-            assert torch.equal(dt[i], taxq.axqmm_packed_plain(xi, taxq.expert_pack(tu, i), e))
-    print(f"largest |port - reference| on the {route} route under {act}: {worst:.3g}")
-
-
 def test_batched_routers_float_weights_and_backward():
     """The float-weight routers pack on the fly (equal to the packed
     route) and differentiate per expert like the 2-D routers, straight
@@ -310,53 +75,6 @@ def test_batched_routers_float_weights_and_backward():
         xr, wr = x[1].clone().requires_grad_(), wu[1].clone().requires_grad_()
         tdispatch.axq_matmul(xr, wr, block=bk, ebits=6, ste=ste).sum().backward()
         assert torch.equal(xl.grad[1], xr.grad) and torch.equal(wl.grad[1], wr.grad)
-
-
-# ---------------------------------------------------------------------------
-# the launch path on meta tensors
-# ---------------------------------------------------------------------------
-
-
-@pytest.fixture
-def fake_card(monkeypatch):
-    """The wrappers' launch path on ``meta`` tensors: the sm_90 check
-    passes, the card has 132 SMs, the launchers record their calls and
-    every scratch, and the plain versions raise if anything falls back."""
-    calls, scratches = [], []
-
-    def entry(fn):
-        def launch(*args):
-            calls.append((fn, args))
-            return 0
-        return launch
-
-    def no_fallback(*a, **kw):
-        raise AssertionError("a kernel call fell back to the plain version")
-
-    real_scratch = taxq._scratch
-
-    def scratch(*a, **kw):
-        s = real_scratch(*a, **kw)
-        scratches.append(s)
-        return s
-
-    monkeypatch.setattr(_build, "require_sm90", lambda t: None)
-    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
-    monkeypatch.setattr(_build, "sm_count", lambda t: SMS)
-    monkeypatch.setattr(_build, "entry", entry)
-    monkeypatch.setattr(taxq, "_scratch", scratch)
-    for name in ("axqmm_experts_plain", "axqmm_gated_experts_plain", "qmm_packed_ref",
-                 "qmm_gated_packed_ref"):
-        monkeypatch.setattr(taxq, name, no_fallback)
-    return calls, scratches
-
-
-def _meta(*shape, dtype=torch.float32):
-    return torch.empty(shape, dtype=dtype, device="meta")
-
-
-def _meta_pack(E, N, K, bk):
-    return PackedQWeight(_meta(E, N, K, dtype=torch.int8), _meta(E, N, K // bk))
 
 
 @pytest.mark.parametrize("E,C,N,K,bk,gated", [
@@ -441,70 +159,6 @@ def test_bad_expert_pack_raises_without_fallback(fake_card, bad):
     assert _build.launches == before
 
 
-# ---------------------------------------------------------------------------
-# packs, models, engines
-# ---------------------------------------------------------------------------
-
-
-@pytest.mark.parametrize("arch", ARCHS)
-def test_moe_packs_through_convert_match_prepack(arch):
-    """The reference's packed MoE tree through ``params_from_numpy``
-    equals the port's ``prepack_params`` of the converted float tree, bit
-    for bit: the experts per (layer, expert) slice with leading (L, E), the
-    shared experts (qwen2-moe) per their own spec; the router stays f32."""
-    jm, jp_packed, _, tp_packed = P.models("float32", "axq8", arch=arch)
-    jp = jm.init(jax.random.PRNGKey(0), tp=1)
-    _, tcfg = _cfgs(arch)
-    tp = prepack_params(params_from_numpy(jax.tree.map(np.asarray, jp)), tcfg,
-                        ApproxPolicy(default=ApproxSpec(mode=ApproxMode.AXQ, ebits=8,
-                                                        dynamic=True)))
-    a, b = tp_packed["layers"]["moe"], tp["layers"]["moe"]
-    L, E = tcfg.n_layers, tcfg.moe.n_experts
-    for k in ("up", "gate", "down"):
-        pa, pb = a["experts"][k], b["experts"][k]
-        assert isinstance(pa, PackedQWeight) and pa.qw.shape[:2] == (L, E)
-        assert torch.equal(pa.qw, pb.qw) and torch.equal(pa.scales, pb.scales)
-        if "shared" in a:
-            assert torch.equal(a["shared"][k].qw, b["shared"][k].qw)
-            assert torch.equal(a["shared"][k].scales, b["shared"][k].scales)
-    assert ("shared" in a) == (arch == QWEN)
-    assert torch.equal(a["router"]["w"], b["router"]["w"])
-    assert a["router"]["w"].dtype == torch.float32 and a["router"]["w"].shape == (
-        L, tcfg.d_model, E)
-    jpk = jprepack_params(jp, jget_config(arch), jm.policy)
-    assert np.array_equal(np.asarray(jpk["layers"]["moe"]["experts"]["up"].qw),
-                          a["experts"]["up"].qw.numpy())
-
-
-@pytest.mark.parametrize("arch,approx,degree", [
-    (GRANITE, "exact", None), (GRANITE, "axq8", 6), (GRANITE, "axq8", "vector"),
-    (QWEN, "exact", None), (QWEN, "axq8", 6), (QWEN, "axq8", "vector")])
-def test_prefill_decode_match_reference(arch, approx, degree):
-    """``lm_prefill`` then ``lm_decode_step`` (slot 0 free) in f32 on an f32
-    cache: logits and the live cache rows within 1e-4 of the reference's
-    Pallas route."""
-    prefill, decode = P.run_prefill_decode("float32", approx, degree, "pallas",
-                                           cache_dtype=jnp.float32, arch=arch)
-    for stage in (prefill, decode):
-        for name, (ref, port) in stage.items():
-            np.testing.assert_allclose(port, ref, rtol=0, atol=ATOL_LOGITS, err_msg=name)
-
-
-@pytest.mark.parametrize("arch,approx,degree", [(GRANITE, "axq8", 6), (QWEN, "exact", None),
-                                                (QWEN, "axq8", "vector")])
-def test_prefill_decode_bf16_match_reference(arch, approx, degree):
-    """The same in bf16 on the bf16 cache, at tests/test_torch_models_bf16.py's
-    tolerances."""
-    prefill, decode = P.run_prefill_decode("bfloat16", approx, degree, "pallas", arch=arch)
-    for stage in (prefill, decode):
-        ref, port = stage["logits"]
-        np.testing.assert_allclose(port, ref, rtol=0, atol=LOGIT_ATOL_BF16)
-        for name in ("k", "v"):
-            ref, port = stage[name]
-            assert np.linalg.norm(port - ref) / max(np.linalg.norm(ref), 1e-30) <= \
-                CACHE_REL_BF16
-
-
 def test_lm_forward_aux_matches_reference():
     """``lm_forward``'s logits (1e-4) and the summed aux loss of the
     layers (1e-6) on granite-smoke under axq8 at degree 6."""
@@ -518,11 +172,6 @@ def test_lm_forward_aux_matches_reference():
     np.testing.assert_allclose(lt.numpy(), np.asarray(lj), rtol=0, atol=ATOL_LOGITS)
     np.testing.assert_allclose(float(at), float(aj), rtol=0, atol=1e-6)
     assert float(at) > 0
-
-
-def _ladder():
-    return dict(ladder=[{"ebits": 8}, {"ebits": 6}], low_water=0.25, high_water=0.75,
-                cooldown_steps=2)
 
 
 @pytest.mark.parametrize("arch,quant", [(GRANITE, False), (GRANITE, True), (QWEN, False)],
@@ -627,22 +276,3 @@ def test_moe_archs_build_with_their_full_widths(arch):
     assert moe["experts"]["down"].shape == (L, m.n_experts, m.d_expert, d)
     assert ("shared" in moe) == bool(m.n_shared)
     assert "mlp" not in params["layers"]
-
-
-@pytest.mark.parametrize("quant", [False, True], ids=["bf16-cache", "int8-cache"])
-def test_launch_serve_moe_under_qos(monkeypatch, quant):
-    """``launch.serve --arch granite-moe-3b-a800m-smoke --approx axq8
-    --qos`` on the CPU, on either cache (buckets and packing asked for and
-    dropped): every request finishes with its tokens through exact-length
-    prefills, and the ladder moves."""
-    from repro_torch.launch import serve as launch_serve
-
-    monkeypatch.setenv("REPRO_KV_INT8", "1" if quant else "0")
-    s, eng = launch_serve.run(["--arch", GRANITE, "--device", "cpu", "--approx", "axq8",
-                               "--qos", "--requests", "6", "--new-tokens", "5",
-                               "--prefill-buckets", "auto", "--pack", "4"])
-    assert s["requests"] == 6 and s["generated_tokens"] == 30
-    assert isinstance(eng.cache, LMCacheQ) == quant
-    assert eng.workload.admission is None and eng.stats.prefill_calls > 0
-    assert isinstance(eng.params["layers"]["moe"]["experts"]["up"], PackedQWeight)
-    assert len({d for _, d in eng.stats.degree_history}) > 1
